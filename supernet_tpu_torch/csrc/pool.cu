@@ -1,0 +1,92 @@
+// Moment max-pool forward (2x2, stride 2) for Hopper, sm_90a.
+//
+// Replaces supernet_tpu/ops/pallas/pool.py:_pool_fwd_kernel (launched by
+// _pool_fwd_call). Per output element: the max of the four mu taps, sigma at
+// the selected tap, and optionally the tap index 0..3 (as float, the
+// training slice's backward residual). Ties go to the first tap in row-major
+// order, exactly as pool.py:81-92:
+//   p0 = m00 == mx; p1 = !p0 && m01 == mx; p2 = !(p0 || p1) && m10 == mx;
+//   otherwise tap 3.
+// Odd H or W follow the composition in ops/moments.py:840-847: a missing tap
+// counts as mu = finfo(float32).min and sigma = 0, so no shape leaves the
+// kernel.
+//
+// What bounds it: bytes. Each output reads 8 floats and writes 2 or 3, with
+// one compare tree in between, so the kernel is a pure streaming pass at
+// device-memory bandwidth. Design: one thread per output element with the
+// channel index fastest, so a warp's loads and stores cover consecutive
+// addresses of the NHWC tensors; 64-bit offsets throughout.
+
+#include <cuda_runtime.h>
+
+#include <cfloat>
+
+namespace {
+
+constexpr int kThreads = 256;
+
+// jnp.maximum semantics: a NaN in either operand is the result (fmaxf would
+// drop it).
+__device__ __forceinline__ float nan_max(float a, float b) {
+  if (a != a) return a;
+  if (b != b) return b;
+  return a > b ? a : b;
+}
+
+__global__ void __launch_bounds__(kThreads) vmaxpool_fwd_kernel(
+    const float* __restrict__ mu, const float* __restrict__ sigma,
+    float* __restrict__ mx_out, float* __restrict__ so_out,
+    float* __restrict__ idx_out, int H, int W, int C, int Ho, int Wo,
+    long long total) {
+  const long long i = blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x;
+  if (i >= total) return;
+  const int c = static_cast<int>(i % C);
+  long long r = i / C;
+  const int ox = static_cast<int>(r % Wo);
+  r /= Wo;
+  const int oy = static_cast<int>(r % Ho);
+  const long long b = r / Ho;
+
+  const int y0 = 2 * oy, x0 = 2 * ox;
+  const bool has_x1 = x0 + 1 < W, has_y1 = y0 + 1 < H;
+  const long long base = ((b * H + y0) * W + x0) * C + c;
+  const long long dx = C, dy = static_cast<long long>(W) * C;
+
+  const float m00 = mu[base], s00 = sigma[base];
+  const float m01 = has_x1 ? mu[base + dx] : -FLT_MAX;
+  const float s01 = has_x1 ? sigma[base + dx] : 0.f;
+  const float m10 = has_y1 ? mu[base + dy] : -FLT_MAX;
+  const float s10 = has_y1 ? sigma[base + dy] : 0.f;
+  const bool has_11 = has_x1 && has_y1;
+  const float m11 = has_11 ? mu[base + dy + dx] : -FLT_MAX;
+  const float s11 = has_11 ? sigma[base + dy + dx] : 0.f;
+
+  const float mx = nan_max(nan_max(m00, m01), nan_max(m10, m11));
+  const bool p0 = m00 == mx;
+  const bool p1 = !p0 && m01 == mx;
+  const bool p2 = !(p0 || p1) && m10 == mx;
+  mx_out[i] = mx;
+  so_out[i] = p0 ? s00 : (p1 ? s01 : (p2 ? s10 : s11));
+  if (idx_out != nullptr) {
+    idx_out[i] = p0 ? 0.f : (p1 ? 1.f : (p2 ? 2.f : 3.f));
+  }
+}
+
+}  // namespace
+
+// mu, sigma: [B, H, W, C] float32, contiguous. mx, so (and idx, or null):
+// [B, ceil(H/2), ceil(W/2), C]. Launches on `stream` and returns
+// cudaGetLastError() so a refused launch is seen by the caller.
+extern "C" int supernet_vmaxpool_fwd(const void* mu, const void* sigma,
+                                     void* mx, void* so, void* idx, int B,
+                                     int H, int W, int C, void* stream) {
+  const int Ho = (H + 1) / 2, Wo = (W + 1) / 2;
+  const long long total = static_cast<long long>(B) * Ho * Wo * C;
+  const long long blocks = (total + kThreads - 1) / kThreads;
+  vmaxpool_fwd_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(mu), static_cast<const float*>(sigma),
+      static_cast<float*>(mx), static_cast<float*>(so),
+      static_cast<float*>(idx), H, W, C, Ho, Wo, total);
+  return static_cast<int>(cudaGetLastError());
+}

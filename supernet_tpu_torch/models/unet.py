@@ -1,0 +1,241 @@
+"""The VDP U-Net in PyTorch, parameterized over depth: the counterpart of
+``supernet_tpu/models/unet.py``.
+
+Parameters are a flat dict ``{layer: {"w_mu": [k,k,Cin,Cout], "w_sigma":
+[Cout]}}`` with the reference's layer names, in the JAX package's layouts,
+so a JAX checkpoint maps 1:1 (``checkpoint.params_from_jax``). ``forward``
+is a plain function of (params, x); ``VDPUNet`` is the ``nn.Module`` that
+holds the same tensors.
+
+Block choreography (`Hippocampus.py:373-421`, `Brats.py:323-457`):
+  encoder block i:  [pre-pad?] conv3+relu -> conv3+relu -> [pool if i<d]
+  decoder block j:  unpool+conv2 -> pad(3,3) -> concat(skip) ->
+                    conv3+relu -> pad(2,2) -> conv3+relu
+  head:             conv1x1 -> vsoftmax  (flattened [B, H*W, C] outputs)
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from supernet_tpu_torch.configs import ModelConfig
+from supernet_tpu_torch.ops import (
+    vconv,
+    vconv_input_relu,
+    vconv_relu,
+    vcrop_concat,
+    vmaxpool,
+    vpad,
+    vsoftmax,
+    vunpool_conv2,
+)
+
+Tensor = torch.Tensor
+Params = Dict[str, Dict[str, Tensor]]
+
+
+def layer_names(cfg: ModelConfig) -> List[Tuple[str, int, int, int]]:
+    """Ordered (name, ksize, c_in, c_out) of every conv layer: encoder
+    ``conv_input, conv1, conv2, ...`` (two per block), decoder
+    ``up{j}_conv2x2 / up{j}_conv1 / up{j}_conv2``, head ``conv_final``."""
+    enc = [cfg.base_kernels * (2 ** i) for i in range(cfg.depth)]
+    dec = [cfg.base_kernels * (2 ** (cfg.depth - 2 - j))
+           for j in range(cfg.depth - 1)]
+    out: List[Tuple[str, int, int, int]] = []
+    c_prev = cfg.in_channels
+    for i, c in enumerate(enc):
+        out.append(("conv_input" if i == 0 else f"conv{2 * i}", 3, c_prev, c))
+        out.append((f"conv{2 * i + 1}", 3, c, c))
+        c_prev = c
+    for j, c in enumerate(dec, start=1):
+        out.append((f"up{j}_conv2x2", 2, c_prev, c))
+        out.append((f"up{j}_conv1", 3, 2 * c, c))  # after the skip concat
+        out.append((f"up{j}_conv2", 3, c, c))
+        c_prev = c
+    out.append(("conv_final", 1, c_prev, cfg.n_classes))
+    return out
+
+
+def _tight_layers(cfg: ModelConfig) -> set:
+    """Layers whose raw w_sigma is drawn from the tighter range: the first
+    ``tight_upconvs`` decoder 2x2 convs and the 1x1 head."""
+    names = {f"up{j}_conv2x2" for j in range(1, cfg.tight_upconvs + 1)}
+    names.add("conv_final")
+    return names
+
+
+def init_params(generator: torch.Generator, cfg: ModelConfig, device) -> Params:
+    """TruncatedNormal(mean_mu, mean_sigma), cut at 2 std, for w_mu and
+    Uniform on the raw w_sigma (`Hippocampus.py:109-123`).
+
+    Values are drawn on the CPU from ``generator`` (a CPU generator) and
+    then moved to ``device``, so one seed gives the same weights on every
+    device. ``torch.Generator`` streams differ from ``jax.random``: compare
+    with the JAX init by distribution, not value.
+    """
+    params: Params = {}
+    tight = _tight_layers(cfg)
+    for name, k, cin, cout in layer_names(cfg):
+        w_mu = torch.empty((k, k, cin, cout), dtype=torch.float32)
+        nn.init.trunc_normal_(
+            w_mu,
+            mean=cfg.mean_mu,
+            std=cfg.mean_sigma,
+            a=cfg.mean_mu - 2.0 * cfg.mean_sigma,
+            b=cfg.mean_mu + 2.0 * cfg.mean_sigma,
+            generator=generator,
+        )
+        lo, hi = (
+            (cfg.tight_sigma_min, cfg.tight_sigma_max)
+            if name in tight
+            else (cfg.sigma_min, cfg.sigma_max)
+        )
+        w_sigma = torch.empty((cout,), dtype=torch.float32).uniform_(
+            lo, hi, generator=generator
+        )
+        params[name] = {"w_mu": w_mu.to(device), "w_sigma": w_sigma.to(device)}
+    return params
+
+
+def kl_regularizer(params: Params) -> Tensor:
+    """Sum of the per-layer weight regularizers (the reference's
+    ``tf.math.add_n(model.losses)``):
+
+      l2:  sum(w_mu^2);   KL:  -k^2 * mean(1 + log softplus(ws) - softplus(ws))
+    """
+    total = None
+    for p in params.values():
+        w_mu, w_sigma = p["w_mu"], p["w_sigma"]
+        k = w_mu.shape[0]
+        f_s = torch.nn.functional.softplus(w_sigma)
+        term = (w_mu * w_mu).sum() - (k * k) * (1.0 + torch.log(f_s) - f_s).mean()
+        total = term if total is None else total + term
+    return total
+
+
+def forward(params: Params, x: Tensor, cfg: ModelConfig, tap=None) -> Tuple[Tensor, Tensor]:
+    """Full VDP forward pass: image [B,H,W,Cin] -> (probs, sigma), both
+    flattened to [B, H_out*W_out, n_classes].
+
+    ``tap(stage_name, shape)``, when given, is called with every
+    intermediate's shape, under the JAX forward's stage names. Each conv
+    runs under ``torch.profiler.record_function(layer_name)``.
+    """
+    depth = cfg.depth
+    fill = cfg.sigma_fill
+
+    def _tap(name: str, m: Tensor) -> None:
+        if tap is not None:
+            tap(name, tuple(m.shape))
+
+    def layer(fn, name: str, *moments):
+        p = params[name]
+        with torch.profiler.record_function(name):
+            m, s = fn(*moments, p["w_mu"], p["w_sigma"])
+        _tap(name, m)
+        return m, s
+
+    def encoder_block(i: int, m: Tensor, s: Tensor) -> Tuple[Tensor, Tensor]:
+        if i == depth - 1 and cfg.bottleneck_pre_pad is not None:
+            m, s = vpad(m, s, cfg.bottleneck_pre_pad, fill)
+            _tap("pre_pad", m)
+        m, s = layer(vconv_relu, f"conv{2 * i}", m, s)
+        return layer(vconv_relu, f"conv{2 * i + 1}", m, s)
+
+    def decoder_block(j, m, s, m_e, s_e) -> Tuple[Tensor, Tensor]:
+        m, s = layer(vunpool_conv2, f"up{j}_conv2x2", m, s)
+        m, s = vpad(m, s, (3, 3), fill)
+        _tap(f"up{j}_pad", m)
+        m, s = vcrop_concat(m, s, m_e, s_e)
+        _tap(f"up{j}_concat", m)
+        m, s = layer(vconv_relu, f"up{j}_conv1", m, s)
+        m, s = vpad(m, s, (2, 2), fill)
+        _tap(f"up{j}_pad2", m)
+        return layer(vconv_relu, f"up{j}_conv2", m, s)
+
+    skips: List[Tuple[Tensor, Tensor]] = []
+    m, s = layer(vconv_input_relu, "conv_input", x)
+    m, s = layer(vconv_relu, "conv1", m, s)
+    for i in range(depth):
+        if i > 0:
+            m, s = encoder_block(i, m, s)
+        if i < depth - 1:
+            skips.append((m, s))
+            m, s = vmaxpool(m, s)
+            _tap(f"pool{i}", m)
+
+    for j in range(1, depth):
+        m_e, s_e = skips[depth - 1 - j]
+        m, s = decoder_block(j, m, s, m_e, s_e)
+
+    m, s = layer(vconv, "conv_final", m, s)
+    return vsoftmax(m, s)
+
+
+def forward_images(params: Params, x: Tensor, cfg: ModelConfig) -> Tuple[Tensor, Tensor]:
+    """Forward pass returning image-shaped [B, H_out, W_out, C] moments."""
+    probs, sigma = forward(params, x, cfg)
+    b = x.shape[0]
+    side = math.isqrt(probs.shape[1])
+    return (
+        probs.reshape(b, side, side, cfg.n_classes),
+        sigma.reshape(b, side, side, cfg.n_classes),
+    )
+
+
+class _Layer(nn.Module):
+    def __init__(self, w_mu: Tensor, w_sigma: Tensor):
+        super().__init__()
+        self.w_mu = nn.Parameter(w_mu)
+        self.w_sigma = nn.Parameter(w_sigma)
+
+
+class VDPUNet(nn.Module):
+    """The VDP U-Net as an ``nn.Module``: one ``w_mu``/``w_sigma`` pair per
+    layer name, initialized by :func:`init_params` from ``generator`` and
+    held on ``device``. ``model(x)`` is :func:`forward`."""
+
+    def __init__(self, cfg: ModelConfig, device, generator: torch.Generator):
+        super().__init__()
+        self.cfg = cfg
+        self.layers = nn.ModuleDict(
+            {
+                name: _Layer(p["w_mu"], p["w_sigma"])
+                for name, p in init_params(generator, cfg, device).items()
+            }
+        )
+
+    def params(self) -> Params:
+        """The parameters as the dict :func:`forward` takes."""
+        return {
+            name: {"w_mu": mod.w_mu, "w_sigma": mod.w_sigma}
+            for name, mod in self.layers.items()
+        }
+
+    @torch.no_grad()
+    def load_jax_params(self, params_np) -> None:
+        """Copy a JAX-layout parameter dict (numpy or JAX arrays) in."""
+        for name, mod in self.layers.items():
+            for attr in ("w_mu", "w_sigma"):
+                src = torch.as_tensor(
+                    np.array(params_np[name][attr]), dtype=torch.float32
+                )
+                dst = getattr(mod, attr)
+                if src.shape != dst.shape:
+                    raise ValueError(
+                        f"{name}/{attr}: shape {tuple(src.shape)}, expected "
+                        f"{tuple(dst.shape)}"
+                    )
+                dst.copy_(src)
+
+    def forward(self, x: Tensor) -> Tuple[Tensor, Tensor]:
+        return forward(self.params(), x, self.cfg)
+
+    @property
+    def n_params(self) -> int:
+        return sum(p.numel() for p in self.parameters())

@@ -1,0 +1,133 @@
+"""Fused VDP convolution: the CUDA kernel and its plain version.
+
+Counterpart of ``supernet_tpu/ops/pallas/vdp_conv.py`` (forward only; the
+training slice adds the backward). One call computes, VALID and stride 1:
+
+    mu_out  = conv(mu, w_mu)
+    win     = k x k window sum of sum_c(mu^2 + sigma)     (sum_c x^2 when sigma is None)
+    sig_out = win * softplus(w_sigma) + conv(sigma, w_mu^2)
+    [optional ReLU: where mu_out > 0 is false, both outputs are 0]
+
+and returns ``(mu_out, sig_out, win)``; ``win`` [B,H',W',1] is the backward
+residual. The kernel is ``csrc/vdp_conv.cu``. :func:`vdp_conv` launches it
+for CUDA tensors and takes :func:`vdp_conv_plain` only for CPU tensors.
+Layouts are the JAX package's: NHWC activations, HWIO ``w_mu``
+[k,k,Cin,Cout] and the raw (pre-softplus) ``w_sigma`` [Cout].
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from supernet_tpu_torch.ops.kernels import _lib
+
+Triple = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+# Kernel launches in this process; chip_smoke.py zeroes and reads it to show
+# that the serving path went through the kernel.
+launches = 0
+
+
+def _conv_valid(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """VALID cross-correlation, NHWC x HWIO -> NHWC. The NHWC tensor
+    permuted to NCHW is a channels_last tensor, so no copy is made."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1))
+    return y.permute(0, 2, 3, 1)
+
+
+def vdp_conv_plain(
+    mu: torch.Tensor,
+    sigma: Optional[torch.Tensor],
+    w_mu: torch.Tensor,
+    w_sigma: torch.Tensor,
+    fuse_relu: bool = False,
+) -> Triple:
+    """PyTorch composition of the fused conv (the XLA path of
+    ``ops/moments.py:vconv``/``vconv_input``, plus ``win``)."""
+    # imported here: ops.moments imports this module
+    from supernet_tpu_torch.ops.moments import _window_sum
+
+    k = w_mu.shape[0]
+    mu_out = _conv_valid(mu, w_mu)
+    t = mu * mu if sigma is None else mu * mu + sigma
+    win = _window_sum(t, k)
+    sig_out = win * F.softplus(w_sigma)
+    if sigma is not None:
+        sig_out = sig_out + _conv_valid(sigma, w_mu * w_mu)
+    if fuse_relu:
+        mask = mu_out > 0
+        mu_out = torch.where(mask, mu_out, 0.0)
+        sig_out = torch.where(mask, sig_out, 0.0)
+    return mu_out.contiguous(), sig_out.contiguous(), win.contiguous()
+
+
+def _launch(mu, sigma, w_mu, w_sigma, fuse_relu) -> Triple:
+    global launches
+    if mu.dim() != 4 or w_mu.dim() != 4:
+        raise ValueError(
+            f"vdp_conv: expected mu [B,H,W,Cin] and w_mu [k,k,Cin,Cout], got "
+            f"{tuple(mu.shape)} and {tuple(w_mu.shape)}"
+        )
+    b, h, w, cin = mu.shape
+    k, cout = w_mu.shape[0], w_mu.shape[3]
+    _lib.check_input("vdp_conv", "mu", mu, mu.shape)
+    if sigma is not None:
+        _lib.check_input("vdp_conv", "sigma", sigma, mu.shape)
+    _lib.check_input("vdp_conv", "w_mu", w_mu, (k, k, cin, cout))
+    _lib.check_input("vdp_conv", "w_sigma", w_sigma, (cout,))
+    tensors = [mu, w_mu, w_sigma] + ([sigma] if sigma is not None else [])
+    if any(t.device != mu.device for t in tensors):
+        raise ValueError("vdp_conv: inputs are on different devices")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            "vdp_conv: the CUDA kernel has no backward yet; call it under "
+            "torch.no_grad() or torch.inference_mode()"
+        )
+    if not (1 <= k <= min(h, w)) or cin < 1 or cout < 1 or b > 65535:
+        raise ValueError(
+            f"vdp_conv: unsupported sizes B={b} H={h} W={w} Cin={cin} "
+            f"Cout={cout} k={k}"
+        )
+    ho, wo = h - k + 1, w - k + 1
+    mu_out = torch.empty((b, ho, wo, cout), device=mu.device, dtype=torch.float32)
+    sig_out = torch.empty_like(mu_out)
+    win = torch.empty((b, ho, wo, 1), device=mu.device, dtype=torch.float32)
+    if b == 0:
+        return mu_out, sig_out, win
+    sw = F.softplus(w_sigma).contiguous()
+    lib = _lib.load()
+    with torch.cuda.device(mu.device):
+        err = lib.supernet_vdp_conv_fwd(
+            mu.data_ptr(),
+            sigma.data_ptr() if sigma is not None else None,
+            w_mu.data_ptr(), sw.data_ptr(),
+            mu_out.data_ptr(), sig_out.data_ptr(), win.data_ptr(),
+            b, h, w, cin, cout, k, int(fuse_relu),
+            torch.cuda.current_stream(mu.device).cuda_stream,
+        )
+    _lib.check(err, "vdp_conv kernel launch")
+    launches += 1
+    return mu_out, sig_out, win
+
+
+def vdp_conv(
+    mu: torch.Tensor,
+    sigma: Optional[torch.Tensor],
+    w_mu: torch.Tensor,
+    w_sigma: torch.Tensor,
+    fuse_relu: bool = False,
+) -> Triple:
+    """Fused VDP conv (+ optional ReLU) -> ``(mu_out, sig_out, win)``.
+    ``sigma=None`` is the deterministic-input form (the first layer).
+
+    CUDA tensors go to the kernel (or raise); CPU tensors to
+    :func:`vdp_conv_plain`. Any other device raises.
+    """
+    if mu.is_cuda:
+        return _launch(mu, sigma, w_mu, w_sigma, fuse_relu)
+    if mu.device.type != "cpu":
+        raise ValueError(f"vdp_conv: unsupported device {mu.device}")
+    return vdp_conv_plain(mu, sigma, w_mu, w_sigma, fuse_relu)
