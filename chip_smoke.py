@@ -23,13 +23,41 @@ Phases (any failure raises and the exit code is not 0):
    every chunk; the answers are checked for shape, finiteness, the simplex
    and sigma >= 0, and against the same session on the CPU.
 4. serving, BraTS at full width (batch 2), the same checks.
+5. backward kernels: the pool backward (kernel 3) and the sigma-chain
+   backward (kernel 4) against their plain versions on the card, at every
+   pool and k=3 conv shape of one hippocampus training step (batch 20) and
+   one BraTS step (batch 2), plus ties, C=130 and odd-shape cases. The pool
+   backward must be bit-exact; the sigma-chain backward's u and dsw within
+   1e-5 of the plain output's max magnitude (the summation order differs).
+   At every k=3 conv shape the gradients of ``VDPConv`` (kernel 1 forward,
+   kernel 4 inside the backward) are held against autograd of
+   ``vdp_conv_plain``, each within 1e-4 of that gradient's max magnitude.
+   Each is timed with CUDA events beside its plain version.
+6. training, hippocampus at full width, batch 20: 5 steps of
+   ``train.make_train_step`` from He-scaled ``init_params`` on a seeded
+   batch with integer labels. The launch counters are zeroed just before
+   and read just after; per step they must read 10 vdp_conv, 2 pool
+   forward, 2 pool backward and 10 sigma-chain backward launches. The same
+   steps on the CPU from the same parameters: every step's loss within 1e-4
+   relative, the step-1 gradients within 1e-3 of each leaf's max magnitude,
+   the parameters after the last step within 2 * lr * steps. Prints the
+   median step time of steps 2-5 (synchronised) and img/s.
+7. training, BraTS at full width, batch 2: 2 steps, the same checks, with
+   18 / 4 / 4 / 18 launches per step.
+
+In phases 6-7 cuDNN runs its deterministic algorithms, and the CPU
+reference of the step-1 gradients replays the card's ReLU masks and pool
+taps (``_decisions``), so that rounding ties do not decide the comparison.
 
 The last two lines of standard output are the kernels summary
-``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
+``{"kernels": [...]}`` (all four kernels, with their launches in the
+hippocampus training run, errors, times and bounds) and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -51,7 +79,15 @@ SERVE_PROBS_ATOL = 1e-4
 # implementations. A systematic error moves nearly every element.
 SERVE_SIGMA_RTOL = 1e-4
 SERVE_SIGMA_SHARE = 5e-3
+SIGMA_BWD_TOL = 1e-5  # max |kernel - plain| / max |plain|, u and dsw
+VDP_BWD_TOL = 1e-4  # per gradient, max |kernel path - plain| / max |plain|
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_TOL = 1e-3  # step-1 gradient, per leaf, relative to its max
 TIMING_RUNS = 20
+# H100 SXM peaks (NVIDIA's data sheet) for the bound of each kernel: device
+# memory bandwidth and the float32 rate of the CUDA cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
 
 
 def _die(msg: str) -> None:
@@ -74,6 +110,30 @@ def _time_ms(torch, fn) -> float:
         events.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def _bound(nbytes: float, flops: float):
+    """(bound ms, bytes ms, operations ms): the least time the card could
+    take to move ``nbytes`` and do ``flops`` float32 operations."""
+    b_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    o_ms = 1e3 * flops / F32_FLOPS_PER_S
+    return max(b_ms, o_ms), b_ms, o_ms
+
+
+def _he_params(torch, cfg):
+    """``init_params`` on the CPU from SEED with each w_mu rescaled to He
+    scale, std sqrt(2 / fan_in). At the raw init (std 0.088 in every layer)
+    the activations grow about 6x per BraTS layer: the logits reach 7.6e4,
+    and on the CPU the JAX package and the port already differ by 3.6e-2 in
+    probs, so no float32 comparison of two implementations is well-posed
+    there. At He scale the logits stay below 10 in both configs."""
+    from supernet_tpu_torch.models import init_params
+
+    params = init_params(torch.Generator().manual_seed(SEED), cfg, "cpu")
+    for p in params.values():
+        k, _, cin, _ = p["w_mu"].shape
+        p["w_mu"] *= math.sqrt(2.0 / (k * k * cin)) / p["w_mu"].std()
+    return params
 
 
 def _layer_inputs(torch, cfg):
@@ -104,7 +164,7 @@ class KernelCheck:
     def __init__(self, torch):
         self.torch = torch
         self.gen = torch.Generator(device="cuda").manual_seed(SEED)
-        self.worst = {"vdp_conv": [0.0, 0.0], "vmaxpool": [0.0, 0.0]}
+        self.worst = {}
         self.ms = {}
 
     def _randn(self, *shape):
@@ -130,7 +190,13 @@ class KernelCheck:
             plain_ms = _time_ms(
                 torch, lambda: V.vdp_conv_plain(mu, sigma, w_mu, w_sigma, relu)
             )
-        self._record("vdp_conv", config, abs_err, rel_err, ms, plain_ms, {
+        ho, wo = h - k + 1, w - k + 1
+        n_in = (2 if has_sigma else 1) * b * h * w * cin
+        nbytes = 4 * (n_in + k * k * cin * cout + cout
+                      + 2 * b * ho * wo * cout + b * ho * wo)
+        flops = (2 if has_sigma else 1) * 2 * k * k * cin * cout * b * ho * wo
+        self._record("vdp_conv", config, abs_err, rel_err, ms, plain_ms,
+                     _bound(nbytes, flops), {
             "layer": layer, "shape": [b, h, w, cin, cout, k],
             "sigma": has_sigma, "relu": relu, "relu_ties": flips,
         })
@@ -152,22 +218,142 @@ class KernelCheck:
                     _die(f"vmaxpool {config}/{layer}: {name} is not bit-exact")
             ms = _time_ms(torch, lambda: P.vmaxpool(mu, sigma))
             plain_ms = _time_ms(torch, lambda: P.vmaxpool_plain(mu, sigma))
-        self._record("vmaxpool", config, 0.0, 0.0, ms, plain_ms, {
+        n_out = got[0].numel()
+        self._record("vmaxpool", config, 0.0, 0.0, ms, plain_ms,
+                     _bound(4 * (2 * mu.numel() + 2 * n_out), 0), {
             "layer": layer, "shape": [b, h, w, c], "ties": ties,
         })
 
-    def _record(self, kernel, config, abs_err, rel_err, ms, plain_ms, extra):
-        worst = self.worst[kernel]
+    def vmaxpool_bwd(self, config, layer, b, h, w, c, ties=False):
+        torch = self.torch
+        from supernet_tpu_torch.ops.kernels import pool as P
+
+        mu = self._randn(b, h, w, c)
+        if ties:
+            mu = torch.round(3.0 * mu)
+        with torch.inference_mode():
+            _, _, idx = P.vmaxpool(mu, self._randn(b, h, w, c).abs(), return_idx=True)
+            g_mu = self._randn(*idx.shape)
+            g_sigma = self._randn(*idx.shape)
+            got = P.vmaxpool_bwd(idx, g_mu, g_sigma, h, w)
+            want = P.vmaxpool_bwd_plain(idx, g_mu, g_sigma, h, w)
+            torch.cuda.synchronize()
+            for name, g, r in zip(("d_mu", "d_sigma"), got, want):
+                if not torch.equal(g, r):
+                    _die(f"vmaxpool_bwd {config}/{layer}: {name} is not bit-exact")
+            ms = _time_ms(torch, lambda: P.vmaxpool_bwd(idx, g_mu, g_sigma, h, w))
+            plain_ms = _time_ms(
+                torch, lambda: P.vmaxpool_bwd_plain(idx, g_mu, g_sigma, h, w)
+            )
+        nbytes = 4 * (3 * idx.numel() + 2 * mu.numel())
+        self._record("vmaxpool_bwd", config, 0.0, 0.0, ms, plain_ms,
+                     _bound(nbytes, 0), {
+            "layer": layer, "shape": [b, h, w, c], "ties": ties,
+        })
+
+    def sigma_bwd(self, config, layer, b, hp, wp, c, k):
+        torch = self.torch
+        import torch.nn.functional as F
+
+        from supernet_tpu_torch.ops.kernels import sigma_bwd as S
+
+        g = self._randn(b, hp, wp, c)
+        t = 10.0 * self._randn(b, hp, wp).abs()
+        s_w = F.softplus(self._randn(c) - 4.0)
+        with torch.inference_mode():
+            got = S.winsum_spread_bwd(g, t, s_w, k)
+            want = S.winsum_spread_bwd_plain(g, t, s_w, k)
+            torch.cuda.synchronize()
+            abs_err = rel_err = 0.0
+            for name, x, r in zip(("u", "dsw"), got, want):
+                if x.shape != r.shape:
+                    _die(f"sigma_bwd {config}/{layer}: {name} shape {tuple(x.shape)}")
+                e = float((x - r).abs().max())
+                rel = e / max(float(r.abs().max()), 1e-30)
+                if not rel <= SIGMA_BWD_TOL:
+                    _die(f"sigma_bwd {config}/{layer}: {name} disagrees with its "
+                         f"plain version: relative error {rel:.3e} > {SIGMA_BWD_TOL}")
+                abs_err, rel_err = max(abs_err, e), max(rel_err, rel)
+            ms = _time_ms(torch, lambda: S.winsum_spread_bwd(g, t, s_w, k))
+            plain_ms = _time_ms(torch, lambda: S.winsum_spread_bwd_plain(g, t, s_w, k))
+        h, w = hp + k - 1, wp + k - 1
+        nbytes = 4 * (g.numel() + t.numel() + 2 * c + b * h * w)
+        flops = 4 * g.numel() + k * k * b * h * w
+        self._record("sigma_bwd", config, abs_err, rel_err, ms, plain_ms,
+                     _bound(nbytes, flops), {
+            "layer": layer, "shape": [b, hp, wp, c, k],
+        })
+
+    def vdp_conv_bwd(self, config, layer, b, h, w, cin, cout, k, has_sigma, relu):
+        """VDPConv's gradients (kernel 1 forward, kernel 4 in the backward)
+        against autograd of the plain version on the same cotangents. Where
+        the two ReLU masks differ (a pre-activation that rounds to 0 in one
+        summation order only, checked to lie at mu = 0 as in _vdp_errors)
+        the cotangents are set to 0, so both backward passes see one mask."""
+        torch = self.torch
+        from supernet_tpu_torch.ops.kernels import vdp_conv as V
+
+        mu = self._randn(b, h, w, cin).requires_grad_(has_sigma)
+        sigma = (0.05 * self._randn(b, h, w, cin).abs()).requires_grad_() if has_sigma else None
+        w_mu = (0.1 * self._randn(k, k, cin, cout)).requires_grad_()
+        w_sigma = (-4.0 + self._randn(cout)).requires_grad_()
+        inputs = [t for t in (mu, sigma, w_mu, w_sigma) if t is not None and t.requires_grad]
+        got = V.VDPConv.apply(mu, sigma, w_mu, w_sigma, relu)
+        want = V.vdp_conv_plain(mu, sigma, w_mu, w_sigma, relu)[:2]
+        g1 = self._randn(*got[0].shape)
+        g2 = self._randn(*got[0].shape)
+        flips = 0
+        if relu:
+            m_got, m_want = got[0].detach(), want[0].detach()
+            tie = (m_got > 0) != (m_want > 0)
+            flips = int(tie.sum())
+            if flips:
+                bound = VDP_TOL * float(m_want.abs().max())
+                if float(torch.maximum(m_got.abs(), m_want.abs())[tie].max()) > bound:
+                    _die(f"vdp_conv_bwd {config}/{layer}: a ReLU mask differs away from mu = 0")
+                g1 = torch.where(tie, 0.0, g1)
+                g2 = torch.where(tie, 0.0, g2)
+
+        def grads(out):
+            return torch.autograd.grad(out, inputs, (g1, g2), retain_graph=True)
+
+        d_got, d_want = grads(got), grads(want)
+        torch.cuda.synchronize()
+        abs_err = rel_err = 0.0
+        names = [n for n, t in zip(("d_mu", "d_sigma", "d_w_mu", "d_w_sigma"),
+                                   (mu, sigma, w_mu, w_sigma))
+                 if t is not None and t.requires_grad]
+        for name, x, r in zip(names, d_got, d_want):
+            e = float((x - r).abs().max())
+            rel = e / max(float(r.abs().max()), 1e-30)
+            if not rel <= VDP_BWD_TOL:
+                _die(f"vdp_conv_bwd {config}/{layer}: {name} disagrees with autograd "
+                     f"of the plain version: relative error {rel:.3e} > {VDP_BWD_TOL}")
+            abs_err, rel_err = max(abs_err, e), max(rel_err, rel)
+        ms = _time_ms(torch, lambda: grads(got))
+        plain_ms = _time_ms(torch, lambda: grads(want))
+        self._record("vdp_conv_bwd", config, abs_err, rel_err, ms, plain_ms, None, {
+            "layer": layer, "shape": [b, h, w, cin, cout, k],
+            "sigma": has_sigma, "relu": relu, "relu_ties": flips,
+        })
+
+    def _record(self, kernel, config, abs_err, rel_err, ms, plain_ms, bound, extra):
+        worst = self.worst.setdefault(kernel, [0.0, 0.0])
         worst[0] = max(worst[0], abs_err)
         worst[1] = max(worst[1], rel_err)
-        t = self.ms.setdefault((kernel, config), [0.0, 0.0])
+        t = self.ms.setdefault((kernel, config), [0.0] * 5)
         t[0] += ms
         t[1] += plain_ms
-        print(json.dumps({
+        line = {
             "kernel": kernel, "config": config, **extra,
             "max_abs_err": abs_err, "max_rel_err": rel_err,
             "ms": ms, "plain_ms": plain_ms,
-        }), flush=True)
+        }
+        if bound is not None:
+            for i, v in enumerate(bound, start=2):
+                t[i] += v
+            line["bound_ms"] = bound[0]
+        print(json.dumps(line), flush=True)
 
 
 def _vdp_errors(torch, got, want, relu):
@@ -199,6 +385,23 @@ def _vdp_errors(torch, got, want, relu):
     return abs_err, rel_err, flips
 
 
+def _zero_launches() -> None:
+    from supernet_tpu_torch.ops.kernels import pool as P
+    from supernet_tpu_torch.ops.kernels import sigma_bwd as S
+    from supernet_tpu_torch.ops.kernels import vdp_conv as V
+
+    V.launches = P.launches = P.bwd_launches = S.launches = 0
+
+
+def _read_launches() -> dict:
+    from supernet_tpu_torch.ops.kernels import pool as P
+    from supernet_tpu_torch.ops.kernels import sigma_bwd as S
+    from supernet_tpu_torch.ops.kernels import vdp_conv as V
+
+    return {"vdp_conv": V.launches, "vmaxpool": P.launches,
+            "vmaxpool_bwd": P.bwd_launches, "sigma_bwd": S.launches}
+
+
 def _serve(torch, name, cfg, batch, sizes):
     """Answer requests of ``sizes`` images through the CUDA session with
     the launch counters zeroed before and read after; check the answers
@@ -206,40 +409,30 @@ def _serve(torch, name, cfg, batch, sizes):
     the last request)."""
     import numpy as np
 
-    from supernet_tpu_torch.models import init_params, layer_names
-    from supernet_tpu_torch.ops.kernels import pool as P
-    from supernet_tpu_torch.ops.kernels import vdp_conv as V
+    from supernet_tpu_torch.models import layer_names
     from supernet_tpu_torch.serving import InferenceSession
 
-    params = init_params(torch.Generator().manual_seed(SEED), cfg, "cpu")
-    # Rescale each w_mu to He scale, std sqrt(2 / fan_in). At the raw init
-    # (std 0.088 in every layer) the activations grow about 6x per BraTS
-    # layer: the logits reach 7.6e4, and on the CPU the JAX package and the
-    # port already differ by 3.6e-2 in probs, so no float32 comparison of
-    # two implementations is well-posed there. At He scale the logits stay
-    # below 10 in both configs.
-    for p in params.values():
-        k, _, cin, _ = p["w_mu"].shape
-        p["w_mu"] *= math.sqrt(2.0 / (k * k * cin)) / p["w_mu"].std()
+    params = _he_params(torch, cfg)
     gpu = InferenceSession(params, cfg, batch_size=batch, device="cuda").warmup()
     cpu = InferenceSession(params, cfg, batch_size=batch, device="cpu")
     rng = np.random.default_rng(SEED)
     shape = (cfg.image_size, cfg.image_size, cfg.in_channels)
     requests = [rng.normal(0.0, 1.0, (n,) + shape).astype(np.float32) for n in sizes]
 
-    V.launches = 0
-    P.launches = 0
+    _zero_launches()
     answers = []
     for x in requests:
         t0 = time.perf_counter()
         probs, sigma = gpu.predict(x)
         answers.append((probs, sigma, time.perf_counter() - t0))
-    launches = {"vdp_conv": V.launches, "vmaxpool": P.launches}
+    launches = _read_launches()
 
     chunks = sum(math.ceil(n / batch) for n in sizes)
     want = {
         "vdp_conv": chunks * sum(1 for _, k, _, _ in layer_names(cfg) if k == 3),
         "vmaxpool": chunks * (cfg.depth - 1),
+        "vmaxpool_bwd": 0,
+        "sigma_bwd": 0,
     }
     if launches != want:
         _die(f"{name}: kernel launches {launches}, expected {want}")
@@ -280,6 +473,169 @@ def _serve(torch, name, cfg, batch, sizes):
         "request_s": [a[2] for a in answers],
     }), flush=True)
     return launches, img_s
+
+
+@contextlib.contextmanager
+def _decisions(torch, record=None, replay=None):
+    """Record the discrete choices of the forwards run inside (each fused
+    ReLU's mask, each pool's tap index) into the list ``record``, or make
+    the forwards take the choices of ``replay`` instead of their own.
+
+    Two float32 summation orders can round a pre-activation near 0, or two
+    near-equal pool taps, differently; that choice moves the pixel's whole
+    gradient path (one ReLU flip and one pool near-tie at hippocampus batch
+    20 move a w_mu gradient by 1.4e-3 of its max). So the CPU reference of
+    the gradient check replays the card's choices. A replayed choice that
+    differs from the CPU's own must be a tie: |mu| within VDP_TOL of mu's
+    max magnitude for a ReLU, the two taps within VDP_TOL of it for a pool.
+    Yields the count of such ties."""
+    from supernet_tpu_torch.ops.kernels import pool as P
+    from supernet_tpu_torch.ops.kernels import vdp_conv as V
+
+    conv_apply, pool_apply = V.VDPConv.apply, P.VMaxPool.apply
+    queue = iter(replay) if replay is not None else None
+    ties = {"relu": 0, "pool": 0}
+
+    def tie_bound(x):
+        return VDP_TOL * float(x.detach().abs().max())
+
+    def conv(mu, sigma, w_mu, w_sigma, relu):
+        if not relu:
+            return conv_apply(mu, sigma, w_mu, w_sigma, relu)
+        if queue is None:
+            out = conv_apply(mu, sigma, w_mu, w_sigma, relu)
+            record.append(out[0].detach() > 0)
+            return out
+        m, s = conv_apply(mu, sigma, w_mu, w_sigma, False)
+        mask = next(queue).to(m.device)
+        tie = mask != (m.detach() > 0)
+        if tie.any():
+            if float(m.detach()[tie].abs().max()) > tie_bound(m):
+                _die("training: a ReLU mask differs away from mu = 0")
+            ties["relu"] += int(tie.sum())
+        return torch.where(mask, m, 0.0), torch.where(mask, s, 0.0)
+
+    def pool(mu, sigma):
+        if queue is None:
+            out = pool_apply(mu, sigma)
+            record.append(P.vmaxpool(mu.detach(), sigma.detach(), return_idx=True)[2])
+            return out
+        mx, _, own = P.vmaxpool_plain(mu.detach(), sigma.detach())
+        idx = next(queue).to(mu.device)
+        b, h, w, c = mu.shape
+        pad = (0, 0, 0, w % 2, 0, h % 2)
+        m_taps = P._taps(torch.nn.functional.pad(mu, pad, value=torch.finfo(mu.dtype).min))
+        s_taps = P._taps(torch.nn.functional.pad(sigma, pad))
+        sel = [idx == t for t in range(4)]
+        m = sum(torch.where(q, x, 0.0) for q, x in zip(sel, m_taps))
+        s = sum(torch.where(q, x, 0.0) for q, x in zip(sel, s_taps))
+        tie = own != idx
+        if tie.any():
+            if float((mx - m.detach())[tie].abs().max()) > tie_bound(mu):
+                _die("training: a pool tap differs between taps that are not tied")
+            ties["pool"] += int(tie.sum())
+        return m, s
+
+    V.VDPConv.apply, P.VMaxPool.apply = conv, pool
+    try:
+        yield ties
+    finally:
+        del V.VDPConv.apply, P.VMaxPool.apply
+
+
+def _max_rel(torch, got, want) -> float:
+    """max |got - want| / max |want|, ``got`` moved to ``want``'s device."""
+    d = float((got.detach().to(want.device) - want).abs().max())
+    return d / max(float(want.abs().max()), 1e-30)
+
+
+def _train(torch, name, cfg, tc, batch, steps):
+    """``steps`` train steps on the card with the launch counters zeroed
+    before and read after, held against the same steps on the CPU from the
+    same parameters and batches. Returns (launches, median step seconds of
+    steps 2.., per-step launches)."""
+    import numpy as np
+
+    from supernet_tpu_torch import train as T
+    from supernet_tpu_torch.models import layer_names
+
+    params = _he_params(torch, cfg)
+    rng = np.random.default_rng(SEED)
+    s, o = cfg.image_size, cfg.out_size
+    x = rng.normal(0.0, 1.0, (steps, batch, s, s, cfg.in_channels)).astype(np.float32)
+    y = rng.integers(0, cfg.n_classes, (steps, batch, o, o)).astype(np.int32)
+    gpu, _ = T.create_train_state(params, tc, "cuda")
+    cpu, _ = T.create_train_state(params, tc, "cpu")
+
+    # step-1 gradients, outside the counted run; the CPU replays the card's
+    # ReLU masks and pool taps (see _decisions)
+    def grads(state):
+        dev = state.params["conv_input"]["w_mu"].device
+        loss, _ = T.loss_fn(state.params, torch.from_numpy(x[0]).to(dev),
+                            torch.from_numpy(y[0]).to(dev), cfg, tc)
+        return torch.autograd.grad(loss, T.leaves(state.params))
+
+    choices = []
+    with _decisions(torch, record=choices):
+        g_gpu = grads(gpu)
+    with _decisions(torch, replay=choices) as ties:
+        g_cpu = grads(cpu)
+    worst_g = 0.0
+    for g, r in zip(g_gpu, g_cpu):
+        worst_g = max(worst_g, _max_rel(torch, g, r))
+    if not worst_g <= TRAIN_GRAD_TOL:
+        _die(f"{name} training: step-1 gradients differ from the CPU's by "
+             f"{worst_g:.3e} of a leaf's max > {TRAIN_GRAD_TOL}")
+
+    step = T.make_train_step(cfg, tc)
+    torch.cuda.synchronize()
+    _zero_launches()
+    times, metrics = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        gpu, m = step(gpu, x[i], y[i])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        metrics.append([float(v) for v in m])
+    launches = _read_launches()
+    n3 = sum(1 for _, k, _, _ in layer_names(cfg) if k == 3)
+    per_step = {"vdp_conv": n3, "vmaxpool": cfg.depth - 1,
+                "vmaxpool_bwd": cfg.depth - 1, "sigma_bwd": n3}
+    if launches != {k: v * steps for k, v in per_step.items()}:
+        _die(f"{name} training: kernel launches {launches} in {steps} steps, "
+             f"expected {per_step} per step")
+
+    cpu_metrics = []
+    for i in range(steps):
+        cpu, m = step(cpu, x[i], y[i])
+        cpu_metrics.append([float(v) for v in m])
+    loss_err = 0.0
+    for i, (mg, mc) in enumerate(zip(metrics, cpu_metrics)):
+        if not all(math.isfinite(v) for v in mg) or not 0.0 <= mg[3] <= 1.0:
+            _die(f"{name} training: step {i + 1} metrics {mg}")
+        loss_err = max(loss_err, abs(mg[0] - mc[0]) / abs(mc[0]))
+    if not loss_err <= TRAIN_LOSS_RTOL:
+        _die(f"{name} training: losses {[m[0] for m in metrics]} differ from "
+             f"the CPU's {[m[0] for m in cpu_metrics]} by {loss_err:.3e} relative")
+    param_err = max(
+        float((a.detach().cpu() - b.detach()).abs().max())
+        for a, b in zip(T.leaves(gpu.params), T.leaves(cpu.params))
+    )
+    limit = 2.0 * tc.lr * steps
+    if not param_err <= limit:
+        _die(f"{name} training: parameters after {steps} steps differ from the "
+             f"CPU's by {param_err:.3e} > 2 * lr * steps = {limit:.3e}")
+    step_s = statistics.median(times[1:]) if steps > 1 else times[0]
+    print(json.dumps({
+        "training": name, "batch": batch, "steps": steps, "launches": launches,
+        "losses": [m[0] for m in metrics], "cpu_losses": [m[0] for m in cpu_metrics],
+        "accuracy": [m[3] for m in metrics],
+        "loss_max_rel_err_vs_cpu": loss_err, "grad_max_rel_err_vs_cpu": worst_g,
+        "grad_ties_replayed": ties,
+        "param_max_abs_err_vs_cpu": param_err, "param_limit": limit,
+        "step_s": times, "median_step_s": step_s, "img_per_s": batch / step_s,
+    }), flush=True)
+    return launches, step_s, per_step
 
 
 def main() -> int:
@@ -329,26 +685,79 @@ def main() -> int:
     check.vmaxpool("extra", "odd", 3, 13, 15, 36, ties=True)
 
     # 3-4. serving at full width
-    launches, img_s = _serve(torch, "hippocampus", HIPPOCAMPUS.model, 20, (20, 7, 45))
+    serve_launches, img_s = _serve(torch, "hippocampus", HIPPOCAMPUS.model, 20, (20, 7, 45))
     _serve(torch, "brats", BRATS.model, 2, (3,))
 
-    sources = {"vdp_conv": ("supernet_tpu_torch/csrc/vdp_conv.cu",
-                            "supernet_tpu/ops/pallas/vdp_conv.py:125"),
-               "vmaxpool": ("supernet_tpu_torch/csrc/pool.cu",
-                            "supernet_tpu/ops/pallas/pool.py:72")}
+    # 5. the backward kernels and the VDP conv's backward at every layer
+    # shape of one training step, then extra cases
+    for config, cfg, batch in (("hippocampus", HIPPOCAMPUS.model, 20),
+                               ("brats", BRATS.model, 2)):
+        convs, pools = _layer_inputs(torch, cfg)
+        for layer, (_, h, w, cin), cout in convs:
+            check.sigma_bwd(config, layer, batch, h - 2, w - 2, cout, 3)
+            check.vdp_conv_bwd(config, layer, batch, h, w, cin, cout, 3,
+                               has_sigma=layer != "conv_input", relu=True)
+        for layer, (_, h, w, c) in pools:
+            check.vmaxpool_bwd(config, layer, batch, h, w, c)
+    check.vmaxpool_bwd("extra", "ties", 20, 60, 60, 32, ties=True)
+    check.vmaxpool_bwd("extra", "c130", 3, 8, 8, 130, ties=True)
+    check.vmaxpool_bwd("extra", "odd", 3, 13, 15, 36, ties=True)
+    check.sigma_bwd("extra", "c130_odd", 3, 17, 19, 130, 3)
+    check.sigma_bwd("extra", "k2", 4, 32, 28, 40, 2)
+    check.vdp_conv_bwd("extra", "k3_no_relu_c130", 3, 17, 19, 24, 130, 3, True, False)
+    check.vdp_conv_bwd("extra", "k2_relu", 4, 33, 29, 24, 40, 2, True, True)
+
+    # 6-7. training at full width. Adam's first step turns a gradient's
+    # rounding into +-lr wherever the gradient is near 0, so the card's
+    # trajectory must not change from run to run: cuDNN's deterministic
+    # algorithms for the backward convolutions (the kernels have no atomics).
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True, allow_tf32=False):
+        train_launches, step_s, per_step = _train(
+            torch, "hippocampus", HIPPOCAMPUS.model, HIPPOCAMPUS.train, 20, 5)
+        _train(torch, "brats", BRATS.model, BRATS.train, 2, 2)
+
+    sources = {
+        "vdp_conv": ("supernet_tpu_torch/csrc/vdp_conv.cu",
+                     "supernet_tpu/ops/pallas/vdp_conv.py:125"),
+        "vmaxpool": ("supernet_tpu_torch/csrc/pool.cu",
+                     "supernet_tpu/ops/pallas/pool.py:72"),
+        "vmaxpool_bwd": ("supernet_tpu_torch/csrc/pool.cu",
+                         "supernet_tpu/ops/pallas/pool.py:106"),
+        "sigma_bwd": ("supernet_tpu_torch/csrc/sigma_bwd.cu",
+                      "supernet_tpu/ops/pallas/sigma_bwd.py:66"),
+    }
+    # ms, plain_ms and bound_ms: summed over the shapes of one hippocampus
+    # step at batch 20 (brats_*: one BraTS step at batch 2); launches: the
+    # hippocampus training run of phase 6
     summary = []
     for kernel, (source, replaces) in sources.items():
-        ms, plain_ms = check.ms[(kernel, "hippocampus")]
-        brats_ms, brats_plain_ms = check.ms[(kernel, "brats")]
+        ms, plain_ms, bound_ms, bytes_ms, ops_ms = check.ms[(kernel, "hippocampus")]
+        brats = check.ms[(kernel, "brats")]
         summary.append({
             "name": kernel, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[kernel],
+            "replaces": replaces, "launches": train_launches[kernel],
+            "launches_per_step": per_step[kernel],
+            "serving_launches": serve_launches[kernel],
             "max_abs_err": check.worst[kernel][0],
             "max_rel_err": check.worst[kernel][1],
-            "ms": ms, "plain_ms": plain_ms,
-            "brats_ms": brats_ms, "brats_plain_ms": brats_plain_ms,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "operations" if ops_ms > bytes_ms else "bytes",
+            "library_ms": None,
+            "brats_ms": brats[0], "brats_plain_ms": brats[1],
+            "brats_bound_ms": brats[2],
         })
+    bwd, bwd_b = check.ms[("vdp_conv_bwd", "hippocampus")], check.ms[("vdp_conv_bwd", "brats")]
+    print(json.dumps({
+        "vdp_conv_backward": "VDPConv.backward (kernel 4 + PyTorch convs)",
+        "max_abs_err": check.worst["vdp_conv_bwd"][0],
+        "max_rel_err": check.worst["vdp_conv_bwd"][1],
+        "ms": bwd[0], "plain_ms": bwd[1],
+        "brats_ms": bwd_b[0], "brats_plain_ms": bwd_b[1],
+    }))
     print(f"hippocampus serving: {img_s:.1f} img/s (batch 20, 45-image request)")
+    print(f"hippocampus training: {20 / step_s:.1f} img/s "
+          f"(batch 20, median step {1e3 * step_s:.3f} ms)")
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -17,16 +17,20 @@ import torch
 Params = Dict[str, Dict[str, torch.Tensor]]
 
 
-def params_from_jax(params_np, device) -> Params:
-    """Turn a JAX-layout parameter dict (numpy arrays, JAX arrays or CPU
-    tensors) into contiguous float32 tensors on ``device``."""
+def _tensor(v, device) -> torch.Tensor:
+    if isinstance(v, torch.Tensor):
+        t = v.detach().to(device=device, dtype=torch.float32, copy=True)
+    else:
+        t = torch.from_numpy(np.array(v, dtype=np.float32)).to(device)
+    return t.contiguous()
+
+
+def params_from_jax(params_np, device="cuda") -> Params:
+    """Turn a JAX-layout parameter dict (numpy arrays, JAX arrays or
+    tensors on any device) into fresh contiguous float32 tensors on
+    ``device``; the caller's arrays are never aliased."""
     return {
-        layer: {
-            name: torch.from_numpy(np.array(v, dtype=np.float32))
-            .to(device)
-            .contiguous()
-            for name, v in ws.items()
-        }
+        layer: {name: _tensor(v, device) for name, v in ws.items()}
         for layer, ws in params_np.items()
     }
 
@@ -42,7 +46,7 @@ def save_params_npz(path: str, params: Params) -> None:
     np.savez(path, **flat)
 
 
-def load_params_npz(path: str, device) -> Params:
+def load_params_npz(path: str, device="cuda") -> Params:
     """Read a :func:`save_params_npz` (or JAX ``save_params_npz``) file onto
     ``device``."""
     out: Dict[str, Dict[str, np.ndarray]] = {}

@@ -1,9 +1,9 @@
-// Moment max-pool forward (2x2, stride 2) for Hopper, sm_90a.
+// Moment max-pool (2x2, stride 2) for Hopper, sm_90a: forward and backward.
 //
-// Replaces supernet_tpu/ops/pallas/pool.py:_pool_fwd_kernel (launched by
-// _pool_fwd_call). Per output element: the max of the four mu taps, sigma at
-// the selected tap, and optionally the tap index 0..3 (as float, the
-// training slice's backward residual). Ties go to the first tap in row-major
+// The forward replaces supernet_tpu/ops/pallas/pool.py:_pool_fwd_kernel
+// (launched by _pool_fwd_call). Per output element: the max of the four mu
+// taps, sigma at the selected tap, and optionally the tap index 0..3 (as
+// float, the backward's residual). Ties go to the first tap in row-major
 // order, exactly as pool.py:81-92:
 //   p0 = m00 == mx; p1 = !p0 && m01 == mx; p2 = !(p0 || p1) && m10 == mx;
 //   otherwise tap 3.
@@ -16,6 +16,15 @@
 // device-memory bandwidth. Design: one thread per output element with the
 // channel index fastest, so a warp's loads and stores cover consecutive
 // addresses of the NHWC tensors; 64-bit offsets throughout.
+//
+// The backward replaces pool.py:_pool_bwd_kernel (launched by
+// _pool_bwd_call): each full-resolution element (y, x) takes its window's
+// gradient where idx == 2 * (y % 2) + (x % 2) and 0 elsewhere, for g_mu and
+// g_sigma alike. Odd H or W are cropped as in ops/moments.py:_vmaxpool_bwd,
+// so again no shape leaves the kernel. Bound by bytes as well: one thread per
+// full-resolution element, channel fastest, reads its quarter-resolution idx
+// and two gradients once (neighbouring threads share them through L1) and
+// writes 0 or g. One pass, no memset, no atomics.
 
 #include <cuda_runtime.h>
 
@@ -72,6 +81,26 @@ __global__ void __launch_bounds__(kThreads) vmaxpool_fwd_kernel(
   }
 }
 
+__global__ void __launch_bounds__(kThreads) vmaxpool_bwd_kernel(
+    const float* __restrict__ idx, const float* __restrict__ g_mu,
+    const float* __restrict__ g_sigma, float* __restrict__ d_mu,
+    float* __restrict__ d_sigma, int H, int W, int C, int Ho, int Wo,
+    long long total) {
+  const long long i = blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x;
+  if (i >= total) return;
+  const int c = static_cast<int>(i % C);
+  long long r = i / C;
+  const int x = static_cast<int>(r % W);
+  r /= W;
+  const int y = static_cast<int>(r % H);
+  const long long b = r / H;
+
+  const long long q = ((b * Ho + (y >> 1)) * Wo + (x >> 1)) * C + c;
+  const bool sel = idx[q] == static_cast<float>(2 * (y & 1) + (x & 1));
+  d_mu[i] = sel ? g_mu[q] : 0.f;
+  d_sigma[i] = sel ? g_sigma[q] : 0.f;
+}
+
 }  // namespace
 
 // mu, sigma: [B, H, W, C] float32, contiguous. mx, so (and idx, or null):
@@ -88,5 +117,23 @@ extern "C" int supernet_vmaxpool_fwd(const void* mu, const void* sigma,
       static_cast<const float*>(mu), static_cast<const float*>(sigma),
       static_cast<float*>(mx), static_cast<float*>(so),
       static_cast<float*>(idx), H, W, C, Ho, Wo, total);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// idx, g_mu, g_sigma: [B, ceil(H/2), ceil(W/2), C] float32, contiguous.
+// d_mu, d_sigma: [B, H, W, C]. Launches on `stream` and returns
+// cudaGetLastError().
+extern "C" int supernet_vmaxpool_bwd(const void* idx, const void* g_mu,
+                                     const void* g_sigma, void* d_mu,
+                                     void* d_sigma, int B, int H, int W, int C,
+                                     void* stream) {
+  const int Ho = (H + 1) / 2, Wo = (W + 1) / 2;
+  const long long total = static_cast<long long>(B) * H * W * C;
+  const long long blocks = (total + kThreads - 1) / kThreads;
+  vmaxpool_bwd_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(idx), static_cast<const float*>(g_mu),
+      static_cast<const float*>(g_sigma), static_cast<float*>(d_mu),
+      static_cast<float*>(d_sigma), H, W, C, Ho, Wo, total);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,0 +1,51 @@
+"""ELBO losses: heteroscedastic Gaussian NLL + KL weight regularization.
+
+Counterpart of ``supernet_tpu/losses.py``. Reference: ``nll_gaussian``
+(`Hippocampus.py:302-322`) and ``sigma_regularizer`` + l2
+(`Hippocampus.py:116,121,325-331`), combined in ``train_on_batch`` as
+``nll + kl_factor * 0.5 * sum(model.losses)`` (`Hippocampus.py:520-531`).
+
+The log-determinant term is ``sum_c log(sigma_c + eps)``, the stable form of
+the reference's ``log(prod_c(sigma_c + eps))``; the reference's NaN/Inf
+scrub of the quadratic term (`Hippocampus.py:314-315`) is kept.
+"""
+
+from __future__ import annotations
+
+import torch
+
+Tensor = torch.Tensor
+
+NLL_EPS = 1e-3  # Hippocampus.py:304
+
+
+def nll_gaussian(y: Tensor, mu: Tensor, sigma: Tensor, eps: float = NLL_EPS) -> Tensor:
+    """Expected Gaussian negative log-likelihood over flattened pixels.
+
+    y one-hot [B, N, C]; mu the post-softmax probabilities [B, N, C]; sigma
+    the per-class variance [B, N, C] (clipped by the caller):
+
+      loss1 = mean_{B,N}[ sum_c (mu - y)^2 / (sigma + eps) ]   (NaN/Inf -> 0)
+      loss2 = mean_{B,N}[ sum_c log(sigma_c + eps) ]
+      nll   = 0.5 * (loss1 + loss2)
+    """
+    inv = 1.0 / (sigma + eps)
+    loss1 = ((mu - y) ** 2 * inv).sum(dim=-1).mean()
+    loss1 = torch.where(torch.isfinite(loss1), loss1, torch.zeros_like(loss1))
+    loss2 = torch.log(sigma + eps).sum(dim=-1).mean()
+    return 0.5 * (loss1 + loss2)
+
+
+def elbo_loss(
+    y: Tensor,
+    mu: Tensor,
+    sigma: Tensor,
+    kl: Tensor,
+    kl_factor: float,
+    sigma_clip_min: float = 1e-12,
+    sigma_clip_max: float = 1e3,
+) -> Tensor:
+    """Total training loss: clipped-NLL + kl_factor * 0.5 * KL
+    (`Hippocampus.py:523-527`)."""
+    sigma_c = torch.clamp(sigma, sigma_clip_min, sigma_clip_max)
+    return nll_gaussian(y, mu, sigma_c) + kl_factor * 0.5 * kl

@@ -69,7 +69,9 @@ def _tight_layers(cfg: ModelConfig) -> set:
     return names
 
 
-def init_params(generator: torch.Generator, cfg: ModelConfig, device) -> Params:
+def init_params(
+    generator: torch.Generator, cfg: ModelConfig, device="cuda"
+) -> Params:
     """TruncatedNormal(mean_mu, mean_sigma), cut at 2 std, for w_mu and
     Uniform on the raw w_sigma (`Hippocampus.py:109-123`).
 

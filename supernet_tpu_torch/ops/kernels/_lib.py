@@ -114,6 +114,10 @@ def load() -> ctypes.CDLL:
             lib.supernet_vdp_conv_fwd.restype = _I
             lib.supernet_vmaxpool_fwd.argtypes = [_P] * 5 + [_I] * 4 + [_P]
             lib.supernet_vmaxpool_fwd.restype = _I
+            lib.supernet_vmaxpool_bwd.argtypes = [_P] * 5 + [_I] * 4 + [_P]
+            lib.supernet_vmaxpool_bwd.restype = _I
+            lib.supernet_sigma_bwd.argtypes = [_P] * 5 + [_I] * 6 + [_P]
+            lib.supernet_sigma_bwd.restype = _I
             lib.supernet_cuda_error_string.argtypes = [_I]
             lib.supernet_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -1,9 +1,11 @@
-"""Moment max-pool (2x2, stride 2): the CUDA kernel and its plain version.
+"""Moment max-pool (2x2, stride 2): the CUDA kernels and their plain versions.
 
-Counterpart of ``supernet_tpu/ops/pallas/pool.py`` (forward only; the
-backward kernel comes with the training slice). The kernel is
-``csrc/pool.cu``. :func:`vmaxpool` launches it for CUDA tensors and takes
-:func:`vmaxpool_plain` only for CPU tensors.
+Counterpart of ``supernet_tpu/ops/pallas/pool.py``. Both kernels are in
+``csrc/pool.cu``: the forward (``vmaxpool``) and the backward
+(``vmaxpool_bwd``), which routes each output gradient to the selected window
+tap. :class:`VMaxPool` is the autograd pair of the two. Each wrapper launches
+its kernel for CUDA tensors and takes its plain version only for CPU
+tensors.
 """
 
 from __future__ import annotations
@@ -14,9 +16,10 @@ import torch
 
 from supernet_tpu_torch.ops.kernels import _lib
 
-# Kernel launches in this process; chip_smoke.py zeroes and reads it to show
-# that the serving path went through the kernel.
+# Kernel launches in this process, forward and backward; chip_smoke.py zeroes
+# and reads them to show that a path went through the kernels.
 launches = 0
+bwd_launches = 0
 
 
 def _taps(x: torch.Tensor):
@@ -52,6 +55,28 @@ def vmaxpool_plain(
     return mx, so, tap.to(mu.dtype)
 
 
+def _upsample2(x: torch.Tensor) -> torch.Tensor:
+    """[B,h,w,C] -> [B,2h,2w,C] nearest-neighbour 2x."""
+    return x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+
+
+def vmaxpool_bwd_plain(
+    idx: torch.Tensor, g_mu: torch.Tensor, g_sigma: torch.Tensor, h: int, w: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """PyTorch composition of the pool's backward: ``(d_mu, d_sigma)``, each
+    [B,h,w,C]. Mirrors ``ops/moments.py:_vmaxpool_bwd``: the gradient and
+    the tap index upsampled 2x, kept where the pixel's window parity
+    ``2 * (y % 2) + (x % 2)`` equals the index, then cropped to (h, w)."""
+    b, ho, wo, c = idx.shape
+    par = torch.arange(2, dtype=idx.dtype, device=idx.device)
+    tap = (2 * par[:, None] + par[None, :]).repeat(ho, wo)  # [2ho, 2wo]
+    sel = _upsample2(idx) == tap[None, :, :, None]
+    zero = torch.zeros((), dtype=g_mu.dtype, device=g_mu.device)
+    d_mu = torch.where(sel, _upsample2(g_mu), zero)
+    d_sigma = torch.where(sel, _upsample2(g_sigma), zero)
+    return d_mu[:, :h, :w].contiguous(), d_sigma[:, :h, :w].contiguous()
+
+
 def _launch(mu, sigma, return_idx):
     global launches
     if mu.dim() != 4:
@@ -60,11 +85,6 @@ def _launch(mu, sigma, return_idx):
     _lib.check_input("vmaxpool", "sigma", sigma, mu.shape)
     if sigma.device != mu.device:
         raise ValueError("vmaxpool: mu and sigma are on different devices")
-    if torch.is_grad_enabled() and (mu.requires_grad or sigma.requires_grad):
-        raise RuntimeError(
-            "vmaxpool: the CUDA kernel has no backward yet; call it under "
-            "torch.no_grad() or torch.inference_mode()"
-        )
     b, h, w, c = mu.shape
     out_shape = (b, (h + 1) // 2, (w + 1) // 2, c)
     mx = torch.empty(out_shape, device=mu.device, dtype=torch.float32)
@@ -85,7 +105,8 @@ def _launch(mu, sigma, return_idx):
 
 def vmaxpool(mu: torch.Tensor, sigma: torch.Tensor, return_idx: bool = False):
     """2x2/stride-2 max of ``mu`` with ``sigma`` at the argmax:
-    ``(mx, so)``, or ``(mx, so, idx)`` with ``return_idx``.
+    ``(mx, so)``, or ``(mx, so, idx)`` with ``return_idx``. No autograd:
+    :class:`VMaxPool` is the differentiable form.
 
     CUDA tensors go to the kernel (or raise); CPU tensors to
     :func:`vmaxpool_plain`. Any other device raises.
@@ -96,3 +117,69 @@ def vmaxpool(mu: torch.Tensor, sigma: torch.Tensor, return_idx: bool = False):
         raise ValueError(f"vmaxpool: unsupported device {mu.device}")
     mx, so, idx = vmaxpool_plain(mu, sigma)
     return (mx, so, idx) if return_idx else (mx, so)
+
+
+def _launch_bwd(idx, g_mu, g_sigma, h, w):
+    global bwd_launches
+    if idx.dim() != 4:
+        raise ValueError(f"vmaxpool_bwd: idx must be [B,h,w,C], got {tuple(idx.shape)}")
+    b, ho, wo, c = idx.shape
+    if (h + 1) // 2 != ho or (w + 1) // 2 != wo:
+        raise ValueError(
+            f"vmaxpool_bwd: output {h}x{w} does not pool to {ho}x{wo}"
+        )
+    for name, t in (("idx", idx), ("g_mu", g_mu), ("g_sigma", g_sigma)):
+        _lib.check_input("vmaxpool_bwd", name, t, idx.shape)
+        if t.device != idx.device:
+            raise ValueError("vmaxpool_bwd: inputs are on different devices")
+    d_mu = torch.empty((b, h, w, c), device=idx.device, dtype=torch.float32)
+    d_sigma = torch.empty_like(d_mu)
+    if d_mu.numel():
+        lib = _lib.load()
+        with torch.cuda.device(idx.device):
+            err = lib.supernet_vmaxpool_bwd(
+                idx.data_ptr(), g_mu.data_ptr(), g_sigma.data_ptr(),
+                d_mu.data_ptr(), d_sigma.data_ptr(), b, h, w, c,
+                torch.cuda.current_stream(idx.device).cuda_stream,
+            )
+        _lib.check(err, "vmaxpool_bwd kernel launch")
+        bwd_launches += 1
+    return d_mu, d_sigma
+
+
+def vmaxpool_bwd(
+    idx: torch.Tensor, g_mu: torch.Tensor, g_sigma: torch.Tensor, h: int, w: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The pool's backward: ``idx``, ``g_mu``, ``g_sigma`` [B,ceil(h/2),
+    ceil(w/2),C] -> ``(d_mu, d_sigma)`` [B,h,w,C].
+
+    CUDA tensors go to the kernel (or raise); CPU tensors to
+    :func:`vmaxpool_bwd_plain`. Any other device raises.
+    """
+    if idx.is_cuda:
+        return _launch_bwd(idx, g_mu, g_sigma, h, w)
+    if idx.device.type != "cpu":
+        raise ValueError(f"vmaxpool_bwd: unsupported device {idx.device}")
+    return vmaxpool_bwd_plain(idx, g_mu, g_sigma, h, w)
+
+
+class VMaxPool(torch.autograd.Function):
+    """The moment max-pool with its gradient: forward :func:`vmaxpool`
+    (keeping the tap index when a gradient is needed), backward
+    :func:`vmaxpool_bwd`. Autograd of ``torch.maximum`` would split a tied
+    gradient in half; this routes it to the first tap, as the reference
+    does."""
+
+    @staticmethod
+    def forward(ctx, mu, sigma):
+        if not any(ctx.needs_input_grad):
+            return vmaxpool(mu, sigma)
+        mx, so, idx = vmaxpool(mu, sigma, return_idx=True)
+        ctx.save_for_backward(idx)
+        ctx.hw = (mu.shape[1], mu.shape[2])
+        return mx, so
+
+    @staticmethod
+    def backward(ctx, g_mu, g_sigma):
+        (idx,) = ctx.saved_tensors
+        return vmaxpool_bwd(idx, g_mu.contiguous(), g_sigma.contiguous(), *ctx.hw)

@@ -1,7 +1,8 @@
-"""Fused VDP convolution: the CUDA kernel and its plain version.
+"""Fused VDP convolution: the CUDA kernel, its plain version and its
+autograd backward.
 
-Counterpart of ``supernet_tpu/ops/pallas/vdp_conv.py`` (forward only; the
-training slice adds the backward). One call computes, VALID and stride 1:
+Counterpart of ``supernet_tpu/ops/pallas/vdp_conv.py``. One call computes,
+VALID and stride 1:
 
     mu_out  = conv(mu, w_mu)
     win     = k x k window sum of sum_c(mu^2 + sigma)     (sum_c x^2 when sigma is None)
@@ -11,8 +12,13 @@ training slice adds the backward). One call computes, VALID and stride 1:
 and returns ``(mu_out, sig_out, win)``; ``win`` [B,H',W',1] is the backward
 residual. The kernel is ``csrc/vdp_conv.cu``. :func:`vdp_conv` launches it
 for CUDA tensors and takes :func:`vdp_conv_plain` only for CPU tensors.
-Layouts are the JAX package's: NHWC activations, HWIO ``w_mu``
-[k,k,Cin,Cout] and the raw (pre-softplus) ``w_sigma`` [Cout].
+:class:`VDPConv` is the differentiable form: its backward is the JAX
+package's hand-derived VJP (``_bwd_common``), with the window-sum term
+through the sigma-chain kernel (``ops/kernels/sigma_bwd.py``) and the
+transposed and filter-gradient convolutions as PyTorch ops, as they are XLA
+convolutions in the JAX package. Layouts are the JAX package's: NHWC
+activations, HWIO ``w_mu`` [k,k,Cin,Cout] and the raw (pre-softplus)
+``w_sigma`` [Cout].
 """
 
 from __future__ import annotations
@@ -23,11 +29,12 @@ import torch
 import torch.nn.functional as F
 
 from supernet_tpu_torch.ops.kernels import _lib
+from supernet_tpu_torch.ops.kernels.sigma_bwd import winsum_spread_bwd
 
 Triple = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 # Kernel launches in this process; chip_smoke.py zeroes and reads it to show
-# that the serving path went through the kernel.
+# that a path went through the kernel.
 launches = 0
 
 
@@ -81,11 +88,6 @@ def _launch(mu, sigma, w_mu, w_sigma, fuse_relu) -> Triple:
     tensors = [mu, w_mu, w_sigma] + ([sigma] if sigma is not None else [])
     if any(t.device != mu.device for t in tensors):
         raise ValueError("vdp_conv: inputs are on different devices")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(
-            "vdp_conv: the CUDA kernel has no backward yet; call it under "
-            "torch.no_grad() or torch.inference_mode()"
-        )
     if not (1 <= k <= min(h, w)) or cin < 1 or cout < 1 or b > 65535:
         raise ValueError(
             f"vdp_conv: unsupported sizes B={b} H={h} W={w} Cin={cin} "
@@ -131,3 +133,76 @@ def vdp_conv(
     if mu.device.type != "cpu":
         raise ValueError(f"vdp_conv: unsupported device {mu.device}")
     return vdp_conv_plain(mu, sigma, w_mu, w_sigma, fuse_relu)
+
+
+def _nchw(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 3, 1, 2)
+
+
+def _oihw(w: torch.Tensor) -> torch.Tensor:
+    return w.permute(3, 2, 0, 1)
+
+
+def _conv_t(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Input gradient of :func:`_conv_valid`: the full transposed conv of
+    ``g`` [B,H',W',Cout] with HWIO ``w`` -> [B,H,W,Cin]."""
+    return F.conv_transpose2d(_nchw(g), _oihw(w)).permute(0, 2, 3, 1)
+
+
+def _filter_grad(x: torch.Tensor, g: torch.Tensor, w_shape) -> torch.Tensor:
+    """Weight gradient of :func:`_conv_valid` -> HWIO [k,k,Cin,Cout]."""
+    k, _, cin, cout = w_shape
+    dw = torch.nn.grad.conv2d_weight(_nchw(x), (cout, cin, k, k), _nchw(g))
+    return dw.permute(2, 3, 1, 0)
+
+
+class VDPConv(torch.autograd.Function):
+    """The fused VDP conv (+ optional ReLU) with its gradient: ``apply(mu,
+    sigma, w_mu, w_sigma, fuse_relu) -> (mu_out, sig_out)``, ``sigma`` None
+    for the deterministic first layer.
+
+    Forward: :func:`vdp_conv`. Backward, after
+    ``supernet_tpu/ops/pallas/vdp_conv.py:_bwd_common``:
+
+        g1, g2  = the cotangents of mu_out, sig_out, masked by mu_out > 0 with the ReLU
+        u, d_sw = winsum_spread_bwd(g2, win, softplus(w_sigma))     (kernel 4)
+        d_mu    = convT(g1, w_mu) + 2 mu u
+        d_sigma = u + convT(g2, w_mu^2)
+        d_w_mu  = filter_grad(mu, g1) + 2 w_mu filter_grad(sigma, g2)
+        d_w_sig = d_sw * sigmoid(w_sigma)
+    """
+
+    @staticmethod
+    def forward(ctx, mu, sigma, w_mu, w_sigma, fuse_relu):
+        mu_out, sig_out, win = vdp_conv(mu, sigma, w_mu, w_sigma, fuse_relu)
+        ctx.fuse_relu = fuse_relu
+        ctx.save_for_backward(mu, sigma, w_mu, w_sigma, win, mu_out)
+        return mu_out, sig_out
+
+    @staticmethod
+    def backward(ctx, g1, g2):
+        mu, sigma, w_mu, w_sigma, win, mu_out = ctx.saved_tensors
+        need_mu, need_sigma, need_w, need_ws, _ = ctx.needs_input_grad
+        if ctx.fuse_relu:
+            mask = mu_out > 0
+            g1 = torch.where(mask, g1, 0.0)
+            g2 = torch.where(mask, g2, 0.0)
+        g2 = g2.contiguous()
+        k = w_mu.shape[0]
+        b, ho, wo, _ = mu_out.shape
+        u, d_sw = winsum_spread_bwd(
+            g2, win.reshape(b, ho, wo), F.softplus(w_sigma).contiguous(), k
+        )
+        g_win = u[..., None]
+        d_mu = d_sigma = d_w = d_ws = None
+        if need_mu:
+            d_mu = _conv_t(g1, w_mu) + 2.0 * mu * g_win
+        if need_sigma:
+            d_sigma = g_win + _conv_t(g2, w_mu * w_mu)
+        if need_w:
+            d_w = _filter_grad(mu, g1, w_mu.shape)
+            if sigma is not None:
+                d_w = d_w + 2.0 * w_mu * _filter_grad(sigma, g2, w_mu.shape)
+        if need_ws:
+            d_ws = d_sw * torch.sigmoid(w_sigma)
+        return d_mu, d_sigma, d_w, d_ws, None

@@ -1,5 +1,6 @@
-"""VDP moment primitives in PyTorch: the serving path's set of
-``supernet_tpu/ops/moments.py``, forward only, float32.
+"""VDP moment primitives in PyTorch: the 2-D set of
+``supernet_tpu/ops/moments.py`` that the serving and training paths run,
+float32, with gradients.
 
 Each primitive pushes the mean ``mu`` and the diagonal variance ``sigma`` of
 the activations (both NHWC float32) through one network operation, with the
@@ -7,11 +8,14 @@ same algebra as the JAX module (see its docstring): every variance term of a
 Bayesian conv is a convolution, because the kernel variance
 ``softplus(w_sigma)`` is one scalar per output channel.
 
-Dispatch: every k > 1 conv goes through ``ops.kernels.vdp_conv`` and the
-max-pool through ``ops.kernels.pool``. On CUDA tensors those launch the
-hand-written kernels; on CPU tensors they run their plain versions. The 1x1
-head and the unpool conv are matrix products (``torch.einsum``), as they are
-XLA ops in the JAX package.
+Dispatch: every k > 1 conv goes through ``ops.kernels.vdp_conv.VDPConv``
+and the max-pool through ``ops.kernels.pool.VMaxPool``, the autograd
+Functions around the hand-written kernels (forward and backward). On CUDA
+tensors those launch the kernels; on CPU tensors they run their plain
+versions. The 1x1 head and the unpool conv are matrix products
+(``torch.einsum``), as they are XLA ops in the JAX package; their gradients,
+and those of the pads, crops, concatenations and the softmax, are PyTorch's
+autograd, as they are XLA's AD in the JAX package.
 """
 
 from __future__ import annotations
@@ -57,8 +61,10 @@ def scale_sw(ws: Tensor, s_w: Tensor) -> Tensor:
 
 
 def chan_sum(x: Tensor) -> Tensor:
-    """Sum over the trailing channel axis -> [..., 1], in float32."""
-    return x.float().sum(dim=-1, keepdim=True)
+    """Sum over the trailing channel axis -> [..., 1], in float32 (float64
+    input keeps float64, for the gradient checks)."""
+    dtype = torch.promote_types(x.dtype, torch.float32)
+    return x.sum(dim=-1, keepdim=True, dtype=dtype)
 
 
 def _window_sum(x: Tensor, k: int) -> Tensor:
@@ -89,8 +95,7 @@ def vconv_input(x: Tensor, w_mu: Tensor, w_sigma: Tensor) -> MomentPair:
         w2 = w_mu[0, 0]
         t = chan_sum(x * x)
         return _einsum_1x1(x, w2), scale_sw(t, F.softplus(w_sigma))
-    mu_out, sig_out, _ = _vdp.vdp_conv(x, None, w_mu, w_sigma)
-    return mu_out, sig_out
+    return _vdp.VDPConv.apply(x, None, w_mu, w_sigma, False)
 
 
 def vconv(mu: Tensor, sigma: Tensor, w_mu: Tensor, w_sigma: Tensor) -> MomentPair:
@@ -106,8 +111,7 @@ def vconv(mu: Tensor, sigma: Tensor, w_mu: Tensor, w_sigma: Tensor) -> MomentPai
         t = chan_sum(mu * mu + sigma)
         sigma_out = scale_sw(t, F.softplus(w_sigma)) + _einsum_1x1(sigma, w2 * w2)
         return _einsum_1x1(mu, w2), sigma_out
-    mu_out, sig_out, _ = _vdp.vdp_conv(mu, sigma, w_mu, w_sigma)
-    return mu_out, sig_out
+    return _vdp.VDPConv.apply(mu, sigma, w_mu, w_sigma, False)
 
 
 def vconv_relu(
@@ -116,16 +120,14 @@ def vconv_relu(
     """``vrelu(*vconv(...))``, the ReLU fused into the conv for k > 1."""
     if w_mu.shape[0] == 1:
         return vrelu(*vconv(mu, sigma, w_mu, w_sigma))
-    mu_out, sig_out, _ = _vdp.vdp_conv(mu, sigma, w_mu, w_sigma, fuse_relu=True)
-    return mu_out, sig_out
+    return _vdp.VDPConv.apply(mu, sigma, w_mu, w_sigma, True)
 
 
 def vconv_input_relu(x: Tensor, w_mu: Tensor, w_sigma: Tensor) -> MomentPair:
     """``vrelu(*vconv_input(...))``, fused the same way."""
     if w_mu.shape[0] == 1:
         return vrelu(*vconv_input(x, w_mu, w_sigma))
-    mu_out, sig_out, _ = _vdp.vdp_conv(x, None, w_mu, w_sigma, fuse_relu=True)
-    return mu_out, sig_out
+    return _vdp.VDPConv.apply(x, None, w_mu, w_sigma, True)
 
 
 def vrelu(mu: Tensor, sigma: Tensor) -> MomentPair:
@@ -137,8 +139,9 @@ def vrelu(mu: Tensor, sigma: Tensor) -> MomentPair:
 
 def vmaxpool(mu: Tensor, sigma: Tensor) -> MomentPair:
     """2x2/stride-2 max-pool of ``mu`` with ``sigma`` at the argmax;
-    first-occurrence ties; odd sizes padded with ``finfo.min``."""
-    return _pool.vmaxpool(mu, sigma)
+    first-occurrence ties, in the gradient too; odd sizes padded with
+    ``finfo.min``."""
+    return _pool.VMaxPool.apply(mu, sigma)
 
 
 def _upsample2_nearest(x: Tensor) -> Tensor:

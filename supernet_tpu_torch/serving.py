@@ -46,7 +46,8 @@ class InferenceSession:
     """Fixed-batch inference on one device.
 
     ``params`` is a JAX-layout parameter dict (numpy arrays, JAX arrays or
-    CPU tensors); it is copied to ``device`` once. ``predict(x)`` takes any
+    tensors); it is copied to ``device`` (the card unless the caller names
+    another) once. ``predict(x)`` takes any
     leading batch size. ``variance_scale`` / ``temperature`` apply a fitted
     recalibration to every answer.
     """
@@ -57,7 +58,7 @@ class InferenceSession:
         cfg: ModelConfig,
         batch_size: int = 8,
         *,
-        device,
+        device="cuda",
         variance_scale: float = 1.0,
         temperature: float = 1.0,
     ):

@@ -170,3 +170,37 @@ def test_vdpunet_module_loads_jax_params():
     with np.load(GOLDEN) as f:
         np.testing.assert_allclose(probs.numpy(), f["probs"], atol=2e-5)
         np.testing.assert_allclose(sigma.numpy(), f["sigma"], atol=2e-5)
+
+
+def test_kl_regularizer_grad_matches_jax():
+    from supernet_tpu.models import kl_regularizer as jkl
+
+    params = jinit(jax.random.PRNGKey(5), CFG)
+    want = jax.grad(jkl)(params)
+    tparams = params_from_jax(params, "cpu")
+    leaves = [t.requires_grad_() for p in tparams.values() for t in p.values()]
+    got = torch.autograd.grad(kl_regularizer(tparams), leaves)
+    names = [(layer, n) for layer, p in tparams.items() for n in p]
+    for g, (layer, n) in zip(got, names):
+        np.testing.assert_allclose(g.numpy(), np.asarray(want[layer][n]), rtol=1e-5,
+                                   atol=1e-7)
+
+
+def test_vdpunet_trains_like_the_functional_forward():
+    """VDPUNet's parameters are trainable leaves: a backward through the
+    module gives every parameter the gradient of the functional forward."""
+    params = jinit(jax.random.PRNGKey(2), CFG)
+    model = VDPUNet(CFG, "cpu", torch.Generator().manual_seed(0))
+    model.load_jax_params(params)
+    x = torch.from_numpy(_x((2, 32, 32, 1), 3))
+    c = torch.from_numpy(_x((2, 22 * 22, 3), 4))
+    probs, sigma = model(x)
+    ((probs + sigma) * c).sum().backward()
+    tparams = params_from_jax(params, "cpu")
+    leaves = [t.requires_grad_() for p in tparams.values() for t in p.values()]
+    p2, s2 = forward(tparams, x, CFG)
+    want = torch.autograd.grad(((p2 + s2) * c).sum(), leaves)
+    got = [getattr(model.layers[layer], n).grad for layer, p in tparams.items() for n in p]
+    assert all(g is not None for g in got)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)

@@ -140,3 +140,53 @@ def test_set_mxu_precision_sets_tf32_flags():
         tm.set_mxu_precision("highest")
         torch.backends.cudnn.allow_tf32 = cudnn
         torch.backends.cuda.matmul.allow_tf32 = matmul
+
+
+def _grad_case(name, rng):
+    """(op name, numpy inputs, extra arguments) of one gradient case."""
+    mu, sg = _rand(rng, 2, 10, 10, 4), _rand(rng, 2, 10, 10, 4, positive=True)
+    ws = _rand(rng, 5) - 4.0
+    w = {k: 0.3 * _rand(rng, k, k, 4, 5) for k in (1, 2, 3)}
+    return {
+        "vconv_input_k1": ("vconv_input", (mu, w[1], ws), ()),
+        "vconv_input_relu_k3": ("vconv_input_relu", (mu, w[3], ws), ()),
+        "vconv_k1": ("vconv", (mu, sg, w[1], ws), ()),
+        "vconv_relu_k1": ("vconv_relu", (mu, sg, w[1], ws), ()),
+        "vconv_k3": ("vconv", (mu, sg, w[3], ws), ()),
+        "vconv_relu_k3": ("vconv_relu", (mu, sg, w[3], ws), ()),
+        "vrelu": ("vrelu", (mu, sg), ()),
+        "vmaxpool": ("vmaxpool", (mu, sg), ()),
+        "vunpool_conv2": ("vunpool_conv2", (mu, sg, w[2], ws), ()),
+        "vpad": ("vpad", (mu, sg), ((2, 2), 0.02)),
+        "vcrop_concat": ("vcrop_concat", (_rand(rng, 2, 6, 6, 4),
+                                          _rand(rng, 2, 6, 6, 4, positive=True), mu, sg), ()),
+        "vsoftmax": ("vsoftmax", (3.0 * mu, sg), ()),
+    }[name]
+
+
+@pytest.mark.parametrize("name", [
+    "vconv_input_k1", "vconv_input_relu_k3", "vconv_k1", "vconv_relu_k1", "vconv_k3",
+    "vconv_relu_k3", "vrelu", "vmaxpool", "vunpool_conv2", "vpad", "vcrop_concat",
+    "vsoftmax"])
+def test_grads_match_jax_grad(name):
+    """Autograd of each moment op (through VDPConv/VMaxPool for the k=3
+    convs and the pool, PyTorch's own elsewhere) against jax.grad of its
+    JAX twin, on the same cotangents: each input's gradient within 1e-4 of
+    its max magnitude."""
+    import jax
+
+    rng = np.random.default_rng(10)
+    op, args, extra = _grad_case(name, rng)
+    jfn, tfn = getattr(jm, op), getattr(tm, op)
+    cots = [rng.normal(0, 1, o.shape).astype(np.float32)
+            for o in jfn(*map(jnp.asarray, args), *extra)]
+
+    def jloss(*a):
+        return sum(jnp.sum(o * c) for o, c in zip(jfn(*a, *extra), cots))
+
+    want = jax.grad(jloss, argnums=tuple(range(len(args))))(*map(jnp.asarray, args))
+    t = [torch.from_numpy(a).requires_grad_() for a in args]
+    sum((o * torch.from_numpy(c)).sum() for o, c in zip(tfn(*t, *extra), cots)).backward()
+    for x, r in zip(t, want):
+        r = np.asarray(r)
+        assert np.abs(x.grad.numpy() - r).max() <= 1e-4 * np.abs(r).max()

@@ -88,13 +88,55 @@ def test_predict_image_matches_jax(params):
     _assert_same(got, want)
 
 
+@pytest.mark.parametrize("fn,shape,overlap", [("predict_image", (23, 17), 5),
+                                               ("predict_volume", (9, 14, 11), 2)])
+@pytest.mark.parametrize("weight", ["gaussian", "uniform"])
+def test_tiling_copy_matches_jax(fn, shape, overlap, weight):
+    """The port's copy of supernet_tpu/tiling.py stitches the same maps
+    from the same tile predictions (tiles of 12, outputs of 6)."""
+    from supernet_tpu import tiling as jtiling
+    from supernet_tpu_torch import tiling
+
+    def predict(t):  # a deterministic stand-in for the model: [N,T..,C] -> [N,O..,2]
+        core = t[(slice(None),) + (slice(3, -3),) * (t.ndim - 2)]
+        return np.concatenate([core, core ** 2], -1), np.concatenate([-core, core], -1)
+
+    arr = np.random.default_rng(5).normal(0, 1, shape).astype(np.float32)
+    got = getattr(tiling, fn)(predict, arr, 12, 6, overlap=overlap, weight=weight)
+    want = getattr(jtiling, fn)(predict, arr, 12, 6, overlap=overlap, weight=weight)
+    for g, w in zip(got, want):
+        assert g.shape == shape + (2,)
+        np.testing.assert_array_equal(g, w)
+    assert tiling.tile_positions(23, 6, 4) == jtiling.tile_positions(23, 6, 4)
+    assert tiling.output_margins(64, 54) == jtiling.output_margins(64, 54)
+
+
 def test_port_imports_no_jax():
-    """A fresh interpreter runs one tiny CPU forward through the port's
-    serving module without importing JAX."""
+    """A fresh interpreter that refuses to import ``jax`` and the JAX
+    package ``supernet_tpu`` (a meta-path blocker) imports every module of
+    the port, runs one tiny CPU forward through the serving session and
+    takes one CPU train step."""
     code = textwrap.dedent("""
-        import dataclasses, sys
+        import dataclasses, importlib, pkgutil, sys
+
+        class Blocker:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in ("jax", "supernet_tpu"):
+                    raise ImportError(f"the port imported {name}")
+                return None
+
+        sys.meta_path.insert(0, Blocker())
         import numpy as np
         import torch
+        import supernet_tpu_torch
+        names = [m.name for m in pkgutil.walk_packages(
+            supernet_tpu_torch.__path__, "supernet_tpu_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        assert {"supernet_tpu_torch.train", "supernet_tpu_torch.losses",
+                "supernet_tpu_torch.configs", "supernet_tpu_torch.tiling",
+                "supernet_tpu_torch.ops.kernels.sigma_bwd"} <= set(names), names
+        from supernet_tpu_torch import train
         from supernet_tpu_torch.configs import HIPPOCAMPUS
         from supernet_tpu_torch.models import init_params
         from supernet_tpu_torch.serving import InferenceSession
@@ -104,7 +146,14 @@ def test_port_imports_no_jax():
         p, s = InferenceSession(params, cfg, batch_size=2, device="cpu").predict(
             np.zeros((1, 32, 32, 1), np.float32))
         assert p.shape == (1, 22, 22, 3) and np.isfinite(s).all()
-        assert "jax" not in sys.modules, "the port imported jax"
+        state, _ = train.create_train_state(params, HIPPOCAMPUS.train, "cpu")
+        rng = np.random.default_rng(0)
+        state, m = train.make_train_step(cfg, HIPPOCAMPUS.train)(
+            state, rng.normal(0, 1, (2, 32, 32, 1)).astype(np.float32),
+            rng.integers(0, 3, (2, 22, 22)).astype(np.int32))
+        assert state.step == 1 and all(np.isfinite(float(v)) for v in m)
+        bad = [n for n in sys.modules if n.split(".")[0] in ("jax", "supernet_tpu")]
+        assert not bad, bad
         print("ok")
     """)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
