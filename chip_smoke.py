@@ -13,14 +13,21 @@ Phases (any failure raises and the exit code is not 0):
 2. kernels: every hand-written kernel against its plain PyTorch version on
    the card, at every layer shape of one hippocampus forward (batch 20) and
    one BraTS forward (batch 2), plus k=2/k=1 and odd-shape cases. vdp_conv
-   must agree within 1e-4 of the plain output's max magnitude; the pool
-   bit for bit, including the tap index. Each is timed with CUDA events
-   (median of 20 runs after a warm-up). One JSON line per shape.
+   must agree within 1e-4 of the plain output's max magnitude, and at every
+   k=3 shape within 1e-5 of the max magnitude of the plain version run in
+   float64 on the card (3xTF32 on the tensor cores meets that, single-pass
+   TF32 does not); the pool bit for bit, including the tap index. Each is
+   timed with CUDA events (median of 20 runs after a warm-up); vdp_conv
+   also by its device time alone and beside cuDNN's mu product alone (TF32
+   off, a yardstick the port never calls), with its path ("wgmma" or
+   "simt"), K slices and its float32 and 3xTF32 bounds. One JSON line per
+   shape.
 3. serving, hippocampus at full width: ``InferenceSession`` (batch 20),
    with ``init_params`` weights rescaled to He scale, answers requests of
    20, 7 and 45 images; the kernel launch counters are zeroed just before
    and read just after, and must show every k=3 conv and every pool of
-   every chunk; the answers are checked for shape, finiteness, the simplex
+   every chunk, and a split-K reduce for every layer planned with K
+   slices; the answers are checked for shape, finiteness, the simplex
    and sigma >= 0, and against the same session on the CPU.
 4. serving, BraTS at full width (batch 2), the same checks.
 5. backward kernels: the pool backward (kernel 3) and the sigma-chain
@@ -37,7 +44,8 @@ Phases (any failure raises and the exit code is not 0):
    ``train.make_train_step`` from He-scaled ``init_params`` on a seeded
    batch with integer labels. The launch counters are zeroed just before
    and read just after; per step they must read 10 vdp_conv, 2 pool
-   forward, 2 pool backward and 10 sigma-chain backward launches. The same
+   forward, 2 pool backward and 10 sigma-chain backward launches, and one
+   split-K reduce per layer planned with K slices. The same
    steps on the CPU from the same parameters: every step's loss within 1e-4
    relative, the step-1 gradients within 1e-3 of each leaf's max magnitude,
    the parameters after the last step within 2 * lr * steps. Prints the
@@ -68,6 +76,7 @@ import time
 
 SEED = 0
 VDP_TOL = 1e-4  # max |kernel - plain| / max |plain|, per output
+VDP_F64_TOL = 1e-5  # max |kernel - plain in float64| / max |float64|, k=3
 SERVE_PROBS_ATOL = 1e-4
 # sigma: |cuda - cpu| <= 1e-4 * max |cpu| on all but a small share of
 # elements. A ReLU whose pre-activation rounds to 0 differently in two
@@ -84,10 +93,6 @@ VDP_BWD_TOL = 1e-4  # per gradient, max |kernel path - plain| / max |plain|
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_TOL = 1e-3  # step-1 gradient, per leaf, relative to its max
 TIMING_RUNS = 20
-# H100 SXM peaks (NVIDIA's data sheet) for the bound of each kernel: device
-# memory bandwidth and the float32 rate of the CUDA cores.
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS_PER_S = 67e12
 
 
 def _die(msg: str) -> None:
@@ -114,7 +119,10 @@ def _time_ms(torch, fn) -> float:
 
 def _bound(nbytes: float, flops: float):
     """(bound ms, bytes ms, operations ms): the least time the card could
-    take to move ``nbytes`` and do ``flops`` float32 operations."""
+    take to move ``nbytes`` and do ``flops`` float32 operations (the H100
+    peaks of ``supernet_tpu_torch.profiling``)."""
+    from supernet_tpu_torch.profiling import F32_FLOPS_PER_S, HBM_BYTES_PER_S
+
     b_ms = 1e3 * nbytes / HBM_BYTES_PER_S
     o_ms = 1e3 * flops / F32_FLOPS_PER_S
     return max(b_ms, o_ms), b_ms, o_ms
@@ -136,25 +144,14 @@ def _he_params(torch, cfg):
     return params
 
 
-def _layer_inputs(torch, cfg):
-    """The input shape (batch 1) of every k=3 conv and every pool of one
-    forward, read from the stage taps of a CPU forward."""
-    from supernet_tpu_torch.models import forward, init_params, layer_names
+def _split_layers(cfg, batch) -> int:
+    """The k=3 convs of one forward at ``batch`` that vdp_conv's planner
+    cuts into K slices: each launches the split-K reduce once."""
+    from supernet_tpu_torch.ops.kernels.vdp_conv import plan
+    from supernet_tpu_torch.profiling import layer_shapes
 
-    params = init_params(torch.Generator().manual_seed(SEED), cfg, "cpu")
-    x = torch.zeros(1, cfg.image_size, cfg.image_size, cfg.in_channels)
-    stages = []
-    with torch.inference_mode():
-        forward(params, x, cfg, tap=lambda name, shape: stages.append((name, shape)))
-    ksize = {name: (k, cout) for name, k, _, cout in layer_names(cfg)}
-    convs, pools, prev = [], [], tuple(x.shape)
-    for name, shape in stages:
-        if name in ksize and ksize[name][0] == 3:
-            convs.append((name, prev, ksize[name][1]))
-        elif name.startswith("pool"):
-            pools.append((name, prev))
-        prev = shape
-    return convs, pools
+    return sum(plan(batch, h, w, cin, cout, 3).splits > 1
+               for _, (_, h, w, cin), cout in layer_shapes(cfg)[0])
 
 
 class KernelCheck:
@@ -166,6 +163,7 @@ class KernelCheck:
         self.gen = torch.Generator(device="cuda").manual_seed(SEED)
         self.worst = {}
         self.ms = {}
+        self.vdp = {}  # (config) -> summed device, cuDNN and 3xTF32 bound ms
 
     def _randn(self, *shape):
         return self.torch.randn(shape, device="cuda", generator=self.gen)
@@ -174,31 +172,52 @@ class KernelCheck:
         torch = self.torch
         from supernet_tpu_torch.ops.kernels import vdp_conv as V
 
+        from supernet_tpu_torch.profiling import device_ms, vdp_conv_bounds
+
         mu = self._randn(b, h, w, cin)
         sigma = 0.05 * self._randn(b, h, w, cin).abs() if has_sigma else None
         w_mu = 0.1 * self._randn(k, k, cin, cout)
         w_sigma = -4.0 + self._randn(cout)
+        plan = V.plan(b, h, w, cin, cout, k)
         with torch.inference_mode():
             got = V.vdp_conv(mu, sigma, w_mu, w_sigma, fuse_relu=relu)
             want = V.vdp_conv_plain(mu, sigma, w_mu, w_sigma, fuse_relu=relu)
             torch.cuda.synchronize()
-            abs_err, rel_err, flips = _vdp_errors(torch, got, want, relu)
+            abs_err, rel_err, flips = _vdp_errors(torch, got, want, relu, VDP_TOL)
             if rel_err > VDP_TOL:
                 _die(f"vdp_conv {config}/{layer} disagrees with its plain "
                      f"version: relative error {rel_err:.3e} > {VDP_TOL}")
+            f64_err = None
+            if k == 3:
+                want64 = V.vdp_conv_plain(
+                    mu.double(), None if sigma is None else sigma.double(),
+                    w_mu.double(), w_sigma.double(), fuse_relu=relu)
+                _, f64_err, _ = _vdp_errors(torch, [g.double() for g in got],
+                                            want64, relu, VDP_F64_TOL)
+                if f64_err > VDP_F64_TOL:
+                    _die(f"vdp_conv {config}/{layer} ({plan.path}) is not at "
+                         f"float32 accuracy: relative error {f64_err:.3e} "
+                         f"against float64 > {VDP_F64_TOL}")
+                del want64
             ms = _time_ms(torch, lambda: V.vdp_conv(mu, sigma, w_mu, w_sigma, relu))
             plain_ms = _time_ms(
                 torch, lambda: V.vdp_conv_plain(mu, sigma, w_mu, w_sigma, relu)
             )
-        ho, wo = h - k + 1, w - k + 1
-        n_in = (2 if has_sigma else 1) * b * h * w * cin
-        nbytes = 4 * (n_in + k * k * cin * cout + cout
-                      + 2 * b * ho * wo * cout + b * ho * wo)
-        flops = (2 if has_sigma else 1) * 2 * k * k * cin * cout * b * ho * wo
+            dev_ms = device_ms(lambda: V.vdp_conv(mu, sigma, w_mu, w_sigma, relu))
+            cudnn_ms = device_ms(lambda: V._conv_valid(mu, w_mu))
+        bounds = vdp_conv_bounds(b, h, w, cin, cout, k, has_sigma)
+        acc = self.vdp.setdefault(config, [0.0, 0.0, 0.0])
+        acc[0] += dev_ms
+        acc[1] += cudnn_ms
+        acc[2] += bounds["bound_3xtf32_ms"]
         self._record("vdp_conv", config, abs_err, rel_err, ms, plain_ms,
-                     _bound(nbytes, flops), {
+                     (bounds["bound_ms"], bounds["bytes_ms"], bounds["f32_ms"]), {
             "layer": layer, "shape": [b, h, w, cin, cout, k],
             "sigma": has_sigma, "relu": relu, "relu_ties": flips,
+            "path": plan.path, "splits": plan.splits, "blocks": plan.blocks,
+            "f64_max_rel_err": f64_err, "device_ms": dev_ms,
+            "bound_3xtf32_ms": bounds["bound_3xtf32_ms"],
+            "cudnn_mu_ms": cudnn_ms,
         })
 
     def vmaxpool(self, config, layer, b, h, w, c, ties=False):
@@ -356,12 +375,12 @@ class KernelCheck:
         print(json.dumps(line), flush=True)
 
 
-def _vdp_errors(torch, got, want, relu):
+def _vdp_errors(torch, got, want, relu, tol):
     """(max abs error, max error / max |plain|, relu ties) over the three
     outputs. With the fused ReLU a pixel whose pre-activation rounds to 0 in
     one version and not in the other is masked differently; such a tie is
-    accepted only where both mu outputs are within tolerance of 0, and its
-    sigma is left out of the comparison."""
+    accepted only where both mu outputs are within ``tol`` of mu's max
+    magnitude, and its sigma is left out of the comparison."""
     g_mu, g_sig, g_win = got
     w_mu, w_sig, w_win = want
     keep = torch.ones_like(g_mu, dtype=torch.bool)
@@ -370,7 +389,7 @@ def _vdp_errors(torch, got, want, relu):
         tie = (g_mu > 0) != (w_mu > 0)
         flips = int(tie.sum())
         if flips:
-            bound = VDP_TOL * float(w_mu.abs().max())
+            bound = tol * float(w_mu.abs().max())
             if float(torch.maximum(g_mu.abs(), w_mu.abs())[tie].max()) > bound:
                 _die("vdp_conv: a ReLU mask differs away from mu = 0")
             keep = ~tie
@@ -390,7 +409,7 @@ def _zero_launches() -> None:
     from supernet_tpu_torch.ops.kernels import sigma_bwd as S
     from supernet_tpu_torch.ops.kernels import vdp_conv as V
 
-    V.launches = P.launches = P.bwd_launches = S.launches = 0
+    V.launches = V.reduce_launches = P.launches = P.bwd_launches = S.launches = 0
 
 
 def _read_launches() -> dict:
@@ -398,8 +417,9 @@ def _read_launches() -> dict:
     from supernet_tpu_torch.ops.kernels import sigma_bwd as S
     from supernet_tpu_torch.ops.kernels import vdp_conv as V
 
-    return {"vdp_conv": V.launches, "vmaxpool": P.launches,
-            "vmaxpool_bwd": P.bwd_launches, "sigma_bwd": S.launches}
+    return {"vdp_conv": V.launches, "vdp_conv_reduce": V.reduce_launches,
+            "vmaxpool": P.launches, "vmaxpool_bwd": P.bwd_launches,
+            "sigma_bwd": S.launches}
 
 
 def _serve(torch, name, cfg, batch, sizes):
@@ -430,6 +450,7 @@ def _serve(torch, name, cfg, batch, sizes):
     chunks = sum(math.ceil(n / batch) for n in sizes)
     want = {
         "vdp_conv": chunks * sum(1 for _, k, _, _ in layer_names(cfg) if k == 3),
+        "vdp_conv_reduce": chunks * _split_layers(cfg, batch),
         "vmaxpool": chunks * (cfg.depth - 1),
         "vmaxpool_bwd": 0,
         "sigma_bwd": 0,
@@ -599,8 +620,9 @@ def _train(torch, name, cfg, tc, batch, steps):
         metrics.append([float(v) for v in m])
     launches = _read_launches()
     n3 = sum(1 for _, k, _, _ in layer_names(cfg) if k == 3)
-    per_step = {"vdp_conv": n3, "vmaxpool": cfg.depth - 1,
-                "vmaxpool_bwd": cfg.depth - 1, "sigma_bwd": n3}
+    per_step = {"vdp_conv": n3, "vdp_conv_reduce": _split_layers(cfg, batch),
+                "vmaxpool": cfg.depth - 1, "vmaxpool_bwd": cfg.depth - 1,
+                "sigma_bwd": n3}
     if launches != {k: v * steps for k, v in per_step.items()}:
         _die(f"{name} training: kernel launches {launches} in {steps} steps, "
              f"expected {per_step} per step")
@@ -649,6 +671,7 @@ def main() -> int:
         from supernet_tpu_torch.configs import BRATS, HIPPOCAMPUS
         from supernet_tpu_torch.ops import set_mxu_precision
         from supernet_tpu_torch.ops.kernels import _lib
+        from supernet_tpu_torch.profiling import layer_shapes
     except ModuleNotFoundError as e:
         _die(f"{e}: run chip_smoke.py from the root of a checkout")
 
@@ -670,7 +693,7 @@ def main() -> int:
     check = KernelCheck(torch)
     for config, cfg, batch in (("hippocampus", HIPPOCAMPUS.model, 20),
                                ("brats", BRATS.model, 2)):
-        convs, pools = _layer_inputs(torch, cfg)
+        convs, pools = layer_shapes(cfg)
         for layer, (_, h, w, cin), cout in convs:
             check.vdp_conv(config, layer, batch, h, w, cin, cout, 3,
                            has_sigma=layer != "conv_input", relu=True)
@@ -692,7 +715,7 @@ def main() -> int:
     # shape of one training step, then extra cases
     for config, cfg, batch in (("hippocampus", HIPPOCAMPUS.model, 20),
                                ("brats", BRATS.model, 2)):
-        convs, pools = _layer_inputs(torch, cfg)
+        convs, pools = layer_shapes(cfg)
         for layer, (_, h, w, cin), cout in convs:
             check.sigma_bwd(config, layer, batch, h - 2, w - 2, cout, 3)
             check.vdp_conv_bwd(config, layer, batch, h, w, cin, cout, 3,
@@ -729,11 +752,22 @@ def main() -> int:
     }
     # ms, plain_ms and bound_ms: summed over the shapes of one hippocampus
     # step at batch 20 (brats_*: one BraTS step at batch 2); launches: the
-    # hippocampus training run of phase 6
+    # hippocampus training run of phase 6. vdp_conv's bound_ms is the CUDA
+    # cores' float32 bound; bound_3xtf32_ms that of its tensor-core path.
     summary = []
     for kernel, (source, replaces) in sources.items():
         ms, plain_ms, bound_ms, bytes_ms, ops_ms = check.ms[(kernel, "hippocampus")]
         brats = check.ms[(kernel, "brats")]
+        extra = {}
+        if kernel == "vdp_conv":
+            # device_ms, cudnn_mu_ms (the mu product alone, a yardstick the
+            # port never calls) and the 3xTF32 bound, summed like ms; the
+            # split-K reduce launches of the hippocampus training run
+            (dev, cudnn, b3), (dev_b, cudnn_b, b3_b) = check.vdp["hippocampus"], check.vdp["brats"]
+            extra = {"device_ms": dev, "cudnn_mu_ms": cudnn, "bound_3xtf32_ms": b3,
+                     "brats_device_ms": dev_b, "brats_cudnn_mu_ms": cudnn_b,
+                     "brats_bound_3xtf32_ms": b3_b,
+                     "reduce_launches": train_launches["vdp_conv_reduce"]}
         summary.append({
             "name": kernel, "route": "cuda", "source": source,
             "replaces": replaces, "launches": train_launches[kernel],
@@ -745,7 +779,7 @@ def main() -> int:
             "bound_by": "operations" if ops_ms > bytes_ms else "bytes",
             "library_ms": None,
             "brats_ms": brats[0], "brats_plain_ms": brats[1],
-            "brats_bound_ms": brats[2],
+            "brats_bound_ms": brats[2], **extra,
         })
     bwd, bwd_b = check.ms[("vdp_conv_bwd", "hippocampus")], check.ms[("vdp_conv_bwd", "brats")]
     print(json.dumps({

@@ -110,7 +110,7 @@ def load() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            lib.supernet_vdp_conv_fwd.argtypes = [_P] * 7 + [_I] * 7 + [_P]
+            lib.supernet_vdp_conv_fwd.argtypes = [_P] * 8 + [_I] * 10 + [_P]
             lib.supernet_vdp_conv_fwd.restype = _I
             lib.supernet_vmaxpool_fwd.argtypes = [_P] * 5 + [_I] * 4 + [_P]
             lib.supernet_vmaxpool_fwd.restype = _I

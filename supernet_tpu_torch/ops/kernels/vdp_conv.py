@@ -10,8 +10,12 @@ VALID and stride 1:
     [optional ReLU: where mu_out > 0 is false, both outputs are 0]
 
 and returns ``(mu_out, sig_out, win)``; ``win`` [B,H',W',1] is the backward
-residual. The kernel is ``csrc/vdp_conv.cu``. :func:`vdp_conv` launches it
-for CUDA tensors and takes :func:`vdp_conv_plain` only for CPU tensors.
+residual. The kernels are ``csrc/vdp_conv.cu``: a 3xTF32 implicit GEMM on
+the tensor cores (wgmma), with split-K for the layers whose output tiles
+alone do not fill the card, and a CUDA-core kernel for the other shapes.
+:func:`plan` picks the path, the tile and the number of K slices from the
+shape alone. :func:`vdp_conv` launches the planned kernel for CUDA tensors
+and takes :func:`vdp_conv_plain` only for CPU tensors.
 :class:`VDPConv` is the differentiable form: its backward is the JAX
 package's hand-derived VJP (``_bwd_common``), with the window-sum term
 through the sigma-chain kernel (``ops/kernels/sigma_bwd.py``) and the
@@ -23,7 +27,8 @@ activations, HWIO ``w_mu`` [k,k,Cin,Cout] and the raw (pre-softplus)
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -33,9 +38,80 @@ from supernet_tpu_torch.ops.kernels.sigma_bwd import winsum_spread_bwd
 
 Triple = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
-# Kernel launches in this process; chip_smoke.py zeroes and reads it to show
-# that a path went through the kernel.
+# Kernel launches in this process; chip_smoke.py zeroes and reads them to
+# show that a path went through the kernels. `launches` counts calls of the
+# op (one main kernel each), `reduce_launches` the split-K reduce kernel.
 launches = 0
+reduce_launches = 0
+
+# The planner's constants: the card's SM count (H100 SXM), the tensor-core
+# kernel's output pixels per block (wgmma's M) and input channels per K
+# step, and the caps on the number of K slices and on their scratch.
+SMS = 132
+TC_TILE_M = 64
+TC_CHUNK = 8
+MAX_SPLITS = 16
+MAX_SCRATCH_BYTES = 64 << 20
+_PATH_ID = {"simt": 0, "wgmma": 1}
+
+
+class Plan(NamedTuple):
+    """How one vdp_conv call runs: ``path`` "wgmma" (tensor cores) or
+    "simt" (CUDA cores), output pixels x channels per block, K slices, the
+    main launch's blocks (slices included) and the split-K scratch."""
+
+    path: str
+    tile_m: int
+    tile_n: int
+    splits: int
+    blocks: int
+    scratch_bytes: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=None)
+def plan(b: int, h: int, w: int, cin: int, cout: int, k: int) -> Plan:
+    """The kernel plan for mu [b,h,w,cin] and w_mu [k,k,cin,cout], from the
+    shape alone (no CUDA: the CPU tests call it).
+
+    The tensor-core path takes k = 3 with Cin % 8 == 0 (its K steps are 8
+    channels of one tap), Cout % 4 == 0 (16-byte weight copies) and step
+    offsets that fit an int (9 Cin Cout and 3 W Cin below 2^31): N = 32
+    for Cout <= 32, else 64, and 64 output pixels (one warpgroup) per block.
+    Its blocks are M tiles x N tiles; where they are fewer than the SMs,
+    the Cin/8 chunks are cut into the fewest slices S (a divisor of the
+    chunks) that fill one wave, at most MAX_SPLITS and within
+    MAX_SCRATCH_BYTES, and a reduce kernel sums them. Everything else takes
+    the CUDA-core kernel (CT = 64 output channels per block for Cout >= 64,
+    else 32; tiles of 8x8 or 8x16 pixels of one image)."""
+    ho, wo = h - k + 1, w - k + 1
+    m = b * ho * wo
+    if (k == 3 and cin % TC_CHUNK == 0 and cout % 4 == 0
+            and 9 * cin * cout < 2 ** 31 and 3 * w * cin < 2 ** 31):
+        tile_n = 32 if cout <= 32 else 64
+        tiles = _cdiv(m, TC_TILE_M) * _cdiv(cout, tile_n)
+        chunks = cin // TC_CHUNK
+
+        def scratch(s: int) -> int:
+            return 0 if s == 1 else 4 * s * m * (2 * cout + 1)
+
+        splits = 1
+        for s in range(1, min(chunks, MAX_SPLITS) + 1):
+            if chunks % s or scratch(s) > MAX_SCRATCH_BYTES:
+                continue
+            splits = s
+            if tiles * s >= SMS:
+                break
+        return Plan("wgmma", TC_TILE_M, tile_n, splits, tiles * splits,
+                    scratch(splits))
+    ct = 64 if cout >= 64 else 32
+    tw = 8 if ct == 64 else 16
+    th = 8
+    blocks = _cdiv(ho, th) * _cdiv(wo, tw) * _cdiv(cout, ct) * b
+    return Plan("simt", th * tw, ct, 1, blocks, 0)
 
 
 def _conv_valid(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -71,8 +147,17 @@ def vdp_conv_plain(
     return mu_out.contiguous(), sig_out.contiguous(), win.contiguous()
 
 
+def _aligned(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """``t``, copied if its data does not start on 16 bytes (a contiguous
+    view into a larger tensor may not): the tensor-core kernel moves 16-byte
+    pieces."""
+    if t is None or t.data_ptr() % 16 == 0:
+        return t
+    return t.clone()
+
+
 def _launch(mu, sigma, w_mu, w_sigma, fuse_relu) -> Triple:
-    global launches
+    global launches, reduce_launches
     if mu.dim() != 4 or w_mu.dim() != 4:
         raise ValueError(
             f"vdp_conv: expected mu [B,H,W,Cin] and w_mu [k,k,Cin,Cout], got "
@@ -99,7 +184,14 @@ def _launch(mu, sigma, w_mu, w_sigma, fuse_relu) -> Triple:
     win = torch.empty((b, ho, wo, 1), device=mu.device, dtype=torch.float32)
     if b == 0:
         return mu_out, sig_out, win
+    p = plan(b, h, w, cin, cout, k)
     sw = F.softplus(w_sigma).contiguous()
+    scratch = None
+    if p.path == "wgmma":
+        mu, sigma, w_mu, sw = (_aligned(t) for t in (mu, sigma, w_mu, sw))
+        if p.splits > 1:
+            scratch = torch.empty(p.scratch_bytes // 4, device=mu.device,
+                                  dtype=torch.float32)
     lib = _lib.load()
     with torch.cuda.device(mu.device):
         err = lib.supernet_vdp_conv_fwd(
@@ -107,11 +199,15 @@ def _launch(mu, sigma, w_mu, w_sigma, fuse_relu) -> Triple:
             sigma.data_ptr() if sigma is not None else None,
             w_mu.data_ptr(), sw.data_ptr(),
             mu_out.data_ptr(), sig_out.data_ptr(), win.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None,
             b, h, w, cin, cout, k, int(fuse_relu),
+            _PATH_ID[p.path], p.tile_n, p.splits,
             torch.cuda.current_stream(mu.device).cuda_stream,
         )
-    _lib.check(err, "vdp_conv kernel launch")
+    _lib.check(err, f"vdp_conv kernel launch ({p.path}, {p.splits} K slices)")
     launches += 1
+    if p.splits > 1:
+        reduce_launches += 1
     return mu_out, sig_out, win
 
 

@@ -40,7 +40,9 @@ def set_mxu_precision(precision: str) -> None:
     """Set the float32 precision of PyTorch's own matmuls and convolutions
     on the card ('highest' | 'high' | 'default'). 'highest' turns TF32 off
     for both cuDNN and cuBLAS; the others turn it on. The hand-written
-    kernels always compute in float32."""
+    kernels compute at float32 accuracy whatever the setting: vdp_conv by
+    3xTF32 on the tensor cores (each operand split into two TF32 halves,
+    three products summed in float32), the others in float32."""
     global _MXU_PRECISION
     if precision not in ("highest", "default", "high"):
         raise ValueError(f"unknown precision {precision!r}")

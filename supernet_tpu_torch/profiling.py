@@ -2,6 +2,7 @@
 
     python -m supernet_tpu_torch.profiling --mode train --config hippocampus --batch 20
     python -m supernet_tpu_torch.profiling --mode serve --config brats --batch 2
+    python -m supernet_tpu_torch.profiling --mode layers --config brats --batch 2
 
 builds a train state (or an ``InferenceSession``) from ``init_params``
 (seeded; the time does not depend on the weights' values), runs WARMUP
@@ -11,6 +12,12 @@ then traces STEPS more under ``torch.profiler`` and sorts the device time
 of every kernel into the categories of :data:`CATEGORIES`. The device's
 busy share is its traced kernel and copy time over the untraced median
 step (request) time; the rest is idle (host dispatch, synchronisation).
+``--mode layers`` times the fused VDP conv (kernel 1) alone at every k=3
+layer shape of one forward, device time only (:func:`device_ms`), beside
+cuDNN's time for the mu product alone (TF32 off; a yardstick the port never
+calls), the float32 and 3xTF32 bounds, the path and the K slices
+(:func:`layer_times`). It reads only ``vdp_conv``'s public functions, so it
+also times another checkout of the port put first on ``PYTHONPATH``.
 Prints one JSON object; ``--out DIR`` also writes it there. Needs a CUDA
 device: there is no CPU fallback.
 """
@@ -22,14 +29,14 @@ import json
 import os
 import statistics
 import time
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
 from supernet_tpu_torch import train
 from supernet_tpu_torch.configs import get_config
-from supernet_tpu_torch.models import init_params
+from supernet_tpu_torch.models import forward, init_params, layer_names
 from supernet_tpu_torch.ops import set_mxu_precision
 from supernet_tpu_torch.serving import InferenceSession
 
@@ -50,6 +57,11 @@ CATEGORIES = (
 )
 OTHER = "other (elementwise, reductions, clip norms)"
 WARMUP, STEPS = 3, 10
+# H100 SXM peaks (NVIDIA's data sheet): device memory bandwidth, the CUDA
+# cores' float32 rate and the tensor cores' dense TF32 rate.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S = 495e12
 
 
 def category(kernel_name: str) -> str:
@@ -148,6 +160,98 @@ def _profile(run, per: str) -> Dict:
     }
 
 
+def layer_shapes(cfg) -> Tuple[List, List]:
+    """The input shape (batch 1) of every k=3 conv and every pool of one
+    forward, read from the stage taps of a CPU forward: ([(name, shape,
+    cout)], [(name, shape)])."""
+    params = init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    x = torch.zeros(1, cfg.image_size, cfg.image_size, cfg.in_channels)
+    stages = []
+    with torch.inference_mode():
+        forward(params, x, cfg, tap=lambda name, shape: stages.append((name, shape)))
+    ksize = {name: (k, cout) for name, k, _, cout in layer_names(cfg)}
+    convs, pools, prev = [], [], tuple(x.shape)
+    for name, shape in stages:
+        if name in ksize and ksize[name][0] == 3:
+            convs.append((name, prev, ksize[name][1]))
+        elif name.startswith("pool"):
+            pools.append((name, prev))
+        prev = shape
+    return convs, pools
+
+
+def vdp_conv_bounds(b, h, w, cin, cout, k, has_sigma) -> Dict:
+    """The least time the card could take for one fused VDP conv: bytes
+    (each input read once, each output written once) over the memory rate,
+    and the multiply-adds of both products as float32 operations on the
+    CUDA cores or as three TF32 passes on the tensor cores (3xTF32)."""
+    ho, wo = h - k + 1, w - k + 1
+    n_in = (2 if has_sigma else 1) * b * h * w * cin
+    nbytes = 4 * (n_in + k * k * cin * cout + cout + 2 * b * ho * wo * cout + b * ho * wo)
+    flops = (2 if has_sigma else 1) * 2 * k * k * cin * cout * b * ho * wo
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    return {"bytes": nbytes, "flops": flops, "bytes_ms": bytes_ms,
+            "f32_ms": 1e3 * flops / F32_FLOPS_PER_S,
+            "bound_ms": max(bytes_ms, 1e3 * flops / F32_FLOPS_PER_S),
+            "bound_3xtf32_ms": max(bytes_ms, 1e3 * 3 * flops / TF32_FLOPS_PER_S)}
+
+
+def device_ms(fn, runs: int = 20) -> float:
+    """Device time of one call of ``fn`` in ms, without the host's share:
+    after a warm-up the stream sleeps (``torch.cuda._sleep``) while the host
+    queues ``runs`` calls behind it, and CUDA events bracket the calls."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)  # ~30 ms at 1.7 GHz: longer than the queueing
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(runs):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / runs
+
+
+def layer_times(config: str, batch: int, seed: int = 0) -> Dict:
+    """vdp_conv at every k=3 layer shape of one forward at ``batch``, on
+    seeded random inputs: device ms of the kernel and of cuDNN's mu product
+    alone (TF32 off), both bounds, and the plan (path, K slices)."""
+    import torch.nn.functional as F
+
+    from supernet_tpu_torch.ops.kernels import vdp_conv as V
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("profiling needs a CUDA device; there is no CPU fallback")
+    set_mxu_precision("highest")
+    cfg = get_config(config).model
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows = []
+    for layer, (_, h, w, cin), cout in layer_shapes(cfg)[0]:
+        has_sigma = layer != "conv_input"
+        mu = torch.randn(batch, h, w, cin, device="cuda", generator=gen)
+        sigma = (0.05 * torch.randn(batch, h, w, cin, device="cuda", generator=gen).abs()
+                 if has_sigma else None)
+        w_mu = 0.1 * torch.randn(3, 3, cin, cout, device="cuda", generator=gen)
+        w_sigma = -4.0 + torch.randn(cout, device="cuda", generator=gen)
+        plan = getattr(V, "plan", None)  # absent in the CUDA-core-only port
+        p = plan(batch, h, w, cin, cout, 3) if plan else None
+        with torch.inference_mode():
+            ms = device_ms(lambda: V.vdp_conv(mu, sigma, w_mu, w_sigma, True))
+            x, wt = mu.permute(0, 3, 1, 2), w_mu.permute(3, 2, 0, 1)
+            cudnn_ms = device_ms(lambda: F.conv2d(x, wt))
+        rows.append({
+            "layer": layer, "shape": [batch, h, w, cin, cout, 3],
+            "path": p.path if p else "simt", "splits": p.splits if p else 1,
+            "device_ms": ms, "cudnn_mu_ms": cudnn_ms,
+            **vdp_conv_bounds(batch, h, w, cin, cout, 3, has_sigma),
+        })
+    return {"mode": "layers", "config": config, "batch": batch,
+            "device": torch.cuda.get_device_name(0), "layers": rows,
+            "device_ms_sum": sum(r["device_ms"] for r in rows)}
+
+
 def profile_train_step(config: str, batch: int, seed: int = 0) -> Dict:
     """One ``make_train_step`` step on a batch that is already on the card."""
     cfg, tc, params, rng = _setup(config, seed)
@@ -182,12 +286,13 @@ def profile_serving(config: str, batch: int, seed: int = 0) -> Dict:
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--mode", choices=("train", "serve"), default="train")
+    p.add_argument("--mode", choices=("train", "serve", "layers"), default="train")
     p.add_argument("--config", default="hippocampus")
     p.add_argument("--batch", type=int, default=20)
     p.add_argument("--out", default=None, help="directory for the JSON")
     a = p.parse_args(argv)
-    fn = profile_train_step if a.mode == "train" else profile_serving
+    fn = {"train": profile_train_step, "serve": profile_serving,
+          "layers": layer_times}[a.mode]
     line = json.dumps(fn(a.config, a.batch))
     if a.out:
         os.makedirs(a.out, exist_ok=True)
