@@ -33,9 +33,12 @@ Phases (any failure raises and the exit code is not 0):
 5. backward kernels: the pool backward (kernel 3) and the sigma-chain
    backward (kernel 4) against their plain versions on the card, at every
    pool and k=3 conv shape of one hippocampus training step (batch 20) and
-   one BraTS step (batch 2), plus ties, C=130 and odd-shape cases. The pool
-   backward must be bit-exact; the sigma-chain backward's u and dsw within
-   1e-5 of the plain output's max magnitude (the summation order differs).
+   one BraTS step (batch 2), plus ties, C=130 and odd-shape cases that
+   reach both paths of each (16-byte and general). The pool backward must
+   be bit-exact; the sigma-chain backward's u and dsw within 1e-5 of the
+   plain output's max magnitude (the summation order differs) and the same
+   bits in two runs (no atomics). Each line carries the planner's path and
+   grid and the device time with the stream held (no host time).
    At every k=3 conv shape the gradients of ``VDPConv`` (kernel 1 forward,
    kernel 4 inside the backward) are held against autograd of
    ``vdp_conv_plain``, each within 1e-4 of that gradient's max magnitude.
@@ -164,6 +167,8 @@ class KernelCheck:
         self.worst = {}
         self.ms = {}
         self.vdp = {}  # (config) -> summed device, cuDNN and 3xTF32 bound ms
+        self.paths = {}  # kernel 3 or 4 -> the planner's paths its shapes took
+        self.dev = {}  # (kernel 3 or 4, config) -> summed device ms
 
     def _randn(self, *shape):
         return self.torch.randn(shape, device="cuda", generator=self.gen)
@@ -246,6 +251,7 @@ class KernelCheck:
     def vmaxpool_bwd(self, config, layer, b, h, w, c, ties=False):
         torch = self.torch
         from supernet_tpu_torch.ops.kernels import pool as P
+        from supernet_tpu_torch.profiling import device_ms
 
         mu = self._randn(b, h, w, c)
         if ties:
@@ -264,10 +270,14 @@ class KernelCheck:
             plain_ms = _time_ms(
                 torch, lambda: P.vmaxpool_bwd_plain(idx, g_mu, g_sigma, h, w)
             )
+            dev_ms = device_ms(lambda: P.vmaxpool_bwd(idx, g_mu, g_sigma, h, w))
+        plan = P.plan_bwd(b, h, w, c)
+        self._seen("vmaxpool_bwd", config, plan.path, dev_ms)
         nbytes = 4 * (3 * idx.numel() + 2 * mu.numel())
         self._record("vmaxpool_bwd", config, 0.0, 0.0, ms, plain_ms,
                      _bound(nbytes, 0), {
             "layer": layer, "shape": [b, h, w, c], "ties": ties,
+            "path": plan.path, "blocks": plan.blocks, "device_ms": dev_ms,
         })
 
     def sigma_bwd(self, config, layer, b, hp, wp, c, k):
@@ -275,16 +285,21 @@ class KernelCheck:
         import torch.nn.functional as F
 
         from supernet_tpu_torch.ops.kernels import sigma_bwd as S
+        from supernet_tpu_torch.profiling import device_ms
 
         g = self._randn(b, hp, wp, c)
         t = 10.0 * self._randn(b, hp, wp).abs()
         s_w = F.softplus(self._randn(c) - 4.0)
         with torch.inference_mode():
             got = S.winsum_spread_bwd(g, t, s_w, k)
+            again = S.winsum_spread_bwd(g, t, s_w, k)
             want = S.winsum_spread_bwd_plain(g, t, s_w, k)
             torch.cuda.synchronize()
             abs_err = rel_err = 0.0
-            for name, x, r in zip(("u", "dsw"), got, want):
+            for name, x, x2, r in zip(("u", "dsw"), got, again, want):
+                if not torch.equal(x, x2):
+                    _die(f"sigma_bwd {config}/{layer}: {name} differs between "
+                         f"two runs on the same input")
                 if x.shape != r.shape:
                     _die(f"sigma_bwd {config}/{layer}: {name} shape {tuple(x.shape)}")
                 e = float((x - r).abs().max())
@@ -295,12 +310,17 @@ class KernelCheck:
                 abs_err, rel_err = max(abs_err, e), max(rel_err, rel)
             ms = _time_ms(torch, lambda: S.winsum_spread_bwd(g, t, s_w, k))
             plain_ms = _time_ms(torch, lambda: S.winsum_spread_bwd_plain(g, t, s_w, k))
+            dev_ms = device_ms(lambda: S.winsum_spread_bwd(g, t, s_w, k))
+        plan = S.plan(b, hp, wp, c, k)
+        self._seen("sigma_bwd", config, plan.path, dev_ms)
         h, w = hp + k - 1, wp + k - 1
         nbytes = 4 * (g.numel() + t.numel() + 2 * c + b * h * w)
         flops = 4 * g.numel() + k * k * b * h * w
         self._record("sigma_bwd", config, abs_err, rel_err, ms, plain_ms,
                      _bound(nbytes, flops), {
-            "layer": layer, "shape": [b, hp, wp, c, k],
+            "layer": layer, "shape": [b, hp, wp, c, k], "path": plan.path,
+            "blocks": plan.blocks, "spread_blocks": plan.spread_blocks,
+            "same_bits_in_two_runs": True, "device_ms": dev_ms,
         })
 
     def vdp_conv_bwd(self, config, layer, b, h, w, cin, cout, k, has_sigma, relu):
@@ -355,6 +375,12 @@ class KernelCheck:
             "layer": layer, "shape": [b, h, w, cin, cout, k],
             "sigma": has_sigma, "relu": relu, "relu_ties": flips,
         })
+
+    def _seen(self, kernel, config, path, dev_ms):
+        """Note the path a backward kernel's plan took and add its device
+        time (the stream held by a sleep) to the config's sum."""
+        self.paths.setdefault(kernel, set()).add(path)
+        self.dev[(kernel, config)] = self.dev.get((kernel, config), 0.0) + dev_ms
 
     def _record(self, kernel, config, abs_err, rel_err, ms, plain_ms, bound, extra):
         worst = self.worst.setdefault(kernel, [0.0, 0.0])
@@ -725,8 +751,16 @@ def main() -> int:
     check.vmaxpool_bwd("extra", "ties", 20, 60, 60, 32, ties=True)
     check.vmaxpool_bwd("extra", "c130", 3, 8, 8, 130, ties=True)
     check.vmaxpool_bwd("extra", "odd", 3, 13, 15, 36, ties=True)
+    check.vmaxpool_bwd("extra", "c64_odd", 2, 9, 7, 64, ties=True)
+    check.vmaxpool_bwd("extra", "c130_odd", 3, 13, 15, 130, ties=True)
     check.sigma_bwd("extra", "c130_odd", 3, 17, 19, 130, 3)
+    check.sigma_bwd("extra", "c36_odd", 3, 17, 19, 36, 3)
     check.sigma_bwd("extra", "k2", 4, 32, 28, 40, 2)
+    for kernel, both in (("vmaxpool_bwd", {"vec4", "scalar"}),
+                         ("sigma_bwd", {"vec4", "rows"})):
+        if check.paths[kernel] != both:
+            _die(f"{kernel}: the shapes reached the paths "
+                 f"{sorted(check.paths[kernel])}, expected {sorted(both)}")
     check.vdp_conv_bwd("extra", "k3_no_relu_c130", 3, 17, 19, 24, 130, 3, True, False)
     check.vdp_conv_bwd("extra", "k2_relu", 4, 33, 29, 24, 40, 2, True, True)
 
@@ -768,6 +802,11 @@ def main() -> int:
                      "brats_device_ms": dev_b, "brats_cudnn_mu_ms": cudnn_b,
                      "brats_bound_3xtf32_ms": b3_b,
                      "reduce_launches": train_launches["vdp_conv_reduce"]}
+        elif kernel in check.paths:
+            # the stream held by a sleep, so no host time counts; summed like ms
+            extra = {"device_ms": check.dev[(kernel, "hippocampus")],
+                     "brats_device_ms": check.dev[(kernel, "brats")],
+                     "paths": sorted(check.paths[kernel])}
         summary.append({
             "name": kernel, "route": "cuda", "source": source,
             "replaces": replaces, "launches": train_launches[kernel],

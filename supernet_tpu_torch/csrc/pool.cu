@@ -21,10 +21,17 @@
 // _pool_bwd_call): each full-resolution element (y, x) takes its window's
 // gradient where idx == 2 * (y % 2) + (x % 2) and 0 elsewhere, for g_mu and
 // g_sigma alike. Odd H or W are cropped as in ops/moments.py:_vmaxpool_bwd,
-// so again no shape leaves the kernel. Bound by bytes as well: one thread per
-// full-resolution element, channel fastest, reads its quarter-resolution idx
-// and two gradients once (neighbouring threads share them through L1) and
-// writes 0 or g. One pass, no memset, no atomics.
+// so again no shape leaves the kernel. Bound by bytes as well: 3 floats read
+// and 8 written per window and channel. Design, for C % 4 == 0
+// (vmaxpool_bwd_vec_kernel): one thread per pooled window and 4 channels.
+// It reads idx, g_mu and g_sigma once, 16 bytes each, works out its window's
+// place once, and writes 16 bytes to each tap of d_mu and d_sigma that lies
+// inside H x W, so every input byte is loaded by exactly one thread and
+// every access of a warp covers whole 128-byte lines (channels fastest,
+// then the window's two taps of a row side by side). Any other C takes
+// vmaxpool_bwd_kernel: one thread per full-resolution element, channel
+// fastest; the four threads of a window share its inputs through L1. Both
+// write every output in one pass: no memset, no atomics, bit-exact.
 
 #include <cuda_runtime.h>
 
@@ -101,6 +108,39 @@ __global__ void __launch_bounds__(kThreads) vmaxpool_bwd_kernel(
   d_sigma[i] = sel ? g_sigma[q] : 0.f;
 }
 
+// One thread per pooled window x 4 channels; C4 = C / 4, total = B Ho Wo C4.
+__global__ void __launch_bounds__(kThreads) vmaxpool_bwd_vec_kernel(
+    const float4* __restrict__ idx, const float4* __restrict__ g_mu,
+    const float4* __restrict__ g_sigma, float4* __restrict__ d_mu,
+    float4* __restrict__ d_sigma, int H, int W, int C4, int Ho, int Wo,
+    unsigned total) {
+  const unsigned i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= total) return;
+  unsigned r = i / C4;
+  const int c4 = static_cast<int>(i - r * C4);
+  const unsigned r2 = r / Wo;
+  const int ox = static_cast<int>(r - r2 * Wo);
+  const unsigned b = r2 / Ho;
+  const int oy = static_cast<int>(r2 - b * Ho);
+
+  const float4 id = idx[i], gm = g_mu[i], gs = g_sigma[i];
+  const int y0 = 2 * oy, x0 = 2 * ox;
+  const long long dx = C4, dy = static_cast<long long>(W) * C4;
+  const long long base = ((static_cast<long long>(b) * H + y0) * W + x0) * C4 + c4;
+#pragma unroll
+  for (int tap = 0; tap < 4; ++tap) {
+    if ((tap & 1) && x0 + 1 >= W) continue;
+    if ((tap & 2) && y0 + 1 >= H) continue;
+    const float ft = static_cast<float>(tap);
+    const bool sx = id.x == ft, sy = id.y == ft, sz = id.z == ft, sw = id.w == ft;
+    const long long o = base + ((tap & 1) ? dx : 0) + ((tap & 2) ? dy : 0);
+    d_mu[o] = make_float4(sx ? gm.x : 0.f, sy ? gm.y : 0.f, sz ? gm.z : 0.f,
+                          sw ? gm.w : 0.f);
+    d_sigma[o] = make_float4(sx ? gs.x : 0.f, sy ? gs.y : 0.f, sz ? gs.z : 0.f,
+                             sw ? gs.w : 0.f);
+  }
+}
+
 }  // namespace
 
 // mu, sigma: [B, H, W, C] float32, contiguous. mx, so (and idx, or null):
@@ -121,13 +161,29 @@ extern "C" int supernet_vmaxpool_fwd(const void* mu, const void* sigma,
 }
 
 // idx, g_mu, g_sigma: [B, ceil(H/2), ceil(W/2), C] float32, contiguous.
-// d_mu, d_sigma: [B, H, W, C]. Launches on `stream` and returns
-// cudaGetLastError().
+// d_mu, d_sigma: [B, H, W, C]. `vec` picks the 16-byte kernel: C % 4 == 0,
+// every pointer on 16 bytes and fewer than 2^31 windows x C/4. Launches on
+// `stream` and returns cudaGetLastError().
 extern "C" int supernet_vmaxpool_bwd(const void* idx, const void* g_mu,
                                      const void* g_sigma, void* d_mu,
                                      void* d_sigma, int B, int H, int W, int C,
-                                     void* stream) {
+                                     int vec, void* stream) {
   const int Ho = (H + 1) / 2, Wo = (W + 1) / 2;
+  if (vec) {
+    const int C4 = C / 4;
+    const long long total = static_cast<long long>(B) * Ho * Wo * C4;
+    if (C % 4 != 0 || total >= (1ll << 31)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const long long blocks = (total + kThreads - 1) / kThreads;
+    vmaxpool_bwd_vec_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float4*>(idx), static_cast<const float4*>(g_mu),
+        static_cast<const float4*>(g_sigma), static_cast<float4*>(d_mu),
+        static_cast<float4*>(d_sigma), H, W, C4, Ho, Wo,
+        static_cast<unsigned>(total));
+    return static_cast<int>(cudaGetLastError());
+  }
   const long long total = static_cast<long long>(B) * H * W * C;
   const long long blocks = (total + kThreads - 1) / kThreads;
   vmaxpool_bwd_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,

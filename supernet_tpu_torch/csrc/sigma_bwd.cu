@@ -10,22 +10,45 @@
 //   dsw = sum_{b,h',w'} g * win                  [C]
 //
 // What bounds it: bytes. Each element of g is read once for two
-// multiply-adds, so the kernel is a streaming pass over g at device-memory
-// bandwidth.
+// multiply-adds, so the work is a streaming pass over g at device-memory
+// bandwidth; dt and u are 1/C of g. The small layers are bound by the cost
+// of a launch instead.
 //
 // Design. The TPU kernel walks the rows of one image in order and carries
 // the last k-1 dt rows from one tile to the next. Blocks on the card run in
-// no order, so the carry becomes a halo: a block owns kRows rows of u of one
-// image, recomputes dt for the k-1 rows above them as well, keeps that
-// (kRows+k-1) x W' tile of dt zero-padded in shared memory and spreads it
-// along rows and columns there. dt is formed one pixel per warp, the lanes
-// over channels (a warp reads a pixel's channels as one run of addresses)
-// and reduced with shuffles. dsw counts only the block's own g rows (those
-// of its u rows, so every g row counts once): each lane adds g * win for its
-// channels into its warp's row of shared memory, the warps' rows are summed
-// in a fixed order, and each block writes a partial [C]; the caller sums the
-// partials, as the TPU path sums its per-image partials outside the kernel.
-// Deterministic, no atomics.
+// no order and nothing carries over, so the work is cut where it needs no
+// carry: two kernels, the first over g flat by pixel, the second over u.
+//
+// Pass 1 (sigma_bwd_dt_kernel, C % 4 == 0, C <= 512). A pixel's channels are
+// C/4 float4; a group of LANES lanes (8, 16 or 32) covers them in STEPS
+// 16-byte loads per lane, so at C = 32 one load instruction of a warp reads
+// four pixels. The groups of the whole grid walk the pixels with the stride
+// of their number, UNROLL pixels per trip, which keeps four independent
+// 16-byte loads of every lane in flight. A lane owns the same channels for
+// its whole walk: s_w and its dsw sums stay in registers. dt of a pixel is
+// reduced over the group's lanes by shuffles and written to a scratch
+// [B,H',W']. At the end a block folds its groups' dsw sums (shuffles across
+// the groups of a warp, then the warps in order through shared memory) and
+// writes one partial row [C]. The grid is a function of the shape alone, so
+// the partials and their order are too.
+//
+// Pass 2 (sigma_bwd_spread_kernel). One thread per element of u sums the
+// k x k dt values that reach it (dt is small and sits in L2). Its first
+// ceil(C/8) blocks sum the dsw partials instead: 8 channels per block, the
+// rows dealt to the threads, each thread's rows in order, then a tree over
+// the threads of a channel. Pass 2 is launched with programmatic stream
+// serialization: pass 1 lets its dependents be scheduled as it starts
+// (griddepcontrol.launch_dependents), pass 2 waits for pass 1's end and its
+// writes before it reads anything (griddepcontrol.wait), so the second
+// launch's latency hides behind the first kernel instead of following it.
+//
+// No atomics anywhere: u and dsw are the same bits in every run.
+//
+// The general path (sigma_bwd_rows_kernel, any C) keeps the TPU kernel's row
+// tiles: a block owns `rows` rows of u of one image, recomputes dt for the
+// k-1 rows above them as a halo in shared memory (the carry's replacement),
+// one pixel per warp with the lanes over channels, and writes a dsw partial
+// per block that the caller sums.
 
 #include <cuda_runtime.h>
 
@@ -33,8 +56,166 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kDswChannels = 8;  // channels per dsw-fold block of pass 2
+constexpr int kDswSlices = kThreads / kDswChannels;
 
-__global__ void __launch_bounds__(kThreads) sigma_bwd_kernel(
+__device__ __forceinline__ float dot4(const float4 a, const float4 b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+__device__ __forceinline__ void axpy4(float4& acc, const float4 v, float s) {
+  acc.x = fmaf(v.x, s, acc.x);
+  acc.y = fmaf(v.y, s, acc.y);
+  acc.z = fmaf(v.z, s, acc.z);
+  acc.w = fmaf(v.w, s, acc.w);
+}
+
+// g as float4: [P][C4]; t, dt: [P]; sw as float4: [C4]; part as float4:
+// [gridDim.x][C4]. LANES * STEPS >= C4.
+template <int LANES, int STEPS, int UNROLL>
+__global__ void __launch_bounds__(kThreads) sigma_bwd_dt_kernel(
+    const float4* __restrict__ g, const float* __restrict__ t,
+    const float4* __restrict__ sw, float* __restrict__ dt,
+    float4* __restrict__ part, long long P, int C4) {
+  constexpr int kGroups = kThreads / LANES;  // pixel groups per block
+  __shared__ float4 s_part[kWarps][LANES * STEPS];
+
+  // pass 2 may be scheduled from now on; it waits for this grid's end itself
+  asm volatile("griddepcontrol.launch_dependents;");
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int sub = lane % LANES;   // this lane's place in its group
+  const int grp = lane / LANES;   // its group's place in the warp
+  const long long stride = static_cast<long long>(gridDim.x) * kGroups;
+  // the first group of this warp: the trip count is the same for the whole
+  // warp, so the shuffles below always find all 32 lanes
+  const long long first =
+      static_cast<long long>(blockIdx.x) * kGroups + warp * (32 / LANES);
+
+  float4 w[STEPS], acc[STEPS];
+  bool on[STEPS];
+#pragma unroll
+  for (int s = 0; s < STEPS; ++s) {
+    const int q = sub + s * LANES;
+    on[s] = q < C4;
+    w[s] = on[s] ? sw[q] : make_float4(0.f, 0.f, 0.f, 0.f);
+    acc[s] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+
+  for (long long base = first; base < P; base += stride * UNROLL) {
+    float4 v[UNROLL][STEPS];
+    float tv[UNROLL];
+#pragma unroll
+    for (int j = 0; j < UNROLL; ++j) {
+      const long long p = base + grp + j * stride;
+      const bool ok = p < P;
+      tv[j] = ok ? t[p] : 0.f;
+#pragma unroll
+      for (int s = 0; s < STEPS; ++s) {
+        v[j][s] = (ok && on[s]) ? g[p * C4 + sub + s * LANES]
+                                : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < UNROLL; ++j) {
+      float d = 0.f;
+#pragma unroll
+      for (int s = 0; s < STEPS; ++s) {
+        d = dot4(v[j][s], w[s], d);
+        axpy4(acc[s], v[j][s], tv[j]);
+      }
+#pragma unroll
+      for (int o = LANES / 2; o > 0; o >>= 1) {
+        d += __shfl_xor_sync(0xffffffffu, d, o);
+      }
+      const long long p = base + grp + j * stride;
+      if (sub == 0 && p < P) dt[p] = d;
+    }
+  }
+
+  // dsw: the groups of a warp own the same channels, fold them by shuffles,
+  // then the warps in order
+#pragma unroll
+  for (int s = 0; s < STEPS; ++s) {
+#pragma unroll
+    for (int o = LANES; o < 32; o <<= 1) {
+      acc[s].x += __shfl_xor_sync(0xffffffffu, acc[s].x, o);
+      acc[s].y += __shfl_xor_sync(0xffffffffu, acc[s].y, o);
+      acc[s].z += __shfl_xor_sync(0xffffffffu, acc[s].z, o);
+      acc[s].w += __shfl_xor_sync(0xffffffffu, acc[s].w, o);
+    }
+    if (lane < LANES) s_part[warp][sub + s * LANES] = acc[s];
+  }
+  __syncthreads();
+  for (int q = tid; q < C4; q += kThreads) {
+    float4 a = s_part[0][q];
+#pragma unroll
+    for (int i = 1; i < kWarps; ++i) {
+      const float4 b = s_part[i][q];
+      a.x += b.x;
+      a.y += b.y;
+      a.z += b.z;
+      a.w += b.w;
+    }
+    part[static_cast<long long>(blockIdx.x) * C4 + q] = a;
+  }
+}
+
+// dt: [B][Hp][Wp]; part: [n_part][C]; u: [B][H][W]; dsw: [C]. Blocks
+// 0 .. dsw_blocks-1 fold the partials, the others write u. dt and part are
+// written by pass 1 while this kernel may already be resident, so they are
+// not declared read-only (no non-coherent loads).
+__global__ void __launch_bounds__(kThreads) sigma_bwd_spread_kernel(
+    const float* dt, const float* part, float* __restrict__ u,
+    float* __restrict__ dsw, int Hp, int Wp, int C, int k, int n_part,
+    int dsw_blocks, unsigned total) {
+  const int tid = threadIdx.x;
+  // launched while pass 1 still runs: nothing of dt or part is read before
+  // that grid has ended and its writes are visible
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  if (static_cast<int>(blockIdx.x) < dsw_blocks) {
+    __shared__ float s_fold[kDswSlices][kDswChannels];
+    const int ch = tid % kDswChannels, slice = tid / kDswChannels;
+    const int c = blockIdx.x * kDswChannels + ch;
+    float a = 0.f;
+    if (c < C) {
+#pragma unroll 4
+      for (int r = slice; r < n_part; r += kDswSlices) {
+        a += part[static_cast<long long>(r) * C + c];
+      }
+    }
+    s_fold[slice][ch] = a;
+    __syncthreads();
+    for (int o = kDswSlices / 2; o > 0; o >>= 1) {
+      if (slice < o) s_fold[slice][ch] += s_fold[slice + o][ch];
+      __syncthreads();
+    }
+    if (slice == 0 && c < C) dsw[c] = s_fold[0][ch];
+    return;
+  }
+  const unsigned e = (blockIdx.x - dsw_blocks) * kThreads + tid;
+  if (e >= total) return;
+  const unsigned H = Hp + k - 1, W = Wp + k - 1;
+  const unsigned row = e / W;
+  const int x = static_cast<int>(e - row * W);
+  const unsigned b = row / H;
+  const int y = static_cast<int>(row - b * H);
+  const float* img = dt + static_cast<long long>(b) * Hp * Wp;
+  float acc = 0.f;
+  for (int di = 0; di < k; ++di) {
+    const int yy = y - di;
+    if (yy < 0 || yy >= Hp) continue;
+    for (int dj = 0; dj < k; ++dj) {
+      const int xx = x - dj;
+      if (xx >= 0 && xx < Wp) acc += img[yy * Wp + xx];
+    }
+  }
+  u[e] = acc;
+}
+
+__global__ void __launch_bounds__(kThreads) sigma_bwd_rows_kernel(
     const float* __restrict__ g, const float* __restrict__ t,
     const float* __restrict__ sw, float* __restrict__ u,
     float* __restrict__ dsw_part, int Hp, int Wp, int C, int k, int rows,
@@ -99,16 +280,86 @@ __global__ void __launch_bounds__(kThreads) sigma_bwd_kernel(
   }
 }
 
-// Floats of dynamic shared memory one block needs for `rows` u rows.
+// Floats of dynamic shared memory one block of the general path needs for
+// `rows` u rows.
 long long smem_floats(int Wp, int C, int k, int rows) {
   return static_cast<long long>(rows + k - 1) * (Wp + 2 * (k - 1)) +
          static_cast<long long>(1 + kWarps) * C;
 }
 
+template <int LANES, int STEPS, int UNROLL>
+void launch_dt(const float* g, const float* t, const float* sw, float* dt,
+               float* part, long long P, int C4, int blocks,
+               cudaStream_t stream) {
+  sigma_bwd_dt_kernel<LANES, STEPS, UNROLL>
+      <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+          reinterpret_cast<const float4*>(g), t,
+          reinterpret_cast<const float4*>(sw), dt,
+          reinterpret_cast<float4*>(part), P, C4);
+}
+
 }  // namespace
 
-// g: [B, Hp, Wp, C]; t: [B, Hp, Wp]; sw: [C]; all float32, contiguous.
-// u: [B, Hp+k-1, Wp+k-1]; dsw_part: [B * tiles, C] with
+// The two-pass path. g: [B, Hp, Wp, C] with C % 4 == 0; t: [B, Hp, Wp];
+// sw: [C]; all float32, contiguous, g, sw and part on 16 bytes. dt:
+// [B, Hp, Wp] and part: [blocks, C] are scratch; u: [B, Hp+k-1, Wp+k-1];
+// dsw: [C]. `lanes` (8, 16 or 32) times `steps` (1..4, above 1 only with 32
+// lanes) covers C/4; `blocks` is pass 1's grid. Launches both kernels on
+// `stream`, the second as a programmatic dependent of the first, and
+// returns the first launch error.
+extern "C" int supernet_sigma_bwd_vec(const void* g, const void* t,
+                                      const void* sw, void* dt, void* part,
+                                      void* u, void* dsw, int B, int Hp,
+                                      int Wp, int C, int k, int lanes,
+                                      int steps, int blocks, void* stream) {
+  const int C4 = C / 4;
+  const long long P = static_cast<long long>(B) * Hp * Wp;
+  const long long total =
+      static_cast<long long>(B) * (Hp + k - 1) * (Wp + k - 1);
+  if (C % 4 != 0 || lanes * steps < C4 || blocks < 1 ||
+      total >= (1ll << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto* gp = static_cast<const float*>(g);
+  const auto* tp = static_cast<const float*>(t);
+  const auto* sp = static_cast<const float*>(sw);
+  auto* dp = static_cast<float*>(dt);
+  auto* pp = static_cast<float*>(part);
+  auto st = static_cast<cudaStream_t>(stream);
+  const int key = lanes * 8 + steps;
+  switch (key) {
+    case 8 * 8 + 1: launch_dt<8, 1, 4>(gp, tp, sp, dp, pp, P, C4, blocks, st); break;
+    case 16 * 8 + 1: launch_dt<16, 1, 4>(gp, tp, sp, dp, pp, P, C4, blocks, st); break;
+    case 32 * 8 + 1: launch_dt<32, 1, 4>(gp, tp, sp, dp, pp, P, C4, blocks, st); break;
+    case 32 * 8 + 2: launch_dt<32, 2, 2>(gp, tp, sp, dp, pp, P, C4, blocks, st); break;
+    case 32 * 8 + 3: launch_dt<32, 3, 1>(gp, tp, sp, dp, pp, P, C4, blocks, st); break;
+    case 32 * 8 + 4: launch_dt<32, 4, 1>(gp, tp, sp, dp, pp, P, C4, blocks, st); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int dsw_blocks = (C + kDswChannels - 1) / kDswChannels;
+  const long long u_blocks = (total + kThreads - 1) / kThreads;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(dsw_blocks + u_blocks));
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, sigma_bwd_spread_kernel,
+                           static_cast<const float*>(dp),
+                           static_cast<const float*>(pp),
+                           static_cast<float*>(u), static_cast<float*>(dsw), Hp,
+                           Wp, C, k, blocks, dsw_blocks,
+                           static_cast<unsigned>(total));
+  return static_cast<int>(err);
+}
+
+// The general path. g: [B, Hp, Wp, C]; t: [B, Hp, Wp]; sw: [C]; all float32,
+// contiguous. u: [B, Hp+k-1, Wp+k-1]; dsw_part: [B * tiles, C] with
 // tiles = ceil((Hp+k-1) / rows), one partial per block. Launches on `stream`
 // and returns cudaGetLastError(); a tile that needs more shared memory than
 // a block may have comes back as the error of cudaFuncSetAttribute.
@@ -121,13 +372,13 @@ extern "C" int supernet_sigma_bwd(const void* g, const void* t, const void* sw,
   const size_t bytes = smem_floats(Wp, C, k, rows) * sizeof(float);
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        sigma_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        sigma_bwd_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const long long blocks = static_cast<long long>(B) * tiles;
-  sigma_bwd_kernel<<<static_cast<unsigned>(blocks), kThreads, bytes,
-                     static_cast<cudaStream_t>(stream)>>>(
+  sigma_bwd_rows_kernel<<<static_cast<unsigned>(blocks), kThreads, bytes,
+                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(g), static_cast<const float*>(t),
       static_cast<const float*>(sw), static_cast<float*>(u),
       static_cast<float*>(dsw_part), Hp, Wp, C, k, rows, tiles);

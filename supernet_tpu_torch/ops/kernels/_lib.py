@@ -114,10 +114,14 @@ def load() -> ctypes.CDLL:
             lib.supernet_vdp_conv_fwd.restype = _I
             lib.supernet_vmaxpool_fwd.argtypes = [_P] * 5 + [_I] * 4 + [_P]
             lib.supernet_vmaxpool_fwd.restype = _I
-            lib.supernet_vmaxpool_bwd.argtypes = [_P] * 5 + [_I] * 4 + [_P]
+            lib.supernet_vmaxpool_bwd.argtypes = [_P] * 5 + [_I] * 5 + [_P]
             lib.supernet_vmaxpool_bwd.restype = _I
             lib.supernet_sigma_bwd.argtypes = [_P] * 5 + [_I] * 6 + [_P]
             lib.supernet_sigma_bwd.restype = _I
+            lib.supernet_sigma_bwd_vec.argtypes = [_P] * 7 + [_I] * 8 + [_P]
+            lib.supernet_sigma_bwd_vec.restype = _I
+            lib.supernet_empty_launch.argtypes = [_P]
+            lib.supernet_empty_launch.restype = _I
             lib.supernet_cuda_error_string.argtypes = [_I]
             lib.supernet_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -138,6 +142,15 @@ def check_input(op: str, name: str, t, shape) -> None:
         raise ValueError(
             f"{op}: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}"
         )
+
+
+def aligned(t):
+    """``t``, copied if its data does not start on 16 bytes (a contiguous
+    view into a larger tensor may not): the kernels that move 16-byte pieces
+    take no other. ``None`` stays ``None``."""
+    if t is None or t.data_ptr() % 16 == 0:
+        return t
+    return t.clone()
 
 
 def check(err: int, what: str) -> None:

@@ -3,14 +3,20 @@
 Counterpart of ``supernet_tpu/ops/pallas/pool.py``. Both kernels are in
 ``csrc/pool.cu``: the forward (``vmaxpool``) and the backward
 (``vmaxpool_bwd``), which routes each output gradient to the selected window
-tap. :class:`VMaxPool` is the autograd pair of the two. Each wrapper launches
-its kernel for CUDA tensors and takes its plain version only for CPU
-tensors.
+tap. Both are bound by bytes. The backward has two kernels, picked by
+:func:`plan_bwd` from the shape alone: ``"vec4"`` (C % 4 == 0: one thread per
+pooled window and 4 channels, 16-byte loads and stores) and ``"scalar"`` (any
+other C: one thread per full-resolution element). Both write every output
+once, without atomics, bit-exact with the plain version.
+:class:`VMaxPool` is the autograd pair of forward and backward. Each wrapper
+launches its kernel for CUDA tensors and takes its plain version only for
+CPU tensors.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import functools
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -119,6 +125,34 @@ def vmaxpool(mu: torch.Tensor, sigma: torch.Tensor, return_idx: bool = False):
     return (mx, so, idx) if return_idx else (mx, so)
 
 
+THREADS = 256  # per block, both backward kernels
+
+
+class BwdPlan(NamedTuple):
+    """How one pool backward runs: ``path`` "vec4" or "scalar", the
+    channels one thread handles, the threads that do work (windows x C/4,
+    or full-resolution elements) and the blocks of THREADS that hold them."""
+
+    path: str
+    channels: int
+    items: int
+    blocks: int
+
+
+@functools.lru_cache(maxsize=None)
+def plan_bwd(b: int, h: int, w: int, c: int) -> BwdPlan:
+    """The backward's kernel plan for d_mu [b,h,w,c], from the shape alone
+    (no CUDA: the CPU tests call it). "vec4" takes C % 4 == 0 with fewer
+    than 2^31 threads; a window at an odd bottom or right edge writes only
+    the taps that lie inside h x w."""
+    ho, wo = (h + 1) // 2, (w + 1) // 2
+    if c % 4 == 0 and b * ho * wo * (c // 4) < 2 ** 31:
+        items = b * ho * wo * (c // 4)
+        return BwdPlan("vec4", 4, items, -(-items // THREADS))
+    items = b * h * w * c
+    return BwdPlan("scalar", 1, items, -(-items // THREADS))
+
+
 def _launch_bwd(idx, g_mu, g_sigma, h, w):
     global bwd_launches
     if idx.dim() != 4:
@@ -135,14 +169,18 @@ def _launch_bwd(idx, g_mu, g_sigma, h, w):
     d_mu = torch.empty((b, h, w, c), device=idx.device, dtype=torch.float32)
     d_sigma = torch.empty_like(d_mu)
     if d_mu.numel():
+        p = plan_bwd(b, h, w, c)
+        if p.path == "vec4":
+            idx, g_mu, g_sigma = (_lib.aligned(t) for t in (idx, g_mu, g_sigma))
         lib = _lib.load()
         with torch.cuda.device(idx.device):
             err = lib.supernet_vmaxpool_bwd(
                 idx.data_ptr(), g_mu.data_ptr(), g_sigma.data_ptr(),
                 d_mu.data_ptr(), d_sigma.data_ptr(), b, h, w, c,
+                int(p.path == "vec4"),
                 torch.cuda.current_stream(idx.device).cuda_stream,
             )
-        _lib.check(err, "vmaxpool_bwd kernel launch")
+        _lib.check(err, f"vmaxpool_bwd kernel launch ({p.path})")
         bwd_launches += 1
     return d_mu, d_sigma
 
@@ -151,9 +189,11 @@ def vmaxpool_bwd(
     idx: torch.Tensor, g_mu: torch.Tensor, g_sigma: torch.Tensor, h: int, w: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The pool's backward: ``idx``, ``g_mu``, ``g_sigma`` [B,ceil(h/2),
-    ceil(w/2),C] -> ``(d_mu, d_sigma)`` [B,h,w,C].
+    ceil(w/2),C] -> ``(d_mu, d_sigma)`` [B,h,w,C]: each full-resolution
+    element takes its window's gradient where ``idx`` names its tap, else 0.
 
-    CUDA tensors go to the kernel (or raise); CPU tensors to
+    CUDA tensors go to the kernel :func:`plan_bwd` picks (or raise); CPU
+    tensors to
     :func:`vmaxpool_bwd_plain`. Any other device raises.
     """
     if idx.is_cuda:

@@ -9,29 +9,114 @@ softplus(w_sigma)``). Given its cotangent ``g`` [B,H',W',C], one pass gives
     u   = spread_k(sum_c g * s_w)     [B,H'+k-1,W'+k-1]  (the cotangent of the source)
     dsw = sum_{b,h',w'} g * win       [C]                (the cotangent of s_w)
 
-where ``spread_k`` is the transposed k x k ones convolution. The kernel is
-``csrc/sigma_bwd.cu``; it writes one ``dsw`` partial per block, which
-``torch.sum`` reduces here, as the TPU path sums its per-image partials
-outside the kernel. :func:`winsum_spread_bwd` launches it for CUDA tensors
-and takes :func:`winsum_spread_bwd_plain` only for CPU tensors.
+where ``spread_k`` is the transposed k x k ones convolution. The kernels are
+in ``csrc/sigma_bwd.cu``. The work is a streaming pass over ``g``, bound by
+bytes (by the cost of a launch at the small layers), and :func:`plan` lays
+it out from the shape alone:
+
+- ``"vec4"`` (C % 4 == 0, C <= 512: every model width): two kernels. The
+  first walks ``g`` flat by pixel with 16-byte loads, a group of 8, 16 or 32
+  lanes per pixel, writes ``dt`` to a scratch and one ``dsw`` partial row per
+  block; the second writes ``u`` from ``dt`` and folds the partial rows.
+- ``"rows"`` (any other C): one kernel, a block per ROWS rows of ``u`` of one
+  image with a recomputed halo, and ``torch.sum`` over its per-block ``dsw``
+  partials.
+
+Neither uses atomics, and the grid and the order of every sum depend on the
+shape only, so ``u`` and ``dsw`` are the same bits in every run.
+:func:`winsum_spread_bwd` launches the planned kernels for CUDA tensors and
+takes :func:`winsum_spread_bwd_plain` only for CPU tensors.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import functools
+from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from supernet_tpu_torch.ops.kernels import _lib
 
-# Kernel launches in this process; chip_smoke.py zeroes and reads it to show
-# that the training path went through the kernel.
+# Calls of the op that launched its kernels in this process (the two kernels
+# of the "vec4" path count as one); chip_smoke.py zeroes and reads it to show
+# that the training path went through the kernels.
 launches = 0
 
-# u rows per block: a block recomputes k-1 halo rows of dt, so fewer rows
-# cost more re-reads of g and more rows give fewer blocks for the SMs.
+# The planner's constants: the card's SM count (H100 SXM), the threads of a
+# block, pass 1's largest grid (two blocks of 256 threads per SM: on the card
+# one and three per SM were 1-6% slower over a train step's layers, four 4%
+# and eight 18-25%, each block paying for its fold and its partial row), the
+# widest C whose dsw sums fit a lane's registers (4 float4 per lane of 32),
+# the channels per dsw-fold block of pass 2, and the shared memory a block
+# may ask for.
+SMS = 132
+THREADS = 256
+MAX_BLOCKS = 2 * SMS
+MAX_VEC_C = 512
+DSW_CHANNELS = 8
+SMEM_LIMIT = 232448
+# "rows" path, u rows per block: a block recomputes k-1 halo rows of dt, so
+# fewer rows cost more re-reads of g and more rows give fewer blocks.
 ROWS = 8
+
+
+class Plan(NamedTuple):
+    """How one call runs. ``path`` "vec4" or "rows"; ``lanes`` per pixel,
+    16-byte ``steps`` per lane and pixel, pixels per trip (``unroll``);
+    ``blocks`` of the main kernel, which is also the number of dsw partial
+    rows; ``groups``: the pixel groups of the whole grid, the stride of the
+    walk over the pixels; ``trips``: the most pixels one group visits;
+    ``spread_blocks`` of pass 2, the first ``dsw_blocks`` of which fold the
+    partials; static or dynamic shared memory of the main kernel and the
+    floats of scratch (dt, then the partial rows on a 16-byte boundary)."""
+
+    path: str
+    lanes: int
+    steps: int
+    unroll: int
+    blocks: int
+    groups: int
+    trips: int
+    spread_blocks: int
+    dsw_blocks: int
+    smem_bytes: int
+    scratch_floats: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=None)
+def plan(b: int, hp: int, wp: int, c: int, k: int) -> Plan:
+    """The kernel plan for g [b,hp,wp,c] and a k x k window, from the shape
+    alone (no CUDA: the CPU tests call it).
+
+    "vec4": a pixel's c/4 float4 go to the fewest lanes of 8, 16 or 32 that
+    hold them, in ceil(c/128) steps per lane; a block of THREADS has
+    THREADS/lanes groups. The grid gives every group at least one pixel and
+    stops at MAX_BLOCKS, beyond which the groups walk on with the grid's
+    stride; each trip takes 4/steps pixels. Pass 2 has one thread per
+    element of u behind ceil(c/8) fold blocks."""
+    pixels = b * hp * wp
+    h, w = hp + k - 1, wp + k - 1
+    if c % 4 == 0 and c <= MAX_VEC_C and b * h * w < 2 ** 31:
+        c4 = c // 4
+        lanes = 8 if c4 <= 8 else 16 if c4 <= 16 else 32
+        steps = _cdiv(c4, lanes)
+        per_block = THREADS // lanes
+        blocks = max(1, min(_cdiv(pixels, per_block), MAX_BLOCKS))
+        groups = blocks * per_block
+        dsw_blocks = _cdiv(c, DSW_CHANNELS)
+        return Plan("vec4", lanes, steps, max(1, 4 // steps), blocks, groups,
+                    _cdiv(pixels, groups),
+                    dsw_blocks + _cdiv(b * h * w, THREADS), dsw_blocks,
+                    16 * (THREADS // 32) * lanes * steps,
+                    _cdiv(pixels, 4) * 4 + blocks * c)
+    tiles = _cdiv(h, ROWS)
+    smem = 4 * ((ROWS + k - 1) * (wp + 2 * (k - 1)) + (1 + THREADS // 32) * c)
+    return Plan("rows", 32, _cdiv(c, 32), 1, b * tiles, 0, 0, 0, 0, smem, 0)
 
 
 def winsum_spread_bwd_plain(
@@ -57,22 +142,34 @@ def _launch(g, t, s_w, k):
         raise ValueError("winsum_spread_bwd: inputs are on different devices")
     if k < 1 or c < 1 or min(hp, wp) < 1:
         raise ValueError(f"winsum_spread_bwd: unsupported sizes {tuple(g.shape)}, k={k}")
-    h, w = hp + k - 1, wp + k - 1
-    tiles = -(-h // ROWS)
-    u = torch.empty((b, h, w), device=g.device, dtype=torch.float32)
-    part = torch.empty((b * tiles, c), device=g.device, dtype=torch.float32)
+    u = torch.empty((b, hp + k - 1, wp + k - 1), device=g.device, dtype=torch.float32)
     if b == 0:
-        return u, part.sum(dim=0)
+        return u, torch.zeros(c, device=g.device, dtype=torch.float32)
+    p = plan(b, hp, wp, c, k)
     lib = _lib.load()
-    with torch.cuda.device(g.device):
-        err = lib.supernet_sigma_bwd(
-            g.data_ptr(), t.data_ptr(), s_w.data_ptr(), u.data_ptr(),
-            part.data_ptr(), b, hp, wp, c, k, ROWS,
-            torch.cuda.current_stream(g.device).cuda_stream,
-        )
-    _lib.check(err, "winsum_spread_bwd kernel launch")
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    if p.path == "vec4":
+        g, s_w = _lib.aligned(g), _lib.aligned(s_w)
+        scratch = torch.empty(p.scratch_floats, device=g.device, dtype=torch.float32)
+        part = scratch[p.scratch_floats - p.blocks * c:]
+        dsw = torch.empty(c, device=g.device, dtype=torch.float32)
+        with torch.cuda.device(g.device):
+            err = lib.supernet_sigma_bwd_vec(
+                g.data_ptr(), t.data_ptr(), s_w.data_ptr(), scratch.data_ptr(),
+                part.data_ptr(), u.data_ptr(), dsw.data_ptr(),
+                b, hp, wp, c, k, p.lanes, p.steps, p.blocks, stream,
+            )
+    else:
+        part = torch.empty((p.blocks, c), device=g.device, dtype=torch.float32)
+        with torch.cuda.device(g.device):
+            err = lib.supernet_sigma_bwd(
+                g.data_ptr(), t.data_ptr(), s_w.data_ptr(), u.data_ptr(),
+                part.data_ptr(), b, hp, wp, c, k, ROWS, stream,
+            )
+        dsw = part.sum(dim=0)
+    _lib.check(err, f"winsum_spread_bwd kernel launch ({p.path}, {p.blocks} blocks)")
     launches += 1
-    return u, part.sum(dim=0)
+    return u, dsw
 
 
 def winsum_spread_bwd(
@@ -81,7 +178,8 @@ def winsum_spread_bwd(
     """``(u, dsw)`` from ``g`` [B,H',W',C], ``t`` [B,H',W'] (the forward's
     ``win``) and ``s_w`` [C].
 
-    CUDA tensors go to the kernel (or raise); CPU tensors to
+    CUDA tensors go to the kernels :func:`plan` picks (or raise), and give
+    the same bits in every run; CPU tensors go to
     :func:`winsum_spread_bwd_plain`. Any other device raises.
     """
     if g.is_cuda:

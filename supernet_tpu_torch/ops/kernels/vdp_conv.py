@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from supernet_tpu_torch.ops.kernels import _lib
+from supernet_tpu_torch.ops.kernels._lib import aligned as _aligned
 from supernet_tpu_torch.ops.kernels.sigma_bwd import winsum_spread_bwd
 
 Triple = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -145,15 +146,6 @@ def vdp_conv_plain(
         mu_out = torch.where(mask, mu_out, 0.0)
         sig_out = torch.where(mask, sig_out, 0.0)
     return mu_out.contiguous(), sig_out.contiguous(), win.contiguous()
-
-
-def _aligned(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
-    """``t``, copied if its data does not start on 16 bytes (a contiguous
-    view into a larger tensor may not): the tensor-core kernel moves 16-byte
-    pieces."""
-    if t is None or t.data_ptr() % 16 == 0:
-        return t
-    return t.clone()
 
 
 def _launch(mu, sigma, w_mu, w_sigma, fuse_relu) -> Triple:

@@ -9,15 +9,22 @@ builds a train state (or an ``InferenceSession``) from ``init_params``
 steps (requests of 5 batches), times STEPS more with the host clock (each
 ends in ``torch.cuda.synchronize()`` or the answer's copy to the host),
 then traces STEPS more under ``torch.profiler`` and sorts the device time
-of every kernel into the categories of :data:`CATEGORIES`. The device's
-busy share is its traced kernel and copy time over the untraced median
-step (request) time; the rest is idle (host dispatch, synchronisation).
-``--mode layers`` times the fused VDP conv (kernel 1) alone at every k=3
-layer shape of one forward, device time only (:func:`device_ms`), beside
-cuDNN's time for the mu product alone (TF32 off; a yardstick the port never
-calls), the float32 and 3xTF32 bounds, the path and the K slices
-(:func:`layer_times`). It reads only ``vdp_conv``'s public functions, so it
-also times another checkout of the port put first on ``PYTHONPATH``.
+of every kernel into the categories of :data:`CATEGORIES` (``port_kernels``
+lists the hand-written kernels one by one, template instances apart). The
+device's busy share is its traced kernel and copy time over the untraced
+median step (request) time; the rest is idle (host dispatch,
+synchronisation).
+``--mode layers`` times three kernels alone at every layer shape of one
+step, device time only (:func:`device_ms`: the stream is held by a sleep
+while the host queues the calls, so no host time counts): the fused VDP conv
+(kernel 1) at every k=3 conv, beside cuDNN's time for the mu product alone
+(TF32 off; a yardstick the port never calls), the float32 and 3xTF32 bounds,
+the path and the K slices; the sigma-chain backward (kernel 4, the whole
+wrapper) at the same convs' outputs and the pool backward (kernel 3) at
+every pool, each beside its byte bound and its plan; and an empty launch,
+the floor under every small layer (:func:`layer_times`). It reads only the
+wrappers' public functions, so it also times another checkout of the port
+put first on ``PYTHONPATH``.
 Prints one JSON object; ``--out DIR`` also writes it there. Needs a CUDA
 device: there is no CPU fallback.
 """
@@ -25,6 +32,7 @@ device: there is no CPU fallback.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 import statistics
@@ -48,14 +56,15 @@ from supernet_tpu_torch.serving import InferenceSession
 CATEGORIES = (
     ("vdp_conv (kernel 1)", ("vdp_conv_kernel",)),
     ("pool forward (kernel 2)", ("vmaxpool_fwd_kernel",)),
-    ("pool backward (kernel 3)", ("vmaxpool_bwd_kernel",)),
-    ("sigma backward (kernel 4)", ("sigma_bwd_kernel",)),
+    ("pool backward (kernel 3)", ("vmaxpool_bwd",)),
+    ("sigma backward (kernel 4)", ("sigma_bwd",)),
     ("cuDNN convolutions (VDPConv backward)", ("conv", "dgrad", "wgrad", "fprop", "cudnn", "fft", "cf32")),
     ("Adam", ("multi_tensor", "adam")),
     ("matmuls (1x1 head, unpool conv)", ("gemm",)),
     ("copies and fills", ("memcpy", "memset")),
 )
 OTHER = "other (elementwise, reductions, clip norms)"
+_PORT_CATEGORIES = tuple(label for label, _ in CATEGORIES[:4])
 WARMUP, STEPS = 3, 10
 # H100 SXM peaks (NVIDIA's data sheet): device memory bandwidth, the CUDA
 # cores' float32 rate and the tensor cores' dense TF32 rate.
@@ -141,7 +150,10 @@ def _profile(run, per: str) -> Dict:
         k[0] += us
         k[1] += 1
     busy_ms = _busy_us(events) / 1e3 / steps
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:15]
+    ranked = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])
+    top = ranked[:15]
+    # every hand-written kernel by name, however small its share
+    ours = [kv for kv in ranked if category(kv[0]) in _PORT_CATEGORIES]
     return {
         "device": torch.cuda.get_device_name(0), "steps": steps,
         f"{per}_ms_median": 1e3 * step_s,
@@ -157,6 +169,9 @@ def _profile(run, per: str) -> Dict:
         "top_kernels": [
             {"name": n[:120], f"ms_per_{per}": t / 1e3 / steps, f"calls_per_{per}": c / steps}
             for n, (t, c) in top],
+        "port_kernels": [
+            {"name": n[:120], f"ms_per_{per}": t / 1e3 / steps, f"calls_per_{per}": c / steps}
+            for n, (t, c) in ours],
     }
 
 
@@ -214,12 +229,45 @@ def device_ms(fn, runs: int = 20) -> float:
     return start.elapsed_time(end) / runs
 
 
+def bytes_ms(n_floats: int) -> float:
+    """The least time the card takes to move ``n_floats`` float32 values."""
+    return 1e3 * 4 * n_floats / HBM_BYTES_PER_S
+
+
+def launch_floor_ms():
+    """Device time of an empty kernel launch, queued back to back (None in a
+    checkout whose library has no empty kernel)."""
+    from supernet_tpu_torch.ops.kernels import _lib
+
+    empty = getattr(_lib.load(), "supernet_empty_launch", None)
+    if empty is None:
+        return None
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    return device_ms(lambda: empty(stream), runs=200)
+
+
+def _plan_fields(module, name: str, *shape) -> Dict:
+    """The planner's path and grid for a layer ({} in a checkout without
+    the planner)."""
+    plan = getattr(module, name, None)
+    if plan is None:
+        return {}
+    p = plan(*shape)
+    return {"path": p.path, "blocks": p.blocks}
+
+
 def layer_times(config: str, batch: int, seed: int = 0) -> Dict:
-    """vdp_conv at every k=3 layer shape of one forward at ``batch``, on
-    seeded random inputs: device ms of the kernel and of cuDNN's mu product
-    alone (TF32 off), both bounds, and the plan (path, K slices)."""
+    """Kernels 1, 4 and 3 at every layer shape of one step at ``batch``, on
+    seeded random inputs. ``layers``: vdp_conv at every k=3 conv, device ms
+    of the kernel and of cuDNN's mu product alone (TF32 off), both bounds,
+    and the plan (path, K slices). ``sigma_bwd``: the sigma-chain backward at
+    the same convs' outputs; ``vmaxpool_bwd``: the pool backward at every
+    pool; each with its device ms, its byte bound and its plan.
+    ``launch_floor_ms``: an empty launch."""
     import torch.nn.functional as F
 
+    from supernet_tpu_torch.ops.kernels import pool as P
+    from supernet_tpu_torch.ops.kernels import sigma_bwd as S
     from supernet_tpu_torch.ops.kernels import vdp_conv as V
 
     if not torch.cuda.is_available():
@@ -227,8 +275,9 @@ def layer_times(config: str, batch: int, seed: int = 0) -> Dict:
     set_mxu_precision("highest")
     cfg = get_config(config).model
     gen = torch.Generator(device="cuda").manual_seed(seed)
+    convs, pools = layer_shapes(cfg)
     rows = []
-    for layer, (_, h, w, cin), cout in layer_shapes(cfg)[0]:
+    for layer, (_, h, w, cin), cout in convs:
         has_sigma = layer != "conv_input"
         mu = torch.randn(batch, h, w, cin, device="cuda", generator=gen)
         sigma = (0.05 * torch.randn(batch, h, w, cin, device="cuda", generator=gen).abs()
@@ -247,9 +296,40 @@ def layer_times(config: str, batch: int, seed: int = 0) -> Dict:
             "device_ms": ms, "cudnn_mu_ms": cudnn_ms,
             **vdp_conv_bounds(batch, h, w, cin, cout, 3, has_sigma),
         })
+    sigma_rows, pool_rows = [], []
+    with torch.inference_mode():
+        for layer, (_, h, w, _), c in convs:
+            hp, wp = h - 2, w - 2
+            g = torch.randn(batch, hp, wp, c, device="cuda", generator=gen)
+            t = 10.0 * torch.randn(batch, hp, wp, device="cuda", generator=gen).abs()
+            s_w = F.softplus(torch.randn(c, device="cuda", generator=gen) - 4.0)
+            sigma_rows.append({
+                "layer": layer, "shape": [batch, hp, wp, c, 3],
+                **_plan_fields(S, "plan", batch, hp, wp, c, 3),
+                "device_ms": device_ms(lambda: S.winsum_spread_bwd(g, t, s_w, 3)),
+                "bound_ms": bytes_ms(g.numel() + t.numel() + batch * h * w + 2 * c),
+            })
+        for layer, (_, h, w, c) in pools:
+            mu = torch.randn(batch, h, w, c, device="cuda", generator=gen)
+            idx = P.vmaxpool(mu, mu.abs(), return_idx=True)[2]
+            g_mu = torch.randn(idx.shape, device="cuda", generator=gen)
+            g_sigma = torch.randn(idx.shape, device="cuda", generator=gen)
+            pool_rows.append({
+                "layer": layer, "shape": [batch, h, w, c],
+                **_plan_fields(P, "plan_bwd", batch, h, w, c),
+                "device_ms": device_ms(lambda: P.vmaxpool_bwd(idx, g_mu, g_sigma, h, w)),
+                "bound_ms": bytes_ms(3 * idx.numel() + 2 * mu.numel()),
+            })
     return {"mode": "layers", "config": config, "batch": batch,
             "device": torch.cuda.get_device_name(0), "layers": rows,
-            "device_ms_sum": sum(r["device_ms"] for r in rows)}
+            "device_ms_sum": sum(r["device_ms"] for r in rows),
+            "sigma_bwd": sigma_rows,
+            "sigma_bwd_device_ms_sum": sum(r["device_ms"] for r in sigma_rows),
+            "sigma_bwd_bound_ms_sum": sum(r["bound_ms"] for r in sigma_rows),
+            "vmaxpool_bwd": pool_rows,
+            "vmaxpool_bwd_device_ms_sum": sum(r["device_ms"] for r in pool_rows),
+            "vmaxpool_bwd_bound_ms_sum": sum(r["bound_ms"] for r in pool_rows),
+            "launch_floor_ms": launch_floor_ms()}
 
 
 def profile_train_step(config: str, batch: int, seed: int = 0) -> Dict:

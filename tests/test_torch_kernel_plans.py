@@ -1,0 +1,303 @@
+"""The planners of the sigma-chain backward (kernel 4) and the pool backward
+(kernel 3) on the CPU: for every layer shape of both configs and the extra
+shapes chip_smoke.py drives, the plan's grid covers the work exactly once and
+fills the card; a torch emulation of what the planned kernels compute (flat
+dt, spread, per-block dsw partials folded in the kernel's order; one write
+per window tap) agrees with the plain versions and with the JAX package's
+Pallas kernels in interpret mode. The CUDA kernels themselves are held
+against the same plain versions on the card by chip_smoke.py."""
+
+import functools
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from supernet_tpu.ops.moments import _vmaxpool_bwd, _vmaxpool_fwd_impl  # noqa: E402
+from supernet_tpu.ops.pallas import pool as jpool  # noqa: E402
+from supernet_tpu.ops.pallas import sigma_bwd as jsigma_bwd  # noqa: E402
+from supernet_tpu_torch import profiling  # noqa: E402
+from supernet_tpu_torch.configs import get_config  # noqa: E402
+from supernet_tpu_torch.models import layer_names  # noqa: E402
+from supernet_tpu_torch.ops.kernels import pool, sigma_bwd  # noqa: E402
+
+BATCH = {"hippocampus": 20, "brats": 2}  # the batches chip_smoke.py drives
+CONVS = [(c, name) for c in BATCH
+         for name, k, _, _ in layer_names(get_config(c).model) if k == 3]
+POOLS = [(c, f"pool{i}") for c in BATCH
+         for i in range(get_config(c).model.depth - 1)]
+# (b, h', w', c, k): chip_smoke.py's extra cases, tiny test widths, a width
+# above the 16-byte path's and one that is no multiple of 4
+EXTRA_SIGMA = [
+    (3, 17, 19, 130, 3), (3, 17, 19, 36, 3), (4, 32, 28, 40, 2),
+    (2, 8, 8, 8, 3), (2, 9, 7, 4, 2), (1, 5, 5, 384, 1), (1, 4, 4, 516, 3),
+    (2, 6, 6, 6, 3),
+]
+# (b, h, w, c): chip_smoke.py's extra cases and tiny widths, odd sizes
+EXTRA_POOL = [
+    (20, 60, 60, 32), (3, 8, 8, 130), (3, 13, 15, 36), (2, 9, 7, 64),
+    (3, 13, 15, 130), (2, 7, 8, 4), (1, 1, 1, 8),
+]
+REL_TOL = 1e-6  # emulated split against the plain version, of its max
+
+
+@functools.lru_cache(maxsize=None)
+def _shapes(config):
+    """({conv: (b, h', w', c, 3)}, {pool: (b, h, w, c)}) of one step."""
+    convs, pools = profiling.layer_shapes(get_config(config).model)
+    b = BATCH[config]
+    return ({name: (b, h - 2, w - 2, cout, 3) for name, (_, h, w, _), cout in convs},
+            {name: (b, h, w, c) for name, (_, h, w, c) in pools})
+
+
+def _sigma_inputs(b, hp, wp, c, seed=0):
+    rng = np.random.default_rng(seed)
+    g = rng.normal(0, 1, (b, hp, wp, c)).astype(np.float32)
+    t = (10.0 * np.abs(rng.normal(0, 1, (b, hp, wp)))).astype(np.float32)
+    s_w = rng.uniform(0.01, 0.2, (c,)).astype(np.float32)
+    return g, t, s_w
+
+
+# ----------------------------------------------------------- kernel 4: plan
+
+
+def _check_sigma_plan(b, hp, wp, c, k):
+    p = sigma_bwd.plan(b, hp, wp, c, k)
+    pixels = b * hp * wp
+    h, w = hp + k - 1, wp + k - 1
+    if c % 4 == 0 and c <= sigma_bwd.MAX_VEC_C:
+        assert p.path == "vec4"
+        # a pixel's float4 fit its group's lanes and steps, no wider than needed
+        assert p.lanes in (8, 16, 32) and 1 <= p.steps <= 4
+        assert p.lanes * p.steps >= c // 4
+        assert p.lanes == 8 or c // 4 > p.lanes // 2
+        assert p.steps == -(-(c // 4) // p.lanes)
+        assert p.lanes == 32 or p.steps == 1
+        assert p.unroll * p.steps <= 4
+        assert 1 <= p.blocks <= sigma_bwd.MAX_BLOCKS
+        assert p.groups == p.blocks * (sigma_bwd.THREADS // p.lanes)
+        # group i visits pixels i, i + groups, ...: every pixel exactly once
+        visits = (np.arange(p.groups)[:, None]
+                  + np.arange(p.trips)[None, :] * p.groups).ravel()
+        seen = np.bincount(visits[visits < pixels], minlength=pixels)
+        assert seen.shape == (pixels,) and (seen == 1).all()
+        assert (p.trips - 1) * p.groups < pixels  # no trip without a pixel
+        # pass 2: the fold blocks, then one thread per element of u
+        assert p.dsw_blocks * sigma_bwd.DSW_CHANNELS >= c
+        assert (p.spread_blocks - p.dsw_blocks) * sigma_bwd.THREADS >= b * h * w
+        assert p.scratch_floats >= pixels + p.blocks * c
+        assert (p.scratch_floats - p.blocks * c) % 4 == 0  # partials on 16 bytes
+    else:
+        assert p.path == "rows"
+        tiles = -(-h // sigma_bwd.ROWS)
+        assert p.blocks == b * tiles
+        # tile i owns u rows and g rows [i ROWS, (i+1) ROWS): each g row once
+        owner = np.arange(hp) // sigma_bwd.ROWS
+        assert owner.max() < tiles
+    if 4 * pixels * c >= 1 << 20:
+        assert p.blocks >= sigma_bwd.SMS
+    assert p.smem_bytes <= sigma_bwd.SMEM_LIMIT
+    # the partial rows depend on the shape only
+    sigma_bwd.plan.cache_clear()
+    assert sigma_bwd.plan(b, hp, wp, c, k) == p
+    return p
+
+
+@pytest.mark.parametrize("config,layer", CONVS)
+def test_sigma_bwd_plan_every_layer(config, layer):
+    p = _check_sigma_plan(*_shapes(config)[0][layer])
+    assert p.path == "vec4"  # every model width is a multiple of 4, <= 512
+
+
+@pytest.mark.parametrize("shape", EXTRA_SIGMA)
+def test_sigma_bwd_plan_extra_shapes(shape):
+    p = _check_sigma_plan(*shape)
+    assert p.path == ("vec4" if shape[3] % 4 == 0 and shape[3] <= 512 else "rows")
+
+
+# ------------------------------------------------- kernel 4: the arithmetic
+
+
+def _emulate_sigma_bwd(g, t, s_w, k, p):
+    """What the planned kernels compute, in torch float32. "vec4": dt flat
+    by pixel, u spread from it, dsw as one partial row per block (pixel i
+    belongs to group i % groups, groups are dealt to blocks in order) folded
+    as pass 2 does: the rows dealt to THREADS / DSW_CHANNELS slices, each
+    slice's rows in order, then a tree over the slices. "rows": a partial
+    per block of ROWS rows of one image, summed."""
+    b, hp, wp, c = g.shape
+    pixels = b * hp * wp
+    gf = g.reshape(pixels, c)
+    dt = (gf * s_w).sum(-1).reshape(b, hp, wp)
+    u = torch.zeros(b, hp + k - 1, wp + k - 1)
+    for di in range(k):
+        for dj in range(k):
+            u[:, di:di + hp, dj:dj + wp] += dt
+    gt = gf * t.reshape(pixels, 1)
+    if p.path == "rows":
+        tile = (torch.arange(hp) // sigma_bwd.ROWS).repeat_interleave(wp).repeat(b)
+        image = torch.arange(b).repeat_interleave(hp * wp)
+        tiles = p.blocks // b
+        part = torch.zeros(p.blocks, c).index_add_(0, image * tiles + tile, gt)
+        return u, part.sum(0)
+    block = (torch.arange(pixels) % p.groups) // (p.groups // p.blocks)
+    part = torch.zeros(p.blocks, c).index_add_(0, block, gt)
+    slices = sigma_bwd.THREADS // sigma_bwd.DSW_CHANNELS
+    rounds = -(-p.blocks // slices)
+    padded = torch.zeros(rounds * slices, c)
+    padded[:p.blocks] = part
+    fold = torch.zeros(slices, c)
+    for r in padded.reshape(rounds, slices, c):
+        fold = fold + r
+    while len(fold) > 1:
+        half = len(fold) // 2
+        fold = fold[:half] + fold[half:]
+    return u, fold[0]
+
+
+def _rel(got, want):
+    return float((got - want).abs().max()) / float(want.abs().max())
+
+
+def _check_emulation(b, hp, wp, c, k):
+    g, t, s_w = (torch.from_numpy(a) for a in _sigma_inputs(b, hp, wp, c))
+    p = sigma_bwd.plan(b, hp, wp, c, k)
+    u, dsw = _emulate_sigma_bwd(g, t, s_w, k, p)
+    want_u, want_dsw = sigma_bwd.winsum_spread_bwd_plain(g, t, s_w, k)
+    assert u.shape == want_u.shape and dsw.shape == want_dsw.shape
+    assert _rel(u, want_u) <= REL_TOL
+    assert _rel(dsw, want_dsw) <= REL_TOL
+
+
+@pytest.mark.parametrize("config,layer", CONVS)
+def test_sigma_bwd_split_matches_plain_every_layer(config, layer):
+    _check_emulation(*_shapes(config)[0][layer])
+
+
+@pytest.mark.parametrize("shape", EXTRA_SIGMA)
+def test_sigma_bwd_split_matches_plain_extra_shapes(shape):
+    _check_emulation(*shape)
+
+
+@pytest.mark.parametrize("shape", [
+    (2, 8, 8, 8, 3), (2, 8, 8, 4, 2), (2, 35, 35, 16, 3),  # tests/test_sigma_bwd.py
+    (3, 17, 19, 36, 3), (2, 9, 11, 6, 3), (1, 5, 5, 384, 1),
+])
+def test_sigma_bwd_split_matches_pallas_interpret(shape):
+    """The tolerance of tests/test_torch_kernels.py for the plain version."""
+    b, hp, wp, c, k = shape
+    rng = np.random.default_rng(0)
+    g = rng.normal(0, 1, (b, hp, wp, c)).astype(np.float32)
+    t = rng.normal(0, 1, (b, hp, wp)).astype(np.float32)
+    s_w = rng.uniform(0.01, 0.2, (c,)).astype(np.float32)
+    want = jsigma_bwd._bwd_call(jnp.asarray(g), jnp.asarray(t), jnp.asarray(s_w),
+                                k, interpret=True)
+    p = sigma_bwd.plan(b, hp, wp, c, k)
+    got = _emulate_sigma_bwd(*(torch.from_numpy(a) for a in (g, t, s_w)), k, p)
+    assert got[0].shape == (b, hp + k - 1, wp + k - 1) and got[1].shape == (c,)
+    for x, r in zip(got, want):
+        np.testing.assert_allclose(x.numpy(), np.asarray(r), rtol=1e-5, atol=1e-6)
+
+
+# ---------------------------------------------------------------- kernel 3
+
+
+def _emulate_pool_bwd(idx, g_mu, g_sigma, h, w, p):
+    """What the planned kernel writes, and how often each element: "vec4"
+    writes, per window, the taps that lie inside h x w; "scalar" writes per
+    full-resolution element from its window. Unwritten elements stay NaN."""
+    b, ho, wo, c = idx.shape
+    outs = [torch.full((b, h, w, c), float("nan")) for _ in range(2)]
+    writes = torch.zeros(b, h, w, c, dtype=torch.int32)
+    if p.path == "vec4":
+        assert c % p.channels == 0 and p.items == b * ho * wo * (c // 4)
+        for tap in range(4):
+            dy, dx = tap >> 1, tap & 1
+            ny, nx = len(range(dy, h, 2)), len(range(dx, w, 2))
+            sel = idx[:, :ny, :nx] == float(tap)
+            for out, g in zip(outs, (g_mu, g_sigma)):
+                out[:, dy::2, dx::2] = torch.where(sel, g[:, :ny, :nx], 0.0)
+            writes[:, dy::2, dx::2] += 1
+    else:
+        assert p.items == b * h * w * c
+        ys, xs = torch.arange(h), torch.arange(w)
+        tap = (2 * (ys % 2)[:, None] + (xs % 2)[None, :]).float()
+        sel = idx[:, ys // 2][:, :, xs // 2] == tap[None, :, :, None]
+        for out, g in zip(outs, (g_mu, g_sigma)):
+            out[:] = torch.where(sel, g[:, ys // 2][:, :, xs // 2], 0.0)
+        writes += 1
+    return outs, writes
+
+
+def _pool_case(b, h, w, c, seed=0):
+    rng = np.random.default_rng(seed)
+    mu = rng.integers(-3, 3, (b, h, w, c)).astype(np.float32)  # ties
+    sigma = np.abs(rng.normal(0, 1, (b, h, w, c))).astype(np.float32)
+    ho, wo = (h + 1) // 2, (w + 1) // 2
+    g = [rng.normal(0, 1, (b, ho, wo, c)).astype(np.float32) for _ in range(2)]
+    return mu, sigma, g
+
+
+def _check_pool_plan(b, h, w, c):
+    p = pool.plan_bwd(b, h, w, c)
+    assert p.path == ("vec4" if c % 4 == 0 else "scalar")
+    assert p.channels == (4 if c % 4 == 0 else 1)
+    assert p.blocks == -(-p.items // pool.THREADS)
+    mu, sigma, g = _pool_case(b, h, w, c)
+    idx = pool.vmaxpool(torch.from_numpy(mu), torch.from_numpy(sigma),
+                        return_idx=True)[2]
+    g_mu, g_sigma = (torch.from_numpy(a) for a in g)
+    got, writes = _emulate_pool_bwd(idx, g_mu, g_sigma, h, w, p)
+    assert (writes == 1).all()  # every element once, odd edges included
+    want = pool.vmaxpool_bwd_plain(idx, g_mu, g_sigma, h, w)
+    for x, r in zip(got, want):
+        assert torch.equal(x, r)
+    return idx, g, got
+
+
+@pytest.mark.parametrize("config,layer", POOLS)
+def test_pool_bwd_plan_every_layer(config, layer):
+    b, h, w, c = _shapes(config)[1][layer]
+    _check_pool_plan(b, h, w, c)
+    assert pool.plan_bwd(b, h, w, c).path == "vec4"
+
+
+@pytest.mark.parametrize("shape", EXTRA_POOL)
+def test_pool_bwd_plan_extra_shapes_bit_exact_vs_jax(shape):
+    """The emulated kernel against the JAX package: the Pallas backward in
+    interpret mode for even sizes, its composition for odd ones."""
+    b, h, w, c = shape
+    idx, g, got = _check_pool_plan(b, h, w, c)
+    jg = tuple(jnp.asarray(a) for a in g)
+    if h % 2 == 0 and w % 2 == 0:
+        jpool.set_interpret(True)
+        try:
+            want = jpool._vmp_bwd(jnp.asarray(idx.numpy()), jg)
+        finally:
+            jpool.set_interpret(False)
+    else:
+        mu, sigma, _ = _pool_case(b, h, w, c)
+        _, _, res = _vmaxpool_fwd_impl(jnp.asarray(mu), jnp.asarray(sigma))
+        np.testing.assert_array_equal(np.asarray(res[0]), idx.numpy())
+        want = _vmaxpool_bwd(res, jg)
+    for x, r in zip(got, want):
+        np.testing.assert_array_equal(x.numpy(), np.asarray(r))
+
+
+def test_cpu_tensors_never_count_a_launch():
+    pool.bwd_launches = sigma_bwd.launches = 0
+    g, t, s_w = (torch.from_numpy(a) for a in _sigma_inputs(1, 4, 4, 8))
+    sigma_bwd.winsum_spread_bwd(g, t, s_w, 3)
+    idx = torch.zeros(1, 2, 2, 4)
+    pool.vmaxpool_bwd(idx, idx, idx, 4, 4)
+    assert sigma_bwd.launches == 0 and pool.bwd_launches == 0
+
+
+@pytest.mark.parametrize("config", list(BATCH))
+def test_layer_shapes_name_every_conv_and_pool(config):
+    convs, pools = _shapes(config)
+    assert set(convs) == {name for c, name in CONVS if c == config}
+    assert set(pools) == {name for c, name in POOLS if c == config}
