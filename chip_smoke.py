@@ -56,25 +56,63 @@ Phases (any failure raises and the exit code is not 0):
 7. training, BraTS at full width, batch 2: 2 steps, the same checks, with
    18 / 4 / 4 / 18 launches per step.
 
-In phases 6-7 cuDNN runs its deterministic algorithms, and the CPU
+8. epoch trainer, hippocampus at full width, batch 20: ``Trainer`` on the
+   card, 200 synthetic training and 40 validation images, 3 epochs with a
+   checkpoint after each and the per-structure curves on, from He-scaled
+   parameters read from an npz. The history must hold every key the JAX
+   trainer writes, all finite; the launch counters over the run (zeroed
+   just before, read just after) must equal steps x (10, 2, 2, 10) plus
+   validation batches x (10, 2) (and the split-K reduces alike);
+   ``epoch_0..2``, ``Related_hyperparameters.txt`` and ``history.pkl`` must
+   exist. The same run with ``device="cpu"`` from the same npz: each
+   epoch's train and validation loss within 1e-3 relative (see
+   ``EPOCH_LOSS_RTOL``), the final parameters within 2 * lr * steps. Prints the last epoch's images/sec
+   (also with the curves off), the share of the epoch spent in host
+   metrics and the checkpoint's blocking time, with the card's name and
+   power limit.
+9. resume: a second ``Trainer`` with ``continue_training`` on a copy of
+   that directory cut after ``epoch_1`` trains epoch 2; its parameters,
+   Adam moments and step counters must equal phase 8's bit for bit. Then
+   the roll-back path: a dataset whose first batch of epoch 1 is NaN makes
+   that epoch's loss non-finite, the trainer restores ``epoch_0`` and
+   epoch 2 trains on.
+10. the CLI, in process and on its default device: ``cli.main(["train",
+   "--synthetic", "100", "--steps-per-dispatch", "2", ...])`` (the launch
+   counters must show its 5 steps and 2 validation batches), then
+   ``convert`` of a pickle written here into a shard directory and
+   ``train --data <dir>`` for one epoch through ``ShardDataset`` (prints
+   whether the native or the Python loader served).
+11. augmentation and remat: one train step with rot90 and intensity
+   augmentation on the card and on the CPU from the same state (the
+   augmented batch bit-equal, the loss within 1e-4 relative); one BraTS
+   batch-2 loss and gradient with ``remat=True`` against ``remat=False`` on
+   the card (loss and every gradient bit-equal, the forward kernels of the
+   16 rematerialised convs launched twice, a lower peak of allocated
+   memory; both peaks printed with the card's name and power limit).
+
+In phases 6-11 cuDNN runs its deterministic algorithms, and in 6-7 the CPU
 reference of the step-1 gradients replays the card's ReLU masks and pool
 taps (``_decisions``), so that rounding ties do not decide the comparison.
 
 The last two lines of standard output are the kernels summary
 ``{"kernels": [...]}`` (all four kernels, with their launches in the
-hippocampus training run, errors, times and bounds) and
-``{"ok": true, "device": {...}}``.
+hippocampus training run, the epoch trainer's run and the CLI's run,
+errors, times and bounds) and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
+import pickle
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 SEED = 0
@@ -95,6 +133,12 @@ SIGMA_BWD_TOL = 1e-5  # max |kernel - plain| / max |plain|, u and dsw
 VDP_BWD_TOL = 1e-4  # per gradient, max |kernel path - plain| / max |plain|
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_TOL = 1e-3  # step-1 gradient, per leaf, relative to its max
+# An epoch's mean loss, card against CPU, after up to 30 Adam steps. Two
+# correct implementations part by up to 2 * lr per weight and step wherever a
+# gradient's sign is decided by rounding, and the parting compounds: on an
+# H100 the 3 epochs of phase 8 read 7e-6, 2e-5 and 2e-4 relative. Ten times
+# the per-step limit; the parameters are still held to 2 * lr * steps.
+EPOCH_LOSS_RTOL = 1e-3
 TIMING_RUNS = 20
 
 
@@ -686,6 +730,337 @@ def _train(torch, name, cfg, tc, batch, steps):
     return launches, step_s, per_step
 
 
+
+def _per_forward(cfg, batch) -> dict:
+    """Launches of one forward (vdp_conv, its split-K reduces, pool)."""
+    from supernet_tpu_torch.models import layer_names
+
+    return {"vdp_conv": sum(1 for _, k, _, _ in layer_names(cfg) if k == 3),
+            "vdp_conv_reduce": _split_layers(cfg, batch),
+            "vmaxpool": cfg.depth - 1}
+
+
+def _expected_launches(cfg, batch, steps, eval_batches) -> dict:
+    """Launches of ``steps`` train steps and ``eval_batches`` forwards."""
+    f = _per_forward(cfg, batch)
+    return {"vdp_conv": (steps + eval_batches) * f["vdp_conv"],
+            "vdp_conv_reduce": (steps + eval_batches) * f["vdp_conv_reduce"],
+            "vmaxpool": (steps + eval_batches) * f["vmaxpool"],
+            "vmaxpool_bwd": steps * f["vmaxpool"],
+            "sigma_bwd": steps * f["vdp_conv"]}
+
+
+def _state_tensors(state):
+    """(name, tensor) of every parameter and Adam moment of a TrainState,
+    and its step counters."""
+    from supernet_tpu_torch.checkpoint import snapshot_state
+
+    snap = snapshot_state(state)
+    out = [(f"{kind}/{layer}/{name}", t)
+           for kind in ("params", "exp_avg", "exp_avg_sq")
+           for layer, ws in snap[kind].items() for name, t in ws.items()]
+    return out, (snap["adam_step"], snap["step"])
+
+
+def _epoch_trainer(torch, smi, tmp):
+    """Phase 8. Returns (launches, the card run's final state, its out dir,
+    the experiment, the initial parameters' npz, the two datasets)."""
+    import numpy as np
+
+    from supernet_tpu_torch.checkpoint import load_params_npz, save_params_npz
+    from supernet_tpu_torch.configs import HIPPOCAMPUS
+    from supernet_tpu_torch.data import PickleDataset, synthetic_dataset
+    from supernet_tpu_torch.metrics import dataset_structures
+    from supernet_tpu_torch.train import leaves
+    from supernet_tpu_torch.trainer import Trainer
+
+    epochs, n_train, n_val, batch = 3, 200, 40, 20
+    exp = HIPPOCAMPUS.replace(train=dataclasses.replace(
+        HIPPOCAMPUS.train, epochs=epochs, batch_size=batch, checkpoint_every=1))
+    cfg = exp.model
+    npz = os.path.join(tmp, "init.npz")
+    save_params_npz(npz, _he_params(torch, cfg))
+    train_ds = PickleDataset(*synthetic_dataset(cfg, n_train, seed=0), cfg.in_channels)
+    val_ds = PickleDataset(*synthetic_dataset(cfg, n_val, seed=1), cfg.in_channels)
+    steps, val_batches = epochs * (n_train // batch), epochs * math.ceil(n_val / batch)
+
+    def run(device, curves, n_epochs, sub):
+        out = os.path.join(tmp, sub)
+        tr = Trainer(exp, train_ds, val_ds if curves else None, out_dir=out,
+                     track_curves=curves, device=device,
+                     initial_params=load_params_npz(npz, "cpu"))
+        state = tr.run(epochs=n_epochs, log=lambda *_: None)
+        return tr, state, out
+
+    torch.cuda.synchronize()
+    _zero_launches()
+    gpu, gpu_state, gpu_out = run("cuda", True, epochs, "trainer_cuda")
+    launches = _read_launches()
+    want = _expected_launches(cfg, batch, steps, val_batches)
+    if launches != want:
+        _die(f"epoch trainer: kernel launches {launches}, expected {want}")
+
+    keys = ["train_loss", "train_acc", "val_loss", "val_acc", "val_dice", "images_per_sec"]
+    for st in dataset_structures(exp.name):
+        keys += [f"train_dice_{st}", f"train_haus_{st}", f"val_dice_{st}", f"val_haus_{st}"]
+    for k in keys:
+        v = gpu.history.get(k)
+        if v is None or len(v) != epochs or not all(math.isfinite(a) for a in v):
+            _die(f"epoch trainer: history[{k!r}] = {v}")
+    for name in [f"epoch_{e}/state.pt" for e in range(epochs)] + [
+            "Related_hyperparameters.txt", "history.pkl"]:
+        if not os.path.isfile(os.path.join(gpu_out, name)):
+            _die(f"epoch trainer: {name} was not written")
+
+    cpu, cpu_state, _ = run("cpu", True, epochs, "trainer_cpu")
+    loss_err = max(
+        abs(a - b) / abs(b)
+        for k in ("train_loss", "val_loss")
+        for a, b in zip(gpu.history[k], cpu.history[k]))
+    if not loss_err <= EPOCH_LOSS_RTOL:
+        _die(f"epoch trainer: epoch losses {gpu.history['train_loss']} / "
+             f"{gpu.history['val_loss']} differ from the CPU's "
+             f"{cpu.history['train_loss']} / {cpu.history['val_loss']} by "
+             f"{loss_err:.3e} relative")
+    param_err = max(float((a.detach().cpu() - b.detach()).abs().max())
+                    for a, b in zip(leaves(gpu_state.params), leaves(cpu_state.params)))
+    limit = 2.0 * exp.train.lr * steps
+    if not param_err <= limit:
+        _die(f"epoch trainer: parameters after {steps} steps differ from the "
+             f"CPU's by {param_err:.3e} > 2 * lr * steps = {limit:.3e}")
+
+    # the same epochs with the curves (and validation) off, for the rate
+    bare, _, _ = run("cuda", False, 2, "trainer_bare")
+    t = gpu.timings
+    print(json.dumps({
+        "epoch_trainer": "hippocampus", "card": smi, "batch": batch,
+        "epochs": epochs, "steps": steps, "validation_batches": val_batches,
+        "launches": launches,
+        "train_loss": gpu.history["train_loss"], "cpu_train_loss": cpu.history["train_loss"],
+        "val_loss": gpu.history["val_loss"], "cpu_val_loss": cpu.history["val_loss"],
+        "val_dice": gpu.history["val_dice"],
+        "loss_max_rel_err_vs_cpu": loss_err,
+        "param_max_abs_err_vs_cpu": param_err, "param_limit": limit,
+        "images_per_sec": gpu.history["images_per_sec"],
+        "images_per_sec_last_epoch": gpu.history["images_per_sec"][-1],
+        "images_per_sec_last_epoch_curves_off": bare.history["images_per_sec"][-1],
+        "epoch_s": t["epoch_s"], "host_metric_s": t["host_metric_s"],
+        "host_metric_share_last_epoch": t["host_metric_s"][-1] / t["epoch_s"][-1],
+        "validate_s": t["validate_s"], "checkpoint_blocking_s": t["checkpoint_s"],
+        "epoch_s_curves_off": bare.timings["epoch_s"],
+        "cpu_images_per_sec_last_epoch": cpu.history["images_per_sec"][-1],
+    }), flush=True)
+    print(f"epoch trainer: {gpu.history['images_per_sec'][-1]:.1f} img/s in the last "
+          f"epoch with the curves on, {bare.history['images_per_sec'][-1]:.1f} img/s "
+          f"with them off (hippocampus, batch 20; {smi})", flush=True)
+    return launches, gpu_state, gpu_out, exp, npz, (train_ds, val_ds)
+
+
+class _PoisonedOnce:
+    """A dataset whose first batch of one epoch is NaN."""
+
+    def __init__(self, ds, epoch):
+        self.ds, self.epoch = ds, epoch
+
+    def __len__(self):
+        return len(self.ds)
+
+    def batches(self, batch_size, epoch=0, **kw):
+        for i, (x, y) in enumerate(self.ds.batches(batch_size, epoch=epoch, **kw)):
+            if epoch == self.epoch and i == 0:
+                x = x * float("nan")
+            yield x, y
+
+
+def _resume_and_rollback(torch, tmp, final_state, trained_dir, exp, npz, datasets):
+    """Phase 9."""
+    from supernet_tpu_torch import checkpoint as ckpt
+    from supernet_tpu_torch.data import PickleDataset
+    from supernet_tpu_torch.trainer import Trainer
+
+    train_ds, val_ds = datasets
+    cut = os.path.join(tmp, "resumed")
+    os.makedirs(cut)
+    for e in (0, 1):
+        shutil.copytree(os.path.join(trained_dir, f"epoch_{e}"),
+                        os.path.join(cut, f"epoch_{e}"))
+    # a half-written checkpoint (its file still under the temporary name)
+    os.makedirs(os.path.join(cut, "epoch_7"))
+    open(os.path.join(cut, "epoch_7", "state.pt.1.tmp"), "wb").close()
+    if ckpt.latest_epoch(cut) != 1:
+        _die(f"resume: latest_epoch sees {ckpt.latest_epoch(cut)}, expected 1")
+    shutil.rmtree(os.path.join(cut, "epoch_7"))
+    exp_c = exp.replace(train=dataclasses.replace(exp.train, continue_training=True))
+    tr = Trainer(exp_c, train_ds, val_ds, out_dir=cut, device="cuda")
+    state = tr.run(epochs=3, log=lambda *_: None)
+    if tr.start_epoch != 2 or len(tr.history["train_loss"]) != 1:
+        _die(f"resume: started at epoch {tr.start_epoch}")
+    got, got_steps = _state_tensors(state)
+    want, want_steps = _state_tensors(final_state)
+    if got_steps != want_steps:
+        _die(f"resume: step counters {got_steps}, expected {want_steps}")
+    differing = [n for (n, a), (_, b) in zip(got, want) if not torch.equal(a, b)]
+    if differing:
+        _die(f"resume: {len(differing)} of {len(got)} state tensors are not "
+             f"bit-equal to the uninterrupted run's, e.g. {differing[:3]}")
+
+    small = PickleDataset(train_ds.x[:60], train_ds.y[:60], exp.model.in_channels)
+    logs = []
+    roll = os.path.join(tmp, "rollback")
+    tr2 = Trainer(exp, _PoisonedOnce(small, 1), None, out_dir=roll, device="cuda",
+                  initial_params=ckpt.load_params_npz(npz, "cpu"))
+    state2 = tr2.run(epochs=3, log=lambda m: logs.append(str(m)))
+    losses = tr2.history["train_loss"]
+    if not any("rolling back to epoch 0" in m for m in logs):
+        _die(f"roll-back: no roll-back in the log (epoch losses {losses})")
+    if math.isfinite(losses[1]) or not (math.isfinite(losses[0]) and math.isfinite(losses[2])):
+        _die(f"roll-back: epoch losses {losses}")
+    if ckpt.latest_epoch(roll) != 2 or os.path.exists(os.path.join(roll, "epoch_1")):
+        _die("roll-back: expected checkpoints of epochs 0 and 2 only")
+    if not all(bool(torch.isfinite(t).all()) for _, t in _state_tensors(state2)[0]):
+        _die("roll-back: the final state has non-finite values")
+    print(json.dumps({
+        "resume": "bit-exact", "state_tensors": len(got), "step_counters": list(got_steps),
+        "rollback_epoch_losses": [l if math.isfinite(l) else None for l in losses],
+    }), flush=True)
+
+
+def _cli(torch, tmp):
+    """Phase 10. Returns the launches of the first ``cli train``."""
+    from supernet_tpu_torch import cli
+    from supernet_tpu_torch.configs import HIPPOCAMPUS
+    from supernet_tpu_torch.data import ShardDataset, synthetic_dataset
+
+    cfg = HIPPOCAMPUS.model
+    out1 = os.path.join(tmp, "cli_synthetic")
+    torch.cuda.synchronize()
+    _zero_launches()
+    rc = cli.main(["train", "--config", "hippocampus", "--synthetic", "100",
+                   "--epochs", "1", "--out-dir", out1, "--steps-per-dispatch", "2"])
+    launches = _read_launches()
+    want = _expected_launches(cfg, 20, 5, 5)
+    if rc != 0 or launches != want:
+        _die(f"cli train: rc {rc}, kernel launches {launches}, expected {want} "
+             "(the default device must be the card)")
+    for name in ("epoch_0/state.pt", "history.pkl", "Related_hyperparameters.txt"):
+        if not os.path.isfile(os.path.join(out1, name)):
+            _die(f"cli train: {name} was not written")
+
+    x, y = synthetic_dataset(cfg, 121, seed=2)
+    pkl, shards = os.path.join(tmp, "hippocampus.pkl"), os.path.join(tmp, "shards")
+    with open(pkl, "wb") as f:
+        pickle.dump((x[:100, ..., 0], y[:100], x[100:, ..., 0], y[100:]), f)
+    rc = cli.main(["convert", "--config", "hippocampus", "--data", pkl,
+                   "--out", shards, "--shard-size", "64"])
+    ds = ShardDataset(shards)
+    if rc != 0 or len(ds) != 100 or len(ds.pairs) != 2:
+        _die(f"cli convert: rc {rc}, {len(ds)} samples in {len(ds.pairs)} shards")
+    out2 = os.path.join(tmp, "cli_shards")
+    _zero_launches()
+    rc = cli.main(["train", "--config", "hippocampus", "--data", shards,
+                   "--epochs", "1", "--out-dir", out2])
+    shard_launches = _read_launches()
+    if rc != 0 or shard_launches != want:
+        _die(f"cli train --data <shards>: rc {rc}, kernel launches "
+             f"{shard_launches}, expected {want}")
+    with open(os.path.join(out2, "history.pkl"), "rb") as f:
+        hist = pickle.load(f)
+    if not all(math.isfinite(v[-1]) for v in hist.values() if v):
+        _die(f"cli train --data <shards>: history {hist}")
+    print(json.dumps({
+        "cli": "train, convert, train --data", "launches": launches,
+        "shard_launches": shard_launches,
+        "shard_loader": "native" if ds.use_native else "python",
+        "shard_train_loss": hist["train_loss"][-1],
+    }), flush=True)
+    return launches
+
+
+def _augment_and_remat(torch, smi):
+    """Phase 11."""
+    import numpy as np
+
+    from supernet_tpu_torch import train as T
+    from supernet_tpu_torch.configs import BRATS, HIPPOCAMPUS, AugmentConfig
+
+    cfg = HIPPOCAMPUS.model
+    tc = dataclasses.replace(HIPPOCAMPUS.train, augment=AugmentConfig(
+        rot90=True, intensity_scale=0.1, intensity_shift=0.05))
+    rng = np.random.default_rng(SEED)
+    x = rng.normal(0.0, 1.0, (20, cfg.image_size, cfg.image_size, 1)).astype(np.float32)
+    y = rng.integers(0, cfg.n_classes, (20, cfg.out_size, cfg.out_size)).astype(np.int32)
+    params = _he_params(torch, cfg)
+    losses, batches = {}, {}
+    for dev in ("cuda", "cpu"):
+        state, _ = T.create_train_state(params, tc, dev)
+        state.step = 3  # the draws are keyed by the step counter
+        xa, ya = T.maybe_augment(state.step, torch.from_numpy(x).to(dev),
+                                 torch.from_numpy(y).to(dev), cfg, tc)
+        batches[dev] = (xa.cpu(), ya.cpu())
+        state, m = T.make_train_step(cfg, tc)(state, x, y)
+        losses[dev] = float(m.loss)
+    for what, a, b in zip(("x", "y"), batches["cuda"], batches["cpu"]):
+        if not torch.equal(a, b):
+            _die(f"augmentation: the augmented {what} differs between the card and the CPU")
+    if torch.equal(batches["cpu"][0], torch.from_numpy(x)) or torch.equal(
+            batches["cpu"][1], torch.from_numpy(y)):
+        _die("augmentation: the batch did not change")
+    loss_err = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+    if not loss_err <= TRAIN_LOSS_RTOL:
+        _die(f"augmentation: loss {losses['cuda']} differs from the CPU's "
+             f"{losses['cpu']} by {loss_err:.3e} relative")
+
+    cfg = BRATS.model
+    tc = BRATS.train
+    xb = torch.from_numpy(rng.normal(0.0, 1.0, (2, cfg.image_size, cfg.image_size,
+                                                cfg.in_channels)).astype(np.float32)).cuda()
+    yb = torch.from_numpy(rng.integers(0, cfg.n_classes, (2, cfg.out_size, cfg.out_size))
+                          .astype(np.int32)).cuda()
+    state, _ = T.create_train_state(_he_params(torch, cfg), tc, "cuda")
+    f = _per_forward(cfg, 2)
+    outs = {}
+    for remat in (False, True):
+        c = dataclasses.replace(cfg, remat=remat)
+        # remat leaves conv_input and conv1 alone and runs the forward of
+        # every other k=3 conv a second time in the backward pass
+        again = f["vdp_conv"] - 2 if remat else 0
+        for attempt in range(2):  # the second one is measured
+            loss = grads = None  # frees the first attempt's tensors
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            _zero_launches()
+            loss, _ = T.loss_fn(state.params, xb, yb, c, tc)
+            grads = torch.autograd.grad(loss, T.leaves(state.params))
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            launches = _read_launches()
+        if launches["vdp_conv"] != f["vdp_conv"] + again or launches[
+                "sigma_bwd"] != f["vdp_conv"] or launches["vmaxpool"] != f["vmaxpool"]:
+            _die(f"remat={remat}: kernel launches {launches}")
+        outs[remat] = (loss.detach().cpu(), [g.cpu() for g in grads], peak,
+                       peak - base, launches)
+        loss = grads = None
+    if not torch.equal(outs[True][0], outs[False][0]):
+        _die(f"remat: loss {float(outs[True][0])} != {float(outs[False][0])}")
+    differing = sum(not torch.equal(a, b) for a, b in zip(outs[True][1], outs[False][1]))
+    if differing:
+        _die(f"remat: {differing} of {len(outs[True][1])} gradients are not bit-equal")
+    if not outs[True][2] < outs[False][2]:
+        _die(f"remat: peak memory {outs[True][2]} is not below {outs[False][2]}")
+    print(json.dumps({
+        "augment_and_remat": "ok", "card": smi,
+        "augment_loss": losses["cuda"], "augment_cpu_loss": losses["cpu"],
+        "augment_loss_rel_err_vs_cpu": loss_err,
+        "remat_loss": float(outs[True][0]),
+        "brats_b2_peak_bytes": outs[False][2], "brats_b2_peak_bytes_remat": outs[True][2],
+        "brats_b2_step_bytes": outs[False][3], "brats_b2_step_bytes_remat": outs[True][3],
+        "remat_launches": outs[True][4],
+    }), flush=True)
+    print(f"BraTS batch 2, loss and gradient: peak {outs[False][2] / 2**20:.1f} MiB "
+          f"allocated, {outs[True][2] / 2**20:.1f} MiB with remat ({smi})", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -774,6 +1149,16 @@ def main() -> int:
             torch, "hippocampus", HIPPOCAMPUS.model, HIPPOCAMPUS.train, 20, 5)
         _train(torch, "brats", BRATS.model, BRATS.train, 2, 2)
 
+        # 8-11. the epoch trainer, resume and roll-back, the CLI,
+        # augmentation and remat
+        with tempfile.TemporaryDirectory() as tmp:
+            trainer_launches, final_state, trained_dir, exp, npz, datasets = (
+                _epoch_trainer(torch, smi, tmp))
+            _resume_and_rollback(torch, tmp, final_state, trained_dir, exp, npz, datasets)
+            del final_state
+            cli_launches = _cli(torch, tmp)
+        _augment_and_remat(torch, smi)
+
     sources = {
         "vdp_conv": ("supernet_tpu_torch/csrc/vdp_conv.cu",
                      "supernet_tpu/ops/pallas/vdp_conv.py:125"),
@@ -786,7 +1171,8 @@ def main() -> int:
     }
     # ms, plain_ms and bound_ms: summed over the shapes of one hippocampus
     # step at batch 20 (brats_*: one BraTS step at batch 2); launches: the
-    # hippocampus training run of phase 6. vdp_conv's bound_ms is the CUDA
+    # hippocampus training run of phase 6; trainer_launches: the epoch
+    # trainer's run of phase 8; cli_launches: the first cli train of phase 10. vdp_conv's bound_ms is the CUDA
     # cores' float32 bound; bound_3xtf32_ms that of its tensor-core path.
     summary = []
     for kernel, (source, replaces) in sources.items():
@@ -811,6 +1197,8 @@ def main() -> int:
             "name": kernel, "route": "cuda", "source": source,
             "replaces": replaces, "launches": train_launches[kernel],
             "launches_per_step": per_step[kernel],
+            "trainer_launches": trainer_launches[kernel],
+            "cli_launches": cli_launches[kernel],
             "serving_launches": serve_launches[kernel],
             "max_abs_err": check.worst[kernel][0],
             "max_rel_err": check.worst[kernel][1],
@@ -831,6 +1219,7 @@ def main() -> int:
     print(f"hippocampus serving: {img_s:.1f} img/s (batch 20, 45-image request)")
     print(f"hippocampus training: {20 / step_s:.1f} img/s "
           f"(batch 20, median step {1e3 * step_s:.3f} ms)")
+    print(f"card: {smi}")
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

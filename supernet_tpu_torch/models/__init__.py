@@ -4,16 +4,20 @@ from supernet_tpu_torch.models.unet import (
     VDPUNet,
     forward,
     forward_images,
+    forward_sampled,
     init_params,
     kl_regularizer,
     layer_names,
+    sample_weights,
 )
 
 __all__ = [
     "VDPUNet",
     "forward",
     "forward_images",
+    "forward_sampled",
     "init_params",
     "kl_regularizer",
     "layer_names",
+    "sample_weights",
 ]

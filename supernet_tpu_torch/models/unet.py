@@ -21,10 +21,13 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from supernet_tpu_torch.configs import ModelConfig
 from supernet_tpu_torch.ops import (
+    crop_center,
     vconv,
     vconv_input_relu,
     vconv_relu,
@@ -34,6 +37,7 @@ from supernet_tpu_torch.ops import (
     vsoftmax,
     vunpool_conv2,
 )
+from supernet_tpu_torch.ops.moments import _unpool_one
 
 Tensor = torch.Tensor
 Params = Dict[str, Dict[str, Tensor]]
@@ -127,13 +131,38 @@ def forward(params: Params, x: Tensor, cfg: ModelConfig, tap=None) -> Tuple[Tens
     ``tap(stage_name, shape)``, when given, is called with every
     intermediate's shape, under the JAX forward's stage names. Each conv
     runs under ``torch.profiler.record_function(layer_name)``.
+
+    With ``cfg.remat`` and gradients enabled, every encoder block after the
+    first and every decoder block runs under a non-reentrant
+    ``torch.utils.checkpoint``: only the block's inputs stay live and the
+    backward pass runs the block's forward again (its forward kernels are
+    launched twice per step). ``tap`` is called in the first pass only.
     """
     depth = cfg.depth
     fill = cfg.sigma_fill
+    remat = cfg.remat and torch.is_grad_enabled()
+    recomputing = [False]
 
     def _tap(name: str, m: Tensor) -> None:
-        if tap is not None:
+        if tap is not None and not recomputing[0]:
             tap(name, tuple(m.shape))
+
+    def block(fn, idx: int, *moments):
+        if not remat:
+            return fn(idx, *moments)
+        passes = []
+
+        def run(*ms):
+            recomputing[0] = bool(passes)
+            passes.append(None)
+            try:
+                return fn(idx, *ms)
+            finally:
+                recomputing[0] = False
+
+        return checkpoint(
+            run, *moments, use_reentrant=False, preserve_rng_state=False
+        )
 
     def layer(fn, name: str, *moments):
         p = params[name]
@@ -165,7 +194,7 @@ def forward(params: Params, x: Tensor, cfg: ModelConfig, tap=None) -> Tuple[Tens
     m, s = layer(vconv_relu, "conv1", m, s)
     for i in range(depth):
         if i > 0:
-            m, s = encoder_block(i, m, s)
+            m, s = block(encoder_block, i, m, s)
         if i < depth - 1:
             skips.append((m, s))
             m, s = vmaxpool(m, s)
@@ -173,10 +202,83 @@ def forward(params: Params, x: Tensor, cfg: ModelConfig, tap=None) -> Tuple[Tens
 
     for j in range(1, depth):
         m_e, s_e = skips[depth - 1 - j]
-        m, s = decoder_block(j, m, s, m_e, s_e)
+        m, s = block(decoder_block, j, m, s, m_e, s_e)
 
     m, s = layer(vconv, "conv_final", m, s)
     return vsoftmax(m, s)
+
+
+def sample_weights(params: Params, generator: torch.Generator) -> Dict[str, Tensor]:
+    """One draw from the weight posterior: ``w ~ N(w_mu, softplus(w_sigma))``
+    per conv layer, the per-output-channel variance broadcast over the
+    kernel. The noise is drawn from ``generator`` on its own device and
+    moved to the weights'; feed the result to :func:`forward_sampled`.
+    ``torch.Generator`` streams differ from ``jax.random``: compare with the
+    JAX twin by distribution."""
+    out: Dict[str, Tensor] = {}
+    with torch.no_grad():
+        for name, p in params.items():
+            w_mu = p["w_mu"]
+            eps = torch.randn(
+                w_mu.shape, generator=generator, dtype=w_mu.dtype,
+                device=generator.device,
+            ).to(w_mu.device)
+            out[name] = w_mu + torch.sqrt(F.softplus(p["w_sigma"])) * eps
+    return out
+
+
+def forward_sampled(weights: Dict[str, Tensor], x: Tensor, cfg: ModelConfig) -> Tensor:
+    """Deterministic twin of :func:`forward`: one ordinary U-Net pass with
+    concrete HWIO kernels (e.g. from :func:`sample_weights`); returns the
+    softmax probabilities [B, H_out*W_out, n_classes].
+
+    The architecture the moment propagation models: VALID convs, relu,
+    2x2/2 max pool padded at the high end on odd sizes, zero-interleave
+    unpool + 2x2 conv, the [3,3]/[2,2] pad choreography and crop-concat
+    skips with the decoder channels first. Its convolutions are PyTorch's
+    own (the JAX twin's are XLA's), at the precision of
+    ``set_mxu_precision``."""
+    depth = cfg.depth
+
+    def conv(name: str, h: Tensor) -> Tensor:
+        # NHWC activations and HWIO kernels through conv2d's NCHW / OIHW
+        w = weights[name].permute(3, 2, 0, 1)
+        return F.conv2d(h.permute(0, 3, 1, 2), w).permute(0, 2, 3, 1)
+
+    def conv_relu(name: str, h: Tensor) -> Tensor:
+        return F.relu(conv(name, h))
+
+    def pad(h: Tensor, p) -> Tensor:
+        lo, hi = (p, p) if isinstance(p, int) else p
+        return F.pad(h, (0, 0, lo, hi, lo, hi))
+
+    def pool(h: Tensor) -> Tensor:
+        h = F.max_pool2d(h.permute(0, 3, 1, 2), 2, 2, ceil_mode=True)
+        return h.permute(0, 2, 3, 1)
+
+    skips: List[Tensor] = []
+    h = conv_relu("conv_input", x)
+    h = conv_relu("conv1", h)
+    for i in range(depth):
+        if i > 0:
+            if i == depth - 1 and cfg.bottleneck_pre_pad is not None:
+                h = pad(h, cfg.bottleneck_pre_pad)
+            h = conv_relu(f"conv{2 * i}", h)
+            h = conv_relu(f"conv{2 * i + 1}", h)
+        if i < depth - 1:
+            skips.append(h)
+            h = pool(h)
+    for j in range(1, depth):
+        h = conv(f"up{j}_conv2x2", _unpool_one(h))
+        h = pad(h, (3, 3))
+        enc = skips[depth - 1 - j]
+        h = torch.cat([h, crop_center(enc, h.shape[1], h.shape[2])], dim=-1)
+        h = conv_relu(f"up{j}_conv1", h)
+        h = pad(h, (2, 2))
+        h = conv_relu(f"up{j}_conv2", h)
+    h = conv("conv_final", h)
+    b, hh, ww, c = h.shape
+    return torch.softmax(h.reshape(b, hh * ww, c), dim=-1)
 
 
 def forward_images(params: Params, x: Tensor, cfg: ModelConfig) -> Tuple[Tensor, Tensor]:

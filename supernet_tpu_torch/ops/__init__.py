@@ -4,6 +4,7 @@
 from supernet_tpu_torch.ops.moments import (
     chan_sum,
     crop_center,
+    crop_to_match,
     get_mxu_precision,
     scale_sw,
     set_mxu_precision,
@@ -16,12 +17,14 @@ from supernet_tpu_torch.ops.moments import (
     vpad,
     vrelu,
     vsoftmax,
+    vunpool,
     vunpool_conv2,
 )
 
 __all__ = [
     "chan_sum",
     "crop_center",
+    "crop_to_match",
     "get_mxu_precision",
     "scale_sw",
     "set_mxu_precision",
@@ -34,5 +37,6 @@ __all__ = [
     "vpad",
     "vrelu",
     "vsoftmax",
+    "vunpool",
     "vunpool_conv2",
 ]

@@ -164,6 +164,22 @@ def _unpool_conv(x: Tensor, w: Tensor) -> Tensor:
     return y.reshape(b, 2 * h, 2 * wd, w.shape[-1])
 
 
+def _unpool_one(x: Tensor) -> Tensor:
+    """Zero-interleaved 2x upsample with a 1-px border: [B,H,W,C] ->
+    [B,2H+1,2W+1,C], the input values landing at the odd indices (the JAX
+    module's ``lax.pad`` with lo=1, hi=1, interior=1)."""
+    b, h, w, c = x.shape
+    out = x.new_zeros((b, 2 * h + 1, 2 * w + 1, c))
+    out[:, 1::2, 1::2] = x
+    return out
+
+
+def vunpool(mu: Tensor, sigma: Tensor) -> MomentPair:
+    """The zero-interleave upsample applied to both moments (unfused; the
+    decoder runs :func:`vunpool_conv2`)."""
+    return _unpool_one(mu), _unpool_one(sigma)
+
+
 def vunpool_conv2(
     mu: Tensor, sigma: Tensor, w_mu: Tensor, w_sigma: Tensor
 ) -> MomentPair:
@@ -197,15 +213,19 @@ def crop_center(x: Tensor, target_h: int, target_w: int) -> Tensor:
     return x[:, oh : oh + target_h, ow : ow + target_w]
 
 
+def crop_to_match(x: Tensor, like: Tensor) -> Tensor:
+    """Center-crop ``x`` to the spatial shape of ``like``."""
+    return crop_center(x, like.shape[1], like.shape[2])
+
+
 def vcrop_concat(
     mu_dec: Tensor, sigma_dec: Tensor, mu_enc: Tensor, sigma_enc: Tensor
 ) -> MomentPair:
     """Skip connection: center-crop the encoder moments to the decoder's
     size and concatenate on channels, decoder channels first."""
-    h, w = mu_dec.shape[1], mu_dec.shape[2]
     return (
-        torch.cat([mu_dec, crop_center(mu_enc, h, w)], dim=-1),
-        torch.cat([sigma_dec, crop_center(sigma_enc, h, w)], dim=-1),
+        torch.cat([mu_dec, crop_to_match(mu_enc, mu_dec)], dim=-1),
+        torch.cat([sigma_dec, crop_to_match(sigma_enc, sigma_dec)], dim=-1),
     )
 
 

@@ -108,6 +108,56 @@ def _busy_us(events) -> float:
     return busy
 
 
+class StepTimer:
+    """Rolling throughput meter of the epoch trainer: ``tick()`` marks a
+    step boundary, ``rate(window)`` is steps/sec over the last ``window``
+    steps. Kernels are queued asynchronously: call ``sync`` before reading
+    a rate in code that has not already fetched a value of the step."""
+
+    def __init__(self) -> None:
+        self.times: List[float] = []
+
+    def tick(self) -> None:
+        self.times.append(time.perf_counter())
+
+    @staticmethod
+    def sync(x=None) -> None:
+        """Wait for the device work queued so far (``x`` may be a tensor or
+        a nest of tensors: only a CUDA leaf makes this wait)."""
+        while isinstance(x, dict):
+            x = next(iter(x.values()))
+        if x is None or getattr(x, "is_cuda", False):
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+
+    def rate(self, window: int = 50) -> float:
+        t = self.times[-window:]
+        if len(t) < 2:
+            return 0.0
+        return (len(t) - 1) / (t[-1] - t[0])
+
+    def total_seconds(self) -> float:
+        if len(self.times) < 2:
+            return 0.0
+        return self.times[-1] - self.times[0]
+
+
+def device_memory_stats() -> Dict[str, Dict[str, int]]:
+    """{device: {bytes_in_use, peak_bytes_in_use, bytes_reserved}} of every
+    visible card, from ``torch.cuda.memory_stats``; empty without one."""
+    out: Dict[str, Dict[str, int]] = {}
+    if not torch.cuda.is_available():
+        return out
+    for i in range(torch.cuda.device_count()):
+        stats = torch.cuda.memory_stats(i)
+        out[f"cuda:{i}"] = {
+            "bytes_in_use": stats.get("allocated_bytes.all.current", 0),
+            "peak_bytes_in_use": stats.get("allocated_bytes.all.peak", 0),
+            "bytes_reserved": stats.get("reserved_bytes.all.current", 0),
+        }
+    return out
+
+
 def _setup(config: str, seed: int):
     if not torch.cuda.is_available():
         raise RuntimeError("profiling needs a CUDA device; there is no CPU fallback")

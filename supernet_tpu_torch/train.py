@@ -9,9 +9,13 @@ plain calls and Python loops; the state is updated in place (the JAX step
 donates it) and returned. Parameters are the JAX-layout dict
 ``{layer: {"w_mu", "w_sigma"}}``.
 
-Options that the JAX step has and this one does not yet run raise
-``NotImplementedError`` naming the ``ROADMAP.md`` item that ports them:
-adversarial training and on-device augmentation.
+With ``tc.augment`` the single and multi-step builders augment each batch
+on the parameters' device (``data/augment.py``), keyed by the seed, the
+state's step counter and the global image index.
+
+The one option that the JAX step has and this one does not yet run,
+adversarial training, raises ``NotImplementedError`` naming the
+``ROADMAP.md`` item that ports it.
 """
 
 from __future__ import annotations
@@ -103,20 +107,42 @@ def _check_supported(tc: TrainConfig) -> None:
             "adversarial training is not ported yet (ROADMAP.md, Queue 1: "
             "'Evaluation surface', attacks.py)"
         )
-    if tc.augment is not None:
-        raise NotImplementedError(
-            "on-device augmentation is not ported yet (ROADMAP.md, Queue 1: "
-            "'Epoch driver, checkpoints and data', augment.py)"
-        )
+
+
+def _to_device(params: Params, x, y) -> Tuple[Tensor, Tensor]:
+    """x (float32) and y as tensors on the parameters' device."""
+    device = next(iter(params.values()))["w_mu"].device
+    x = torch.as_tensor(x, dtype=torch.float32, device=device)
+    return x, torch.as_tensor(y, device=device)
 
 
 def _batch(params: Params, x, y, n_classes: int) -> Tuple[Tensor, Tensor]:
     """x and y as tensors on the parameters' device; integer labels are
     one-hot encoded there (the host ships 4-byte labels)."""
-    device = next(iter(params.values()))["w_mu"].device
-    x = torch.as_tensor(x, dtype=torch.float32, device=device)
-    y = torch.as_tensor(y, device=device)
+    x, y = _to_device(params, x, y)
     return x, ensure_one_hot(y, n_classes)
+
+
+def maybe_augment(
+    step: int,
+    x: Tensor,
+    y: Tensor,
+    cfg: ModelConfig,
+    tc: TrainConfig,
+    index_offset: int = 0,
+) -> Tuple[Tensor, Tensor]:
+    """On-device augmentation inside the step (``tc.augment``); identity
+    when disabled. Keyed by ``tc.seed``, the step counter and the global
+    image index (``index_offset`` + the image's place in the batch), so a
+    sharded batch augments like the whole one."""
+    if tc.augment is None:
+        return x, y
+    from supernet_tpu_torch.data.augment import augment_train_batch
+
+    with torch.no_grad():
+        return augment_train_batch(
+            step, x, y, cfg.out_size, tc.augment, tc.seed, index_offset
+        )
 
 
 def loss_fn(
@@ -151,7 +177,9 @@ def _update(state: TrainState, tc: TrainConfig) -> None:
 
 
 def _train_step(state: TrainState, x, y, cfg: ModelConfig, tc: TrainConfig):
-    x, y = _batch(state.params, x, y, cfg.n_classes)
+    x, y = _to_device(state.params, x, y)
+    x, y = maybe_augment(state.step, x, y, cfg, tc)
+    y = ensure_one_hot(y, cfg.n_classes)
     state.opt_state.zero_grad(set_to_none=True)
     loss, (nll, kl, probs, _) = loss_fn(state.params, x, y, cfg, tc)
     loss.backward()

@@ -114,8 +114,9 @@ def test_tiling_copy_matches_jax(fn, shape, overlap, weight):
 def test_port_imports_no_jax():
     """A fresh interpreter that refuses to import ``jax`` and the JAX
     package ``supernet_tpu`` (a meta-path blocker) imports every module of
-    the port, runs one tiny CPU forward through the serving session and
-    takes one CPU train step."""
+    the port (the data modules, the trainer and the CLI among them), builds
+    the CLI's parser, runs one tiny CPU forward through the serving session
+    and takes one CPU train step."""
     code = textwrap.dedent("""
         import dataclasses, importlib, pkgutil, sys
 
@@ -135,7 +136,18 @@ def test_port_imports_no_jax():
             importlib.import_module(name)
         assert {"supernet_tpu_torch.train", "supernet_tpu_torch.losses",
                 "supernet_tpu_torch.configs", "supernet_tpu_torch.tiling",
-                "supernet_tpu_torch.ops.kernels.sigma_bwd"} <= set(names), names
+                "supernet_tpu_torch.ops.kernels.sigma_bwd",
+                "supernet_tpu_torch.trainer", "supernet_tpu_torch.cli",
+                "supernet_tpu_torch.metrics", "supernet_tpu_torch.reports",
+                "supernet_tpu_torch.utils", "supernet_tpu_torch.native",
+                "supernet_tpu_torch.data.augment",
+                "supernet_tpu_torch.data.loaders",
+                "supernet_tpu_torch.data.nifti",
+                "supernet_tpu_torch.data.shards",
+                "supernet_tpu_torch.data.synthetic"} <= set(names), names
+        from supernet_tpu_torch import cli
+        assert cli.build_parser().parse_args(
+            ["train", "--synthetic", "4"]).device == "cuda"
         from supernet_tpu_torch import train
         from supernet_tpu_torch.configs import HIPPOCAMPUS
         from supernet_tpu_torch.models import init_params
