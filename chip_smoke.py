@@ -41,7 +41,10 @@ Phases (any failure raises and the exit code is not 0):
    grid and the device time with the stream held (no host time).
    At every k=3 conv shape the gradients of ``VDPConv`` (kernel 1 forward,
    kernel 4 inside the backward) are held against autograd of
-   ``vdp_conv_plain``, each within 1e-4 of that gradient's max magnitude.
+   ``vdp_conv_plain``, each within 1e-4 of that gradient's max magnitude:
+   the input gradient too at ``conv_input`` (``sigma=None``), which every
+   attack and saliency map is, and again with weights that require no
+   gradient (the attack's case: the weight gradients are skipped).
    Each is timed with CUDA events beside its plain version.
 6. training, hippocampus at full width, batch 20: 5 steps of
    ``train.make_train_step`` from He-scaled ``init_params`` on a seeded
@@ -90,14 +93,51 @@ Phases (any failure raises and the exit code is not 0):
    16 rematerialised convs launched twice, a lower peak of allocated
    memory; both peaks printed with the card's name and power limit).
 
-In phases 6-11 cuDNN runs its deterministic algorithms, and in 6-7 the CPU
-reference of the step-1 gradients replays the card's ReLU masks and pool
+12. attack gradients: ``attacks.input_gradient`` (the gradient of the
+   attack loss with respect to the image, before the sign) at full
+   hippocampus width, batch 20, targeted labels (class 3 of 3: all-zero
+   one-hot rows), and at full BraTS width, batch 2, from He-scaled
+   parameters that require a gradient and get none. The counters per
+   gradient must read (10, 2, 2, 10) and (18, 4, 4, 18) of kernels 1-4
+   (a rematerialised config would launch its block forwards twice). Held
+   against the CPU with the card's ReLU masks and pool taps replayed, within
+   ``ATTACK_GRAD_TOL`` of the gradient's max; no sign may differ from that
+   of the same gradient in float64 (CPU, the same choices) above
+   ``ATTACK_SIGN_FLOOR`` of its max. Printed beside it: the share of pixels
+   whose sign differs, each float32 run's distance from float64, and the
+   card's with kernel 1 replaced by its plain version. Then the adversarial train step (FGSM) beside the
+   plain one: launches per step 3x the forwards and backwards (one attack
+   gradient, the clean and the adversarial branch), and both step times.
+13. ``run_adversarial`` on the card: hippocampus, the default targeted
+   attack (``adv_class = 3``, PGD, 20 steps), 40 synthetic images; BraTS
+   untargeted (one FGSM step), 4 images at batch 2. The counters must equal
+   batches x (steps x per-gradient + per-forward). Every adversarial image
+   lies inside the epsilon-ball and the batch's range exactly; the card's
+   adversarial images through the CPU forward give the card's ``probs`` /
+   ``sigma`` within the serving tolerances (the CPU runs no PGD step of its
+   own); every artifact file is there. Prints seconds per attacked batch.
+14. ``run_testing``, ``run_noise_sweep`` (one level, one region) and
+   ``run_calibration`` on the card against the same calls with
+   ``device="cpu"`` (the same noise draws: a CPU generator keyed by seed and
+   batch): the metrics within ``EVAL_METRIC_ATOL`` (Hausdorff distances
+   aside: one flipped pixel moves them by pixels), the SNR within 1e-4
+   relative; ``mc_samples=4`` runs and returns finite moments. Prints
+   ``test_time_per_batch_s`` and the sweep's seconds.
+15. the evaluation CLI, in process and on its default device: ``cli.main(
+   ["study", "--synthetic", "40", "--epochs", "1", ...])`` (train, eval,
+   sweep, attack, calibrate; ``study.json`` must hold all five stages and
+   the counters the launches of all of them), one ``saliency`` run (one
+   gradient), and one epoch of ``train --adversarial-training fgsm``.
+
+In phases 6-15 cuDNN runs its deterministic algorithms, and in 6-7 and 12
+the CPU reference of the gradients replays the card's ReLU masks and pool
 taps (``_decisions``), so that rounding ties do not decide the comparison.
 
 The last two lines of standard output are the kernels summary
 ``{"kernels": [...]}`` (all four kernels, with their launches in the
-hippocampus training run, the epoch trainer's run and the CLI's run,
-errors, times and bounds) and ``{"ok": true, "device": {...}}``.
+hippocampus training run, the epoch trainer's run, the CLI's run, one
+attack gradient, the adversarial evaluation and the study, errors, times
+and bounds) and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -139,6 +179,21 @@ TRAIN_GRAD_TOL = 1e-3  # step-1 gradient, per leaf, relative to its max
 # H100 the 3 epochs of phase 8 read 7e-6, 2e-5 and 2e-4 relative. Ten times
 # the per-step limit; the parameters are still held to 2 * lr * steps.
 EPOCH_LOSS_RTOL = 1e-3
+# the attack loss's gradient with respect to the image, card against CPU
+# with the card's ReLU and pool choices replayed, relative to its max. On an
+# H100 it read 6.1e-6 at hippocampus batch 20 and 1.7e-3 at BraTS batch 2,
+# where the CPU's float32 run is 2e-6 from the same gradient in float64: the
+# loss divides by sigma, so the gradient takes the relative error that sigma
+# gathers over 18 layers on the card (the phase prints where it comes from).
+ATTACK_GRAD_TOL = 5e-3
+# below this share of the gradient's max (twice the limit above) a sign may
+# be decided by rounding
+ATTACK_SIGN_FLOOR = 1e-2
+# evaluation metrics (accuracy, Dice, rates, calibration scalars), card
+# against CPU on the same images and draws: a few argmax flips among the
+# 116,640 pixels of 40 hippocampus images
+EVAL_METRIC_ATOL = 5e-3
+EVAL_SNR_RTOL = 1e-4
 TIMING_RUNS = 20
 
 
@@ -367,19 +422,22 @@ class KernelCheck:
             "same_bits_in_two_runs": True, "device_ms": dev_ms,
         })
 
-    def vdp_conv_bwd(self, config, layer, b, h, w, cin, cout, k, has_sigma, relu):
+    def vdp_conv_bwd(self, config, layer, b, h, w, cin, cout, k, has_sigma, relu,
+                     frozen=False):
         """VDPConv's gradients (kernel 1 forward, kernel 4 in the backward)
         against autograd of the plain version on the same cotangents. Where
         the two ReLU masks differ (a pre-activation that rounds to 0 in one
         summation order only, checked to lie at mu = 0 as in _vdp_errors)
-        the cotangents are set to 0, so both backward passes see one mask."""
+        the cotangents are set to 0, so both backward passes see one mask.
+        The input always requires a gradient (at ``sigma=None`` too: the
+        image's gradient); with ``frozen`` the weights do not."""
         torch = self.torch
         from supernet_tpu_torch.ops.kernels import vdp_conv as V
 
-        mu = self._randn(b, h, w, cin).requires_grad_(has_sigma)
+        mu = self._randn(b, h, w, cin).requires_grad_()
         sigma = (0.05 * self._randn(b, h, w, cin).abs()).requires_grad_() if has_sigma else None
-        w_mu = (0.1 * self._randn(k, k, cin, cout)).requires_grad_()
-        w_sigma = (-4.0 + self._randn(cout)).requires_grad_()
+        w_mu = (0.1 * self._randn(k, k, cin, cout)).requires_grad_(not frozen)
+        w_sigma = (-4.0 + self._randn(cout)).requires_grad_(not frozen)
         inputs = [t for t in (mu, sigma, w_mu, w_sigma) if t is not None and t.requires_grad]
         got = V.VDPConv.apply(mu, sigma, w_mu, w_sigma, relu)
         want = V.vdp_conv_plain(mu, sigma, w_mu, w_sigma, relu)[:2]
@@ -418,6 +476,7 @@ class KernelCheck:
         self._record("vdp_conv_bwd", config, abs_err, rel_err, ms, plain_ms, None, {
             "layer": layer, "shape": [b, h, w, cin, cout, k],
             "sigma": has_sigma, "relu": relu, "relu_ties": flips,
+            "gradients": names,
         })
 
     def _seen(self, kernel, config, path, dev_ms):
@@ -1061,6 +1120,449 @@ def _augment_and_remat(torch, smi):
           f"allocated, {outs[True][2] / 2**20:.1f} MiB with remat ({smi})", flush=True)
 
 
+def _per_gradient(cfg, batch) -> dict:
+    """Launches of one forward and backward (a train step, or one gradient
+    with respect to the image)."""
+    return _expected_launches(cfg, batch, 1, 0)
+
+
+def _scaled(launches: dict, n: int) -> dict:
+    return {k: n * v for k, v in launches.items()}
+
+
+def _summed(*parts: dict) -> dict:
+    return {k: sum(p.get(k, 0) for p in parts) for k in parts[0]}
+
+
+def _attack_batch(torch, cfg, batch, targeted, device):
+    """A seeded batch on ``device`` and its one-hot flattened attack label
+    (the targeted relabeling of class 2 to class 3 where asked)."""
+    import numpy as np
+
+    from supernet_tpu_torch.attacks import retarget_labels
+    from supernet_tpu_torch.train import one_hot_flatten
+
+    rng = np.random.default_rng(SEED)
+    s, o = cfg.image_size, cfg.out_size
+    x = torch.from_numpy(rng.normal(0.0, 1.0, (batch, s, s, cfg.in_channels))
+                         .astype(np.float32)).to(device)
+    y = torch.from_numpy(rng.integers(0, cfg.n_classes, (batch, o, o))
+                         .astype(np.int32)).to(device)
+    if targeted:
+        y = retarget_labels(y, 2, 3)
+    return x, one_hot_flatten(y, cfg.n_classes)
+
+
+def _attack_gradient(torch, name, exp, batch):
+    """Phase 12, one config. Returns (launches of one gradient, seconds per
+    gradient)."""
+    from supernet_tpu_torch import attacks
+    from supernet_tpu_torch import train as T
+
+    cfg, ac = exp.model, exp.attack
+    # a train state's parameters: they require a gradient and must get none
+    state, _ = T.create_train_state(_he_params(torch, cfg), exp.train, "cuda")
+    cpu, _ = T.create_train_state(_he_params(torch, cfg), exp.train, "cpu")
+    x, y_flat = _attack_batch(torch, cfg, batch, ac.targeted, "cuda")
+    if ac.targeted and not bool((y_flat.sum(-1) == 0).any()):
+        _die(f"{name} attack gradient: the targeted label has no all-zero row")
+
+    attacks.input_gradient(state.params, x, y_flat, cfg, ac)  # warm-up
+    torch.cuda.synchronize()
+    _zero_launches()
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        g = attacks.input_gradient(state.params, x, y_flat, cfg, ac)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = _read_launches()
+    want = _per_gradient(cfg, batch)
+    if cfg.remat:  # every block but conv_input / conv1 runs forward twice
+        want["vdp_conv"] += want["vdp_conv"] - 2
+    if launches != _scaled(want, 5):
+        _die(f"{name} attack gradient: kernel launches {launches} in 5 gradients, "
+             f"expected {want} each")
+    if any(t.grad is not None for t in T.leaves(state.params)):
+        _die(f"{name} attack gradient: a parameter was given a gradient")
+
+    choices = []
+    with _decisions(torch, record=choices):
+        g_rec = attacks.input_gradient(state.params, x, y_flat, cfg, ac)
+    if not torch.equal(g, g_rec):
+        _die(f"{name} attack gradient: two runs on the card differ")
+    with _decisions(torch, replay=choices) as ties:
+        g_cpu = attacks.input_gradient(cpu.params, x.cpu(), y_flat.cpu(), cfg, ac)
+    if g.shape != x.shape or not bool(torch.isfinite(g).all()):
+        _die(f"{name} attack gradient: shape {tuple(g.shape)} or non-finite values")
+    err = _max_rel(torch, g, g_cpu)
+    # the same gradient in float64 on the CPU (the same choices replayed; the
+    # softmax head stays float32): how far each float32 run is from it
+    p64 = {k: {n: t.detach().double() for n, t in ws.items()}
+           for k, ws in cpu.params.items()}
+    with _decisions(torch, replay=choices):
+        g64 = attacks.input_gradient(p64, x.cpu().double(), y_flat.cpu().double(), cfg, ac)
+    err_card64, err_cpu64 = _max_rel(torch, g.double(), g64), _max_rel(torch, g_cpu.double(), g64)
+    if not err <= ATTACK_GRAD_TOL:
+        _die(f"{name} attack gradient differs from the CPU's by {err:.3e} of its "
+             f"max > {ATTACK_GRAD_TOL} (from float64 by {err_card64:.3e}, the "
+             f"CPU's float32 by {err_cpu64:.3e})")
+    # where the card's distance comes from: the same gradient on the card
+    # with kernel 1 replaced by its plain version (cuDNN float32), the same
+    # choices replayed; printed, not held to a limit
+    from supernet_tpu_torch.ops.kernels import vdp_conv as V
+
+    kernel_1 = V.vdp_conv
+    V.vdp_conv = V.vdp_conv_plain
+    try:
+        with _decisions(torch, replay=choices):
+            g_plain = attacks.input_gradient(state.params, x, y_flat, cfg, ac)
+    finally:
+        V.vdp_conv = kernel_1
+    err_plain64 = _max_rel(torch, g_plain.double(), g64)
+    scale = float(g_cpu.abs().max())
+    clear = g64.abs() > ATTACK_SIGN_FLOOR * scale
+    sign_off = torch.sign(g.cpu()) != torch.sign(g64)
+    if bool((sign_off & clear).any()):
+        _die(f"{name} attack gradient: a sign differs from the float64 gradient's where "
+             f"|g| > {ATTACK_SIGN_FLOOR} of its max")
+    sec = statistics.median(times)
+    print(json.dumps({
+        "attack_gradient": name, "batch": batch, "targeted": ac.targeted,
+        "launches_per_gradient": want, "grad_max_rel_err_vs_cpu": err,
+        "grad_max_rel_err_vs_float64": err_card64,
+        "cpu_grad_max_rel_err_vs_float64": err_cpu64,
+        "card_grad_with_plain_kernel_1_max_rel_err_vs_float64": err_plain64,
+        "grad_max_abs": scale, "grad_ties_replayed": ties,
+        "sign_share_differing": float(sign_off.float().mean()),
+        "share_above_sign_floor": float(clear.float().mean()),
+        "gradient_s": times, "median_gradient_s": sec,
+    }), flush=True)
+    return want, sec
+
+
+def _adversarial_train_step(torch, smi):
+    """Phase 12, the adversarial train step (FGSM) beside the plain one:
+    launches per step and median step seconds of steps 2-5 of each."""
+    import numpy as np
+
+    from supernet_tpu_torch import train as T
+    from supernet_tpu_torch.configs import HIPPOCAMPUS
+
+    cfg, batch, steps = HIPPOCAMPUS.model, 20, 5
+    rng = np.random.default_rng(SEED)
+    x = rng.normal(0.0, 1.0, (batch, cfg.image_size, cfg.image_size, 1)).astype(np.float32)
+    y = rng.integers(0, cfg.n_classes, (batch, cfg.out_size, cfg.out_size)).astype(np.int32)
+    out = {}
+    for mode in ("none", "fgsm"):
+        tc = dataclasses.replace(HIPPOCAMPUS.train, adversarial_training=mode)
+        state, _ = T.create_train_state(_he_params(torch, cfg), tc, "cuda")
+        step = T.make_train_step(cfg, tc)
+        torch.cuda.synchronize()
+        _zero_launches()
+        times, losses = [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            state, m = step(state, x, y)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(m.loss))
+        launches = _read_launches()
+        # fgsm: the attack's gradient, then the clean and the adversarial branch
+        want = _scaled(_per_gradient(cfg, batch), steps * (3 if mode == "fgsm" else 1))
+        if launches != want:
+            _die(f"train step, adversarial_training={mode}: kernel launches "
+                 f"{launches}, expected {want}")
+        if not all(math.isfinite(v) for v in losses):
+            _die(f"train step, adversarial_training={mode}: losses {losses}")
+        out[mode] = (statistics.median(times[1:]), launches, losses)
+    if not out["fgsm"][2][-1] < out["fgsm"][2][0]:
+        _die(f"adversarial training: the loss did not fall: {out['fgsm'][2]}")
+    print(json.dumps({
+        "adversarial_train_step": "hippocampus, fgsm", "card": smi, "batch": batch,
+        "steps": steps, "launches": out["fgsm"][1], "plain_launches": out["none"][1],
+        "losses": out["fgsm"][2], "plain_losses": out["none"][2],
+        "median_step_s": out["fgsm"][0], "plain_median_step_s": out["none"][0],
+    }), flush=True)
+    print(f"adversarial train step (FGSM) {1e3 * out['fgsm'][0]:.3f} ms beside "
+          f"{1e3 * out['none'][0]:.3f} ms plain (hippocampus, batch 20; {smi})", flush=True)
+    return out["fgsm"][0], out["none"][0]
+
+
+def _eval_exp(name, batch):
+    from supernet_tpu_torch.configs import get_config
+
+    exp = get_config(name)
+    return exp.replace(train=dataclasses.replace(exp.train, batch_size=batch))
+
+
+def _synthetic_ds(cfg, n, seed=1):
+    from supernet_tpu_torch.data import PickleDataset, synthetic_dataset
+
+    return PickleDataset(*synthetic_dataset(cfg, n, seed=seed), cfg.in_channels)
+
+
+def _run_adversarial(torch, smi, tmp, name, batch, n_images):
+    """Phase 13, one config. Returns (launches, seconds per attacked batch)."""
+    import numpy as np
+
+    from supernet_tpu_torch import evaluate as E
+    from supernet_tpu_torch import reports
+    from supernet_tpu_torch.checkpoint import params_from_jax
+    from supernet_tpu_torch.models import forward
+
+    exp = _eval_exp(name, batch)
+    cfg, ac = exp.model, exp.attack
+    use_pgd = ac.targeted or name == "hippocampus"
+    steps = ac.max_adv_step if use_pgd else 1
+    params = _he_params(torch, cfg)
+    ds = _synthetic_ds(cfg, n_images)
+    batches = math.ceil(n_images / batch)
+    out = os.path.join(tmp, f"adversarial_{name}")
+
+    # keep every batch's clean and adversarial frames, and time the attack
+    seen, attack_s = [], []
+    which = "make_pgd_attack" if use_pgd else "make_fgsm_attack"
+    make = getattr(E, which)
+
+    def recording(*a, **kw):
+        attack = make(*a, **kw)
+
+        def run(p, x, y_flat, x_min, x_max):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            adv = attack(p, x, y_flat, x_min, x_max)
+            torch.cuda.synchronize()
+            attack_s.append(time.perf_counter() - t0)
+            seen.append((x.cpu(), adv.cpu()))
+            return adv
+
+        return run
+
+    setattr(E, which, recording)
+    try:
+        torch.cuda.synchronize()
+        _zero_launches()
+        res = E.run_adversarial(exp, params, ds, out_dir=out, images_n=2)
+        launches = _read_launches()
+    finally:
+        setattr(E, which, make)
+    want = _scaled(_summed(_scaled(_per_gradient(cfg, batch), steps),
+                           _expected_launches(cfg, batch, 0, 1)), batches)
+    if launches != want or len(seen) != batches:
+        _die(f"run_adversarial {name}: kernel launches {launches}, expected {want} "
+             f"({batches} batches x ({steps} gradients + 1 forward))")
+    for f in ("uncertainty_info.pkl", "Predictive_variance_tasks.txt",
+              "Related_hyperparameters_adversarial.txt"):
+        if not os.path.isfile(os.path.join(out, f)):
+            _die(f"run_adversarial {name}: {f} was not written")
+    numbers = [v for k, v in res.items() if isinstance(v, float) and k.startswith(
+        ("accuracy", "snr_db", "mean_predictive", "test_time"))]
+    if not all(math.isfinite(v) for v in numbers) or res["artifact_samples"] != n_images:
+        _die(f"run_adversarial {name}: result {res}")
+
+    # the ball and the range exactly (the same float32 bounds the attack clips to)
+    moved = 0.0
+    for x, adv in seen:
+        if not bool(((adv >= x - ac.epsilon) & (adv <= x + ac.epsilon)).all()):
+            _die(f"run_adversarial {name}: an adversarial pixel lies outside the ball")
+        if float(adv.min()) < float(x.min()) or float(adv.max()) > float(x.max()):
+            _die(f"run_adversarial {name}: an adversarial pixel lies outside the range")
+        moved = max(moved, float((adv - x).abs().max()))
+    if not moved > 0:
+        _die(f"run_adversarial {name}: the attack moved nothing")
+
+    # the card's adversarial images through the CPU forward
+    probs, sigma = reports.load_uncertainty_artifact(res["artifact"])[:2]
+    cpu_params = params_from_jax(params, "cpu")
+    with torch.no_grad():
+        ref = [forward(cpu_params, adv, cfg) for _, adv in seen]
+    shape = (n_images, cfg.out_size, cfg.out_size, cfg.n_classes)
+    ref_p = torch.cat([p for p, _ in ref]).numpy().reshape(shape)
+    ref_s = torch.cat([v for _, v in ref]).numpy().reshape(shape)
+    worst_p = float(np.abs(probs - ref_p).max())
+    d = np.abs(sigma - ref_s) / max(float(np.abs(ref_s).max()), 1e-30)
+    share = float((d > SERVE_SIGMA_RTOL).mean())
+    if worst_p > SERVE_PROBS_ATOL or share > SERVE_SIGMA_SHARE:
+        _die(f"run_adversarial {name}: the card's forward of its adversarial images "
+             f"differs from the CPU's (probs {worst_p:.3e}; sigma beyond "
+             f"{SERVE_SIGMA_RTOL} relative on {share:.3%} of the elements)")
+    sec = statistics.median(attack_s)
+    print(json.dumps({
+        "run_adversarial": name, "card": smi, "batch": batch, "images": n_images,
+        "attack": "pgd" if use_pgd else "fgsm", "steps": steps, "targeted": ac.targeted,
+        "epsilon": ac.epsilon, "launches": launches, "max_moved": moved,
+        "accuracy": res["accuracy"], "snr_db": res["snr_db"],
+        "mean_predictive_variance": res["mean_predictive_variance"],
+        "probs_max_abs_err_vs_cpu": worst_p, "sigma_share_beyond_rtol": share,
+        "cpu_pgd_steps": 0, "attacked_batch_s": attack_s,
+        "median_attacked_batch_s": sec,
+        "test_time_per_batch_s": res["test_time_per_batch_s"],
+    }), flush=True)
+    print(f"{name} attacked batch ({'PGD' if use_pgd else 'FGSM'}, {steps} step(s), "
+          f"batch {batch}): {sec:.4f} s ({smi})", flush=True)
+    return launches, sec
+
+
+def _metrics_close(what, got, want) -> float:
+    """Hold the numbers of two result dicts together; returns the worst
+    difference. Hausdorff distances and wall times are left out."""
+    worst = 0.0
+    if set(got) != set(want):
+        _die(f"{what}: result keys differ: {sorted(set(got) ^ set(want))}")
+    for k, w in want.items():
+        if not isinstance(w, float) or k.startswith(("hausdorff", "test_time")):
+            continue
+        g = got[k]
+        if math.isnan(w) or math.isinf(w):
+            if not (g == w or (math.isnan(g) and math.isnan(w))):
+                _die(f"{what}: {k} = {g} on the card, {w} on the CPU")
+            continue
+        tol = EVAL_SNR_RTOL * abs(w) if k == "snr_db" else EVAL_METRIC_ATOL * max(1.0, abs(w))
+        if not abs(g - w) <= tol:
+            _die(f"{what}: {k} = {g} on the card, {w} on the CPU (limit {tol:.3e})")
+        if k != "snr_db":
+            worst = max(worst, abs(g - w) / max(1.0, abs(w)))
+    return worst
+
+
+def _evaluation(torch, smi, tmp):
+    """Phase 14. Returns (launches of the three runners, test seconds per
+    batch, sweep seconds)."""
+    from supernet_tpu_torch import evaluate as E
+    from supernet_tpu_torch.calibration import run_calibration
+
+    n_images, batch = 40, 20
+    exp = _eval_exp("hippocampus", batch).replace(
+        noise_levels=(0.05,), noise_regions=("A",))
+    cfg = exp.model
+    params = _he_params(torch, cfg)
+    ds = _synthetic_ds(cfg, n_images)
+    batches = math.ceil(n_images / batch)
+
+    def run(device):
+        root = os.path.join(tmp, f"evaluation_{device}")
+        e = exp.replace(out_dir=root)
+        t0 = time.perf_counter()
+        clean = E.run_testing(e, params, ds, out_dir=os.path.join(root, "clean"),
+                              images_n=2, device=device)
+        t1 = time.perf_counter()
+        sweep = E.run_noise_sweep(e, params, ds, device=device)
+        t2 = time.perf_counter()
+        cal = run_calibration(e, params, ds, out_dir=os.path.join(root, "cal"),
+                              device=device)
+        return clean, sweep, cal, t1 - t0, t2 - t1, root
+
+    torch.cuda.synchronize()
+    _zero_launches()
+    clean, sweep, cal, clean_s, sweep_s, root = run("cuda")
+    launches = _read_launches()
+    want = _expected_launches(cfg, batch, 0, batches * (1 + 2 + 1))
+    if launches != want:
+        _die(f"evaluation: kernel launches {launches}, expected {want}")
+    r_clean, r_sweep, r_cal, _, _, _ = run("cpu")
+    worst = _metrics_close("run_testing", clean, r_clean)
+    if len(sweep) != 2 or not math.isfinite(sweep[1]["snr_db"]):
+        _die(f"run_noise_sweep: {len(sweep)} runs, snr {sweep[-1]['snr_db']}")
+    for i, (a, b) in enumerate(zip(sweep, r_sweep)):
+        worst = max(worst, _metrics_close(f"run_noise_sweep[{i}]", a, b))
+    scalars = (lambda r: {k: v for k, v in r.items() if isinstance(v, float)})
+    worst = max(worst, _metrics_close("run_calibration", scalars(cal), scalars(r_cal)))
+    for f in ("clean/uncertainty_info.pkl", "cal/calibration.pkl", "cal/Calibration_report.txt",
+              "hippocampus/testing/gaussian_0.05/on_anterior/"
+              "uncertainty_info_on_anterior_noise_0.05.pkl"):
+        if not os.path.isfile(os.path.join(root, f)):
+            _die(f"evaluation: {f} was not written")
+
+    _zero_launches()
+    mc = E.run_testing(exp, params, ds, out_dir=os.path.join(tmp, "mc"), mc_samples=4)
+    if _read_launches()["vdp_conv"] != 0:
+        _die("mc_samples: the sampled forward must not reach the VDP kernels")
+    if mc["mc_samples"] != 4 or not (math.isfinite(mc["accuracy"]) and
+                                     mc["mean_predictive_variance"] > 0 and
+                                     math.isfinite(mc["mean_predictive_variance"])):
+        _die(f"mc_samples=4: result {mc}")
+    print(json.dumps({
+        "evaluation": "run_testing, run_noise_sweep (0.05, A), run_calibration",
+        "card": smi, "batch": batch, "images": n_images, "launches": launches,
+        "worst_metric_diff_vs_cpu": worst, "accuracy": clean["accuracy"],
+        "snr_db": sweep[1]["snr_db"], "cpu_snr_db": r_sweep[1]["snr_db"],
+        "ece": cal["ece"], "ause": cal["ause"],
+        "test_time_per_batch_s": clean["test_time_per_batch_s"],
+        "noisy_test_time_per_batch_s": sweep[1]["test_time_per_batch_s"],
+        "run_testing_s": clean_s, "noise_sweep_s": sweep_s,
+        "mc_mean_predictive_variance": mc["mean_predictive_variance"],
+        "mc_test_time_per_batch_s": mc["test_time_per_batch_s"],
+    }), flush=True)
+    print(f"clean forward with the fetch: {clean['test_time_per_batch_s']:.5f} s per batch "
+          f"of {batch}; noise sweep (clean + 1 level x 1 region, {n_images} images, "
+          f"artifacts and host metrics included): {sweep_s:.3f} s ({smi})", flush=True)
+    return launches, clean["test_time_per_batch_s"], sweep_s
+
+
+def _eval_cli(torch, tmp):
+    """Phase 15. Returns the launches of ``cli study``."""
+    from supernet_tpu_torch import cli
+    from supernet_tpu_torch.configs import HIPPOCAMPUS
+
+    exp, batch, n = HIPPOCAMPUS, 20, 40
+    cfg = exp.model
+    grad, fwd = _per_gradient(cfg, batch), _expected_launches(cfg, batch, 0, 1)
+    batches = n // batch
+    out = os.path.join(tmp, "study")
+    torch.cuda.synchronize()
+    _zero_launches()
+    rc = cli.main(["study", "--config", "hippocampus", "--synthetic", str(n), "--epochs", "1",
+                   "--images-n", "2", "--out-dir", out])
+    launches = _read_launches()
+    sweep_runs = 1 + len(exp.noise_levels) * len(exp.noise_regions)
+    want = _summed(
+        _scaled(grad, batches), _scaled(fwd, batches),  # train: steps, validation
+        _scaled(fwd, batches * (1 + sweep_runs + 1)),  # eval, sweep, calibrate
+        _scaled(grad, batches * exp.attack.max_adv_step), _scaled(fwd, batches))  # attack
+    if rc != 0 or launches != want:
+        _die(f"cli study: rc {rc}, kernel launches {launches}, expected {want} "
+             "(the default device must be the card)")
+    with open(os.path.join(out, "study.json")) as f:
+        summary = json.load(f)
+    stages = summary["stages"]
+    if list(stages) != ["train", "eval", "sweep", "attack", "calibrate"] or [
+            len(st["results"]) for st in stages.values()] != [1, 1, sweep_runs, 1, 1]:
+        _die(f"cli study: stages {[(k, len(v['results'])) for k, v in stages.items()]}")
+    for stage, key in (("eval", "accuracy"), ("attack", "snr_db"), ("calibrate", "ece")):
+        if not math.isfinite(stages[stage]["results"][0][key]):
+            _die(f"cli study: {stage} {key} = {stages[stage]['results'][0][key]}")
+
+    _zero_launches()
+    rc = cli.main(["saliency", "--config", "hippocampus", "--synthetic", str(n),
+                   "--checkpoint", os.path.join(out, "train"), "--images-n", "4",
+                   "--out-dir", os.path.join(tmp, "saliency")])
+    sal = _read_launches()
+    if rc != 0 or sal != grad:
+        _die(f"cli saliency: rc {rc}, kernel launches {sal}, expected {grad}")
+
+    _zero_launches()
+    adv_out = os.path.join(tmp, "cli_adv")
+    rc = cli.main(["train", "--config", "hippocampus", "--synthetic", str(n), "--epochs", "1",
+                   "--adversarial-training", "fgsm", "--out-dir", adv_out])
+    adv = _read_launches()
+    # per step: the attack's gradient, the clean and the adversarial branch
+    want_adv = _summed(_scaled(grad, 3 * batches), _scaled(fwd, batches))
+    if rc != 0 or adv != want_adv or not os.path.isfile(
+            os.path.join(adv_out, "epoch_0", "state.pt")):
+        _die(f"cli train --adversarial-training fgsm: rc {rc}, kernel launches {adv}, "
+             f"expected {want_adv}")
+    print(json.dumps({
+        "eval_cli": "study, saliency, train --adversarial-training fgsm",
+        "study_launches": launches, "saliency_launches": sal,
+        "adversarial_train_launches": adv,
+        "study_seconds": {k: v["seconds"] for k, v in stages.items()},
+        "study_accuracy": stages["eval"]["results"][0]["accuracy"],
+        "study_attack_snr_db": stages["attack"]["results"][0]["snr_db"],
+    }), flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1136,6 +1638,14 @@ def main() -> int:
         if check.paths[kernel] != both:
             _die(f"{kernel}: the shapes reached the paths "
                  f"{sorted(check.paths[kernel])}, expected {sorted(both)}")
+    # the attack's case: the image (or the activations) require a gradient,
+    # the weights do not
+    check.vdp_conv_bwd("extra", "hippocampus_conv_input_frozen", 20, 64, 64, 1, 32, 3,
+                       False, True, frozen=True)
+    check.vdp_conv_bwd("extra", "brats_conv_input_frozen", 2, 204, 204, 4, 32, 3,
+                       False, True, frozen=True)
+    check.vdp_conv_bwd("extra", "hippocampus_conv1_frozen", 20, 62, 62, 32, 32, 3,
+                       True, True, frozen=True)
     check.vdp_conv_bwd("extra", "k3_no_relu_c130", 3, 17, 19, 24, 130, 3, True, False)
     check.vdp_conv_bwd("extra", "k2_relu", 4, 33, 29, 24, 40, 2, True, True)
 
@@ -1159,6 +1669,20 @@ def main() -> int:
             cli_launches = _cli(torch, tmp)
         _augment_and_remat(torch, smi)
 
+        # 12. the attack's gradient and the adversarial train step
+        grad_launches, grad_s = _attack_gradient(torch, "hippocampus", HIPPOCAMPUS, 20)
+        _attack_gradient(torch, "brats", BRATS, 2)
+        adv_step_s, plain_step_s = _adversarial_train_step(torch, smi)
+
+        # 13-15. adversarial evaluation, the testing protocol and the
+        # calibration report against the CPU, the evaluation CLI
+        with tempfile.TemporaryDirectory() as tmp:
+            adv_launches, pgd_batch_s = _run_adversarial(
+                torch, smi, tmp, "hippocampus", 20, 40)
+            _, fgsm_batch_s = _run_adversarial(torch, smi, tmp, "brats", 2, 4)
+            _, test_batch_s, sweep_s = _evaluation(torch, smi, tmp)
+            study_launches = _eval_cli(torch, tmp)
+
     sources = {
         "vdp_conv": ("supernet_tpu_torch/csrc/vdp_conv.cu",
                      "supernet_tpu/ops/pallas/vdp_conv.py:125"),
@@ -1172,8 +1696,12 @@ def main() -> int:
     # ms, plain_ms and bound_ms: summed over the shapes of one hippocampus
     # step at batch 20 (brats_*: one BraTS step at batch 2); launches: the
     # hippocampus training run of phase 6; trainer_launches: the epoch
-    # trainer's run of phase 8; cli_launches: the first cli train of phase 10. vdp_conv's bound_ms is the CUDA
-    # cores' float32 bound; bound_3xtf32_ms that of its tensor-core path.
+    # trainer's run of phase 8; cli_launches: the first cli train of phase 10;
+    # attack_gradient_launches: one gradient with respect to a hippocampus
+    # batch of 20 (phase 12); adversarial_eval_launches: run_adversarial on 40
+    # hippocampus images (phase 13); study_launches: cli study (phase 15).
+    # vdp_conv's bound_ms is the CUDA cores' float32 bound; bound_3xtf32_ms
+    # that of its tensor-core path.
     summary = []
     for kernel, (source, replaces) in sources.items():
         ms, plain_ms, bound_ms, bytes_ms, ops_ms = check.ms[(kernel, "hippocampus")]
@@ -1200,6 +1728,9 @@ def main() -> int:
             "trainer_launches": trainer_launches[kernel],
             "cli_launches": cli_launches[kernel],
             "serving_launches": serve_launches[kernel],
+            "attack_gradient_launches": grad_launches[kernel],
+            "adversarial_eval_launches": adv_launches[kernel],
+            "study_launches": study_launches[kernel],
             "max_abs_err": check.worst[kernel][0],
             "max_rel_err": check.worst[kernel][1],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -1219,6 +1750,11 @@ def main() -> int:
     print(f"hippocampus serving: {img_s:.1f} img/s (batch 20, 45-image request)")
     print(f"hippocampus training: {20 / step_s:.1f} img/s "
           f"(batch 20, median step {1e3 * step_s:.3f} ms)")
+    print(f"evaluation: clean forward with the fetch {test_batch_s:.5f} s per batch of 20, "
+          f"one attack gradient {grad_s:.5f} s, PGD 20 steps {pgd_batch_s:.4f} s per "
+          f"hippocampus batch of 20, FGSM {fgsm_batch_s:.4f} s per BraTS batch of 2, "
+          f"noise sweep (2 runs of 40 images) {sweep_s:.3f} s, adversarial train step "
+          f"{1e3 * adv_step_s:.3f} ms beside {1e3 * plain_step_s:.3f} ms plain")
     print(f"card: {smi}")
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {

@@ -4,13 +4,21 @@
     python -m supernet_tpu_torch.cli train --config hippocampus --data X.pkl
     python -m supernet_tpu_torch.cli train --config hippocampus --synthetic 100
     python -m supernet_tpu_torch.cli convert --config hippocampus --data X.pkl --out SHARDS
+    python -m supernet_tpu_torch.cli eval   --config hippocampus --checkpoint RUN --synthetic 100
+    python -m supernet_tpu_torch.cli attack --config brats --checkpoint RUN --data 'batches/*.pkl'
+    python -m supernet_tpu_torch.cli study  --config hippocampus --synthetic 400 --epochs 5
 
-``train`` and ``convert`` run; every other subcommand parses its flags and
-then raises ``NotImplementedError`` naming the ``ROADMAP.md`` item that
-ports it, as do ``train --data-parallel``, ``train --ensemble K`` (K > 1)
-and ``convert --to-cubes``. ``--device`` defaults to ``cuda``: nothing falls
-back to the CPU when no card is found. ``--synthetic N`` substitutes a
-generated dataset for the real pickles.
+``train``, ``convert``, ``eval``, ``sweep``, ``attack``, ``calibrate``,
+``saliency`` and ``study`` run, each printing the JSON line(s) of its twin;
+every other subcommand parses its flags and then raises
+``NotImplementedError`` naming the ``ROADMAP.md`` item that ports it, as do
+``--data-parallel``, ``train --ensemble K`` (K > 1) and ``convert
+--to-cubes``. ``--checkpoint`` takes a run directory (its latest
+``epoch_{N}/state.pt``), one ``epoch_{N}`` directory, an ``.npz`` or a Keras
+``.h5``; ``eval``, ``calibrate`` and ``sweep`` also a comma-separated list of
+them, the members of a deep ensemble. ``--device`` defaults to ``cuda``:
+nothing falls back to the CPU when no card is found. ``--synthetic N``
+substitutes a generated dataset for the real pickles.
 """
 
 from __future__ import annotations
@@ -23,12 +31,6 @@ import sys
 
 # subcommand -> the ROADMAP.md item (Queue 1) that ports it
 _UNPORTED = {
-    "eval": "'Evaluation surface' (evaluate.py)",
-    "calibrate": "'Evaluation surface' (calibration.py)",
-    "attack": "'Evaluation surface' (attacks.py, evaluate.py)",
-    "sweep": "'Evaluation surface' (evaluate.py)",
-    "saliency": "'Evaluation surface' (attacks.py)",
-    "study": "'Evaluation surface' (evaluate.py, calibration.py)",
     "export": "'Serving, rest' (the export bundle)",
     "train3d": "'3-D family' (train3d.py)",
     "eval3d": "'3-D family' (evaluate3d.py)",
@@ -40,6 +42,9 @@ _UNPORTED = {
     "profile": "'CLI and profiling, rest' (python -m "
                "supernet_tpu_torch.profiling is the port's profiler until then)",
 }
+
+
+_UNSET = object()
 
 
 def _unported(what: str, item: str) -> NotImplementedError:
@@ -540,6 +545,225 @@ def _convert(exp, args) -> int:
     return 0
 
 
+def _checkpoint_list(args):
+    """Comma-separated ``--checkpoint`` = deep-ensemble member list."""
+    return [s for s in (getattr(args, "checkpoint", None) or "").split(",")
+            if s]
+
+
+def _load_maybe_ensemble(load_one, exp, args, cmd_ok=True):
+    """Load one checkpoint, or a LIST of members for a comma-separated
+    --checkpoint (the eval runners mix them via
+    `evaluate.ensemble_forward`). ``cmd_ok=False`` rejects the list for
+    single-member commands (saliency/attack) with a legible error."""
+    srcs = _checkpoint_list(args)
+    if len(srcs) > 1:
+        if not cmd_ok:
+            raise SystemExit(
+                f"{args.cmd} takes ONE checkpoint; a comma-separated "
+                "ensemble list is served by eval/calibrate/sweep"
+            )
+        return [load_one(exp, args, src=s) for s in srcs]
+    return load_one(exp, args)
+
+
+def _load_params(exp, args, src=_UNSET):
+    """2-D params on ``args.device`` from ``args.checkpoint`` (or an
+    explicit ``src``): random init, Keras .h5, .npz, or the latest
+    ``epoch_{N}/state.pt`` of a run directory."""
+    import torch
+
+    from supernet_tpu_torch import checkpoint as ckpt
+    from supernet_tpu_torch.models import init_params
+
+    cfg = exp.model
+    if src is _UNSET:
+        src = args.checkpoint
+    if src is None:
+        print("warning: no --checkpoint; using random init", file=sys.stderr)
+        return init_params(torch.Generator().manual_seed(0), cfg, args.device)
+    if src.endswith(".h5"):
+        return ckpt.import_keras_h5(src, cfg, args.device)
+    if src.endswith(".npz"):
+        return ckpt.load_params_npz(src, args.device)
+    root, epoch = ckpt.resolve_checkpoint(src)
+    if epoch is None:
+        raise FileNotFoundError(f"no epoch_{{N}} checkpoints under {src}")
+    state = ckpt.restore_state(root, epoch, exp.train, args.device)
+    return {layer: {name: t.detach() for name, t in ws.items()}
+            for layer, ws in state.params.items()}
+
+
+def _run_study(exp, args) -> int:
+    """The training-to-convergence study, one command: reference-scale
+    training (epochs/batch/lr from the config, e.g. 120 epochs for
+    Hippocampus, `Hippocampus.py:426`) followed by the complete eval surface
+    on the trained weights: clean eval + uncertainty artifacts, the
+    module-level noise sweep, the adversarial protocol, and the calibration
+    report. Every stage is the real subcommand invoked through `main()` (so
+    the study exercises exactly what users run), its JSON line(s) captured
+    into <out-dir>/study.json."""
+    import contextlib
+    import io
+    import time
+
+    out = args.out_dir or f"{exp.out_dir}/{exp.name}/study"
+    train_dir = os.path.join(out, "train")
+    common = ["--config", args.config, "--device", args.device]
+    if args.synthetic:
+        common += ["--synthetic", str(args.synthetic)]
+    if args.data:
+        common += ["--data", args.data]
+    if args.batch_size:
+        common += ["--batch-size", str(args.batch_size)]
+
+    summary = {"out_dir": out, "stages": {}}
+
+    def run_stage(name, argv):
+        print(f"[study] {name}: supernet_tpu_torch {' '.join(argv)}",
+              file=sys.stderr, flush=True)
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = main(argv)
+        text = buf.getvalue()
+        sys.stdout.write(text)  # stage output stays visible
+        if rc:
+            raise SystemExit(f"study stage {name!r} failed (rc={rc})")
+        lines = [ln for ln in text.splitlines() if ln.startswith("{")]
+        summary["stages"][name] = {
+            "seconds": round(time.perf_counter() - t0, 2),
+            "results": [json.loads(ln) for ln in lines],
+        }
+
+    if not args.skip_train:
+        targs = ["train", *common, "--out-dir", train_dir]
+        if args.epochs is not None:
+            targs += ["--epochs", str(args.epochs)]
+        if args.continue_training:
+            targs += ["--continue-training"]
+        run_stage("train", targs)
+    ckpt = ["--checkpoint", train_dir]
+    cap = ([] if args.artifact_max_samples is None
+           else ["--artifact-max-samples", str(args.artifact_max_samples)])
+    n = ["--images-n", str(args.images_n)]
+    run_stage("eval", ["eval", *common, *ckpt, *n, *cap,
+                       "--out-dir", os.path.join(out, "eval")])
+    run_stage("sweep", ["sweep", *common, *ckpt, *n, *cap,
+                        "--out-dir", os.path.join(out, "sweep")])
+    run_stage("attack", ["attack", *common, *ckpt, *n, *cap,
+                         "--out-dir", os.path.join(out, "attack")])
+    run_stage("calibrate", ["calibrate", *common, *ckpt,
+                            "--out-dir", os.path.join(out, "calibration")])
+
+    os.makedirs(out, exist_ok=True)
+    path = os.path.join(out, "study.json")
+    with open(path, "w") as f:
+        json.dump(summary, f, indent=1)
+    # headline line: clean dice / ECE / AUSE / wall time
+    head = {"study": path}
+    ev = summary["stages"].get("eval", {}).get("results", [])
+    if ev:
+        for k in ("accuracy", "dice_anterior", "dice_posterior",
+                  "dice_tumor", "dice_core", "dice_enhancing",
+                  "mean_predictive_variance"):
+            if k in ev[0]:
+                head[k] = ev[0][k]
+    cal = summary["stages"].get("calibrate", {}).get("results", [])
+    if cal:
+        for k in ("ece", "ause", "corr_pearson", "corr_spearman"):
+            if k in cal[0]:
+                head[k] = cal[0][k]
+    head["total_seconds"] = round(
+        sum(s["seconds"] for s in summary["stages"].values()), 2
+    )
+    print(json.dumps(head))
+    return 0
+
+
+def _scalars(res) -> str:
+    """The JSON line of a result: its numbers and strings."""
+    return json.dumps({k: v for k, v in res.items()
+                       if isinstance(v, (int, float, str))})
+
+
+def _saliency(exp, args, params, ds) -> int:
+    import numpy as np
+    import torch
+
+    from supernet_tpu_torch.attacks import make_saliency_map
+    from supernet_tpu_torch.reports import save_saliency_maps
+
+    cfg = exp.model
+    sal = make_saliency_map(cfg)
+    cmask = torch.zeros(cfg.n_classes, device=args.device)
+    if args.target_class is None:  # all foreground ("all tumor")
+        cmask[1:] = 1.0
+    else:
+        cmask[args.target_class] = 1.0
+    out_dir = args.out_dir or f"{exp.out_dir}/{exp.name}/saliency"
+    count = 0
+    for x, _ in ds.batches(exp.train.batch_size):
+        xb = torch.as_tensor(x, dtype=torch.float32, device=args.device)
+        g, g_relu = (t.cpu().numpy() for t in sal(params, xb, cmask))
+        for i in range(len(x)):
+            if count >= args.images_n:
+                break
+            save_saliency_maps(out_dir, np.asarray(x[i]), g[i], g_relu[i], index=count)
+            count += 1
+        if count >= args.images_n:
+            break
+    print(json.dumps({"saliency_maps": count, "out_dir": out_dir}))
+    return 0
+
+
+def _evaluate(exp, args) -> int:
+    """eval, calibrate, attack, saliency and sweep: a checkpoint (or, for
+    eval/calibrate/sweep, an ensemble of them) on the test split."""
+    if args.data_parallel:
+        raise _unported(f"{args.cmd} --data-parallel",
+                        "'Parallelism' (parallel/data_parallel.py)")
+    params = _load_maybe_ensemble(
+        _load_params, exp, args,
+        cmd_ok=args.cmd in ("eval", "calibrate", "sweep"),
+    )
+    ds = _load_data(exp, args, "test")
+
+    if args.cmd == "eval":
+        from supernet_tpu_torch.evaluate import run_testing
+
+        print(_scalars(run_testing(
+            exp, params, ds, images_n=args.images_n, out_dir=args.out_dir,
+            mc_samples=args.mc_samples,
+            artifact_max_samples=args.artifact_max_samples,
+            device=args.device)))
+    elif args.cmd == "calibrate":
+        from supernet_tpu_torch.calibration import run_calibration
+
+        out_dir = args.out_dir or f"{exp.out_dir}/{exp.name}/calibration"
+        print(_scalars(run_calibration(
+            exp, params, ds, out_dir=out_dir, n_bins=args.bins,
+            mc_samples=args.mc_samples, device=args.device)))
+    elif args.cmd == "attack":
+        from supernet_tpu_torch.evaluate import run_adversarial
+
+        print(_scalars(run_adversarial(
+            exp, params, ds, images_n=args.images_n, out_dir=args.out_dir,
+            artifact_max_samples=args.artifact_max_samples,
+            device=args.device)))
+    elif args.cmd == "saliency":
+        return _saliency(exp, args, params, ds)
+    else:
+        from supernet_tpu_torch.evaluate import run_noise_sweep
+
+        for r in run_noise_sweep(
+                exp, params, ds, images_n=args.images_n,
+                artifact_max_samples=args.artifact_max_samples,
+                device=args.device):
+            print(_scalars(r))
+    return 0
+
+
 def _train(exp, args) -> int:
     from supernet_tpu_torch.trainer import Trainer
 
@@ -571,11 +795,16 @@ def main(argv=None) -> int:
     if args.cmd in _UNPORTED:
         raise _unported(f"the '{args.cmd}' subcommand", _UNPORTED[args.cmd])
     exp = _get_exp(args)
+    if args.cmd == "study":
+        if args.data_parallel:
+            raise _unported("study --data-parallel",
+                            "'Parallelism' (parallel/data_parallel.py)")
+        return _run_study(exp, args)
     if args.cmd == "convert":
         return _convert(exp, args)
     if args.cmd == "train":
         return _train(exp, args)
-    return 1
+    return _evaluate(exp, args)
 
 
 if __name__ == "__main__":

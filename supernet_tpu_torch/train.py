@@ -13,9 +13,12 @@ With ``tc.augment`` the single and multi-step builders augment each batch
 on the parameters' device (``data/augment.py``), keyed by the seed, the
 state's step counter and the global image index.
 
-The one option that the JAX step has and this one does not yet run,
-adversarial training, raises ``NotImplementedError`` naming the
-``ROADMAP.md`` item that ports it.
+With ``tc.adversarial_training`` ("fgsm" or "pgd") every step trains on
+``adv_alpha * L(clean) + (1 - adv_alpha) * L(adv)``: the adversarial examples
+are made inside the step against the current parameters (one or
+``adv_steps`` extra forward and backward passes, the input gradient running
+through the kernels' backward) and detached, so they act as fixed data for
+the update.
 """
 
 from __future__ import annotations
@@ -24,10 +27,10 @@ from dataclasses import dataclass
 from typing import Iterable, NamedTuple, Tuple
 
 import torch
-import torch.nn.functional as F
 
+from supernet_tpu_torch.attacks import make_fgsm_attack, make_pgd_attack
 from supernet_tpu_torch.checkpoint import Params, params_from_jax
-from supernet_tpu_torch.configs import ModelConfig, TrainConfig
+from supernet_tpu_torch.configs import AttackConfig, ModelConfig, TrainConfig
 from supernet_tpu_torch.losses import elbo_loss, nll_gaussian
 from supernet_tpu_torch.models import forward, kl_regularizer
 
@@ -88,8 +91,12 @@ class StepMetrics(NamedTuple):
 
 def one_hot_flatten(y: Tensor, n_classes: int) -> Tensor:
     """Labels [B, H, W] -> one-hot flattened [B, H*W, C]
-    (`Hippocampus.py:612-615`)."""
-    y1 = F.one_hot(y.long(), n_classes).to(torch.float32)
+    (`Hippocampus.py:612-615`). A label outside ``[0, n_classes)`` gives an
+    all-zero row, as ``tf.one_hot`` and ``jax.nn.one_hot`` do: the targeted
+    Hippocampus attack relabels to class 3 of 3 (`Hippocampus.py:917`).
+    ``F.one_hot`` would raise there (a device-side assert on the card)."""
+    classes = torch.arange(n_classes, device=y.device)
+    y1 = (y.long().unsqueeze(-1) == classes).to(torch.float32)
     return y1.reshape(y.shape[0], -1, n_classes)
 
 
@@ -99,14 +106,6 @@ def ensure_one_hot(y: Tensor, n_classes: int) -> Tensor:
     if y.dim() == 3 and not torch.is_floating_point(y):
         return one_hot_flatten(y, n_classes)
     return y
-
-
-def _check_supported(tc: TrainConfig) -> None:
-    if tc.adversarial_training != "none":
-        raise NotImplementedError(
-            "adversarial training is not ported yet (ROADMAP.md, Queue 1: "
-            "'Evaluation surface', attacks.py)"
-        )
 
 
 def _to_device(params: Params, x, y) -> Tuple[Tensor, Tensor]:
@@ -163,6 +162,55 @@ def loss_fn(
     return loss, (nll, kl.detach(), probs.detach(), sigma.detach())
 
 
+def make_adversarial_examples(
+    params: Params, x: Tensor, y: Tensor, cfg: ModelConfig, tc: TrainConfig
+) -> Tensor:
+    """FGSM / PGD examples for adversarial training, made against the
+    current parameters and detached. ``y`` is one-hot flattened. The
+    projection is the eval attack's (`Hippocampus.py:930-932`): the L-inf
+    ball of ``tc.adv_epsilon`` around ``x`` cut with the batch's data range."""
+    ac = AttackConfig(
+        epsilon=tc.adv_epsilon,
+        step_size=tc.adv_step_size,
+        max_adv_step=tc.adv_steps,
+    )
+    if tc.adversarial_training == "fgsm":
+        attack = make_fgsm_attack(cfg, ac)
+    elif tc.adversarial_training == "pgd":
+        attack = make_pgd_attack(cfg, ac)
+    else:
+        raise ValueError(
+            f"unknown adversarial_training mode {tc.adversarial_training!r}"
+        )
+    return attack(params, x, y, x.min(), x.max())
+
+
+def mixed_loss(
+    params: Params, x: Tensor, adv_x: Tensor, y: Tensor, cfg: ModelConfig,
+    tc: TrainConfig,
+):
+    """``adv_alpha * L(clean) + (1 - adv_alpha) * L(adv)`` and the clean
+    branch's ``(nll, kl, probs, sigma)``, so that logged accuracy and curves
+    compare with standard training. ``adv_alpha = 0`` trains on the
+    adversarial examples only."""
+    loss_c, aux = loss_fn(params, x, y, cfg, tc)
+    loss_a, _ = loss_fn(params, adv_x, y, cfg, tc)
+    return tc.adv_alpha * loss_c + (1.0 - tc.adv_alpha) * loss_a, aux
+
+
+def training_loss(
+    params: Params, x: Tensor, y: Tensor, cfg: ModelConfig, tc: TrainConfig
+):
+    """The training objective and its auxiliaries: ``loss_fn``, or with
+    ``tc.adversarial_training`` the mixed loss on examples made here (the
+    objective of the JAX package's ``value_and_grad_step``). ``y`` must be
+    one-hot flattened in the adversarial modes."""
+    if tc.adversarial_training == "none":
+        return loss_fn(params, x, y, cfg, tc)
+    adv_x = make_adversarial_examples(params, x, y, cfg, tc)
+    return mixed_loss(params, x, adv_x, y, cfg, tc)
+
+
 def _accuracy(probs: Tensor, y1: Tensor) -> Tuple[Tensor, Tensor]:
     pred = probs.argmax(dim=-1).to(torch.int32)  # [B, H*W]
     return pred, (pred == y1.argmax(dim=-1)).to(torch.float32).mean()
@@ -181,7 +229,7 @@ def _train_step(state: TrainState, x, y, cfg: ModelConfig, tc: TrainConfig):
     x, y = maybe_augment(state.step, x, y, cfg, tc)
     y = ensure_one_hot(y, cfg.n_classes)
     state.opt_state.zero_grad(set_to_none=True)
-    loss, (nll, kl, probs, _) = loss_fn(state.params, x, y, cfg, tc)
+    loss, (nll, kl, probs, _) = training_loss(state.params, x, y, cfg, tc)
     loss.backward()
     _update(state, tc)
     pred, acc = _accuracy(probs, y)
@@ -192,8 +240,6 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, with_pred: bool = False):
     """``step(state, x, y) -> (state, metrics)``, or ``(state, metrics,
     pred)`` with ``with_pred`` (the per-pixel argmax [B, H*W]). The state
     is updated in place."""
-    _check_supported(tc)
-
     def step(state: TrainState, x, y):
         state, m, pred = _train_step(state, x, y, cfg, tc)
         return (state, m, pred) if with_pred else (state, m)
@@ -211,8 +257,6 @@ def make_multi_train_step(
     """K train steps per call on stacked batches ``x [K, B, H, W, C]``,
     ``y [K, B, H, W]``; metrics (and predictions) stacked along a leading
     K axis. The JAX twin's ``lax.scan`` is a loop here."""
-    _check_supported(tc)
-
     def steps(state: TrainState, x, y):
         ms, preds = [], []
         for i in range(k_steps):
@@ -230,14 +274,12 @@ def make_accum_train_step(cfg: ModelConfig, tc: TrainConfig, n_micro: int):
     ``y [n_micro, B, ...]``: the gradients are summed over the
     microbatches and divided by ``n_micro`` (one batch of ``n_micro * B``),
     the metrics averaged."""
-    _check_supported(tc)
-
     def step(state: TrainState, x, y):
         state.opt_state.zero_grad(set_to_none=True)
         m_sum = None
         for i in range(n_micro):
             xb, yb = _batch(state.params, x[i], y[i], cfg.n_classes)
-            loss, (nll, kl, probs, _) = loss_fn(state.params, xb, yb, cfg, tc)
+            loss, (nll, kl, probs, _) = training_loss(state.params, xb, yb, cfg, tc)
             loss.backward()  # accumulates into .grad
             _, acc = _accuracy(probs, yb)
             m = torch.stack([loss.detach(), nll, kl, acc])

@@ -1,8 +1,9 @@
 """The port's command line (``supernet_tpu_torch/cli.py``) on the CPU: the
-parser holds every subcommand and flag of the JAX package's, ``train`` and
-``convert`` run (at the tiny test size, through ``--device cpu``), and every
-subcommand or option that is not ported yet raises ``NotImplementedError``
-naming its ``ROADMAP.md`` item."""
+parser holds every subcommand and flag of the JAX package's; ``train``,
+``convert``, ``eval``, ``sweep``, ``attack``, ``calibrate``, ``saliency`` and
+``study`` run (at the tiny test size, through ``--device cpu``) and print the
+JSON keys their twins print; every subcommand or option that is not ported
+yet raises ``NotImplementedError`` naming its ``ROADMAP.md`` item."""
 
 import argparse
 import dataclasses
@@ -18,6 +19,7 @@ torch = pytest.importorskip("torch")
 
 import numpy as np  # noqa: E402
 
+import supernet_tpu.configs.configs as jconfigs_mod  # noqa: E402
 from supernet_tpu import cli as jcli  # noqa: E402
 from supernet_tpu.data import nifti as jnifti  # noqa: E402
 from supernet_tpu_torch import checkpoint as ckpt  # noqa: E402
@@ -73,8 +75,14 @@ def test_parser_options_equal_jax(cmd):
         assert device is None
 
 
-STUBS = sorted(set(SUBS) - {"train", "convert"})
+STUBS = sorted(cli._UNPORTED)
+PORTED = sorted(set(SUBS) - set(STUBS))
 _REQUIRED = {"predict3d": ["--volume", "v.nii"]}
+
+
+def test_ported_subcommands():
+    assert PORTED == ["attack", "calibrate", "convert", "eval", "saliency", "study",
+                      "sweep", "train"]
 
 
 @pytest.mark.parametrize("cmd", STUBS)
@@ -89,7 +97,12 @@ def test_unported_subcommands_name_their_roadmap_item(cmd):
 @pytest.mark.parametrize("argv,item", [
     (["train", "--synthetic", "4", "--data-parallel"], "Parallelism"),
     (["train", "--synthetic", "4", "--ensemble", "2"], "Ensembles"),
-    (["train", "--synthetic", "4", "--adversarial-training", "fgsm"], "Evaluation surface"),
+    (["eval", "--synthetic", "4", "--data-parallel"], "Parallelism"),
+    (["sweep", "--synthetic", "4", "--data-parallel"], "Parallelism"),
+    (["attack", "--synthetic", "4", "--data-parallel"], "Parallelism"),
+    (["calibrate", "--synthetic", "4", "--data-parallel"], "Parallelism"),
+    (["saliency", "--synthetic", "4", "--data-parallel"], "Parallelism"),
+    (["study", "--synthetic", "4", "--data-parallel"], "Parallelism"),
     (["convert", "--out", "x", "--from-nifti", "--to-cubes"], "3-D family"),
 ])
 def test_unported_options_name_their_roadmap_item(tiny, argv, item, tmp_path):
@@ -204,6 +217,169 @@ def test_hippocampus_pickle_path(tiny, tmp_path, capsys):
     exp = cli._get_exp(args)
     assert len(cli._load_data(exp, args, "train")) == 20
     assert len(cli._load_data(exp, args, "test")) == 10  # the last test sample dropped
+
+
+# ---------------------------------------------------- the evaluation surface
+
+
+@pytest.fixture
+def jtiny(monkeypatch, tiny):
+    """The same tiny size under ``--config hippocampus`` of the JAX CLI."""
+    jt = jconfigs_mod.HIPPOCAMPUS.replace(
+        model=dataclasses.replace(jconfigs_mod.HIPPOCAMPUS.model, image_size=32, out_size=22,
+                                  base_kernels=4),
+        train=dataclasses.replace(jconfigs_mod.HIPPOCAMPUS.train, batch_size=10))
+    monkeypatch.setitem(jconfigs_mod._CONFIGS, "hippocampus", jt)
+    return jt
+
+
+def _npz(tmp_path, seed=0, name="params.npz"):
+    from supernet_tpu_torch.models import init_params
+
+    path = str(tmp_path / name)
+    ckpt.save_params_npz(path, init_params(torch.Generator().manual_seed(seed), TINY.model, "cpu"))
+    return path
+
+
+def _json_lines(capsys):
+    return [json.loads(ln) for ln in capsys.readouterr().out.splitlines() if ln.startswith("{")]
+
+
+@pytest.mark.parametrize("cmd,extra,n_lines", [
+    ("eval", ["--images-n", "2"], 1),
+    ("eval", ["--images-n", "0", "--mc-samples", "2", "--artifact-max-samples", "3"], 1),
+    ("attack", ["--images-n", "2", "--max-adv-step", "2", "--epsilon", "0.01"], 1),
+    ("attack", ["--images-n", "0", "--max-adv-step", "1", "--untargeted"], 1),
+    ("calibrate", ["--bins", "10"], 1),
+    ("sweep", ["--images-n", "0", "--artifact-max-samples", "2"], 7),
+])
+def test_evaluation_subcommands_print_the_json_of_their_twins(
+        jtiny, tmp_path, capsys, cmd, extra, n_lines):
+    """Each subcommand on ``--device cpu`` from an npz checkpoint: as many
+    JSON lines, with the same keys, as the JAX CLI prints for the same
+    arguments, and the same files (PNGs aside) in the output directory."""
+    argv = [cmd, "--config", "hippocampus", "--synthetic", "12", "--checkpoint",
+            _npz(tmp_path)] + extra
+    assert cli.main(argv + ["--device", "cpu", "--out-dir", str(tmp_path / "t")]) == 0
+    got = _json_lines(capsys)
+    assert jcli.main(argv + ["--out-dir", str(tmp_path / "j")]) == 0
+    want = _json_lines(capsys)
+    assert len(got) == len(want) == n_lines
+    for g, w in zip(got, want):
+        assert set(g) == set(w)
+        assert all(np.isfinite(v) or k == "snr_db" or np.isnan(w[k])
+                   for k, v in g.items() if isinstance(v, float)), g
+
+    def files(root):
+        return sorted(os.path.relpath(os.path.join(d, f), root)
+                      for d, _, fs in os.walk(root) for f in fs)
+
+    assert files(tmp_path / "t") == files(tmp_path / "j")
+    assert files(tmp_path / "t")
+
+
+def test_saliency_subcommand(jtiny, tmp_path, capsys):
+    npz = _npz(tmp_path)
+    for target, out in ((None, "all"), ("2", "posterior")):
+        argv = ["saliency", "--synthetic", "12", "--checkpoint", npz, "--images-n", "3"]
+        argv += ["--target-class", target] if target else []
+        assert cli.main(argv + ["--device", "cpu", "--out-dir", str(tmp_path / out)]) == 0
+        assert _json_lines(capsys) == [{"saliency_maps": 3, "out_dir": str(tmp_path / out)}]
+        assert sorted(os.listdir(tmp_path / out)) == [f"{i}_saliency.png" for i in range(3)]
+    assert jcli.main(["saliency", "--synthetic", "12", "--checkpoint", npz, "--images-n", "3",
+                      "--out-dir", str(tmp_path / "j")]) == 0
+    assert set(_json_lines(capsys)[0]) == {"saliency_maps", "out_dir"}
+
+
+def test_checkpoint_forms_and_ensemble_lists(tiny, tmp_path, capsys):
+    """``--checkpoint``: an npz, a Keras h5, a run directory (its latest
+    ``epoch_{N}/state.pt``), one ``epoch_{N}`` directory, none (random init,
+    with a warning), a missing one; a comma-separated list is an ensemble
+    for eval / calibrate / sweep and refused by attack / saliency."""
+    from supernet_tpu_torch import train as T
+
+    a, b = _npz(tmp_path, 0, "a.npz"), _npz(tmp_path, 1, "b.npz")
+    pa = ckpt.load_params_npz(a, "cpu")
+    h5 = str(tmp_path / "w.weights.h5")
+    ckpt.export_keras_h5(h5, pa, tiny.model)
+    run = str(tmp_path / "run")
+    state, _ = T.create_train_state(pa, tiny.train, "cpu")
+    ckpt.save_state(run, 0, state)
+    state.params["conv1"]["w_mu"].data.add_(1.0)
+    ckpt.save_state(run, 3, state)
+
+    def load(src):
+        args = cli.build_parser().parse_args(
+            ["eval", "--device", "cpu"] + (["--checkpoint", src] if src else []))
+        return cli._load_maybe_ensemble(cli._load_params, cli._get_exp(args), args)
+
+    for src in (a, h5, os.path.join(run, "epoch_0")):
+        got = load(src)
+        assert all(torch.equal(got[k][n], pa[k][n]) and not got[k][n].requires_grad
+                   for k in pa for n in pa[k]), src
+    assert torch.equal(load(run)["conv1"]["w_mu"], pa["conv1"]["w_mu"] + 1.0)
+    members = load(f"{a},{b}")
+    assert isinstance(members, list) and len(members) == 2
+    assert not torch.equal(members[0]["conv1"]["w_mu"], members[1]["conv1"]["w_mu"])
+    assert set(load(None)) == set(pa) and "random init" in capsys.readouterr().err
+    with pytest.raises(FileNotFoundError, match="no epoch_"):
+        load(str(tmp_path / "nothing"))
+
+    common = ["--synthetic", "10", "--checkpoint", f"{a},{b}", "--device", "cpu",
+              "--out-dir", str(tmp_path / "o")]
+    assert cli.main(["eval", "--images-n", "0"] + common) == 0
+    assert cli.main(["calibrate"] + common) == 0
+    assert len(_json_lines(capsys)) == 2
+    for cmd in ("attack", "saliency"):
+        with pytest.raises(SystemExit, match="takes ONE checkpoint"):
+            cli.main([cmd] + common)
+
+
+def test_study_runs_every_stage_and_writes_study_json(tiny, tmp_path, capsys):
+    """train, then eval, sweep, attack and calibrate on its checkpoint, each
+    through ``main()``; ``--skip-train`` reuses the checkpoints."""
+    out = str(tmp_path / "study")
+    argv = ["study", "--config", "hippocampus", "--synthetic", "20", "--epochs", "1",
+            "--images-n", "0", "--artifact-max-samples", "2", "--device", "cpu",
+            "--out-dir", out]
+    assert cli.main(argv) == 0
+    captured = capsys.readouterr()
+    head = json.loads(captured.out.strip().splitlines()[-1])
+    assert head["study"] == os.path.join(out, "study.json")
+    for k in ("accuracy", "dice_anterior", "dice_posterior", "mean_predictive_variance",
+              "ece", "ause", "total_seconds"):
+        assert np.isfinite(head[k]), k
+    assert "[study] attack: supernet_tpu_torch attack" in captured.err
+    with open(head["study"]) as f:
+        summary = json.load(f)
+    assert list(summary["stages"]) == ["train", "eval", "sweep", "attack", "calibrate"]
+    assert [len(s["results"]) for s in summary["stages"].values()] == [1, 1, 7, 1, 1]
+    assert summary["stages"]["eval"]["results"][0]["accuracy"] == head["accuracy"]
+    assert ckpt.latest_epoch(os.path.join(out, "train")) == 0
+    for sub in ("eval", "attack", "calibration", "sweep/hippocampus/testing/clean"):
+        assert os.listdir(os.path.join(out, sub)), sub
+
+    assert cli.main(argv + ["--skip-train"]) == 0
+    with open(head["study"]) as f:
+        again = json.load(f)
+    assert list(again["stages"]) == ["eval", "sweep", "attack", "calibrate"]
+    for k, v in summary["stages"]["eval"]["results"][0].items():
+        w = again["stages"]["eval"]["results"][0][k]
+        nan = isinstance(v, float) and np.isnan(v) and np.isnan(w)  # an absent structure
+        assert k == "test_time_per_batch_s" or nan or w == v, k
+
+
+@pytest.mark.parametrize("mode", ["fgsm", "pgd"])
+def test_train_with_adversarial_training(tiny, tmp_path, capsys, mode):
+    out = str(tmp_path / "adv")
+    assert cli.main(["train", "--synthetic", "20", "--epochs", "1", "--device", "cpu",
+                     "--adversarial-training", mode, "--adv-epsilon", "0.01",
+                     "--adv-steps", "2", "--out-dir", out]) == 0
+    final = _json_lines(capsys)[-1]
+    assert np.isfinite(final["train_loss"]) and np.isfinite(final["val_dice"])
+    with open(os.path.join(out, "Related_hyperparameters.txt")) as f:
+        assert f"adversarial_training : {mode}" in f.read()
+    assert ckpt.restore_state(out, 0, tiny.train, "cpu").step == 2
 
 
 def test_python_dash_m_entry_point_defaults_to_the_card(tmp_path):

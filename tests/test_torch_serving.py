@@ -114,7 +114,8 @@ def test_tiling_copy_matches_jax(fn, shape, overlap, weight):
 def test_port_imports_no_jax():
     """A fresh interpreter that refuses to import ``jax`` and the JAX
     package ``supernet_tpu`` (a meta-path blocker) imports every module of
-    the port (the data modules, the trainer and the CLI among them), builds
+    the port (the data modules, the trainer, the CLI and the evaluation
+    surface among them), builds
     the CLI's parser, runs one tiny CPU forward through the serving session
     and takes one CPU train step."""
     code = textwrap.dedent("""
@@ -138,6 +139,9 @@ def test_port_imports_no_jax():
                 "supernet_tpu_torch.configs", "supernet_tpu_torch.tiling",
                 "supernet_tpu_torch.ops.kernels.sigma_bwd",
                 "supernet_tpu_torch.trainer", "supernet_tpu_torch.cli",
+                "supernet_tpu_torch.attacks", "supernet_tpu_torch.perturb",
+                "supernet_tpu_torch.evaluate", "supernet_tpu_torch.calibration",
+                "supernet_tpu_torch.ops.naive",
                 "supernet_tpu_torch.metrics", "supernet_tpu_torch.reports",
                 "supernet_tpu_torch.utils", "supernet_tpu_torch.native",
                 "supernet_tpu_torch.data.augment",

@@ -158,14 +158,22 @@ def test_one_hot_and_ensure_one_hot():
 
 
 def test_unported_options_raise():
-    """Adversarial training is the one option still to port; augmentation
-    builds (tests/test_torch_data.py runs it)."""
-    tc = dataclasses.replace(TC, adversarial_training="fgsm")
+    """No option of the step makers is left unported: adversarial
+    training builds in all three and a step of it trains (the mixed
+    objective itself is held against JAX in tests/test_torch_attacks.py);
+    augmentation builds (tests/test_torch_data.py runs it)."""
+    tc = dataclasses.replace(TC, adversarial_training="fgsm", adv_epsilon=0.01)
     for build in (lambda: train.make_train_step(CFG, tc),
                   lambda: train.make_multi_train_step(CFG, tc, 2),
                   lambda: train.make_accum_train_step(CFG, tc, 2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*Evaluation surface"):
-            build()
+        assert callable(build())
+    x, y = _data(1, 2, seed=8)
+    params = {k: {n: torch.from_numpy(np.array(v)) for n, v in ws.items()}
+              for k, ws in jinit(jax.random.PRNGKey(0), JCFG).items()}
+    state, _ = train.create_train_state(params, tc, "cpu")
+    state, m = train.make_train_step(CFG, tc)(state, x[0], y[0])
+    assert state.step == 1 and all(np.isfinite(float(v)) for v in m)
+    assert not torch.equal(state.params["conv1"]["w_mu"].detach(), params["conv1"]["w_mu"])
     tc = dataclasses.replace(TC, augment=configs.AugmentConfig())
     assert callable(train.make_train_step(CFG, tc))
     assert callable(train.make_multi_train_step(CFG, tc, 2))

@@ -411,12 +411,15 @@ def test_steps_per_dispatch_trains_trailing_batches(tmp_path, curves):
     assert len(t2.timings["epoch_s"]) == 1 and t2.timings["checkpoint_s"][0] >= 0
 
 
-def test_trainer_options():
+def test_trainer_options(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP.*Parallelism"):
         Trainer(EXP, _ds(4), mesh=object(), device="cpu")
-    exp = EXP.replace(train=dataclasses.replace(EXP.train, adversarial_training="pgd"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.*Evaluation surface"):
-        Trainer(exp, _ds(4), device="cpu")
+    # adversarial training is an option of the trainer now: an epoch of it trains
+    exp = EXP.replace(train=dataclasses.replace(EXP.train, adversarial_training="pgd",
+                                                adv_steps=2, adv_epsilon=0.01))
+    adv = Trainer(exp, _ds(8), out_dir=str(tmp_path / "adv"), device="cpu", track_curves=False)
+    state = adv.run(epochs=1, log=_quiet)
+    assert state.step == 2 and np.isfinite(adv.history["train_loss"][0])
     import inspect
 
     assert inspect.signature(Trainer).parameters["device"].default == "cuda"
