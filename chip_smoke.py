@@ -39,8 +39,13 @@ Phases (any failure raises and the exit code is not 0):
    plain output's max magnitude (the summation order differs) and the same
    bits in two runs (no atomics). Each line carries the planner's path and
    grid and the device time with the stream held (no host time).
-   At every k=3 conv shape the gradients of ``VDPConv`` (kernel 1 forward,
-   kernel 4 inside the backward) are held against autograd of
+   At every k=3 conv shape kernel 1 without its window sum, as
+   ``VDPConv.backward`` runs its two transposed convolutions
+   (``conv_t_pair``: one launch, one ``dgrad_launches``), against PyTorch's
+   ``conv_transpose2d`` within 1e-4 and against float64 within 1e-5 of the
+   max, timed beside the two cuDNN calls it replaced (deterministic
+   flags). At every k=3 conv shape the gradients of ``VDPConv`` (kernel 1
+   forward and transposed convolutions, kernel 4) are held against autograd of
    ``vdp_conv_plain``, each within 1e-4 of that gradient's max magnitude:
    the input gradient too at ``conv_input`` (``sigma=None``), which every
    attack and saliency map is, and again with weights that require no
@@ -50,14 +55,17 @@ Phases (any failure raises and the exit code is not 0):
    ``train.make_train_step`` from He-scaled ``init_params`` on a seeded
    batch with integer labels. The launch counters are zeroed just before
    and read just after; per step they must read 10 vdp_conv, 2 pool
-   forward, 2 pool backward and 10 sigma-chain backward launches, and one
-   split-K reduce per layer planned with K slices. The same
+   forward, 2 pool backward and 10 sigma-chain backward launches, 9
+   transposed-convolution launches of kernel 1 (every k=3 conv but
+   conv_input, whose input needs no gradient), and one split-K reduce per
+   layer planned with K slices (forward and transposed alike). The same
    steps on the CPU from the same parameters: every step's loss within 1e-4
-   relative, the step-1 gradients within 1e-3 of each leaf's max magnitude,
+   relative, the step-1 gradients within 1e-3 of each leaf's max magnitude
+   (printed beside the same gradients with cuDNN's transposed convolutions),
    the parameters after the last step within 2 * lr * steps. Prints the
    median step time of steps 2-5 (synchronised) and img/s.
 7. training, BraTS at full width, batch 2: 2 steps, the same checks, with
-   18 / 4 / 4 / 18 launches per step.
+   18 / 4 / 4 / 18 launches per step and 17 transposed.
 
 8. epoch trainer, hippocampus at full width, batch 20: ``Trainer`` on the
    card, 200 synthetic training and 40 validation images, 3 epochs with a
@@ -98,16 +106,22 @@ Phases (any failure raises and the exit code is not 0):
    hippocampus width, batch 20, targeted labels (class 3 of 3: all-zero
    one-hot rows), and at full BraTS width, batch 2, from He-scaled
    parameters that require a gradient and get none. The counters per
-   gradient must read (10, 2, 2, 10) and (18, 4, 4, 18) of kernels 1-4
-   (a rematerialised config would launch its block forwards twice). Held
-   against the CPU with the card's ReLU masks and pool taps replayed, within
-   ``ATTACK_GRAD_TOL`` of the gradient's max; no sign may differ from that
-   of the same gradient in float64 (CPU, the same choices) above
+   gradient must read (10, 2, 2, 10) and (18, 4, 4, 18) of kernels 1-4 and
+   10 / 18 transposed (a rematerialised config would launch its block
+   forwards twice). Held against the CPU with the card's ReLU masks and
+   pool taps replayed within ``ATTACK_GRAD_TOL`` of the gradient's max, and
+   against the same gradient in float64 (CPU, the same choices) within
+   ``ATTACK_F64_TOL``; no sign may differ from the float64 one above
    ``ATTACK_SIGN_FLOOR`` of its max. Printed beside it: the share of pixels
-   whose sign differs, each float32 run's distance from float64, and the
-   card's with kernel 1 replaced by its plain version. Then the adversarial train step (FGSM) beside the
-   plain one: launches per step 3x the forwards and backwards (one attack
-   gradient, the clean and the adversarial branch), and both step times.
+   whose sign differs, each float32 run's distance from float64, the
+   card's with cuDNN's transposed convolutions (the path before kernel 1
+   took them) and with kernel 1's forward replaced by its plain version.
+   Then, at BraTS batch 2, every transposed convolution and filter gradient
+   of one backward: each call's inputs recorded and run again through kernel
+   1, through cuDNN and in float64, each output's distance and cuDNN's
+   kernel names on one JSON line. Then the adversarial train step (FGSM)
+   beside the plain one: launches per step one attack gradient and two
+   train steps' forwards and backwards, and both step times.
 13. ``run_adversarial`` on the card: hippocampus, the default targeted
    attack (``adv_class = 3``, PGD, 20 steps), 40 synthetic images; BraTS
    untargeted (one FGSM step), 4 images at batch 2. The counters must equal
@@ -128,6 +142,18 @@ Phases (any failure raises and the exit code is not 0):
    sweep, attack, calibrate; ``study.json`` must hold all five stages and
    the counters the launches of all of them), one ``saliency`` run (one
    gradient), and one epoch of ``train --adversarial-training fgsm``.
+
+16. bf16 activations (``act_dtype``): hippocampus b20 and BraTS b2 served
+   at full width in bf16 against the card's float32 answer and the CPU's
+   bf16 answer (``BF16_PROBS_ATOL``, ``BF16_AGREE``), and 5 / 2 train steps
+   against the float32 steps (``BF16_LOSS_RTOL``; parameters, gradients and
+   loss float32); launches equal to float32's; ``profiling``'s serve and
+   train profiles (wall, device time, peak memory) in both dtypes.
+17. ``EnsembleSession`` of 3 members at hippocampus b20 against the CPU
+   (launches 3x a forward's), ``cli export`` in process on its default
+   device with ``model.pt2`` run on the CPU against the card's session (the
+   serving limits), and one request of 45 images enqueued whole against a
+   synchronisation per chunk (bit-equal; wall times in turns).
 
 In phases 6-15 cuDNN runs its deterministic algorithms, and in 6-7 and 12
 the CPU reference of the gradients replays the card's ReLU masks and pool
@@ -180,20 +206,37 @@ TRAIN_GRAD_TOL = 1e-3  # step-1 gradient, per leaf, relative to its max
 # the per-step limit; the parameters are still held to 2 * lr * steps.
 EPOCH_LOSS_RTOL = 1e-3
 # the attack loss's gradient with respect to the image, card against CPU
-# with the card's ReLU and pool choices replayed, relative to its max. On an
-# H100 it read 6.1e-6 at hippocampus batch 20 and 1.7e-3 at BraTS batch 2,
-# where the CPU's float32 run is 2e-6 from the same gradient in float64: the
-# loss divides by sigma, so the gradient takes the relative error that sigma
-# gathers over 18 layers on the card (the phase prints where it comes from).
-ATTACK_GRAD_TOL = 5e-3
+# with the card's ReLU and pool choices replayed, relative to its max, and
+# the card's against the same gradient in float64 (CPU, the same choices).
+# With the backward's transposed convolutions in cuDNN the card read 1.7e-3
+# from float64 at BraTS batch 2 on an H100 (the loss divides by sigma, so a
+# relative error of sigma passes on in full); through kernel 1 every
+# convolution of the input gradient is at float32 accuracy, as on the CPU
+# (2e-6 from float64). The phase prints both paths and each call's distance.
+ATTACK_GRAD_TOL = 1e-4
+ATTACK_F64_TOL = 1e-4
+# a replayed sigma clip may differ from the reference's own only where sigma
+# lies this close to the bound, relative (rounding gathered over 18 layers)
+CLIP_TIE_RTOL = 1e-3
 # below this share of the gradient's max (twice the limit above) a sign may
 # be decided by rounding
-ATTACK_SIGN_FLOOR = 1e-2
+ATTACK_SIGN_FLOOR = 2e-4
 # evaluation metrics (accuracy, Dice, rates, calibration scalars), card
 # against CPU on the same images and draws: a few argmax flips among the
 # 116,640 pixels of 40 hippocampus images
 EVAL_METRIC_ATOL = 5e-3
 EVAL_SNR_RTOL = 1e-4
+# bf16 activations against float32 (the limits of the JAX package's
+# tests/test_moments.py:test_act_dtype_bfloat16_mode): probabilities within
+# 0.03, the per-pixel class the same on more than 99% of the pixels; the
+# card's bf16 against the CPU's bf16 likewise (a float32 kernel output a
+# rounding apart lands in another bf16 value)
+BF16_PROBS_ATOL = 3e-2
+BF16_AGREE = 0.99
+# a train step's loss in bf16 against float32: bf16 rounds at 2^-9 (2e-3)
+# relative and the loss is a mean over 58,320 (hippocampus b20) or 69,192
+# (BraTS b2) pixels, so it moves by far less than one rounding; 1e-2 is five
+BF16_LOSS_RTOL = 1e-2
 TIMING_RUNS = 20
 
 
@@ -230,7 +273,7 @@ def _bound(nbytes: float, flops: float):
     return max(b_ms, o_ms), b_ms, o_ms
 
 
-def _he_params(torch, cfg):
+def _he_params(torch, cfg, seed=SEED):
     """``init_params`` on the CPU from SEED with each w_mu rescaled to He
     scale, std sqrt(2 / fan_in). At the raw init (std 0.088 in every layer)
     the activations grow about 6x per BraTS layer: the logits reach 7.6e4,
@@ -239,7 +282,7 @@ def _he_params(torch, cfg):
     there. At He scale the logits stay below 10 in both configs."""
     from supernet_tpu_torch.models import init_params
 
-    params = init_params(torch.Generator().manual_seed(SEED), cfg, "cpu")
+    params = init_params(torch.Generator().manual_seed(seed), cfg, "cpu")
     for p in params.values():
         k, _, cin, _ = p["w_mu"].shape
         p["w_mu"] *= math.sqrt(2.0 / (k * k * cin)) / p["w_mu"].std()
@@ -256,6 +299,19 @@ def _split_layers(cfg, batch) -> int:
                for _, (_, h, w, cin), cout in layer_shapes(cfg)[0])
 
 
+def _dgrad_split_layers(cfg, batch, with_input: bool) -> int:
+    """The k=3 convs whose input gradient (kernel 1 without the window sum,
+    a conv of [b, h+2, w+2, Cout] into Cin channels) the planner cuts into K
+    slices; conv_input's counts only ``with_input`` (a gradient with respect
+    to the image)."""
+    from supernet_tpu_torch.ops.kernels.vdp_conv import plan
+    from supernet_tpu_torch.profiling import layer_shapes
+
+    return sum(plan(batch, h + 2, w + 2, cout, cin, 3).splits > 1
+               for name, (_, h, w, cin), cout in layer_shapes(cfg)[0]
+               if with_input or name != "conv_input")
+
+
 class KernelCheck:
     """Holds each kernel against its plain version and keeps the worst
     error and the summed times per kernel and config."""
@@ -268,6 +324,9 @@ class KernelCheck:
         self.vdp = {}  # (config) -> summed device, cuDNN and 3xTF32 bound ms
         self.paths = {}  # kernel 3 or 4 -> the planner's paths its shapes took
         self.dev = {}  # (kernel 3 or 4, config) -> summed device ms
+        # (config) -> the dgrad's summed device ms, cuDNN's conv_transpose2d
+        # pair's and the dgrad's 3xTF32 bound
+        self.dgrad_ms = {}
 
     def _randn(self, *shape):
         return self.torch.randn(shape, device="cuda", generator=self.gen)
@@ -479,6 +538,78 @@ class KernelCheck:
             "gradients": names,
         })
 
+    def dgrad(self, config, layer, b, h, w, cin, cout, with_sigma):
+        """Kernel 1 without the window sum as VDPConv's backward runs it:
+        ``conv_t_pair(g1, g2, w_mu)`` for a k=3 conv with input [b,h,w,cin]
+        (one launch for both transposed convolutions; ``g2`` None at
+        conv_input, the attack's case), against PyTorch's ``conv_transpose2d``
+        (``_conv_t``, the plain version) within VDP_TOL and against the padded,
+        flipped form in float64 within VDP_F64_TOL of the max. Timed beside
+        the two cuDNN calls it replaced, under the deterministic flags that
+        training runs them with; their own distance from float64 printed."""
+        torch = self.torch
+        from supernet_tpu_torch.ops.kernels import vdp_conv as V
+        from supernet_tpu_torch.profiling import TF32_FLOPS_PER_S, device_ms
+
+        g1 = self._randn(b, h - 2, w - 2, cout)
+        g2 = self._randn(b, h - 2, w - 2, cout) if with_sigma else None
+        w_mu = 0.1 * self._randn(3, 3, cin, cout)
+        plan = V.plan(b, h + 2, w + 2, cout, cin, 3)
+
+        def cudnn():
+            return V._conv_t(g1, w_mu), None if g2 is None else V._conv_t(g2, w_mu * w_mu)
+
+        with torch.inference_mode():
+            _zero_launches()
+            got = V.conv_t_pair(g1, g2, w_mu)
+            torch.cuda.synchronize()
+            launches = _read_launches()
+            want_l = {k: 0 for k in launches}
+            want_l.update(vdp_conv_dgrad=1, vdp_conv_dgrad_reduce=int(plan.splits > 1))
+            if launches != want_l:
+                _die(f"vdp_conv dgrad {config}/{layer}: launches {launches}")
+            want = cudnn()
+            want64 = V.conv_t_pair_plain(g1.double(), None if g2 is None else g2.double(),
+                                         w_mu.double())
+            with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                            deterministic=True, allow_tf32=False):
+                det = cudnn()
+                abs_err = rel_err = f64_err = cudnn64 = 0.0
+                for x, r, r64, d in zip(got, want, want64, det):
+                    if r is None:
+                        continue
+                    e = float((x - r).abs().max())
+                    abs_err = max(abs_err, e)
+                    rel_err = max(rel_err, e / float(r.abs().max()))
+                    f64_err = max(f64_err, _max_rel(torch, x.double(), r64))
+                    cudnn64 = max(cudnn64, _max_rel(torch, d.double(), r64))
+                if not rel_err <= VDP_TOL:
+                    _die(f"vdp_conv dgrad {config}/{layer} disagrees with conv_transpose2d: "
+                         f"relative error {rel_err:.3e} > {VDP_TOL}")
+                if not f64_err <= VDP_F64_TOL:
+                    _die(f"vdp_conv dgrad {config}/{layer} ({plan.path}) is not at float32 "
+                         f"accuracy: {f64_err:.3e} of the max from float64 > {VDP_F64_TOL}")
+                del want64
+                ms = _time_ms(torch, lambda: V.conv_t_pair(g1, g2, w_mu))
+                plain_ms = _time_ms(torch, lambda: V.conv_t_pair_plain(g1, g2, w_mu))
+                dev_ms = device_ms(lambda: V.conv_t_pair(g1, g2, w_mu))
+                cudnn_ms = device_ms(cudnn)
+        n = 2 if with_sigma else 1
+        m = b * h * w
+        nbytes = 4 * (n * g1.numel() + 9 * cin * cout + n * m * cin)
+        flops = n * 2 * 9 * cin * cout * m
+        bound = _bound(nbytes, flops)
+        acc = self.dgrad_ms.setdefault(config, [0.0, 0.0, 0.0])
+        acc[0] += dev_ms
+        acc[1] += cudnn_ms
+        acc[2] += max(bound[1], 1e3 * 3 * flops / TF32_FLOPS_PER_S)
+        self._record("vdp_conv_dgrad", config, abs_err, rel_err, ms, plain_ms, bound, {
+            "layer": layer, "shape": [b, h, w, cin, cout, 3], "sigma": with_sigma,
+            "path": plan.path, "splits": plan.splits, "blocks": plan.blocks,
+            "f64_max_rel_err": f64_err, "cudnn_deterministic_f64_max_rel_err": cudnn64,
+            "device_ms": dev_ms, "cudnn_conv_transpose_ms": cudnn_ms,
+        })
+
     def _seen(self, kernel, config, path, dev_ms):
         """Note the path a backward kernel's plan took and add its device
         time (the stream held by a sleep) to the config's sum."""
@@ -539,6 +670,7 @@ def _zero_launches() -> None:
     from supernet_tpu_torch.ops.kernels import vdp_conv as V
 
     V.launches = V.reduce_launches = P.launches = P.bwd_launches = S.launches = 0
+    V.dgrad_launches = V.dgrad_reduce_launches = 0
 
 
 def _read_launches() -> dict:
@@ -548,7 +680,8 @@ def _read_launches() -> dict:
 
     return {"vdp_conv": V.launches, "vdp_conv_reduce": V.reduce_launches,
             "vmaxpool": P.launches, "vmaxpool_bwd": P.bwd_launches,
-            "sigma_bwd": S.launches}
+            "sigma_bwd": S.launches, "vdp_conv_dgrad": V.dgrad_launches,
+            "vdp_conv_dgrad_reduce": V.dgrad_reduce_launches}
 
 
 def _serve(torch, name, cfg, batch, sizes):
@@ -558,7 +691,6 @@ def _serve(torch, name, cfg, batch, sizes):
     the last request)."""
     import numpy as np
 
-    from supernet_tpu_torch.models import layer_names
     from supernet_tpu_torch.serving import InferenceSession
 
     params = _he_params(torch, cfg)
@@ -577,13 +709,7 @@ def _serve(torch, name, cfg, batch, sizes):
     launches = _read_launches()
 
     chunks = sum(math.ceil(n / batch) for n in sizes)
-    want = {
-        "vdp_conv": chunks * sum(1 for _, k, _, _ in layer_names(cfg) if k == 3),
-        "vdp_conv_reduce": chunks * _split_layers(cfg, batch),
-        "vmaxpool": chunks * (cfg.depth - 1),
-        "vmaxpool_bwd": 0,
-        "sigma_bwd": 0,
-    }
+    want = _expected_launches(cfg, batch, 0, chunks)
     if launches != want:
         _die(f"{name}: kernel launches {launches}, expected {want}")
 
@@ -626,10 +752,12 @@ def _serve(torch, name, cfg, batch, sizes):
 
 
 @contextlib.contextmanager
-def _decisions(torch, record=None, replay=None):
+def _decisions(torch, record=None, replay=None, clips=True):
     """Record the discrete choices of the forwards run inside (each fused
-    ReLU's mask, each pool's tap index) into the list ``record``, or make
-    the forwards take the choices of ``replay`` instead of their own.
+    ReLU's mask, each pool's tap index, which pixels the loss's sigma clip
+    holds at a bound) into the list ``record``, or make the forwards take
+    the choices of ``replay`` instead of their own (the clips too, unless
+    ``clips`` is False).
 
     Two float32 summation orders can round a pre-activation near 0, or two
     near-equal pool taps, differently; that choice moves the pixel's whole
@@ -637,14 +765,18 @@ def _decisions(torch, record=None, replay=None):
     20 move a w_mu gradient by 1.4e-3 of its max). So the CPU reference of
     the gradient check replays the card's choices. A replayed choice that
     differs from the CPU's own must be a tie: |mu| within VDP_TOL of mu's
-    max magnitude for a ReLU, the two taps within VDP_TOL of it for a pool.
+    max magnitude for a ReLU, the two taps within VDP_TOL of it for a pool,
+    sigma within CLIP_TIE_RTOL of the bound for a clip (at BraTS depth half
+    the pixels' sigma lies above the upper bound of 1e3, and a pixel within
+    rounding of it has its gradient on in one run and off in the other).
     Yields the count of such ties."""
+    from supernet_tpu_torch import losses as L
     from supernet_tpu_torch.ops.kernels import pool as P
     from supernet_tpu_torch.ops.kernels import vdp_conv as V
 
-    conv_apply, pool_apply = V.VDPConv.apply, P.VMaxPool.apply
+    conv_apply, pool_apply, clip_sigma = V.VDPConv.apply, P.VMaxPool.apply, L.clip_sigma
     queue = iter(replay) if replay is not None else None
-    ties = {"relu": 0, "pool": 0}
+    ties = {"relu": 0, "pool": 0, "clip": 0}
 
     def tie_bound(x):
         return VDP_TOL * float(x.detach().abs().max())
@@ -686,11 +818,44 @@ def _decisions(torch, record=None, replay=None):
             ties["pool"] += int(tie.sum())
         return m, s
 
-    V.VDPConv.apply, P.VMaxPool.apply = conv, pool
+    def clip(sigma, lo, hi):
+        if queue is None:
+            record.append((sigma.detach() < lo, sigma.detach() > hi))
+            return clip_sigma(sigma, lo, hi)
+        below, above = (m.to(sigma.device) for m in next(queue))
+        if not clips:
+            return clip_sigma(sigma, lo, hi)
+        s = sigma.detach()
+        tie = (below != (s < lo)) | (above != (s > hi))
+        if tie.any():
+            near = torch.minimum((s - lo).abs() / abs(lo), (s - hi).abs() / abs(hi))
+            if float(near[tie].max()) > CLIP_TIE_RTOL:
+                _die("training: a sigma clip differs away from its bound")
+            ties["clip"] += int(tie.sum())
+        return torch.where(above, hi, torch.where(below, lo, sigma))
+
+    V.VDPConv.apply, P.VMaxPool.apply, L.clip_sigma = conv, pool, clip
     try:
         yield ties
     finally:
         del V.VDPConv.apply, P.VMaxPool.apply
+        L.clip_sigma = clip_sigma
+
+
+@contextlib.contextmanager
+def _cudnn_dgrad():
+    """Run VDPConv's backward with its transposed convolutions through
+    PyTorch's ``conv_transpose2d`` (cuDNN on the card), as before kernel 1
+    took them: the yardstick of the repair."""
+    from supernet_tpu_torch.ops.kernels import vdp_conv as V
+
+    kernel = V.conv_t_pair
+    V.conv_t_pair = lambda g1, g2, w: (
+        V._conv_t(g1, w), None if g2 is None else V._conv_t(g2, w * w))
+    try:
+        yield
+    finally:
+        V.conv_t_pair = kernel
 
 
 def _max_rel(torch, got, want) -> float:
@@ -707,7 +872,6 @@ def _train(torch, name, cfg, tc, batch, steps):
     import numpy as np
 
     from supernet_tpu_torch import train as T
-    from supernet_tpu_torch.models import layer_names
 
     params = _he_params(torch, cfg)
     rng = np.random.default_rng(SEED)
@@ -730,12 +894,23 @@ def _train(torch, name, cfg, tc, batch, steps):
         g_gpu = grads(gpu)
     with _decisions(torch, replay=choices) as ties:
         g_cpu = grads(cpu)
+    with _decisions(torch, replay=choices, clips=False):
+        g_cpu_own_clips = grads(cpu)
+    worst_own_clips = max(_max_rel(torch, g, r) for g, r in zip(g_gpu, g_cpu_own_clips))
+    del g_cpu_own_clips
     worst_g = 0.0
     for g, r in zip(g_gpu, g_cpu):
         worst_g = max(worst_g, _max_rel(torch, g, r))
     if not worst_g <= TRAIN_GRAD_TOL:
         _die(f"{name} training: step-1 gradients differ from the CPU's by "
              f"{worst_g:.3e} of a leaf's max > {TRAIN_GRAD_TOL}")
+    # the same gradients on the card with the backward's transposed
+    # convolutions through cuDNN instead of kernel 1 (the path before it),
+    # the card's choices replayed: printed beside the limit, not held to it
+    with _cudnn_dgrad(), _decisions(torch, replay=choices):
+        g_old = grads(gpu)
+    worst_old = max(_max_rel(torch, g, r) for g, r in zip(g_old, g_cpu))
+    del g_old
 
     step = T.make_train_step(cfg, tc)
     torch.cuda.synchronize()
@@ -748,11 +923,8 @@ def _train(torch, name, cfg, tc, batch, steps):
         times.append(time.perf_counter() - t0)
         metrics.append([float(v) for v in m])
     launches = _read_launches()
-    n3 = sum(1 for _, k, _, _ in layer_names(cfg) if k == 3)
-    per_step = {"vdp_conv": n3, "vdp_conv_reduce": _split_layers(cfg, batch),
-                "vmaxpool": cfg.depth - 1, "vmaxpool_bwd": cfg.depth - 1,
-                "sigma_bwd": n3}
-    if launches != {k: v * steps for k, v in per_step.items()}:
+    per_step = _expected_launches(cfg, batch, 1, 0)
+    if launches != _scaled(per_step, steps):
         _die(f"{name} training: kernel launches {launches} in {steps} steps, "
              f"expected {per_step} per step")
 
@@ -782,6 +954,11 @@ def _train(torch, name, cfg, tc, batch, steps):
         "losses": [m[0] for m in metrics], "cpu_losses": [m[0] for m in cpu_metrics],
         "accuracy": [m[3] for m in metrics],
         "loss_max_rel_err_vs_cpu": loss_err, "grad_max_rel_err_vs_cpu": worst_g,
+        "grad_share_of_limit": worst_g / TRAIN_GRAD_TOL,
+        "grad_max_rel_err_vs_cpu_own_clips": worst_own_clips,
+        "grad_share_of_limit_own_clips": worst_own_clips / TRAIN_GRAD_TOL,
+        "grad_max_rel_err_vs_cpu_cudnn_dgrad": worst_old,
+        "grad_share_of_limit_cudnn_dgrad": worst_old / TRAIN_GRAD_TOL,
         "grad_ties_replayed": ties,
         "param_max_abs_err_vs_cpu": param_err, "param_limit": limit,
         "step_s": times, "median_step_s": step_s, "img_per_s": batch / step_s,
@@ -799,14 +976,24 @@ def _per_forward(cfg, batch) -> dict:
             "vmaxpool": cfg.depth - 1}
 
 
-def _expected_launches(cfg, batch, steps, eval_batches) -> dict:
-    """Launches of ``steps`` train steps and ``eval_batches`` forwards."""
+def _expected_launches(cfg, batch, steps, eval_batches, input_grads=0) -> dict:
+    """Launches of ``steps`` train steps (gradients of the weights alone),
+    ``eval_batches`` forwards and ``input_grads`` gradients with respect to
+    the image (the weights frozen). Every backward runs kernel 4 at each k=3
+    conv and kernel 1 without the window sum at each k=3 conv whose input
+    needs a gradient: all but conv_input in a train step, all of them in a
+    gradient with respect to the image."""
     f = _per_forward(cfg, batch)
-    return {"vdp_conv": (steps + eval_batches) * f["vdp_conv"],
-            "vdp_conv_reduce": (steps + eval_batches) * f["vdp_conv_reduce"],
-            "vmaxpool": (steps + eval_batches) * f["vmaxpool"],
-            "vmaxpool_bwd": steps * f["vmaxpool"],
-            "sigma_bwd": steps * f["vdp_conv"]}
+    fwd = steps + eval_batches + input_grads
+    bwd = steps + input_grads
+    return {"vdp_conv": fwd * f["vdp_conv"],
+            "vdp_conv_reduce": fwd * f["vdp_conv_reduce"],
+            "vmaxpool": fwd * f["vmaxpool"],
+            "vmaxpool_bwd": bwd * f["vmaxpool"],
+            "sigma_bwd": bwd * f["vdp_conv"],
+            "vdp_conv_dgrad": steps * (f["vdp_conv"] - 1) + input_grads * f["vdp_conv"],
+            "vdp_conv_dgrad_reduce": (steps * _dgrad_split_layers(cfg, batch, False)
+                                      + input_grads * _dgrad_split_layers(cfg, batch, True))}
 
 
 def _state_tensors(state):
@@ -1121,8 +1308,13 @@ def _augment_and_remat(torch, smi):
 
 
 def _per_gradient(cfg, batch) -> dict:
-    """Launches of one forward and backward (a train step, or one gradient
-    with respect to the image)."""
+    """Launches of one gradient with respect to the image (an attack step,
+    a saliency map)."""
+    return _expected_launches(cfg, batch, 0, 0, input_grads=1)
+
+
+def _per_step(cfg, batch) -> dict:
+    """Launches of one train step's forward and backward."""
     return _expected_launches(cfg, batch, 1, 0)
 
 
@@ -1203,13 +1395,26 @@ def _attack_gradient(torch, name, exp, batch):
     with _decisions(torch, replay=choices):
         g64 = attacks.input_gradient(p64, x.cpu().double(), y_flat.cpu().double(), cfg, ac)
     err_card64, err_cpu64 = _max_rel(torch, g.double(), g64), _max_rel(torch, g_cpu.double(), g64)
-    if not err <= ATTACK_GRAD_TOL:
+    # the same float64 gradient with its own sigma clips (the comparison
+    # before the clips were replayed): printed, not held
+    with _decisions(torch, replay=choices, clips=False):
+        g64_own = attacks.input_gradient(p64, x.cpu().double(), y_flat.cpu().double(), cfg, ac)
+    err_card64_own_clips = _max_rel(torch, g.double(), g64_own)
+    del g64_own
+    # the path before the repair: the backward's transposed convolutions in
+    # cuDNN, the same choices replayed on the card
+    with _cudnn_dgrad(), _decisions(torch, replay=choices):
+        g_old = attacks.input_gradient(state.params, x, y_flat, cfg, ac)
+    err_old64 = _max_rel(torch, g_old.double(), g64)
+    del g_old
+    if not (err <= ATTACK_GRAD_TOL and err_card64 <= ATTACK_F64_TOL):
         _die(f"{name} attack gradient differs from the CPU's by {err:.3e} of its "
-             f"max > {ATTACK_GRAD_TOL} (from float64 by {err_card64:.3e}, the "
-             f"CPU's float32 by {err_cpu64:.3e})")
-    # where the card's distance comes from: the same gradient on the card
-    # with kernel 1 replaced by its plain version (cuDNN float32), the same
-    # choices replayed; printed, not held to a limit
+             f"max (limit {ATTACK_GRAD_TOL}) and from float64 by {err_card64:.3e} "
+             f"(limit {ATTACK_F64_TOL}); the CPU's float32 is {err_cpu64:.3e} from "
+             f"float64, the card's with cuDNN's transposed convolutions {err_old64:.3e}")
+    # the same gradient on the card with kernel 1's forward replaced by its
+    # plain version (cuDNN float32), the same choices replayed; printed, not
+    # held to a limit
     from supernet_tpu_torch.ops.kernels import vdp_conv as V
 
     kernel_1 = V.vdp_conv
@@ -1232,13 +1437,87 @@ def _attack_gradient(torch, name, exp, batch):
         "launches_per_gradient": want, "grad_max_rel_err_vs_cpu": err,
         "grad_max_rel_err_vs_float64": err_card64,
         "cpu_grad_max_rel_err_vs_float64": err_cpu64,
-        "card_grad_with_plain_kernel_1_max_rel_err_vs_float64": err_plain64,
+        "grad_max_rel_err_vs_float64_own_clips": err_card64_own_clips,
+        "card_grad_cudnn_dgrad_max_rel_err_vs_float64": err_old64,
+        "card_grad_with_plain_kernel_1_forward_max_rel_err_vs_float64": err_plain64,
         "grad_max_abs": scale, "grad_ties_replayed": ties,
         "sign_share_differing": float(sign_off.float().mean()),
         "share_above_sign_floor": float(clear.float().mean()),
         "gradient_s": times, "median_gradient_s": sec,
     }), flush=True)
     return want, sec
+
+
+def _backward_conv_calls(torch, name, exp, batch):
+    """Phase 12: where a backward's error comes from. One loss and gradient
+    (the image and every weight; the training loss) at ``batch`` records the
+    inputs of each ``conv_t_pair`` (the transposed convolutions) and each
+    ``_filter_grad`` (cuDNN's wgrad) call; each call is then run again in
+    float32 through kernel 1 and through cuDNN (deterministic flags, as in
+    training) and in float64 on the card, and the distances of each output
+    from float64 (relative to its max) are printed with the names of the
+    kernels the profiler saw cuDNN run. One JSON line."""
+    from supernet_tpu_torch import train as T
+    from supernet_tpu_torch.ops.kernels import vdp_conv as V
+    from supernet_tpu_torch.profiling import _device_events
+
+    cfg = exp.model
+    state, _ = T.create_train_state(_he_params(torch, cfg), exp.train, "cuda")
+    x, y_flat = _attack_batch(torch, cfg, batch, exp.attack.targeted, "cuda")
+    x.requires_grad_()
+    dgrads, wgrads = [], []
+    pair, fgrad = V.conv_t_pair, V._filter_grad
+
+    def rec_pair(g1, g2, w):
+        dgrads.append((g1.detach().clone(), None if g2 is None else g2.detach().clone(),
+                       w.detach().clone()))
+        return pair(g1, g2, w)
+
+    def rec_fgrad(xx, g, shape):
+        wgrads.append((xx.detach().clone(), g.detach().clone(), tuple(shape)))
+        return fgrad(xx, g, shape)
+
+    V.conv_t_pair, V._filter_grad = rec_pair, rec_fgrad
+    try:
+        loss, _ = T.loss_fn(state.params, x, y_flat, cfg, exp.train)
+        torch.autograd.grad(loss, [x] + T.leaves(state.params))
+    finally:
+        V.conv_t_pair, V._filter_grad = pair, fgrad
+    del loss, state
+
+    def names(fn):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return sorted({e.name[:90] for e in _device_events(prof)})
+
+    rows_d, rows_w = [], []
+    with torch.inference_mode():
+        for g1, g2, w in dgrads:
+            k = V.conv_t_pair(g1, g2, w)
+            c = (V._conv_t(g1, w), None if g2 is None else V._conv_t(g2, w * w))
+            r = V.conv_t_pair_plain(g1.double(), None if g2 is None else g2.double(),
+                                    w.double())
+            row = {"shape": list(g1.shape) + [w.shape[2]]}
+            for tag, out in (("kernel", k), ("cudnn", c)):
+                row[tag] = [None if o is None else _max_rel(torch, o.double(), ref)
+                            for o, ref in zip(out, r)]
+            row["cudnn_kernels"] = names(lambda: (V._conv_t(g1, w), None if g2 is None
+                                                  else V._conv_t(g2, w * w)))
+            rows_d.append(row)
+        for xx, g, shape in wgrads:
+            c = V._filter_grad(xx, g, shape)
+            r = V._filter_grad(xx.double(), g.double(), shape)
+            rows_w.append({"shape": list(xx.shape) + [shape[3]],
+                           "cudnn": _max_rel(torch, c.double(), r),
+                           "cudnn_kernels": names(lambda: V._filter_grad(xx, g, shape))})
+    worst = {tag: max(v for row in rows_d for v in row[tag] if v is not None)
+             for tag in ("kernel", "cudnn")}
+    worst["wgrad_cudnn"] = max(row["cudnn"] for row in rows_w)
+    print(json.dumps({"backward_conv_calls": name, "batch": batch,
+                      "max_rel_err_vs_float64": worst, "dgrad": rows_d, "wgrad": rows_w}),
+          flush=True)
+    return worst
 
 
 def _adversarial_train_step(torch, smi):
@@ -1269,7 +1548,10 @@ def _adversarial_train_step(torch, smi):
             losses.append(float(m.loss))
         launches = _read_launches()
         # fgsm: the attack's gradient, then the clean and the adversarial branch
-        want = _scaled(_per_gradient(cfg, batch), steps * (3 if mode == "fgsm" else 1))
+        want = _scaled(_per_step(cfg, batch), steps)
+        if mode == "fgsm":
+            want = _scaled(_summed(_per_gradient(cfg, batch),
+                                   _scaled(_per_step(cfg, batch), 2)), steps)
         if launches != want:
             _die(f"train step, adversarial_training={mode}: kernel launches "
                  f"{launches}, expected {want}")
@@ -1304,8 +1586,6 @@ def _synthetic_ds(cfg, n, seed=1):
 
 def _run_adversarial(torch, smi, tmp, name, batch, n_images):
     """Phase 13, one config. Returns (launches, seconds per attacked batch)."""
-    import numpy as np
-
     from supernet_tpu_torch import evaluate as E
     from supernet_tpu_torch import reports
     from supernet_tpu_torch.checkpoint import params_from_jax
@@ -1380,13 +1660,9 @@ def _run_adversarial(torch, smi, tmp, name, batch, n_images):
     shape = (n_images, cfg.out_size, cfg.out_size, cfg.n_classes)
     ref_p = torch.cat([p for p, _ in ref]).numpy().reshape(shape)
     ref_s = torch.cat([v for _, v in ref]).numpy().reshape(shape)
-    worst_p = float(np.abs(probs - ref_p).max())
-    d = np.abs(sigma - ref_s) / max(float(np.abs(ref_s).max()), 1e-30)
-    share = float((d > SERVE_SIGMA_RTOL).mean())
-    if worst_p > SERVE_PROBS_ATOL or share > SERVE_SIGMA_SHARE:
-        _die(f"run_adversarial {name}: the card's forward of its adversarial images "
-             f"differs from the CPU's (probs {worst_p:.3e}; sigma beyond "
-             f"{SERVE_SIGMA_RTOL} relative on {share:.3%} of the elements)")
+    worst_p, _, share = _serving_close(
+        f"run_adversarial {name}: the card's forward of its adversarial images against "
+        "the CPU's", probs, sigma, ref_p, ref_s)
     sec = statistics.median(attack_s)
     print(json.dumps({
         "run_adversarial": name, "card": smi, "batch": batch, "images": n_images,
@@ -1500,6 +1776,201 @@ def _evaluation(torch, smi, tmp):
     return launches, clean["test_time_per_batch_s"], sweep_s
 
 
+def _serving_close(name, probs, sigma, ref_p, ref_s):
+    """Hold a card answer to a reference within the serving limits (probs
+    absolute, sigma by the share of elements beyond SERVE_SIGMA_RTOL of its
+    max); returns (probs error, sigma's max relative error, that share)."""
+    import numpy as np
+
+    if probs.shape != ref_p.shape or not (np.isfinite(probs).all() and np.isfinite(sigma).all()):
+        _die(f"{name}: shape {probs.shape} (expected {ref_p.shape}) or non-finite values")
+    worst_p = float(np.abs(probs - ref_p).max())
+    d = np.abs(sigma - ref_s) / max(float(np.abs(ref_s).max()), 1e-30)
+    share = float((d > SERVE_SIGMA_RTOL).mean())
+    if worst_p > SERVE_PROBS_ATOL or share > SERVE_SIGMA_SHARE:
+        _die(f"{name}: probs differ by {worst_p:.3e}; sigma beyond {SERVE_SIGMA_RTOL} "
+             f"relative on {share:.3%} of the elements")
+    return worst_p, float(d.max()), share
+
+
+def _bf16(torch, smi):
+    """Phase 16. Returns {config: {"float32" | "bfloat16": train launches}}."""
+    import numpy as np
+
+    from supernet_tpu_torch import train as T
+    from supernet_tpu_torch.configs import BRATS, HIPPOCAMPUS
+    from supernet_tpu_torch.profiling import act_dtype, profile_serving, profile_train_step
+    from supernet_tpu_torch.serving import InferenceSession
+
+    out = {}
+    for name, exp, batch, steps in (("hippocampus", HIPPOCAMPUS, 20, 5), ("brats", BRATS, 2, 2)):
+        cfg, tc = exp.model, exp.train
+        params = _he_params(torch, cfg)
+        rng = np.random.default_rng(SEED)
+        s, o, c = cfg.image_size, cfg.out_size, cfg.in_channels
+        xs = rng.normal(0.0, 1.0, (batch, s, s, c)).astype(np.float32)
+        x = rng.normal(0.0, 1.0, (steps, batch, s, s, c)).astype(np.float32)
+        y = rng.integers(0, cfg.n_classes, (steps, batch, o, o)).astype(np.int32)
+        serve, train, prof = {}, {}, {}
+        for dt in ("float32", "bfloat16"):
+            with act_dtype(dt):
+                gpu = InferenceSession(params, cfg, batch, device="cuda").warmup()
+                _zero_launches()
+                answer = gpu.predict(xs)
+                serve[dt] = (answer, _read_launches())
+                state, _ = T.create_train_state(params, tc, "cuda")
+                step = T.make_train_step(cfg, tc)
+                torch.cuda.synchronize()
+                _zero_launches()
+                losses = []
+                for i in range(steps):
+                    state, m = step(state, x[i], y[i])
+                    losses.append(float(m.loss))
+                launches = _read_launches()
+                loss, _ = T.loss_fn(state.params, torch.from_numpy(x[0]).cuda(),
+                                    torch.from_numpy(y[0]).cuda(), cfg, tc)
+                grads = torch.autograd.grad(loss, T.leaves(state.params))
+                dtypes = sorted({str(t.dtype) for t in grads} |
+                                {str(t.dtype) for t in T.leaves(state.params)} | {str(loss.dtype)})
+                train[dt] = (losses, launches, dtypes)
+                del state, grads, loss
+                prof[dt] = {"serve": profile_serving(name, batch),
+                            "train": profile_train_step(name, batch)}
+        with act_dtype("bfloat16"):
+            cpu16 = InferenceSession(params, cfg, batch, device="cpu").predict(xs)
+        (p32, _), l32 = serve["float32"]
+        (p16, s16), l16 = serve["bfloat16"]
+        if l16 != l32 or train["bfloat16"][1] != train["float32"][1]:
+            _die(f"bf16 {name}: launches {l16} / {train['bfloat16'][1]} differ from "
+                 f"float32's {l32} / {train['float32'][1]}")
+        agree = {}
+        for ref_name, ref in (("card_float32", p32), ("cpu_bfloat16", cpu16[0])):
+            err = float(np.abs(p16 - ref).max())
+            agree[ref_name] = (err, float(np.mean(p16.argmax(-1) == ref.argmax(-1))))
+            if not (np.isfinite(p16).all() and np.isfinite(s16).all()) or \
+                    err > BF16_PROBS_ATOL or not agree[ref_name][1] > BF16_AGREE:
+                _die(f"bf16 {name} serving against {ref_name}: probs {err:.3e} "
+                     f"(limit {BF16_PROBS_ATOL}), argmax agreement {agree[ref_name][1]:.5f}")
+        l16s, l32s = train["bfloat16"][0], train["float32"][0]
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(l16s, l32s))
+        if not all(math.isfinite(v) for v in l16s) or not loss_err <= BF16_LOSS_RTOL \
+                or train["bfloat16"][2] != ["torch.float32"]:
+            _die(f"bf16 {name} training: losses {l16s} against float32's {l32s} "
+                 f"({loss_err:.3e} relative), dtypes {train['bfloat16'][2]}")
+        keys = ("request_ms_median", "step_ms_median", "device_ms_per_request",
+                "device_ms_per_step", "peak_memory_bytes", "idle_share")
+        print(json.dumps({
+            "bf16": name, "card": smi, "batch": batch, "steps": steps,
+            "serve_launches": l16, "train_launches": train["bfloat16"][1],
+            "probs_max_abs_err_vs_card_float32": agree["card_float32"][0],
+            "argmax_agreement_vs_card_float32": agree["card_float32"][1],
+            "probs_max_abs_err_vs_cpu_bfloat16": agree["cpu_bfloat16"][0],
+            "argmax_agreement_vs_cpu_bfloat16": agree["cpu_bfloat16"][1],
+            "losses": l16s, "float32_losses": l32s, "loss_max_rel_err_vs_float32": loss_err,
+            "dtypes_of_params_grads_loss": train["bfloat16"][2],
+            "profiles": {dt: {mode: {k: v for k, v in r.items() if k in keys}
+                              for mode, r in pr.items()} for dt, pr in prof.items()},
+        }), flush=True)
+        out[name] = {dt: t[1] for dt, t in train.items()}
+    return out
+
+
+def _predict_per_chunk(torch, sess, x):
+    """``InferenceSession.predict`` as it was before it enqueued a request
+    whole: each chunk copied to the card from pageable memory, run, and its
+    outputs copied back with a synchronisation per chunk."""
+    import numpy as np
+
+    bs, outs = sess.batch_size, ([], [])
+    for i in range(0, len(x), bs):
+        chunk = x[i : i + bs]
+        b = len(chunk)
+        if b < bs:
+            chunk = np.concatenate([chunk, np.repeat(chunk[-1:], bs - b, axis=0)])
+        with torch.inference_mode():
+            answer = sess._forward(torch.from_numpy(np.ascontiguousarray(chunk)).to(sess.device))
+        for out, a in zip(outs, answer):
+            out.append(a[:b].cpu().numpy())
+    return np.concatenate(outs[0]), np.concatenate(outs[1])
+
+
+def _serving_rest(torch, smi, tmp):
+    """Phase 17. Returns the launches of one ensemble chunk."""
+    import io
+
+    import numpy as np
+
+    from supernet_tpu_torch import cli
+    from supernet_tpu_torch.checkpoint import save_params_npz
+    from supernet_tpu_torch.configs import HIPPOCAMPUS
+    from supernet_tpu_torch.serving import EnsembleSession, InferenceSession
+
+    cfg, batch = HIPPOCAMPUS.model, 20
+    members = [_he_params(torch, cfg, seed) for seed in (SEED, SEED + 1, SEED + 2)]
+    x = np.random.default_rng(SEED).normal(
+        0.0, 1.0, (45, cfg.image_size, cfg.image_size, cfg.in_channels)).astype(np.float32)
+    ens = EnsembleSession(members, cfg, batch, device="cuda").warmup()
+    _zero_launches()
+    pe, se = ens.predict(x[:batch])
+    launches = _read_launches()
+    want = _scaled(_expected_launches(cfg, batch, 0, 1), 3)
+    if launches != want:
+        _die(f"EnsembleSession: kernel launches {launches}, expected {want}")
+    ref = EnsembleSession(members, cfg, batch, device="cpu").predict(x[:batch])
+    ens_err = _serving_close("EnsembleSession against the CPU", pe, se, *ref)
+
+    # cli export in process, on its default device; model.pt2 on the CPU
+    npz = os.path.join(tmp, "member0.npz")
+    save_params_npz(npz, members[0])
+    out = os.path.join(tmp, "export")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["export", "--config", "hippocampus", "--checkpoint", npz,
+                       "--out-dir", out, "--export-batch-size", str(batch)])
+    export_s = time.perf_counter() - t0
+    meta = json.loads(buf.getvalue().strip().splitlines()[-1])
+    if rc != 0 or sorted(os.listdir(out)) != ["export_meta.json", "model.pt2", "params.npz"] \
+            or meta["batch_size"] != batch or meta["files"][0] != "model.pt2":
+        _die(f"cli export: rc {rc}, files {sorted(os.listdir(out))}, meta {meta}")
+    program = torch.export.load(os.path.join(out, "model.pt2")).module()
+    with torch.no_grad():
+        pp, sp = (t.numpy() for t in program(torch.from_numpy(x[:batch])))
+    single = InferenceSession(members[0], cfg, batch, device="cuda").warmup()
+    ps, ss = single.predict(x[:batch])
+    export_err = _serving_close("model.pt2 on the CPU against the card's session", ps, ss, pp, sp)
+
+    # one request of 45 images: the whole request enqueued against a
+    # synchronisation per chunk, in turns (before, after, after, before)
+    times = {"per_chunk": [], "enqueued": []}
+    answers = {}
+    single.predict(x)  # the session's host buffers are allocated once
+    _predict_per_chunk(torch, single, x)
+    for _ in range(3):
+        for kind in ("per_chunk", "enqueued", "enqueued", "per_chunk"):
+            t0 = time.perf_counter()
+            answers[kind] = (_predict_per_chunk(torch, single, x) if kind == "per_chunk"
+                             else single.predict(x))
+            times[kind].append(time.perf_counter() - t0)
+    if not all(np.array_equal(a, b) for a, b in zip(answers["per_chunk"], answers["enqueued"])):
+        _die("InferenceSession: the enqueued request is not bit-equal to the per-chunk one")
+    print(json.dumps({
+        "serving_rest": "EnsembleSession (3 members), cli export, the 45-image request",
+        "card": smi, "batch": batch, "ensemble_launches": launches,
+        "ensemble_probs_max_abs_err_vs_cpu": ens_err[0],
+        "ensemble_sigma_share_beyond_rtol": ens_err[2],
+        "export_meta": meta, "export_s": export_s,
+        "export_probs_max_abs_err_vs_card": export_err[0],
+        "export_sigma_max_rel_err_vs_card": export_err[1],
+        "export_sigma_share_beyond_rtol": export_err[2],
+        "request_45_s_per_chunk_sync": times["per_chunk"],
+        "request_45_s_enqueued": times["enqueued"],
+        "request_45_median_s_per_chunk_sync": statistics.median(times["per_chunk"]),
+        "request_45_median_s_enqueued": statistics.median(times["enqueued"]),
+    }), flush=True)
+    return launches
+
+
 def _eval_cli(torch, tmp):
     """Phase 15. Returns the launches of ``cli study``."""
     from supernet_tpu_torch import cli
@@ -1508,6 +1979,7 @@ def _eval_cli(torch, tmp):
     exp, batch, n = HIPPOCAMPUS, 20, 40
     cfg = exp.model
     grad, fwd = _per_gradient(cfg, batch), _expected_launches(cfg, batch, 0, 1)
+    step = _per_step(cfg, batch)
     batches = n // batch
     out = os.path.join(tmp, "study")
     torch.cuda.synchronize()
@@ -1517,7 +1989,7 @@ def _eval_cli(torch, tmp):
     launches = _read_launches()
     sweep_runs = 1 + len(exp.noise_levels) * len(exp.noise_regions)
     want = _summed(
-        _scaled(grad, batches), _scaled(fwd, batches),  # train: steps, validation
+        _scaled(step, batches), _scaled(fwd, batches),  # train: steps, validation
         _scaled(fwd, batches * (1 + sweep_runs + 1)),  # eval, sweep, calibrate
         _scaled(grad, batches * exp.attack.max_adv_step), _scaled(fwd, batches))  # attack
     if rc != 0 or launches != want:
@@ -1547,7 +2019,8 @@ def _eval_cli(torch, tmp):
                    "--adversarial-training", "fgsm", "--out-dir", adv_out])
     adv = _read_launches()
     # per step: the attack's gradient, the clean and the adversarial branch
-    want_adv = _summed(_scaled(grad, 3 * batches), _scaled(fwd, batches))
+    want_adv = _summed(_scaled(grad, batches), _scaled(step, 2 * batches),
+                       _scaled(fwd, batches))
     if rc != 0 or adv != want_adv or not os.path.isfile(
             os.path.join(adv_out, "epoch_0", "state.pt")):
         _die(f"cli train --adversarial-training fgsm: rc {rc}, kernel launches {adv}, "
@@ -1621,6 +2094,8 @@ def main() -> int:
         convs, pools = layer_shapes(cfg)
         for layer, (_, h, w, cin), cout in convs:
             check.sigma_bwd(config, layer, batch, h - 2, w - 2, cout, 3)
+            check.dgrad(config, layer, batch, h, w, cin, cout,
+                        with_sigma=layer != "conv_input")
             check.vdp_conv_bwd(config, layer, batch, h, w, cin, cout, 3,
                                has_sigma=layer != "conv_input", relu=True)
         for layer, (_, h, w, c) in pools:
@@ -1672,6 +2147,7 @@ def main() -> int:
         # 12. the attack's gradient and the adversarial train step
         grad_launches, grad_s = _attack_gradient(torch, "hippocampus", HIPPOCAMPUS, 20)
         _attack_gradient(torch, "brats", BRATS, 2)
+        conv_calls = _backward_conv_calls(torch, "brats", BRATS, 2)
         adv_step_s, plain_step_s = _adversarial_train_step(torch, smi)
 
         # 13-15. adversarial evaluation, the testing protocol and the
@@ -1682,6 +2158,12 @@ def main() -> int:
             _, fgsm_batch_s = _run_adversarial(torch, smi, tmp, "brats", 2, 4)
             _, test_batch_s, sweep_s = _evaluation(torch, smi, tmp)
             study_launches = _eval_cli(torch, tmp)
+
+    # 16. bf16 activations; 17. the ensemble session, cli export and the
+    # enqueued request
+    bf16_launches = _bf16(torch, smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        ensemble_launches = _serving_rest(torch, smi, tmp)
 
     sources = {
         "vdp_conv": ("supernet_tpu_torch/csrc/vdp_conv.cu",
@@ -1716,6 +2198,28 @@ def main() -> int:
                      "brats_device_ms": dev_b, "brats_cudnn_mu_ms": cudnn_b,
                      "brats_bound_3xtf32_ms": b3_b,
                      "reduce_launches": train_launches["vdp_conv_reduce"]}
+            # the form without the window sum (VDPConv's transposed
+            # convolutions): launches in the hippocampus training run, per
+            # step and per attack gradient; its times and error summed over
+            # the layer shapes of one step like the forward's, beside the
+            # two cuDNN conv_transpose2d calls it replaced
+            d_h, d_b = check.ms[("vdp_conv_dgrad", "hippocampus")], check.ms[("vdp_conv_dgrad", "brats")]
+            (dd, dc, db3), (dd_b, dc_b, db3_b) = check.dgrad_ms["hippocampus"], check.dgrad_ms["brats"]
+            extra.update({
+                "dgrad_launches": train_launches["vdp_conv_dgrad"],
+                "dgrad_reduce_launches": train_launches["vdp_conv_dgrad_reduce"],
+                "dgrad_launches_per_step": per_step["vdp_conv_dgrad"],
+                "attack_gradient_dgrad_launches": grad_launches["vdp_conv_dgrad"],
+                "dgrad_max_rel_err": check.worst["vdp_conv_dgrad"][1],
+                "dgrad_ms": d_h[0], "dgrad_plain_ms": d_h[1], "dgrad_bound_ms": d_h[2],
+                "dgrad_device_ms": dd, "dgrad_cudnn_conv_transpose_ms": dc,
+                "dgrad_bound_3xtf32_ms": db3,
+                "brats_dgrad_ms": d_b[0], "brats_dgrad_plain_ms": d_b[1],
+                "brats_dgrad_bound_ms": d_b[2], "brats_dgrad_device_ms": dd_b,
+                "brats_dgrad_cudnn_conv_transpose_ms": dc_b,
+                "brats_dgrad_bound_3xtf32_ms": db3_b,
+                "backward_conv_max_rel_err_vs_float64": conv_calls,
+            })
         elif kernel in check.paths:
             # the stream held by a sleep, so no host time counts; summed like ms
             extra = {"device_ms": check.dev[(kernel, "hippocampus")],
@@ -1731,6 +2235,8 @@ def main() -> int:
             "attack_gradient_launches": grad_launches[kernel],
             "adversarial_eval_launches": adv_launches[kernel],
             "study_launches": study_launches[kernel],
+            "bf16_train_launches": bf16_launches["hippocampus"]["bfloat16"][kernel],
+            "ensemble_chunk_launches": ensemble_launches[kernel],
             "max_abs_err": check.worst[kernel][0],
             "max_rel_err": check.worst[kernel][1],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -1741,7 +2247,8 @@ def main() -> int:
         })
     bwd, bwd_b = check.ms[("vdp_conv_bwd", "hippocampus")], check.ms[("vdp_conv_bwd", "brats")]
     print(json.dumps({
-        "vdp_conv_backward": "VDPConv.backward (kernel 4 + PyTorch convs)",
+        "vdp_conv_backward": "VDPConv.backward (kernel 4, kernel 1 without the window "
+                             "sum, cuDNN's filter gradients)",
         "max_abs_err": check.worst["vdp_conv_bwd"][0],
         "max_rel_err": check.worst["vdp_conv_bwd"][1],
         "ms": bwd[0], "plain_ms": bwd[1],

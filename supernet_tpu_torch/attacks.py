@@ -31,7 +31,7 @@ from typing import Dict, Tuple
 import torch
 
 from supernet_tpu_torch.configs import AttackConfig, ModelConfig
-from supernet_tpu_torch.losses import nll_gaussian
+from supernet_tpu_torch import losses
 from supernet_tpu_torch.models import forward
 
 Tensor = torch.Tensor
@@ -74,8 +74,8 @@ def attack_loss(
     family (default the 2-D ``models.forward``).
     """
     probs, sigma = forward_fn(params, x, cfg)
-    sigma_c = torch.clamp(sigma, ac.sigma_clip_min, ac.sigma_clip_max)
-    return 0.5 * nll_gaussian(y, probs, sigma_c)
+    sigma_c = losses.clip_sigma(sigma, ac.sigma_clip_min, ac.sigma_clip_max)
+    return 0.5 * losses.nll_gaussian(y, probs, sigma_c)
 
 
 def input_gradient(

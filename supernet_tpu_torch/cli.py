@@ -7,9 +7,11 @@
     python -m supernet_tpu_torch.cli eval   --config hippocampus --checkpoint RUN --synthetic 100
     python -m supernet_tpu_torch.cli attack --config brats --checkpoint RUN --data 'batches/*.pkl'
     python -m supernet_tpu_torch.cli study  --config hippocampus --synthetic 400 --epochs 5
+    python -m supernet_tpu_torch.cli export --config hippocampus --checkpoint RUN --out-dir BUNDLE
 
 ``train``, ``convert``, ``eval``, ``sweep``, ``attack``, ``calibrate``,
-``saliency`` and ``study`` run, each printing the JSON line(s) of its twin;
+``saliency``, ``study`` and ``export`` run, each printing the JSON line(s) of
+its twin;
 every other subcommand parses its flags and then raises
 ``NotImplementedError`` naming the ``ROADMAP.md`` item that ports it, as do
 ``--data-parallel``, ``train --ensemble K`` (K > 1) and ``convert
@@ -31,7 +33,6 @@ import sys
 
 # subcommand -> the ROADMAP.md item (Queue 1) that ports it
 _UNPORTED = {
-    "export": "'Serving, rest' (the export bundle)",
     "train3d": "'3-D family' (train3d.py)",
     "eval3d": "'3-D family' (evaluate3d.py)",
     "attack3d": "'3-D family' (evaluate3d.py)",
@@ -764,6 +765,25 @@ def _evaluate(exp, args) -> int:
     return 0
 
 
+def _export(exp, args) -> int:
+    from supernet_tpu_torch.serving import export_bundle
+
+    if args.volumetric:
+        raise _unported("export --volumetric", "'3-D family' (the volumetric forward)")
+    params = _load_maybe_ensemble(_load_params, exp, args)
+    meta = export_bundle(
+        params,
+        exp.model,
+        args.out_dir or f"{exp.out_dir}/{exp.name}/export",
+        batch_size=args.export_batch_size,
+        config_name=exp.name,
+        variance_scale=args.variance_scale,
+        temperature=args.temperature,
+    )
+    print(json.dumps(meta))
+    return 0
+
+
 def _train(exp, args) -> int:
     from supernet_tpu_torch.trainer import Trainer
 
@@ -792,6 +812,11 @@ def _train(exp, args) -> int:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    # the process-level knobs (SUPERNET_ACT_DTYPE, SUPERNET_PRECISION), as
+    # supernet_tpu/cli.py:773-775 reads them
+    from supernet_tpu_torch.ops import apply_env_overrides
+
+    apply_env_overrides()
     if args.cmd in _UNPORTED:
         raise _unported(f"the '{args.cmd}' subcommand", _UNPORTED[args.cmd])
     exp = _get_exp(args)
@@ -804,6 +829,8 @@ def main(argv=None) -> int:
         return _convert(exp, args)
     if args.cmd == "train":
         return _train(exp, args)
+    if args.cmd == "export":
+        return _export(exp, args)
     return _evaluate(exp, args)
 
 

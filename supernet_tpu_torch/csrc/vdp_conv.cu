@@ -10,6 +10,15 @@
 // and writes win [B, H', W', 1] as well, the backward residual of the
 // training slice.
 //
+// Without the window sum (win = 0 in the C entry) a call computes
+//   mu_out  = conv(mu, w_mu)        sig_out = conv(sigma, w_mu^2)
+// and neither forms nor writes win. VDPConv's backward runs its two
+// transposed convolutions so (ops/kernels/vdp_conv.py:conv_t_pair): a VALID
+// stride-1 transposed conv of g is the VALID conv of g padded by k - 1 with
+// the weights flipped in both spatial axes and Cin, Cout swapped, so
+// mu = pad(g1), sigma = pad(g2) and w = flip(w_mu)^T give convT(g1, w_mu) and
+// convT(g2, w_mu^2) in one launch, at the accuracy of the forward.
+//
 // What bounds it: arithmetic. Each output costs 2 k^2 Cin multiply-adds (one
 // for each product) against a few bytes of input that every neighbouring
 // output shares. The CUDA cores' float32 rate is 67 TFLOP/s; the tensor
@@ -102,7 +111,7 @@ long long smem_floats(int k, bool has_sigma) {
          static_cast<long long>(k) * k * kChunk * CT + halo + T::TP;
 }
 
-template <int CT, bool HAS_SIGMA, bool RELU>
+template <int CT, bool HAS_SIGMA, bool RELU, bool WIN>
 __global__ void __launch_bounds__(kThreads) vdp_conv_kernel(
     const float* __restrict__ mu, const float* __restrict__ sigma,
     const float* __restrict__ w_mu, const float* __restrict__ sw,
@@ -128,7 +137,9 @@ __global__ void __launch_bounds__(kThreads) vdp_conv_kernel(
   const int co0 = blockIdx.y * CT;
   const long long b = blockIdx.z;
 
-  for (int p = tid; p < halo; p += kThreads) s_t[p] = 0.f;
+  if (WIN) {
+    for (int p = tid; p < halo; p += kThreads) s_t[p] = 0.f;
+  }
 
   // this thread's pixels, as offsets into the halo tile
   int pofs[kRegP];
@@ -177,14 +188,16 @@ __global__ void __launch_bounds__(kThreads) vdp_conv_kernel(
     __syncthreads();
 
     // the chunk's share of the per-pixel channel sum behind the window sum
-    for (int p = tid; p < halo; p += kThreads) {
-      float t = 0.f;
+    if (WIN) {
+      for (int p = tid; p < halo; p += kThreads) {
+        float t = 0.f;
 #pragma unroll
-      for (int c = 0; c < kChunk; ++c) {
-        const float m = s_mu[c * halo + p];
-        t += HAS_SIGMA ? m * m + s_sg[c * halo + p] : m * m;
+        for (int c = 0; c < kChunk; ++c) {
+          const float m = s_mu[c * halo + p];
+          t += HAS_SIGMA ? m * m + s_sg[c * halo + p] : m * m;
+        }
+        s_t[p] += t;
       }
-      s_t[p] += t;
     }
 
     for (int c = 0; c < kChunk; ++c) {
@@ -217,24 +230,26 @@ __global__ void __launch_bounds__(kThreads) vdp_conv_kernel(
       }
     }
   }
-  __syncthreads();  // every chunk's channel sums are in s_t
+  if (WIN) {
+    __syncthreads();  // every chunk's channel sums are in s_t
 
-  // the window sum, once per output pixel of the tile
-  for (int p = tid; p < T::TP; p += kThreads) {
-    const int base = (p / T::TW) * hw + p % T::TW;
-    float acc = 0.f;
-    for (int di = 0; di < k; ++di) {
-      for (int dj = 0; dj < k; ++dj) acc += s_t[base + di * hw + dj];
+    // the window sum, once per output pixel of the tile
+    for (int p = tid; p < T::TP; p += kThreads) {
+      const int base = (p / T::TW) * hw + p % T::TW;
+      float acc = 0.f;
+      for (int di = 0; di < k; ++di) {
+        for (int dj = 0; dj < k; ++dj) acc += s_t[base + di * hw + dj];
+      }
+      s_win[p] = acc;
     }
-    s_win[p] = acc;
+    __syncthreads();
   }
-  __syncthreads();
 
   float swv[kRegC];
 #pragma unroll
   for (int j = 0; j < kRegC; ++j) {
     const int co = co0 + tc + T::CL * j;
-    swv[j] = co < Cout ? sw[co] : 0.f;
+    swv[j] = WIN && co < Cout ? sw[co] : 0.f;
   }
 #pragma unroll
   for (int i = 0; i < kRegP; ++i) {
@@ -242,26 +257,26 @@ __global__ void __launch_bounds__(kThreads) vdp_conv_kernel(
     const int oy = oy0 + p / T::TW, ox = ox0 + p % T::TW;
     if (oy >= Ho || ox >= Wo) continue;
     const long long pix = (b * Ho + oy) * Wo + ox;
-    const float wn = s_win[p];
+    const float wn = WIN ? s_win[p] : 0.f;
 #pragma unroll
     for (int j = 0; j < kRegC; ++j) {
       const int co = co0 + tc + T::CL * j;
       if (co >= Cout) continue;
       float m = acc_mu[i][j];
-      float s = wn * swv[j];
+      float s = WIN ? wn * swv[j] : 0.f;
       if (HAS_SIGMA) s += acc_s2[i][j];
       if (RELU && !(m > 0.f)) {
         m = 0.f;
         s = 0.f;
       }
       mu_out[pix * Cout + co] = m;
-      sig_out[pix * Cout + co] = s;
+      if (HAS_SIGMA || WIN) sig_out[pix * Cout + co] = s;
     }
-    if (blockIdx.y == 0 && tc == 0) win_out[pix] = wn;
+    if (WIN && blockIdx.y == 0 && tc == 0) win_out[pix] = wn;
   }
 }
 
-template <int CT, bool HAS_SIGMA, bool RELU>
+template <int CT, bool HAS_SIGMA, bool RELU, bool WIN>
 cudaError_t launch(const float* mu, const float* sigma, const float* w_mu,
                    const float* sw, float* mu_out, float* sig_out, float* win,
                    int B, int H, int W, int Cin, int Cout, int k,
@@ -272,7 +287,7 @@ cudaError_t launch(const float* mu, const float* sigma, const float* w_mu,
   const int tiles_w = (Wo + T::TW - 1) / T::TW;
   const dim3 grid(tiles_h * tiles_w, (Cout + CT - 1) / CT, B);
   const size_t bytes = smem_floats<CT>(k, HAS_SIGMA) * sizeof(float);
-  auto kernel = vdp_conv_kernel<CT, HAS_SIGMA, RELU>;
+  auto kernel = vdp_conv_kernel<CT, HAS_SIGMA, RELU, WIN>;
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -285,21 +300,36 @@ cudaError_t launch(const float* mu, const float* sigma, const float* w_mu,
   return cudaGetLastError();
 }
 
+// The instance for (sigma or not, ReLU or not, window sum or not); the form
+// without the window sum has no ReLU (the entry refuses the pair).
 template <int CT>
 cudaError_t dispatch(const float* mu, const float* sigma, const float* w_mu,
                      const float* sw, float* mu_out, float* sig_out,
                      float* win, int B, int H, int W, int Cin, int Cout, int k,
-                     bool relu, cudaStream_t stream) {
-  if (sigma != nullptr) {
-    return relu ? launch<CT, true, true>(mu, sigma, w_mu, sw, mu_out, sig_out,
-                                         win, B, H, W, Cin, Cout, k, stream)
-                : launch<CT, true, false>(mu, sigma, w_mu, sw, mu_out, sig_out,
-                                          win, B, H, W, Cin, Cout, k, stream);
+                     bool relu, bool with_win, cudaStream_t stream) {
+  if (!with_win) {
+    return sigma != nullptr
+               ? launch<CT, true, false, false>(mu, sigma, w_mu, sw, mu_out,
+                                                sig_out, win, B, H, W, Cin,
+                                                Cout, k, stream)
+               : launch<CT, false, false, false>(mu, sigma, w_mu, sw, mu_out,
+                                                 sig_out, win, B, H, W, Cin,
+                                                 Cout, k, stream);
   }
-  return relu ? launch<CT, false, true>(mu, sigma, w_mu, sw, mu_out, sig_out,
-                                        win, B, H, W, Cin, Cout, k, stream)
-              : launch<CT, false, false>(mu, sigma, w_mu, sw, mu_out, sig_out,
-                                         win, B, H, W, Cin, Cout, k, stream);
+  if (sigma != nullptr) {
+    return relu ? launch<CT, true, true, true>(mu, sigma, w_mu, sw, mu_out,
+                                               sig_out, win, B, H, W, Cin,
+                                               Cout, k, stream)
+                : launch<CT, true, false, true>(mu, sigma, w_mu, sw, mu_out,
+                                                sig_out, win, B, H, W, Cin,
+                                                Cout, k, stream);
+  }
+  return relu ? launch<CT, false, true, true>(mu, sigma, w_mu, sw, mu_out,
+                                              sig_out, win, B, H, W, Cin, Cout,
+                                              k, stream)
+              : launch<CT, false, false, true>(mu, sigma, w_mu, sw, mu_out,
+                                               sig_out, win, B, H, W, Cin,
+                                               Cout, k, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -462,8 +492,10 @@ struct Mma<64> {
 // One block: output pixels m0..m0+63 (flat over B x Ho x Wo) x channels
 // n0..n0+NT-1, input channels of slice blockIdx.z (chunks_per_split chunks
 // of 8). SPLIT: writes partials to `part` ([S][M][Cout] mu, [S][M][Cout]
-// sigma product, [S][M] window sum) instead of the outputs.
-template <int NT, bool HAS_SIGMA, bool RELU, bool SPLIT>
+// sigma product, [S][M] window sum) instead of the outputs. !WIN: no window
+// sum (sw, win_out and the window partials are not touched), and without
+// sigma no sig_out either.
+template <int NT, bool HAS_SIGMA, bool RELU, bool SPLIT, bool WIN>
 __global__ void __launch_bounds__(kThreads) vdp_conv_kernel_wgmma(
     const float* __restrict__ mu, const float* __restrict__ sigma,
     const float* __restrict__ w_mu, const float* __restrict__ sw,
@@ -558,14 +590,18 @@ __global__ void __launch_bounds__(kThreads) vdp_conv_kernel_wgmma(
   // a long chain of k8 products loses accuracy where mu's terms cancel
   // (4.9e-6 of the output's max at K = 576 on an H100). So the mu product
   // restarts its accumulator every chunk (9 taps x 8 channels) and adds it
-  // into tot_mu with a float32 add; the sigma product, whose terms are all
-  // non-negative, accumulates throughout.
-  float acc_mu[R], tot_mu[R], acc_s2[R];
+  // into tot_mu with a float32 add. The forward's sigma product, whose terms
+  // are all non-negative, accumulates throughout; without the window sum the
+  // "sigma" operand is a cotangent of either sign (9.8e-6 of the max on an
+  // H100 when it accumulated throughout), so it folds like mu.
+  constexpr bool kFoldS2 = HAS_SIGMA && !WIN;
+  float acc_mu[R], tot_mu[R], acc_s2[R], tot_s2[R];  // tot_s2: kFoldS2 only
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     acc_mu[i] = 0.f;
     tot_mu[i] = 0.f;
     acc_s2[i] = 0.f;
+    if (kFoldS2) tot_s2[i] = 0.f;
   }
   // A fragments, double-buffered: [buffer][4] big and small halves of mu
   // and sigma, in the layout of frag_row and frag_ch.
@@ -615,10 +651,12 @@ __global__ void __launch_bounds__(kThreads) vdp_conv_kernel_wgmma(
         split(y, sg_hi[P][i], sg_lo[P][i]);
         t += y;
       }
-      if (frag_row(i)) {
-        win1 += t;
-      } else {
-        win0 += t;
+      if (WIN) {
+        if (frag_row(i)) {
+          win1 += t;
+        } else {
+          win0 += t;
+        }
       }
     }
     fence_proxy_async();  // the split operands are visible to wgmma
@@ -646,7 +684,7 @@ __global__ void __launch_bounds__(kThreads) vdp_conv_kernel_wgmma(
     if (HAS_SIGMA) {
       fence_acc(acc_s2);
       const uint64_t d_qb = b_desc(bo + 2 * L::b), d_qs = b_desc(bo + 3 * L::b);
-      Mma<NT>::run(acc_s2, sg_lo[P], d_qb, 1);
+      Mma<NT>::run(acc_s2, sg_lo[P], d_qb, kFoldS2 ? mm_tap != 0 : 1);
       Mma<NT>::run(acc_s2, sg_hi[P], d_qs, 1);
       Mma<NT>::run(acc_s2, sg_hi[P], d_qb, 1);
       fence_acc(acc_s2);
@@ -659,7 +697,10 @@ __global__ void __launch_bounds__(kThreads) vdp_conv_kernel_wgmma(
       fence_acc(acc_mu);
       fence_acc(acc_s2);
 #pragma unroll
-      for (int i = 0; i < R; ++i) tot_mu[i] += acc_mu[i];
+      for (int i = 0; i < R; ++i) {
+        tot_mu[i] += acc_mu[i];
+        if (kFoldS2) tot_s2[i] += acc_s2[i];
+      }
     } else {
       // step s - 1 is done: its buffers may be refilled
       wgmma_wait<1>();
@@ -681,10 +722,12 @@ __global__ void __launch_bounds__(kThreads) vdp_conv_kernel_wgmma(
   cp_async_wait<0>();
 
   // the quad of lanes that shares a row holds its 8 channels
-  win0 += __shfl_xor_sync(0xffffffffu, win0, 1);
-  win0 += __shfl_xor_sync(0xffffffffu, win0, 2);
-  win1 += __shfl_xor_sync(0xffffffffu, win1, 1);
-  win1 += __shfl_xor_sync(0xffffffffu, win1, 2);
+  if (WIN) {
+    win0 += __shfl_xor_sync(0xffffffffu, win0, 1);
+    win0 += __shfl_xor_sync(0xffffffffu, win0, 2);
+    win1 += __shfl_xor_sync(0xffffffffu, win1, 1);
+    win1 += __shfl_xor_sync(0xffffffffu, win1, 2);
+  }
 
   // accumulator layout (wgmma m64nN, f32): register 4 j + 2 h + i holds row
   // r + 8 h, column 8 j + 2 (lane % 4) + i
@@ -700,23 +743,31 @@ __global__ void __launch_bounds__(kThreads) vdp_conv_kernel_wgmma(
       const int co = n0 + 8 * j + 2 * (lane % 4);
       if (co >= Cout) continue;  // Cout % 4 == 0: co + 1 < Cout as well
       float2 vm = make_float2(tot_mu[4 * j + 2 * h], tot_mu[4 * j + 2 * h + 1]);
-      float2 vs = make_float2(acc_s2[4 * j + 2 * h], acc_s2[4 * j + 2 * h + 1]);
+      float2 vs =
+          kFoldS2 ? make_float2(tot_s2[4 * j + 2 * h], tot_s2[4 * j + 2 * h + 1])
+                  : make_float2(acc_s2[4 * j + 2 * h], acc_s2[4 * j + 2 * h + 1]);
       if (SPLIT) {
         const long long o = (blockIdx.z * M + m) * Cout + co;
         *reinterpret_cast<float2*>(part + o) = vm;
-        *reinterpret_cast<float2*>(part + S * M * Cout + o) = vs;
+        if (HAS_SIGMA || WIN) {
+          *reinterpret_cast<float2*>(part + S * M * Cout + o) = vs;
+        }
       } else {
-        vs.x += wn * sw[co];
-        vs.y += wn * sw[co + 1];
+        if (WIN) {
+          vs.x += wn * sw[co];
+          vs.y += wn * sw[co + 1];
+        }
         if (RELU) {
           if (!(vm.x > 0.f)) vm.x = vs.x = 0.f;
           if (!(vm.y > 0.f)) vm.y = vs.y = 0.f;
         }
         *reinterpret_cast<float2*>(mu_out + m * Cout + co) = vm;
-        *reinterpret_cast<float2*>(sig_out + m * Cout + co) = vs;
+        if (HAS_SIGMA || WIN) {
+          *reinterpret_cast<float2*>(sig_out + m * Cout + co) = vs;
+        }
       }
     }
-    if (blockIdx.y == 0 && lane % 4 == 0) {
+    if (WIN && blockIdx.y == 0 && lane % 4 == 0) {
       if (SPLIT) {
         part[2 * S * M * Cout + blockIdx.z * M + m] = wn;
       } else {
@@ -727,8 +778,9 @@ __global__ void __launch_bounds__(kThreads) vdp_conv_kernel_wgmma(
 }
 
 // Sums the S slices of the split path in slice order and writes the outputs;
-// one thread per 4 output channels of one pixel.
-template <bool RELU>
+// one thread per 4 output channels of one pixel. !WIN: no window sum; !S2:
+// no sigma product either (mu_out alone).
+template <bool RELU, bool WIN, bool S2>
 __global__ void __launch_bounds__(256) vdp_conv_kernel_splitk_reduce(
     const float* __restrict__ part, const float* __restrict__ sw,
     float* __restrict__ mu_out, float* __restrict__ sig_out,
@@ -747,13 +799,18 @@ __global__ void __launch_bounds__(256) vdp_conv_kernel_splitk_reduce(
     float wn = 0.f;
     for (int s = 0; s < S; ++s) {
       const float4 a = *reinterpret_cast<const float4*>(part + s * plane + o);
-      const float4 b = *reinterpret_cast<const float4*>(part_s2 + s * plane + o);
       vm.x += a.x; vm.y += a.y; vm.z += a.z; vm.w += a.w;
-      vs.x += b.x; vs.y += b.y; vs.z += b.z; vs.w += b.w;
-      wn += part_win[s * M + m];
+      if (S2) {
+        const float4 b =
+            *reinterpret_cast<const float4*>(part_s2 + s * plane + o);
+        vs.x += b.x; vs.y += b.y; vs.z += b.z; vs.w += b.w;
+      }
+      if (WIN) wn += part_win[s * M + m];
     }
-    const float4 v = *reinterpret_cast<const float4*>(sw + co);
-    vs.x += wn * v.x; vs.y += wn * v.y; vs.z += wn * v.z; vs.w += wn * v.w;
+    if (WIN) {
+      const float4 v = *reinterpret_cast<const float4*>(sw + co);
+      vs.x += wn * v.x; vs.y += wn * v.y; vs.z += wn * v.z; vs.w += wn * v.w;
+    }
     if (RELU) {
       if (!(vm.x > 0.f)) vm.x = vs.x = 0.f;
       if (!(vm.y > 0.f)) vm.y = vs.y = 0.f;
@@ -761,8 +818,8 @@ __global__ void __launch_bounds__(256) vdp_conv_kernel_splitk_reduce(
       if (!(vm.w > 0.f)) vm.w = vs.w = 0.f;
     }
     *reinterpret_cast<float4*>(mu_out + o) = vm;
-    *reinterpret_cast<float4*>(sig_out + o) = vs;
-    if (co == 0) win_out[m] = wn;
+    if (S2) *reinterpret_cast<float4*>(sig_out + o) = vs;
+    if (WIN && co == 0) win_out[m] = wn;
   }
 }
 
@@ -773,7 +830,7 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int NT, bool HAS_SIGMA, bool RELU, bool SPLIT>
+template <int NT, bool HAS_SIGMA, bool RELU, bool SPLIT, bool WIN>
 cudaError_t launch_wgmma(const Args& a) {
   const int Ho = a.H - 2, Wo = a.W - 2;
   const long long M = static_cast<long long>(a.B) * Ho * Wo;
@@ -782,7 +839,7 @@ cudaError_t launch_wgmma(const Args& a) {
   const dim3 grid(static_cast<unsigned>(m_tiles), (a.Cout + NT - 1) / NT,
                   a.splits);
   const size_t bytes = Smem<NT>::floats * sizeof(float);
-  auto kernel = vdp_conv_kernel_wgmma<NT, HAS_SIGMA, RELU, SPLIT>;
+  auto kernel = vdp_conv_kernel_wgmma<NT, HAS_SIGMA, RELU, SPLIT, WIN>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
@@ -794,31 +851,40 @@ cudaError_t launch_wgmma(const Args& a) {
   if (err != cudaSuccess || !SPLIT) return err;
   const long long quads = M * (a.Cout / 4);
   const long long blocks = (quads + 255) / 256;
-  vdp_conv_kernel_splitk_reduce<RELU>
+  vdp_conv_kernel_splitk_reduce<RELU, WIN, HAS_SIGMA || WIN>
       <<<static_cast<unsigned>(blocks < 65535 ? blocks : 65535), 256, 0,
          a.stream>>>(a.part, a.sw, a.mu_out, a.sig_out, a.win, M, a.Cout,
                      a.splits);
   return cudaGetLastError();
 }
 
-// The instance for (sigma or not, ReLU or not, split or not).
+// The instance for (sigma or not, ReLU or not, split or not, window sum or
+// not); the form without the window sum has no ReLU.
 template <int NT>
-cudaError_t dispatch_wgmma(const Args& a, bool relu) {
+cudaError_t dispatch_wgmma(const Args& a, bool relu, bool with_win) {
   const bool split = a.splits > 1;
+  if (!with_win) {
+    if (a.sigma != nullptr) {
+      return split ? launch_wgmma<NT, true, false, true, false>(a)
+                   : launch_wgmma<NT, true, false, false, false>(a);
+    }
+    return split ? launch_wgmma<NT, false, false, true, false>(a)
+                 : launch_wgmma<NT, false, false, false, false>(a);
+  }
   if (a.sigma != nullptr) {
     if (relu) {
-      return split ? launch_wgmma<NT, true, true, true>(a)
-                   : launch_wgmma<NT, true, true, false>(a);
+      return split ? launch_wgmma<NT, true, true, true, true>(a)
+                   : launch_wgmma<NT, true, true, false, true>(a);
     }
-    return split ? launch_wgmma<NT, true, false, true>(a)
-                 : launch_wgmma<NT, true, false, false>(a);
+    return split ? launch_wgmma<NT, true, false, true, true>(a)
+                 : launch_wgmma<NT, true, false, false, true>(a);
   }
   if (relu) {
-    return split ? launch_wgmma<NT, false, true, true>(a)
-                 : launch_wgmma<NT, false, true, false>(a);
+    return split ? launch_wgmma<NT, false, true, true, true>(a)
+                 : launch_wgmma<NT, false, true, false, true>(a);
   }
-  return split ? launch_wgmma<NT, false, false, true>(a)
-               : launch_wgmma<NT, false, false, false>(a);
+  return split ? launch_wgmma<NT, false, false, true, true>(a)
+               : launch_wgmma<NT, false, false, false, true>(a);
 }
 
 }  // namespace tc
@@ -834,6 +900,8 @@ cudaError_t dispatch_wgmma(const Args& a, bool relu) {
 //   9 Cin Cout and 3 W Cin below 2^31 (its step offsets are ints),
 //   tile_n 32 or 64, splits dividing Cin / 8; with splits > 1, `scratch`
 //   holds 2 splits M Cout + splits M floats (M = B (H-2) (W-2)).
+// with_win 0: no window sum and no ReLU; sw and win are not read or
+//   written (may be null), and without sigma neither is sig_out.
 // The plan comes from ops/kernels/vdp_conv.py:plan. Launches on `stream`
 // and returns cudaGetLastError(); a plan the kernels do not take is
 // cudaErrorInvalidValue, and a k whose CUDA-core tiles need more shared
@@ -844,8 +912,8 @@ extern "C" int supernet_vdp_conv_fwd(const void* mu, const void* sigma,
                                      void* mu_out, void* sig_out, void* win,
                                      void* scratch, int B, int H, int W,
                                      int Cin, int Cout, int k, int fuse_relu,
-                                     int path, int tile_n, int splits,
-                                     void* stream) {
+                                     int with_win, int path, int tile_n,
+                                     int splits, void* stream) {
   const auto* m = static_cast<const float*>(mu);
   const auto* s = static_cast<const float*>(sigma);
   const auto* w = static_cast<const float*>(w_mu);
@@ -856,20 +924,25 @@ extern "C" int supernet_vdp_conv_fwd(const void* mu, const void* sigma,
   auto* part = static_cast<float*>(scratch);
   auto st = static_cast<cudaStream_t>(stream);
   const bool relu = fuse_relu != 0;
+  const bool ww = with_win != 0;
+  if (ww ? (v == nullptr || so == nullptr || wo == nullptr)
+         : (relu || (s != nullptr && so == nullptr))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaError_t err = cudaErrorInvalidValue;
   if (path == 0 && splits == 1 && (tile_n == 32 || tile_n == 64)) {
     err = tile_n == 64 ? dispatch<64>(m, s, w, v, mo, so, wo, B, H, W, Cin,
-                                      Cout, k, relu, st)
+                                      Cout, k, relu, ww, st)
                        : dispatch<32>(m, s, w, v, mo, so, wo, B, H, W, Cin,
-                                      Cout, k, relu, st);
+                                      Cout, k, relu, ww, st);
   } else if (path == 1 && k == 3 && Cin % tc::kK == 0 && Cout % 4 == 0 &&
              9LL * Cin * Cout < (1LL << 31) && 3LL * W * Cin < (1LL << 31) &&
              splits >= 1 && (Cin / tc::kK) % splits == 0 &&
              (splits == 1 || part != nullptr)) {
     const tc::Args a{m, s, w, v, mo, so, wo, part, B, H, W, Cin, Cout, splits,
                      st};
-    if (tile_n == 32) err = tc::dispatch_wgmma<32>(a, relu);
-    if (tile_n == 64) err = tc::dispatch_wgmma<64>(a, relu);
+    if (tile_n == 32) err = tc::dispatch_wgmma<32>(a, relu, ww);
+    if (tile_n == 64) err = tc::dispatch_wgmma<64>(a, relu, ww);
   }
   return static_cast<int>(err);
 }

@@ -52,6 +52,7 @@ from supernet_tpu_torch.data.augment import _mix
 from supernet_tpu_torch.data.loaders import center_crop_np
 from supernet_tpu_torch.metrics import _nanmean, _nanstd
 from supernet_tpu_torch.models import forward, forward_sampled, sample_weights
+from supernet_tpu_torch.serving import mixture
 from supernet_tpu_torch.train import one_hot_flatten
 
 Tensor = torch.Tensor
@@ -118,27 +119,17 @@ def make_eval_forward(
 def ensemble_forward(fwd, params_list):
     """Deep-ensemble eval forward: wrap a ``fwd(params, x) -> (p, s)`` into
     the uniform-mixture moments over K members (the within-member variance
-    plus the between-member disagreement),
-
-        mean = mean_k p_k,   var = max(mean_k (s_k + p_k^2) - mean^2, 0)
-
-    one member after the other. Returns ``(mixture_fwd, members)``; call
-    ``mixture_fwd(members, x)``. Single-device VDP only: callers reject
-    mesh / mc_samples modes."""
+    plus the between-member disagreement), one member after the other and
+    mixed by ``serving.mixture``, the function ``EnsembleSession`` uses.
+    Returns ``(mixture_fwd, members)``; call ``mixture_fwd(members, x)``.
+    Single-device VDP only: callers reject mesh / mc_samples modes."""
     members = list(params_list)
     if not members:
         raise ValueError("params_list must hold at least one member")
 
     def efn(params, x):
-        mean = second = None
-        for member in params:
-            p, s = fwd(member, x)
-            m2 = s + torch.square(p)
-            mean = p if mean is None else mean + p
-            second = m2 if second is None else second + m2
-        mean = mean / len(params)
-        var = second / len(params) - torch.square(mean)
-        return mean, torch.clamp_min(var, 0.0)
+        outs = [fwd(member, x) for member in params]
+        return mixture([p for p, _ in outs], [s for _, s in outs])
 
     return efn, members
 

@@ -7,7 +7,9 @@ Counterpart of ``supernet_tpu/losses.py``. Reference: ``nll_gaussian``
 
 The log-determinant term is ``sum_c log(sigma_c + eps)``, the stable form of
 the reference's ``log(prod_c(sigma_c + eps))``; the reference's NaN/Inf
-scrub of the quadratic term (`Hippocampus.py:314-315`) is kept.
+scrub of the quadratic term (`Hippocampus.py:314-315`) is kept. The loss is
+float32 under either activation dtype (the softmax head's outputs are
+float32; half-precision inputs are upcast here).
 """
 
 from __future__ import annotations
@@ -29,11 +31,22 @@ def nll_gaussian(y: Tensor, mu: Tensor, sigma: Tensor, eps: float = NLL_EPS) -> 
       loss2 = mean_{B,N}[ sum_c log(sigma_c + eps) ]
       nll   = 0.5 * (loss1 + loss2)
     """
+    dt = torch.promote_types(mu.dtype, torch.float32)
+    mu, sigma = mu.to(dt), sigma.to(dt)
     inv = 1.0 / (sigma + eps)
     loss1 = ((mu - y) ** 2 * inv).sum(dim=-1).mean()
     loss1 = torch.where(torch.isfinite(loss1), loss1, torch.zeros_like(loss1))
     loss2 = torch.log(sigma + eps).sum(dim=-1).mean()
     return 0.5 * (loss1 + loss2)
+
+
+def clip_sigma(sigma: Tensor, lo: float, hi: float) -> Tensor:
+    """``sigma`` clipped to ``[lo, hi]`` before the NLL (`Hippocampus.py:524`,
+    `:539`). The loss's one discrete choice besides the ReLU masks and pool
+    taps: a pixel whose sigma lies within rounding of a bound has its
+    gradient on in one float32 run and off in another (at BraTS depth half
+    the pixels' sigma lies above the upper bound of 1e3)."""
+    return torch.clamp(sigma, lo, hi)
 
 
 def elbo_loss(
@@ -47,5 +60,5 @@ def elbo_loss(
 ) -> Tensor:
     """Total training loss: clipped-NLL + kl_factor * 0.5 * KL
     (`Hippocampus.py:523-527`)."""
-    sigma_c = torch.clamp(sigma, sigma_clip_min, sigma_clip_max)
+    sigma_c = clip_sigma(sigma, sigma_clip_min, sigma_clip_max)
     return nll_gaussian(y, mu, sigma_c) + kl_factor * 0.5 * kl

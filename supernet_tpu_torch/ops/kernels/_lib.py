@@ -110,7 +110,7 @@ def load() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            lib.supernet_vdp_conv_fwd.argtypes = [_P] * 8 + [_I] * 10 + [_P]
+            lib.supernet_vdp_conv_fwd.argtypes = [_P] * 8 + [_I] * 11 + [_P]
             lib.supernet_vdp_conv_fwd.restype = _I
             lib.supernet_vmaxpool_fwd.argtypes = [_P] * 5 + [_I] * 4 + [_P]
             lib.supernet_vmaxpool_fwd.restype = _I
@@ -130,7 +130,9 @@ def load() -> ctypes.CDLL:
 
 def check_input(op: str, name: str, t, shape) -> None:
     """Raise unless ``t`` is a contiguous float32 CUDA tensor of ``shape``
-    (the kernels take no other)."""
+    (the kernels take no other; under bf16 activations the moment ops of
+    ``ops/moments.py`` upcast at the kernel boundary, so nothing reaches a
+    kernel unconverted)."""
     import torch
 
     if not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous():

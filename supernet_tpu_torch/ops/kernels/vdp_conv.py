@@ -10,7 +10,10 @@ VALID and stride 1:
     [optional ReLU: where mu_out > 0 is false, both outputs are 0]
 
 and returns ``(mu_out, sig_out, win)``; ``win`` [B,H',W',1] is the backward
-residual. The kernels are ``csrc/vdp_conv.cu``: a 3xTF32 implicit GEMM on
+residual. Without the window sum (``w_sigma=None``) a call computes
+``conv(mu, w_mu)`` and ``conv(sigma, w_mu^2)`` alone: the form in which
+:func:`conv_t_pair` runs the backward's two transposed convolutions. The
+kernels are ``csrc/vdp_conv.cu``: a 3xTF32 implicit GEMM on
 the tensor cores (wgmma), with split-K for the layers whose output tiles
 alone do not fill the card, and a CUDA-core kernel for the other shapes.
 :func:`plan` picks the path, the tile and the number of K slices from the
@@ -18,9 +21,11 @@ shape alone. :func:`vdp_conv` launches the planned kernel for CUDA tensors
 and takes :func:`vdp_conv_plain` only for CPU tensors.
 :class:`VDPConv` is the differentiable form: its backward is the JAX
 package's hand-derived VJP (``_bwd_common``), with the window-sum term
-through the sigma-chain kernel (``ops/kernels/sigma_bwd.py``) and the
-transposed and filter-gradient convolutions as PyTorch ops, as they are XLA
-convolutions in the JAX package. Layouts are the JAX package's: NHWC
+through the sigma-chain kernel (``ops/kernels/sigma_bwd.py``), both
+transposed convolutions through one launch of this kernel without the
+window sum (CUDA tensors; PyTorch's ``conv_transpose2d`` on the CPU) and the
+filter gradients as PyTorch ops, as they are XLA convolutions in the JAX
+package. Layouts are the JAX package's: NHWC
 activations, HWIO ``w_mu`` [k,k,Cin,Cout] and the raw (pre-softplus)
 ``w_sigma`` [Cout].
 """
@@ -41,9 +46,13 @@ Triple = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 # Kernel launches in this process; chip_smoke.py zeroes and reads them to
 # show that a path went through the kernels. `launches` counts calls of the
-# op (one main kernel each), `reduce_launches` the split-K reduce kernel.
+# op (one main kernel each), `reduce_launches` the split-K reduce kernel;
+# `dgrad_launches` and `dgrad_reduce_launches` the same for the calls
+# without the window sum (the backward's transposed convolutions).
 launches = 0
 reduce_launches = 0
+dgrad_launches = 0
+dgrad_reduce_launches = 0
 
 # The planner's constants: the card's SM count (H100 SXM), the tensor-core
 # kernel's output pixels per block (wgmma's M) and input channels per K
@@ -79,8 +88,9 @@ def plan(b: int, h: int, w: int, cin: int, cout: int, k: int) -> Plan:
     shape alone (no CUDA: the CPU tests call it).
 
     The tensor-core path takes k = 3 with Cin % 8 == 0 (its K steps are 8
-    channels of one tap), Cout % 4 == 0 (16-byte weight copies) and step
-    offsets that fit an int (9 Cin Cout and 3 W Cin below 2^31): N = 32
+    channels of one tap), Cout % 8 == 0 (whole 8-column groups of the N
+    tile: the 1- and 4-channel input gradient of conv_input takes the CUDA
+    cores) and step offsets that fit an int (9 Cin Cout and 3 W Cin below 2^31): N = 32
     for Cout <= 32, else 64, and 64 output pixels (one warpgroup) per block.
     Its blocks are M tiles x N tiles; where they are fewer than the SMs,
     the Cin/8 chunks are cut into the fewest slices S (a divisor of the
@@ -90,7 +100,7 @@ def plan(b: int, h: int, w: int, cin: int, cout: int, k: int) -> Plan:
     else 32; tiles of 8x8 or 8x16 pixels of one image)."""
     ho, wo = h - k + 1, w - k + 1
     m = b * ho * wo
-    if (k == 3 and cin % TC_CHUNK == 0 and cout % 4 == 0
+    if (k == 3 and cin % TC_CHUNK == 0 and cout % TC_CHUNK == 0
             and 9 * cin * cout < 2 ** 31 and 3 * w * cin < 2 ** 31):
         tile_n = 32 if cout <= 32 else 64
         tiles = _cdiv(m, TC_TILE_M) * _cdiv(cout, tile_n)
@@ -149,7 +159,11 @@ def vdp_conv_plain(
 
 
 def _launch(mu, sigma, w_mu, w_sigma, fuse_relu) -> Triple:
-    global launches, reduce_launches
+    """The kernel on CUDA tensors; ``w_sigma=None`` is the form without the
+    window sum (and without the ReLU), which returns ``(mu_out, sig_out or
+    None, None)``."""
+    global launches, reduce_launches, dgrad_launches, dgrad_reduce_launches
+    with_win = w_sigma is not None
     if mu.dim() != 4 or w_mu.dim() != 4:
         raise ValueError(
             f"vdp_conv: expected mu [B,H,W,Cin] and w_mu [k,k,Cin,Cout], got "
@@ -161,8 +175,11 @@ def _launch(mu, sigma, w_mu, w_sigma, fuse_relu) -> Triple:
     if sigma is not None:
         _lib.check_input("vdp_conv", "sigma", sigma, mu.shape)
     _lib.check_input("vdp_conv", "w_mu", w_mu, (k, k, cin, cout))
-    _lib.check_input("vdp_conv", "w_sigma", w_sigma, (cout,))
-    tensors = [mu, w_mu, w_sigma] + ([sigma] if sigma is not None else [])
+    if with_win:
+        _lib.check_input("vdp_conv", "w_sigma", w_sigma, (cout,))
+    elif fuse_relu:
+        raise ValueError("vdp_conv: the form without the window sum has no ReLU")
+    tensors = [t for t in (mu, sigma, w_mu, w_sigma) if t is not None]
     if any(t.device != mu.device for t in tensors):
         raise ValueError("vdp_conv: inputs are on different devices")
     if not (1 <= k <= min(h, w)) or cin < 1 or cout < 1 or b > 65535:
@@ -172,12 +189,14 @@ def _launch(mu, sigma, w_mu, w_sigma, fuse_relu) -> Triple:
         )
     ho, wo = h - k + 1, w - k + 1
     mu_out = torch.empty((b, ho, wo, cout), device=mu.device, dtype=torch.float32)
-    sig_out = torch.empty_like(mu_out)
-    win = torch.empty((b, ho, wo, 1), device=mu.device, dtype=torch.float32)
+    sig_out = (torch.empty_like(mu_out)
+               if with_win or sigma is not None else None)
+    win = (torch.empty((b, ho, wo, 1), device=mu.device, dtype=torch.float32)
+           if with_win else None)
     if b == 0:
         return mu_out, sig_out, win
     p = plan(b, h, w, cin, cout, k)
-    sw = F.softplus(w_sigma).contiguous()
+    sw = F.softplus(w_sigma).contiguous() if with_win else None
     scratch = None
     if p.path == "wgmma":
         mu, sigma, w_mu, sw = (_aligned(t) for t in (mu, sigma, w_mu, sw))
@@ -189,17 +208,23 @@ def _launch(mu, sigma, w_mu, w_sigma, fuse_relu) -> Triple:
         err = lib.supernet_vdp_conv_fwd(
             mu.data_ptr(),
             sigma.data_ptr() if sigma is not None else None,
-            w_mu.data_ptr(), sw.data_ptr(),
-            mu_out.data_ptr(), sig_out.data_ptr(), win.data_ptr(),
+            w_mu.data_ptr(), sw.data_ptr() if sw is not None else None,
+            mu_out.data_ptr(),
+            sig_out.data_ptr() if sig_out is not None else None,
+            win.data_ptr() if win is not None else None,
             scratch.data_ptr() if scratch is not None else None,
-            b, h, w, cin, cout, k, int(fuse_relu),
+            b, h, w, cin, cout, k, int(fuse_relu), int(with_win),
             _PATH_ID[p.path], p.tile_n, p.splits,
             torch.cuda.current_stream(mu.device).cuda_stream,
         )
-    _lib.check(err, f"vdp_conv kernel launch ({p.path}, {p.splits} K slices)")
-    launches += 1
-    if p.splits > 1:
-        reduce_launches += 1
+    _lib.check(err, f"vdp_conv kernel launch ({p.path}, {p.splits} K slices"
+                    f"{'' if with_win else ', no window sum'})")
+    if with_win:
+        launches += 1
+        reduce_launches += p.splits > 1
+    else:
+        dgrad_launches += 1
+        dgrad_reduce_launches += p.splits > 1
     return mu_out, sig_out, win
 
 
@@ -237,6 +262,42 @@ def _conv_t(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return F.conv_transpose2d(_nchw(g), _oihw(w)).permute(0, 2, 3, 1)
 
 
+def dgrad_operands(g1, g2, w_mu):
+    """The transposed convolutions as VALID ones: ``g1``, ``g2`` (or None)
+    [B,H',W',Cout] padded by k - 1 on every spatial side, and ``w_mu``
+    [k,k,Cin,Cout] flipped in both spatial axes with Cin and Cout swapped
+    -> [k,k,Cout,Cin]. Then ``conv(pad(g), flip(w)^T) = convT(g, w)``."""
+    k = w_mu.shape[0]
+    pad = (0, 0, k - 1, k - 1, k - 1, k - 1)
+    w = w_mu.flip(0, 1).transpose(2, 3).contiguous()
+    return (F.pad(g1, pad), None if g2 is None else F.pad(g2, pad), w)
+
+
+def conv_t_pair_plain(g1, g2, w_mu):
+    """PyTorch composition of the padded, flipped form: ``(convT(g1, w_mu),
+    convT(g2, w_mu^2))`` (the second None when ``g2`` is), as the kernel
+    computes them without the window sum."""
+    mu, sigma, w = dgrad_operands(g1, g2, w_mu)
+    d1 = _conv_valid(mu, w).contiguous()
+    d2 = None if sigma is None else _conv_valid(sigma, w * w).contiguous()
+    return d1, d2
+
+
+def conv_t_pair(g1, g2, w_mu):
+    """``(convT(g1, w_mu), convT(g2, w_mu^2))``, ``g2`` may be None: the two
+    transposed convolutions of :class:`VDPConv`'s backward.
+
+    CUDA tensors: one launch of the kernel without the window sum on
+    :func:`dgrad_operands` (or raise). CPU tensors: :func:`_conv_t`."""
+    if g1.is_cuda:
+        mu, sigma, w = dgrad_operands(g1, g2, w_mu)
+        d1, d2, _ = _launch(mu, sigma, w, None, False)
+        return d1, d2
+    if g1.device.type != "cpu":
+        raise ValueError(f"vdp_conv: unsupported device {g1.device}")
+    return _conv_t(g1, w_mu), None if g2 is None else _conv_t(g2, w_mu * w_mu)
+
+
 def _filter_grad(x: torch.Tensor, g: torch.Tensor, w_shape) -> torch.Tensor:
     """Weight gradient of :func:`_conv_valid` -> HWIO [k,k,Cin,Cout]."""
     k, _, cin, cout = w_shape
@@ -254,8 +315,9 @@ class VDPConv(torch.autograd.Function):
 
         g1, g2  = the cotangents of mu_out, sig_out, masked by mu_out > 0 with the ReLU
         u, d_sw = winsum_spread_bwd(g2, win, softplus(w_sigma))     (kernel 4)
-        d_mu    = convT(g1, w_mu) + 2 mu u
-        d_sigma = u + convT(g2, w_mu^2)
+        c1, c2  = conv_t_pair(g1, g2, w_mu)                          (kernel 1, no window sum)
+        d_mu    = c1 + 2 mu u
+        d_sigma = u + c2
         d_w_mu  = filter_grad(mu, g1) + 2 w_mu filter_grad(sigma, g2)
         d_w_sig = d_sw * sigmoid(w_sigma)
     """
@@ -283,10 +345,12 @@ class VDPConv(torch.autograd.Function):
         )
         g_win = u[..., None]
         d_mu = d_sigma = d_w = d_ws = None
-        if need_mu:
-            d_mu = _conv_t(g1, w_mu) + 2.0 * mu * g_win
-        if need_sigma:
-            d_sigma = g_win + _conv_t(g2, w_mu * w_mu)
+        if need_mu or need_sigma:
+            c1, c2 = conv_t_pair(g1, g2 if need_sigma else None, w_mu)
+            if need_mu:
+                d_mu = c1 + 2.0 * mu * g_win
+            if need_sigma:
+                d_sigma = g_win + c2
         if need_w:
             d_w = _filter_grad(mu, g1, w_mu.shape)
             if sigma is not None:

@@ -1,12 +1,22 @@
 """VDP moment primitives in PyTorch: the 2-D set of
 ``supernet_tpu/ops/moments.py`` that the serving and training paths run,
-float32, with gradients.
+with gradients.
 
 Each primitive pushes the mean ``mu`` and the diagonal variance ``sigma`` of
-the activations (both NHWC float32) through one network operation, with the
-same algebra as the JAX module (see its docstring): every variance term of a
+the activations (both NHWC) through one network operation, with the same
+algebra as the JAX module (see its docstring): every variance term of a
 Bayesian conv is a convolution, because the kernel variance
 ``softplus(w_sigma)`` is one scalar per output channel.
+
+Activation dtype (``set_act_dtype``): float32 by default, or bfloat16, the
+JAX package's production mode. The casts sit where the JAX module's default
+path puts them: ``_act`` on the moments entering a conv and on its outputs,
+channel sums in float32 and cast back before the broadcast multiply, the
+softmax head in float32. Weights stay float32; the casts' backward returns
+their gradients in float32. The kernels compute in float32: a bf16 moment is
+upcast at the kernel boundary and the outputs are cast back
+(``supernet_tpu/ops/pallas/vdp_conv.py:466-477``), so the kernels' backward
+sees float32 cotangents too.
 
 Dispatch: every k > 1 conv goes through ``ops.kernels.vdp_conv.VDPConv``
 and the max-pool through ``ops.kernels.pool.VMaxPool``, the autograd
@@ -20,6 +30,8 @@ autograd, as they are XLA's AD in the JAX package.
 
 from __future__ import annotations
 
+import os
+import sys
 from typing import Sequence, Tuple
 
 import torch
@@ -56,6 +68,82 @@ def get_mxu_precision() -> str:
     return _MXU_PRECISION
 
 
+# The inter-layer activation dtype (supernet_tpu/ops/moments.py:342).
+_ACT_DTYPE: torch.dtype = torch.float32
+_HALF = (torch.bfloat16, torch.float16)
+
+
+def set_act_dtype(dtype: str) -> None:
+    """Set the inter-layer activation dtype ('float32'|'f32'|'bfloat16'|'bf16')."""
+    global _ACT_DTYPE
+    if dtype in ("float32", "f32"):
+        _ACT_DTYPE = torch.float32
+    elif dtype in ("bfloat16", "bf16"):
+        _ACT_DTYPE = torch.bfloat16
+    else:
+        raise ValueError(f"unknown activation dtype {dtype!r}")
+
+
+def get_act_dtype() -> torch.dtype:
+    return _ACT_DTYPE
+
+
+def _act(x: Tensor) -> Tensor:
+    """Cast an activation (or a weight entering a matmul) to the activation
+    dtype; a no-op under float32. A float64 tensor (the gradient checks)
+    keeps its dtype."""
+    if x.dtype == torch.float64:
+        return x
+    return x.to(_ACT_DTYPE)
+
+
+def _f32(x: Tensor) -> Tensor:
+    """``x`` in float32 (float64 stays float64)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+# SUPERNET_* knobs of the JAX package that the port has no counterpart for,
+# with the reason apply_env_overrides gives on stderr.
+_NO_KERNEL_SWITCH = (
+    "has no counterpart: on a CUDA tensor the port always runs its "
+    "hand-written kernels, on a CPU tensor their plain versions"
+)
+_AB_PATH = ("is not ported yet (ROADMAP.md, Queue 1: 'Remaining 2-D A/B "
+            "paths'); the default lowering runs")
+_UNMATCHED_ENV = {
+    "SUPERNET_BACKEND": _NO_KERNEL_SWITCH,
+    "SUPERNET_POOL": _NO_KERNEL_SWITCH,
+    "SUPERNET_SIGMA_BWD": _NO_KERNEL_SWITCH,
+    "SUPERNET_CONV_FOLD": _AB_PATH,
+    "SUPERNET_GLUE_FOLD": _AB_PATH,
+    "SUPERNET_WINSUM": _AB_PATH,
+    "SUPERNET_SW_SCALE": _AB_PATH,
+    "SUPERNET_CHANSUM": _AB_PATH,
+    "SUPERNET_CONV2D": _AB_PATH,
+    "SUPERNET_CONV3D": "is not ported yet (ROADMAP.md, Queue 1: '3-D family')",
+}
+
+
+def apply_env_overrides() -> None:
+    """Apply the SUPERNET_* knobs (supernet_tpu/ops/moments.py:358):
+
+    SUPERNET_ACT_DTYPE=float32|bfloat16   (inter-layer activation dtype)
+    SUPERNET_PRECISION=highest|high|default (PyTorch's own f32 matmuls/convs)
+
+    Every other knob of the JAX package that is set is named on stderr with
+    the reason it does nothing here; none is ignored silently."""
+    v = os.environ.get("SUPERNET_PRECISION")
+    if v:
+        set_mxu_precision(v)
+    v = os.environ.get("SUPERNET_ACT_DTYPE")
+    if v:
+        set_act_dtype(v)
+    for name, why in _UNMATCHED_ENV.items():
+        v = os.environ.get(name)
+        if v:
+            print(f"warning: {name}={v} {why}", file=sys.stderr)
+
+
 def scale_sw(ws: Tensor, s_w: Tensor) -> Tensor:
     """``ws [..., 1] * s_w [Cout] -> [..., Cout]``: the per-output-channel
     variance scale shared by every vconv sigma term."""
@@ -87,17 +175,30 @@ def _einsum_1x1(x: Tensor, w: Tensor) -> Tensor:
     return torch.einsum("bhwc,co->bhwo", x, w)
 
 
+def _kernel_conv(mu, sigma, w_mu, w_sigma, relu: bool) -> MomentPair:
+    """The fused conv (kernel 1 on CUDA tensors): half-precision moments are
+    upcast at the boundary and the outputs cast back to their dtype."""
+    dt = mu.dtype
+    if dt in _HALF:
+        mu = mu.float()
+        sigma = None if sigma is None else sigma.float()
+    m, s = _vdp.VDPConv.apply(mu, sigma, w_mu, w_sigma, relu)
+    return m.to(dt), s.to(dt)
+
+
 def vconv_input(x: Tensor, w_mu: Tensor, w_sigma: Tensor) -> MomentPair:
     """First VDP conv: deterministic input, Gaussian weights.
 
       mu_out    = conv(x, w_mu)                      (VALID)
       sigma_out = winsum(x^2) * softplus(w_sigma)
     """
+    x = _act(x)
     if w_mu.shape[0] == 1:
-        w2 = w_mu[0, 0]
-        t = chan_sum(x * x)
-        return _einsum_1x1(x, w2), scale_sw(t, F.softplus(w_sigma))
-    return _vdp.VDPConv.apply(x, None, w_mu, w_sigma, False)
+        w2 = _act(w_mu[0, 0])
+        # the 1-channel sum in float32, cast before the broadcast multiply
+        t = _act(chan_sum(torch.square(_f32(x))))
+        return _act(_einsum_1x1(x, w2)), scale_sw(t, F.softplus(w_sigma))
+    return _kernel_conv(x, None, w_mu, w_sigma, False)
 
 
 def vconv(mu: Tensor, sigma: Tensor, w_mu: Tensor, w_sigma: Tensor) -> MomentPair:
@@ -108,12 +209,13 @@ def vconv(mu: Tensor, sigma: Tensor, w_mu: Tensor, w_sigma: Tensor) -> MomentPai
 
     k == 1 (the softmax head) is two einsums and a channel sum.
     """
+    mu, sigma = _act(mu), _act(sigma)
     if w_mu.shape[0] == 1:
-        w2 = w_mu[0, 0]
-        t = chan_sum(mu * mu + sigma)
+        w2 = _act(w_mu[0, 0])
+        t = _act(chan_sum(mu * mu + sigma))
         sigma_out = scale_sw(t, F.softplus(w_sigma)) + _einsum_1x1(sigma, w2 * w2)
-        return _einsum_1x1(mu, w2), sigma_out
-    return _vdp.VDPConv.apply(mu, sigma, w_mu, w_sigma, False)
+        return _act(_einsum_1x1(mu, w2)), _act(sigma_out)
+    return _kernel_conv(mu, sigma, w_mu, w_sigma, False)
 
 
 def vconv_relu(
@@ -122,14 +224,14 @@ def vconv_relu(
     """``vrelu(*vconv(...))``, the ReLU fused into the conv for k > 1."""
     if w_mu.shape[0] == 1:
         return vrelu(*vconv(mu, sigma, w_mu, w_sigma))
-    return _vdp.VDPConv.apply(mu, sigma, w_mu, w_sigma, True)
+    return _kernel_conv(_act(mu), _act(sigma), w_mu, w_sigma, True)
 
 
 def vconv_input_relu(x: Tensor, w_mu: Tensor, w_sigma: Tensor) -> MomentPair:
     """``vrelu(*vconv_input(...))``, fused the same way."""
     if w_mu.shape[0] == 1:
         return vrelu(*vconv_input(x, w_mu, w_sigma))
-    return _vdp.VDPConv.apply(x, None, w_mu, w_sigma, True)
+    return _kernel_conv(_act(x), None, w_mu, w_sigma, True)
 
 
 def vrelu(mu: Tensor, sigma: Tensor) -> MomentPair:
@@ -142,8 +244,14 @@ def vrelu(mu: Tensor, sigma: Tensor) -> MomentPair:
 def vmaxpool(mu: Tensor, sigma: Tensor) -> MomentPair:
     """2x2/stride-2 max-pool of ``mu`` with ``sigma`` at the argmax;
     first-occurrence ties, in the gradient too; odd sizes padded with
-    ``finfo.min``."""
-    return _pool.VMaxPool.apply(mu, sigma)
+    ``finfo.min``. Keeps its input's dtype: half-precision moments are
+    upcast at the kernel boundary and the outputs cast back, which is exact
+    (the TPU kernel loads bf16, selects in float32 and stores bf16)."""
+    dt = mu.dtype
+    if dt in _HALF:
+        mu, sigma = mu.float(), sigma.float()
+    m, s = _pool.VMaxPool.apply(mu, sigma)
+    return m.to(dt), s.to(dt)
 
 
 def _upsample2_nearest(x: Tensor) -> Tensor:
@@ -160,7 +268,7 @@ def _unpool_conv(x: Tensor, w: Tensor) -> Tensor:
     shuffle.
     """
     b, h, wd, _ = x.shape
-    y = torch.einsum("bhwc,pqco->bhpwqo", x, w.flip(0, 1))
+    y = torch.einsum("bhwc,pqco->bhpwqo", x, w.flip(0, 1).to(x.dtype))
     return y.reshape(b, 2 * h, 2 * wd, w.shape[-1])
 
 
@@ -186,10 +294,13 @@ def vunpool_conv2(
     """Fused ``vunpool`` + 2x2 VALID ``vconv`` (the decoder's first pair).
     The 2x2 window sum of the interleaved (mu^2 + sigma) sees one nonzero
     pixel per window, so it is the channel sum upsampled 2x."""
-    t_up = _upsample2_nearest(chan_sum(mu * mu + sigma))
+    mu, sigma = _act(mu), _act(sigma)
+    # the [B,h,w,1] channel sum in float32, cast back before the broadcast
+    t_up = _upsample2_nearest(_act(chan_sum(mu * mu + sigma)))
     mu_out = _unpool_conv(mu, w_mu)
-    sigma_out = t_up * F.softplus(w_sigma) + _unpool_conv(sigma, w_mu * w_mu)
-    return mu_out, sigma_out
+    sw = F.softplus(w_sigma).to(t_up.dtype)
+    sigma_out = t_up * sw + _unpool_conv(sigma, w_mu * w_mu)
+    return mu_out, _act(sigma_out)
 
 
 def vpad(

@@ -2,6 +2,7 @@
 
     python -m supernet_tpu_torch.profiling --mode train --config hippocampus --batch 20
     python -m supernet_tpu_torch.profiling --mode serve --config brats --batch 2
+    python -m supernet_tpu_torch.profiling --mode train --act-dtype bfloat16
     python -m supernet_tpu_torch.profiling --mode layers --config brats --batch 2
 
 builds a train state (or an ``InferenceSession``) from ``init_params``
@@ -25,14 +26,18 @@ every pool, each beside its byte bound and its plan; and an empty launch,
 the floor under every small layer (:func:`layer_times`). It reads only the
 wrappers' public functions, so it also times another checkout of the port
 put first on ``PYTHONPATH``.
-Prints one JSON object; ``--out DIR`` also writes it there. Needs a CUDA
-device: there is no CPU fallback.
+``--act-dtype bfloat16`` runs the train and serve modes in the bf16
+activation mode (``ops.set_act_dtype``). Prints one JSON object; ``--out DIR``
+also writes it there. Needs a CUDA device: there is no CPU fallback.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
+import dataclasses
+import functools
 import json
 import os
 import statistics
@@ -45,7 +50,7 @@ import torch
 from supernet_tpu_torch import train
 from supernet_tpu_torch.configs import get_config
 from supernet_tpu_torch.models import forward, init_params, layer_names
-from supernet_tpu_torch.ops import set_mxu_precision
+from supernet_tpu_torch.ops import get_act_dtype, set_act_dtype, set_mxu_precision
 from supernet_tpu_torch.serving import InferenceSession
 
 # (label, substrings of the kernel name), first match wins: the four
@@ -225,18 +230,28 @@ def _profile(run, per: str) -> Dict:
     }
 
 
-def layer_shapes(cfg) -> Tuple[List, List]:
-    """The input shape (batch 1) of every k=3 conv and every pool of one
-    forward, read from the stage taps of a CPU forward: ([(name, shape,
-    cout)], [(name, shape)])."""
+@functools.lru_cache(maxsize=None)
+def stage_shapes(cfg) -> Tuple[Tuple[str, Tuple[int, ...]], ...]:
+    """``(stage name, output shape)`` (batch 1) of every stage of one
+    forward in order, from the taps of a float32 CPU forward (the JAX
+    package's ``jax.eval_shape`` of its forward, done by running it)."""
+    cfg = dataclasses.replace(cfg, remat=False)
     params = init_params(torch.Generator().manual_seed(0), cfg, "cpu")
     x = torch.zeros(1, cfg.image_size, cfg.image_size, cfg.in_channels)
     stages = []
     with torch.inference_mode():
         forward(params, x, cfg, tap=lambda name, shape: stages.append((name, shape)))
+    return tuple(stages)
+
+
+def layer_shapes(cfg) -> Tuple[List, List]:
+    """The input shape (batch 1) of every k=3 conv and every pool of one
+    forward, read from :func:`stage_shapes`: ([(name, shape, cout)],
+    [(name, shape)])."""
     ksize = {name: (k, cout) for name, k, _, cout in layer_names(cfg)}
-    convs, pools, prev = [], [], tuple(x.shape)
-    for name, shape in stages:
+    convs, pools = [], []
+    prev = (1, cfg.image_size, cfg.image_size, cfg.in_channels)
+    for name, shape in stage_shapes(cfg):
         if name in ksize and ksize[name][0] == 3:
             convs.append((name, prev, ksize[name][1]))
         elif name.startswith("pool"):
@@ -304,6 +319,17 @@ def _plan_fields(module, name: str, *shape) -> Dict:
         return {}
     p = plan(*shape)
     return {"path": p.path, "blocks": p.blocks}
+
+
+@contextlib.contextmanager
+def act_dtype(name: str):
+    """Run the block under activation dtype ``name``, then restore it."""
+    before = get_act_dtype()
+    set_act_dtype(name)
+    try:
+        yield
+    finally:
+        set_act_dtype("bfloat16" if before == torch.bfloat16 else "float32")
 
 
 def layer_times(config: str, batch: int, seed: int = 0) -> Dict:
@@ -420,13 +446,21 @@ def main(argv=None) -> int:
     p.add_argument("--config", default="hippocampus")
     p.add_argument("--batch", type=int, default=20)
     p.add_argument("--out", default=None, help="directory for the JSON")
+    p.add_argument("--act-dtype", default="float32", choices=("float32", "bfloat16"),
+                   help="activation dtype of the train and serve modes")
     a = p.parse_args(argv)
     fn = {"train": profile_train_step, "serve": profile_serving,
           "layers": layer_times}[a.mode]
-    line = json.dumps(fn(a.config, a.batch))
+    if a.mode == "layers" and a.act_dtype != "float32":
+        p.error("--act-dtype applies to the train and serve modes")
+    with act_dtype(a.act_dtype):
+        res = fn(a.config, a.batch)
+    res["act_dtype"] = a.act_dtype
+    line = json.dumps(res)
     if a.out:
         os.makedirs(a.out, exist_ok=True)
-        with open(os.path.join(a.out, f"profile_{a.mode}_{a.config}_b{a.batch}.json"), "w") as f:
+        tag = "" if a.act_dtype == "float32" else f"_{a.act_dtype}"
+        with open(os.path.join(a.out, f"profile_{a.mode}_{a.config}_b{a.batch}{tag}.json"), "w") as f:
             f.write(line + "\n")
     print(line)
     return 0

@@ -1,24 +1,40 @@
-"""Padded-batch inference session: the meshless 2-D counterpart of
-``supernet_tpu.serving.InferenceSession``.
+"""Serving: the padded-batch inference session, the deep-ensemble session and
+the export bundle, the meshless 2-D counterparts of
+``supernet_tpu/serving.py``.
 
 The parameters stay resident on the session's device and every request is
 cut into chunks of the session's fixed batch size; the last chunk is padded
-by repeating its last row and the padding is sliced off the outputs (the
-scheme of ``supernet_tpu/serving.py:293-315``), so every forward runs at one
-shape. On a CUDA device each forward goes through the hand-written kernels
-(``ops/kernels``); on the CPU through their plain versions.
+by repeating the request's last row and the padding is sliced off the
+outputs (the scheme of ``supernet_tpu/serving.py:293-315``), so every
+forward runs at one shape. On a CUDA device each forward goes through the
+hand-written kernels (``ops/kernels``); on the CPU through their plain
+versions. A request is enqueued whole: its images go to the card from a
+pinned host buffer, every chunk's outputs are copied into pinned host
+buffers without waiting, and the host waits once, at the end. The pinned
+buffers belong to the session and are reused by the next request (a lock
+keeps two threads from sharing them).
+
+``export_bundle`` writes ``params.npz``, ``model.pt2`` (a ``torch.export``
+of the plain PyTorch composition at the fixed batch, recalibration and the
+ensemble mixture baked in; the kernels are ctypes calls and cannot be
+exported) and ``export_meta.json``.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import json
+import os
+import threading
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from supernet_tpu_torch.checkpoint import params_from_jax
+from supernet_tpu_torch.checkpoint import params_from_jax, save_params_npz
 from supernet_tpu_torch.configs import ModelConfig
 from supernet_tpu_torch.models import forward_images
+
+Tensor = torch.Tensor
 
 
 def _make_recalibrate(variance_scale: float, temperature: float):
@@ -31,7 +47,7 @@ def _make_recalibrate(variance_scale: float, temperature: float):
             f"(got {variance_scale}, {temperature})"
         )
 
-    def _recalibrate(probs: torch.Tensor, sigma: torch.Tensor):
+    def _recalibrate(probs: Tensor, sigma: Tensor):
         if temperature != 1.0:
             p = torch.pow(torch.clamp_min(probs, 1e-30), 1.0 / temperature)
             probs = p / p.sum(dim=-1, keepdim=True)
@@ -42,14 +58,37 @@ def _make_recalibrate(variance_scale: float, temperature: float):
     return _recalibrate
 
 
+def mixture(
+    probs: Sequence[Tensor], sigmas: Sequence[Tensor]
+) -> Tuple[Tensor, Tensor]:
+    """Uniform-mixture moments over K members' ``(p_k, s_k)``:
+
+        mean = sum_k w p_k,   var = sum_k w (s_k + (p_k - mean)^2),   w = 1/K
+
+    the within-member variance plus the members' disagreement, in the form
+    of ``supernet_tpu/serving.py:438-446`` that does not cancel (``s`` of
+    1e-5 under ``p^2`` of 1) and is non-negative by construction. Equal
+    members give the member's own moments."""
+    w = 1.0 / len(probs)
+    mean = sum(w * p for p in probs)
+    var = sum(w * (s + torch.square(p - mean)) for p, s in zip(probs, sigmas))
+    return mean, var
+
+
+def _unported(what: str, item: str, where: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP.md, Queue 1: '{item}', {where})"
+    )
+
+
 class InferenceSession:
     """Fixed-batch inference on one device.
 
     ``params`` is a JAX-layout parameter dict (numpy arrays, JAX arrays or
     tensors); it is copied to ``device`` (the card unless the caller names
-    another) once. ``predict(x)`` takes any
-    leading batch size. ``variance_scale`` / ``temperature`` apply a fitted
-    recalibration to every answer.
+    another) once. ``predict(x)`` takes any leading batch size.
+    ``variance_scale`` / ``temperature`` apply a fitted recalibration to
+    every answer.
     """
 
     def __init__(
@@ -69,17 +108,33 @@ class InferenceSession:
         self.device = torch.device(device)
         self._params = params_from_jax(params, self.device)
         self._recalibrate = _make_recalibrate(variance_scale, temperature)
+        self._host = None  # (images, probs, sigma) host buffers of a request
+        self._lock = threading.Lock()
 
-    @torch.inference_mode()
-    def _run(self, x: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:
-        xt = torch.from_numpy(x).to(self.device)
-        return self._recalibrate(*forward_images(self._params, xt, self.cfg))
+    def _buffers(self, n: int):
+        """Host buffers for ``n`` images (a whole number of chunks): pinned
+        on a CUDA session, allocated once and grown when a request is
+        larger than any before it."""
+        if self._host is None or len(self._host[0]) < n:
+            s, c, o = self.cfg.image_size, self.cfg.in_channels, self.cfg.out_size
+            pin = self.device.type == "cuda"
+            self._host = (
+                torch.empty((n, s, s, c), pin_memory=pin),
+                torch.empty((n, o, o, self.cfg.n_classes), pin_memory=pin),
+                torch.empty((n, o, o, self.cfg.n_classes), pin_memory=pin),
+            )
+        return self._host
+
+    def _forward(self, x: Tensor) -> Tuple[Tensor, Tensor]:
+        """One chunk on the device -> recalibrated image-shaped moments."""
+        return self._recalibrate(*forward_images(self._params, x, self.cfg))
 
     def warmup(self) -> "InferenceSession":
         """Build the kernels (on a CUDA device) and run one batch outside
         the request path."""
         s, c = self.cfg.image_size, self.cfg.in_channels
-        self._run(np.zeros((self.batch_size, s, s, c), np.float32))
+        with torch.inference_mode():
+            self._forward(torch.zeros((self.batch_size, s, s, c), device=self.device))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return self
@@ -87,22 +142,25 @@ class InferenceSession:
     def predict(self, x) -> Tuple[np.ndarray, np.ndarray]:
         """[N, H, W, C] -> (probs, sigma), each [N, out, out, n_classes]."""
         x = np.asarray(x, np.float32)
-        n = len(x)
+        n, bs = len(x), self.batch_size
+        o = self.cfg.out_size
+        shape = (n, o, o, self.cfg.n_classes)
         if n == 0:
-            o = self.cfg.out_size
-            shape = (0, o, o, self.cfg.n_classes)
             return np.zeros(shape, np.float32), np.zeros(shape, np.float32)
-        probs_out, sigma_out = [], []
-        for i in range(0, n, self.batch_size):
-            chunk = x[i : i + self.batch_size]
-            b = len(chunk)
-            if b < self.batch_size:
-                reps = np.repeat(chunk[-1:], self.batch_size - b, axis=0)
-                chunk = np.concatenate([chunk, reps], axis=0)
-            p, s = self._run(np.ascontiguousarray(chunk))
-            probs_out.append(p[:b].cpu().numpy())
-            sigma_out.append(s[:b].cpu().numpy())
-        return np.concatenate(probs_out), np.concatenate(sigma_out)
+        padded = -(-n // bs) * bs
+        with self._lock, torch.inference_mode():
+            xh, probs, sigma = self._buffers(padded)
+            images = xh.numpy()
+            images[:n] = x
+            images[n:padded] = x[-1]  # the tail chunk repeats the last image
+            for i in range(0, n, bs):
+                b = min(bs, n - i)
+                p, s = self._forward(xh[i : i + bs].to(self.device, non_blocking=True))
+                probs[i : i + b].copy_(p[:b], non_blocking=True)
+                sigma[i : i + b].copy_(s[:b], non_blocking=True)
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
+            return probs[:n].numpy().copy(), sigma[:n].numpy().copy()
 
     def predict_image(
         self,
@@ -125,3 +183,147 @@ class InferenceSession:
             weight=weight,
             pad_mode=pad_mode,
         )
+
+
+class EnsembleSession(InferenceSession):
+    """Deep-ensemble serving: K parameter dicts of the same config, each
+    chunk run through every member in turn (``VDPConv`` has no ``vmap``
+    rule; the vmapped form is ROADMAP.md Queue 1, **Ensembles**) and the
+    members' moments mixed by :func:`mixture`. Recalibration applies after
+    the mixture. ``predict`` / ``predict_image`` are inherited; ``mesh=``
+    raises (ROADMAP.md Queue 1, **Parallelism**)."""
+
+    def __init__(
+        self,
+        params_list,
+        cfg: ModelConfig,
+        batch_size: int = 8,
+        *,
+        device="cuda",
+        variance_scale: float = 1.0,
+        temperature: float = 1.0,
+        mesh=None,
+    ):
+        if mesh is not None:
+            raise _unported("an ensemble session over a device mesh",
+                            "Parallelism", "parallel/data_parallel.py")
+        params_list = list(params_list)
+        if not params_list:
+            raise ValueError("params_list must hold at least one member")
+        super().__init__(
+            params_list[0], cfg, batch_size, device=device,
+            variance_scale=variance_scale, temperature=temperature,
+        )
+        self.n_members = len(params_list)
+        self._members = [self._params] + [
+            params_from_jax(p, self.device) for p in params_list[1:]
+        ]
+
+    def _forward(self, x: Tensor) -> Tuple[Tensor, Tensor]:
+        outs = [forward_images(p, x, self.cfg) for p in self._members]
+        return self._recalibrate(*mixture([p for p, _ in outs], [s for _, s in outs]))
+
+
+class _Member(torch.nn.Module):
+    """One member's parameters as buffers of an exportable module."""
+
+    def __init__(self, params):
+        super().__init__()
+        self._names = list(params)
+        for layer, ws in params.items():
+            for name, t in ws.items():
+                self.register_buffer(f"{layer}__{name}", t)
+
+    def params(self):
+        return {layer: {name: getattr(self, f"{layer}__{name}")
+                        for name in ("w_mu", "w_sigma")}
+                for layer in self._names}
+
+
+class _Exported(torch.nn.Module):
+    """``x -> (probs, sigma)`` of a session: the members' forwards, their
+    mixture for an ensemble, and the recalibration."""
+
+    def __init__(self, members: List, cfg: ModelConfig, ensemble: bool,
+                 variance_scale: float, temperature: float):
+        super().__init__()
+        self.members = torch.nn.ModuleList(_Member(p) for p in members)
+        self.cfg, self.ensemble = cfg, ensemble
+        self.recalibrate = _make_recalibrate(variance_scale, temperature)
+
+    def forward(self, x: Tensor) -> Tuple[Tensor, Tensor]:
+        outs = [forward_images(m.params(), x, self.cfg) for m in self.members]
+        if self.ensemble:
+            p, s = mixture([p for p, _ in outs], [s for _, s in outs])
+        else:
+            p, s = outs[0]
+        return self.recalibrate(p, s)
+
+
+def export_bundle(
+    params,
+    cfg: ModelConfig,
+    out_dir: str,
+    batch_size: int = 8,
+    config_name: str = "",
+    volumetric: bool = False,
+    variance_scale: float = 1.0,
+    temperature: float = 1.0,
+) -> dict:
+    """Write a serving bundle (after ``supernet_tpu/serving.py:465-543``):
+
+    - ``model.pt2``: ``torch.export`` of the session's computation at
+      ``batch_size``, in the StableHLO module's place, traced on the CPU,
+      where every kernel op is its plain PyTorch composition, under the
+      current activation dtype, with the recalibration and the ensemble
+      mixture baked in; load it with ``torch.export.load(path).module()``;
+    - ``params.npz``: ``checkpoint.save_params_npz``'s layout (``{layer}/
+      w_mu``, ``{layer}/w_sigma``), a leading member axis for an ensemble;
+    - ``export_meta.json``: the JAX package's keys and values, ``files``
+      naming ``model.pt2``, ``ensemble_members`` for a list of members, and
+      ``program`` saying what ``model.pt2`` holds.
+
+    ``params`` is one parameter dict or a list of members. Returns the meta
+    (also printed by ``cli export``). ``volumetric=True`` raises (ROADMAP.md
+    Queue 1, **3-D family**)."""
+    from supernet_tpu_torch.flops import forward_flops
+    from supernet_tpu_torch.ops import get_act_dtype
+
+    if volumetric:
+        raise _unported("export --volumetric", "3-D family", "models/unet3d.py")
+    ensemble = isinstance(params, (list, tuple))
+    members = [params_from_jax(p, "cpu") for p in (params if ensemble else [params])]
+    os.makedirs(out_dir, exist_ok=True)
+    module = _Exported(members, cfg, ensemble, variance_scale, temperature).eval()
+    s, o = cfg.image_size, cfg.out_size
+    with torch.no_grad():
+        ep = torch.export.export(module, (torch.zeros((batch_size, s, s, cfg.in_channels)),))
+    torch.export.save(ep, os.path.join(out_dir, "model.pt2"))
+    if ensemble:
+        np.savez(os.path.join(out_dir, "params.npz"), **{
+            f"{layer}/{name}": np.stack([m[layer][name].numpy() for m in members])
+            for layer, ws in members[0].items() for name in ws})
+    else:
+        save_params_npz(os.path.join(out_dir, "params.npz"), members[0])
+    meta = {
+        "config": config_name,
+        "volumetric": False,
+        "variance_scale": float(variance_scale),
+        "temperature": float(temperature),
+        "batch_size": batch_size,
+        "input_shape": [batch_size, s, s, cfg.in_channels],
+        "input_dtype": "float32",
+        "output_shape": [batch_size, o, o, cfg.n_classes],
+        "outputs": ["probs", "sigma"],
+        "forward_gflops_per_image": round(forward_flops(cfg, 1) / 1e9, 3),
+        "param_count": int(sum(v.numel() for p in members[0].values()
+                               for v in p.values())),
+        "files": ["model.pt2", "params.npz"],
+        "program": "torch.export of the plain PyTorch composition (no "
+                   f"hand-written kernels), activations {str(get_act_dtype())[6:]}",
+    }
+    if ensemble:
+        meta["ensemble_members"] = len(members)
+    with open(os.path.join(out_dir, "export_meta.json"), "w") as f:
+        json.dump(meta, f, indent=2)
+    return meta

@@ -13,6 +13,11 @@ With ``tc.augment`` the single and multi-step builders augment each batch
 on the parameters' device (``data/augment.py``), keyed by the seed, the
 state's step counter and the global image index.
 
+Under the bf16 activation mode (``ops.set_act_dtype``) the parameters, the
+Adam state, the loss and the gradients stay float32: the forward casts
+activations to bf16 and back where ``ops/moments.py`` says, and the casts'
+backward returns float32 gradients, as in the JAX package.
+
 With ``tc.adversarial_training`` ("fgsm" or "pgd") every step trains on
 ``adv_alpha * L(clean) + (1 - adv_alpha) * L(adv)``: the adversarial examples
 are made inside the step against the current parameters (one or

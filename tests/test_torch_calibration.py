@@ -26,6 +26,18 @@ from supernet_tpu_torch import calibration as cal  # noqa: E402
 from supernet_tpu_torch import configs  # noqa: E402
 from supernet_tpu_torch.data import PickleDataset, synthetic_dataset  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread per test process: the test workers share the
+    host's cores, and torch's own thread pool in each of them only contends
+    (a tiny float64 gradcheck ran 100x slower under six workers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 RTOL = 1e-12
 RUN_ATOL = 2e-3
 

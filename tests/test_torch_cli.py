@@ -26,6 +26,18 @@ from supernet_tpu_torch import checkpoint as ckpt  # noqa: E402
 from supernet_tpu_torch import cli, configs  # noqa: E402
 from supernet_tpu_torch.data import ShardDataset, synthetic_dataset  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread per test process: the test workers share the
+    host's cores, and torch's own thread pool in each of them only contends
+    (a tiny float64 gradcheck ran 100x slower under six workers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = configs.HIPPOCAMPUS.replace(
     model=dataclasses.replace(configs.HIPPOCAMPUS.model, image_size=32, out_size=22,
@@ -81,8 +93,8 @@ _REQUIRED = {"predict3d": ["--volume", "v.nii"]}
 
 
 def test_ported_subcommands():
-    assert PORTED == ["attack", "calibrate", "convert", "eval", "saliency", "study",
-                      "sweep", "train"]
+    assert PORTED == ["attack", "calibrate", "convert", "eval", "export", "saliency",
+                      "study", "sweep", "train"]
 
 
 @pytest.mark.parametrize("cmd", STUBS)
@@ -104,6 +116,7 @@ def test_unported_subcommands_name_their_roadmap_item(cmd):
     (["saliency", "--synthetic", "4", "--data-parallel"], "Parallelism"),
     (["study", "--synthetic", "4", "--data-parallel"], "Parallelism"),
     (["convert", "--out", "x", "--from-nifti", "--to-cubes"], "3-D family"),
+    (["export", "--volumetric"], "3-D family"),
 ])
 def test_unported_options_name_their_roadmap_item(tiny, argv, item, tmp_path):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):

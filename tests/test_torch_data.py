@@ -31,6 +31,18 @@ from supernet_tpu_torch import configs, metrics, native, reports, train, utils  
 from supernet_tpu_torch import data as tdata  # noqa: E402
 from supernet_tpu_torch.data import augment, nifti  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread per test process: the test workers share the
+    host's cores, and torch's own thread pool in each of them only contends
+    (a tiny float64 gradcheck ran 100x slower under six workers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CFG = dataclasses.replace(configs.HIPPOCAMPUS.model, image_size=32, out_size=22,
                           base_kernels=4)
 JCFG = dataclasses.replace(JHIPPOCAMPUS.model, image_size=32, out_size=22,

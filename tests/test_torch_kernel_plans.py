@@ -24,6 +24,18 @@ from supernet_tpu_torch.configs import get_config  # noqa: E402
 from supernet_tpu_torch.models import layer_names  # noqa: E402
 from supernet_tpu_torch.ops.kernels import pool, sigma_bwd  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread per test process: the test workers share the
+    host's cores, and torch's own thread pool in each of them only contends
+    (a tiny float64 gradcheck ran 100x slower under six workers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 BATCH = {"hippocampus": 20, "brats": 2}  # the batches chip_smoke.py drives
 CONVS = [(c, name) for c in BATCH
          for name, k, _, _ in layer_names(get_config(c).model) if k == 3]

@@ -20,6 +20,18 @@ from supernet_tpu.ops.pallas import sigma_bwd as jsigma_bwd  # noqa: E402
 from supernet_tpu.ops.pallas import vdp_conv as jvdp_conv  # noqa: E402
 from supernet_tpu_torch.ops.kernels import pool, sigma_bwd, vdp_conv  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread per test process: the test workers share the
+    host's cores, and torch's own thread pool in each of them only contends
+    (a tiny float64 gradcheck ran 100x slower under six workers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # the module, not the function the package re-exports under the same name
 jvdp_module = importlib.import_module("supernet_tpu.ops.pallas.vdp_conv")
 

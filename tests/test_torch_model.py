@@ -31,6 +31,18 @@ from supernet_tpu_torch.models import (  # noqa: E402
     layer_names,
 )
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread per test process: the test workers share the
+    host's cores, and torch's own thread pool in each of them only contends
+    (a tiny float64 gradcheck ran 100x slower under six workers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "hippo_tiny.npz")
 CFG = dataclasses.replace(HIPPOCAMPUS.model, image_size=32, out_size=22, base_kernels=4)
 ATOL = 1e-5

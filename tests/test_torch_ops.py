@@ -12,6 +12,18 @@ import torch.nn.functional as F  # noqa: E402
 from supernet_tpu.ops import moments as jm  # noqa: E402
 from supernet_tpu_torch.ops import moments as tm  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread per test process: the test workers share the
+    host's cores, and torch's own thread pool in each of them only contends
+    (a tiny float64 gradcheck ran 100x slower under six workers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ATOL = 1e-5
 
 

@@ -20,6 +20,18 @@ from supernet_tpu.configs import HIPPOCAMPUS  # noqa: E402
 from supernet_tpu.models import init_params as jinit  # noqa: E402
 from supernet_tpu_torch import serving  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread per test process: the test workers share the
+    host's cores, and torch's own thread pool in each of them only contends
+    (a tiny float64 gradcheck ran 100x slower under six workers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CFG = dataclasses.replace(HIPPOCAMPUS.model, image_size=32, out_size=22, base_kernels=4)
 ATOL = 1e-5
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -59,6 +71,26 @@ def test_padding_rows_never_leak(params):
     tail_p, tail_s = sess.predict(np.concatenate([x[4:7], x[6:7]]))
     np.testing.assert_array_equal(p[4:7], tail_p[:3])
     np.testing.assert_array_equal(s[4:7], tail_s[:3])
+
+
+def test_request_of_45_equals_chunk_by_chunk(params):
+    """``predict`` enqueues every chunk and copies into preallocated host
+    buffers: a request of 45 images at batch 20 gives the bits of running
+    the three chunks (the last padded with its final image) one by one."""
+    sess = serving.InferenceSession(params, CFG, batch_size=20, device="cpu")
+    x = _x(45, seed=5)
+    got = sess.predict(x)
+    want = [], []
+    with torch.inference_mode():
+        for i in range(0, 45, 20):
+            chunk = x[i : i + 20]
+            b = len(chunk)
+            chunk = np.concatenate([chunk, np.repeat(chunk[-1:], 20 - b, axis=0)])
+            for out, a in zip(want, sess._forward(torch.from_numpy(chunk))):
+                out.append(a[:b].numpy())
+    for g, w in zip(got, want):
+        assert g.shape == (45, 22, 22, 3)
+        np.testing.assert_array_equal(g, np.concatenate(w))
 
 
 def test_recalibration_matches_jax(params):
@@ -116,8 +148,10 @@ def test_port_imports_no_jax():
     package ``supernet_tpu`` (a meta-path blocker) imports every module of
     the port (the data modules, the trainer, the CLI and the evaluation
     surface among them), builds
-    the CLI's parser, runs one tiny CPU forward through the serving session
-    and takes one CPU train step."""
+    the CLI's parser, runs one tiny CPU forward through the serving session,
+    takes one CPU train step, and under bf16 activations builds an
+    ``EnsembleSession`` and an export bundle (``flops.py`` among the
+    modules)."""
     code = textwrap.dedent("""
         import dataclasses, importlib, pkgutil, sys
 
@@ -141,7 +175,8 @@ def test_port_imports_no_jax():
                 "supernet_tpu_torch.trainer", "supernet_tpu_torch.cli",
                 "supernet_tpu_torch.attacks", "supernet_tpu_torch.perturb",
                 "supernet_tpu_torch.evaluate", "supernet_tpu_torch.calibration",
-                "supernet_tpu_torch.ops.naive",
+                "supernet_tpu_torch.ops.naive", "supernet_tpu_torch.flops",
+                "supernet_tpu_torch.serving",
                 "supernet_tpu_torch.metrics", "supernet_tpu_torch.reports",
                 "supernet_tpu_torch.utils", "supernet_tpu_torch.native",
                 "supernet_tpu_torch.data.augment",
@@ -168,6 +203,17 @@ def test_port_imports_no_jax():
             state, rng.normal(0, 1, (2, 32, 32, 1)).astype(np.float32),
             rng.integers(0, 3, (2, 22, 22)).astype(np.int32))
         assert state.step == 1 and all(np.isfinite(float(v)) for v in m)
+        import tempfile
+        from supernet_tpu_torch import ops
+        from supernet_tpu_torch.serving import EnsembleSession, export_bundle
+        ops.set_act_dtype("bfloat16")
+        p, s = EnsembleSession([params, params], cfg, batch_size=2, device="cpu").predict(
+            np.zeros((3, 32, 32, 1), np.float32))
+        assert p.shape == (3, 22, 22, 3) and p.dtype == np.float32
+        with tempfile.TemporaryDirectory() as d:
+            meta = export_bundle([params, params], cfg, d, batch_size=2)
+        assert meta["ensemble_members"] == 2 and "bfloat16" in meta["program"]
+        ops.set_act_dtype("float32")
         bad = [n for n in sys.modules if n.split(".")[0] in ("jax", "supernet_tpu")]
         assert not bad, bad
         print("ok")

@@ -36,6 +36,17 @@ from supernet_tpu_torch.models import (  # noqa: E402
 from supernet_tpu_torch.trainer import Trainer, _prep_batch  # noqa: E402
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread per test process: the test workers share the
+    host's cores, and torch's own thread pool in each of them only contends
+    (a tiny float64 gradcheck ran 100x slower under six workers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _tiny(mod, name="hippocampus", **kw):
     exp = mod.get_config(name)
     size = {"hippocampus": dict(image_size=32, out_size=22),
