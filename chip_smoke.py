@@ -155,6 +155,26 @@ Phases (any failure raises and the exit code is not 0):
    serving limits), and one request of 45 images enqueued whole against a
    synchronisation per chunk (bit-equal; wall times in turns).
 
+18. the 3-D family at full width (the hippocampus 3-D config: cube 64,
+   base 32, depth 3, out 54, batch 4), with the counters of kernels 1-4
+   zeroed at the start and read at the end: they must read 0, since the
+   family runs cuDNN ``conv3d`` and PyTorch ops and no hand-written kernel.
+   ``forward3d`` at batch 4 with volume 0 against the CPU (the serving
+   limits); the step-1 loss at batch 4 against the CPU's (``TRAIN_LOSS_RTOL``)
+   and the gradients on volume 0 (one volume: the CPU takes seconds per
+   volume) against the CPU's with the card's ReLU masks, pool taps and sigma
+   clips replayed (``_decisions3d``, ``TRAIN_GRAD_TOL``), under cuDNN's
+   deterministic algorithms; three ``make_train_step3d`` steps; the train
+   profile of ``profiling.profile_train_step3d`` with remat off and on
+   (vols/s from the median of 10 steps, device time, idle share, peak
+   memory, cuDNN's share of device time); then in process on the default
+   device ``train3d --synthetic 12`` (one epoch, a checkpoint), ``eval3d``,
+   ``attack3d`` (PGD, 2 steps: every volume inside the ball and the range
+   exactly), ``calibrate3d``, ``saliency3d``, ``predict3d`` on a 100x50x50
+   volume (two tiles along D) against the CPU session's tiled answer, and
+   ``export --volumetric`` with ``model.pt2`` on the CPU against the card's
+   session. Prints the phase's seconds.
+
 In phases 6-15 cuDNN runs its deterministic algorithms, and in 6-7 and 12
 the CPU reference of the gradients replays the card's ReLU masks and pool
 taps (``_decisions``), so that rounding ties do not decide the comparison.
@@ -162,8 +182,8 @@ taps (``_decisions``), so that rounding ties do not decide the comparison.
 The last two lines of standard output are the kernels summary
 ``{"kernels": [...]}`` (all four kernels, with their launches in the
 hippocampus training run, the epoch trainer's run, the CLI's run, one
-attack gradient, the adversarial evaluation and the study, errors, times
-and bounds) and ``{"ok": true, "device": {...}}``.
+attack gradient, the adversarial evaluation, the study and phase 18, errors,
+times and bounds) and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -2036,6 +2056,289 @@ def _eval_cli(torch, tmp):
     return launches
 
 
+@contextlib.contextmanager
+def _decisions3d(torch, record=None, replay=None):
+    """``_decisions`` for the 3-D family: record the discrete choices of the
+    forwards run inside (each ReLU's mask, each pool's tap, each sigma clip)
+    into ``record``, or make them take the choices of ``replay``. The 3-D
+    ops are PyTorch's, so the seams are ``ops.moments3d.vrelu`` and
+    ``VMaxPool3d.apply`` (ties checked as in ``_decisions``). Yields the
+    count of replayed ties."""
+    from supernet_tpu_torch import losses as L
+    from supernet_tpu_torch.ops import moments3d as M3
+
+    relu, pool_apply, clip_sigma = M3.vrelu, M3.VMaxPool3d.apply, L.clip_sigma
+    queue = iter(replay) if replay is not None else None
+    ties = {"relu": 0, "pool": 0, "clip": 0}
+
+    def tie_bound(x):
+        return VDP_TOL * float(x.detach().abs().max())
+
+    def vrelu(mu, sigma):
+        if queue is None:
+            record.append(mu.detach() > 0)
+            return relu(mu, sigma)
+        mask = next(queue).to(mu.device)
+        tie = mask != (mu.detach() > 0)
+        if tie.any():
+            if float(mu.detach()[tie].abs().max()) > tie_bound(mu):
+                _die("3-D: a ReLU mask differs away from mu = 0")
+            ties["relu"] += int(tie.sum())
+        return torch.where(mask, mu, 0.0), torch.where(mask, sigma, 0.0)
+
+    def pool(mu, sigma):
+        if queue is None:
+            record.append(M3.vmaxpool3d_plain(mu.detach(), sigma.detach())[2])
+            return pool_apply(mu, sigma)
+        mx, _, own = M3.vmaxpool3d_plain(mu.detach(), sigma.detach())
+        idx = next(queue).to(mu.device)
+        pm, ps = M3._pad_even(mu, sigma)
+        sel = [idx == k for k in range(8)]
+        m = sum(torch.where(q, t, 0.0) for q, t in zip(sel, M3._pool_taps3d(pm)))
+        s = sum(torch.where(q, t, 0.0) for q, t in zip(sel, M3._pool_taps3d(ps)))
+        tie = own != idx
+        if tie.any():
+            if float((mx - m.detach())[tie].abs().max()) > tie_bound(mu):
+                _die("3-D: a pool tap differs between taps that are not tied")
+            ties["pool"] += int(tie.sum())
+        return m, s
+
+    def clip(sigma, lo, hi):
+        if queue is None:
+            record.append((sigma.detach() < lo, sigma.detach() > hi))
+            return clip_sigma(sigma, lo, hi)
+        below, above = (m.to(sigma.device) for m in next(queue))
+        s = sigma.detach()
+        tie = (below != (s < lo)) | (above != (s > hi))
+        if tie.any():
+            near = torch.minimum((s - lo).abs() / abs(lo), (s - hi).abs() / abs(hi))
+            if float(near[tie].max()) > CLIP_TIE_RTOL:
+                _die("3-D: a sigma clip differs away from its bound")
+            ties["clip"] += int(tie.sum())
+        return torch.where(above, hi, torch.where(below, lo, sigma))
+
+    M3.vrelu, M3.VMaxPool3d.apply, L.clip_sigma = vrelu, pool, clip
+    try:
+        yield ties
+    finally:
+        M3.vrelu, L.clip_sigma = relu, clip_sigma
+        del M3.VMaxPool3d.apply
+
+
+def _he_params3d(torch, cfg, seed=SEED):
+    """``init_params3d`` with each w_mu rescaled to He scale (std
+    sqrt(2 / fan_in)), for the reason ``_he_params`` gives."""
+    from supernet_tpu_torch.models import init_params3d
+
+    params = init_params3d(torch.Generator().manual_seed(seed), cfg, "cpu")
+    for p in params.values():
+        k, _, _, cin, _ = p["w_mu"].shape
+        p["w_mu"] *= math.sqrt(2.0 / (k ** 3 * cin)) / p["w_mu"].std()
+    return params
+
+
+def _cli_json(cli, argv):
+    """Run ``cli.main(argv)`` in process; its JSON lines."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    if rc != 0:
+        _die(f"cli {' '.join(argv)}: rc {rc}")
+    return [json.loads(ln) for ln in buf.getvalue().splitlines() if ln.startswith("{")]
+
+
+def _three_d(torch, smi, tmp):
+    """Phase 18. Returns the kernel launches over the whole phase."""
+    import numpy as np
+
+    from supernet_tpu_torch import cli, profiling
+    from supernet_tpu_torch import train as T
+    from supernet_tpu_torch import train3d as T3
+    from supernet_tpu_torch.checkpoint import save_params_npz
+    from supernet_tpu_torch.configs import HIPPOCAMPUS
+    from supernet_tpu_torch.flops import forward_flops3d, train_step_flops3d
+    from supernet_tpu_torch.models import forward3d
+    from supernet_tpu_torch.serving import InferenceSession
+
+    t_phase = time.perf_counter()
+    exp = HIPPOCAMPUS
+    cfg = dataclasses.replace(exp.model, out_size=T3.derive_out_size3d(exp.model))
+    tc, batch = exp.train, 4
+    s, o, c = cfg.image_size, cfg.out_size, cfg.n_classes
+    if (s, o, cfg.base_kernels, cfg.depth) != (64, 54, 32, 3):
+        _die(f"3-D: hippocampus config {(s, o, cfg.base_kernels, cfg.depth)}")
+    params = _he_params3d(torch, cfg)
+    rng = np.random.default_rng(SEED)
+    x = rng.normal(0.0, 1.0, (batch, s, s, s, cfg.in_channels)).astype(np.float32)
+    y = rng.integers(0, c, (batch, o, o, o)).astype(np.int32)
+    torch.cuda.synchronize()
+    _zero_launches()
+
+    # forward at batch 4, volume 0 against the CPU
+    gpu_params = {k: {n: t.cuda() for n, t in w.items()} for k, w in params.items()}
+    with torch.no_grad():
+        pg, sg = forward3d(gpu_params, torch.from_numpy(x).cuda(), cfg)
+        pc, sc = forward3d(params, torch.from_numpy(x[:1]), cfg)
+    pg, sg = pg.cpu().numpy(), sg.cpu().numpy()
+    if pg.shape != (batch, o ** 3, c) or not (np.isfinite(pg).all() and np.isfinite(sg).all()):
+        _die(f"3-D forward: shape {pg.shape} or non-finite values")
+    fwd_err = _serving_close("3-D forward, volume 0 against the CPU", pg[:1], sg[:1],
+                             pc.numpy(), sc.numpy())
+
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        # step-1 loss at batch 4 and gradient on volume 0 against the CPU,
+        # the card's ReLU masks, pool taps and clips replayed there
+        def loss_of(state, xb, yb):
+            dev = state.params["conv_input"]["w_mu"].device
+            y1h = T.one_hot_flatten(torch.from_numpy(yb).to(dev), c)
+            return T3._loss3d(state.params, torch.from_numpy(xb).to(dev), y1h, cfg, tc)[0]
+
+        gpu, _ = T.create_train_state(params, tc, "cuda")
+        cpu, _ = T.create_train_state(params, tc, "cpu")
+        with torch.no_grad():
+            loss_gpu = float(loss_of(gpu, x, y))
+            loss_cpu = float(loss_of(cpu, x, y))
+        loss_err = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+        if not loss_err <= TRAIN_LOSS_RTOL:
+            _die(f"3-D training: step-1 loss {loss_gpu} against the CPU's {loss_cpu}")
+        choices = []
+        with _decisions3d(torch, record=choices):
+            g_gpu = torch.autograd.grad(loss_of(gpu, x[:1], y[:1]), T.leaves(gpu.params))
+        with _decisions3d(torch, replay=choices) as ties:
+            g_cpu = torch.autograd.grad(loss_of(cpu, x[:1], y[:1]), T.leaves(cpu.params))
+        worst_g = max(_max_rel(torch, g, r) for g, r in zip(g_gpu, g_cpu))
+        if not worst_g <= TRAIN_GRAD_TOL:
+            _die(f"3-D training: gradients on volume 0 differ from the CPU's by "
+                 f"{worst_g:.3e} of a leaf's max > {TRAIN_GRAD_TOL}")
+        del g_gpu, g_cpu, cpu
+        step = T3.make_train_step3d(cfg, tc)
+        losses = []
+        for _ in range(3):
+            gpu, m = step(gpu, x, y)
+            losses.append(float(m.loss))
+        if not all(math.isfinite(v) for v in losses):
+            _die(f"3-D training: losses {losses}")
+        if abs(losses[0] - loss_gpu) > TRAIN_LOSS_RTOL * abs(loss_gpu):
+            _die(f"3-D training: step 1 loss {losses[0]} against its forward's {loss_gpu}")
+        del gpu
+
+    # throughput: profiling's train profile (3 warm-up, median of 10, 10
+    # traced), remat off and on
+    profiles = {}
+    for remat in (False, True):
+        torch.cuda.empty_cache()
+        prof = profiling.profile_train_step3d("hippocampus", batch, SEED, remat=remat)
+        profiles["remat" if remat else "plain"] = {
+            k: prof[k] for k in ("vols_per_s", "step_ms_median", "device_ms_per_step",
+                                 "device_busy_ms_per_step", "idle_share",
+                                 "peak_memory_bytes", "conv3d_share",
+                                 "device_events_per_step", "categories_ms_per_step")}
+    flops_step = train_step_flops3d(cfg, batch)
+
+    # the CLI in process, on its default device
+    run = os.path.join(tmp, "train3d")
+    b = ["--batch-size", str(batch)]
+    t0 = time.perf_counter()
+    trained = _cli_json(cli, ["train3d", "--synthetic", "12", "--epochs", "1", *b,
+                              "--out-dir", run])[-1]
+    train_s = time.perf_counter() - t0
+    if not os.path.isfile(os.path.join(run, "epoch_0", "state.pt")) or not all(
+            math.isfinite(v) for v in trained.values()):
+        _die(f"cli train3d: {trained}, files {sorted(os.listdir(run))}")
+    ck = ["--checkpoint", run, "--synthetic", str(batch), *b]
+    ev = _cli_json(cli, ["eval3d", *ck, "--images-n", "1", "--out-dir",
+                         os.path.join(tmp, "eval3d")])[0]
+    atk_dir = os.path.join(tmp, "attack3d")
+    eps = exp.attack.epsilon
+    atk = _cli_json(cli, ["attack3d", *ck, "--max-adv-step", "2", "--images-n", "1",
+                          "--out-dir", atk_dir])[0]
+    with open(os.path.join(atk_dir, "uncertainty_info.pkl"), "rb") as f:
+        adv = pickle.load(f)[2]
+    from supernet_tpu_torch.data import synthetic_volumes
+
+    x_eval, _ = synthetic_volumes(cfg, batch, seed=1)  # what attack3d drew
+    # the ball and the range exactly, in the attack's own float32 arithmetic
+    if adv.shape != x_eval.shape or not (
+            np.all(adv >= x_eval - eps) and np.all(adv <= x_eval + eps)
+            and adv.min() >= x_eval.min() and adv.max() <= x_eval.max()):
+        _die("cli attack3d: an adversarial volume leaves the epsilon-ball or the range")
+    cal = _cli_json(cli, ["calibrate3d", *ck, "--out-dir", os.path.join(tmp, "cal3d")])[0]
+    sal = _cli_json(cli, ["saliency3d", *ck, "--images-n", "2", "--out-dir",
+                          os.path.join(tmp, "sal3d")])[0]
+    for name, res, key in (("eval3d", ev, "accuracy"), ("attack3d", atk, "snr_db"),
+                           ("calibrate3d", cal, "ece")):
+        if not math.isfinite(res[key]):
+            _die(f"cli {name}: {key} = {res[key]}")
+    if sal["saliency_maps"] != 2:
+        _die(f"cli saliency3d: {sal}")
+
+    # predict3d on a non-cube volume (two tiles along D) against the CPU's
+    # tiled answer, from the He-scaled parameters in an npz: at the raw init
+    # (which the CLI's two train steps barely move) the 3-D activations grow
+    # about 2x per layer and the softmax saturates, so no float32 comparison
+    # of two implementations is well-posed there (see _he_params)
+    npz = os.path.join(tmp, "three_d.npz")
+    save_params_npz(npz, params)
+    vol = rng.normal(0.0, 1.0, (100, 50, 50)).astype(np.float32)
+    vol_path = os.path.join(tmp, "volume.npy")
+    np.save(vol_path, vol)
+    pred = _cli_json(cli, ["predict3d", "--volume", vol_path, "--checkpoint", npz, *b,
+                           "--save-probs", "--out-dir", os.path.join(tmp, "pred3d")])[0]
+    norm = (vol - vol.min()) / max(float(vol.max() - vol.min()), 1e-8)
+    cpu_sess = InferenceSession(params, cfg, batch_size=2, device="cpu", volumetric=True)
+    ref_p, ref_s = cpu_sess.predict_volume(norm, overlap=8)
+    pred_err = _serving_close("cli predict3d against the CPU's tiled answer",
+                              np.load(pred["probs"]), np.load(pred["sigma"]), ref_p, ref_s)
+
+    # export --volumetric; model.pt2 on the CPU against the card's session
+    out = os.path.join(tmp, "export3d")
+    meta = _cli_json(cli, ["export", "--volumetric", "--checkpoint", npz,
+                           "--export-batch-size", "2", "--out-dir", out])[0]
+    if sorted(os.listdir(out)) != ["export_meta.json", "model.pt2", "params.npz"] \
+            or meta["output_shape"] != [2, o, o, o, c]:
+        _die(f"cli export --volumetric: {meta}")
+    program = torch.export.load(os.path.join(out, "model.pt2")).module()
+    with torch.no_grad():
+        ep, es = (t.numpy() for t in program(torch.from_numpy(x[:2])))
+    card = InferenceSession(params, cfg, batch_size=2, device="cuda",
+                            volumetric=True).predict(x[:2])
+    export_err = _serving_close("model.pt2 on the CPU against the card's 3-D session",
+                                card[0], card[1], ep, es)
+
+    launches = _read_launches()
+    if any(launches.values()):
+        _die(f"3-D: the 2-D kernels were launched in the 3-D phase: {launches}")
+    phase_s = time.perf_counter() - t_phase
+    print(json.dumps({
+        "three_d": "forward3d, train3d, the 3-D CLI (hippocampus 3-D: cube 64, "
+                   "base 32, depth 3, out 54, batch 4)",
+        "card": smi, "batch": batch, "launches_of_kernels_1_4": launches,
+        "forward_gflop_per_volume": forward_flops3d(cfg, 1) / 1e9,
+        "train_step_tflop": flops_step / 1e12,
+        "forward_probs_max_abs_err_vs_cpu": fwd_err[0],
+        "forward_sigma_share_beyond_rtol": fwd_err[2],
+        "step1_loss": loss_gpu, "step1_loss_rel_err_vs_cpu_batch4": loss_err,
+        "grad_max_rel_err_vs_cpu_volume0": worst_g,
+        "grad_share_of_limit": worst_g / TRAIN_GRAD_TOL, "grad_ties_replayed": ties,
+        "losses_3_steps": losses,
+        "profile": profiles,
+        "tflop_per_s_plain": flops_step / (profiles["plain"]["step_ms_median"] / 1e3) / 1e12,
+        "cli_train3d": trained, "cli_train3d_s": train_s,
+        "cli_eval3d_accuracy": ev["accuracy"], "cli_attack3d_snr_db": atk["snr_db"],
+        "cli_calibrate3d_ece": cal["ece"],
+        "predict3d": {k: pred[k] for k in ("volume", "class_voxels", "mean_uncertainty")},
+        "predict3d_probs_max_abs_err_vs_cpu": pred_err[0],
+        "predict3d_sigma_share_beyond_rtol": pred_err[2],
+        "export3d_probs_max_abs_err_vs_card": export_err[0],
+        "export3d_sigma_share_beyond_rtol": export_err[2],
+        "phase_s": phase_s,
+    }), flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2165,6 +2468,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         ensemble_launches = _serving_rest(torch, smi, tmp)
 
+    # 18. the 3-D family at full width
+    with tempfile.TemporaryDirectory() as tmp:
+        three_d_launches = _three_d(torch, smi, tmp)
+
     sources = {
         "vdp_conv": ("supernet_tpu_torch/csrc/vdp_conv.cu",
                      "supernet_tpu/ops/pallas/vdp_conv.py:125"),
@@ -2181,7 +2488,9 @@ def main() -> int:
     # trainer's run of phase 8; cli_launches: the first cli train of phase 10;
     # attack_gradient_launches: one gradient with respect to a hippocampus
     # batch of 20 (phase 12); adversarial_eval_launches: run_adversarial on 40
-    # hippocampus images (phase 13); study_launches: cli study (phase 15).
+    # hippocampus images (phase 13); study_launches: cli study (phase 15);
+    # three_d_launches: the whole of phase 18 (0: the 3-D family has no
+    # hand-written kernel).
     # vdp_conv's bound_ms is the CUDA cores' float32 bound; bound_3xtf32_ms
     # that of its tensor-core path.
     summary = []
@@ -2237,6 +2546,7 @@ def main() -> int:
             "study_launches": study_launches[kernel],
             "bf16_train_launches": bf16_launches["hippocampus"]["bfloat16"][kernel],
             "ensemble_chunk_launches": ensemble_launches[kernel],
+            "three_d_launches": three_d_launches[kernel],
             "max_abs_err": check.worst[kernel][0],
             "max_rel_err": check.worst[kernel][1],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,

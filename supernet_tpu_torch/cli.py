@@ -8,19 +8,26 @@
     python -m supernet_tpu_torch.cli attack --config brats --checkpoint RUN --data 'batches/*.pkl'
     python -m supernet_tpu_torch.cli study  --config hippocampus --synthetic 400 --epochs 5
     python -m supernet_tpu_torch.cli export --config hippocampus --checkpoint RUN --out-dir BUNDLE
+    python -m supernet_tpu_torch.cli train3d --config hippocampus --synthetic 40 --epochs 2
+    python -m supernet_tpu_torch.cli eval3d --config hippocampus --checkpoint RUN3D --synthetic 8
+    python -m supernet_tpu_torch.cli predict3d --config hippocampus --checkpoint RUN3D --volume V.nii.gz
 
-``train``, ``convert``, ``eval``, ``sweep``, ``attack``, ``calibrate``,
-``saliency``, ``study`` and ``export`` run, each printing the JSON line(s) of
-its twin;
-every other subcommand parses its flags and then raises
-``NotImplementedError`` naming the ``ROADMAP.md`` item that ports it, as do
-``--data-parallel``, ``train --ensemble K`` (K > 1) and ``convert
---to-cubes``. ``--checkpoint`` takes a run directory (its latest
-``epoch_{N}/state.pt``), one ``epoch_{N}`` directory, an ``.npz`` or a Keras
-``.h5``; ``eval``, ``calibrate`` and ``sweep`` also a comma-separated list of
-them, the members of a deep ensemble. ``--device`` defaults to ``cuda``:
-nothing falls back to the CPU when no card is found. ``--synthetic N``
-substitutes a generated dataset for the real pickles.
+``train``, ``convert`` (``--to-cubes`` too), ``eval``, ``sweep``,
+``attack``, ``calibrate``, ``saliency``, ``study``, ``export``
+(``--volumetric`` too) and the 3-D family's ``train3d``, ``predict3d``,
+``eval3d``, ``attack3d``, ``calibrate3d`` and ``saliency3d`` run, each
+printing the JSON line(s) and writing the files of its twin; ``bench`` and
+``profile`` parse their flags and then raise ``NotImplementedError`` naming
+the ``ROADMAP.md`` item that ports them, as do ``--data-parallel``,
+``--spatial-shard``, ``--hybrid-shard`` and ``--ensemble K`` (K > 1).
+``--checkpoint`` takes a run directory (its latest ``epoch_{N}/state.pt``),
+one ``epoch_{N}`` directory, an ``.npz`` or (2-D only) a Keras ``.h5``;
+``eval``, ``calibrate``, ``sweep``, ``eval3d``, ``calibrate3d`` and
+``predict3d`` also a comma-separated list of them, the members of a deep
+ensemble. The 3-D commands take ``--cube-size``, ``--base-kernels`` and
+``--depth`` and derive the output cube from the geometry. ``--device``
+defaults to ``cuda``: nothing falls back to the CPU when no card is found.
+``--synthetic N`` substitutes a generated dataset for the real data.
 """
 
 from __future__ import annotations
@@ -33,12 +40,6 @@ import sys
 
 # subcommand -> the ROADMAP.md item (Queue 1) that ports it
 _UNPORTED = {
-    "train3d": "'3-D family' (train3d.py)",
-    "eval3d": "'3-D family' (evaluate3d.py)",
-    "attack3d": "'3-D family' (evaluate3d.py)",
-    "calibrate3d": "'3-D family' (evaluate3d.py)",
-    "saliency3d": "'3-D family' (evaluate3d.py)",
-    "predict3d": "'3-D family' (tiling.predict_volume)",
     "bench": "'Port bench and FLOP counts' (supernet_tpu_torch.bench)",
     "profile": "'CLI and profiling, rest' (python -m "
                "supernet_tpu_torch.profiling is the port's profiler until then)",
@@ -512,14 +513,115 @@ def _load_data(exp, args, split="test"):
     return PickleDataset(xte, yte, exp.model.in_channels)
 
 
+def _cfg3d(exp, args):
+    """Apply the 3-D shape overrides and derive out_size from the
+    volumetric geometry (shared by every 3-D command, so an evaluated model
+    matches its training shape)."""
+    from supernet_tpu_torch.train3d import derive_out_size3d
+
+    cfg = exp.model
+    if args.cube_size:
+        cfg = dataclasses.replace(cfg, image_size=args.cube_size)
+    if args.base_kernels:
+        cfg = dataclasses.replace(cfg, base_kernels=args.base_kernels)
+    if args.depth:
+        cfg = dataclasses.replace(cfg, depth=args.depth, bottleneck_pre_pad=None)
+    cfg = dataclasses.replace(cfg, out_size=derive_out_size3d(cfg))
+    return dataclasses.replace(exp, model=cfg)
+
+
+def _load_volumes(exp, args, seed=0):
+    """Cube dataset for the 3-D family: ``--synthetic N`` blobs, a cube
+    .npy shard directory (``convert --to-cubes`` output), or a NIfTI task
+    directory (imagesTr/labelsTr of .nii[.gz]) cut to ``cfg.image_size``
+    cubes by ``data.volume_to_cube``."""
+    import glob
+
+    import numpy as np
+
+    cfg = exp.model
+    if args.synthetic:
+        from supernet_tpu_torch.data import synthetic_volumes
+
+        return synthetic_volumes(cfg, args.synthetic, seed=seed)
+    src = args.data or exp.data_path
+    if src and glob.glob(os.path.join(src, "x_*.npy")):
+        from supernet_tpu_torch.data import shard_pairs
+
+        pairs = shard_pairs(src)
+        x = np.concatenate([np.load(xp) for xp, _ in pairs])
+        y = np.concatenate([np.load(yp) for _, yp in pairs])
+        if x.shape[1] != cfg.image_size:
+            raise SystemExit(
+                f"cube shards in {src} are {x.shape[1]}^3 but the config "
+                f"expects {cfg.image_size}^3; re-convert or pass "
+                f"--cube-size {x.shape[1]}"
+            )
+        return x, y
+    from supernet_tpu_torch.data import read_nifti, volume_to_cube
+
+    img_dir = (os.path.join(src, "imagesTr")
+               if os.path.isdir(os.path.join(src, "imagesTr")) else src)
+    lbl_dir = os.path.join(os.path.dirname(img_dir), "labelsTr")
+    xs, ys = [], []
+    max_volumes = getattr(args, "max_volumes", 0)
+    for p in sorted(glob.glob(os.path.join(img_dir, "*.nii*"))):
+        if os.path.basename(p).startswith("._"):
+            continue
+        if max_volumes and len(xs) >= max_volumes:
+            break
+        lp = os.path.join(lbl_dir, os.path.basename(p))
+        if not os.path.exists(lp):
+            # never score or train against silently zeroed labels
+            raise SystemExit(
+                f"no label for volume {p} (expected {lp}); the 3-D "
+                "commands need labelsTr to match imagesTr"
+            )
+        cx, cy = volume_to_cube(read_nifti(p)[0], read_nifti(lp)[0], cfg.image_size)
+        xs.append(cx)
+        ys.append(cy)
+    if not xs:
+        raise SystemExit(f"no .nii[.gz] volumes under {img_dir}")
+    return np.stack(xs), np.stack(ys)
+
+
+def _val_count(n: int, frac: float, batch: int) -> int:
+    """train3d's trailing hold-out: a nonzero fraction is rounded up to one
+    full batch, capped so that one training batch always remains. The 3-D
+    evaluation commands use the same formula, so their --val-frac tail is
+    the set train3d never trained on."""
+    n_val = int(n * frac)
+    if n_val > 0:
+        n_val = max(n_val, batch)
+    return min(n_val, max(n - batch, 0))
+
+
 def _convert(exp, args) -> int:
     if args.to_cubes and not args.from_nifti:
         raise SystemExit(
             "--to-cubes reads raw NIfTI volumes; pass --from-nifti "
             "with a Medical-Segmentation-Decathlon task directory"
         )
+    if args.to_cubes and (args.split != "train" or args.keep_empty):
+        raise SystemExit(
+            "--split/--keep-empty apply to 2-D slice extraction only; "
+            "the cube path reads every imagesTr volume whole (cap the "
+            "count with --max-volumes)"
+        )
     if args.to_cubes:
-        raise _unported("convert --to-cubes", "'3-D family' (cube shards)")
+        from supernet_tpu_torch.data import write_shards
+
+        if args.cube_size:
+            exp = exp.replace(model=dataclasses.replace(
+                exp.model, image_size=args.cube_size))
+        x, y = _load_volumes(exp, args, seed=0)
+        pairs = write_shards(args.out, x, y, shard_size=args.shard_size,
+                             volumetric=True)
+        print(json.dumps({
+            "shards": len(pairs), "out": args.out,
+            "volumes": int(len(x)), "cube": int(x.shape[1]),
+        }))
+        return 0
     if args.from_nifti:
         from supernet_tpu_torch.data import convert_nifti_dir
 
@@ -562,7 +664,8 @@ def _load_maybe_ensemble(load_one, exp, args, cmd_ok=True):
         if not cmd_ok:
             raise SystemExit(
                 f"{args.cmd} takes ONE checkpoint; a comma-separated "
-                "ensemble list is served by eval/calibrate/sweep"
+                "ensemble list is served by eval/calibrate/sweep "
+                "(2-D and 3-D) and predict3d"
             )
         return [load_one(exp, args, src=s) for s in srcs]
     return load_one(exp, args)
@@ -585,6 +688,35 @@ def _load_params(exp, args, src=_UNSET):
         return init_params(torch.Generator().manual_seed(0), cfg, args.device)
     if src.endswith(".h5"):
         return ckpt.import_keras_h5(src, cfg, args.device)
+    if src.endswith(".npz"):
+        return ckpt.load_params_npz(src, args.device)
+    root, epoch = ckpt.resolve_checkpoint(src)
+    if epoch is None:
+        raise FileNotFoundError(f"no epoch_{{N}} checkpoints under {src}")
+    state = ckpt.restore_state(root, epoch, exp.train, args.device)
+    return {layer: {name: t.detach() for name, t in ws.items()}
+            for layer, ws in state.params.items()}
+
+
+def _load_params3d(exp, args, src=_UNSET):
+    """Volumetric params on ``args.device``: random init, .npz, or the
+    latest ``epoch_{N}/state.pt`` under --checkpoint (what train3d
+    writes)."""
+    import torch
+
+    from supernet_tpu_torch import checkpoint as ckpt
+    from supernet_tpu_torch.models import init_params3d
+
+    if src is _UNSET:
+        src = args.checkpoint
+    if src is None:
+        print("warning: no --checkpoint; using random init", file=sys.stderr)
+        return init_params3d(torch.Generator().manual_seed(0), exp.model, args.device)
+    if src.endswith(".h5"):
+        raise SystemExit(
+            "Keras .h5 import is 2-D-only; the 3-D family restores from "
+            "epoch_{N} dirs or .npz params"
+        )
     if src.endswith(".npz"):
         return ckpt.load_params_npz(src, args.device)
     root, epoch = ckpt.resolve_checkpoint(src)
@@ -769,14 +901,20 @@ def _export(exp, args) -> int:
     from supernet_tpu_torch.serving import export_bundle
 
     if args.volumetric:
-        raise _unported("export --volumetric", "'3-D family' (the volumetric forward)")
-    params = _load_maybe_ensemble(_load_params, exp, args)
+        # the 3-D bundle: the cube geometry, a 3-D checkpoint
+        exp = _cfg3d(exp, args)
+        params = _load_maybe_ensemble(_load_params3d, exp, args, cmd_ok=False)
+        out_dir = args.out_dir or f"{exp.out_dir}/{exp.name}_3d/export"
+    else:
+        params = _load_maybe_ensemble(_load_params, exp, args)
+        out_dir = args.out_dir or f"{exp.out_dir}/{exp.name}/export"
     meta = export_bundle(
         params,
         exp.model,
-        args.out_dir or f"{exp.out_dir}/{exp.name}/export",
+        out_dir,
         batch_size=args.export_batch_size,
         config_name=exp.name,
+        volumetric=args.volumetric,
         variance_scale=args.variance_scale,
         temperature=args.temperature,
     )
@@ -810,6 +948,255 @@ def _train(exp, args) -> int:
     return 0
 
 
+def _train3d(exp, args) -> int:
+    from supernet_tpu_torch.train3d import Trainer3D
+
+    if args.checkpoint:
+        raise SystemExit(
+            "train3d resumes via --continue-training from --out-dir; "
+            "--checkpoint is not used here"
+        )
+    for flag, on in (("--spatial-shard", args.spatial_shard),
+                     ("--hybrid-shard", args.hybrid_shard),
+                     ("--data-parallel", args.data_parallel)):
+        if on:
+            raise _unported(f"train3d {flag}", "'Parallelism' (parallel/spatial.py, "
+                            "parallel/hybrid.py, parallel/data_parallel.py)")
+    if args.ensemble > 1:
+        raise _unported("train3d --ensemble K > 1", "'Ensembles' (ensemble.py)")
+    exp = _cfg3d(exp, args)
+    x, y = _load_volumes(exp, args, seed=0)
+    # --val-frac 0 means no validation (see _val_count)
+    n_val = _val_count(len(x), args.val_frac, exp.train.batch_size)
+    if n_val > 0:
+        x_tr, y_tr, x_val, y_val = x[:-n_val], y[:-n_val], x[-n_val:], y[-n_val:]
+    else:
+        x_tr, y_tr, x_val, y_val = x, y, None, None
+    init3d = None
+    if args.init_from_2d:
+        from supernet_tpu_torch.models import inflate_params3d
+
+        # the 2-D checkpoint must match this config's layer map
+        # (inflate_params3d checks it layer by layer)
+        init3d = inflate_params3d(_load_params(exp, args, src=args.init_from_2d),
+                                  exp.model)
+        print(f"transfer init: inflated 2-D checkpoint {args.init_from_2d} "
+              "into the 3-D model", file=sys.stderr)
+    tr = Trainer3D(exp, x_tr, y_tr, x_val, y_val, out_dir=args.out_dir,
+                   initial_params=init3d,
+                   steps_per_dispatch=args.steps_per_dispatch, device=args.device)
+    tr.run()
+    print(json.dumps({k: v[-1] for k, v in tr.history.items() if v}))
+    return 0
+
+
+def _load_volume_file(path, cfg, name):
+    """One .nii[.gz] / .npy volume as [D, H, W, C] float32, each modality
+    min-max normalized like the training ingestion
+    (``data.volume_to_cube``); returns ``(volume, is_nifti)``."""
+    import numpy as np
+
+    if path.endswith((".nii", ".nii.gz")):
+        from supernet_tpu_torch.data import read_nifti
+
+        vol, nifti = read_nifti(path)[0], True
+    elif path.endswith(".npy"):
+        vol, nifti = np.load(path), False
+    else:
+        raise SystemExit(f"unsupported volume format: {path} "
+                         "(.nii / .nii.gz / .npy)")
+    vol = np.asarray(vol, np.float32)
+    if vol.ndim == 3:
+        vol = vol[..., None]
+    if vol.ndim != 4:
+        raise SystemExit(f"{path}: expected a 3-D volume, got shape {vol.shape}")
+    if vol.shape[-1] != cfg.in_channels:
+        raise SystemExit(
+            f"{path}: volume has {vol.shape[-1]} modalities; "
+            f"config {name} expects {cfg.in_channels}"
+        )
+    flat = vol.reshape(-1, vol.shape[-1])
+    lo, hi = flat.min(axis=0), flat.max(axis=0)
+    return (vol - lo) / np.maximum(hi - lo, 1e-8), nifti
+
+
+def _predict3d(exp, args) -> int:
+    import glob
+
+    import numpy as np
+
+    from supernet_tpu_torch.serving import EnsembleSession, InferenceSession
+
+    if args.data_parallel:
+        raise _unported("predict3d --data-parallel",
+                        "'Parallelism' (parallel/data_parallel.py)")
+    exp = _cfg3d(exp, args)
+    cfg = exp.model
+    if os.path.isdir(args.volume):
+        paths = sorted(
+            p for pat in ("*.nii", "*.nii.gz", "*.npy")
+            for p in glob.glob(os.path.join(args.volume, pat))
+            if not os.path.basename(p).startswith(".")
+        )
+        if not paths:
+            raise SystemExit(f"no .nii/.nii.gz/.npy volumes under {args.volume}")
+    else:
+        paths = [args.volume]
+    # one session for every volume; a comma-separated --checkpoint serves
+    # the deep ensemble (member disagreement enters the variance map)
+    common = dict(batch_size=args.batch_size or 4, volumetric=True,
+                  variance_scale=args.variance_scale,
+                  temperature=args.temperature, device=args.device)
+    srcs = _checkpoint_list(args)
+    if len(srcs) > 1:
+        sess = EnsembleSession([_load_params3d(exp, args, src=s) for s in srcs],
+                               cfg, **common)
+    else:
+        sess = InferenceSession(_load_params3d(exp, args), cfg, **common)
+    out_dir = args.out_dir or f"{exp.out_dir}/{exp.name}_3d/predict"
+    os.makedirs(out_dir, exist_ok=True)
+    multi = len(paths) > 1
+    for path in paths:
+        vol, is_nifti = _load_volume_file(path, cfg, exp.name)
+        probs, sigma = sess.predict_volume(
+            vol, overlap=args.overlap, weight=args.blend, pad_mode=args.pad_mode)
+        seg = np.argmax(probs, axis=-1).astype(np.int32)
+        # the predictive variance at the predicted class
+        unc = np.take_along_axis(sigma, seg[..., None], axis=-1)[..., 0]
+        stem = os.path.basename(path)
+        for suf in (".nii.gz", ".nii", ".npy"):
+            if stem.endswith(suf):
+                stem = stem[: -len(suf)]
+                break
+        pre = f"{stem}_" if multi else ""
+        ext = ".nii.gz" if is_nifti else ".npy"
+        seg_path = os.path.join(out_dir, f"{pre}segmentation{ext}")
+        unc_path = os.path.join(out_dir, f"{pre}uncertainty{ext}")
+        if is_nifti:
+            from supernet_tpu_torch.data import write_nifti
+
+            write_nifti(seg_path, seg)
+            write_nifti(unc_path, unc.astype(np.float32))
+        else:
+            np.save(seg_path, seg)
+            np.save(unc_path, unc.astype(np.float32))
+        extra = {}
+        if args.save_probs:
+            pp = os.path.join(out_dir, f"{pre}probs.npy")
+            sp = os.path.join(out_dir, f"{pre}sigma.npy")
+            np.save(pp, probs)
+            np.save(sp, sigma)
+            extra = {"probs": pp, "sigma": sp}
+        counts = np.bincount(seg.ravel(), minlength=cfg.n_classes)
+        print(json.dumps({
+            "input": path,
+            "volume": list(vol.shape),
+            "cube": cfg.image_size,
+            "out_cube": cfg.out_size,
+            "overlap": args.overlap,
+            "blend": args.blend,
+            "class_voxels": [int(c) for c in counts],
+            "mean_uncertainty": float(unc.mean()),
+            "max_uncertainty": float(unc.max()),
+            "segmentation": seg_path,
+            "uncertainty": unc_path,
+            **extra,
+        }))
+    return 0
+
+
+def _saliency3d(exp, args, params, x) -> dict:
+    import torch
+
+    from supernet_tpu_torch.attacks import make_saliency_map
+    from supernet_tpu_torch.models import forward3d
+    from supernet_tpu_torch.reports import save_saliency_maps
+
+    cfg = exp.model
+    sal = make_saliency_map(cfg, forward_fn=forward3d)
+    cmask = torch.zeros(cfg.n_classes, device=args.device)
+    if args.target_class is None:  # all foreground
+        cmask[1:] = 1.0
+    else:
+        cmask[args.target_class] = 1.0
+    out_dir = args.out_dir or f"{exp.out_dir}/{exp.name}_3d/saliency"
+    count = 0
+    b = exp.train.batch_size
+    for i in range(0, len(x), b):
+        x_np = x[i : i + b]
+        xb = torch.as_tensor(x_np, device=args.device)
+        g, g_relu = (t.cpu().numpy() for t in sal(params, xb, cmask))
+        mid = xb.shape[1] // 2
+        for j in range(len(x_np)):
+            if count >= args.images_n:
+                break
+            # the center axial slice of the volumetric gradient
+            save_saliency_maps(out_dir, x_np[j, mid], g[j, mid], g_relu[j, mid],
+                               index=count)
+            count += 1
+        if count >= args.images_n:
+            break
+    return {"saliency_maps": count, "out_dir": out_dir}
+
+
+def _evaluate3d(exp, args) -> int:
+    """eval3d, attack3d, calibrate3d and saliency3d on cubes: a checkpoint
+    (or, for eval3d / calibrate3d, an ensemble of them) on held-out
+    volumes."""
+    if args.data_parallel:
+        raise _unported(f"{args.cmd} --data-parallel (the scan-axis sharding)",
+                        "'Parallelism' (parallel/spatial.py)")
+    exp = _cfg3d(exp, args)
+    x, y = _load_volumes(exp, args, seed=1)
+    # score the held-out volumes only: the trailing train3d --val-frac
+    # split (synthetic data draws a fresh set already)
+    if not args.synthetic and getattr(args, "val_frac", 0) > 0:
+        n_val = _val_count(len(x), args.val_frac, exp.train.batch_size)
+        if n_val > 0:
+            x, y = x[-n_val:], y[-n_val:]
+            print(
+                f"note: scoring the trailing {n_val} held-out volumes "
+                f"(--val-frac {args.val_frac}); pass --val-frac 0 to "
+                "score everything incl. training volumes",
+                file=sys.stderr,
+            )
+    params = _load_maybe_ensemble(_load_params3d, exp, args,
+                                  cmd_ok=args.cmd in ("eval3d", "calibrate3d"))
+    from supernet_tpu_torch import evaluate3d as E3
+
+    if args.cmd == "eval3d":
+        if args.sweep:
+            for r in E3.run_noise_sweep3d(
+                    exp, params, x, y, images_n=args.images_n,
+                    mc_samples=args.mc_samples,
+                    artifact_max_samples=args.artifact_max_samples,
+                    device=args.device):
+                print(_scalars(r))
+            return 0
+        from supernet_tpu_torch.configs import NoiseConfig
+
+        nc = NoiseConfig(kind=args.noise_kind, std=args.noise_std,
+                         region=args.noise_region)
+        res = E3.run_testing3d(exp, params, x, y, nc, out_dir=args.out_dir,
+                               images_n=args.images_n, mc_samples=args.mc_samples,
+                               artifact_max_samples=args.artifact_max_samples,
+                               device=args.device)
+    elif args.cmd == "attack3d":
+        res = E3.run_adversarial3d(exp, params, x, y, out_dir=args.out_dir,
+                                   images_n=args.images_n,
+                                   artifact_max_samples=args.artifact_max_samples,
+                                   device=args.device)
+    elif args.cmd == "saliency3d":
+        res = _saliency3d(exp, args, params, x)
+    else:
+        out_dir = args.out_dir or f"{exp.out_dir}/{exp.name}_3d/calibration"
+        res = E3.run_calibration3d(exp, params, x, y, out_dir=out_dir,
+                                   n_bins=args.bins, mc_samples=args.mc_samples,
+                                   device=args.device)
+    print(_scalars(res))
+    return 0
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     # the process-level knobs (SUPERNET_ACT_DTYPE, SUPERNET_PRECISION), as
@@ -831,6 +1218,12 @@ def main(argv=None) -> int:
         return _train(exp, args)
     if args.cmd == "export":
         return _export(exp, args)
+    if args.cmd == "train3d":
+        return _train3d(exp, args)
+    if args.cmd == "predict3d":
+        return _predict3d(exp, args)
+    if args.cmd in ("eval3d", "attack3d", "calibrate3d", "saliency3d"):
+        return _evaluate3d(exp, args)
     return _evaluate(exp, args)
 
 

@@ -1,10 +1,11 @@
 """The port's data pipeline: NumPy loaders, .npy shards, NIfTI ingestion,
-synthetic data and on-device augmentation (2-D)."""
+synthetic data and on-device augmentation."""
 
 from supernet_tpu_torch.configs import AugmentConfig
 from supernet_tpu_torch.data.augment import (
     augment_batch,
     augment_train_batch,
+    augment_volumes,
 )
 from supernet_tpu_torch.data.loaders import (
     BatchIterator,
@@ -36,6 +37,7 @@ __all__ = [
     "AugmentConfig",
     "augment_batch",
     "augment_train_batch",
+    "augment_volumes",
     "BatchIterator",
     "PickleDataset",
     "ShardDataset",

@@ -1,4 +1,4 @@
-"""On-device data augmentation (2-D): the counterpart of
+"""On-device data augmentation, images and volumes: the counterpart of
 ``supernet_tpu/data/augment.py``.
 
 Applied inside the train step on the parameters' device. The properties of
@@ -19,9 +19,13 @@ the JAX module are kept:
   image). Only the optional Gaussian noise field is drawn on the tensor's
   own device, from a generator keyed by ``(seed, step, index_offset)``.
 
+Volumes (``augment_volumes``) draw four spatial values each
+(``volume_draws``): a quarter turn in the axial H-W plane and a flip of each
+of the D, H and W axes, as ``supernet_tpu/data/augment.py:154-207`` does;
+the intensity draws are the images'.
+
 ``torch`` streams differ from ``jax.random``: the two packages agree by
-these invariants and by distribution, never value for value. The volumetric
-``augment_volumes`` comes with the 3-D family.
+these invariants and by distribution, never value for value.
 """
 
 from __future__ import annotations
@@ -38,7 +42,9 @@ __all__ = [
     "AugmentConfig",
     "augment_batch",
     "augment_train_batch",
+    "augment_volumes",
     "image_draws",
+    "volume_draws",
 ]
 
 _MASK63 = (1 << 63) - 1
@@ -56,20 +62,32 @@ def _mix(*words: int) -> int:
     return h & _MASK63
 
 
+def _draws(key: int, n: int, index_offset: int, n_bits: int) -> Tuple[Tensor, Tensor]:
+    bits = torch.empty((n, n_bits), dtype=torch.int64)
+    u = torch.empty((n, 2), dtype=torch.float32)
+    g = torch.Generator()
+    for i in range(n):
+        g.manual_seed(_mix(key, index_offset + i))
+        bits[i] = torch.randint(0, 4, (n_bits,), generator=g)
+        u[i] = torch.rand(2, generator=g)
+    return bits, u
+
+
 def image_draws(key: int, n: int, index_offset: int = 0) -> Tuple[Tensor, Tensor]:
     """The scalar draws of ``n`` images, on the CPU: ``bits`` int64 [n, 3]
     uniform in {0,1,2,3} (rotation count, vertical flip if < 2, horizontal
     flip if < 2) and ``u`` float32 [n, 2] uniform in [0, 1) (intensity
     scale, intensity shift). Image ``i`` is keyed by ``(key, index_offset +
     i)`` whatever the batch it arrives in."""
-    bits = torch.empty((n, 3), dtype=torch.int64)
-    u = torch.empty((n, 2), dtype=torch.float32)
-    g = torch.Generator()
-    for i in range(n):
-        g.manual_seed(_mix(key, index_offset + i))
-        bits[i] = torch.randint(0, 4, (3,), generator=g)
-        u[i] = torch.rand(2, generator=g)
-    return bits, u
+    return _draws(key, n, index_offset, 3)
+
+
+def volume_draws(key: int, n: int, index_offset: int = 0) -> Tuple[Tensor, Tensor]:
+    """The scalar draws of ``n`` volumes: ``bits`` int64 [n, 4] uniform in
+    {0,1,2,3} (axial rotation count, D flip if < 2, H flip if < 2, W flip if
+    < 2: the bit order of ``supernet_tpu/data/augment.py:_spatial_one_3d``)
+    and ``u`` as :func:`image_draws`; keyed the same way."""
+    return _draws(key, n, index_offset, 4)
 
 
 def _per_image(v: Tensor, like: Tensor) -> Tensor:
@@ -94,6 +112,23 @@ def _spatial(bits: Tensor, img: Tensor, cfg: AugmentConfig) -> Tensor:
     if cfg.hflip:
         img = torch.where(_per_image(bits[:, 2], img) < 2, img.flip(2), img)
     return img
+
+
+def _spatial3d(bits: Tensor, vol: Tensor, cfg: AugmentConfig) -> Tensor:
+    """Apply the spatial draws to a batch of [B, D, H, W, ...] volumes: a
+    quarter turn in the axial H-W plane (the D axis is the scan direction),
+    then the D (``dflip``), H (``vflip``) and W (``hflip``) flips."""
+    if cfg.rot90:
+        if vol.shape[2] != vol.shape[3]:
+            raise ValueError(f"axial rot90 needs square H/W, got {tuple(vol.shape)}")
+        rk = _per_image(bits[:, 0], vol)
+        base = torch.where(rk % 2 == 1, vol.transpose(2, 3), vol)
+        base = torch.where((rk == 1) | (rk == 2), base.flip(2), base)
+        vol = torch.where((rk == 2) | (rk == 3), base.flip(3), base)
+    for on, col, axis in ((cfg.dflip, 1, 1), (cfg.vflip, 2, 2), (cfg.hflip, 3, 3)):
+        if on:
+            vol = torch.where(_per_image(bits[:, col], vol) < 2, vol.flip(axis), vol)
+    return vol
 
 
 def _intensity(
@@ -157,3 +192,24 @@ def augment_train_batch(
     if flat:
         y_out = y_out.reshape(y.shape)
     return x_out, y_out
+
+
+def augment_volumes(
+    key: int,
+    x: Tensor,
+    y: Optional[Tensor],
+    cfg: AugmentConfig,
+    index_offset: int = 0,
+) -> Tuple[Tensor, Optional[Tensor]]:
+    """The volumetric ``augment_batch``: ``x`` [B, D, H, W, C] float, ``y``
+    int label cubes [B, d, h, w] or None. The spatial draws are shared per
+    volume between image and label (every one commutes with the symmetric
+    center crop, so the full-size image and the cropped label stay aligned);
+    intensity and noise touch the image only."""
+    bits, u = volume_draws(key, x.shape[0], index_offset)
+    x_out = _intensity(
+        u, _spatial3d(bits, x, cfg), cfg, _mix(key, index_offset, 0x6E6F697365)
+    ).contiguous()
+    if y is None:
+        return x_out, None
+    return x_out, _spatial3d(bits, y, cfg).contiguous()

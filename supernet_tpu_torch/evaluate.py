@@ -154,13 +154,15 @@ def _forward_fn(cfg, mesh=None, mc_samples: int = 0, mc_seed: int = 0):
     )
 
 
-def eval_forward_and_params(cfg, params, device, mesh=None, mc_samples=0, mc_seed=0):
+def eval_forward_and_params(cfg, params, device, mesh=None, mc_samples=0, mc_seed=0,
+                            forward_fn=forward, sampled_fn=forward_sampled):
     """``(fwd, params)`` for a runner: the parameters (one JAX-layout dict,
     or a list of ensemble members) copied to ``device``, and the forward
-    that takes them."""
+    that takes them (the model family of ``forward_fn`` / ``sampled_fn``,
+    see `make_eval_forward`)."""
     if mc_samples > 0 and mesh is not None:
         raise ValueError("mc_samples mode is single-device; drop mesh")
-    fwd = _forward_fn(cfg, mesh, mc_samples=mc_samples, mc_seed=mc_seed)
+    fwd = make_eval_forward(cfg, mesh, mc_samples, mc_seed, forward_fn, sampled_fn)
     if _reject_ensemble_modes(params, mesh, mc_samples):
         return ensemble_forward(
             fwd, [params_from_jax(p, device) for p in params]

@@ -1,5 +1,5 @@
-"""Analytic FLOP and byte counts of the 2-D VDP U-Net: the port's copy of
-the 2-D counts of ``supernet_tpu/flops.py`` (``:92-146``, ``:217-285``).
+"""Analytic FLOP and byte counts of the VDP U-Nets: the port's copy of the
+2-D and 3-D counts of ``supernet_tpu/flops.py`` (``:92-334``).
 
 The counts follow the moment primitives, per output pixel (1 MAC = 2 FLOPs):
 ``conv_input`` ``2 k^2 Cin Cout`` + the window sum ``2 k^2``; an
@@ -7,10 +7,12 @@ intermediate conv (the 1x1 head too) ``4 k^2 Cin Cout + 2 k^2``; the fused
 unpool + 2x2 conv ``4 Cin Cout``. Elementwise work is not counted. A train
 step is 3x the forward (remat's recomputation not charged). Bytes: the
 minimum traffic, every conv's input pair read once and its output pair
-written once. The geometry comes from ``models.layer_names`` and the stage
-taps of one forward (``profiling.stage_shapes``); nothing here imports JAX.
-The peak tables, ``mfu`` and ``hbm_utilization`` come with the port's
-benchmark, the 3-D counts with the 3-D family (ROADMAP.md, Queue 1).
+written once. The volumetric counts are the same one rank up (k^2 -> k^3,
+HW -> DHW). The geometry comes from ``models.layer_names`` and the stage
+taps of one forward (``profiling.stage_shapes``; in 3-D
+``models.unet3d.stage_shapes3d``, a forward on the ``meta`` device);
+nothing here imports JAX. The peak tables, ``mfu`` and ``hbm_utilization``
+come with the port's benchmark (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -88,3 +90,63 @@ def train_step_min_bytes(cfg: ModelConfig, batch: int, act_bytes: int = 2) -> fl
     the forward and backward, gradients written and read, Adam's two moments
     read and written, parameters written)."""
     return 3.0 * forward_act_bytes(cfg, batch, act_bytes) + 9.0 * param_bytes(cfg)
+
+
+def _conv_shapes3d(cfg: ModelConfig) -> Dict[str, int]:
+    """``{3-D conv layer: output side}`` (the cubes stay cubic)."""
+    from supernet_tpu_torch.models.unet3d import layer_names3d, stage_shapes3d
+
+    convs = {name for name, *_ in layer_names3d(cfg)}
+    return {name: shape[1] for name, shape in stage_shapes3d(cfg) if name in convs}
+
+
+def forward_flops3d(cfg: ModelConfig, batch: int = 1) -> float:
+    """FLOPs of one volumetric forward at ``batch``: the 2-D counting one
+    rank up; the fused unpool conv sees one nonzero tap per output voxel, so
+    it costs ``4 Cin Cout`` per voxel in either rank."""
+    from supernet_tpu_torch.models.unet3d import layer_names3d
+
+    sizes = _conv_shapes3d(cfg)
+    total = 0.0
+    for name, k, cin, cout in layer_names3d(cfg):
+        dhw = sizes[name] ** 3
+        k3 = k ** 3
+        if name == "conv_input":
+            f = dhw * (2 * k3 * cin * cout + 2 * k3)
+        elif name.endswith("_conv2x2"):
+            f = dhw * (4 * cin * cout)
+        else:
+            f = dhw * (4 * k3 * cin * cout + 2 * k3)
+        total += float(f)
+    return batch * total
+
+
+def train_step_flops3d(cfg: ModelConfig, batch: int) -> float:
+    """One volumetric optimizer step: ~3x the forward."""
+    return 3.0 * forward_flops3d(cfg, batch)
+
+
+def forward_act_bytes3d(cfg: ModelConfig, batch: int = 1, act_bytes: int = 2) -> float:
+    """Minimum volumetric forward activation traffic (``forward_act_bytes``
+    one rank up): the fused unpool conv reads the pre-unpool cube of side
+    D_out / 2."""
+    from supernet_tpu_torch.models.unet3d import layer_names3d
+
+    sizes = _conv_shapes3d(cfg)
+    total = 0
+    for name, k, cin, cout in layer_names3d(cfg):
+        d_out = sizes[name]
+        d_in = d_out // 2 if name.endswith("_conv2x2") else d_out + k - 1
+        total += d_in ** 3 * cin * (1 if name == "conv_input" else 2)
+        total += d_out ** 3 * cout * 2
+    return float(total) * batch * act_bytes
+
+
+def train_step_min_bytes3d(cfg: ModelConfig, batch: int, act_bytes: int = 2) -> float:
+    """``train_step_min_bytes`` for the volumetric family: 3x the forward's
+    activation bytes plus 9x the float32 parameter bytes."""
+    from supernet_tpu_torch.models.unet3d import layer_names3d
+
+    p_bytes = 4.0 * sum(k ** 3 * cin * cout + cout
+                        for _, k, cin, cout in layer_names3d(cfg))
+    return 3.0 * forward_act_bytes3d(cfg, batch, act_bytes) + 9.0 * p_bytes

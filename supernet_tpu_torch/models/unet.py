@@ -124,13 +124,21 @@ def kl_regularizer(params: Params) -> Tensor:
     return total
 
 
-def forward(params: Params, x: Tensor, cfg: ModelConfig, tap=None) -> Tuple[Tensor, Tensor]:
+def forward(
+    params: Params, x: Tensor, cfg: ModelConfig, tap=None, constrain=None
+) -> Tuple[Tensor, Tensor]:
     """Full VDP forward pass: image [B,H,W,Cin] -> (probs, sigma), both
     flattened to [B, H_out*W_out, n_classes].
 
     ``tap(stage_name, shape)``, when given, is called with every
     intermediate's shape, under the JAX forward's stage names. Each conv
     runs under ``torch.profiler.record_function(layer_name)``.
+
+    ``constrain(m, s) -> (m, s)``, when given, is applied to the moment pair
+    after ``conv1``, after every encoder block, every pool and every decoder
+    block: the call sites of the JAX forward's hook
+    (``supernet_tpu/models/unet.py:146-273``), where a spatially sharded
+    forward re-pins its layout.
 
     With ``cfg.remat`` and gradients enabled, every encoder block after the
     first and every decoder block runs under a non-reentrant
@@ -140,29 +148,9 @@ def forward(params: Params, x: Tensor, cfg: ModelConfig, tap=None) -> Tuple[Tens
     """
     depth = cfg.depth
     fill = cfg.sigma_fill
-    remat = cfg.remat and torch.is_grad_enabled()
-    recomputing = [False]
-
-    def _tap(name: str, m: Tensor) -> None:
-        if tap is not None and not recomputing[0]:
-            tap(name, tuple(m.shape))
-
-    def block(fn, idx: int, *moments):
-        if not remat:
-            return fn(idx, *moments)
-        passes = []
-
-        def run(*ms):
-            recomputing[0] = bool(passes)
-            passes.append(None)
-            try:
-                return fn(idx, *ms)
-            finally:
-                recomputing[0] = False
-
-        return checkpoint(
-            run, *moments, use_reentrant=False, preserve_rng_state=False
-        )
+    if constrain is None:
+        constrain = _identity
+    _tap, block = _block_helpers(cfg, tap)
 
     def layer(fn, name: str, *moments):
         p = params[name]
@@ -192,20 +180,60 @@ def forward(params: Params, x: Tensor, cfg: ModelConfig, tap=None) -> Tuple[Tens
     skips: List[Tuple[Tensor, Tensor]] = []
     m, s = layer(vconv_input_relu, "conv_input", x)
     m, s = layer(vconv_relu, "conv1", m, s)
+    m, s = constrain(m, s)
     for i in range(depth):
         if i > 0:
             m, s = block(encoder_block, i, m, s)
+            m, s = constrain(m, s)
         if i < depth - 1:
             skips.append((m, s))
             m, s = vmaxpool(m, s)
             _tap(f"pool{i}", m)
+            m, s = constrain(m, s)
 
     for j in range(1, depth):
         m_e, s_e = skips[depth - 1 - j]
         m, s = block(decoder_block, j, m, s, m_e, s_e)
+        m, s = constrain(m, s)
 
     m, s = layer(vconv, "conv_final", m, s)
     return vsoftmax(m, s)
+
+
+def _identity(m: Tensor, s: Tensor) -> Tuple[Tensor, Tensor]:
+    return m, s
+
+
+def _block_helpers(cfg: ModelConfig, tap):
+    """``(_tap, block)`` of a forward: ``_tap(name, m)`` reports a stage's
+    shape to ``tap`` in the first pass only; ``block(fn, idx, *moments)``
+    runs ``fn`` under a non-reentrant ``torch.utils.checkpoint`` when
+    ``cfg.remat`` is on and gradients are enabled."""
+    remat = cfg.remat and torch.is_grad_enabled()
+    recomputing = [False]
+
+    def _tap(name: str, m: Tensor) -> None:
+        if tap is not None and not recomputing[0]:
+            tap(name, tuple(m.shape))
+
+    def block(fn, idx: int, *moments):
+        if not remat:
+            return fn(idx, *moments)
+        passes = []
+
+        def run(*ms):
+            recomputing[0] = bool(passes)
+            passes.append(None)
+            try:
+                return fn(idx, *ms)
+            finally:
+                recomputing[0] = False
+
+        return checkpoint(
+            run, *moments, use_reentrant=False, preserve_rng_state=False
+        )
+
+    return _tap, block
 
 
 def sample_weights(params: Params, generator: torch.Generator) -> Dict[str, Tensor]:

@@ -1,0 +1,252 @@
+"""The volumetric (3-D) VDP U-Net in PyTorch: the counterpart of
+``supernet_tpu/models/unet3d.py``.
+
+The 2-D architecture one rank up, on whole sub-volumes: VALID k^3 convs,
+ReLU, the 2x2x2 moment max-pool, the fused zero-interleave unpool + 2^3
+conv, the [3,3]/[2,2] pad choreography, crop-concat skips (decoder channels
+first) and the softmax-moment head. Parameters are ``{layer: {"w_mu":
+[k,k,k,Cin,Cout], "w_sigma": [Cout]}}`` under the 2-D layer names, in the
+JAX package's layouts, so a JAX checkpoint maps 1:1
+(``checkpoint.params_from_jax``). ``ModelConfig.image_size`` is the cube
+side; the output cube side follows from the geometry (64 -> 54 at depth 3,
+``train3d.derive_out_size3d``). The flattened [B, D*H*W, C] outputs feed the
+2-D loss head unchanged.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from supernet_tpu_torch.configs import ModelConfig
+from supernet_tpu_torch.models.unet import _block_helpers, _identity, _tight_layers
+from supernet_tpu_torch.ops import moments3d as M3
+from supernet_tpu_torch.ops.moments3d import (
+    crop_center3d,
+    vconv3d,
+    vconv3d_input_relu,
+    vconv3d_relu,
+    vcrop_concat3d,
+    vpad3d,
+    vsoftmax3d,
+    vunpool3d_conv2,
+)
+
+Tensor = torch.Tensor
+Params = Dict[str, Dict[str, Tensor]]
+
+
+def layer_names3d(cfg: ModelConfig) -> List[Tuple[str, int, int, int]]:
+    """Ordered (name, k, cin, cout) of every conv layer: the 2-D naming
+    scheme with k^3 kernels."""
+    enc = [cfg.base_kernels * (2 ** i) for i in range(cfg.depth)]
+    dec = [cfg.base_kernels * (2 ** (cfg.depth - 2 - j))
+           for j in range(cfg.depth - 1)]
+    names: List[Tuple[str, int, int, int]] = [
+        ("conv_input", 3, cfg.in_channels, enc[0]),
+        ("conv1", 3, enc[0], enc[0]),
+    ]
+    for i in range(1, cfg.depth):
+        names.append((f"conv{2 * i}", 3, enc[i - 1], enc[i]))
+        names.append((f"conv{2 * i + 1}", 3, enc[i], enc[i]))
+    ch = enc[cfg.depth - 1]
+    for j in range(1, cfg.depth):
+        up = dec[j - 1]
+        names.append((f"up{j}_conv2x2", 2, ch, up))
+        names.append((f"up{j}_conv1", 3, up + enc[cfg.depth - 1 - j], up))
+        names.append((f"up{j}_conv2", 3, up, up))
+        ch = up
+    names.append(("conv_final", 1, ch, cfg.n_classes))
+    return names
+
+
+def init_params3d(
+    generator: torch.Generator, cfg: ModelConfig, device="cuda"
+) -> Params:
+    """The 2-D init scheme (``models.unet.init_params``) with k^3 kernels:
+    TruncatedNormal(mean_mu, mean_sigma) cut at 2 std for w_mu, Uniform on
+    the raw w_sigma (the tighter range on the leading decoder 2^3 convs and
+    the head). Drawn on the CPU from ``generator``, then moved to
+    ``device``; ``torch.Generator`` streams differ from ``jax.random``, so
+    compare with the JAX init by distribution."""
+    params: Params = {}
+    tight = _tight_layers(cfg)
+    for name, k, cin, cout in layer_names3d(cfg):
+        w_mu = torch.empty((k, k, k, cin, cout), dtype=torch.float32)
+        nn.init.trunc_normal_(
+            w_mu,
+            mean=cfg.mean_mu,
+            std=cfg.mean_sigma,
+            a=cfg.mean_mu - 2.0 * cfg.mean_sigma,
+            b=cfg.mean_mu + 2.0 * cfg.mean_sigma,
+            generator=generator,
+        )
+        lo, hi = (
+            (cfg.tight_sigma_min, cfg.tight_sigma_max)
+            if name in tight
+            else (cfg.sigma_min, cfg.sigma_max)
+        )
+        w_sigma = torch.empty((cout,), dtype=torch.float32).uniform_(
+            lo, hi, generator=generator
+        )
+        params[name] = {"w_mu": w_mu.to(device), "w_sigma": w_sigma.to(device)}
+    return params
+
+
+def kl_regularizer3d(params: Params) -> Tensor:
+    """``models.unet.kl_regularizer`` with the KL strength equal to the
+    kernel's spatial size, k^3:
+
+      sum(w_mu^2) - k^3 * mean(1 + log softplus(ws) - softplus(ws))
+    """
+    total = None
+    for p in params.values():
+        w_mu, w_sigma = p["w_mu"], p["w_sigma"]
+        strength = math.prod(w_mu.shape[:-2])
+        f_s = F.softplus(w_sigma)
+        term = (w_mu * w_mu).sum() - strength * (1.0 + torch.log(f_s) - f_s).mean()
+        total = term if total is None else total + term
+    return total
+
+
+def forward3d(
+    params: Params, x: Tensor, cfg: ModelConfig, tap=None, constrain=None
+) -> Tuple[Tensor, Tensor]:
+    """Volume [B, S, S, S, Cin] -> (probs, sigma), both
+    [B, out_size^3, n_classes].
+
+    ``tap(stage_name, shape)`` is called with every stage's shape under the
+    JAX forward's stage names; each conv runs under
+    ``torch.profiler.record_function(layer_name)``. ``constrain(m, s)`` is
+    applied to the moment pair after ``conv1``, every encoder block, every
+    pool and every decoder block, as in ``supernet_tpu/models/unet3d.py``.
+    With ``cfg.remat`` and gradients enabled every encoder block after the
+    first and every decoder block runs under ``torch.utils.checkpoint``
+    (the 2-D forward's scheme)."""
+    depth = cfg.depth
+    fill = cfg.sigma_fill
+    if constrain is None:
+        constrain = _identity
+    _tap, block = _block_helpers(cfg, tap)
+
+    def layer(fn, name: str, *moments):
+        p = params[name]
+        with torch.profiler.record_function(name):
+            m, s = fn(*moments, p["w_mu"], p["w_sigma"])
+        _tap(name, m)
+        return m, s
+
+    def encoder_block(i: int, m: Tensor, s: Tensor) -> Tuple[Tensor, Tensor]:
+        if i == depth - 1 and cfg.bottleneck_pre_pad is not None:
+            m, s = vpad3d(m, s, cfg.bottleneck_pre_pad, fill)
+            _tap("pre_pad", m)
+        m, s = layer(vconv3d_relu, f"conv{2 * i}", m, s)
+        return layer(vconv3d_relu, f"conv{2 * i + 1}", m, s)
+
+    def decoder_block(j, m, s, m_e, s_e) -> Tuple[Tensor, Tensor]:
+        m, s = layer(vunpool3d_conv2, f"up{j}_conv2x2", m, s)
+        m, s = vpad3d(m, s, (3, 3), fill)
+        m, s = vcrop_concat3d(m, s, m_e, s_e)
+        _tap(f"up{j}_concat", m)
+        m, s = layer(vconv3d_relu, f"up{j}_conv1", m, s)
+        m, s = vpad3d(m, s, (2, 2), fill)
+        return layer(vconv3d_relu, f"up{j}_conv2", m, s)
+
+    skips: List[Tuple[Tensor, Tensor]] = []
+    m, s = layer(vconv3d_input_relu, "conv_input", x)
+    m, s = layer(vconv3d_relu, "conv1", m, s)
+    m, s = constrain(m, s)
+    for i in range(depth):
+        if i > 0:
+            m, s = block(encoder_block, i, m, s)
+            m, s = constrain(m, s)
+        if i < depth - 1:
+            skips.append((m, s))
+            # through the module attribute: the replay seam of moments3d
+            m, s = M3.vmaxpool3d(m, s)
+            _tap(f"pool{i}", m)
+            m, s = constrain(m, s)
+
+    for j in range(1, depth):
+        m_e, s_e = skips[depth - 1 - j]
+        m, s = block(decoder_block, j, m, s, m_e, s_e)
+        m, s = constrain(m, s)
+
+    m, s = layer(vconv3d, "conv_final", m, s)
+    return vsoftmax3d(m, s)
+
+
+def forward_sampled3d(
+    weights: Dict[str, Tensor], x: Tensor, cfg: ModelConfig
+) -> Tensor:
+    """Deterministic twin of :func:`forward3d`: one ordinary 3-D U-Net pass
+    with concrete DHWIO kernels (``models.sample_weights`` draws them);
+    returns the softmax probabilities [B, out_size^3, n_classes]. Mapped
+    over N weight draws it is the Monte-Carlo ensemble whose (mean,
+    variance) the propagated moments approximate. The pool is the max over
+    SAME-padded 2x2x2 windows."""
+    depth = cfg.depth
+
+    def conv(name: str, h: Tensor) -> Tensor:
+        return M3._conv3d_valid(h, weights[name])
+
+    def conv_relu(name: str, h: Tensor) -> Tensor:
+        return F.relu(conv(name, h))
+
+    def pad(h: Tensor, p) -> Tensor:
+        lo, hi = (p, p) if isinstance(p, int) else p
+        return F.pad(h, (0, 0, lo, hi, lo, hi, lo, hi))
+
+    def pool(h: Tensor) -> Tensor:
+        h, _ = M3._pad_even(h, h)
+        return M3._pool_view(h).amax(dim=(2, 4, 6))
+
+    skips: List[Tensor] = []
+    h = conv_relu("conv_input", x)
+    h = conv_relu("conv1", h)
+    for i in range(depth):
+        if i > 0:
+            if i == depth - 1 and cfg.bottleneck_pre_pad is not None:
+                h = pad(h, cfg.bottleneck_pre_pad)
+            h = conv_relu(f"conv{2 * i}", h)
+            h = conv_relu(f"conv{2 * i + 1}", h)
+        if i < depth - 1:
+            skips.append(h)
+            h = pool(h)
+    for j in range(1, depth):
+        h = conv(f"up{j}_conv2x2", M3._unpool3d_one(h))
+        h = pad(h, (3, 3))
+        enc = skips[depth - 1 - j]
+        d, hh, w = h.shape[1:4]
+        h = torch.cat([h, crop_center3d(enc, d, hh, w)], dim=-1)
+        h = conv_relu(f"up{j}_conv1", h)
+        h = pad(h, (2, 2))
+        h = conv_relu(f"up{j}_conv2", h)
+    h = conv("conv_final", h)
+    b, c = h.shape[0], h.shape[-1]
+    return torch.softmax(h.reshape(b, -1, c), dim=-1)
+
+
+def stage_shapes3d(cfg: ModelConfig) -> Tuple[Tuple[str, Tuple[int, ...]], ...]:
+    """``(stage name, output shape)`` (batch 1) of every stage of one
+    :func:`forward3d`, in order: the forward run on the ``meta`` device,
+    which computes shapes and no values (the JAX package traces
+    ``jax.eval_shape``). Raises where the geometry collapses."""
+    import dataclasses
+
+    cfg = dataclasses.replace(cfg, remat=False)
+    params = {
+        name: {"w_mu": torch.empty((k, k, k, cin, cout), device="meta"),
+               "w_sigma": torch.empty((cout,), device="meta")}
+        for name, k, cin, cout in layer_names3d(cfg)
+    }
+    s = cfg.image_size
+    x = torch.empty((1, s, s, s, cfg.in_channels), device="meta")
+    stages = []
+    with torch.no_grad():
+        forward3d(params, x, cfg, tap=lambda name, shape: stages.append((name, shape)))
+    return tuple(stages)

@@ -120,7 +120,6 @@ _UNMATCHED_ENV = {
     "SUPERNET_SW_SCALE": _AB_PATH,
     "SUPERNET_CHANSUM": _AB_PATH,
     "SUPERNET_CONV2D": _AB_PATH,
-    "SUPERNET_CONV3D": "is not ported yet (ROADMAP.md, Queue 1: '3-D family')",
 }
 
 
@@ -129,6 +128,8 @@ def apply_env_overrides() -> None:
 
     SUPERNET_ACT_DTYPE=float32|bfloat16   (inter-layer activation dtype)
     SUPERNET_PRECISION=highest|high|default (PyTorch's own f32 matmuls/convs)
+    SUPERNET_CONV3D=conv                  (the 3-D conv lowering; 'im2col'
+                                           raises: not ported yet)
 
     Every other knob of the JAX package that is set is named on stderr with
     the reason it does nothing here; none is ignored silently."""
@@ -138,6 +139,12 @@ def apply_env_overrides() -> None:
     v = os.environ.get("SUPERNET_ACT_DTYPE")
     if v:
         set_act_dtype(v)
+    v = os.environ.get("SUPERNET_CONV3D")
+    if v:
+        # late import: moments3d imports this module
+        from supernet_tpu_torch.ops import moments3d
+
+        moments3d.set_conv3d_impl(v)
     for name, why in _UNMATCHED_ENV.items():
         v = os.environ.get(name)
         if v:

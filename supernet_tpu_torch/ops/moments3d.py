@@ -1,0 +1,367 @@
+"""3-D VDP moment primitives in PyTorch: the counterpart of
+``supernet_tpu/ops/moments3d.py``, its default path, with gradients.
+
+The same algebra as ``ops/moments.py`` one rank up, on NDHWC moments and
+DHWIO kernels: every variance term of a Bayesian conv stays a convolution
+(``sigma = winsum3d(mu^2 + sigma) * s_w + conv3d(sigma, w_mu^2)``), the ReLU
+is the 2-D ``vrelu``, the max-pool is the 2x2x2 first-occurrence argmax of
+mu with sigma gathered at the same tap, the unpool is the zero-interleave
+with a 1-voxel border on every spatial axis.
+
+The JAX package runs this family on XLA alone, with no Pallas kernel and no
+custom VJP (``supernet_tpu/ops/moments3d.py:22-25``), so the port runs it on
+PyTorch's own ops: cuDNN ``conv3d`` for both moment products of a k > 1
+conv (the NDHWC moments enter it as ``torch.channels_last_3d`` views, no
+copy), matrix products for the 1x1x1 head and the fused unpool conv, and
+elementwise ops for the rest. None of the hand-written kernels of
+``ops/kernels`` runs here. Their gradients are PyTorch's autograd, as they
+are XLA's AD in the JAX package, except the pool's, whose backward is
+written out (:class:`VMaxPool3d`): the parity rule of
+``supernet_tpu/ops/moments3d.py:300-321`` routes each gradient to the one
+tap the forward chose, where autograd of a max would split a tie.
+
+Activation dtype: the casts of the 2-D module (``_act`` on the moments
+entering a conv and on its outputs, channel sums in float32), so
+``ops.set_act_dtype`` covers both families; ``ops.set_mxu_precision``
+('highest', TF32 off) covers ``conv3d`` as it does every PyTorch conv.
+
+Two module attributes are the seams a caller may replace to replay the
+discrete choices of another run (``chip_smoke.py`` does, to hold the card's
+gradients against the CPU's with the card's ReLU masks and pool taps): every
+ReLU of the family goes through the module's ``vrelu`` and every pool
+through ``VMaxPool3d.apply``.
+
+The JAX module's A/B lowerings (``set_conv3d_impl("im2col")`` and the
+decoder's glue fold ``vglue_conv3d_relu``) are not ported yet: selecting one
+raises ``NotImplementedError`` naming ROADMAP.md's item.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from supernet_tpu_torch.ops.moments import (  # noqa: F401
+    _act,
+    _f32,
+    chan_sum,
+    scale_sw,
+    vrelu,
+    vsoftmax,
+)
+
+Tensor = torch.Tensor
+MomentPair = Tuple[Tensor, Tensor]
+
+_AB_ITEM = "ROADMAP.md, Queue 1: 'Remaining 2-D A/B paths'"
+
+
+def set_conv3d_impl(mode: str) -> None:
+    """The k > 1 conv lowering of the JAX module ('conv' | 'im2col'). Only
+    'conv' (the default, cuDNN ``conv3d``) is ported."""
+    if mode == "conv":
+        return
+    if mode == "im2col":
+        raise NotImplementedError(
+            f"the im2col lowering of the 3-D convs is not ported yet ({_AB_ITEM}, "
+            "ops/moments3d.py:set_conv3d_impl); the default 'conv' runs"
+        )
+    raise ValueError(f"unknown conv3d impl {mode!r}")
+
+
+def vglue_conv3d_relu(*args, **kwargs) -> MomentPair:
+    """The decoder's pad -> [crop-concat ->] conv -> relu folded into one
+    conv (``supernet_tpu/ops/moments3d.py:442-529``): not ported yet."""
+    raise NotImplementedError(
+        f"vglue_conv3d_relu (the 3-D glue fold) is not ported yet ({_AB_ITEM})"
+    )
+
+
+def _conv3d_valid(x: Tensor, w: Tensor, stride: int = 1) -> Tensor:
+    """VALID ``conv3d`` of NDHWC ``x`` with a DHWIO kernel, NDHWC out.
+
+    The NDHWC tensor viewed as NCDHW is ``channels_last_3d``, the layout
+    cuDNN takes without a transpose; the kernel is laid out to match
+    (ODHWI, a small copy). cuDNN's output keeps the layout, so viewing it
+    back as NDHWC is free; a backend that answers in NCDHW (PyTorch's CPU
+    conv3d) pays one copy here, so that every op after it sees NDHWC."""
+    xc = x.permute(0, 4, 1, 2, 3).contiguous(memory_format=torch.channels_last_3d)
+    wc = w.to(x.dtype).permute(4, 3, 0, 1, 2).contiguous(
+        memory_format=torch.channels_last_3d)
+    return F.conv3d(xc, wc, stride=stride).permute(0, 2, 3, 4, 1).contiguous()
+
+
+def _winsum_shift3d(s: Tensor, k: int, stride: int = 1) -> Tensor:
+    """Separable VALID window sum of a single-channel [B, D, H, W, 1]
+    tensor: per spatial axis the k (strided) shifted views are added, the
+    JAX module's ``shift`` lowering (``supernet_tpu/ops/moments.py:464``)."""
+    for axis in (1, 2, 3):
+        n = s.shape[axis]
+        out_len = (n - k) // stride + 1
+        span = (out_len - 1) * stride + 1
+
+        def view(i: int, s=s, axis=axis, span=span) -> Tensor:
+            v = s.narrow(axis, i, span)
+            if stride == 1:
+                return v
+            index = [slice(None)] * s.dim()
+            index[axis] = slice(None, None, stride)
+            return v[tuple(index)]
+
+        acc = view(0)
+        for i in range(1, k):
+            acc = acc + view(i)
+        s = acc
+    return s
+
+
+def _window_sum3d(x: Tensor, k: int, stride: int = 1) -> Tensor:
+    """Channel sum (float32) then the k^3 VALID window sum ->
+    [B, D', H', W', 1] in the activation dtype."""
+    return _act(_winsum_shift3d(chan_sum(x), k, stride))
+
+
+def _einsum_1x1(x: Tensor, w: Tensor) -> Tensor:
+    return torch.einsum("bdhwc,co->bdhwo", x, w)
+
+
+def vconv3d_input(
+    x: Tensor, w_mu: Tensor, w_sigma: Tensor, stride: int = 1
+) -> MomentPair:
+    """First conv: deterministic input, Gaussian weights. ``w_mu``
+    [k,k,k,Cin,Cout], ``w_sigma`` [Cout] (raw, softplus-parameterized).
+
+      mu_out    = conv3d(x, w_mu)                    (VALID)
+      sigma_out = winsum3d(x^2) * softplus(w_sigma)
+    """
+    k = w_mu.shape[0]
+    s_w = F.softplus(_f32(w_sigma))
+    x = _act(x)
+    if k == 1 and stride == 1:
+        w2 = _act(w_mu[0, 0, 0])
+        t = chan_sum(torch.square(_f32(x)))
+        return _act(_einsum_1x1(x, w2)), scale_sw(_act(t), s_w)
+    mu_out = _conv3d_valid(x, w_mu, stride)
+    ws = _window_sum3d(torch.square(x), k, stride)
+    return _act(mu_out), scale_sw(ws, s_w)
+
+
+def vconv3d(
+    mu: Tensor, sigma: Tensor, w_mu: Tensor, w_sigma: Tensor, stride: int = 1
+) -> MomentPair:
+    """Conv with Gaussian input and weights:
+
+      mu_out    = conv3d(mu, w_mu)
+      sigma_out = winsum3d(mu^2 + sigma) * softplus(w_sigma)
+                  + conv3d(sigma, w_mu^2)
+
+    k == 1 (the segmentation head) is two einsums and a channel sum."""
+    k = w_mu.shape[0]
+    s_w = F.softplus(_f32(w_sigma))
+    if k == 1 and stride == 1:
+        mu_a, sigma_a = _act(mu), _act(sigma)
+        w2 = _act(w_mu[0, 0, 0])
+        t = chan_sum(torch.square(mu) + sigma)
+        sigma_out = scale_sw(_act(t), s_w) + _einsum_1x1(sigma_a, torch.square(w2))
+        return _act(_einsum_1x1(mu_a, w2)), _act(sigma_out)
+    mu_out = _conv3d_valid(_act(mu), w_mu, stride)
+    ws = _window_sum3d(torch.square(mu) + sigma, k, stride)
+    sigma_out = scale_sw(ws, s_w) + _conv3d_valid(
+        _act(sigma), torch.square(_f32(w_mu)), stride)
+    return _act(mu_out), _act(sigma_out)
+
+
+def vconv3d_relu(
+    mu: Tensor, sigma: Tensor, w_mu: Tensor, w_sigma: Tensor
+) -> MomentPair:
+    return vrelu(*vconv3d(mu, sigma, w_mu, w_sigma))
+
+
+def vconv3d_input_relu(x: Tensor, w_mu: Tensor, w_sigma: Tensor) -> MomentPair:
+    return vrelu(*vconv3d_input(x, w_mu, w_sigma))
+
+
+# ------------------------------------------------------------------ pool
+
+# tap k of a 2x2x2 window sits at parity (k // 4, k // 2 % 2, k % 2) on
+# (D, H, W): (d, h, w) row-major, the TF flat-index order
+_TAPS = tuple((k >> 2, (k >> 1) & 1, k & 1) for k in range(8))
+
+
+def _pool_view(x: Tensor) -> Tensor:
+    """[B, D, H, W, C] (even sides) as [B, D/2, 2, H/2, 2, W/2, 2, C]."""
+    b, d, h, w, c = x.shape
+    return x.reshape(b, d // 2, 2, h // 2, 2, w // 2, 2, c)
+
+
+def _pool_taps3d(x: Tensor):
+    """The eight window taps as eighth-size views, in tap order."""
+    r = _pool_view(x)
+    return [r[:, :, di, :, hi, :, wi] for di, hi, wi in _TAPS]
+
+
+def _pad_even(mu: Tensor, sigma: Tensor) -> MomentPair:
+    """SAME padding to even sides at the high end: ``finfo(dtype).min`` for
+    mu, 0 for sigma (``supernet_tpu/ops/moments3d.py:269-277``)."""
+    _, d, h, w, _ = mu.shape
+    if d % 2 or h % 2 or w % 2:
+        pad = (0, 0, 0, w % 2, 0, h % 2, 0, d % 2)
+        mu = F.pad(mu, pad, value=torch.finfo(mu.dtype).min)
+        sigma = F.pad(sigma, pad)
+    return mu, sigma
+
+
+def vmaxpool3d_plain(mu: Tensor, sigma: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    """``(mx, sigma at the argmax, idx)``: the 2x2x2 / stride-2 max of mu
+    over SAME-padded windows, the first tap in (d, h, w) order winning a
+    tie, and the chosen tap 0..7 as uint8. ``torch.maximum`` propagates NaN,
+    as ``jnp.maximum`` does."""
+    mu, sigma = _pad_even(mu, sigma)
+    m_taps, s_taps = _pool_taps3d(mu), _pool_taps3d(sigma)
+    mx = m_taps[0]
+    for t in m_taps[1:]:
+        mx = torch.maximum(mx, t)
+    # tap k wins iff it equals the max and no earlier tap does
+    s_out = s_taps[7]
+    idx = torch.full(mx.shape, 7, dtype=torch.uint8, device=mx.device)
+    for k in range(6, -1, -1):
+        hit = m_taps[k] == mx
+        s_out = torch.where(hit, s_taps[k], s_out)
+        idx = torch.where(hit, k, idx).to(torch.uint8)
+    return mx, s_out, idx
+
+
+def vmaxpool3d_bwd(idx: Tensor, g_mu: Tensor, g_sigma: Tensor,
+                   shape: Sequence[int]) -> MomentPair:
+    """Route each output gradient to the tap ``idx`` names, at full
+    resolution: a voxel of window parity (pd, ph, pw) keeps its window's
+    gradient iff ``idx == 4 pd + 2 ph + pw``, every other voxel gets 0 (the
+    parity rule of ``supernet_tpu/ops/moments3d.py:300-321``, written as
+    eight strided stores). ``shape`` is the unpadded input's."""
+    b, d, h, w, c = shape
+    full = (b, d + d % 2, h + h % 2, w + w % 2, c)
+    outs = []
+    for g in (g_mu, g_sigma):
+        out = g.new_zeros(full)
+        view = _pool_view(out)
+        for k, (di, hi, wi) in enumerate(_TAPS):
+            view[:, :, di, :, hi, :, wi] = torch.where(idx == k, g, 0.0)
+        outs.append(out[:, :d, :h, :w])
+    return outs[0], outs[1]
+
+
+class VMaxPool3d(torch.autograd.Function):
+    """The moment max-pool with the backward of the JAX module's custom VJP:
+    each gradient goes to the one tap the forward chose, never split over a
+    tie (autograd of ``torch.maximum`` would halve it)."""
+
+    @staticmethod
+    def forward(ctx, mu, sigma):
+        mx, s_out, idx = vmaxpool3d_plain(mu, sigma)
+        ctx.save_for_backward(idx)
+        ctx.in_shape = tuple(mu.shape)
+        return mx, s_out
+
+    @staticmethod
+    def backward(ctx, g_mu, g_sigma):
+        (idx,) = ctx.saved_tensors
+        return vmaxpool3d_bwd(idx, g_mu, g_sigma, ctx.in_shape)
+
+
+def vmaxpool3d(mu: Tensor, sigma: Tensor) -> MomentPair:
+    """2x2x2 / stride-2 max-pool of mu with sigma gathered at the same
+    argmax; first-occurrence ties, in the gradient too; odd sides padded."""
+    return VMaxPool3d.apply(mu, sigma)
+
+
+# ---------------------------------------------------------------- unpool
+
+
+def _unpool3d_one(x: Tensor) -> Tensor:
+    """Zero-interleave 2x upsample with a 1-voxel border on every spatial
+    axis: [B,D,H,W,C] -> [B,2D+1,2H+1,2W+1,C], values at odd indices."""
+    b, d, h, w, c = x.shape
+    out = x.new_zeros((b, 2 * d + 1, 2 * h + 1, 2 * w + 1, c))
+    out[:, 1::2, 1::2, 1::2] = x
+    return out
+
+
+def vunpool3d(mu: Tensor, sigma: Tensor) -> MomentPair:
+    return _unpool3d_one(mu), _unpool3d_one(sigma)
+
+
+def _upsample2_nearest3d(x: Tensor) -> Tensor:
+    """[B,d,h,w,C] -> [B,2d,2h,2w,C] nearest-neighbour 2x."""
+    b, d, h, w, c = x.shape
+    y = x[:, :, None, :, None, :, None, :].expand(b, d, 2, h, 2, w, 2, c)
+    return y.reshape(b, 2 * d, 2 * h, 2 * w, c)
+
+
+def _unpool_conv3d(x: Tensor, w: Tensor) -> Tensor:
+    """Zero-interleave (1-voxel border) + 2^3 VALID conv, fused: every
+    output voxel sees exactly one input voxel,
+    ``out[2i+p, 2j+q, 2l+r] = x[i, j, l] @ w[1-p, 1-q, 1-r]``, so it is one
+    matrix product against the flipped kernel and a voxel shuffle."""
+    b, d, h, wd, _ = x.shape
+    y = torch.einsum("bdhwc,pqrco->bdphqwro", x, w.flip(0, 1, 2).to(x.dtype))
+    return y.reshape(b, 2 * d, 2 * h, 2 * wd, w.shape[-1])
+
+
+def vunpool3d_conv2(
+    mu: Tensor, sigma: Tensor, w_mu: Tensor, w_sigma: Tensor
+) -> MomentPair:
+    """Fused ``vunpool3d`` + 2^3 VALID ``vconv3d`` (the decoder's upsampling
+    step). The 2^3 window sum of the interleaved (mu^2 + sigma) sees one
+    nonzero voxel per window, so it is the channel sum upsampled 2x."""
+    sw = F.softplus(_f32(w_sigma))
+    mu, sigma = _act(mu), _act(sigma)
+    t_up = _upsample2_nearest3d(_act(chan_sum(torch.square(mu) + sigma)))
+    mu_out = _unpool_conv3d(mu, w_mu)
+    sigma_out = t_up * _act(sw) + _unpool_conv3d(sigma, torch.square(_f32(w_mu)))
+    return mu_out, _act(sigma_out)
+
+
+# ------------------------------------------------------- glue and head
+
+
+def vpad3d(
+    mu: Tensor,
+    sigma: Tensor,
+    pad_size: Sequence[int] = (2, 2),
+    sigma_fill: float = 0.0,
+) -> MomentPair:
+    """``(lo, hi)`` pad on all three spatial axes: mu with zeros, sigma
+    with ``sigma_fill``."""
+    lo, hi = int(pad_size[0]), int(pad_size[1])
+    pad = (0, 0, lo, hi, lo, hi, lo, hi)
+    return F.pad(mu, pad), F.pad(sigma, pad, value=sigma_fill)
+
+
+def crop_center3d(x, td: int, th: int, tw: int):
+    """Center-crop the spatial axes of an NDHWC tensor (or array), offsets
+    ``(S - s) // 2`` per axis."""
+    od = (x.shape[1] - td) // 2
+    oh = (x.shape[2] - th) // 2
+    ow = (x.shape[3] - tw) // 2
+    return x[:, od : od + td, oh : oh + th, ow : ow + tw, ...]
+
+
+def vcrop_concat3d(
+    mu: Tensor, sigma: Tensor, mu_e: Tensor, sigma_e: Tensor
+) -> MomentPair:
+    """Skip connection: center-crop the encoder pair to the decoder's size
+    and concatenate on channels, decoder channels first."""
+    d, h, w = mu.shape[1:4]
+    return (
+        torch.cat([mu, crop_center3d(mu_e, d, h, w)], dim=-1),
+        torch.cat([sigma, crop_center3d(sigma_e, d, h, w)], dim=-1),
+    )
+
+
+def vsoftmax3d(mu: Tensor, sigma: Tensor) -> MomentPair:
+    """Voxel-wise softmax with the variance through its Jacobian; outputs
+    flattened to [B, D*H*W, C] (the 2-D closure on a [B, D*H, W, C] view)."""
+    b, d, h, w, c = mu.shape
+    return vsoftmax(mu.reshape(b, d * h, w, c), sigma.reshape(b, d * h, w, c))

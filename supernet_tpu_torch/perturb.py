@@ -42,6 +42,7 @@ import torch
 from supernet_tpu_torch.configs import NoiseConfig
 from supernet_tpu_torch.data.augment import _mix
 from supernet_tpu_torch.ops.moments import crop_center
+from supernet_tpu_torch.ops.moments3d import crop_center3d
 
 Tensor = torch.Tensor
 
@@ -54,9 +55,10 @@ def noise_generator(seed: int, batch_index: int) -> torch.Generator:
 
 
 def region_mask(y: Tensor, region: str, dataset: str) -> Optional[Tensor]:
-    """0/1 mask [B, H, W] of pixels that receive noise, or None for 'all'.
+    """0/1 mask [B, H, W] ([B, D, H, W] for volumes) of pixels that receive
+    noise, or None for 'all'.
 
-    ``y`` is the integer label map [B, H, W]; labels are anatomical classes
+    ``y`` is the integer label map [B, H, W] or [B, D, H, W]; labels are anatomical classes
     (Hippocampus: 0 bg, 1 anterior, 2 posterior; BraTS: 0 bg, >0 tumor).
     """
     if dataset == "hippocampus":
@@ -138,19 +140,20 @@ def apply_delta(
 ) -> Tuple[Tensor, Tensor]:
     """Everything of the protocol after the draw: mask ``delta`` by the
     region of ``nc``, add it, clip, account the SNR. Returns
-    ``(noisy_x, snr_db)``; see :func:`apply_noise`."""
-    if x.dim() == 5:
-        raise NotImplementedError(
-            "noise on [B, D, H, W, C] volumes is not ported yet (ROADMAP.md, "
-            "Queue 1: '3-D family', ops/moments3d.py)"
-        )
+    ``(noisy_x, snr_db)``; see :func:`apply_noise`. Images [B, H, W, C] and
+    volumes [B, D, H, W, C] alike: every rule is voxel-wise, and a volume's
+    crop takes all three spatial axes."""
     mask = region_mask(y, nc.region, dataset)
     if mask is not None:
         delta = delta * mask[..., None]
     cropped = bool(crop_size) and crop_size != x.shape[1]
 
     def crop(a: Tensor) -> Tensor:
-        return crop_center(a, crop_size, crop_size) if cropped else a
+        if not cropped:
+            return a
+        if a.dim() == 5:
+            return crop_center3d(a, crop_size, crop_size, crop_size)
+        return crop_center(a, crop_size, crop_size)
 
     x_ref = crop(x)
     # every kind, S&P too, is clipped to the CROP frame's range
@@ -172,8 +175,8 @@ def apply_noise(
 ) -> Tuple[Tensor, Tensor]:
     """Corrupt ``x`` per the protocol; returns (noisy_x, snr_db).
 
-    ``x``: [B, H, W, C] full-frame images; ``y``: [B, H, W] integer labels
-    of the same spatial size (the reference builds the region mask from the
+    ``x``: [B, H, W, C] full-frame images (or [B, D, H, W, C] volumes);
+    ``y``: [B, H, W] ([B, D, H, W]) integer labels of the same spatial size (the reference builds the region mask from the
     FULL-frame label, `Hippocampus.py:1279-1292`).
 
     ``crop_size`` > 0 reproduces the reference's cropped-frame semantics:

@@ -4,6 +4,8 @@
     python -m supernet_tpu_torch.profiling --mode serve --config brats --batch 2
     python -m supernet_tpu_torch.profiling --mode train --act-dtype bfloat16
     python -m supernet_tpu_torch.profiling --mode layers --config brats --batch 2
+    python -m supernet_tpu_torch.profiling --mode train3d --config hippocampus --batch 4 [--remat]
+    python -m supernet_tpu_torch.profiling --mode layers3d --config hippocampus --batch 4
 
 builds a train state (or an ``InferenceSession``) from ``init_params``
 (seeded; the time does not depend on the weights' values), runs WARMUP
@@ -26,6 +28,13 @@ every pool, each beside its byte bound and its plan; and an empty launch,
 the floor under every small layer (:func:`layer_times`). It reads only the
 wrappers' public functions, so it also times another checkout of the port
 put first on ``PYTHONPATH``.
+``--mode train3d`` profiles one volumetric step (``train3d.make_train_step3d``)
+at the config's cube side, width and depth, with ``--remat`` checkpointing
+the blocks; its convolutions are all cuDNN's ``conv3d`` (``conv3d_share``:
+their device time over the step's). ``--mode layers3d`` times cuDNN's
+``conv3d`` alone at every k=3 layer of that forward (:func:`conv3d_times`),
+the forward and the forward with both gradients, in the port's layout and
+in NCDHW.
 ``--act-dtype bfloat16`` runs the train and serve modes in the bf16
 activation mode (``ops.set_act_dtype``). Prints one JSON object; ``--out DIR``
 also writes it there. Needs a CUDA device: there is no CPU fallback.
@@ -428,6 +437,95 @@ def profile_train_step(config: str, batch: int, seed: int = 0) -> Dict:
             "img_per_s": batch / (out["step_ms_median"] / 1e3), **out}
 
 
+def profile_train_step3d(config: str, batch: int, seed: int = 0,
+                         remat: bool = False) -> Dict:
+    """One ``train3d.make_train_step3d`` step on cubes already on the card,
+    at the config's cube side, width and depth (``remat`` checkpoints each
+    block). Adds ``vols_per_s`` and ``conv3d_share``, the share of the
+    step's device time in cuDNN's convolutions (every conv of the family)."""
+    from supernet_tpu_torch import train3d
+    from supernet_tpu_torch.models import init_params3d
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("profiling needs a CUDA device; there is no CPU fallback")
+    set_mxu_precision("highest")
+    exp = get_config(config)
+    cfg = dataclasses.replace(exp.model, remat=remat)
+    cfg = dataclasses.replace(cfg, out_size=train3d.derive_out_size3d(cfg))
+    params = init_params3d(torch.Generator().manual_seed(seed), cfg, "cpu")
+    state, _ = train.create_train_state(params, exp.train, "cuda")
+    step = train3d.make_train_step3d(cfg, exp.train)
+    rng = np.random.default_rng(seed)
+    s, o = cfg.image_size, cfg.out_size
+    x = torch.from_numpy(rng.normal(0, 1, (batch, s, s, s, cfg.in_channels))
+                         .astype(np.float32)).cuda()
+    y = torch.from_numpy(rng.integers(0, cfg.n_classes, (batch, o, o, o))
+                         .astype(np.int32)).cuda()
+
+    def run():
+        step(state, x, y)
+        torch.cuda.synchronize()
+
+    out = _profile(run, "step")
+    conv = out["categories_ms_per_step"].get(CATEGORIES[4][0], 0.0)
+    return {"mode": "train3d", "config": config, "batch": batch, "remat": remat,
+            "cube": s, "out_cube": o, "base_kernels": cfg.base_kernels,
+            "depth": cfg.depth, "vols_per_s": batch / (out["step_ms_median"] / 1e3),
+            "conv3d_share": conv / out["device_ms_per_step"], **out}
+
+
+def conv3d_times(config: str, batch: int, seed: int = 0) -> Dict:
+    """cuDNN's ``conv3d`` (TF32 off) at every k=3 layer of one volumetric
+    forward at ``batch``, on seeded random inputs: device ms (:func:`device_ms`)
+    of the forward and of the forward with the input and filter gradients,
+    in the port's layout (NDHWC moments seen as ``channels_last_3d``) and in
+    NCDHW, each with its TFLOP/s (2 x MACs; the backward's two products
+    counted as twice the forward's). A vconv3d runs two such convs (mu and
+    sigma; conv_input one)."""
+    import torch.nn.functional as F
+
+    from supernet_tpu_torch import train3d
+    from supernet_tpu_torch.models.unet3d import layer_names3d, stage_shapes3d
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("profiling needs a CUDA device; there is no CPU fallback")
+    set_mxu_precision("highest")
+    exp = get_config(config)
+    cfg = dataclasses.replace(exp.model, out_size=train3d.derive_out_size3d(exp.model))
+    ks = {n: (k, cin, cout) for n, k, cin, cout in layer_names3d(cfg)}
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    layouts = (("channels_last_3d", torch.channels_last_3d), ("ncdhw", torch.contiguous_format))
+    rows, sums = [], {}
+    for name, shape in stage_shapes3d(cfg):
+        if ks.get(name, (0,))[0] != 3:
+            continue
+        k, cin, cout = ks[name]
+        o = shape[1]
+        flops = 2.0 * batch * o ** 3 * cout * cin * k ** 3
+        convs = 1 if name == "conv_input" else 2
+        row = {"layer": name, "cin": cin, "cout": cout, "in_side": o + k - 1,
+               "convs_per_layer": convs, "gflop": flops / 1e9}
+        for label, fmt in layouts:
+            def rand(*size, scale=1.0):
+                t = scale * torch.randn(size, device="cuda", generator=gen)
+                return t.contiguous(memory_format=fmt)
+
+            x = rand(batch, cin, o + k - 1, o + k - 1, o + k - 1).requires_grad_(True)
+            w = rand(cout, cin, k, k, k, scale=0.05).requires_grad_(True)
+            g = rand(batch, cout, o, o, o)
+            fwd = device_ms(lambda: F.conv3d(x, w), runs=10)
+            both = device_ms(lambda: torch.autograd.grad(F.conv3d(x, w), (x, w), g), runs=10)
+            row.update({f"{label}_fwd_ms": fwd, f"{label}_fwd_bwd_ms": both,
+                        f"{label}_fwd_tflops": flops / fwd / 1e9,
+                        f"{label}_fwd_bwd_tflops": 3 * flops / both / 1e9})
+            for key, v in ((f"{label}_fwd_ms", fwd), (f"{label}_fwd_bwd_ms", both)):
+                sums[key] = sums.get(key, 0.0) + convs * v
+        rows.append(row)
+    return {"mode": "layers3d", "config": config, "batch": batch,
+            "device": torch.cuda.get_device_name(0), "layers": rows,
+            "per_step_sums_ms": sums}
+
+
 def profile_serving(config: str, batch: int, seed: int = 0) -> Dict:
     """One ``InferenceSession.predict`` request of 5 batches of numpy
     images (H2D copy, chunks of ``batch``, D2H copies included)."""
@@ -442,16 +540,21 @@ def profile_serving(config: str, batch: int, seed: int = 0) -> Dict:
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--mode", choices=("train", "serve", "layers"), default="train")
+    p.add_argument("--mode", choices=("train", "serve", "layers", "train3d", "layers3d"),
+                   default="train")
     p.add_argument("--config", default="hippocampus")
     p.add_argument("--batch", type=int, default=20)
     p.add_argument("--out", default=None, help="directory for the JSON")
     p.add_argument("--act-dtype", default="float32", choices=("float32", "bfloat16"),
                    help="activation dtype of the train and serve modes")
+    p.add_argument("--remat", action="store_true",
+                   help="train3d: checkpoint each block (cfg.remat)")
     a = p.parse_args(argv)
     fn = {"train": profile_train_step, "serve": profile_serving,
-          "layers": layer_times}[a.mode]
-    if a.mode == "layers" and a.act_dtype != "float32":
+          "layers": layer_times,
+          "train3d": functools.partial(profile_train_step3d, remat=a.remat),
+          "layers3d": conv3d_times}[a.mode]
+    if a.mode in ("layers", "layers3d") and a.act_dtype != "float32":
         p.error("--act-dtype applies to the train and serve modes")
     with act_dtype(a.act_dtype):
         res = fn(a.config, a.batch)
@@ -459,7 +562,8 @@ def main(argv=None) -> int:
     line = json.dumps(res)
     if a.out:
         os.makedirs(a.out, exist_ok=True)
-        tag = "" if a.act_dtype == "float32" else f"_{a.act_dtype}"
+        tag = ("" if a.act_dtype == "float32" else f"_{a.act_dtype}") + (
+            "_remat" if a.remat else "")
         with open(os.path.join(a.out, f"profile_{a.mode}_{a.config}_b{a.batch}{tag}.json"), "w") as f:
             f.write(line + "\n")
     print(line)

@@ -1,6 +1,6 @@
 """Serving: the padded-batch inference session, the deep-ensemble session and
-the export bundle, the meshless 2-D counterparts of
-``supernet_tpu/serving.py``.
+the export bundle, the meshless counterparts of ``supernet_tpu/serving.py``,
+for images and (``volumetric=True``) for the 3-D family's cubes.
 
 The parameters stay resident on the session's device and every request is
 cut into chunks of the session's fixed batch size; the last chunk is padded
@@ -13,6 +13,11 @@ pinned host buffer, every chunk's outputs are copied into pinned host
 buffers without waiting, and the host waits once, at the end. The pinned
 buffers belong to the session and are reused by the next request (a lock
 keeps two threads from sharing them).
+
+A volumetric session answers cubes [N, S, S, S, C] with [N, o, o, o, K]
+moments through ``forward3d`` (cuDNN ``conv3d`` and PyTorch ops on the card;
+the 3-D family has no hand-written kernel), and ``predict_volume`` tiles one
+whole volume of any shape through it (``tiling.predict_volume``).
 
 ``export_bundle`` writes ``params.npz``, ``model.pt2`` (a ``torch.export``
 of the plain PyTorch composition at the fixed batch, recalibration and the
@@ -32,7 +37,7 @@ import torch
 
 from supernet_tpu_torch.checkpoint import params_from_jax, save_params_npz
 from supernet_tpu_torch.configs import ModelConfig
-from supernet_tpu_torch.models import forward_images
+from supernet_tpu_torch.models import forward3d, forward_images
 
 Tensor = torch.Tensor
 
@@ -56,6 +61,17 @@ def _make_recalibrate(variance_scale: float, temperature: float):
         return probs, sigma
 
     return _recalibrate
+
+
+def _shaped_forward(params, x: Tensor, cfg: ModelConfig, volumetric: bool = False):
+    """``(probs, sigma)`` shaped like the input's spatial axes: [B, o, o, K]
+    images, or [B, o, o, o, K] cubes with ``volumetric``."""
+    if not volumetric:
+        return forward_images(params, x, cfg)
+    probs, sigma = forward3d(params, x, cfg)
+    o = cfg.out_size
+    shape = (x.shape[0], o, o, o, cfg.n_classes)
+    return probs.reshape(shape), sigma.reshape(shape)
 
 
 def mixture(
@@ -88,7 +104,8 @@ class InferenceSession:
     tensors); it is copied to ``device`` (the card unless the caller names
     another) once. ``predict(x)`` takes any leading batch size.
     ``variance_scale`` / ``temperature`` apply a fitted recalibration to
-    every answer.
+    every answer. ``volumetric=True`` serves the 3-D family: cubes in, cubes
+    out, and ``predict_volume`` for whole volumes.
     """
 
     def __init__(
@@ -98,10 +115,12 @@ class InferenceSession:
         batch_size: int = 8,
         *,
         device="cuda",
+        volumetric: bool = False,
         variance_scale: float = 1.0,
         temperature: float = 1.0,
     ):
         self.cfg = cfg
+        self.volumetric = bool(volumetric)
         self.batch_size = int(batch_size)
         if self.batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
@@ -116,35 +135,44 @@ class InferenceSession:
         on a CUDA session, allocated once and grown when a request is
         larger than any before it."""
         if self._host is None or len(self._host[0]) < n:
-            s, c, o = self.cfg.image_size, self.cfg.in_channels, self.cfg.out_size
             pin = self.device.type == "cuda"
             self._host = (
-                torch.empty((n, s, s, c), pin_memory=pin),
-                torch.empty((n, o, o, self.cfg.n_classes), pin_memory=pin),
-                torch.empty((n, o, o, self.cfg.n_classes), pin_memory=pin),
+                torch.empty((n,) + self._in_shape(), pin_memory=pin),
+                torch.empty((n,) + self._out_shape(), pin_memory=pin),
+                torch.empty((n,) + self._out_shape(), pin_memory=pin),
             )
         return self._host
 
+    def _in_shape(self) -> Tuple[int, ...]:
+        s = self.cfg.image_size
+        return (s,) * (3 if self.volumetric else 2) + (self.cfg.in_channels,)
+
+    def _out_shape(self) -> Tuple[int, ...]:
+        o = self.cfg.out_size
+        return (o,) * (3 if self.volumetric else 2) + (self.cfg.n_classes,)
+
     def _forward(self, x: Tensor) -> Tuple[Tensor, Tensor]:
-        """One chunk on the device -> recalibrated image-shaped moments."""
-        return self._recalibrate(*forward_images(self._params, x, self.cfg))
+        """One chunk on the device -> recalibrated image- or cube-shaped
+        moments."""
+        return self._recalibrate(
+            *_shaped_forward(self._params, x, self.cfg, self.volumetric))
 
     def warmup(self) -> "InferenceSession":
         """Build the kernels (on a CUDA device) and run one batch outside
         the request path."""
-        s, c = self.cfg.image_size, self.cfg.in_channels
         with torch.inference_mode():
-            self._forward(torch.zeros((self.batch_size, s, s, c), device=self.device))
+            self._forward(torch.zeros((self.batch_size,) + self._in_shape(),
+                                      device=self.device))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return self
 
     def predict(self, x) -> Tuple[np.ndarray, np.ndarray]:
-        """[N, H, W, C] -> (probs, sigma), each [N, out, out, n_classes]."""
+        """[N, H, W, C] -> (probs, sigma), each [N, out, out, n_classes]
+        ([N, D, H, W, C] -> [N, out, out, out, n_classes] volumetric)."""
         x = np.asarray(x, np.float32)
         n, bs = len(x), self.batch_size
-        o = self.cfg.out_size
-        shape = (n, o, o, self.cfg.n_classes)
+        shape = (n,) + self._out_shape()
         if n == 0:
             return np.zeros(shape, np.float32), np.zeros(shape, np.float32)
         padded = -(-n // bs) * bs
@@ -171,12 +199,39 @@ class InferenceSession:
     ) -> Tuple[np.ndarray, np.ndarray]:
         """Sliding-window ``(probs, sigma)`` over ONE 2-D image of any
         spatial shape (``[H, W]`` or ``[H, W, C]``) through the fixed
-        model geometry (``tiling.predict_image``)."""
+        model geometry (``tiling.predict_image``). 2-D sessions only."""
         from supernet_tpu_torch.tiling import predict_image as _pi
 
+        if self.volumetric:
+            raise ValueError("predict_image is for 2-D sessions; use predict_volume")
         return _pi(
             self.predict,
             img,
+            self.cfg.image_size,
+            self.cfg.out_size,
+            overlap=overlap,
+            weight=weight,
+            pad_mode=pad_mode,
+        )
+
+    def predict_volume(
+        self,
+        vol: np.ndarray,
+        overlap: int = 0,
+        weight: str = "gaussian",
+        pad_mode: str = "reflect",
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Sliding-window ``(probs, sigma)`` over ONE whole volume of any
+        spatial shape (``[D, H, W]`` or ``[D, H, W, C]``): overlapping model
+        cubes batched through :meth:`predict` and blended per voxel
+        (``tiling.predict_volume``). Volumetric sessions only."""
+        from supernet_tpu_torch.tiling import predict_volume as _pv
+
+        if not self.volumetric:
+            raise ValueError("predict_volume requires volumetric=True")
+        return _pv(
+            self.predict,
+            vol,
             self.cfg.image_size,
             self.cfg.out_size,
             overlap=overlap,
@@ -190,8 +245,8 @@ class EnsembleSession(InferenceSession):
     chunk run through every member in turn (``VDPConv`` has no ``vmap``
     rule; the vmapped form is ROADMAP.md Queue 1, **Ensembles**) and the
     members' moments mixed by :func:`mixture`. Recalibration applies after
-    the mixture. ``predict`` / ``predict_image`` are inherited; ``mesh=``
-    raises (ROADMAP.md Queue 1, **Parallelism**)."""
+    the mixture. ``predict`` / ``predict_image`` / ``predict_volume`` are
+    inherited; ``mesh=`` raises (ROADMAP.md Queue 1, **Parallelism**)."""
 
     def __init__(
         self,
@@ -200,6 +255,7 @@ class EnsembleSession(InferenceSession):
         batch_size: int = 8,
         *,
         device="cuda",
+        volumetric: bool = False,
         variance_scale: float = 1.0,
         temperature: float = 1.0,
         mesh=None,
@@ -211,7 +267,7 @@ class EnsembleSession(InferenceSession):
         if not params_list:
             raise ValueError("params_list must hold at least one member")
         super().__init__(
-            params_list[0], cfg, batch_size, device=device,
+            params_list[0], cfg, batch_size, device=device, volumetric=volumetric,
             variance_scale=variance_scale, temperature=temperature,
         )
         self.n_members = len(params_list)
@@ -220,7 +276,7 @@ class EnsembleSession(InferenceSession):
         ]
 
     def _forward(self, x: Tensor) -> Tuple[Tensor, Tensor]:
-        outs = [forward_images(p, x, self.cfg) for p in self._members]
+        outs = [_shaped_forward(p, x, self.cfg, self.volumetric) for p in self._members]
         return self._recalibrate(*mixture([p for p, _ in outs], [s for _, s in outs]))
 
 
@@ -245,14 +301,15 @@ class _Exported(torch.nn.Module):
     mixture for an ensemble, and the recalibration."""
 
     def __init__(self, members: List, cfg: ModelConfig, ensemble: bool,
-                 variance_scale: float, temperature: float):
+                 variance_scale: float, temperature: float, volumetric: bool):
         super().__init__()
         self.members = torch.nn.ModuleList(_Member(p) for p in members)
-        self.cfg, self.ensemble = cfg, ensemble
+        self.cfg, self.ensemble, self.volumetric = cfg, ensemble, volumetric
         self.recalibrate = _make_recalibrate(variance_scale, temperature)
 
     def forward(self, x: Tensor) -> Tuple[Tensor, Tensor]:
-        outs = [forward_images(m.params(), x, self.cfg) for m in self.members]
+        outs = [_shaped_forward(m.params(), x, self.cfg, self.volumetric)
+                for m in self.members]
         if self.ensemble:
             p, s = mixture([p for p, _ in outs], [s for _, s in outs])
         else:
@@ -284,20 +341,21 @@ def export_bundle(
       ``program`` saying what ``model.pt2`` holds.
 
     ``params`` is one parameter dict or a list of members. Returns the meta
-    (also printed by ``cli export``). ``volumetric=True`` raises (ROADMAP.md
-    Queue 1, **3-D family**)."""
-    from supernet_tpu_torch.flops import forward_flops
+    (also printed by ``cli export``). ``volumetric=True`` exports the 3-D
+    family's forward (cubes in, cubes out)."""
+    from supernet_tpu_torch.flops import forward_flops, forward_flops3d
     from supernet_tpu_torch.ops import get_act_dtype
 
-    if volumetric:
-        raise _unported("export --volumetric", "3-D family", "models/unet3d.py")
     ensemble = isinstance(params, (list, tuple))
     members = [params_from_jax(p, "cpu") for p in (params if ensemble else [params])]
     os.makedirs(out_dir, exist_ok=True)
-    module = _Exported(members, cfg, ensemble, variance_scale, temperature).eval()
+    module = _Exported(members, cfg, ensemble, variance_scale, temperature,
+                       volumetric).eval()
     s, o = cfg.image_size, cfg.out_size
+    rank = 3 if volumetric else 2
+    in_shape = [batch_size, *([s] * rank), cfg.in_channels]
     with torch.no_grad():
-        ep = torch.export.export(module, (torch.zeros((batch_size, s, s, cfg.in_channels)),))
+        ep = torch.export.export(module, (torch.zeros(in_shape),))
     torch.export.save(ep, os.path.join(out_dir, "model.pt2"))
     if ensemble:
         np.savez(os.path.join(out_dir, "params.npz"), **{
@@ -307,15 +365,16 @@ def export_bundle(
         save_params_npz(os.path.join(out_dir, "params.npz"), members[0])
     meta = {
         "config": config_name,
-        "volumetric": False,
+        "volumetric": bool(volumetric),
         "variance_scale": float(variance_scale),
         "temperature": float(temperature),
         "batch_size": batch_size,
-        "input_shape": [batch_size, s, s, cfg.in_channels],
+        "input_shape": in_shape,
         "input_dtype": "float32",
-        "output_shape": [batch_size, o, o, cfg.n_classes],
+        "output_shape": [batch_size, *([o] * rank), cfg.n_classes],
         "outputs": ["probs", "sigma"],
-        "forward_gflops_per_image": round(forward_flops(cfg, 1) / 1e9, 3),
+        "forward_gflops_per_image": round(
+            (forward_flops3d(cfg, 1) if volumetric else forward_flops(cfg, 1)) / 1e9, 3),
         "param_count": int(sum(v.numel() for p in members[0].values()
                                for v in p.values())),
         "files": ["model.pt2", "params.npz"],

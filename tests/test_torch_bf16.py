@@ -195,7 +195,7 @@ def test_apply_env_overrides(monkeypatch, capsys):
     monkeypatch.setenv("SUPERNET_PRECISION", "high")
     monkeypatch.setenv("SUPERNET_BACKEND", "pallas")
     monkeypatch.setenv("SUPERNET_CONV_FOLD", "sigma")
-    monkeypatch.setenv("SUPERNET_CONV3D", "im2col")
+    monkeypatch.setenv("SUPERNET_CONV3D", "conv")
     monkeypatch.delenv("SUPERNET_WINSUM", raising=False)
     try:
         ops.apply_env_overrides()
@@ -207,7 +207,7 @@ def test_apply_env_overrides(monkeypatch, capsys):
     err = capsys.readouterr().err
     assert "SUPERNET_BACKEND=pallas has no counterpart" in err
     assert "SUPERNET_CONV_FOLD=sigma is not ported yet" in err and "A/B paths" in err
-    assert "SUPERNET_CONV3D=im2col" in err and "3-D family" in err
+    assert "SUPERNET_CONV3D" not in err  # the ported 'conv' lowering
     assert "SUPERNET_WINSUM" not in err and "SUPERNET_ACT_DTYPE" not in err
     monkeypatch.setenv("SUPERNET_ACT_DTYPE", "float16")
     with pytest.raises(ValueError):
@@ -220,5 +220,5 @@ def test_cli_reads_the_knobs_first(monkeypatch):
     calls = []
     monkeypatch.setattr(ops, "apply_env_overrides", lambda: calls.append(1))
     with pytest.raises(NotImplementedError):
-        cli.main(["train3d"])
+        cli.main(["bench"])
     assert calls == [1]

@@ -93,8 +93,9 @@ _REQUIRED = {"predict3d": ["--volume", "v.nii"]}
 
 
 def test_ported_subcommands():
-    assert PORTED == ["attack", "calibrate", "convert", "eval", "export", "saliency",
-                      "study", "sweep", "train"]
+    assert PORTED == ["attack", "attack3d", "calibrate", "calibrate3d", "convert", "eval",
+                      "eval3d", "export", "predict3d", "saliency", "saliency3d", "study",
+                      "sweep", "train", "train3d"]
 
 
 @pytest.mark.parametrize("cmd", STUBS)
@@ -115,8 +116,8 @@ def test_unported_subcommands_name_their_roadmap_item(cmd):
     (["calibrate", "--synthetic", "4", "--data-parallel"], "Parallelism"),
     (["saliency", "--synthetic", "4", "--data-parallel"], "Parallelism"),
     (["study", "--synthetic", "4", "--data-parallel"], "Parallelism"),
-    (["convert", "--out", "x", "--from-nifti", "--to-cubes"], "3-D family"),
-    (["export", "--volumetric"], "3-D family"),
+    (["train3d", "--synthetic", "4", "--spatial-shard"], "Parallelism"),
+    (["train3d", "--synthetic", "4", "--ensemble", "2"], "Ensembles"),
 ])
 def test_unported_options_name_their_roadmap_item(tiny, argv, item, tmp_path):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):

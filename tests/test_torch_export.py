@@ -146,9 +146,29 @@ def test_export_meta_params_and_program(members, ensemble, tmp_path):
     np.testing.assert_allclose(s.numpy(), ss, rtol=1e-6, atol=1e-12)
 
 
-def test_export_volumetric_names_its_item(members, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.*'3-D family'"):
-        serving.export_bundle(members[0], CFG, str(tmp_path), volumetric=True)
+def test_export_volumetric_ensemble(tmp_path):
+    """A volumetric bundle of a two-member ensemble: the stacked npz and a
+    ``model.pt2`` that answers cubes as the volumetric EnsembleSession does
+    (tests/test_torch_eval3d.py holds the single-member bundle against the
+    JAX package's)."""
+    from supernet_tpu_torch.models import init_params3d
+
+    cfg3 = dataclasses.replace(CFG, image_size=16, out_size=10, base_kernels=2, depth=2)
+    ps = [init_params3d(torch.Generator().manual_seed(s), cfg3, "cpu") for s in (0, 1)]
+    meta = serving.export_bundle(ps, cfg3, str(tmp_path), batch_size=2, volumetric=True)
+    assert meta["volumetric"] and meta["ensemble_members"] == 2
+    assert meta["input_shape"] == [2, 16, 16, 16, 1]
+    assert meta["output_shape"] == [2, 10, 10, 10, 3]
+    with np.load(str(tmp_path / "params.npz")) as f:
+        assert f["conv1/w_mu"].shape == (2, 3, 3, 3, 2, 2)
+    x = np.random.default_rng(0).normal(0, 1, (2, 16, 16, 16, 1)).astype(np.float32)
+    program = torch.export.load(str(tmp_path / "model.pt2")).module()
+    with torch.no_grad():
+        p, s = program(torch.from_numpy(x))
+    sp, ss = serving.EnsembleSession(ps, cfg3, batch_size=2, device="cpu",
+                                     volumetric=True).predict(x)
+    np.testing.assert_allclose(p.numpy(), sp, atol=1e-7)
+    np.testing.assert_allclose(s.numpy(), ss, rtol=1e-6, atol=1e-12)
 
 
 @pytest.fixture

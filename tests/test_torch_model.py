@@ -216,3 +216,33 @@ def test_vdpunet_trains_like_the_functional_forward():
     assert all(g is not None for g in got)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def test_constrain_hook_sees_the_jax_call_sequence():
+    """``forward(..., constrain=)`` runs the hook at the JAX forward's call
+    sites (after conv1, every encoder block, every pool and every decoder
+    block, `supernet_tpu/models/unet.py:146-273`): a recording hook sees the
+    same sequence of shapes in both packages, and the identity hook leaves
+    the outputs bit-equal. BraTS geometry at reduced width: five levels and
+    the asymmetric bottleneck pre-pad."""
+    cfg = dataclasses.replace(BRATS.model, base_kernels=2)
+    params = jinit(jax.random.PRNGKey(3), cfg)
+    x = _x((1, 204, 204, 4), 3)
+    jseen, tseen = [], []
+
+    def jrec(m, s):
+        jseen.append((tuple(m.shape), tuple(s.shape)))
+        return m, s
+
+    def trec(m, s):
+        tseen.append((tuple(m.shape), tuple(s.shape)))
+        return m, s
+
+    jax.jit(lambda p, xx: jforward(p, xx, cfg, constrain=jrec))(params, jnp.asarray(x))
+    with torch.inference_mode():
+        tp = params_from_jax(params, "cpu")
+        hooked = forward(tp, torch.from_numpy(x), cfg, constrain=trec)
+        plain = forward(tp, torch.from_numpy(x), cfg)
+    assert tseen == jseen and len(tseen) == 1 + 4 + 4 + 4
+    for a, b in zip(hooked, plain):
+        assert torch.equal(a, b)

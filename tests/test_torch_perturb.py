@@ -283,7 +283,12 @@ def test_none_unknown_and_volumes():
         assert noisy is x and float(snr) == float("inf")
     with pytest.raises(ValueError, match="unknown noise kind"):
         perturb.apply_noise(_gen(), x, y, NoiseConfig(kind="poisson", std=0.1))
-    vol = torch.ones((1, 4, 4, 4, 1))
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.*'3-D family'"):
-        perturb.apply_noise(_gen(), vol, torch.zeros((1, 4, 4, 4), dtype=torch.int32),
-                            NoiseConfig(kind="gaussian", std=0.1), crop_size=2)
+    # volumes: the crop takes all three spatial axes
+    vol = torch.arange(64, dtype=torch.float32).reshape(1, 4, 4, 4, 1)
+    noisy, snr = perturb.apply_noise(_gen(), vol, torch.zeros((1, 4, 4, 4), dtype=torch.int32),
+                                     NoiseConfig(kind="gaussian", std=0.1), crop_size=2)
+    core = vol[:, 1:3, 1:3, 1:3]
+    assert noisy.shape == vol.shape
+    assert float(noisy.min()) >= float(core.min()) and float(noisy.max()) <= float(core.max())
+    want = 10 * torch.log10((core ** 2).sum() / ((core - noisy[:, 1:3, 1:3, 1:3]) ** 2).sum())
+    assert float(snr) == pytest.approx(float(want), rel=1e-5)
