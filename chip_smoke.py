@@ -150,7 +150,8 @@ Phases (any failure raises and the exit code is not 0):
    loss float32); launches equal to float32's; ``profiling``'s serve and
    train profiles (wall, device time, peak memory) in both dtypes.
 17. ``EnsembleSession`` of 3 members at hippocampus b20 against the CPU
-   (launches 3x a forward's), ``cli export`` in process on its default
+   (launches one forward's: the members run member-stacked, phase 19),
+   ``cli export`` in process on its default
    device with ``model.pt2`` run on the CPU against the card's session (the
    serving limits), and one request of 45 images enqueued whole against a
    synchronisation per chunk (bit-equal; wall times in turns).
@@ -175,6 +176,36 @@ Phases (any failure raises and the exit code is not 0):
    ``export --volumetric`` with ``model.pt2`` on the CPU against the card's
    session. Prints the phase's seconds.
 
+19. deep ensembles: kernel 1 (forward with the ReLU, and without the window
+   sum as VDPConv's transposed pair) and kernel 4 with a member axis against
+   their plain versions (member by member) at every layer shape of a
+   hippocampus step with K=4 at batch 20 and a BraTS step with K=2 at batch
+   2, within the single-member checks' limits, timed (CUDA events and device
+   time) against K single launches; the stride-0 input (one batch for every
+   member) bit-equal to the same batch copied per member. Then, under
+   cuDNN's deterministic algorithms, ``make_ensemble_train_step`` at full
+   hippocampus width (K=4, batch 20, He-scaled members seeded SEED + k): the
+   step-1 loss and gradients of the member-stacked loss against each
+   member's single-model ones on the card with the stacked pass's ReLU
+   masks, pool taps and clips replayed (``TRAIN_GRAD_TOL``), and 3 steps in
+   vmap and in unroll against the single-model steps of every member
+   (``TRAIN_LOSS_RTOL``, parameters within 2 * lr * steps), the counters per
+   vmap step equal to one single-model step's (10 / 2 / 2 / 10, 9
+   transposed, split-K reduces planned for K members), unroll 4x a single
+   step's; BraTS K=2 at batch 2, one vmap step likewise;
+   ``make_ensemble_train_step3d`` in vmap at the hippocampus 3-D width, K=2,
+   2 steps, against ``make_train_step3d`` per member, kernels 1-4 at 0
+   launches. A 3-member ``EnsembleSession`` chunk launches one forward's
+   kernels and its mixture matches the members' own sessions mixed;
+   ``cli train --ensemble 3 --ensemble-mode vmap`` (2 epochs of 60
+   synthetic images: the launches of 6 steps and 6 validation batches),
+   then ``cli eval`` of its three member directories (the launches of one
+   member's eval). Last, ``profiling.profile_ensemble_step`` at hippocampus
+   K=4 batch 20 in vmap, unroll and sequential (wall, device time, idle
+   share, peak memory per member-step) and a sequential member's start-up:
+   the constants of ``ensemble.choose_ensemble_mode``. Prints the phase's
+   seconds and its parts'.
+
 In phases 6-15 cuDNN runs its deterministic algorithms, and in 6-7 and 12
 the CPU reference of the gradients replays the card's ReLU masks and pool
 taps (``_decisions``), so that rounding ties do not decide the comparison.
@@ -182,8 +213,10 @@ taps (``_decisions``), so that rounding ties do not decide the comparison.
 The last two lines of standard output are the kernels summary
 ``{"kernels": [...]}`` (all four kernels, with their launches in the
 hippocampus training run, the epoch trainer's run, the CLI's run, one
-attack gradient, the adversarial evaluation, the study and phase 18, errors,
-times and bounds) and ``{"ok": true, "device": {...}}``.
+attack gradient, the adversarial evaluation, the study, phase 18, one K=4
+ensemble step and one ensemble session chunk, errors, times and bounds, and
+for kernels 1 and 4 the member-axis times beside K single launches) and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -309,17 +342,25 @@ def _he_params(torch, cfg, seed=SEED):
     return params
 
 
-def _split_layers(cfg, batch) -> int:
-    """The k=3 convs of one forward at ``batch`` that vdp_conv's planner
-    cuts into K slices: each launches the split-K reduce once."""
+def _sms() -> int:
+    """The card's SM count, what the planners fill at launch."""
+    from supernet_tpu_torch.ops.kernels import _lib
+
+    return _lib.sm_count("cuda")
+
+
+def _split_layers(cfg, batch, members=1) -> int:
+    """The k=3 convs of one forward at ``batch`` (of ``members`` ensemble
+    members in one launch) that vdp_conv's planner cuts into K slices on this
+    card: each launches the split-K reduce once."""
     from supernet_tpu_torch.ops.kernels.vdp_conv import plan
     from supernet_tpu_torch.profiling import layer_shapes
 
-    return sum(plan(batch, h, w, cin, cout, 3).splits > 1
+    return sum(plan(batch, h, w, cin, cout, 3, members, _sms()).splits > 1
                for _, (_, h, w, cin), cout in layer_shapes(cfg)[0])
 
 
-def _dgrad_split_layers(cfg, batch, with_input: bool) -> int:
+def _dgrad_split_layers(cfg, batch, with_input: bool, members=1) -> int:
     """The k=3 convs whose input gradient (kernel 1 without the window sum,
     a conv of [b, h+2, w+2, Cout] into Cin channels) the planner cuts into K
     slices; conv_input's counts only ``with_input`` (a gradient with respect
@@ -327,7 +368,7 @@ def _dgrad_split_layers(cfg, batch, with_input: bool) -> int:
     from supernet_tpu_torch.ops.kernels.vdp_conv import plan
     from supernet_tpu_torch.profiling import layer_shapes
 
-    return sum(plan(batch, h + 2, w + 2, cout, cin, 3).splits > 1
+    return sum(plan(batch, h + 2, w + 2, cout, cin, 3, members, _sms()).splits > 1
                for name, (_, h, w, cin), cout in layer_shapes(cfg)[0]
                if with_input or name != "conv_input")
 
@@ -361,7 +402,7 @@ class KernelCheck:
         sigma = 0.05 * self._randn(b, h, w, cin).abs() if has_sigma else None
         w_mu = 0.1 * self._randn(k, k, cin, cout)
         w_sigma = -4.0 + self._randn(cout)
-        plan = V.plan(b, h, w, cin, cout, k)
+        plan = V.plan(b, h, w, cin, cout, k, 1, _sms())
         with torch.inference_mode():
             got = V.vdp_conv(mu, sigma, w_mu, w_sigma, fuse_relu=relu)
             want = V.vdp_conv_plain(mu, sigma, w_mu, w_sigma, fuse_relu=relu)
@@ -489,7 +530,7 @@ class KernelCheck:
             ms = _time_ms(torch, lambda: S.winsum_spread_bwd(g, t, s_w, k))
             plain_ms = _time_ms(torch, lambda: S.winsum_spread_bwd_plain(g, t, s_w, k))
             dev_ms = device_ms(lambda: S.winsum_spread_bwd(g, t, s_w, k))
-        plan = S.plan(b, hp, wp, c, k)
+        plan = S.plan(b, hp, wp, c, k, 1, _sms())
         self._seen("sigma_bwd", config, plan.path, dev_ms)
         h, w = hp + k - 1, wp + k - 1
         nbytes = 4 * (g.numel() + t.numel() + 2 * c + b * h * w)
@@ -574,7 +615,7 @@ class KernelCheck:
         g1 = self._randn(b, h - 2, w - 2, cout)
         g2 = self._randn(b, h - 2, w - 2, cout) if with_sigma else None
         w_mu = 0.1 * self._randn(3, 3, cin, cout)
-        plan = V.plan(b, h + 2, w + 2, cout, cin, 3)
+        plan = V.plan(b, h + 2, w + 2, cout, cin, 3, 1, _sms())
 
         def cudnn():
             return V._conv_t(g1, w_mu), None if g2 is None else V._conv_t(g2, w_mu * w_mu)
@@ -987,23 +1028,25 @@ def _train(torch, name, cfg, tc, batch, steps):
 
 
 
-def _per_forward(cfg, batch) -> dict:
-    """Launches of one forward (vdp_conv, its split-K reduces, pool)."""
+def _per_forward(cfg, batch, members=1) -> dict:
+    """Launches of one forward (vdp_conv, its split-K reduces, pool), of
+    ``members`` ensemble members in one member-stacked forward."""
     from supernet_tpu_torch.models import layer_names
 
     return {"vdp_conv": sum(1 for _, k, _, _ in layer_names(cfg) if k == 3),
-            "vdp_conv_reduce": _split_layers(cfg, batch),
+            "vdp_conv_reduce": _split_layers(cfg, batch, members),
             "vmaxpool": cfg.depth - 1}
 
 
-def _expected_launches(cfg, batch, steps, eval_batches, input_grads=0) -> dict:
+def _expected_launches(cfg, batch, steps, eval_batches, input_grads=0, members=1) -> dict:
     """Launches of ``steps`` train steps (gradients of the weights alone),
     ``eval_batches`` forwards and ``input_grads`` gradients with respect to
-    the image (the weights frozen). Every backward runs kernel 4 at each k=3
+    the image (the weights frozen), each of ``members`` ensemble members in
+    one member-stacked pass. Every backward runs kernel 4 at each k=3
     conv and kernel 1 without the window sum at each k=3 conv whose input
     needs a gradient: all but conv_input in a train step, all of them in a
     gradient with respect to the image."""
-    f = _per_forward(cfg, batch)
+    f = _per_forward(cfg, batch, members)
     fwd = steps + eval_batches + input_grads
     bwd = steps + input_grads
     return {"vdp_conv": fwd * f["vdp_conv"],
@@ -1012,8 +1055,9 @@ def _expected_launches(cfg, batch, steps, eval_batches, input_grads=0) -> dict:
             "vmaxpool_bwd": bwd * f["vmaxpool"],
             "sigma_bwd": bwd * f["vdp_conv"],
             "vdp_conv_dgrad": steps * (f["vdp_conv"] - 1) + input_grads * f["vdp_conv"],
-            "vdp_conv_dgrad_reduce": (steps * _dgrad_split_layers(cfg, batch, False)
-                                      + input_grads * _dgrad_split_layers(cfg, batch, True))}
+            "vdp_conv_dgrad_reduce": (
+                steps * _dgrad_split_layers(cfg, batch, False, members)
+                + input_grads * _dgrad_split_layers(cfg, batch, True, members))}
 
 
 def _state_tensors(state):
@@ -1933,7 +1977,8 @@ def _serving_rest(torch, smi, tmp):
     _zero_launches()
     pe, se = ens.predict(x[:batch])
     launches = _read_launches()
-    want = _scaled(_expected_launches(cfg, batch, 0, 1), 3)
+    # one member-stacked forward serves the three members (phase 19)
+    want = _expected_launches(cfg, batch, 0, 1, members=3)
     if launches != want:
         _die(f"EnsembleSession: kernel launches {launches}, expected {want}")
     ref = EnsembleSession(members, cfg, batch, device="cpu").predict(x[:batch])
@@ -2339,6 +2384,479 @@ def _three_d(torch, smi, tmp):
     return launches
 
 
+# ------------------------------------------------------------- phase 19
+
+
+def _member_choices(choices, k, members):
+    """Member ``k``'s share of the discrete choices ``_decisions`` recorded
+    in a member-stacked pass: a ReLU mask or pool tap [K*B, ...] gives its
+    rows, a clip pair [K, B, ...] its slice."""
+    return [tuple(m[k] for m in c) if isinstance(c, tuple)
+            else c.unflatten(0, (members, -1))[k] for c in choices]
+
+
+def _member_kernels(torch):
+    """Phase 19, kernels: kernel 1 (with the window sum and the fused ReLU,
+    and without it as VDPConv's backward runs its transposed pair) and
+    kernel 4, each with a member axis, against their plain versions (the
+    single-member plain version member by member) at every layer shape of a
+    hippocampus step with K=4 at batch 20 and of a BraTS step with K=2 at
+    batch 2, within the single-member checks' limits; the stride-0 input
+    (one batch for every member) at hippocampus conv_input against the same
+    batch copied per member, bit for bit. Each member launch is timed (CUDA
+    events, and device time with the stream held) against K single-member
+    launches. Returns {(kernel, config): [ms, k_single_ms, device_ms,
+    k_single_device_ms, max_abs_err, max_rel_err]}."""
+    import torch.nn.functional as F
+
+    from supernet_tpu_torch.configs import BRATS, HIPPOCAMPUS
+    from supernet_tpu_torch.ops.kernels import sigma_bwd as S
+    from supernet_tpu_torch.ops.kernels import vdp_conv as V
+    from supernet_tpu_torch.profiling import device_ms, layer_shapes
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    sums = {}
+
+    def randn(*shape):
+        return torch.randn(shape, device="cuda", generator=gen)
+
+    def record(kernel, config, layer, shape, members, errs, run, singles, extra):
+        ms, s_ms = _time_ms(torch, run), _time_ms(torch, singles)
+        dev, s_dev = device_ms(run), device_ms(singles)
+        acc = sums.setdefault((kernel, config), [0.0] * 6)
+        for i, v in enumerate((ms, s_ms, dev, s_dev)):
+            acc[i] += v
+        acc[4], acc[5] = max(acc[4], errs[0]), max(acc[5], errs[1])
+        print(json.dumps({
+            "member_kernel": kernel, "config": config, "layer": layer,
+            "members": members, "shape": shape, "max_abs_err": errs[0],
+            "max_rel_err": errs[1], "ms": ms, "k_single_ms": s_ms,
+            "device_ms": dev, "k_single_device_ms": s_dev, **extra}), flush=True)
+
+    def rel_errs(got, want, tol, what):
+        abs_err = rel_err = 0.0
+        for x, r in zip(got, want):
+            if r is None:
+                continue
+            e = float((x - r).abs().max())
+            abs_err, rel_err = max(abs_err, e), max(rel_err, e / max(float(r.abs().max()), 1e-30))
+        if not rel_err <= tol:
+            _die(f"{what} disagrees with its plain version: relative error "
+                 f"{rel_err:.3e} > {tol}")
+        return abs_err, rel_err
+
+    for config, cfg, batch, k_n in (("hippocampus", HIPPOCAMPUS.model, 20, 4),
+                                    ("brats", BRATS.model, 2, 2)):
+        for layer, (_, h, w, cin), cout in layer_shapes(cfg)[0]:
+            has_sigma = layer != "conv_input"
+            shape = [batch, h, w, cin, cout, 3]
+            mu = randn(k_n * batch, h, w, cin)
+            sigma = 0.05 * randn(k_n * batch, h, w, cin).abs() if has_sigma else None
+            w_mu, w_sigma = 0.1 * randn(k_n, 3, 3, cin, cout), -4.0 + randn(k_n, cout)
+            mus = mu.unflatten(0, (k_n, -1))
+            sgs = None if sigma is None else sigma.unflatten(0, (k_n, -1))
+            what = f"member-axis vdp_conv {config}/{layer}"
+            with torch.inference_mode():
+                got = V.vdp_conv(mu, sigma, w_mu, w_sigma, fuse_relu=True)
+                want = V.vdp_conv_plain(mu, sigma, w_mu, w_sigma, fuse_relu=True)
+                abs_err, rel_err, flips = _vdp_errors(torch, got, want, True, VDP_TOL)
+                if not rel_err <= VDP_TOL:
+                    _die(f"{what} disagrees with its plain version: relative error "
+                         f"{rel_err:.3e} > {VDP_TOL}")
+                plan = V.plan(batch, h, w, cin, cout, 3, k_n, _sms())
+                record("vdp_conv", config, layer, shape, k_n, (abs_err, rel_err),
+                       lambda: V.vdp_conv(mu, sigma, w_mu, w_sigma, True),
+                       lambda: [V.vdp_conv(mus[i], None if sgs is None else sgs[i],
+                                           w_mu[i], w_sigma[i], True) for i in range(k_n)],
+                       {"relu_ties": flips, "path": plan.path, "splits": plan.splits,
+                        "blocks": plan.blocks})
+                if config == "hippocampus" and layer == "conv_input":
+                    # one batch for every member: the serving and eval case
+                    x = mus[0]
+                    shared = V.vdp_conv(x.expand(k_n, *x.shape), None, w_mu, w_sigma, True)
+                    copied = V.vdp_conv(x.repeat(k_n, 1, 1, 1), None, w_mu, w_sigma, True)
+                    if not all(torch.equal(a, b) for a, b in zip(shared, copied)):
+                        _die("member-axis vdp_conv: the stride-0 input differs from "
+                             "the same batch copied per member")
+                    errs = _vdp_errors(torch, shared, V.vdp_conv_plain(
+                        x.expand(k_n, *x.shape), None, w_mu, w_sigma, True), True, VDP_TOL)
+                    if not errs[1] <= VDP_TOL:
+                        _die(f"member-axis vdp_conv, stride-0 input: {errs[1]:.3e}")
+                    record("vdp_conv_shared_input", config, layer, shape, k_n, errs[:2],
+                           lambda: V.vdp_conv(x.expand(k_n, *x.shape), None, w_mu,
+                                              w_sigma, True),
+                           lambda: [V.vdp_conv(x, None, w_mu[i], w_sigma[i], True)
+                                    for i in range(k_n)],
+                           {"member_stride": 0, "bit_equal_to_copied_batch": True})
+
+                g1 = randn(k_n * batch, h - 2, w - 2, cout)
+                g2 = randn(k_n * batch, h - 2, w - 2, cout) if has_sigma else None
+                g1s = g1.unflatten(0, (k_n, -1))
+                g2s = None if g2 is None else g2.unflatten(0, (k_n, -1))
+                errs = rel_errs(V.conv_t_pair(g1, g2, w_mu),
+                                V.conv_t_pair_plain(g1, g2, w_mu), VDP_TOL,
+                                f"member-axis vdp_conv dgrad {config}/{layer}")
+                dplan = V.plan(batch, h + 2, w + 2, cout, cin, 3, k_n, _sms())
+                record("vdp_conv_dgrad", config, layer, shape, k_n, errs,
+                       lambda: V.conv_t_pair(g1, g2, w_mu),
+                       lambda: [V.conv_t_pair(g1s[i], None if g2s is None else g2s[i],
+                                              w_mu[i]) for i in range(k_n)],
+                       {"sigma": has_sigma, "path": dplan.path, "splits": dplan.splits})
+
+                t = 10.0 * randn(k_n * batch, h - 2, w - 2).abs()
+                s_w = F.softplus(randn(k_n, cout) - 4.0)
+                ts = t.unflatten(0, (k_n, -1))
+                got = S.winsum_spread_bwd(g1, t, s_w, 3)
+                again = S.winsum_spread_bwd(g1, t, s_w, 3)
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    _die(f"member-axis sigma_bwd {config}/{layer}: two runs differ")
+                errs = rel_errs(got, S.winsum_spread_bwd_plain(g1, t, s_w, 3), SIGMA_BWD_TOL,
+                                f"member-axis sigma_bwd {config}/{layer}")
+                splan = S.plan(batch, h - 2, w - 2, cout, 3, k_n, _sms())
+                record("sigma_bwd", config, layer, [batch, h - 2, w - 2, cout, 3], k_n, errs,
+                       lambda: S.winsum_spread_bwd(g1, t, s_w, 3),
+                       lambda: [S.winsum_spread_bwd(g1s[i], ts[i], s_w[i], 3)
+                                for i in range(k_n)],
+                       {"path": splan.path, "blocks_per_member": splan.blocks,
+                        "same_bits_in_two_runs": True})
+    return sums
+
+
+def _ensemble_train(torch, smi, name, exp, batch, k_n, steps, modes):
+    """Phase 19, training: ``make_ensemble_train_step`` at full width with
+    K members from He-scaled parameters seeded SEED + k. The step-1
+    gradients of the member-stacked loss against each member's single-model
+    gradients on the card with the stacked pass's ReLU masks, pool taps and
+    clips replayed (``_decisions``, TRAIN_GRAD_TOL); then ``steps`` steps in
+    each of ``modes`` against the single-model steps of every member (losses
+    within TRAIN_LOSS_RTOL, parameters within 2 * lr * steps), with the
+    launches of each counted run: a vmap step launches what one
+    single-model step does (its split-K reduces planned for K members), an
+    unroll step K times that. Returns the vmap run's launches per step."""
+    import numpy as np
+
+    from supernet_tpu_torch import train as T
+
+    cfg, tc = exp.model, exp.train
+    members = [_he_params(torch, cfg, SEED + k) for k in range(k_n)]
+    rng = np.random.default_rng(SEED + 19)
+    s, o = cfg.image_size, cfg.out_size
+    x = rng.normal(0.0, 1.0, (steps, k_n, batch, s, s, cfg.in_channels)).astype(np.float32)
+    y = rng.integers(0, cfg.n_classes, (steps, k_n, batch, o, o)).astype(np.int32)
+    seeds = np.arange(k_n) + tc.seed
+
+    def states():
+        return [T.create_train_state(p, tc, "cuda")[0] for p in members]
+
+    stacked = T.stack_trees(states())
+    xg, yg = torch.from_numpy(x[0]).cuda(), torch.from_numpy(y[0]).cuda()
+    y1 = T.one_hot_flatten(yg.flatten(0, 1), cfg.n_classes).unflatten(0, (k_n, -1))
+    choices = []
+    with _decisions(torch, record=choices):
+        loss, _ = T._members_loss(stacked.params, xg, y1, cfg, tc)
+        g_stack = torch.autograd.grad(loss.sum(), T.leaves(stacked.params))
+        loss = loss.detach()
+    del stacked
+    singles = states()
+    worst_g = loss1_err = 0.0
+    ties_all = {"relu": 0, "pool": 0, "clip": 0}
+    for k in range(k_n):
+        with _decisions(torch, replay=_member_choices(choices, k, k_n)) as ties:
+            lk, _ = T.loss_fn(singles[k].params, xg[k], yg[k], cfg, tc)
+            gk = torch.autograd.grad(lk, T.leaves(singles[k].params))
+        for key in ties_all:
+            ties_all[key] += ties[key]
+        lk = float(lk.detach())
+        loss1_err = max(loss1_err, abs(float(loss[k]) - lk) / abs(lk))
+        for a, r in zip(g_stack, gk):
+            worst_g = max(worst_g, _max_rel(torch, a[k], r))
+    del g_stack, choices
+    if not worst_g <= TRAIN_GRAD_TOL or not loss1_err <= TRAIN_LOSS_RTOL:
+        _die(f"{name} ensemble: the member-stacked step-1 loss / gradients differ from "
+             f"the single-model ones by {loss1_err:.3e} / {worst_g:.3e} of a leaf's max")
+
+    per_single = _expected_launches(cfg, batch, 1, 0)
+    per_vmap = _expected_launches(cfg, batch, 1, 0, members=k_n)
+    one = T.make_train_step(cfg, tc)
+    single_losses = np.zeros((steps, k_n))
+    for i in range(steps):
+        for k in range(k_n):
+            singles[k], m = one(singles[k], x[i][k], y[i][k])
+            single_losses[i, k] = float(m.loss)
+    out = {"ensemble_training": name, "card": smi, "members": k_n, "batch": batch,
+           "steps": steps, "step1_loss_max_rel_err": loss1_err,
+           "step1_grad_max_rel_err": worst_g,
+           "step1_grad_share_of_limit": worst_g / TRAIN_GRAD_TOL,
+           "grad_ties_replayed": ties_all, "single_losses": single_losses.tolist(),
+           "launches_per_single_step": per_single}
+    limit = 2.0 * tc.lr * steps
+    for mode in modes:
+        state = T.stack_trees(states())
+        step = T.make_ensemble_train_step(cfg, tc, member_mode=mode)
+        torch.cuda.synchronize()
+        _zero_launches()
+        losses = []
+        for i in range(steps):
+            state, m = step(state, x[i], y[i], seeds)
+            losses.append(m.loss.cpu().numpy())
+        launches = _read_launches()
+        want = _scaled(per_vmap if mode == "vmap" else per_single,
+                       steps * (1 if mode == "vmap" else k_n))
+        if launches != want:
+            _die(f"{name} ensemble ({mode}): kernel launches {launches} in {steps} steps, "
+                 f"expected {want}")
+        losses = np.array(losses)
+        loss_err = float((np.abs(losses - single_losses) / np.abs(single_losses)).max())
+        param_err = max(float((a.detach()[k] - b.detach()).abs().max())
+                        for k in range(k_n)
+                        for a, b in zip(T.leaves(state.params), T.leaves(singles[k].params)))
+        if not loss_err <= TRAIN_LOSS_RTOL or not param_err <= limit:
+            _die(f"{name} ensemble ({mode}): losses {loss_err:.3e} relative / parameters "
+                 f"{param_err:.3e} from the single-model steps (limits {TRAIN_LOSS_RTOL}, "
+                 f"{limit:.3e})")
+        out[mode] = {"launches": launches, "losses": losses.tolist(),
+                     "loss_max_rel_err_vs_single": loss_err,
+                     "param_max_abs_err_vs_single": param_err, "param_limit": limit}
+        del state
+    print(json.dumps(out), flush=True)
+    return per_vmap
+
+
+def _ensemble_profiles(torch, smi):
+    """Phase 19, the member-step times of the three ways to train K=4
+    hippocampus members at batch 20 (``profiling.ensemble_step_runner``):
+    wall time from 10 steps of each taken in turns (vmap, unroll,
+    sequential, sequential, unroll, vmap; the host's speed moves between
+    calls), device time and busy share from 3 traced steps, peak memory as
+    the mode's own resident tensors plus its step's transient; and a
+    sequential member's start-up in this warm process: its parameters, state
+    and first step beyond a steady step. These are the constants of
+    ``ensemble.choose_ensemble_mode``."""
+    import numpy as np
+
+    from supernet_tpu_torch import profiling
+    from supernet_tpu_torch import train as T
+    from supernet_tpu_torch.configs import HIPPOCAMPUS
+
+    modes, k_n = ("vmap", "unroll", "sequential"), 4
+    runners, resident = {}, {}
+    for mode in modes:
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        runners[mode] = profiling.ensemble_step_runner("hippocampus", 20, SEED, k_n, mode)
+        for _ in range(3):
+            runners[mode]()
+        resident[mode] = torch.cuda.memory_allocated() - before
+    times = {mode: [] for mode in modes}
+    for mode in modes + modes[::-1]:
+        for _ in range(5):
+            t0 = time.perf_counter()
+            runners[mode]()
+            times[mode].append(time.perf_counter() - t0)
+    rows = {}
+    for mode in modes:
+        rest = torch.cuda.memory_allocated()
+        r = profiling._profile(runners[mode], "step", steps=3)
+        step_ms = 1e3 * statistics.median(times[mode])
+        rows[mode] = {
+            "step_ms_median": step_ms, "member_step_ms": step_ms / k_n,
+            "step_ms_runs": [1e3 * t for t in times[mode]],
+            "device_ms_per_step": r["device_ms_per_step"],
+            "member_device_ms": r["device_ms_per_step"] / k_n,
+            "device_busy_ms_per_step": r["device_busy_ms_per_step"],
+            "idle_share": 1.0 - r["device_busy_ms_per_step"] / step_ms,
+            "peak_memory_bytes": resident[mode] + r["peak_memory_bytes"] - rest,
+            "device_events_per_step": r["device_events_per_step"]}
+    runners.clear()
+    seq = rows["sequential"]["member_step_ms"] / 1e3
+    cfg, tc = HIPPOCAMPUS.model, HIPPOCAMPUS.train
+    rng = np.random.default_rng(SEED)
+    x = torch.from_numpy(rng.normal(0, 1, (20, cfg.image_size, cfg.image_size, 1))
+                         .astype(np.float32)).cuda()
+    y = torch.from_numpy(rng.integers(0, 3, (20, cfg.out_size, cfg.out_size))
+                         .astype(np.int32)).cuda()
+    step = T.make_train_step(cfg, tc)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = T.create_train_state(_he_params(torch, cfg, SEED + 99), tc, "cuda")[0]
+    step(state, x, y)
+    torch.cuda.synchronize()
+    startup = time.perf_counter() - t0 - seq
+    best = min(("vmap", "unroll"), key=lambda m: rows[m]["member_step_ms"])
+    line = {"ensemble_modes": "hippocampus, K=4, batch 20", "card": smi, **rows,
+            "sequential_step_s": seq, "one_program_mode": best,
+            "one_program_step_ratio": (rows[best]["member_step_ms"]
+                                       / rows["sequential"]["member_step_ms"]),
+            "member_startup_s": startup}
+    print(json.dumps(line), flush=True)
+    return line
+
+
+def _ensemble_cli(torch, tmp):
+    """Phase 19, the CLI: ``train --ensemble 3 --ensemble-mode vmap`` on 60
+    synthetic images for 2 epochs (the launches of 6 steps and 6 validation
+    batches of one member-stacked pass each), then ``eval --checkpoint
+    member_0,member_1,member_2``, whose launches are those of ``eval`` of one
+    member (the members served together)."""
+    from supernet_tpu_torch import checkpoint as ckpt
+    from supernet_tpu_torch import cli
+    from supernet_tpu_torch.configs import HIPPOCAMPUS
+
+    cfg = HIPPOCAMPUS.model
+    out = os.path.join(tmp, "ensemble")
+    torch.cuda.synchronize()
+    _zero_launches()
+    line = _cli_json(cli, ["train", "--config", "hippocampus", "--synthetic", "60",
+                           "--epochs", "2", "--ensemble", "3", "--ensemble-mode", "vmap",
+                           "--out-dir", out])[-1]
+    launches = _read_launches()
+    want = _expected_launches(cfg, 20, 6, 6, members=3)
+    dirs = [os.path.join(out, f"member_{k}") for k in range(3)]
+    if sorted(line) != ["checkpoint_arg", "dirs", "final", "members", "mode"] \
+            or line["mode"] != "vmap" or line["dirs"] != dirs or launches != want:
+        _die(f"cli train --ensemble 3: {line}, launches {launches}, expected {want}")
+    for d, final in zip(dirs, line["final"]):
+        if ckpt.latest_epoch(d) != 1 or not os.path.isfile(
+                os.path.join(d, "Related_hyperparameters.txt")) \
+                or not all(math.isfinite(v) for v in final.values()):
+            _die(f"cli train --ensemble 3: {d} {final}")
+    evals = {}
+    for what, ckpts in (("one", dirs[0]), ("three", line["checkpoint_arg"])):
+        _zero_launches()
+        evals[what] = _cli_json(cli, ["eval", "--config", "hippocampus", "--synthetic",
+                                      "20", "--checkpoint", ckpts, "--out-dir",
+                                      os.path.join(tmp, f"ensemble_eval_{what}")])[-1]
+        evals[what + "_launches"] = _read_launches()
+    ev, ev_launches = evals["three"], evals["three_launches"]
+    forwards = evals["one_launches"]["vdp_conv"] // 10
+    want_ev = _expected_launches(cfg, 20, 0, forwards, members=3)
+    if forwards < 1 or ev_launches != want_ev or not math.isfinite(ev["accuracy"]):
+        _die(f"cli eval of 3 members: launches {ev_launches}, expected {want_ev} "
+             f"(one checkpoint's forwards: {forwards}); {ev}")
+    return {"cli_train": line, "cli_train_launches": launches,
+            "cli_eval_accuracy": ev["accuracy"], "cli_eval_launches": ev_launches}
+
+
+def _ensemble_session(torch):
+    """Phase 19, serving: a 3-member EnsembleSession chunk at hippocampus
+    batch 20 launches one forward's kernels (phase 17's member loop launched
+    three forwards' worth); its mixture against the mixture of the members'
+    own sessions on the card (the serving limits). Returns its launches."""
+    import numpy as np
+
+    from supernet_tpu_torch.configs import HIPPOCAMPUS
+    from supernet_tpu_torch.serving import EnsembleSession, InferenceSession, mixture
+
+    cfg, batch = HIPPOCAMPUS.model, 20
+    members = [_he_params(torch, cfg, SEED + k) for k in range(3)]
+    x = np.random.default_rng(SEED + 19).normal(
+        0.0, 1.0, (batch, cfg.image_size, cfg.image_size, cfg.in_channels)).astype(np.float32)
+    ens = EnsembleSession(members, cfg, batch, device="cuda").warmup()
+    _zero_launches()
+    pe, se = ens.predict(x)
+    launches = _read_launches()
+    want = _expected_launches(cfg, batch, 0, 1, members=3)
+    if launches != want:
+        _die(f"vmapped EnsembleSession: kernel launches {launches}, expected {want}")
+    outs = [InferenceSession(p, cfg, batch, device="cuda").predict(x) for p in members]
+    lp, ls = mixture([torch.from_numpy(p) for p, _ in outs],
+                     [torch.from_numpy(s) for _, s in outs])
+    err = _serving_close("vmapped EnsembleSession against the member loop", pe, se,
+                         lp.numpy(), ls.numpy())
+    return launches, err
+
+
+def _ensemble_3d(torch, smi):
+    """Phase 19, 3-D: ``make_ensemble_train_step3d`` in vmap at the
+    hippocampus 3-D width (cube 64, base 32, depth 3, batch 4), K=2, 2 steps,
+    against ``make_train_step3d`` per member on the card; kernels 1-4 read
+    0 launches over it."""
+    import numpy as np
+
+    from supernet_tpu_torch import train as T
+    from supernet_tpu_torch import train3d as T3
+    from supernet_tpu_torch.configs import HIPPOCAMPUS
+
+    exp = HIPPOCAMPUS
+    cfg = dataclasses.replace(exp.model, out_size=T3.derive_out_size3d(exp.model))
+    tc, batch, k_n, steps = exp.train, 4, 2, 2
+    s, o = cfg.image_size, cfg.out_size
+    members = [_he_params3d(torch, cfg, SEED + k) for k in range(k_n)]
+    rng = np.random.default_rng(SEED + 19)
+    x = rng.normal(0.0, 1.0, (steps, k_n, batch, s, s, s, cfg.in_channels)).astype(np.float32)
+    y = rng.integers(0, cfg.n_classes, (steps, k_n, batch, o, o, o)).astype(np.int32)
+    torch.cuda.synchronize()
+    _zero_launches()
+    state = T.stack_trees([T.create_train_state(p, tc, "cuda")[0] for p in members])
+    step = T3.make_ensemble_train_step3d(cfg, tc, member_mode="vmap")
+    singles = [T.create_train_state(p, tc, "cuda")[0] for p in members]
+    one = T3.make_train_step3d(cfg, tc)
+    loss_err, times, single_times = 0.0, [], []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, x[i], y[i], np.arange(k_n) + tc.seed)
+        got = m.loss.cpu().numpy()
+        times.append(time.perf_counter() - t0)
+        for k in range(k_n):
+            t0 = time.perf_counter()
+            singles[k], mk = one(singles[k], x[i][k], y[i][k])
+            lk = float(mk.loss)
+            single_times.append(time.perf_counter() - t0)
+            loss_err = max(loss_err, abs(float(got[k]) - lk) / abs(lk))
+    launches = _read_launches()
+    param_err = max(float((a.detach()[k] - b.detach()).abs().max())
+                    for k in range(k_n)
+                    for a, b in zip(T.leaves(state.params), T.leaves(singles[k].params)))
+    limit = 2.0 * tc.lr * steps
+    if not loss_err <= TRAIN_LOSS_RTOL or not param_err <= limit:
+        _die(f"3-D ensemble: losses {loss_err:.3e} relative / parameters {param_err:.3e} "
+             "from make_train_step3d per member")
+    if any(launches.values()):
+        _die(f"3-D ensemble: the 2-D kernels were launched: {launches}")
+    return {"members": k_n, "batch": batch, "cube": s, "steps": steps,
+            "loss_max_rel_err_vs_single": loss_err, "param_max_abs_err_vs_single": param_err,
+            "param_limit": limit, "step_s": times, "single_step_s": single_times,
+            "member_step_ratio": times[-1] / (k_n * statistics.median(single_times[k_n:])),
+            "launches": launches}
+
+
+def _ensembles(torch, smi, tmp):
+    """Phase 19. Returns (member kernel sums, vmap launches per hippocampus
+    step, the session chunk's launches, the mode profile)."""
+    from supernet_tpu_torch.configs import BRATS, HIPPOCAMPUS
+
+    t_phase = time.perf_counter()
+    parts = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        parts[name] = time.perf_counter() - t0
+        return out
+
+    sums = timed("kernels", _member_kernels, torch)
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        per_step = timed("train_hippocampus", _ensemble_train, torch, smi, "hippocampus",
+                         HIPPOCAMPUS, 20, 4, 3, ("vmap", "unroll"))
+        timed("train_brats", _ensemble_train, torch, smi, "brats", BRATS, 2, 2, 1, ("vmap",))
+        three_d = timed("three_d", _ensemble_3d, torch, smi)
+    session, session_err = timed("session", _ensemble_session, torch)
+    cli_out = timed("cli", _ensemble_cli, torch, tmp)
+    modes = timed("profiles", _ensemble_profiles, torch, smi)
+    print(json.dumps({
+        "ensembles": "phase 19", "card": smi,
+        "vmap_launches_per_step_hippocampus_k4": per_step,
+        "session_chunk_launches_k3": session,
+        "session_probs_max_abs_err_vs_member_loop": session_err[0],
+        "session_sigma_share_beyond_rtol": session_err[2],
+        "three_d": three_d, **cli_out,
+        "phase_s": time.perf_counter() - t_phase, "parts_s": parts,
+    }), flush=True)
+    return sums, per_step, session, modes
+
+
 def main() -> int:
     import torch
 
@@ -2472,6 +2990,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         three_d_launches = _three_d(torch, smi, tmp)
 
+    # 19. deep ensembles: the member axis of kernels 1 and 4, the ensemble
+    # steps, the CLI, the session, the 3-D step and the modes' times
+    with tempfile.TemporaryDirectory() as tmp:
+        member_sums, ens_per_step, ens_session, ens_modes = _ensembles(torch, smi, tmp)
+
     sources = {
         "vdp_conv": ("supernet_tpu_torch/csrc/vdp_conv.cu",
                      "supernet_tpu/ops/pallas/vdp_conv.py:125"),
@@ -2490,7 +3013,12 @@ def main() -> int:
     # batch of 20 (phase 12); adversarial_eval_launches: run_adversarial on 40
     # hippocampus images (phase 13); study_launches: cli study (phase 15);
     # three_d_launches: the whole of phase 18 (0: the 3-D family has no
-    # hand-written kernel).
+    # hand-written kernel); ensemble_train_launches_per_step: one K=4 vmap
+    # step at hippocampus batch 20 (phase 19); ensemble_session_chunk_launches:
+    # one chunk of a 3-member EnsembleSession (phase 19). member_axis_*: the
+    # member-axis launch summed over the layers of one hippocampus step (K=4,
+    # batch 20; brats_member_axis_*: BraTS, K=2, batch 2) beside K single
+    # launches, CUDA events and device time.
     # vdp_conv's bound_ms is the CUDA cores' float32 bound; bound_3xtf32_ms
     # that of its tensor-core path.
     summary = []
@@ -2534,6 +3062,16 @@ def main() -> int:
             extra = {"device_ms": check.dev[(kernel, "hippocampus")],
                      "brats_device_ms": check.dev[(kernel, "brats")],
                      "paths": sorted(check.paths[kernel])}
+        for mk, prefix in ((kernel, "member_axis_"), ("vdp_conv_dgrad", "member_axis_dgrad_")):
+            if (mk, "hippocampus") not in member_sums or (
+                    mk == "vdp_conv_dgrad" and kernel != "vdp_conv"):
+                continue
+            for config, pre in (("hippocampus", ""), ("brats", "brats_")):
+                m_ms, k_ms, m_dev, k_dev, m_abs, m_rel = member_sums[(mk, config)]
+                extra.update({f"{pre}{prefix}ms": m_ms, f"{pre}{prefix}k_single_ms": k_ms,
+                              f"{pre}{prefix}device_ms": m_dev,
+                              f"{pre}{prefix}k_single_device_ms": k_dev,
+                              f"{pre}{prefix}max_rel_err": m_rel})
         summary.append({
             "name": kernel, "route": "cuda", "source": source,
             "replaces": replaces, "launches": train_launches[kernel],
@@ -2547,6 +3085,8 @@ def main() -> int:
             "bf16_train_launches": bf16_launches["hippocampus"]["bfloat16"][kernel],
             "ensemble_chunk_launches": ensemble_launches[kernel],
             "three_d_launches": three_d_launches[kernel],
+            "ensemble_train_launches_per_step": ens_per_step[kernel],
+            "ensemble_session_chunk_launches": ens_session[kernel],
             "max_abs_err": check.worst[kernel][0],
             "max_rel_err": check.worst[kernel][1],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -2567,6 +3107,8 @@ def main() -> int:
     print(f"hippocampus serving: {img_s:.1f} img/s (batch 20, 45-image request)")
     print(f"hippocampus training: {20 / step_s:.1f} img/s "
           f"(batch 20, median step {1e3 * step_s:.3f} ms)")
+    print("hippocampus ensemble, K=4, batch 20, per member-step: " + ", ".join(
+        f"{m} {ens_modes[m]['member_step_ms']:.3f} ms" for m in ("vmap", "unroll", "sequential")))
     print(f"evaluation: clean forward with the fetch {test_batch_s:.5f} s per batch of 20, "
           f"one attack gradient {grad_s:.5f} s, PGD 20 steps {pgd_batch_s:.4f} s per "
           f"hippocampus batch of 20, FGSM {fgsm_batch_s:.4f} s per BraTS batch of 2, "

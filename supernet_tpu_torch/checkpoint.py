@@ -222,7 +222,10 @@ class AsyncEpochCheckpointer:
                 self._queue.task_done()
 
     def save(self, epoch: int, state) -> None:
-        self._queue.put((epoch, snapshot_state(state)))
+        """Queue ``state`` (a TrainState, or a ``snapshot_state`` dict
+        already on the host) for ``root/epoch_{epoch}``."""
+        snap = state if isinstance(state, dict) else snapshot_state(state)
+        self._queue.put((epoch, snap))
         self._saved.append(epoch)
         if self.keep is not None and len(self._saved) > self.keep:
             victim = self._saved.pop(0)

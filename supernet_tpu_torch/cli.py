@@ -19,7 +19,11 @@
 printing the JSON line(s) and writing the files of its twin; ``bench`` and
 ``profile`` parse their flags and then raise ``NotImplementedError`` naming
 the ``ROADMAP.md`` item that ports them, as do ``--data-parallel``,
-``--spatial-shard``, ``--hybrid-shard`` and ``--ensemble K`` (K > 1).
+``--spatial-shard`` and ``--hybrid-shard``. ``train --ensemble K`` and
+``train3d --ensemble K`` (K > 1) train a deep ensemble into
+``member_{k}/`` (``--ensemble-mode``: ``vmap``, ``unroll`` / ``scan``,
+``sequential``, or ``auto``, which ``ensemble.choose_ensemble_mode``
+decides with the card's numbers).
 ``--checkpoint`` takes a run directory (its latest ``epoch_{N}/state.pt``),
 one ``epoch_{N}`` directory, an ``.npz`` or (2-D only) a Keras ``.h5``;
 ``eval``, ``calibrate``, ``sweep``, ``eval3d``, ``calibrate3d`` and
@@ -928,8 +932,6 @@ def _train(exp, args) -> int:
     if args.data_parallel:
         raise _unported("train --data-parallel",
                         "'Parallelism' (parallel/data_parallel.py)")
-    if args.ensemble > 1:
-        raise _unported("train --ensemble K > 1", "'Ensembles' (ensemble.py)")
     train_ds = _load_data(exp, args, "train")
     if getattr(args, "val_data", None):
         val_ds = _load_data(exp.replace(data_path=args.val_data), args, "test")
@@ -940,11 +942,76 @@ def _train(exp, args) -> int:
             print("warning: validation will reuse the TRAINING data; "
                   "pass --val-data for a held-out split", file=sys.stderr)
         val_ds = _load_data(exp, args, "test")
+    if args.ensemble > 1:
+        return _train_ensemble(exp, args, train_ds, val_ds)
     tr = Trainer(exp, train_ds, val_ds, out_dir=args.out_dir,
                  steps_per_dispatch=args.steps_per_dispatch,
                  device=args.device)
     tr.run()
     print(json.dumps({k: v[-1] for k, v in tr.history.items() if v}))
+    return 0
+
+
+def _finals(histories):
+    return [{m: v[-1] for m, v in h.items() if v} for h in histories]
+
+
+def _ensemble_mode(args, total_steps, step_s=None, step_ratio=None) -> str:
+    """``--ensemble-mode``, with ``auto`` decided by
+    ``ensemble.choose_ensemble_mode`` (the note goes to stderr)."""
+    if args.ensemble_mode != "auto":
+        return args.ensemble_mode
+    from supernet_tpu_torch.ensemble import choose_ensemble_mode
+
+    mode, why = choose_ensemble_mode(args.ensemble, total_steps, step_s=step_s,
+                                     step_ratio=step_ratio)
+    print(f"ensemble auto mode -> {mode} ({why})", file=sys.stderr)
+    return mode
+
+
+def _note_steps_per_dispatch(args) -> None:
+    if args.steps_per_dispatch > 1:
+        print("note: --steps-per-dispatch is ignored in one-program ensemble "
+              "mode (the member axis already batches the device work)",
+              file=sys.stderr)
+
+
+def _train_ensemble(exp, args, train_ds, val_ds) -> int:
+    """``train --ensemble K``: K members (seeds seed..seed+K-1, which also
+    drive each member's shuffle) into ``member_{k}/``, as one stacked
+    ensemble or, ``sequential``, K full ``Trainer`` runs."""
+    from supernet_tpu_torch.trainer import Trainer
+
+    base = args.out_dir or f"{exp.out_dir}/{exp.name}/ensemble"
+    try:
+        total_steps = exp.train.epochs * (len(train_ds) // exp.train.batch_size)
+    except TypeError:  # an unsized stream
+        total_steps = None
+    mode = _ensemble_mode(args, total_steps)
+    if mode != "sequential":
+        from supernet_tpu_torch.ensemble import EnsembleTrainer
+
+        _note_steps_per_dispatch(args)
+        tr = EnsembleTrainer(exp, args.ensemble, train_ds, val_ds, out_dir=base,
+                             member_mode=mode, device=args.device)
+        tr.run()
+        dirs, finals = tr.member_dirs, _finals(tr.histories)
+    else:
+        dirs, finals = [], []
+        for k in range(args.ensemble):
+            exp_k = exp.replace(train=dataclasses.replace(
+                exp.train, seed=exp.train.seed + k))
+            member_dir = f"{base}/member_{k}"
+            print(f"ensemble member {k}/{args.ensemble} -> {member_dir}",
+                  file=sys.stderr)
+            tr = Trainer(exp_k, train_ds, val_ds, out_dir=member_dir,
+                         steps_per_dispatch=args.steps_per_dispatch,
+                         device=args.device)
+            tr.run()
+            dirs.append(member_dir)
+            finals += _finals([tr.history])
+    print(json.dumps({"members": args.ensemble, "mode": mode, "dirs": dirs,
+                      "checkpoint_arg": ",".join(dirs), "final": finals}))
     return 0
 
 
@@ -962,8 +1029,6 @@ def _train3d(exp, args) -> int:
         if on:
             raise _unported(f"train3d {flag}", "'Parallelism' (parallel/spatial.py, "
                             "parallel/hybrid.py, parallel/data_parallel.py)")
-    if args.ensemble > 1:
-        raise _unported("train3d --ensemble K > 1", "'Ensembles' (ensemble.py)")
     exp = _cfg3d(exp, args)
     x, y = _load_volumes(exp, args, seed=0)
     # --val-frac 0 means no validation (see _val_count)
@@ -982,11 +1047,55 @@ def _train3d(exp, args) -> int:
                                   exp.model)
         print(f"transfer init: inflated 2-D checkpoint {args.init_from_2d} "
               "into the 3-D model", file=sys.stderr)
+    if args.ensemble > 1:
+        return _train3d_ensemble(exp, args, (x_tr, y_tr, x_val, y_val), init3d)
     tr = Trainer3D(exp, x_tr, y_tr, x_val, y_val, out_dir=args.out_dir,
                    initial_params=init3d,
                    steps_per_dispatch=args.steps_per_dispatch, device=args.device)
     tr.run()
     print(json.dumps({k: v[-1] for k, v in tr.history.items() if v}))
+    return 0
+
+
+def _train3d_ensemble(exp, args, data, init3d) -> int:
+    """``train3d --ensemble K``: K members (seeds seed..seed+K-1) into
+    ``member_{k}/``; a shared ``--init-from-2d`` inflation starts every
+    member from the same weights, so diversity then comes from the shuffle
+    alone."""
+    from supernet_tpu_torch.ensemble import ONE_PROGRAM_STEP3D_RATIO, SEQUENTIAL_STEP3D_S
+    from supernet_tpu_torch.train3d import Trainer3D
+
+    x_tr, y_tr, x_val, y_val = data
+    base = args.out_dir or f"{exp.out_dir}/{exp.name}_3d/ensemble"
+    # the 3-D step's own measured ratio: its vmap gains nothing on the card
+    mode = _ensemble_mode(args, exp.train.epochs * (len(x_tr) // exp.train.batch_size),
+                          step_s=SEQUENTIAL_STEP3D_S, step_ratio=ONE_PROGRAM_STEP3D_RATIO)
+    if mode != "sequential":
+        from supernet_tpu_torch.ensemble import EnsembleTrainer3D
+
+        _note_steps_per_dispatch(args)
+        tr = EnsembleTrainer3D(exp, args.ensemble, x_tr, y_tr, x_val, y_val,
+                               out_dir=base, member_mode=mode,
+                               initial_params=init3d, device=args.device)
+        tr.run()
+        print(json.dumps({"members": args.ensemble, "mode": mode,
+                          "dirs": tr.member_dirs,
+                          "checkpoint_arg": ",".join(tr.member_dirs),
+                          "final": _finals(tr.histories)}))
+        return 0
+    dirs, finals = [], []
+    for k in range(args.ensemble):
+        exp_k = exp.replace(train=dataclasses.replace(exp.train, seed=exp.train.seed + k))
+        member_dir = f"{base}/member_{k}"
+        print(f"ensemble member {k}/{args.ensemble} -> {member_dir}", file=sys.stderr)
+        tr = Trainer3D(exp_k, x_tr, y_tr, x_val, y_val, out_dir=member_dir,
+                       initial_params=init3d,
+                       steps_per_dispatch=args.steps_per_dispatch, device=args.device)
+        tr.run()
+        dirs.append(member_dir)
+        finals += _finals([tr.history])
+    print(json.dumps({"members": args.ensemble, "dirs": dirs,
+                      "checkpoint_arg": ",".join(dirs), "final": finals}))
     return 0
 
 

@@ -44,6 +44,15 @@
 //
 // No atomics anywhere: u and dsw are the same bits in every run.
 //
+// Member axis (a deep ensemble's K parameter sets in one launch, the
+// counterpart of jax.vmap over the Pallas call): g [K B, H', W', C] and t
+// [K B, H', W'] member-major, s_w [K, C]; u [K B, H, W] and dsw [K, C]. In
+// pass 1 blockIdx.y is the member: its blocks walk that member's pixels
+// alone and write that member's partial rows, so no partial ever mixes two
+// members; pass 2 writes u over all K B images (dt has the same layout) and
+// its fold blocks take one member's channels each. The general path counts
+// the member in its image index and reads that member's s_w.
+//
 // The general path (sigma_bwd_rows_kernel, any C) keeps the TPU kernel's row
 // tiles: a block owns `rows` rows of u of one image, recomputes dt for the
 // k-1 rows above them as a halo in shared memory (the carry's replacement),
@@ -73,8 +82,8 @@ __device__ __forceinline__ void axpy4(float4& acc, const float4 v, float s) {
   acc.w = fmaf(v.w, s, acc.w);
 }
 
-// g as float4: [P][C4]; t, dt: [P]; sw as float4: [C4]; part as float4:
-// [gridDim.x][C4]. LANES * STEPS >= C4.
+// Per member (blockIdx.y): g as float4: [P][C4]; t, dt: [P]; sw as float4:
+// [C4]; part as float4: [gridDim.x][C4]. LANES * STEPS >= C4.
 template <int LANES, int STEPS, int UNROLL>
 __global__ void __launch_bounds__(kThreads) sigma_bwd_dt_kernel(
     const float4* __restrict__ g, const float* __restrict__ t,
@@ -82,6 +91,12 @@ __global__ void __launch_bounds__(kThreads) sigma_bwd_dt_kernel(
     float4* __restrict__ part, long long P, int C4) {
   constexpr int kGroups = kThreads / LANES;  // pixel groups per block
   __shared__ float4 s_part[kWarps][LANES * STEPS];
+  const long long member = blockIdx.y;
+  g += member * P * C4;
+  t += member * P;
+  dt += member * P;
+  sw += member * C4;
+  part += member * gridDim.x * C4;
 
   // pass 2 may be scheduled from now on; it waits for this grid's end itself
   asm volatile("griddepcontrol.launch_dependents;");
@@ -163,10 +178,11 @@ __global__ void __launch_bounds__(kThreads) sigma_bwd_dt_kernel(
   }
 }
 
-// dt: [B][Hp][Wp]; part: [n_part][C]; u: [B][H][W]; dsw: [C]. Blocks
-// 0 .. dsw_blocks-1 fold the partials, the others write u. dt and part are
-// written by pass 1 while this kernel may already be resident, so they are
-// not declared read-only (no non-coherent loads).
+// dt: [K B][Hp][Wp]; part: [K][n_part][C]; u: [K B][H][W]; dsw: [K][C].
+// Blocks 0 .. K dsw_blocks-1 fold the partials (member = block / dsw_blocks),
+// the others write u. dt and part are written by pass 1 while this kernel
+// may already be resident, so they are not declared read-only (no
+// non-coherent loads).
 __global__ void __launch_bounds__(kThreads) sigma_bwd_spread_kernel(
     const float* dt, const float* part, float* __restrict__ u,
     float* __restrict__ dsw, int Hp, int Wp, int C, int k, int n_part,
@@ -177,8 +193,12 @@ __global__ void __launch_bounds__(kThreads) sigma_bwd_spread_kernel(
   asm volatile("griddepcontrol.wait;" ::: "memory");
   if (static_cast<int>(blockIdx.x) < dsw_blocks) {
     __shared__ float s_fold[kDswSlices][kDswChannels];
+    const int per_member = (C + kDswChannels - 1) / kDswChannels;
+    const int member = blockIdx.x / per_member;
     const int ch = tid % kDswChannels, slice = tid / kDswChannels;
-    const int c = blockIdx.x * kDswChannels + ch;
+    const int c = (blockIdx.x - member * per_member) * kDswChannels + ch;
+    part += static_cast<long long>(member) * n_part * C;
+    dsw += static_cast<long long>(member) * C;
     float a = 0.f;
     if (c < C) {
 #pragma unroll 4
@@ -219,7 +239,7 @@ __global__ void __launch_bounds__(kThreads) sigma_bwd_rows_kernel(
     const float* __restrict__ g, const float* __restrict__ t,
     const float* __restrict__ sw, float* __restrict__ u,
     float* __restrict__ dsw_part, int Hp, int Wp, int C, int k, int rows,
-    int tiles) {
+    int tiles, int B) {
   const int H = Hp + k - 1, W = Wp + k - 1;
   const int pw = Wp + 2 * (k - 1);  // dt tile width, k-1 zeros each side
   const int ph = rows + k - 1;      // dt tile height, k-1 halo rows on top
@@ -230,7 +250,8 @@ __global__ void __launch_bounds__(kThreads) sigma_bwd_rows_kernel(
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int y0 = (blockIdx.x % tiles) * rows;  // first u row of the block
-  const long long b = blockIdx.x / tiles;
+  const long long b = blockIdx.x / tiles;      // image, member-major
+  sw += (b / B) * C;                           // its member's s_w
 
   for (int i = tid; i < ph * pw; i += kThreads) s_dt[i] = 0.f;
   for (int i = tid; i < C; i += kThreads) s_sw[i] = sw[i];
@@ -289,10 +310,10 @@ long long smem_floats(int Wp, int C, int k, int rows) {
 
 template <int LANES, int STEPS, int UNROLL>
 void launch_dt(const float* g, const float* t, const float* sw, float* dt,
-               float* part, long long P, int C4, int blocks,
+               float* part, long long P, int C4, int blocks, int members,
                cudaStream_t stream) {
   sigma_bwd_dt_kernel<LANES, STEPS, UNROLL>
-      <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+      <<<dim3(static_cast<unsigned>(blocks), members), kThreads, 0, stream>>>(
           reinterpret_cast<const float4*>(g), t,
           reinterpret_cast<const float4*>(sw), dt,
           reinterpret_cast<float4*>(part), P, C4);
@@ -300,24 +321,26 @@ void launch_dt(const float* g, const float* t, const float* sw, float* dt,
 
 }  // namespace
 
-// The two-pass path. g: [B, Hp, Wp, C] with C % 4 == 0; t: [B, Hp, Wp];
-// sw: [C]; all float32, contiguous, g, sw and part on 16 bytes. dt:
-// [B, Hp, Wp] and part: [blocks, C] are scratch; u: [B, Hp+k-1, Wp+k-1];
-// dsw: [C]. `lanes` (8, 16 or 32) times `steps` (1..4, above 1 only with 32
-// lanes) covers C/4; `blocks` is pass 1's grid. Launches both kernels on
-// `stream`, the second as a programmatic dependent of the first, and
-// returns the first launch error.
+// The two-pass path. g: [members B, Hp, Wp, C] with C % 4 == 0;
+// t: [members B, Hp, Wp]; sw: [members, C]; all float32, contiguous, g, sw
+// and part on 16 bytes. dt: [members B, Hp, Wp] and part:
+// [members, blocks, C] are scratch; u: [members B, Hp+k-1, Wp+k-1]; dsw:
+// [members, C]. `lanes` (8, 16 or 32) times `steps` (1..4, above 1 only with
+// 32 lanes) covers C/4; `blocks` is pass 1's grid per member. Launches both
+// kernels on `stream`, the second as a programmatic dependent of the first,
+// and returns the first launch error.
 extern "C" int supernet_sigma_bwd_vec(const void* g, const void* t,
                                       const void* sw, void* dt, void* part,
                                       void* u, void* dsw, int B, int Hp,
                                       int Wp, int C, int k, int lanes,
-                                      int steps, int blocks, void* stream) {
+                                      int steps, int blocks, int members,
+                                      void* stream) {
   const int C4 = C / 4;
   const long long P = static_cast<long long>(B) * Hp * Wp;
-  const long long total =
-      static_cast<long long>(B) * (Hp + k - 1) * (Wp + k - 1);
-  if (C % 4 != 0 || lanes * steps < C4 || blocks < 1 ||
-      total >= (1ll << 31)) {
+  const long long total = static_cast<long long>(members) * B *
+                          (Hp + k - 1) * (Wp + k - 1);
+  if (C % 4 != 0 || lanes * steps < C4 || blocks < 1 || members < 1 ||
+      members > 65535 || total >= (1ll << 31)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto* gp = static_cast<const float*>(g);
@@ -328,17 +351,17 @@ extern "C" int supernet_sigma_bwd_vec(const void* g, const void* t,
   auto st = static_cast<cudaStream_t>(stream);
   const int key = lanes * 8 + steps;
   switch (key) {
-    case 8 * 8 + 1: launch_dt<8, 1, 4>(gp, tp, sp, dp, pp, P, C4, blocks, st); break;
-    case 16 * 8 + 1: launch_dt<16, 1, 4>(gp, tp, sp, dp, pp, P, C4, blocks, st); break;
-    case 32 * 8 + 1: launch_dt<32, 1, 4>(gp, tp, sp, dp, pp, P, C4, blocks, st); break;
-    case 32 * 8 + 2: launch_dt<32, 2, 2>(gp, tp, sp, dp, pp, P, C4, blocks, st); break;
-    case 32 * 8 + 3: launch_dt<32, 3, 1>(gp, tp, sp, dp, pp, P, C4, blocks, st); break;
-    case 32 * 8 + 4: launch_dt<32, 4, 1>(gp, tp, sp, dp, pp, P, C4, blocks, st); break;
+    case 8 * 8 + 1: launch_dt<8, 1, 4>(gp, tp, sp, dp, pp, P, C4, blocks, members, st); break;
+    case 16 * 8 + 1: launch_dt<16, 1, 4>(gp, tp, sp, dp, pp, P, C4, blocks, members, st); break;
+    case 32 * 8 + 1: launch_dt<32, 1, 4>(gp, tp, sp, dp, pp, P, C4, blocks, members, st); break;
+    case 32 * 8 + 2: launch_dt<32, 2, 2>(gp, tp, sp, dp, pp, P, C4, blocks, members, st); break;
+    case 32 * 8 + 3: launch_dt<32, 3, 1>(gp, tp, sp, dp, pp, P, C4, blocks, members, st); break;
+    case 32 * 8 + 4: launch_dt<32, 4, 1>(gp, tp, sp, dp, pp, P, C4, blocks, members, st); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int dsw_blocks = (C + kDswChannels - 1) / kDswChannels;
+  const int dsw_blocks = members * ((C + kDswChannels - 1) / kDswChannels);
   const long long u_blocks = (total + kThreads - 1) / kThreads;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(dsw_blocks + u_blocks));
@@ -358,15 +381,17 @@ extern "C" int supernet_sigma_bwd_vec(const void* g, const void* t,
   return static_cast<int>(err);
 }
 
-// The general path. g: [B, Hp, Wp, C]; t: [B, Hp, Wp]; sw: [C]; all float32,
-// contiguous. u: [B, Hp+k-1, Wp+k-1]; dsw_part: [B * tiles, C] with
-// tiles = ceil((Hp+k-1) / rows), one partial per block. Launches on `stream`
-// and returns cudaGetLastError(); a tile that needs more shared memory than
-// a block may have comes back as the error of cudaFuncSetAttribute.
+// The general path. g: [members B, Hp, Wp, C]; t: [members B, Hp, Wp]; sw:
+// [members, C]; all float32, contiguous. u: [members B, Hp+k-1, Wp+k-1];
+// dsw_part: [members B tiles, C] with tiles = ceil((Hp+k-1) / rows), one
+// partial per block (member-major). Launches on `stream` and returns
+// cudaGetLastError(); a tile that needs more shared memory than a block may
+// have comes back as the error of cudaFuncSetAttribute.
 extern "C" int supernet_sigma_bwd(const void* g, const void* t, const void* sw,
                                   void* u, void* dsw_part, int B, int Hp,
-                                  int Wp, int C, int k, int rows,
+                                  int Wp, int C, int k, int rows, int members,
                                   void* stream) {
+  if (members < 1) return static_cast<int>(cudaErrorInvalidValue);
   const int H = Hp + k - 1;
   const int tiles = (H + rows - 1) / rows;
   const size_t bytes = smem_floats(Wp, C, k, rows) * sizeof(float);
@@ -376,11 +401,11 @@ extern "C" int supernet_sigma_bwd(const void* g, const void* t, const void* sw,
         static_cast<int>(bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const long long blocks = static_cast<long long>(B) * tiles;
+  const long long blocks = static_cast<long long>(members) * B * tiles;
   sigma_bwd_rows_kernel<<<static_cast<unsigned>(blocks), kThreads, bytes,
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(g), static_cast<const float*>(t),
       static_cast<const float*>(sw), static_cast<float*>(u),
-      static_cast<float*>(dsw_part), Hp, Wp, C, k, rows, tiles);
+      static_cast<float*>(dsw_part), Hp, Wp, C, k, rows, tiles, B);
   return static_cast<int>(cudaGetLastError());
 }

@@ -79,6 +79,18 @@
 //   per-pixel sum in shared memory, and the k x k window of that sum is taken
 //   once per output pixel before the epilogue.
 // Every offset into the activations and weights is 64-bit.
+//
+// Member axis (a deep ensemble's K parameter sets in one launch, the
+// counterpart of jax.vmap over the Pallas call): w_mu [K, k, k, Cin, Cout],
+// sw [K, Cout], and mu, sigma [K, B, H, W, Cin] with a member stride of their
+// own, B H W Cin for per-member inputs or 0 for one batch that every member
+// reads (no copy is made); the outputs are [K B, H', W', ...], member-major.
+// The grid gains the member as its outermost coordinate: the CUDA-core path
+// takes it with the image (blockIdx.z = member B + image), the tensor-core
+// path with the K slice (blockIdx.z = member S + slice). An output tile is
+// counted per member (its M is B H' W'), so a tile never holds pixels of two
+// members, and the split-K scratch holds one [S, M, Cout] x 2 + [S, M] block
+// per member.
 
 #include <cuda_runtime.h>
 
@@ -116,8 +128,8 @@ __global__ void __launch_bounds__(kThreads) vdp_conv_kernel(
     const float* __restrict__ mu, const float* __restrict__ sigma,
     const float* __restrict__ w_mu, const float* __restrict__ sw,
     float* __restrict__ mu_out, float* __restrict__ sig_out,
-    float* __restrict__ win_out, int H, int W, int Cin, int Cout, int k,
-    int Ho, int Wo, int tiles_w) {
+    float* __restrict__ win_out, int B, int H, int W, int Cin, int Cout, int k,
+    int Ho, int Wo, int tiles_w, long long x_ms, long long w_ms, long long sw_ms) {
   using T = Tile<CT>;
   const int hw = T::TW + k - 1;  // halo tile width
   const int halo = (T::TH + k - 1) * hw;
@@ -135,7 +147,14 @@ __global__ void __launch_bounds__(kThreads) vdp_conv_kernel(
   const int oy0 = (blockIdx.x / tiles_w) * T::TH;
   const int ox0 = (blockIdx.x % tiles_w) * T::TW;
   const int co0 = blockIdx.y * CT;
-  const long long b = blockIdx.z;
+  // blockIdx.z = member B + image: the inputs and weights of the member at
+  // its strides, the outputs at the global image bz
+  const long long bz = blockIdx.z;
+  const long long member = bz / B, b = bz - member * B;
+  mu += member * x_ms;
+  if (HAS_SIGMA) sigma += member * x_ms;
+  w_mu += member * w_ms;
+  if (WIN) sw += member * sw_ms;
 
   if (WIN) {
     for (int p = tid; p < halo; p += kThreads) s_t[p] = 0.f;
@@ -256,7 +275,7 @@ __global__ void __launch_bounds__(kThreads) vdp_conv_kernel(
     const int p = tp + T::PL * i;
     const int oy = oy0 + p / T::TW, ox = ox0 + p % T::TW;
     if (oy >= Ho || ox >= Wo) continue;
-    const long long pix = (b * Ho + oy) * Wo + ox;
+    const long long pix = (bz * Ho + oy) * Wo + ox;
     const float wn = WIN ? s_win[p] : 0.f;
 #pragma unroll
     for (int j = 0; j < kRegC; ++j) {
@@ -276,16 +295,22 @@ __global__ void __launch_bounds__(kThreads) vdp_conv_kernel(
   }
 }
 
+// The member strides and count of the CUDA-core path.
+struct Members {
+  int n;
+  long long x_ms, w_ms, sw_ms;
+};
+
 template <int CT, bool HAS_SIGMA, bool RELU, bool WIN>
 cudaError_t launch(const float* mu, const float* sigma, const float* w_mu,
                    const float* sw, float* mu_out, float* sig_out, float* win,
                    int B, int H, int W, int Cin, int Cout, int k,
-                   cudaStream_t stream) {
+                   const Members& mem, cudaStream_t stream) {
   using T = Tile<CT>;
   const int Ho = H - k + 1, Wo = W - k + 1;
   const int tiles_h = (Ho + T::TH - 1) / T::TH;
   const int tiles_w = (Wo + T::TW - 1) / T::TW;
-  const dim3 grid(tiles_h * tiles_w, (Cout + CT - 1) / CT, B);
+  const dim3 grid(tiles_h * tiles_w, (Cout + CT - 1) / CT, mem.n * B);
   const size_t bytes = smem_floats<CT>(k, HAS_SIGMA) * sizeof(float);
   auto kernel = vdp_conv_kernel<CT, HAS_SIGMA, RELU, WIN>;
   if (bytes > 48 * 1024) {
@@ -295,8 +320,9 @@ cudaError_t launch(const float* mu, const float* sigma, const float* w_mu,
     if (err != cudaSuccess) return err;
   }
   kernel<<<grid, kThreads, bytes, stream>>>(mu, sigma, w_mu, sw, mu_out,
-                                            sig_out, win, H, W, Cin, Cout, k,
-                                            Ho, Wo, tiles_w);
+                                            sig_out, win, B, H, W, Cin, Cout,
+                                            k, Ho, Wo, tiles_w, mem.x_ms,
+                                            mem.w_ms, mem.sw_ms);
   return cudaGetLastError();
 }
 
@@ -306,30 +332,31 @@ template <int CT>
 cudaError_t dispatch(const float* mu, const float* sigma, const float* w_mu,
                      const float* sw, float* mu_out, float* sig_out,
                      float* win, int B, int H, int W, int Cin, int Cout, int k,
-                     bool relu, bool with_win, cudaStream_t stream) {
+                     bool relu, bool with_win, const Members& mem,
+                     cudaStream_t stream) {
   if (!with_win) {
     return sigma != nullptr
                ? launch<CT, true, false, false>(mu, sigma, w_mu, sw, mu_out,
                                                 sig_out, win, B, H, W, Cin,
-                                                Cout, k, stream)
+                                                Cout, k, mem, stream)
                : launch<CT, false, false, false>(mu, sigma, w_mu, sw, mu_out,
                                                  sig_out, win, B, H, W, Cin,
-                                                 Cout, k, stream);
+                                                 Cout, k, mem, stream);
   }
   if (sigma != nullptr) {
     return relu ? launch<CT, true, true, true>(mu, sigma, w_mu, sw, mu_out,
                                                sig_out, win, B, H, W, Cin,
-                                               Cout, k, stream)
+                                               Cout, k, mem, stream)
                 : launch<CT, true, false, true>(mu, sigma, w_mu, sw, mu_out,
                                                 sig_out, win, B, H, W, Cin,
-                                                Cout, k, stream);
+                                                Cout, k, mem, stream);
   }
   return relu ? launch<CT, false, true, true>(mu, sigma, w_mu, sw, mu_out,
                                               sig_out, win, B, H, W, Cin, Cout,
-                                              k, stream)
+                                              k, mem, stream)
               : launch<CT, false, false, true>(mu, sigma, w_mu, sw, mu_out,
                                                sig_out, win, B, H, W, Cin,
-                                               Cout, k, stream);
+                                               Cout, k, mem, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -489,19 +516,21 @@ struct Mma<64> {
   }
 };
 
-// One block: output pixels m0..m0+63 (flat over B x Ho x Wo) x channels
-// n0..n0+NT-1, input channels of slice blockIdx.z (chunks_per_split chunks
-// of 8). SPLIT: writes partials to `part` ([S][M][Cout] mu, [S][M][Cout]
-// sigma product, [S][M] window sum) instead of the outputs. !WIN: no window
-// sum (sw, win_out and the window partials are not touched), and without
-// sigma no sig_out either.
+// One block: output pixels m0..m0+63 (flat over B x Ho x Wo of one member)
+// x channels n0..n0+NT-1, input channels of one K slice (chunks_per_split
+// chunks of 8); blockIdx.z = member S + slice. SPLIT: writes partials to the
+// member's block of `part` ([S][M][Cout] mu, [S][M][Cout] sigma product,
+// [S][M] window sum) instead of the outputs. !WIN: no window sum (sw,
+// win_out and the window partials are not touched), and without sigma no
+// sig_out either.
 template <int NT, bool HAS_SIGMA, bool RELU, bool SPLIT, bool WIN>
 __global__ void __launch_bounds__(kThreads) vdp_conv_kernel_wgmma(
     const float* __restrict__ mu, const float* __restrict__ sigma,
     const float* __restrict__ w_mu, const float* __restrict__ sw,
     float* __restrict__ mu_out, float* __restrict__ sig_out,
     float* __restrict__ win_out, float* __restrict__ part, int H, int W,
-    int Cin, int Cout, int Ho, int Wo, long long M, int chunks_per_split) {
+    int Cin, int Cout, int Ho, int Wo, long long M, int chunks_per_split,
+    int splits, long long x_ms, long long w_ms, long long sw_ms) {
   using L = Smem<NT>;
   constexpr int R = NT / 2;  // accumulator registers per thread and product
   extern __shared__ __align__(128) float smem[];
@@ -511,8 +540,21 @@ __global__ void __launch_bounds__(kThreads) vdp_conv_kernel_wgmma(
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const long long m0 = static_cast<long long>(blockIdx.x) * kTileM;
   const int n0 = blockIdx.y * NT;
-  const int c_begin = blockIdx.z * chunks_per_split * kK;
+  const long long member = blockIdx.z / splits;
+  const int slice = static_cast<int>(blockIdx.z - member * splits);
+  const int c_begin = slice * chunks_per_split * kK;
   const int steps = chunks_per_split * kTaps;
+  // this member's operands at their strides, its outputs and scratch block
+  mu += member * x_ms;
+  if (HAS_SIGMA) sigma += member * x_ms;
+  w_mu += member * w_ms;
+  if (WIN) {
+    sw += member * sw_ms;
+    win_out += member * M;
+  }
+  mu_out += member * M * Cout;
+  if (HAS_SIGMA || WIN) sig_out += member * M * Cout;
+  if (SPLIT) part += member * splits * (2 * M * Cout + M);
 
   // Every address below that does not change from step to step is formed
   // once here; the steps only advance counters.
@@ -732,7 +774,7 @@ __global__ void __launch_bounds__(kThreads) vdp_conv_kernel_wgmma(
   // accumulator layout (wgmma m64nN, f32): register 4 j + 2 h + i holds row
   // r + 8 h, column 8 j + 2 (lane % 4) + i
   const long long r0 = m0 + 16 * warp + lane / 4;
-  const long long S = gridDim.z;
+  const long long S = splits;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const long long m = r0 + 8 * h;
@@ -747,7 +789,7 @@ __global__ void __launch_bounds__(kThreads) vdp_conv_kernel_wgmma(
           kFoldS2 ? make_float2(tot_s2[4 * j + 2 * h], tot_s2[4 * j + 2 * h + 1])
                   : make_float2(acc_s2[4 * j + 2 * h], acc_s2[4 * j + 2 * h + 1]);
       if (SPLIT) {
-        const long long o = (blockIdx.z * M + m) * Cout + co;
+        const long long o = (slice * M + m) * Cout + co;
         *reinterpret_cast<float2*>(part + o) = vm;
         if (HAS_SIGMA || WIN) {
           *reinterpret_cast<float2*>(part + S * M * Cout + o) = vs;
@@ -769,7 +811,7 @@ __global__ void __launch_bounds__(kThreads) vdp_conv_kernel_wgmma(
     }
     if (WIN && blockIdx.y == 0 && lane % 4 == 0) {
       if (SPLIT) {
-        part[2 * S * M * Cout + blockIdx.z * M + m] = wn;
+        part[2 * S * M * Cout + slice * M + m] = wn;
       } else {
         win_out[m] = wn;
       }
@@ -778,15 +820,24 @@ __global__ void __launch_bounds__(kThreads) vdp_conv_kernel_wgmma(
 }
 
 // Sums the S slices of the split path in slice order and writes the outputs;
-// one thread per 4 output channels of one pixel. !WIN: no window sum; !S2:
-// no sigma product either (mu_out alone).
+// one thread per 4 output channels of one pixel, blockIdx.y the member.
+// !WIN: no window sum; !S2: no sigma product either (mu_out alone).
 template <bool RELU, bool WIN, bool S2>
 __global__ void __launch_bounds__(256) vdp_conv_kernel_splitk_reduce(
     const float* __restrict__ part, const float* __restrict__ sw,
     float* __restrict__ mu_out, float* __restrict__ sig_out,
-    float* __restrict__ win_out, long long M, int Cout, int S) {
+    float* __restrict__ win_out, long long M, int Cout, int S,
+    long long sw_ms) {
   const int nq = Cout / 4;
   const long long plane = M * Cout;
+  const long long member = blockIdx.y;
+  part += member * S * (2 * plane + M);
+  mu_out += member * plane;
+  if (S2) sig_out += member * plane;
+  if (WIN) {
+    sw += member * sw_ms;
+    win_out += member * M;
+  }
   const float* part_s2 = part + S * plane;
   const float* part_win = part + 2 * S * plane;
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
@@ -826,7 +877,8 @@ __global__ void __launch_bounds__(256) vdp_conv_kernel_splitk_reduce(
 struct Args {
   const float *mu, *sigma, *w_mu, *sw;
   float *mu_out, *sig_out, *win, *part;
-  int B, H, W, Cin, Cout, splits;
+  int B, H, W, Cin, Cout, splits, members;
+  long long x_ms, w_ms, sw_ms;
   cudaStream_t stream;
 };
 
@@ -837,7 +889,7 @@ cudaError_t launch_wgmma(const Args& a) {
   const long long m_tiles = (M + kTileM - 1) / kTileM;
   if (m_tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
   const dim3 grid(static_cast<unsigned>(m_tiles), (a.Cout + NT - 1) / NT,
-                  a.splits);
+                  a.members * a.splits);
   const size_t bytes = Smem<NT>::floats * sizeof(float);
   auto kernel = vdp_conv_kernel_wgmma<NT, HAS_SIGMA, RELU, SPLIT, WIN>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -846,15 +898,17 @@ cudaError_t launch_wgmma(const Args& a) {
   if (err != cudaSuccess) return err;
   kernel<<<grid, kThreads, bytes, a.stream>>>(
       a.mu, a.sigma, a.w_mu, a.sw, a.mu_out, a.sig_out, a.win, a.part, a.H,
-      a.W, a.Cin, a.Cout, Ho, Wo, M, a.Cin / kK / a.splits);
+      a.W, a.Cin, a.Cout, Ho, Wo, M, a.Cin / kK / a.splits, a.splits,
+      a.x_ms, a.w_ms, a.sw_ms);
   err = cudaGetLastError();
   if (err != cudaSuccess || !SPLIT) return err;
   const long long quads = M * (a.Cout / 4);
   const long long blocks = (quads + 255) / 256;
   vdp_conv_kernel_splitk_reduce<RELU, WIN, HAS_SIGMA || WIN>
-      <<<static_cast<unsigned>(blocks < 65535 ? blocks : 65535), 256, 0,
-         a.stream>>>(a.part, a.sw, a.mu_out, a.sig_out, a.win, M, a.Cout,
-                     a.splits);
+      <<<dim3(static_cast<unsigned>(blocks < 65535 ? blocks : 65535),
+              a.members),
+         256, 0, a.stream>>>(a.part, a.sw, a.mu_out, a.sig_out, a.win, M,
+                             a.Cout, a.splits, a.sw_ms);
   return cudaGetLastError();
 }
 
@@ -902,6 +956,11 @@ cudaError_t dispatch_wgmma(const Args& a, bool relu, bool with_win) {
 //   holds 2 splits M Cout + splits M floats (M = B (H-2) (W-2)).
 // with_win 0: no window sum and no ReLU; sw and win are not read or
 //   written (may be null), and without sigma neither is sig_out.
+// members: the member axis (1 for one parameter set). w_mu, sw and the
+//   outputs then hold `members` blocks one after another, and member m reads
+//   mu + m x_ms, sigma + m x_ms, w_mu + m w_ms and sw + m sw_ms (floats;
+//   x_ms 0 is one input batch shared by every member); with splits > 1,
+//   `scratch` holds `members` times the floats above.
 // The plan comes from ops/kernels/vdp_conv.py:plan. Launches on `stream`
 // and returns cudaGetLastError(); a plan the kernels do not take is
 // cudaErrorInvalidValue, and a k whose CUDA-core tiles need more shared
@@ -913,7 +972,9 @@ extern "C" int supernet_vdp_conv_fwd(const void* mu, const void* sigma,
                                      void* scratch, int B, int H, int W,
                                      int Cin, int Cout, int k, int fuse_relu,
                                      int with_win, int path, int tile_n,
-                                     int splits, void* stream) {
+                                     int splits, int members, long long x_ms,
+                                     long long w_ms, long long sw_ms,
+                                     void* stream) {
   const auto* m = static_cast<const float*>(mu);
   const auto* s = static_cast<const float*>(sigma);
   const auto* w = static_cast<const float*>(w_mu);
@@ -929,18 +990,24 @@ extern "C" int supernet_vdp_conv_fwd(const void* mu, const void* sigma,
          : (relu || (s != nullptr && so == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (members < 1 || x_ms < 0 || w_ms < 0 || sw_ms < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaError_t err = cudaErrorInvalidValue;
-  if (path == 0 && splits == 1 && (tile_n == 32 || tile_n == 64)) {
+  if (path == 0 && splits == 1 && (tile_n == 32 || tile_n == 64) &&
+      static_cast<long long>(members) * B <= 65535) {
+    const Members mem{members, x_ms, w_ms, sw_ms};
     err = tile_n == 64 ? dispatch<64>(m, s, w, v, mo, so, wo, B, H, W, Cin,
-                                      Cout, k, relu, ww, st)
+                                      Cout, k, relu, ww, mem, st)
                        : dispatch<32>(m, s, w, v, mo, so, wo, B, H, W, Cin,
-                                      Cout, k, relu, ww, st);
+                                      Cout, k, relu, ww, mem, st);
   } else if (path == 1 && k == 3 && Cin % tc::kK == 0 && Cout % 4 == 0 &&
              9LL * Cin * Cout < (1LL << 31) && 3LL * W * Cin < (1LL << 31) &&
              splits >= 1 && (Cin / tc::kK) % splits == 0 &&
+             static_cast<long long>(members) * splits <= 65535 &&
              (splits == 1 || part != nullptr)) {
     const tc::Args a{m, s, w, v, mo, so, wo, part, B, H, W, Cin, Cout, splits,
-                     st};
+                     members, x_ms, w_ms, sw_ms, st};
     if (tile_n == 32) err = tc::dispatch_wgmma<32>(a, relu, ww);
     if (tile_n == 64) err = tc::dispatch_wgmma<64>(a, relu, ww);
   }

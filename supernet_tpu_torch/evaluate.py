@@ -119,17 +119,30 @@ def make_eval_forward(
 def ensemble_forward(fwd, params_list):
     """Deep-ensemble eval forward: wrap a ``fwd(params, x) -> (p, s)`` into
     the uniform-mixture moments over K members (the within-member variance
-    plus the between-member disagreement), one member after the other and
-    mixed by ``serving.mixture``, the function ``EnsembleSession`` uses.
-    Returns ``(mixture_fwd, members)``; call ``mixture_fwd(members, x)``.
-    Single-device VDP only: callers reject mesh / mc_samples modes."""
+    plus the between-member disagreement), mixed by ``serving.mixture``, the
+    function ``EnsembleSession`` uses. The members run together: ``fwd``
+    gets their member-stacked parameters and the batch as a stride-0
+    [K, B, ...] view, so each layer runs once for all of them (the
+    counterpart of the JAX package's vmapped forward). Returns
+    ``(mixture_fwd, members)``; call ``mixture_fwd(members, x)``. The stack
+    is made at the first call and kept while the same member list comes back
+    (a noise sweep calls per level and region): a member changed in place
+    after that is not seen. Single-device VDP only: callers reject mesh /
+    mc_samples modes."""
     members = list(params_list)
     if not members:
         raise ValueError("params_list must hold at least one member")
+    cache = {}
 
     def efn(params, x):
-        outs = [fwd(member, x) for member in params]
-        return mixture([p for p, _ in outs], [s for _, s in outs])
+        key = tuple(id(p) for p in params)
+        if cache.get("key") != key:
+            from supernet_tpu_torch.train import stack_trees
+
+            # the member dicts are held with the key, so their ids stay theirs
+            cache.update(key=key, members=list(params), stacked=stack_trees(params))
+        probs, sigma = fwd(cache["stacked"], x.expand(len(params), *x.shape))
+        return mixture(probs.unbind(0), sigma.unbind(0))
 
     return efn, members
 

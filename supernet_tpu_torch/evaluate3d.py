@@ -22,7 +22,7 @@ Every runner takes ``device`` (default the card; nothing falls back to the
 CPU). A batch's noise comes from a CPU generator keyed by the seed and the
 batch index, the Monte-Carlo draws likewise, so a run sees the same draws
 on every device. A comma-separated ensemble (a list of parameter dicts) is
-served as a loop over its members and mixed (``evaluate.ensemble_forward``).
+served by one member-stacked forward and mixed (``evaluate.ensemble_forward``).
 A mesh raises ``NotImplementedError`` (ROADMAP.md, Queue 1: 'Parallelism').
 """
 

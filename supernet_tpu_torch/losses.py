@@ -21,7 +21,13 @@ Tensor = torch.Tensor
 NLL_EPS = 1e-3  # Hippocampus.py:304
 
 
-def nll_gaussian(y: Tensor, mu: Tensor, sigma: Tensor, eps: float = NLL_EPS) -> Tensor:
+def _mean(v: Tensor, members: bool) -> Tensor:
+    """The mean over everything, or over all but the leading member axis."""
+    return v.flatten(1).mean(1) if members else v.mean()
+
+
+def nll_gaussian(y: Tensor, mu: Tensor, sigma: Tensor, eps: float = NLL_EPS,
+                 members: bool = False) -> Tensor:
     """Expected Gaussian negative log-likelihood over flattened pixels.
 
     y one-hot [B, N, C]; mu the post-softmax probabilities [B, N, C]; sigma
@@ -30,13 +36,17 @@ def nll_gaussian(y: Tensor, mu: Tensor, sigma: Tensor, eps: float = NLL_EPS) -> 
       loss1 = mean_{B,N}[ sum_c (mu - y)^2 / (sigma + eps) ]   (NaN/Inf -> 0)
       loss2 = mean_{B,N}[ sum_c log(sigma_c + eps) ]
       nll   = 0.5 * (loss1 + loss2)
+
+    ``members``: the inputs are [K, B, N, C], K ensemble members, and the
+    result is each member's own [K] (the scrub per member), what
+    ``jax.vmap`` of this function gives.
     """
     dt = torch.promote_types(mu.dtype, torch.float32)
     mu, sigma = mu.to(dt), sigma.to(dt)
     inv = 1.0 / (sigma + eps)
-    loss1 = ((mu - y) ** 2 * inv).sum(dim=-1).mean()
+    loss1 = _mean(((mu - y) ** 2 * inv).sum(dim=-1), members)
     loss1 = torch.where(torch.isfinite(loss1), loss1, torch.zeros_like(loss1))
-    loss2 = torch.log(sigma + eps).sum(dim=-1).mean()
+    loss2 = _mean(torch.log(sigma + eps).sum(dim=-1), members)
     return 0.5 * (loss1 + loss2)
 
 
@@ -57,8 +67,10 @@ def elbo_loss(
     kl_factor: float,
     sigma_clip_min: float = 1e-12,
     sigma_clip_max: float = 1e3,
+    members: bool = False,
 ) -> Tensor:
     """Total training loss: clipped-NLL + kl_factor * 0.5 * KL
-    (`Hippocampus.py:523-527`)."""
+    (`Hippocampus.py:523-527`); per member ([K]) with ``members``, ``kl``
+    then [K] too."""
     sigma_c = clip_sigma(sigma, sigma_clip_min, sigma_clip_max)
-    return nll_gaussian(y, mu, sigma_c) + kl_factor * 0.5 * kl
+    return nll_gaussian(y, mu, sigma_c, members=members) + kl_factor * 0.5 * kl

@@ -113,13 +113,19 @@ def kl_regularizer(params: Params) -> Tensor:
     ``tf.math.add_n(model.losses)``):
 
       l2:  sum(w_mu^2);   KL:  -k^2 * mean(1 + log softplus(ws) - softplus(ws))
-    """
+
+    Member-stacked parameters (``w_mu`` [K,k,k,Cin,Cout]) give the K
+    members' sums, [K]."""
     total = None
     for p in params.values():
         w_mu, w_sigma = p["w_mu"], p["w_sigma"]
-        k = w_mu.shape[0]
+        k = w_mu.shape[-3]
         f_s = torch.nn.functional.softplus(w_sigma)
-        term = (w_mu * w_mu).sum() - (k * k) * (1.0 + torch.log(f_s) - f_s).mean()
+        if w_mu.dim() == 5:
+            term = ((w_mu * w_mu).flatten(1).sum(1)
+                    - (k * k) * (1.0 + torch.log(f_s) - f_s).mean(-1))
+        else:
+            term = (w_mu * w_mu).sum() - (k * k) * (1.0 + torch.log(f_s) - f_s).mean()
         total = term if total is None else total + term
     return total
 
@@ -129,6 +135,12 @@ def forward(
 ) -> Tuple[Tensor, Tensor]:
     """Full VDP forward pass: image [B,H,W,Cin] -> (probs, sigma), both
     flattened to [B, H_out*W_out, n_classes].
+
+    Deep ensembles: with member-stacked ``params`` (every leaf [K, ...]) and
+    ``x`` [K,B,H,W,Cin] (``x.expand(K, *x.shape)`` for one batch that every
+    member reads) the K members run together, every kernel once per layer
+    for all of them, and the outputs are [K, B, H_out*W_out, n_classes]: the
+    counterpart of ``jax.vmap(forward)`` over a stacked tree.
 
     ``tap(stage_name, shape)``, when given, is called with every
     intermediate's shape, under the JAX forward's stage names. Each conv
@@ -197,7 +209,10 @@ def forward(
         m, s = constrain(m, s)
 
     m, s = layer(vconv, "conv_final", m, s)
-    return vsoftmax(m, s)
+    probs, sigma = vsoftmax(m, s)
+    if x.dim() == 5:
+        return probs.unflatten(0, x.shape[:2]), sigma.unflatten(0, x.shape[:2])
+    return probs, sigma
 
 
 def _identity(m: Tensor, s: Tensor) -> Tuple[Tensor, Tensor]:

@@ -102,13 +102,20 @@ def kl_regularizer3d(params: Params) -> Tensor:
     kernel's spatial size, k^3:
 
       sum(w_mu^2) - k^3 * mean(1 + log softplus(ws) - softplus(ws))
+
+    Member-stacked parameters (``w_mu`` [K,k,k,k,Cin,Cout]) give the K
+    members' sums, [K].
     """
     total = None
     for p in params.values():
         w_mu, w_sigma = p["w_mu"], p["w_sigma"]
-        strength = math.prod(w_mu.shape[:-2])
+        strength = math.prod(w_mu.shape[-5:-2])
         f_s = F.softplus(w_sigma)
-        term = (w_mu * w_mu).sum() - strength * (1.0 + torch.log(f_s) - f_s).mean()
+        if w_mu.dim() == 6:
+            term = ((w_mu * w_mu).flatten(1).sum(1)
+                    - strength * (1.0 + torch.log(f_s) - f_s).mean(-1))
+        else:
+            term = (w_mu * w_mu).sum() - strength * (1.0 + torch.log(f_s) - f_s).mean()
         total = term if total is None else total + term
     return total
 
@@ -126,7 +133,14 @@ def forward3d(
     pool and every decoder block, as in ``supernet_tpu/models/unet3d.py``.
     With ``cfg.remat`` and gradients enabled every encoder block after the
     first and every decoder block runs under ``torch.utils.checkpoint``
-    (the 2-D forward's scheme)."""
+    (the 2-D forward's scheme).
+
+    Deep ensembles: member-stacked ``params`` (every leaf [K, ...]) and ``x``
+    [K,B,S,S,S,Cin] (``x.expand(K, *x.shape)`` for one shared batch) give
+    [K, B, out^3, n_classes]. Each conv layer runs its members one after the
+    other through cuDNN (the family has no hand-written kernel to take a
+    member axis); the pools, pads, crops and the softmax see the members as
+    part of the batch [K*B, ...]."""
     depth = cfg.depth
     fill = cfg.sigma_fill
     if constrain is None:
@@ -136,7 +150,10 @@ def forward3d(
     def layer(fn, name: str, *moments):
         p = params[name]
         with torch.profiler.record_function(name):
-            m, s = fn(*moments, p["w_mu"], p["w_sigma"])
+            if p["w_mu"].dim() == 6:
+                m, s = _per_member(fn, moments, p["w_mu"], p["w_sigma"])
+            else:
+                m, s = fn(*moments, p["w_mu"], p["w_sigma"])
         _tap(name, m)
         return m, s
 
@@ -177,7 +194,23 @@ def forward3d(
         m, s = constrain(m, s)
 
     m, s = layer(vconv3d, "conv_final", m, s)
-    return vsoftmax3d(m, s)
+    probs, sigma = vsoftmax3d(m, s)
+    if x.dim() == 6:
+        return probs.unflatten(0, x.shape[:2]), sigma.unflatten(0, x.shape[:2])
+    return probs, sigma
+
+
+def _per_member(fn, moments, w_mu: Tensor, w_sigma: Tensor) -> Tuple[Tensor, Tensor]:
+    """One weighted layer of a member-stacked forward: member k's moments
+    (a slice of [K,B,...] or of [K*B,...]) through ``fn`` with its weights,
+    the outputs concatenated member-major [K*B, ...]."""
+    n = w_mu.shape[0]
+
+    def member(t: Tensor, k: int) -> Tensor:
+        return t[k] if t.dim() == 6 else t.unflatten(0, (n, -1))[k]
+
+    outs = [fn(*(member(t, k) for t in moments), w_mu[k], w_sigma[k]) for k in range(n)]
+    return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
 
 
 def forward_sampled3d(

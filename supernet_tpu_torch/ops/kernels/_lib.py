@@ -17,6 +17,7 @@ CPU-only machine has no ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -34,6 +35,7 @@ _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
 
 
 def _nvcc() -> str:
@@ -110,15 +112,15 @@ def load() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            lib.supernet_vdp_conv_fwd.argtypes = [_P] * 8 + [_I] * 11 + [_P]
+            lib.supernet_vdp_conv_fwd.argtypes = [_P] * 8 + [_I] * 12 + [_LL] * 3 + [_P]
             lib.supernet_vdp_conv_fwd.restype = _I
             lib.supernet_vmaxpool_fwd.argtypes = [_P] * 5 + [_I] * 4 + [_P]
             lib.supernet_vmaxpool_fwd.restype = _I
             lib.supernet_vmaxpool_bwd.argtypes = [_P] * 5 + [_I] * 5 + [_P]
             lib.supernet_vmaxpool_bwd.restype = _I
-            lib.supernet_sigma_bwd.argtypes = [_P] * 5 + [_I] * 6 + [_P]
+            lib.supernet_sigma_bwd.argtypes = [_P] * 5 + [_I] * 7 + [_P]
             lib.supernet_sigma_bwd.restype = _I
-            lib.supernet_sigma_bwd_vec.argtypes = [_P] * 7 + [_I] * 8 + [_P]
+            lib.supernet_sigma_bwd_vec.argtypes = [_P] * 7 + [_I] * 9 + [_P]
             lib.supernet_sigma_bwd_vec.restype = _I
             lib.supernet_empty_launch.argtypes = [_P]
             lib.supernet_empty_launch.restype = _I
@@ -144,6 +146,23 @@ def check_input(op: str, name: str, t, shape) -> None:
         raise ValueError(
             f"{op}: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}"
         )
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device) -> int:
+    """The streaming multiprocessors of the card holding ``device`` (132 on
+    an H100 SXM, 114 on an H100 PCIe): what the planners fill."""
+    import torch
+
+    device = torch.device(device)
+    return _sm_count(torch.cuda.current_device() if device.index is None
+                     else device.index)
 
 
 def aligned(t):

@@ -24,6 +24,11 @@ it out from the shape alone:
 
 Neither uses atomics, and the grid and the order of every sum depend on the
 shape only, so ``u`` and ``dsw`` are the same bits in every run.
+
+Member axis (a deep ensemble's K parameter sets in one launch, the
+counterpart of ``jax.vmap`` over the Pallas call): ``s_w`` [K, C] with ``g``
+[K*B,H',W',C] and ``t`` [K*B,H',W'] member-major give ``u`` [K*B,H,W] and
+``dsw`` [K, C]; every partial row of ``dsw`` belongs to one member.
 :func:`winsum_spread_bwd` launches the planned kernels for CUDA tensors and
 takes :func:`winsum_spread_bwd_plain` only for CPU tensors.
 """
@@ -43,8 +48,9 @@ from supernet_tpu_torch.ops.kernels import _lib
 # that the training path went through the kernels.
 launches = 0
 
-# The planner's constants: the card's SM count (H100 SXM), the threads of a
-# block, pass 1's largest grid (two blocks of 256 threads per SM: on the card
+# The planner's constants: the SM count of the shape-only plan (H100 SXM; a
+# launch plans with its own card's count, ``_lib.sm_count``), the threads of
+# a block, pass 1's blocks per SM (two blocks of 256 threads per SM: on the card
 # one and three per SM were 1-6% slower over a train step's layers, four 4%
 # and eight 18-25%, each block paying for its fold and its partial row), the
 # widest C whose dsw sums fit a lane's registers (4 float4 per lane of 32),
@@ -52,7 +58,8 @@ launches = 0
 # may ask for.
 SMS = 132
 THREADS = 256
-MAX_BLOCKS = 2 * SMS
+BLOCKS_PER_SM = 2
+MAX_BLOCKS = BLOCKS_PER_SM * SMS  # pass 1's grid cap at SMS and one member
 MAX_VEC_C = 512
 DSW_CHANNELS = 8
 SMEM_LIMIT = 232448
@@ -64,12 +71,14 @@ ROWS = 8
 class Plan(NamedTuple):
     """How one call runs. ``path`` "vec4" or "rows"; ``lanes`` per pixel,
     16-byte ``steps`` per lane and pixel, pixels per trip (``unroll``);
-    ``blocks`` of the main kernel, which is also the number of dsw partial
-    rows; ``groups``: the pixel groups of the whole grid, the stride of the
-    walk over the pixels; ``trips``: the most pixels one group visits;
-    ``spread_blocks`` of pass 2, the first ``dsw_blocks`` of which fold the
-    partials; static or dynamic shared memory of the main kernel and the
-    floats of scratch (dt, then the partial rows on a 16-byte boundary)."""
+    ``blocks`` of the main kernel per member, which is also the number of
+    a member's dsw partial rows; ``groups``: the pixel groups of one
+    member's grid, the stride of the walk over its pixels; ``trips``: the
+    most pixels one group visits; ``spread_blocks`` of pass 2, the first
+    ``dsw_blocks`` of which fold the partials (all members); static or
+    dynamic shared memory of the main kernel and the floats of scratch (dt,
+    then the partial rows on a 16-byte boundary). The "rows" path's
+    ``blocks`` are those of all members."""
 
     path: str
     lanes: int
@@ -89,40 +98,53 @@ def _cdiv(a: int, b: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def plan(b: int, hp: int, wp: int, c: int, k: int) -> Plan:
-    """The kernel plan for g [b,hp,wp,c] and a k x k window, from the shape
-    alone (no CUDA: the CPU tests call it).
+def plan(b: int, hp: int, wp: int, c: int, k: int, members: int = 1,
+         sms: int = SMS) -> Plan:
+    """The kernel plan for ``members`` members of g [b,hp,wp,c] and a k x k
+    window, from the shape alone (no CUDA: the CPU tests call it), for a
+    card of ``sms`` SMs.
 
     "vec4": a pixel's c/4 float4 go to the fewest lanes of 8, 16 or 32 that
     hold them, in ceil(c/128) steps per lane; a block of THREADS has
-    THREADS/lanes groups. The grid gives every group at least one pixel and
-    stops at MAX_BLOCKS, beyond which the groups walk on with the grid's
-    stride; each trip takes 4/steps pixels. Pass 2 has one thread per
-    element of u behind ceil(c/8) fold blocks."""
+    THREADS/lanes groups. Each member's grid gives every group at least one
+    pixel and stops where the members' grids together reach BLOCKS_PER_SM
+    blocks per SM (one block per member at least), beyond which the groups
+    walk on with the grid's stride; each trip takes 4/steps pixels. Pass 2
+    has one thread per element of u behind ceil(c/8) fold blocks per
+    member."""
     pixels = b * hp * wp
     h, w = hp + k - 1, wp + k - 1
-    if c % 4 == 0 and c <= MAX_VEC_C and b * h * w < 2 ** 31:
+    if (c % 4 == 0 and c <= MAX_VEC_C and members * b * h * w < 2 ** 31
+            and members <= 65535):
         c4 = c // 4
         lanes = 8 if c4 <= 8 else 16 if c4 <= 16 else 32
         steps = _cdiv(c4, lanes)
         per_block = THREADS // lanes
-        blocks = max(1, min(_cdiv(pixels, per_block), MAX_BLOCKS))
+        cap = max(1, BLOCKS_PER_SM * sms // members)
+        blocks = max(1, min(_cdiv(pixels, per_block), cap))
         groups = blocks * per_block
-        dsw_blocks = _cdiv(c, DSW_CHANNELS)
+        dsw_blocks = members * _cdiv(c, DSW_CHANNELS)
         return Plan("vec4", lanes, steps, max(1, 4 // steps), blocks, groups,
                     _cdiv(pixels, groups),
-                    dsw_blocks + _cdiv(b * h * w, THREADS), dsw_blocks,
+                    dsw_blocks + _cdiv(members * b * h * w, THREADS), dsw_blocks,
                     16 * (THREADS // 32) * lanes * steps,
-                    _cdiv(pixels, 4) * 4 + blocks * c)
+                    _cdiv(members * pixels, 4) * 4 + members * blocks * c)
     tiles = _cdiv(h, ROWS)
     smem = 4 * ((ROWS + k - 1) * (wp + 2 * (k - 1)) + (1 + THREADS // 32) * c)
-    return Plan("rows", 32, _cdiv(c, 32), 1, b * tiles, 0, 0, 0, 0, smem, 0)
+    return Plan("rows", 32, _cdiv(c, 32), 1, members * b * tiles, 0, 0, 0, 0,
+                smem, 0)
 
 
 def winsum_spread_bwd_plain(
     g: torch.Tensor, t: torch.Tensor, s_w: torch.Tensor, k: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """PyTorch composition: ``(u, dsw)`` as in the module docstring."""
+    """PyTorch composition: ``(u, dsw)`` as in the module docstring; with
+    ``s_w`` [K, C], member by member."""
+    if s_w.dim() == 2:
+        n = s_w.shape[0]
+        outs = [winsum_spread_bwd_plain(gi, ti, s_w[i], k) for i, (gi, ti)
+                in enumerate(zip(g.unflatten(0, (n, -1)), t.unflatten(0, (n, -1))))]
+        return torch.cat([o[0] for o in outs]), torch.stack([o[1] for o in outs])
     dt = (g * s_w).sum(dim=-1)
     ones = torch.ones((1, 1, k, k), dtype=g.dtype, device=g.device)
     u = F.conv_transpose2d(dt[:, None], ones)[:, 0]
@@ -132,41 +154,46 @@ def winsum_spread_bwd_plain(
 
 def _launch(g, t, s_w, k):
     global launches
-    if g.dim() != 4:
-        raise ValueError(f"winsum_spread_bwd: g must be [B,H',W',C], got {tuple(g.shape)}")
-    b, hp, wp, c = g.shape
+    if g.dim() != 4 or s_w.dim() not in (1, 2):
+        raise ValueError(f"winsum_spread_bwd: g must be [B,H',W',C] and s_w [C] "
+                         f"or [K,C], got {tuple(g.shape)} and {tuple(s_w.shape)}")
+    members = s_w.shape[0] if s_w.dim() == 2 else 1
+    kb, hp, wp, c = g.shape
+    if kb % members:
+        raise ValueError(f"winsum_spread_bwd: {kb} images for {members} members")
+    b = kb // members
     _lib.check_input("winsum_spread_bwd", "g", g, g.shape)
-    _lib.check_input("winsum_spread_bwd", "t", t, (b, hp, wp))
-    _lib.check_input("winsum_spread_bwd", "s_w", s_w, (c,))
+    _lib.check_input("winsum_spread_bwd", "t", t, (kb, hp, wp))
+    _lib.check_input("winsum_spread_bwd", "s_w", s_w, tuple(s_w.shape[:-1]) + (c,))
     if t.device != g.device or s_w.device != g.device:
         raise ValueError("winsum_spread_bwd: inputs are on different devices")
     if k < 1 or c < 1 or min(hp, wp) < 1:
         raise ValueError(f"winsum_spread_bwd: unsupported sizes {tuple(g.shape)}, k={k}")
-    u = torch.empty((b, hp + k - 1, wp + k - 1), device=g.device, dtype=torch.float32)
+    u = torch.empty((kb, hp + k - 1, wp + k - 1), device=g.device, dtype=torch.float32)
     if b == 0:
-        return u, torch.zeros(c, device=g.device, dtype=torch.float32)
-    p = plan(b, hp, wp, c, k)
+        return u, torch.zeros(s_w.shape, device=g.device, dtype=torch.float32)
+    p = plan(b, hp, wp, c, k, members, _lib.sm_count(g.device))
     lib = _lib.load()
     stream = torch.cuda.current_stream(g.device).cuda_stream
     if p.path == "vec4":
         g, s_w = _lib.aligned(g), _lib.aligned(s_w)
         scratch = torch.empty(p.scratch_floats, device=g.device, dtype=torch.float32)
-        part = scratch[p.scratch_floats - p.blocks * c:]
-        dsw = torch.empty(c, device=g.device, dtype=torch.float32)
+        part = scratch[p.scratch_floats - members * p.blocks * c:]
+        dsw = torch.empty(s_w.shape, device=g.device, dtype=torch.float32)
         with torch.cuda.device(g.device):
             err = lib.supernet_sigma_bwd_vec(
                 g.data_ptr(), t.data_ptr(), s_w.data_ptr(), scratch.data_ptr(),
                 part.data_ptr(), u.data_ptr(), dsw.data_ptr(),
-                b, hp, wp, c, k, p.lanes, p.steps, p.blocks, stream,
+                b, hp, wp, c, k, p.lanes, p.steps, p.blocks, members, stream,
             )
     else:
         part = torch.empty((p.blocks, c), device=g.device, dtype=torch.float32)
         with torch.cuda.device(g.device):
             err = lib.supernet_sigma_bwd(
                 g.data_ptr(), t.data_ptr(), s_w.data_ptr(), u.data_ptr(),
-                part.data_ptr(), b, hp, wp, c, k, ROWS, stream,
+                part.data_ptr(), b, hp, wp, c, k, ROWS, members, stream,
             )
-        dsw = part.sum(dim=0)
+        dsw = part.view(members, -1, c).sum(dim=1).view(s_w.shape)
     _lib.check(err, f"winsum_spread_bwd kernel launch ({p.path}, {p.blocks} blocks)")
     launches += 1
     return u, dsw
@@ -176,7 +203,8 @@ def winsum_spread_bwd(
     g: torch.Tensor, t: torch.Tensor, s_w: torch.Tensor, k: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(u, dsw)`` from ``g`` [B,H',W',C], ``t`` [B,H',W'] (the forward's
-    ``win``) and ``s_w`` [C].
+    ``win``) and ``s_w`` [C]; or, for K members, ``s_w`` [K,C] with ``g``
+    and ``t`` [K*B,...] member-major and ``dsw`` [K,C].
 
     CUDA tensors go to the kernels :func:`plan` picks (or raise), and give
     the same bits in every run; CPU tensors go to

@@ -28,6 +28,16 @@ filter gradients as PyTorch ops, as they are XLA convolutions in the JAX
 package. Layouts are the JAX package's: NHWC
 activations, HWIO ``w_mu`` [k,k,Cin,Cout] and the raw (pre-softplus)
 ``w_sigma`` [Cout].
+
+Member axis (a deep ensemble's K parameter sets, the counterpart of
+``jax.vmap`` over the Pallas call): ``w_mu`` [K,k,k,Cin,Cout] and
+``w_sigma`` [K,Cout] make every function here run all K members in one
+launch. The activations are then [K*B,H,W,Cin], member-major, or
+[K,B,H,W,Cin] with each member contiguous and the member stride either
+B*H*W*Cin or 0: ``x.expand(K, *x.shape)`` is one batch that every member
+reads, passed to the kernel by its stride and never copied. The outputs are
+[K*B,H',W',...]. The plain versions run the single-member plain version
+member by member.
 """
 
 from __future__ import annotations
@@ -54,14 +64,17 @@ reduce_launches = 0
 dgrad_launches = 0
 dgrad_reduce_launches = 0
 
-# The planner's constants: the card's SM count (H100 SXM), the tensor-core
-# kernel's output pixels per block (wgmma's M) and input channels per K
-# step, and the caps on the number of K slices and on their scratch.
+# The planner's constants: the SM count of the shape-only plan (H100 SXM;
+# a launch plans with its own card's count, ``_lib.sm_count``), the
+# tensor-core kernel's output pixels per block (wgmma's M) and input
+# channels per K step, the caps on the number of K slices and on their
+# scratch, and the grid's z extent (members x K slices, members x images).
 SMS = 132
 TC_TILE_M = 64
 TC_CHUNK = 8
 MAX_SPLITS = 16
 MAX_SCRATCH_BYTES = 64 << 20
+MAX_GRID_Z = 65535
 _PATH_ID = {"simt": 0, "wgmma": 1}
 
 
@@ -83,46 +96,65 @@ def _cdiv(a: int, b: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def plan(b: int, h: int, w: int, cin: int, cout: int, k: int) -> Plan:
-    """The kernel plan for mu [b,h,w,cin] and w_mu [k,k,cin,cout], from the
-    shape alone (no CUDA: the CPU tests call it).
+def plan(b: int, h: int, w: int, cin: int, cout: int, k: int,
+         members: int = 1, sms: int = SMS) -> Plan:
+    """The kernel plan for ``members`` members of mu [b,h,w,cin] and w_mu
+    [k,k,cin,cout], from the shape alone (no CUDA: the CPU tests call it),
+    for a card of ``sms`` SMs.
 
     The tensor-core path takes k = 3 with Cin % 8 == 0 (its K steps are 8
     channels of one tap), Cout % 8 == 0 (whole 8-column groups of the N
     tile: the 1- and 4-channel input gradient of conv_input takes the CUDA
     cores) and step offsets that fit an int (9 Cin Cout and 3 W Cin below 2^31): N = 32
     for Cout <= 32, else 64, and 64 output pixels (one warpgroup) per block.
-    Its blocks are M tiles x N tiles; where they are fewer than the SMs,
-    the Cin/8 chunks are cut into the fewest slices S (a divisor of the
-    chunks) that fill one wave, at most MAX_SPLITS and within
-    MAX_SCRATCH_BYTES, and a reduce kernel sums them. Everything else takes
-    the CUDA-core kernel (CT = 64 output channels per block for Cout >= 64,
-    else 32; tiles of 8x8 or 8x16 pixels of one image)."""
+    Its blocks are members x M tiles x N tiles, the M tiles counted per
+    member (M = b H' W'), so that no tile holds pixels of two members;
+    where they are fewer than the SMs, the Cin/8 chunks are cut into the
+    fewest slices S (a divisor of the chunks) that fill one wave, at most
+    MAX_SPLITS, within MAX_SCRATCH_BYTES (members x S partials) and with
+    members x S within the grid, and a reduce kernel sums them. Everything
+    else takes the CUDA-core kernel (CT = 64 output channels per block for
+    Cout >= 64, else 32; tiles of 8x8 or 8x16 pixels of one image of one
+    member)."""
     ho, wo = h - k + 1, w - k + 1
     m = b * ho * wo
     if (k == 3 and cin % TC_CHUNK == 0 and cout % TC_CHUNK == 0
             and 9 * cin * cout < 2 ** 31 and 3 * w * cin < 2 ** 31):
         tile_n = 32 if cout <= 32 else 64
-        tiles = _cdiv(m, TC_TILE_M) * _cdiv(cout, tile_n)
+        tiles = members * _cdiv(m, TC_TILE_M) * _cdiv(cout, tile_n)
         chunks = cin // TC_CHUNK
 
         def scratch(s: int) -> int:
-            return 0 if s == 1 else 4 * s * m * (2 * cout + 1)
+            return 0 if s == 1 else 4 * members * s * m * (2 * cout + 1)
 
         splits = 1
         for s in range(1, min(chunks, MAX_SPLITS) + 1):
-            if chunks % s or scratch(s) > MAX_SCRATCH_BYTES:
+            if (chunks % s or scratch(s) > MAX_SCRATCH_BYTES
+                    or members * s > MAX_GRID_Z):
                 continue
             splits = s
-            if tiles * s >= SMS:
+            if tiles * s >= sms:
                 break
         return Plan("wgmma", TC_TILE_M, tile_n, splits, tiles * splits,
                     scratch(splits))
     ct = 64 if cout >= 64 else 32
     tw = 8 if ct == 64 else 16
     th = 8
-    blocks = _cdiv(ho, th) * _cdiv(wo, tw) * _cdiv(cout, ct) * b
+    blocks = _cdiv(ho, th) * _cdiv(wo, tw) * _cdiv(cout, ct) * b * members
     return Plan("simt", th * tw, ct, 1, blocks, 0)
+
+
+def _member(x: torch.Tensor, k: int, members: int) -> torch.Tensor:
+    """Member ``k``'s slice of activations in either member layout
+    ([K,B,...] or [K*B,...], see the module docstring)."""
+    if x.dim() == 5:
+        return x[k]
+    return x.unflatten(0, (members, -1))[k]
+
+
+def _stacked(w_mu: torch.Tensor) -> bool:
+    """True for member-stacked weights [K,k,k,Cin,Cout]."""
+    return w_mu.dim() == 5
 
 
 def _conv_valid(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -140,9 +172,17 @@ def vdp_conv_plain(
     fuse_relu: bool = False,
 ) -> Triple:
     """PyTorch composition of the fused conv (the XLA path of
-    ``ops/moments.py:vconv``/``vconv_input``, plus ``win``)."""
+    ``ops/moments.py:vconv``/``vconv_input``, plus ``win``); with stacked
+    weights, member by member, concatenated member-major."""
     # imported here: ops.moments imports this module
     from supernet_tpu_torch.ops.moments import _window_sum
+
+    if _stacked(w_mu):
+        n = w_mu.shape[0]
+        outs = [vdp_conv_plain(_member(mu, i, n),
+                               None if sigma is None else _member(sigma, i, n),
+                               w_mu[i], w_sigma[i], fuse_relu) for i in range(n)]
+        return tuple(torch.cat(o) for o in zip(*outs))
 
     k = w_mu.shape[0]
     mu_out = _conv_valid(mu, w_mu)
@@ -158,48 +198,85 @@ def vdp_conv_plain(
     return mu_out.contiguous(), sig_out.contiguous(), win.contiguous()
 
 
+def _input(name: str, t: torch.Tensor, members: int):
+    """``(t, per-member shape [B,H,W,C], member stride in floats)`` of an
+    activation operand in either member layout; raises unless it is float32
+    on the card and each member contiguous."""
+    if t.dim() == 5:
+        if t.shape[0] != members:
+            raise ValueError(f"vdp_conv: {name} has {t.shape[0]} members, the "
+                             f"weights {members}")
+        one = t[0]
+        _lib.check_input("vdp_conv", name, one, one.shape)
+        ms = t.stride(0) if members > 1 else one.numel()
+        if ms not in (0, one.numel()):
+            raise ValueError(f"vdp_conv: {name}'s member stride {ms} is neither "
+                             f"0 nor {one.numel()}")
+        return t, tuple(one.shape), ms
+    if t.dim() != 4 or t.shape[0] % members:
+        raise ValueError(f"vdp_conv: {name} must be [K*B,H,W,C] or [K,B,H,W,C] "
+                         f"for {members} member(s), got {tuple(t.shape)}")
+    _lib.check_input("vdp_conv", name, t, t.shape)
+    shape = (t.shape[0] // members,) + tuple(t.shape[1:])
+    return t, shape, t.numel() // members
+
+
+def _aligned_input(t: torch.Tensor, ms: int) -> torch.Tensor:
+    """``t`` with its data on 16 bytes (a copy if not); a shared input
+    (member stride 0) stays shared."""
+    if t is None or t.data_ptr() % 16 == 0:
+        return t
+    if t.dim() == 5 and ms == 0:
+        return t[0].clone().expand(t.shape)
+    return t.clone()
+
+
 def _launch(mu, sigma, w_mu, w_sigma, fuse_relu) -> Triple:
     """The kernel on CUDA tensors; ``w_sigma=None`` is the form without the
     window sum (and without the ReLU), which returns ``(mu_out, sig_out or
-    None, None)``."""
+    None, None)``. Stacked weights run every member in the same launch."""
     global launches, reduce_launches, dgrad_launches, dgrad_reduce_launches
     with_win = w_sigma is not None
-    if mu.dim() != 4 or w_mu.dim() != 4:
-        raise ValueError(
-            f"vdp_conv: expected mu [B,H,W,Cin] and w_mu [k,k,Cin,Cout], got "
-            f"{tuple(mu.shape)} and {tuple(w_mu.shape)}"
-        )
-    b, h, w, cin = mu.shape
-    k, cout = w_mu.shape[0], w_mu.shape[3]
-    _lib.check_input("vdp_conv", "mu", mu, mu.shape)
+    if w_mu.dim() not in (4, 5):
+        raise ValueError(f"vdp_conv: w_mu must be [k,k,Cin,Cout] or "
+                         f"[K,k,k,Cin,Cout], got {tuple(w_mu.shape)}")
+    members = w_mu.shape[0] if _stacked(w_mu) else 1
+    mu, (b, h, w, cin), x_ms = _input("mu", mu, members)
+    k, cout = w_mu.shape[-3], w_mu.shape[-1]
     if sigma is not None:
-        _lib.check_input("vdp_conv", "sigma", sigma, mu.shape)
-    _lib.check_input("vdp_conv", "w_mu", w_mu, (k, k, cin, cout))
+        sigma, s_shape, s_ms = _input("sigma", sigma, members)
+        if s_shape != (b, h, w, cin) or s_ms != x_ms:
+            raise ValueError("vdp_conv: sigma must have mu's shape and member stride")
+    lead = (members,) if _stacked(w_mu) else ()
+    _lib.check_input("vdp_conv", "w_mu", w_mu, lead + (k, k, cin, cout))
     if with_win:
-        _lib.check_input("vdp_conv", "w_sigma", w_sigma, (cout,))
+        _lib.check_input("vdp_conv", "w_sigma", w_sigma, lead + (cout,))
     elif fuse_relu:
         raise ValueError("vdp_conv: the form without the window sum has no ReLU")
     tensors = [t for t in (mu, sigma, w_mu, w_sigma) if t is not None]
     if any(t.device != mu.device for t in tensors):
         raise ValueError("vdp_conv: inputs are on different devices")
-    if not (1 <= k <= min(h, w)) or cin < 1 or cout < 1 or b > 65535:
+    if (not (1 <= k <= min(h, w)) or cin < 1 or cout < 1
+            or members * b > MAX_GRID_Z):
         raise ValueError(
-            f"vdp_conv: unsupported sizes B={b} H={h} W={w} Cin={cin} "
-            f"Cout={cout} k={k}"
+            f"vdp_conv: unsupported sizes K={members} B={b} H={h} W={w} "
+            f"Cin={cin} Cout={cout} k={k}"
         )
     ho, wo = h - k + 1, w - k + 1
-    mu_out = torch.empty((b, ho, wo, cout), device=mu.device, dtype=torch.float32)
+    mu_out = torch.empty((members * b, ho, wo, cout), device=mu.device,
+                         dtype=torch.float32)
     sig_out = (torch.empty_like(mu_out)
                if with_win or sigma is not None else None)
-    win = (torch.empty((b, ho, wo, 1), device=mu.device, dtype=torch.float32)
-           if with_win else None)
+    win = (torch.empty((members * b, ho, wo, 1), device=mu.device,
+                       dtype=torch.float32) if with_win else None)
     if b == 0:
         return mu_out, sig_out, win
-    p = plan(b, h, w, cin, cout, k)
+    p = plan(b, h, w, cin, cout, k, members, _lib.sm_count(mu.device))
     sw = F.softplus(w_sigma).contiguous() if with_win else None
     scratch = None
     if p.path == "wgmma":
-        mu, sigma, w_mu, sw = (_aligned(t) for t in (mu, sigma, w_mu, sw))
+        mu, sigma = _aligned_input(mu, x_ms), _aligned_input(sigma, x_ms)
+        w_mu, sw = _aligned(w_mu), _aligned(sw)
         if p.splits > 1:
             scratch = torch.empty(p.scratch_bytes // 4, device=mu.device,
                                   dtype=torch.float32)
@@ -214,11 +291,12 @@ def _launch(mu, sigma, w_mu, w_sigma, fuse_relu) -> Triple:
             win.data_ptr() if win is not None else None,
             scratch.data_ptr() if scratch is not None else None,
             b, h, w, cin, cout, k, int(fuse_relu), int(with_win),
-            _PATH_ID[p.path], p.tile_n, p.splits,
+            _PATH_ID[p.path], p.tile_n, p.splits, members,
+            x_ms, k * k * cin * cout, cout,
             torch.cuda.current_stream(mu.device).cuda_stream,
         )
-    _lib.check(err, f"vdp_conv kernel launch ({p.path}, {p.splits} K slices"
-                    f"{'' if with_win else ', no window sum'})")
+    _lib.check(err, f"vdp_conv kernel launch ({p.path}, {p.splits} K slices, "
+                    f"{members} member(s){'' if with_win else ', no window sum'})")
     if with_win:
         launches += 1
         reduce_launches += p.splits > 1
@@ -266,17 +344,30 @@ def dgrad_operands(g1, g2, w_mu):
     """The transposed convolutions as VALID ones: ``g1``, ``g2`` (or None)
     [B,H',W',Cout] padded by k - 1 on every spatial side, and ``w_mu``
     [k,k,Cin,Cout] flipped in both spatial axes with Cin and Cout swapped
-    -> [k,k,Cout,Cin]. Then ``conv(pad(g), flip(w)^T) = convT(g, w)``."""
-    k = w_mu.shape[0]
+    -> [k,k,Cout,Cin] (stacked [K,...] alike). Then ``conv(pad(g),
+    flip(w)^T) = convT(g, w)``."""
+    k = w_mu.shape[-3]
     pad = (0, 0, k - 1, k - 1, k - 1, k - 1)
-    w = w_mu.flip(0, 1).transpose(2, 3).contiguous()
+    w = w_mu.flip(-4, -3).transpose(-2, -1).contiguous()
     return (F.pad(g1, pad), None if g2 is None else F.pad(g2, pad), w)
+
+
+def _per_member(fn, g1, g2, w_mu):
+    """``fn(g1, g2, w_mu)`` member by member for stacked weights, the
+    results concatenated member-major."""
+    n = w_mu.shape[0]
+    outs = [fn(_member(g1, i, n), None if g2 is None else _member(g2, i, n),
+               w_mu[i]) for i in range(n)]
+    return (torch.cat([o[0] for o in outs]),
+            None if g2 is None else torch.cat([o[1] for o in outs]))
 
 
 def conv_t_pair_plain(g1, g2, w_mu):
     """PyTorch composition of the padded, flipped form: ``(convT(g1, w_mu),
     convT(g2, w_mu^2))`` (the second None when ``g2`` is), as the kernel
     computes them without the window sum."""
+    if _stacked(w_mu):
+        return _per_member(conv_t_pair_plain, g1, g2, w_mu)
     mu, sigma, w = dgrad_operands(g1, g2, w_mu)
     d1 = _conv_valid(mu, w).contiguous()
     d2 = None if sigma is None else _conv_valid(sigma, w * w).contiguous()
@@ -288,18 +379,27 @@ def conv_t_pair(g1, g2, w_mu):
     transposed convolutions of :class:`VDPConv`'s backward.
 
     CUDA tensors: one launch of the kernel without the window sum on
-    :func:`dgrad_operands` (or raise). CPU tensors: :func:`_conv_t`."""
+    :func:`dgrad_operands` (or raise), for all members of stacked weights.
+    CPU tensors: :func:`_conv_t`, member by member."""
     if g1.is_cuda:
         mu, sigma, w = dgrad_operands(g1, g2, w_mu)
         d1, d2, _ = _launch(mu, sigma, w, None, False)
         return d1, d2
     if g1.device.type != "cpu":
         raise ValueError(f"vdp_conv: unsupported device {g1.device}")
+    if _stacked(w_mu):
+        return _per_member(conv_t_pair, g1, g2, w_mu)
     return _conv_t(g1, w_mu), None if g2 is None else _conv_t(g2, w_mu * w_mu)
 
 
 def _filter_grad(x: torch.Tensor, g: torch.Tensor, w_shape) -> torch.Tensor:
-    """Weight gradient of :func:`_conv_valid` -> HWIO [k,k,Cin,Cout]."""
+    """Weight gradient of :func:`_conv_valid` -> HWIO [k,k,Cin,Cout]; for
+    stacked ``w_shape`` [K,k,k,Cin,Cout] one cuDNN call per member ->
+    [K,k,k,Cin,Cout]."""
+    if len(w_shape) == 5:
+        n = w_shape[0]
+        return torch.stack([_filter_grad(_member(x, i, n), _member(g, i, n),
+                                         w_shape[1:]) for i in range(n)])
     k, _, cin, cout = w_shape
     dw = torch.nn.grad.conv2d_weight(_nchw(x), (cout, cin, k, k), _nchw(g))
     return dw.permute(2, 3, 1, 0)
@@ -320,6 +420,12 @@ class VDPConv(torch.autograd.Function):
         d_sigma = u + c2
         d_w_mu  = filter_grad(mu, g1) + 2 w_mu filter_grad(sigma, g2)
         d_w_sig = d_sw * sigmoid(w_sigma)
+
+    With stacked weights (the member axis of the module docstring) kernels
+    1 and 4 run every member in one launch each, forward and backward; the
+    filter gradients are one cuDNN call per member. ``mu`` may then be one
+    batch that every member reads (member stride 0); autograd sums its
+    gradient over the members.
     """
 
     @staticmethod
@@ -338,7 +444,7 @@ class VDPConv(torch.autograd.Function):
             g1 = torch.where(mask, g1, 0.0)
             g2 = torch.where(mask, g2, 0.0)
         g2 = g2.contiguous()
-        k = w_mu.shape[0]
+        k = w_mu.shape[-3]
         b, ho, wo, _ = mu_out.shape
         u, d_sw = winsum_spread_bwd(
             g2, win.reshape(b, ho, wo), F.softplus(w_sigma).contiguous(), k
@@ -347,10 +453,12 @@ class VDPConv(torch.autograd.Function):
         d_mu = d_sigma = d_w = d_ws = None
         if need_mu or need_sigma:
             c1, c2 = conv_t_pair(g1, g2 if need_sigma else None, w_mu)
+            # a [K,B,...] input (a shared one too) gets its gradient in its
+            # own shape; autograd sums a shared one over the members
             if need_mu:
-                d_mu = c1 + 2.0 * mu * g_win
+                d_mu = (c1 + 2.0 * mu.reshape(c1.shape) * g_win).view(mu.shape)
             if need_sigma:
-                d_sigma = g_win + c2
+                d_sigma = (g_win + c2).view(sigma.shape)
         if need_w:
             d_w = _filter_grad(mu, g1, w_mu.shape)
             if sigma is not None:

@@ -26,6 +26,16 @@ versions. The 1x1 head and the unpool conv are matrix products
 (``torch.einsum``), as they are XLA ops in the JAX package; their gradients,
 and those of the pads, crops, concatenations and the softmax, are PyTorch's
 autograd, as they are XLA's AD in the JAX package.
+
+Member axis (a deep ensemble's K members in one forward, the counterpart of
+``jax.vmap`` over a stacked parameter tree): weights stacked along a leading
+axis (``w_mu`` [K,k,k,Cin,Cout], ``w_sigma`` [K,Cout]) make every conv run
+all K members, with the activations [K*B,H,W,C] member-major; the first
+conv also takes [K,B,H,W,C], ``x.expand(K, *x.shape)`` for one batch that
+every member reads. The kernels take the member axis in one launch; the 1x1
+head and the unpool conv are member-batched matrix products; the pool, the
+pads, crops, concatenations and the softmax see the member axis as part of
+the batch.
 """
 
 from __future__ import annotations
@@ -153,8 +163,25 @@ def apply_env_overrides() -> None:
 
 def scale_sw(ws: Tensor, s_w: Tensor) -> Tensor:
     """``ws [..., 1] * s_w [Cout] -> [..., Cout]``: the per-output-channel
-    variance scale shared by every vconv sigma term."""
+    variance scale shared by every vconv sigma term. Member-stacked ``s_w``
+    [K, Cout] scales the K member blocks of ``ws`` [K*B, ..., 1] each by
+    its own row."""
+    if s_w.dim() == 2:
+        k = s_w.shape[0]
+        rows = s_w.view((k,) + (1,) * (ws.dim() - 1) + (-1,)).to(ws.dtype)
+        return (ws.unflatten(0, (k, -1)) * rows).flatten(0, 1)
     return ws * s_w.to(ws.dtype)
+
+
+def _w11(w_mu: Tensor) -> Tensor:
+    """The [Cin, Cout] (stacked: [K, Cin, Cout]) matrix of a 1x1 kernel."""
+    return w_mu[..., 0, 0, :, :]
+
+
+def _fold(x: Tensor) -> Tensor:
+    """Activations [K,B,...] as [K*B,...] (a copy only for a shared input);
+    [K*B,...] passes through."""
+    return x.flatten(0, 1) if x.dim() == 5 else x
 
 
 def chan_sum(x: Tensor) -> Tensor:
@@ -179,6 +206,9 @@ def _window_sum(x: Tensor, k: int) -> Tensor:
 
 
 def _einsum_1x1(x: Tensor, w: Tensor) -> Tensor:
+    if w.dim() == 3:  # member-stacked [K, Cin, Cout]
+        xs = x.unflatten(0, (w.shape[0], -1))
+        return torch.einsum("kbhwc,kco->kbhwo", xs, w).flatten(0, 1)
     return torch.einsum("bhwc,co->bhwo", x, w)
 
 
@@ -200,8 +230,9 @@ def vconv_input(x: Tensor, w_mu: Tensor, w_sigma: Tensor) -> MomentPair:
       sigma_out = winsum(x^2) * softplus(w_sigma)
     """
     x = _act(x)
-    if w_mu.shape[0] == 1:
-        w2 = _act(w_mu[0, 0])
+    if w_mu.shape[-3] == 1:
+        x = _fold(x)
+        w2 = _act(_w11(w_mu))
         # the 1-channel sum in float32, cast before the broadcast multiply
         t = _act(chan_sum(torch.square(_f32(x))))
         return _act(_einsum_1x1(x, w2)), scale_sw(t, F.softplus(w_sigma))
@@ -217,8 +248,8 @@ def vconv(mu: Tensor, sigma: Tensor, w_mu: Tensor, w_sigma: Tensor) -> MomentPai
     k == 1 (the softmax head) is two einsums and a channel sum.
     """
     mu, sigma = _act(mu), _act(sigma)
-    if w_mu.shape[0] == 1:
-        w2 = _act(w_mu[0, 0])
+    if w_mu.shape[-3] == 1:
+        w2 = _act(_w11(w_mu))
         t = _act(chan_sum(mu * mu + sigma))
         sigma_out = scale_sw(t, F.softplus(w_sigma)) + _einsum_1x1(sigma, w2 * w2)
         return _act(_einsum_1x1(mu, w2)), _act(sigma_out)
@@ -229,14 +260,14 @@ def vconv_relu(
     mu: Tensor, sigma: Tensor, w_mu: Tensor, w_sigma: Tensor
 ) -> MomentPair:
     """``vrelu(*vconv(...))``, the ReLU fused into the conv for k > 1."""
-    if w_mu.shape[0] == 1:
+    if w_mu.shape[-3] == 1:
         return vrelu(*vconv(mu, sigma, w_mu, w_sigma))
     return _kernel_conv(_act(mu), _act(sigma), w_mu, w_sigma, True)
 
 
 def vconv_input_relu(x: Tensor, w_mu: Tensor, w_sigma: Tensor) -> MomentPair:
     """``vrelu(*vconv_input(...))``, fused the same way."""
-    if w_mu.shape[0] == 1:
+    if w_mu.shape[-3] == 1:
         return vrelu(*vconv_input(x, w_mu, w_sigma))
     return _kernel_conv(_act(x), None, w_mu, w_sigma, True)
 
@@ -275,6 +306,10 @@ def _unpool_conv(x: Tensor, w: Tensor) -> Tensor:
     shuffle.
     """
     b, h, wd, _ = x.shape
+    if w.dim() == 5:  # member-stacked [K, 2, 2, Cin, Cout]
+        xs = x.unflatten(0, (w.shape[0], -1))
+        y = torch.einsum("kbhwc,kpqco->kbhpwqo", xs, w.flip(1, 2).to(x.dtype))
+        return y.reshape(b, 2 * h, 2 * wd, w.shape[-1])
     y = torch.einsum("bhwc,pqco->bhpwqo", x, w.flip(0, 1).to(x.dtype))
     return y.reshape(b, 2 * h, 2 * wd, w.shape[-1])
 
@@ -305,8 +340,7 @@ def vunpool_conv2(
     # the [B,h,w,1] channel sum in float32, cast back before the broadcast
     t_up = _upsample2_nearest(_act(chan_sum(mu * mu + sigma)))
     mu_out = _unpool_conv(mu, w_mu)
-    sw = F.softplus(w_sigma).to(t_up.dtype)
-    sigma_out = t_up * sw + _unpool_conv(sigma, w_mu * w_mu)
+    sigma_out = scale_sw(t_up, F.softplus(w_sigma)) + _unpool_conv(sigma, w_mu * w_mu)
     return mu_out, _act(sigma_out)
 
 

@@ -6,6 +6,7 @@
     python -m supernet_tpu_torch.profiling --mode layers --config brats --batch 2
     python -m supernet_tpu_torch.profiling --mode train3d --config hippocampus --batch 4 [--remat]
     python -m supernet_tpu_torch.profiling --mode layers3d --config hippocampus --batch 4
+    python -m supernet_tpu_torch.profiling --mode ensemble --members 4 --ensemble-mode vmap
 
 builds a train state (or an ``InferenceSession``) from ``init_params``
 (seeded; the time does not depend on the weights' values), runs WARMUP
@@ -35,6 +36,12 @@ their device time over the step's). ``--mode layers3d`` times cuDNN's
 ``conv3d`` alone at every k=3 layer of that forward (:func:`conv3d_times`),
 the forward and the forward with both gradients, in the port's layout and
 in NCDHW.
+``--mode ensemble`` profiles one K-member deep-ensemble step
+(``train.make_ensemble_train_step``) in ``--ensemble-mode`` vmap (the
+member axis through the kernels) or unroll (a loop of the single-model
+forward and backward), or ``sequential``: one ``make_train_step`` step of
+each of K single-model states in turn, the sequential path's work for the
+same K member-steps; ``member_step_ms`` is the step over K.
 ``--act-dtype bfloat16`` runs the train and serve modes in the bf16
 activation mode (``ops.set_act_dtype``). Prints one JSON object; ``--out DIR``
 also writes it there. Needs a CUDA device: there is no CPU fallback.
@@ -181,10 +188,9 @@ def _setup(config: str, seed: int):
     return exp.model, exp.train, params, np.random.default_rng(seed)
 
 
-def _profile(run, per: str) -> Dict:
-    """Time ``run`` (one step or request, ending in a synchronise) untraced,
-    then trace as many more and sort their device time."""
-    steps = STEPS
+def _profile(run, per: str, steps: int = STEPS) -> Dict:
+    """Time ``run`` (one step or request, ending in a synchronise) ``steps``
+    times untraced, then trace as many more and sort their device time."""
     for _ in range(WARMUP):
         run()
     torch.cuda.reset_peak_memory_stats()
@@ -437,6 +443,53 @@ def profile_train_step(config: str, batch: int, seed: int = 0) -> Dict:
             "img_per_s": batch / (out["step_ms_median"] / 1e3), **out}
 
 
+def ensemble_step_runner(config: str, batch: int, seed: int = 0, members: int = 4,
+                         member_mode: str = "vmap"):
+    """``run()``: one K-member ensemble step on batches already on the card,
+    ending in a synchronise: the member-stacked step in ``member_mode`` vmap
+    or unroll, or ``"sequential"`` (K single-model steps, one per member
+    state). Members are initialised from ``seed + k``."""
+    cfg, tc, _, rng = _setup(config, seed)
+    states = [train.create_train_state(
+        init_params(torch.Generator().manual_seed(seed + k), cfg, "cpu"), tc, "cuda")[0]
+        for k in range(members)]
+    s, o = cfg.image_size, cfg.out_size
+    x = torch.from_numpy(rng.normal(0, 1, (members, batch, s, s, cfg.in_channels))
+                         .astype(np.float32)).cuda()
+    y = torch.from_numpy(rng.integers(0, cfg.n_classes, (members, batch, o, o))
+                         .astype(np.int32)).cuda()
+    if member_mode == "sequential":
+        step = train.make_train_step(cfg, tc)
+
+        def run():
+            for k, state in enumerate(states):
+                step(state, x[k], y[k])
+            torch.cuda.synchronize()
+    else:
+        stacked = train.stack_trees(states)
+        del states
+        step = train.make_ensemble_train_step(cfg, tc, member_mode=member_mode)
+        seeds = np.arange(members) + tc.seed
+
+        def run():
+            step(stacked, x, y, seeds)
+            torch.cuda.synchronize()
+
+    return run
+
+
+def profile_ensemble_step(config: str, batch: int, seed: int = 0, members: int = 4,
+                          member_mode: str = "vmap") -> Dict:
+    """The profile of one :func:`ensemble_step_runner` step;
+    ``member_step_ms`` is the step over the members."""
+    run = ensemble_step_runner(config, batch, seed, members, member_mode)
+    out = _profile(run, "step")
+    return {"mode": "ensemble", "config": config, "batch": batch, "members": members,
+            "member_mode": member_mode,
+            "member_step_ms": out["step_ms_median"] / members,
+            "img_per_s_per_member": batch / (out["step_ms_median"] / 1e3), **out}
+
+
 def profile_train_step3d(config: str, batch: int, seed: int = 0,
                          remat: bool = False) -> Dict:
     """One ``train3d.make_train_step3d`` step on cubes already on the card,
@@ -540,7 +593,8 @@ def profile_serving(config: str, batch: int, seed: int = 0) -> Dict:
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--mode", choices=("train", "serve", "layers", "train3d", "layers3d"),
+    p.add_argument("--mode", choices=("train", "serve", "layers", "train3d", "layers3d",
+                                      "ensemble"),
                    default="train")
     p.add_argument("--config", default="hippocampus")
     p.add_argument("--batch", type=int, default=20)
@@ -549,11 +603,19 @@ def main(argv=None) -> int:
                    help="activation dtype of the train and serve modes")
     p.add_argument("--remat", action="store_true",
                    help="train3d: checkpoint each block (cfg.remat)")
+    p.add_argument("--members", type=int, default=4, help="ensemble: K")
+    p.add_argument("--ensemble-mode", default="vmap",
+                   choices=("vmap", "unroll", "sequential"),
+                   help="ensemble: the member axis through the kernels, a loop "
+                        "of the single-model forward and backward, or K "
+                        "single-model steps")
     a = p.parse_args(argv)
     fn = {"train": profile_train_step, "serve": profile_serving,
           "layers": layer_times,
           "train3d": functools.partial(profile_train_step3d, remat=a.remat),
-          "layers3d": conv3d_times}[a.mode]
+          "layers3d": conv3d_times,
+          "ensemble": functools.partial(profile_ensemble_step, members=a.members,
+                                        member_mode=a.ensemble_mode)}[a.mode]
     if a.mode in ("layers", "layers3d") and a.act_dtype != "float32":
         p.error("--act-dtype applies to the train and serve modes")
     with act_dtype(a.act_dtype):
@@ -563,7 +625,8 @@ def main(argv=None) -> int:
     if a.out:
         os.makedirs(a.out, exist_ok=True)
         tag = ("" if a.act_dtype == "float32" else f"_{a.act_dtype}") + (
-            "_remat" if a.remat else "")
+            "_remat" if a.remat else "") + (
+            f"_k{a.members}_{a.ensemble_mode}" if a.mode == "ensemble" else "")
         with open(os.path.join(a.out, f"profile_{a.mode}_{a.config}_b{a.batch}{tag}.json"), "w") as f:
             f.write(line + "\n")
     print(line)

@@ -37,7 +37,7 @@ import torch
 
 from supernet_tpu_torch.checkpoint import params_from_jax, save_params_npz
 from supernet_tpu_torch.configs import ModelConfig
-from supernet_tpu_torch.models import forward3d, forward_images
+from supernet_tpu_torch.models import forward, forward3d, forward_images
 
 Tensor = torch.Tensor
 
@@ -240,12 +240,30 @@ class InferenceSession:
         )
 
 
+def members_forward(stacked, x: Tensor, cfg: ModelConfig, volumetric: bool = False):
+    """``(probs, sigma)`` of every member of member-stacked parameters on
+    one batch ``x``, each [K, B, o, o(, o), n_classes]: the batch is read by
+    all K members through a stride-0 view (never copied), and each layer
+    runs once for all of them (each kernel once per layer in 2-D)."""
+    k_members = next(iter(stacked.values()))["w_mu"].shape[0]
+    xs = x.expand(k_members, *x.shape)
+    if volumetric:
+        probs, sigma = forward3d(stacked, xs, cfg)
+    else:
+        probs, sigma = forward(stacked, xs, cfg)
+    o = cfg.out_size
+    shape = (k_members, x.shape[0]) + (o,) * (3 if volumetric else 2) + (cfg.n_classes,)
+    return probs.reshape(shape), sigma.reshape(shape)
+
+
 class EnsembleSession(InferenceSession):
-    """Deep-ensemble serving: K parameter dicts of the same config, each
-    chunk run through every member in turn (``VDPConv`` has no ``vmap``
-    rule; the vmapped form is ROADMAP.md Queue 1, **Ensembles**) and the
-    members' moments mixed by :func:`mixture`. Recalibration applies after
-    the mixture. ``predict`` / ``predict_image`` / ``predict_volume`` are
+    """Deep-ensemble serving: K parameter dicts of the same config, stacked
+    along a member axis on the session's device; each chunk runs through all
+    K members in one member-stacked forward (:func:`members_forward`: every
+    kernel once per layer for all members, the chunk shared by stride 0;
+    the counterpart of the JAX session's ``jax.vmap``), and the members'
+    moments are mixed by :func:`mixture`. Recalibration applies after the
+    mixture. ``predict`` / ``predict_image`` / ``predict_volume`` are
     inherited; ``mesh=`` raises (ROADMAP.md Queue 1, **Parallelism**)."""
 
     def __init__(
@@ -270,14 +288,16 @@ class EnsembleSession(InferenceSession):
             params_list[0], cfg, batch_size, device=device, volumetric=volumetric,
             variance_scale=variance_scale, temperature=temperature,
         )
+        from supernet_tpu_torch.train import stack_trees
+
         self.n_members = len(params_list)
-        self._members = [self._params] + [
+        self._params = stack_trees([self._params] + [
             params_from_jax(p, self.device) for p in params_list[1:]
-        ]
+        ])
 
     def _forward(self, x: Tensor) -> Tuple[Tensor, Tensor]:
-        outs = [_shaped_forward(p, x, self.cfg, self.volumetric) for p in self._members]
-        return self._recalibrate(*mixture([p for p, _ in outs], [s for _, s in outs]))
+        probs, sigma = members_forward(self._params, x, self.cfg, self.volumetric)
+        return self._recalibrate(*mixture(probs.unbind(0), sigma.unbind(0)))
 
 
 class _Member(torch.nn.Module):

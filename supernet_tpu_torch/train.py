@@ -24,13 +24,23 @@ are made inside the step against the current parameters (one or
 ``adv_steps`` extra forward and backward passes, the input gradient running
 through the kernels' backward) and detached, so they act as fixed data for
 the update.
+
+Deep ensembles (``make_ensemble_train_step``, ``make_ensemble_eval_step``):
+K members as one state whose every leaf, Adam moment included, carries a
+leading member axis (``stack_trees`` / ``index_tree``). One Adam over the
+stacked tensors is elementwise, so it is K Adams that take the same step
+count; the gradient clip is per member and per tensor (a norm over every axis
+but the member axis); the members' losses are summed before the backward, so
+each member's gradient is its own loss's.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
-from typing import Iterable, NamedTuple, Tuple
+from typing import Iterable, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from supernet_tpu_torch.attacks import make_fgsm_attack, make_pgd_attack
@@ -55,6 +65,18 @@ def clip_by_per_tensor_norm(grads: Iterable[Tensor], max_norm: float) -> None:
     for g in grads:
         n = torch.linalg.vector_norm(g)
         g.mul_(torch.where(n > max_norm, max_norm / torch.clamp_min(n, 1e-30), 1.0))
+
+
+@torch.no_grad()
+def clip_by_per_member_norm(grads: Iterable[Tensor], max_norm: float) -> None:
+    """``clip_by_per_tensor_norm`` for member-stacked gradients [K, ...]:
+    each member's slice of each tensor is rescaled by its own norm, taken
+    over every axis but the member axis. Clipping the stacked tensor as one
+    would scale all K members by their joint norm."""
+    for g in grads:
+        n = torch.linalg.vector_norm(g.flatten(1), dim=1)
+        scale = torch.where(n > max_norm, max_norm / torch.clamp_min(n, 1e-30), 1.0)
+        g.mul_(scale.view((-1,) + (1,) * (g.dim() - 1)))
 
 
 def make_optimizer(params: Params, tc: TrainConfig) -> torch.optim.Adam:
@@ -134,9 +156,11 @@ def maybe_augment(
     cfg: ModelConfig,
     tc: TrainConfig,
     index_offset: int = 0,
+    seed: Optional[int] = None,
 ) -> Tuple[Tensor, Tensor]:
     """On-device augmentation inside the step (``tc.augment``); identity
-    when disabled. Keyed by ``tc.seed``, the step counter and the global
+    when disabled. Keyed by ``tc.seed`` (or ``seed``: the ensemble step
+    passes member k's ``tc.seed + k``), the step counter and the global
     image index (``index_offset`` + the image's place in the batch), so a
     sharded batch augments like the whole one."""
     if tc.augment is None:
@@ -145,7 +169,8 @@ def maybe_augment(
 
     with torch.no_grad():
         return augment_train_batch(
-            step, x, y, cfg.out_size, tc.augment, tc.seed, index_offset
+            step, x, y, cfg.out_size, tc.augment,
+            tc.seed if seed is None else seed, index_offset,
         )
 
 
@@ -311,6 +336,222 @@ def make_eval_step(cfg: ModelConfig, tc: TrainConfig):
         sigma_c = torch.clamp(sigma, tc.sigma_clip_min, tc.sigma_clip_max)
         loss = nll_gaussian(y, probs, sigma_c) + tc.kl_factor * 0.5 * kl_regularizer(params)
         pred, acc = _accuracy(probs, y)
+        return probs, sigma, pred, loss, acc
+
+    return step
+
+
+# ------------------------------------------------------------ deep ensembles
+
+
+def _tree_map(fn, *trees):
+    """``fn`` over the leaves of like nested dicts."""
+    if isinstance(trees[0], dict):
+        return {key: _tree_map(fn, *(t[key] for t in trees)) for key in trees[0]}
+    return fn(*trees)
+
+
+def _opt_config(state: TrainState) -> TrainConfig:
+    """A TrainConfig with the optimizer settings of ``state``."""
+    d = state.opt_state.defaults
+    return dataclasses.replace(TrainConfig(), lr=d["lr"], adam_eps=d["eps"])
+
+
+def _state_of(snap: dict, like: TrainState) -> TrainState:
+    from supernet_tpu_torch.checkpoint import state_from_snapshot
+
+    device = leaves(like.params)[0].device
+    return state_from_snapshot(snap, _opt_config(like), device)
+
+
+def stack_trees(trees):
+    """Stack K like trees along a new leading member axis: parameter dicts
+    (tensors, numpy or JAX arrays; the result is tensors, on the tensors'
+    device), checkpoint snapshots, or ``TrainState``s, whose parameters and
+    Adam moments are stacked into one state with one optimizer (the members
+    must have taken the same number of steps). The counterpart of
+    ``supernet_tpu/train.py:stack_trees``."""
+    trees = list(trees)
+    if not trees:
+        raise ValueError("stack_trees needs at least one tree")
+    if isinstance(trees[0], TrainState):
+        from supernet_tpu_torch.checkpoint import snapshot_state
+
+        return _state_of(stack_trees([snapshot_state(t) for t in trees]), trees[0])
+
+    def stack(*xs):
+        if isinstance(xs[0], (int, float)):  # a snapshot's step counters
+            if any(x != xs[0] for x in xs):
+                raise ValueError(f"the members have taken different steps: {xs}")
+            return xs[0]
+        return torch.stack([x.detach() if isinstance(x, Tensor)
+                            else torch.from_numpy(np.array(x, np.float32)) for x in xs])
+
+    return _tree_map(stack, *trees)
+
+
+def index_tree(tree, k: int):
+    """Member ``k`` of a stacked tree: views of a parameter dict's or a
+    snapshot's tensors (a gradient through a view reaches the stacked
+    tensor), or a ``TrainState`` of its own (parameters, Adam moments and
+    step on the same device, a fresh optimizer)."""
+    if isinstance(tree, TrainState):
+        from supernet_tpu_torch.checkpoint import snapshot_state
+
+        return _state_of(index_tree(snapshot_state(tree), k), tree)
+    return _tree_map(lambda a: a[k] if hasattr(a, "shape") else a, tree)
+
+
+def n_members(params: Params) -> int:
+    """The member count of stacked parameters."""
+    return leaves(params)[0].shape[0]
+
+
+def _seeds(seeds, k_members: int, tc: TrainConfig):
+    """Member augmentation seeds as ints: ``tc.seed + k`` unless given."""
+    if seeds is None:
+        return [tc.seed + k for k in range(k_members)]
+    return [int(v) for v in np.asarray(torch.as_tensor(seeds).cpu())]
+
+
+def _check_member_mode(member_mode: str, mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            "ensemble training over a device mesh (member sharding) is not "
+            "ported yet (ROADMAP.md, Queue 1: 'Parallelism', ensemble.py)"
+        )
+    if member_mode not in ("vmap", "unroll", "scan"):
+        raise ValueError(f"unknown member_mode {member_mode!r}")
+
+
+def _member_accuracy(probs: Tensor, y1: Tensor) -> Tuple[Tensor, Tensor]:
+    """Per-member argmax [K, B, N] and pixel accuracy [K]."""
+    pred = probs.argmax(dim=-1).to(torch.int32)
+    acc = (pred == y1.argmax(dim=-1)).to(torch.float32).flatten(1).mean(1)
+    return pred, acc
+
+
+def _ensemble_batch(state: TrainState, x, y, seeds, cfg: ModelConfig, tc: TrainConfig):
+    """``x`` [K,B,...] and one-hot ``y1`` [K,B,N,C] on the parameters'
+    device, member k augmented as the single-model step with seed
+    ``seeds[k]`` augments it."""
+    x, y = _to_device(state.params, x, y)
+    k_members = x.shape[0]
+    if tc.augment is not None:
+        pairs = [maybe_augment(state.step, x[k], y[k], cfg, tc, seed=s)
+                 for k, s in enumerate(_seeds(seeds, k_members, tc))]
+        x = torch.stack([a for a, _ in pairs])
+        y = torch.stack([b for _, b in pairs])
+    if torch.is_floating_point(y):  # already one-hot [K, B, N, C]
+        return x, y
+    return x, one_hot_flatten(y.flatten(0, 1), cfg.n_classes).unflatten(0, (k_members, -1))
+
+
+def _members_loss(params: Params, x: Tensor, y1: Tensor, cfg: ModelConfig,
+                  tc: TrainConfig):
+    """The K members' ELBOs [K] in one member-stacked forward, and their
+    ``(nll, kl, probs)``."""
+    probs, sigma = forward(params, x, cfg)
+    kl = kl_regularizer(params)
+    loss = elbo_loss(y1, probs, sigma, kl, tc.kl_factor, tc.sigma_clip_min,
+                     tc.sigma_clip_max, members=True)
+    with torch.no_grad():
+        nll = nll_gaussian(y1, probs, torch.clamp(sigma, tc.sigma_clip_min,
+                                                  tc.sigma_clip_max), members=True)
+    return loss, (nll, kl.detach(), probs.detach())
+
+
+def _members_training_loss(params: Params, x: Tensor, y1: Tensor, cfg: ModelConfig,
+                           tc: TrainConfig):
+    """The training objective of every member, [K] (``training_loss`` per
+    member): with adversarial training, each member's examples are made
+    against its own parameters (a loop over the members), then the mixed
+    loss runs member-stacked."""
+    if tc.adversarial_training == "none":
+        return _members_loss(params, x, y1, cfg, tc)
+    adv = torch.stack([
+        make_adversarial_examples(index_tree(params, k), x[k], y1[k], cfg, tc)
+        for k in range(x.shape[0])])
+    loss_c, aux = _members_loss(params, x, y1, cfg, tc)
+    loss_a, _ = _members_loss(params, adv, y1, cfg, tc)
+    return tc.adv_alpha * loss_c + (1.0 - tc.adv_alpha) * loss_a, aux
+
+
+def _ensemble_step(state: TrainState, x, y, seeds, cfg: ModelConfig, tc: TrainConfig,
+                   member_mode: str):
+    x, y1 = _ensemble_batch(state, x, y, seeds, cfg, tc)
+    state.opt_state.zero_grad(set_to_none=True)
+    if member_mode == "vmap":
+        loss, (nll, kl, probs) = _members_training_loss(state.params, x, y1, cfg, tc)
+        # summed, not averaged: each member's gradient is that of its own loss
+        loss.sum().backward()
+        loss = loss.detach()
+    else:
+        outs = []
+        for k in range(x.shape[0]):
+            loss_k, (nll_k, kl_k, probs_k, _) = training_loss(
+                index_tree(state.params, k), x[k], y1[k], cfg, tc)
+            loss_k.backward()
+            outs.append((loss_k.detach(), nll_k, kl_k, probs_k))
+        loss, nll, kl = (torch.stack([o[i] for o in outs]) for i in range(3))
+        probs = torch.stack([o[3] for o in outs])
+    clip_by_per_member_norm([t.grad for t in leaves(state.params)], tc.clipnorm)
+    state.opt_state.step()
+    state.opt_state.zero_grad(set_to_none=True)
+    state.step += 1
+    pred, acc = _member_accuracy(probs, y1)
+    return state, StepMetrics(loss, nll, kl, acc), pred
+
+
+def make_ensemble_train_step(cfg: ModelConfig, tc: TrainConfig, with_pred: bool = False,
+                             mesh=None, member_mode: str = "vmap"):
+    """K-member deep-ensemble training in one call, after
+    ``supernet_tpu/train.py:make_ensemble_train_step``: ``step(state, x, y,
+    seeds) -> (state, metrics[, pred])`` with a member-stacked ``state``
+    (``stack_trees``), ``x`` [K,B,H,W,C], ``y`` [K,B,h,w] integer labels
+    (each member its own shuffle) and ``seeds`` [K], member k's augmentation
+    seed (None: ``tc.seed + k``); metrics are per member, [K], and ``pred``
+    [K,B,h*w]. The state is updated in place.
+
+    ``member_mode``:
+
+    - ``"vmap"``: one member-stacked forward and backward; every kernel runs
+      once per layer for all K members (the member axis of
+      ``ops/kernels``), so a step launches what one single-model step does.
+    - ``"unroll"`` and ``"scan"``: a Python loop of the single-model
+      forward and backward over the members (K times the launches), then
+      the same update. PyTorch traces nothing, so the two are one mode under
+      two names, kept for the JAX package's.
+
+    Both update with one Adam over the stacked tensors after the per-member
+    clip. ``mesh`` raises (ROADMAP.md, Queue 1: 'Parallelism'); an unknown
+    mode raises ``ValueError``."""
+    _check_member_mode(member_mode, mesh)
+
+    def step(state: TrainState, x, y, seeds=None):
+        state, m, pred = _ensemble_step(state, x, y, seeds, cfg, tc, member_mode)
+        return (state, m, pred) if with_pred else (state, m)
+
+    return step
+
+
+def make_ensemble_eval_step(cfg: ModelConfig, tc: TrainConfig):
+    """Per-member validation on one shared batch, after
+    ``supernet_tpu/train.py:make_ensemble_eval_step``: ``step(params, x, y)
+    -> (probs, sigma, pred, loss, acc)`` with a leading member axis, from
+    member-stacked ``params``, ``x`` [B,H,W,C] (read by every member through
+    a stride-0 view, never copied) and ``y`` [B,h,w]."""
+
+    @torch.no_grad()
+    def step(params: Params, x, y):
+        x, y1 = _batch(params, x, y, cfg.n_classes)
+        k_members = n_members(params)
+        probs, sigma = forward(params, x.expand(k_members, *x.shape), cfg)
+        sigma_c = torch.clamp(sigma, tc.sigma_clip_min, tc.sigma_clip_max)
+        y1 = y1.expand(k_members, *y1.shape)
+        loss = (nll_gaussian(y1, probs, sigma_c, members=True)
+                + tc.kl_factor * 0.5 * kl_regularizer(params))
+        pred, acc = _member_accuracy(probs, y1)
         return probs, sigma, pred, loss, acc
 
     return step

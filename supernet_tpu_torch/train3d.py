@@ -13,8 +13,10 @@ and the center-slice uncertainty report.
 Data: [N, S, S, S, C] cubes and [N, S, S, S] integer labels, what
 ``data.volume_to_cube`` or ``data.synthetic_volumes`` produce. Everything
 runs on one device (``device``, the card unless the caller names another);
-the deep-ensemble steps and the mesh modes raise ``NotImplementedError``
-naming their ROADMAP.md item.
+the mesh modes raise ``NotImplementedError`` naming their ROADMAP.md item.
+The deep-ensemble steps (``make_ensemble_train_step3d``,
+``make_ensemble_eval_step3d``) take the 2-D steps' member-stacked state;
+their epoch loop is ``ensemble.EnsembleTrainer3D``.
 """
 
 from __future__ import annotations
@@ -38,10 +40,17 @@ from supernet_tpu_torch.train import (
     StepMetrics,
     TrainState,
     _accuracy,
+    _check_member_mode,
+    _member_accuracy,
+    _seeds,
     _stack,
     _to_device,
     _update,
+    clip_by_per_member_norm,
     create_train_state,
+    index_tree,
+    leaves,
+    n_members,
     one_hot_flatten,
 )
 
@@ -119,13 +128,85 @@ def make_multi_train_step3d(cfg: ModelConfig, tc: TrainConfig, k_steps: int):
     return steps
 
 
+def _ensemble_step3d(state: TrainState, x, y, seeds, cfg: ModelConfig,
+                     tc: TrainConfig, member_mode: str):
+    x, y = _to_device(state.params, x, y)
+    k_members = x.shape[0]
+    if tc.augment is not None:
+        from supernet_tpu_torch.data.augment import _mix, augment_volumes
+
+        with torch.no_grad():
+            pairs = [augment_volumes(_mix(s, state.step), x[k], y[k], tc.augment)
+                     for k, s in enumerate(_seeds(seeds, k_members, tc))]
+        x = torch.stack([a for a, _ in pairs])
+        y = torch.stack([b for _, b in pairs])
+    y1h = one_hot_flatten(y.flatten(0, 1), cfg.n_classes).unflatten(0, (k_members, -1))
+    state.opt_state.zero_grad(set_to_none=True)
+    if member_mode == "vmap":
+        probs, sigma = forward3d(state.params, x, cfg)
+        loss = elbo_loss(y1h, probs, sigma, kl_regularizer3d(state.params),
+                         tc.kl_factor, tc.sigma_clip_min, tc.sigma_clip_max,
+                         members=True)
+        with torch.no_grad():
+            nll = nll_gaussian(y1h, probs, torch.clamp(
+                sigma, tc.sigma_clip_min, tc.sigma_clip_max), members=True)
+        loss.sum().backward()  # summed: each member's gradient is its own loss's
+        loss, probs = loss.detach(), probs.detach()
+    else:
+        outs = []
+        for k in range(k_members):
+            loss_k, nll_k, probs_k = _loss3d(index_tree(state.params, k), x[k],
+                                             y1h[k], cfg, tc)
+            loss_k.backward()
+            outs.append((loss_k.detach(), nll_k, probs_k))
+        loss, nll, probs = (torch.stack([o[i] for o in outs]) for i in range(3))
+    clip_by_per_member_norm([t.grad for t in leaves(state.params)], tc.clipnorm)
+    state.opt_state.step()
+    state.opt_state.zero_grad(set_to_none=True)
+    state.step += 1
+    with torch.no_grad():
+        _, acc = _member_accuracy(probs, y1h)
+        kl = kl_regularizer3d(state.params)
+    return state, StepMetrics(loss, nll, kl, acc)
+
+
 def make_ensemble_train_step3d(cfg: ModelConfig, tc: TrainConfig, mesh=None,
                                member_mode: str = "vmap"):
-    raise _unported("the volumetric ensemble train step", "Ensembles", "ensemble.py")
+    """The volumetric twin of ``train.make_ensemble_train_step``
+    (``supernet_tpu/train3d.py:make_ensemble_train_step3d``): ``step(state,
+    x, y, seeds) -> (state, metrics)`` with a member-stacked state, ``x``
+    [K,B,S,S,S,C], ``y`` [K,B,o,o,o] integer label cubes and ``seeds`` [K]
+    (member k augmented as ``make_train_step3d`` with ``tc.seed + k``
+    augments); metrics per member, ``kl`` of the updated parameters.
+    ``"vmap"`` runs one member-stacked forward (``forward3d``: each conv
+    layer's members one after the other through cuDNN) and one backward;
+    ``"unroll"`` and ``"scan"`` loop the single-model forward and backward
+    over the members. ``mesh`` raises naming 'Parallelism'."""
+    _check_member_mode(member_mode, mesh)
+
+    def step(state: TrainState, x, y, seeds=None):
+        return _ensemble_step3d(state, x, y, seeds, cfg, tc, member_mode)
+
+    return step
 
 
 def make_ensemble_eval_step3d(cfg: ModelConfig, tc: TrainConfig):
-    raise _unported("the volumetric ensemble eval step", "Ensembles", "ensemble.py")
+    """Per-member volumetric validation on one shared batch:
+    ``step(params, x, y) -> (loss, acc, pred)`` with a leading member axis,
+    the ELBO with its KL as in ``make_eval_step3d``."""
+
+    @torch.no_grad()
+    def step(params, x, y):
+        x, y = _to_device(params, x, y)
+        k_members = n_members(params)
+        y1h = one_hot_flatten(y, cfg.n_classes).expand(k_members, -1, -1, -1)
+        probs, sigma = forward3d(params, x.expand(k_members, *x.shape), cfg)
+        loss = elbo_loss(y1h, probs, sigma, kl_regularizer3d(params), tc.kl_factor,
+                         tc.sigma_clip_min, tc.sigma_clip_max, members=True)
+        pred, acc = _member_accuracy(probs, y1h)
+        return loss, acc, pred
+
+    return step
 
 
 def make_eval_step3d(cfg: ModelConfig, tc: TrainConfig):

@@ -109,7 +109,9 @@ def test_unported_subcommands_name_their_roadmap_item(cmd):
 
 @pytest.mark.parametrize("argv,item", [
     (["train", "--synthetic", "4", "--data-parallel"], "Parallelism"),
-    (["train", "--synthetic", "4", "--ensemble", "2"], "Ensembles"),
+    # ported: an ensemble raises only with a mesh flag, naming Parallelism
+    pytest.param(["train", "--synthetic", "4", "--ensemble", "2", "--data-parallel"],
+                 "Parallelism", id="argv1-Ensembles"),
     (["eval", "--synthetic", "4", "--data-parallel"], "Parallelism"),
     (["sweep", "--synthetic", "4", "--data-parallel"], "Parallelism"),
     (["attack", "--synthetic", "4", "--data-parallel"], "Parallelism"),
@@ -117,7 +119,8 @@ def test_unported_subcommands_name_their_roadmap_item(cmd):
     (["saliency", "--synthetic", "4", "--data-parallel"], "Parallelism"),
     (["study", "--synthetic", "4", "--data-parallel"], "Parallelism"),
     (["train3d", "--synthetic", "4", "--spatial-shard"], "Parallelism"),
-    (["train3d", "--synthetic", "4", "--ensemble", "2"], "Ensembles"),
+    pytest.param(["train3d", "--synthetic", "4", "--ensemble", "2", "--spatial-shard"],
+                 "Parallelism", id="argv9-Ensembles"),
 ])
 def test_unported_options_name_their_roadmap_item(tiny, argv, item, tmp_path):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):

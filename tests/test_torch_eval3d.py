@@ -422,7 +422,7 @@ def test_cli_eval3d_ensemble_and_rejections(npz, tmp_path, capsys):
     for argv, item in ((["train3d", "--spatial-shard"], "Parallelism"),
                        (["train3d", "--hybrid-shard", "2"], "Parallelism"),
                        (["train3d", "--data-parallel"], "Parallelism"),
-                       (["train3d", "--ensemble", "2"], "Ensembles"),
+                       (["train3d", "--ensemble", "2", "--spatial-shard"], "Parallelism"),
                        (["eval3d", "--data-parallel"], "Parallelism"),
                        (["predict3d", "--volume", "v.npy", "--data-parallel"], "Parallelism")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.*'{item}'"):

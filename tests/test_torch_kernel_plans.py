@@ -130,6 +130,71 @@ def test_sigma_bwd_plan_extra_shapes(shape):
     assert p.path == ("vec4" if shape[3] % 4 == 0 and shape[3] <= 512 else "rows")
 
 
+MEMBERS = {"hippocampus": 4, "brats": 2}  # the ensembles chip_smoke.py drives
+
+
+@pytest.mark.parametrize("sms", [132, 114])  # H100 SXM, H100 PCIe
+@pytest.mark.parametrize("config,layer", CONVS)
+def test_sigma_bwd_plan_members_every_layer(config, layer, sms):
+    """The member axis: ``members=1`` on 132 SMs is the plan of the shape
+    alone; with K members each member's grid walks that member's pixels
+    alone, exactly once (so a dsw partial row never mixes two members), the
+    members' grids together stay within BLOCKS_PER_SM blocks per SM, pass 2
+    folds each member's partial rows and covers all K x B images of u, and
+    the scratch holds every member's dt and partial rows."""
+    b, hp, wp, c, k = _shapes(config)[0][layer]
+    members = MEMBERS[config]
+    one = sigma_bwd.plan(b, hp, wp, c, k, 1, sms)
+    if sms == sigma_bwd.SMS:
+        assert one == sigma_bwd.plan(b, hp, wp, c, k)
+    p = sigma_bwd.plan(b, hp, wp, c, k, members, sms)
+    pixels = b * hp * wp
+    assert p.path == one.path == "vec4"
+    assert (p.lanes, p.steps, p.unroll) == (one.lanes, one.steps, one.unroll)
+    assert members * p.blocks <= max(members, sigma_bwd.BLOCKS_PER_SM * sms)
+    assert p.groups == p.blocks * (sigma_bwd.THREADS // p.lanes)
+    visits = (np.arange(p.groups)[:, None]
+              + np.arange(p.trips)[None, :] * p.groups).ravel()
+    seen = np.bincount(visits[visits < pixels], minlength=pixels)
+    assert seen.shape == (pixels,) and (seen == 1).all()  # within the member
+    assert p.dsw_blocks == members * -(-c // sigma_bwd.DSW_CHANNELS)
+    h, w = hp + k - 1, wp + k - 1
+    assert (p.spread_blocks - p.dsw_blocks) * sigma_bwd.THREADS >= members * b * h * w
+    assert p.scratch_floats >= members * pixels + members * p.blocks * c
+    assert (p.scratch_floats - members * p.blocks * c) % 4 == 0
+
+
+@pytest.mark.parametrize("shape,members", [
+    ((2, 8, 8, 8, 3), 2), ((3, 17, 19, 36, 3), 4), ((2, 9, 11, 6, 3), 3),
+    ((20, 60, 60, 32, 3), 4),
+])
+def test_sigma_bwd_members_split_matches_plain_and_pallas(shape, members):
+    """What the member-axis kernels compute (each member's planned split in
+    turn, its own s_w) against the member-axis plain version and, at the
+    small shapes, ``jax.vmap`` of the Pallas ``_bwd_call`` in interpret
+    mode, each within REL_TOL of the output's max."""
+    b, hp, wp, c, k = shape
+    ins = [_sigma_inputs(b, hp, wp, c, seed=i) for i in range(members)]
+    g, t, s_w = (torch.from_numpy(np.stack(a)) for a in zip(*ins))
+    p = sigma_bwd.plan(b, hp, wp, c, k, members)
+    if p.path == "rows":  # its blocks are all members'; one member's share
+        p = p._replace(blocks=p.blocks // members)
+    outs = [_emulate_sigma_bwd(g[i], t[i], s_w[i], k, p) for i in range(members)]
+    u, dsw = torch.cat([o[0] for o in outs]), torch.stack([o[1] for o in outs])
+    want_u, want_dsw = sigma_bwd.winsum_spread_bwd_plain(g.flatten(0, 1), t.flatten(0, 1),
+                                                         s_w, k)
+    assert u.shape == want_u.shape == (members * b, hp + k - 1, wp + k - 1)
+    assert dsw.shape == want_dsw.shape == (members, c)
+    assert _rel(u, want_u) <= REL_TOL and _rel(dsw, want_dsw) <= REL_TOL
+    if b * hp * wp <= 1000:
+        import jax
+
+        ju, jdsw = jax.vmap(lambda a, bb, s: jsigma_bwd._bwd_call(a, bb, s, k, interpret=True))(
+            *(jnp.asarray(x.numpy()) for x in (g, t, s_w)))
+        assert _rel(u, torch.from_numpy(np.asarray(ju)).reshape(u.shape)) <= REL_TOL
+        assert _rel(dsw, torch.from_numpy(np.asarray(jdsw))) <= REL_TOL
+
+
 # ------------------------------------------------- kernel 4: the arithmetic
 
 

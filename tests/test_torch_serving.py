@@ -149,7 +149,8 @@ def test_port_imports_no_jax():
     the port (the data modules, the trainer, the CLI and the evaluation
     surface among them), builds
     the CLI's parser, runs one tiny CPU forward through the serving session,
-    takes one CPU train step, and under bf16 activations builds an
+    takes one CPU train step and one ensemble step, and under bf16
+    activations builds an
     ``EnsembleSession`` and an export bundle (``flops.py`` among the
     modules)."""
     code = textwrap.dedent("""
@@ -176,7 +177,7 @@ def test_port_imports_no_jax():
                 "supernet_tpu_torch.attacks", "supernet_tpu_torch.perturb",
                 "supernet_tpu_torch.evaluate", "supernet_tpu_torch.calibration",
                 "supernet_tpu_torch.ops.naive", "supernet_tpu_torch.flops",
-                "supernet_tpu_torch.serving",
+                "supernet_tpu_torch.serving", "supernet_tpu_torch.ensemble",
                 "supernet_tpu_torch.metrics", "supernet_tpu_torch.reports",
                 "supernet_tpu_torch.utils", "supernet_tpu_torch.native",
                 "supernet_tpu_torch.data.augment",
@@ -203,6 +204,13 @@ def test_port_imports_no_jax():
             state, rng.normal(0, 1, (2, 32, 32, 1)).astype(np.float32),
             rng.integers(0, 3, (2, 22, 22)).astype(np.int32))
         assert state.step == 1 and all(np.isfinite(float(v)) for v in m)
+        members = train.stack_trees([train.create_train_state(
+            init_params(torch.Generator().manual_seed(k), cfg, "cpu"),
+            HIPPOCAMPUS.train, "cpu")[0] for k in range(2)])
+        members, m = train.make_ensemble_train_step(cfg, HIPPOCAMPUS.train)(
+            members, rng.normal(0, 1, (2, 2, 32, 32, 1)).astype(np.float32),
+            rng.integers(0, 3, (2, 2, 22, 22)).astype(np.int32))
+        assert members.step == 1 and m.loss.shape == (2,)
         import tempfile
         from supernet_tpu_torch import ops
         from supernet_tpu_torch.serving import EnsembleSession, export_bundle

@@ -258,9 +258,13 @@ def test_trainer3d_checks_and_unported_modes(volumes):
         train3d.Trainer3D(EXP, x[:1], y[:1], device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.*'Parallelism'"):
         train3d.Trainer3D(EXP, x, y, mesh=object(), shard="scan", device="cpu")
-    for fn in (train3d.make_ensemble_train_step3d, train3d.make_ensemble_eval_step3d):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*'Ensembles'"):
-            fn(CFG, TC)
+    # the ensemble steps are ported: a mesh names Parallelism, a mode
+    # nobody knows is a ValueError
+    with pytest.raises(NotImplementedError, match="ROADMAP.*'Parallelism'"):
+        train3d.make_ensemble_train_step3d(CFG, TC, mesh=object())
+    with pytest.raises(ValueError, match="member_mode"):
+        train3d.make_ensemble_train_step3d(CFG, TC, member_mode="pmap")
+    assert callable(train3d.make_ensemble_eval_step3d(CFG, TC))
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     with open(os.path.join(root, "ROADMAP.md")) as f:
         text = f.read()

@@ -85,6 +85,60 @@ def test_plan_every_layer(config, layer):
         assert p.scratch_bytes == 0
 
 
+MEMBERS = {"hippocampus": 4, "brats": 2}  # the ensembles chip_smoke.py drives
+
+
+def _split_cap_members(cin, m, cout, members):
+    """The most K slices the planner may take for ``members`` members."""
+    chunks = cin // vdp_conv.TC_CHUNK
+    return max(s for s in range(1, min(chunks, vdp_conv.MAX_SPLITS) + 1)
+               if chunks % s == 0 and members * s <= vdp_conv.MAX_GRID_Z
+               and 4 * members * s * m * (2 * cout + 1) <= vdp_conv.MAX_SCRATCH_BYTES)
+
+
+@pytest.mark.parametrize("sms", [132, 114])  # H100 SXM, H100 PCIe
+@pytest.mark.parametrize("config,layer", LAYERS)
+def test_plan_members_every_layer(config, layer, sms):
+    """The member axis: ``members=1`` on 132 SMs is the plan of the shape
+    alone; with K members the M tiles are counted per member, so that the
+    kernel's blocks (member = blockIdx.z // splits, pixels 64 x of that
+    member) write every output pixel of every member exactly once and no
+    tile holds pixels of two members; the scratch of K x S partials stays
+    within MAX_SCRATCH_BYTES; the slices fill one wave of ``sms`` SMs with
+    as few slices as that takes."""
+    h, w, cin, cout = _conv_inputs(config)[layer]
+    b, members = BATCH[config], MEMBERS[config]
+    one = vdp_conv.plan(b, h, w, cin, cout, 3, 1, sms)
+    if sms == vdp_conv.SMS:
+        assert one == vdp_conv.plan(b, h, w, cin, cout, 3)
+    p = vdp_conv.plan(b, h, w, cin, cout, 3, members, sms)
+    assert (p.path, p.tile_m, p.tile_n) == (one.path, one.tile_m, one.tile_n)
+    if p.path == "simt":  # one block per tile of one image of one member
+        assert p.blocks == members * one.blocks and p.scratch_bytes == 0
+        return
+    m = b * (h - 2) * (w - 2)
+    m_tiles, n_tiles = -(-m // p.tile_m), -(-cout // p.tile_n)
+    assert p.blocks == members * m_tiles * n_tiles * p.splits
+    z = np.arange(members * p.splits)
+    member = np.repeat(z // p.splits, m_tiles)[:, None]
+    rows = np.tile(np.arange(m_tiles), len(z))[:, None] * p.tile_m + np.arange(p.tile_m)
+    written = (member * m + rows)[rows < m]  # rows past M are masked
+    counts = np.bincount(written, minlength=members * m)
+    assert (counts == p.splits).all()  # each slice once per pixel
+    assert (member == (member * m + np.where(rows < m, rows, 0)) // m).all()
+    chunks = cin // vdp_conv.TC_CHUNK
+    assert chunks % p.splits == 0 and members * p.splits <= vdp_conv.MAX_GRID_Z
+    tiles = members * m_tiles * n_tiles
+    assert p.blocks >= sms or p.splits == _split_cap_members(cin, m, cout, members)
+    if p.splits > 1:
+        assert tiles * max(s for s in range(1, p.splits) if chunks % s == 0) < sms
+        assert p.scratch_bytes == 4 * members * p.splits * m * (2 * cout + 1)
+        assert p.scratch_bytes <= vdp_conv.MAX_SCRATCH_BYTES
+    else:
+        assert p.scratch_bytes == 0
+    assert p.splits <= one.splits  # more members fill the card with fewer slices
+
+
 @pytest.mark.parametrize("layer", ["conv8", "conv9", "up1_conv1"])
 def test_plan_splits_the_starved_brats_layers(layer):
     h, w, cin, cout = _conv_inputs("brats")[layer]
