@@ -206,6 +206,31 @@ Phases (any failure raises and the exit code is not 0):
    the constants of ``ensemble.choose_ensemble_mode``. Prints the phase's
    seconds and its parts'.
 
+20. the A/B lowerings on the card: hippocampus (batch 20) and BraTS (batch
+   2) at full width from He-scaled parameters, the loss, probabilities,
+   sigma and every gradient of one batch with the glue fold
+   (``set_glue_fold("fold")``) against the explicit glue on the card, the
+   explicit pass's ReLU masks, pool taps and clips replayed into the folded
+   one, within the tolerances of ``tests/test_glue_fold.py`` (``FOLD_FWD_TOL``,
+   ``FOLD_GRAD_TOL``); one train step in each mode with the counters: the
+   fold's launches kernels 1 and 4 only at the convs it does not fold
+   (hippocampus 6 of 10 k=3 convs per forward, BraTS 9 of 18); a K=2
+   member-stacked step likewise; the card against the CPU under the fold at
+   the tiny config. Then the 3-D family at the phase-18 width:
+   ``set_conv3d_impl("im2col")`` and the glue fold each against the default
+   lowering (loss, probabilities, gradients, choices replayed), and the
+   train profile of each mode (wall ms, device ms, idle share, peak memory)
+   with the modes in turns; kernels 1-4 at 0 launches. Prints the phase's
+   seconds and its parts'.
+21. ``cli profile --by-layer`` in process: hippocampus batch 20 and
+   ``--config unet3d --batch 4`` (K = 8 steps per call, bf16). Each writes
+   ``exact_join.json``; the launches of kernels 1-4 joined from the trace
+   equal the counters over the traced calls and the per-step counts times
+   the steps, and no kernel of the traced calls lost its record; the
+   joined classes and the unjoined row sum to the device busy time within
+   1%; the class table, the unjoined row and the records lost in the
+   settling call are printed.
+
 In phases 6-15 cuDNN runs its deterministic algorithms, and in 6-7 and 12
 the CPU reference of the gradients replays the card's ReLU masks and pool
 taps (``_decisions``), so that rounding ties do not decide the comparison.
@@ -214,7 +239,8 @@ The last two lines of standard output are the kernels summary
 ``{"kernels": [...]}`` (all four kernels, with their launches in the
 hippocampus training run, the epoch trainer's run, the CLI's run, one
 attack gradient, the adversarial evaluation, the study, phase 18, one K=4
-ensemble step and one ensemble session chunk, errors, times and bounds, and
+ensemble step and one ensemble session chunk, one step under the glue fold,
+one step of ``cli profile``'s trace, errors, times and bounds, and
 for kernels 1 and 4 the member-axis times beside K single launches) and
 ``{"ok": true, "device": {...}}``.
 """
@@ -349,28 +375,39 @@ def _sms() -> int:
     return _lib.sm_count("cuda")
 
 
-def _split_layers(cfg, batch, members=1) -> int:
+def _split_layers(cfg, batch, members=1, skip=()) -> int:
     """The k=3 convs of one forward at ``batch`` (of ``members`` ensemble
     members in one launch) that vdp_conv's planner cuts into K slices on this
-    card: each launches the split-K reduce once."""
+    card: each launches the split-K reduce once. Layers named in ``skip``
+    (the glue fold's, ``_folded_layers``) do not run kernel 1."""
     from supernet_tpu_torch.ops.kernels.vdp_conv import plan
     from supernet_tpu_torch.profiling import layer_shapes
 
     return sum(plan(batch, h, w, cin, cout, 3, members, _sms()).splits > 1
-               for _, (_, h, w, cin), cout in layer_shapes(cfg)[0])
+               for name, (_, h, w, cin), cout in layer_shapes(cfg)[0] if name not in skip)
 
 
-def _dgrad_split_layers(cfg, batch, with_input: bool, members=1) -> int:
+def _dgrad_split_layers(cfg, batch, with_input: bool, members=1, skip=()) -> int:
     """The k=3 convs whose input gradient (kernel 1 without the window sum,
     a conv of [b, h+2, w+2, Cout] into Cin channels) the planner cuts into K
     slices; conv_input's counts only ``with_input`` (a gradient with respect
-    to the image)."""
+    to the image); layers in ``skip`` not at all."""
     from supernet_tpu_torch.ops.kernels.vdp_conv import plan
     from supernet_tpu_torch.profiling import layer_shapes
 
     return sum(plan(batch, h + 2, w + 2, cout, cin, 3, members, _sms()).splits > 1
                for name, (_, h, w, cin), cout in layer_shapes(cfg)[0]
-               if with_input or name != "conv_input")
+               if (with_input or name != "conv_input") and name not in skip)
+
+
+def _folded_layers(cfg) -> frozenset:
+    """The convs that ``set_glue_fold("fold")`` runs as ``vglue_conv_relu``
+    (PyTorch's convs, not kernel 1): both convs of every decoder block and,
+    where the config pre-pads its bottleneck, that block's first conv."""
+    names = {f"up{j}_conv{i}" for j in range(1, cfg.depth) for i in (1, 2)}
+    if cfg.bottleneck_pre_pad is not None:
+        names.add(f"conv{2 * (cfg.depth - 1)}")
+    return frozenset(names)
 
 
 class KernelCheck:
@@ -735,14 +772,9 @@ def _zero_launches() -> None:
 
 
 def _read_launches() -> dict:
-    from supernet_tpu_torch.ops.kernels import pool as P
-    from supernet_tpu_torch.ops.kernels import sigma_bwd as S
-    from supernet_tpu_torch.ops.kernels import vdp_conv as V
+    from supernet_tpu_torch.hlo_profile import launch_counts
 
-    return {"vdp_conv": V.launches, "vdp_conv_reduce": V.reduce_launches,
-            "vmaxpool": P.launches, "vmaxpool_bwd": P.bwd_launches,
-            "sigma_bwd": S.launches, "vdp_conv_dgrad": V.dgrad_launches,
-            "vdp_conv_dgrad_reduce": V.dgrad_reduce_launches}
+    return launch_counts()
 
 
 def _serve(torch, name, cfg, batch, sizes):
@@ -815,10 +847,11 @@ def _serve(torch, name, cfg, batch, sizes):
 @contextlib.contextmanager
 def _decisions(torch, record=None, replay=None, clips=True):
     """Record the discrete choices of the forwards run inside (each fused
-    ReLU's mask, each pool's tap index, which pixels the loss's sigma clip
-    holds at a bound) into the list ``record``, or make the forwards take
-    the choices of ``replay`` instead of their own (the clips too, unless
-    ``clips`` is False).
+    ReLU's mask, the glue fold's ReLU masks, each pool's tap index, which
+    pixels the loss's sigma clip holds at a bound) into the list ``record``,
+    or make the forwards take the choices of ``replay`` instead of their own
+    (the clips too, unless ``clips`` is False). A ReLU is the same choice in
+    either glue mode, so a pass without the fold replays into one with it.
 
     Two float32 summation orders can round a pre-activation near 0, or two
     near-equal pool taps, differently; that choice moves the pixel's whole
@@ -832,15 +865,31 @@ def _decisions(torch, record=None, replay=None, clips=True):
     rounding of it has its gradient on in one run and off in the other).
     Yields the count of such ties."""
     from supernet_tpu_torch import losses as L
+    from supernet_tpu_torch.ops import moments as M
     from supernet_tpu_torch.ops.kernels import pool as P
     from supernet_tpu_torch.ops.kernels import vdp_conv as V
 
     conv_apply, pool_apply, clip_sigma = V.VDPConv.apply, P.VMaxPool.apply, L.clip_sigma
+    relu = M.vrelu
     queue = iter(replay) if replay is not None else None
     ties = {"relu": 0, "pool": 0, "clip": 0}
 
     def tie_bound(x):
         return VDP_TOL * float(x.detach().abs().max())
+
+    def vrelu(mu, sigma):
+        # the ReLU of the glue fold's convs (ops.moments.vglue_conv_relu),
+        # in the call order of the fused ReLUs it stands for
+        if queue is None:
+            record.append(mu.detach() > 0)
+            return relu(mu, sigma)
+        mask = next(queue).to(mu.device)
+        tie = mask != (mu.detach() > 0)
+        if tie.any():
+            if float(mu.detach()[tie].abs().max()) > tie_bound(mu):
+                _die("training: a ReLU mask differs away from mu = 0")
+            ties["relu"] += int(tie.sum())
+        return torch.where(mask, mu, 0.0), torch.where(mask, sigma, 0.0)
 
     def conv(mu, sigma, w_mu, w_sigma, relu):
         if not relu:
@@ -895,12 +944,12 @@ def _decisions(torch, record=None, replay=None, clips=True):
             ties["clip"] += int(tie.sum())
         return torch.where(above, hi, torch.where(below, lo, sigma))
 
-    V.VDPConv.apply, P.VMaxPool.apply, L.clip_sigma = conv, pool, clip
+    V.VDPConv.apply, P.VMaxPool.apply, L.clip_sigma, M.vrelu = conv, pool, clip, vrelu
     try:
         yield ties
     finally:
         del V.VDPConv.apply, P.VMaxPool.apply
-        L.clip_sigma = clip_sigma
+        L.clip_sigma, M.vrelu = clip_sigma, relu
 
 
 @contextlib.contextmanager
@@ -1028,25 +1077,29 @@ def _train(torch, name, cfg, tc, batch, steps):
 
 
 
-def _per_forward(cfg, batch, members=1) -> dict:
+def _per_forward(cfg, batch, members=1, skip=()) -> dict:
     """Launches of one forward (vdp_conv, its split-K reduces, pool), of
-    ``members`` ensemble members in one member-stacked forward."""
+    ``members`` ensemble members in one member-stacked forward; the k=3
+    convs named in ``skip`` run no kernel (the glue fold's)."""
     from supernet_tpu_torch.models import layer_names
 
-    return {"vdp_conv": sum(1 for _, k, _, _ in layer_names(cfg) if k == 3),
-            "vdp_conv_reduce": _split_layers(cfg, batch, members),
+    return {"vdp_conv": sum(1 for name, k, _, _ in layer_names(cfg)
+                            if k == 3 and name not in skip),
+            "vdp_conv_reduce": _split_layers(cfg, batch, members, skip),
             "vmaxpool": cfg.depth - 1}
 
 
-def _expected_launches(cfg, batch, steps, eval_batches, input_grads=0, members=1) -> dict:
+def _expected_launches(cfg, batch, steps, eval_batches, input_grads=0, members=1,
+                       skip=()) -> dict:
     """Launches of ``steps`` train steps (gradients of the weights alone),
     ``eval_batches`` forwards and ``input_grads`` gradients with respect to
     the image (the weights frozen), each of ``members`` ensemble members in
     one member-stacked pass. Every backward runs kernel 4 at each k=3
     conv and kernel 1 without the window sum at each k=3 conv whose input
     needs a gradient: all but conv_input in a train step, all of them in a
-    gradient with respect to the image."""
-    f = _per_forward(cfg, batch, members)
+    gradient with respect to the image. The convs in ``skip`` (the glue
+    fold's, never conv_input) run neither."""
+    f = _per_forward(cfg, batch, members, skip)
     fwd = steps + eval_batches + input_grads
     bwd = steps + input_grads
     return {"vdp_conv": fwd * f["vdp_conv"],
@@ -1056,8 +1109,8 @@ def _expected_launches(cfg, batch, steps, eval_batches, input_grads=0, members=1
             "sigma_bwd": bwd * f["vdp_conv"],
             "vdp_conv_dgrad": steps * (f["vdp_conv"] - 1) + input_grads * f["vdp_conv"],
             "vdp_conv_dgrad_reduce": (
-                steps * _dgrad_split_layers(cfg, batch, False, members)
-                + input_grads * _dgrad_split_layers(cfg, batch, True, members))}
+                steps * _dgrad_split_layers(cfg, batch, False, members, skip)
+                + input_grads * _dgrad_split_layers(cfg, batch, True, members, skip))}
 
 
 def _state_tensors(state):
@@ -2857,6 +2910,360 @@ def _ensembles(torch, smi, tmp):
     return sums, per_step, session, modes
 
 
+# ------------------------------------------------------------- phase 20
+
+# the glue fold (and the 3-D im2col) against the default lowering, the
+# tolerances of tests/test_glue_fold.py:147-158: forward rtol 3e-5 / atol
+# 3e-6, gradients rtol 2e-4 / atol 2e-5. The JAX test's values are O(1) at
+# its tiny width; here the atol is taken relative to each tensor's max
+# magnitude, so that it means the same at the published widths.
+FOLD_FWD_TOL = (3e-5, 3e-6)
+FOLD_GRAD_TOL = (2e-4, 2e-5)
+
+
+def _tol_ratio(torch, got, want, tol) -> float:
+    """max over the elements of |got - want| / (rtol |want| + atol max
+    |want|): at most 1 within ``tol = (rtol, atol)``."""
+    rtol, atol = tol
+    g = got.detach().to(want.device).double()
+    w = want.detach().double()
+    bound = rtol * w.abs() + atol * max(float(w.abs().max()), 1e-30)
+    return float(((g - w).abs() / bound).max())
+
+
+def _glue_fold_2d(torch, smi, name, exp, batch):
+    """Phase 20, 2-D: at full width from He-scaled parameters, the loss,
+    probabilities, sigma and every gradient of one batch with the glue fold
+    against the explicit glue on the card (the explicit pass's ReLU masks,
+    pool taps and clips replayed into the folded one, ``_decisions``), then
+    one ``make_train_step`` step in each mode with the counters zeroed just
+    before and read just after: the fold's step launches kernel 1 and
+    kernel 4 only at the convs it does not fold (``_folded_layers``).
+    Returns the fold step's launches."""
+    import numpy as np
+
+    from supernet_tpu_torch import train as T
+    from supernet_tpu_torch.ops.moments import lowering
+
+    cfg, tc = exp.model, exp.train
+    params = _he_params(torch, cfg)
+    rng = np.random.default_rng(SEED + 20)
+    s, o = cfg.image_size, cfg.out_size
+    x = torch.from_numpy(rng.normal(0.0, 1.0, (batch, s, s, cfg.in_channels))
+                         .astype(np.float32)).cuda()
+    y = torch.from_numpy(rng.integers(0, cfg.n_classes, (batch, o, o)).astype(np.int32)).cuda()
+    state, _ = T.create_train_state(params, tc, "cuda")
+
+    def grads(fold, **dec):
+        with lowering(glue_fold=fold), _decisions(torch, **dec) as ties:
+            loss, (_, _, probs, sigma) = T.loss_fn(state.params, x, y, cfg, tc)
+            g = torch.autograd.grad(loss, T.leaves(state.params))
+        return float(loss.detach()), probs, sigma, g, ties
+
+    choices = []
+    l0, p0, s0, g0, _ = grads("none", record=choices)
+    l1, p1, s1, g1, ties = grads("fold", replay=choices)
+    res = {
+        "loss_rel_err": abs(l1 - l0) / abs(l0),
+        "probs_tol_ratio": _tol_ratio(torch, p1, p0, FOLD_FWD_TOL),
+        "sigma_tol_ratio": _tol_ratio(torch, s1, s0, FOLD_FWD_TOL),
+        "grad_tol_ratio": max(_tol_ratio(torch, a, b, FOLD_GRAD_TOL) for a, b in zip(g1, g0)),
+        "grad_max_rel_err": max(_max_rel(torch, a, b) for a, b in zip(g1, g0)),
+    }
+    del g0, g1, choices
+    if (res["loss_rel_err"] > FOLD_FWD_TOL[0] or res["probs_tol_ratio"] > 1
+            or res["sigma_tol_ratio"] > 1 or res["grad_tol_ratio"] > 1):
+        _die(f"{name} glue fold: against the explicit glue {res}")
+
+    skip = _folded_layers(cfg)
+    step = T.make_train_step(cfg, tc)
+    steps = {}
+    for fold, want in (("none", _expected_launches(cfg, batch, 1, 0)),
+                       ("fold", _expected_launches(cfg, batch, 1, 0, skip=skip))):
+        st, _ = T.create_train_state(params, tc, "cuda")
+        with lowering(glue_fold=fold):
+            torch.cuda.synchronize()
+            _zero_launches()
+            st, m = step(st, x, y)
+            loss = float(m.loss)
+            launches = _read_launches()
+        if launches != want:
+            _die(f"{name} glue fold ({fold}): kernel launches {launches}, expected {want}")
+        steps[fold] = {"launches": launches, "loss": loss}
+        del st
+    if abs(steps["fold"]["loss"] - steps["none"]["loss"]) > TRAIN_LOSS_RTOL * abs(
+            steps["none"]["loss"]):
+        _die(f"{name} glue fold: step losses {steps}")
+    print(json.dumps({"glue_fold": name, "card": smi, "batch": batch,
+                      "folded_layers": sorted(skip), **res, "ties_replayed": ties,
+                      "steps": steps}), flush=True)
+    return steps["fold"]["launches"]
+
+
+def _glue_fold_members(torch, smi, exp, batch, k_n):
+    """Phase 20, member axis: one ``make_ensemble_train_step`` (vmap) step of
+    K members without and with the glue fold; the fold's launches are the
+    unfolded convs' for K members in one launch, the member losses equal."""
+    import numpy as np
+
+    from supernet_tpu_torch import train as T
+    from supernet_tpu_torch.ops.moments import lowering
+
+    cfg, tc = exp.model, exp.train
+    members = [_he_params(torch, cfg, SEED + k) for k in range(k_n)]
+    rng = np.random.default_rng(SEED + 21)
+    s, o = cfg.image_size, cfg.out_size
+    x = rng.normal(0.0, 1.0, (k_n, batch, s, s, cfg.in_channels)).astype(np.float32)
+    y = rng.integers(0, cfg.n_classes, (k_n, batch, o, o)).astype(np.int32)
+    step = T.make_ensemble_train_step(cfg, tc, member_mode="vmap")
+    out = {}
+    for fold, skip in (("none", ()), ("fold", _folded_layers(cfg))):
+        state = T.stack_trees([T.create_train_state(p, tc, "cuda")[0] for p in members])
+        with lowering(glue_fold=fold):
+            torch.cuda.synchronize()
+            _zero_launches()
+            state, m = step(state, x, y, np.arange(k_n) + tc.seed)
+            losses = m.loss.cpu().numpy()
+            launches = _read_launches()
+        want = _expected_launches(cfg, batch, 1, 0, members=k_n, skip=skip)
+        if launches != want:
+            _die(f"glue fold, K={k_n} members ({fold}): launches {launches}, expected {want}")
+        out[fold] = {"launches": launches, "losses": losses.tolist()}
+        del state
+    err = float(np.abs(np.array(out["fold"]["losses"]) - out["none"]["losses"]).max()
+                / np.abs(out["none"]["losses"]).max())
+    if err > TRAIN_LOSS_RTOL:
+        _die(f"glue fold, K={k_n} members: losses {out}")
+    return {"members": k_n, "batch": batch, "loss_max_rel_err": err, **out}
+
+
+def _glue_fold_cpu(torch):
+    """Phase 20, the card against the CPU under the fold at the tiny config
+    (32x32, 4 base kernels, batch 4): the forward within the serving limits,
+    the gradients within TRAIN_GRAD_TOL with the card's choices replayed."""
+    import numpy as np
+
+    from supernet_tpu_torch import train as T
+    from supernet_tpu_torch.configs import HIPPOCAMPUS
+    from supernet_tpu_torch.ops.moments import lowering
+
+    cfg = dataclasses.replace(HIPPOCAMPUS.model, image_size=32, out_size=22, base_kernels=4)
+    tc = HIPPOCAMPUS.train
+    params = _he_params(torch, cfg)
+    rng = np.random.default_rng(SEED + 22)
+    x = torch.from_numpy(rng.normal(0.0, 1.0, (4, 32, 32, 1)).astype(np.float32))
+    y = torch.from_numpy(rng.integers(0, 3, (4, 22, 22)).astype(np.int32))
+
+    def run(device, **dec):
+        state, _ = T.create_train_state(params, tc, device)
+        with lowering(glue_fold="fold"), _decisions(torch, **dec) as ties:
+            loss, (_, _, probs, sigma) = T.loss_fn(state.params, x.to(device), y.to(device),
+                                                   cfg, tc)
+            g = torch.autograd.grad(loss, T.leaves(state.params))
+        return probs.cpu().numpy(), sigma.cpu().numpy(), g, ties
+
+    choices = []
+    pg, sg, gg, _ = run("cuda", record=choices)
+    pc, sc, gc, ties = run("cpu", replay=choices)
+    fwd = _serving_close("glue fold, card against the CPU (tiny)", pg.reshape(4, 22, 22, 3),
+                         sg.reshape(4, 22, 22, 3), pc.reshape(4, 22, 22, 3),
+                         sc.reshape(4, 22, 22, 3))
+    worst_g = max(_max_rel(torch, a, b) for a, b in zip(gg, gc))
+    if not worst_g <= TRAIN_GRAD_TOL:
+        _die(f"glue fold, card against the CPU: gradients {worst_g:.3e} of a leaf's max")
+    return {"probs_max_abs_err": fwd[0], "sigma_share_beyond_rtol": fwd[2],
+            "grad_max_rel_err": worst_g, "ties_replayed": ties}
+
+
+@contextlib.contextmanager
+def _lowering3d(glue_fold="none", conv3d="conv"):
+    """The 3-D family under ``glue_fold`` and ``set_conv3d_impl(conv3d)``,
+    both restored after."""
+    from supernet_tpu_torch.ops import moments3d as M3
+    from supernet_tpu_torch.ops.moments import lowering
+
+    M3.set_conv3d_impl(conv3d)
+    try:
+        with lowering(glue_fold=glue_fold):
+            yield
+    finally:
+        M3.set_conv3d_impl("conv")
+
+
+_MODES3D = {"default": {}, "im2col": {"conv3d": "im2col"}, "fold": {"glue_fold": "fold"}}
+
+
+def _lowerings_3d(torch, smi):
+    """Phase 20, 3-D at the phase-18 width (cube 64, base 32, depth 3,
+    batch 4), the family without a hand-written kernel, so every lowering
+    runs on the card: ``set_conv3d_impl("im2col")`` and the glue fold each
+    against the default, the loss, probabilities and every gradient, the
+    default pass's ReLU masks, pool taps and clips replayed
+    (``_decisions3d``), under cuDNN's deterministic algorithms; then the
+    train profile of each mode (wall, device time, idle share, peak memory)
+    with the modes in turns; kernels 1-4 at 0 launches."""
+    import numpy as np
+
+    from supernet_tpu_torch import profiling
+    from supernet_tpu_torch import train as T
+    from supernet_tpu_torch import train3d as T3
+    from supernet_tpu_torch.configs import HIPPOCAMPUS
+
+    exp = HIPPOCAMPUS
+    cfg = dataclasses.replace(exp.model, out_size=T3.derive_out_size3d(exp.model))
+    tc, batch = exp.train, 4
+    s, o, c = cfg.image_size, cfg.out_size, cfg.n_classes
+    params = _he_params3d(torch, cfg)
+    rng = np.random.default_rng(SEED + 23)
+    x = torch.from_numpy(rng.normal(0.0, 1.0, (batch, s, s, s, cfg.in_channels))
+                         .astype(np.float32)).cuda()
+    y1h = T.one_hot_flatten(torch.from_numpy(
+        rng.integers(0, c, (batch, o, o, o)).astype(np.int32)).cuda(), c)
+    torch.cuda.synchronize()
+    _zero_launches()
+    state, _ = T.create_train_state(params, tc, "cuda")
+
+    def grads(mode, **dec):
+        torch.cuda.reset_peak_memory_stats()
+        with _lowering3d(**_MODES3D[mode]), _decisions3d(torch, **dec) as ties:
+            loss, _, probs = T3._loss3d(state.params, x, y1h, cfg, tc)
+            g = torch.autograd.grad(loss, T.leaves(state.params))
+        return float(loss.detach()), probs, g, ties, torch.cuda.max_memory_allocated()
+
+    equal = {}
+    t0 = time.perf_counter()
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        choices = []
+        l0, p0, g0, _, peak0 = grads("default", record=choices)
+        equal["default"] = {"loss": l0, "grad_pass_peak_bytes": peak0}
+        for mode in ("im2col", "fold"):
+            l1, p1, g1, ties, peak = grads(mode, replay=choices)
+            res = {"loss": l1, "loss_rel_err": abs(l1 - l0) / abs(l0),
+                   "probs_tol_ratio": _tol_ratio(torch, p1, p0, FOLD_FWD_TOL),
+                   "grad_tol_ratio": max(_tol_ratio(torch, a, b, FOLD_GRAD_TOL)
+                                         for a, b in zip(g1, g0)),
+                   "grad_max_rel_err": max(_max_rel(torch, a, b) for a, b in zip(g1, g0)),
+                   "ties_replayed": ties, "grad_pass_peak_bytes": peak}
+            del g1, p1
+            equal[mode] = res
+            if (res["loss_rel_err"] > FOLD_FWD_TOL[0] or res["probs_tol_ratio"] > 1
+                    or res["grad_tol_ratio"] > 1):
+                _die(f"3-D {mode}: against the default lowering {res}")
+        del g0, p0, choices, state
+    torch.cuda.empty_cache()
+    equality_s = time.perf_counter() - t0
+
+    # 3 warm-up steps, 2 timed, 2 traced per profile; each mode twice
+    keys = ("step_ms_median", "device_ms_per_step", "device_busy_ms_per_step", "idle_share",
+            "peak_memory_bytes", "conv3d_share")
+    timing = {m: {k: [] for k in keys + ("profile_s",)} for m in _MODES3D}
+    for mode in ("default", "im2col", "fold", "fold", "im2col", "default"):
+        t0 = time.perf_counter()
+        with _lowering3d(**_MODES3D[mode]):
+            prof = profiling.profile_train_step3d("hippocampus", batch, SEED, steps=2)
+        for k in keys:
+            timing[mode][k].append(prof[k])
+        timing[mode]["profile_s"].append(time.perf_counter() - t0)
+        torch.cuda.empty_cache()
+    launches = _read_launches()
+    if any(launches.values()):
+        _die(f"3-D lowerings: the 2-D kernels were launched: {launches}")
+    return {"card": smi, "batch": batch, "cube": s, "equality": equal, "timing": timing,
+            "equality_s": equality_s, "launches_of_kernels_1_4": launches}
+
+
+def _lowerings(torch, smi):
+    """Phase 20. Returns the hippocampus fold step's launches."""
+    from supernet_tpu_torch.configs import BRATS, HIPPOCAMPUS
+
+    t_phase = time.perf_counter()
+    parts = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        parts[name] = time.perf_counter() - t0
+        return out
+
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        fold_launches = timed("hippocampus", _glue_fold_2d, torch, smi, "hippocampus",
+                              HIPPOCAMPUS, 20)
+        timed("brats", _glue_fold_2d, torch, smi, "brats", BRATS, 2)
+        members = timed("members", _glue_fold_members, torch, smi, HIPPOCAMPUS, 20, 2)
+        cpu = timed("cpu", _glue_fold_cpu, torch)
+    three_d = timed("three_d", _lowerings_3d, torch, smi)
+    print(json.dumps({"lowerings": "phase 20", "card": smi, "members_k2": members,
+                      "card_vs_cpu_tiny": cpu, "three_d": three_d,
+                      "phase_s": time.perf_counter() - t_phase, "parts_s": parts}),
+          flush=True)
+    return fold_launches
+
+
+# ------------------------------------------------------------- phase 21
+
+
+def _profile_cli(torch, smi, tmp):
+    """Phase 21: ``cli profile --by-layer`` in process on the default
+    device, hippocampus at batch 20 and the 3-D step at batch 4 (K = 8 steps
+    per call, bf16 activations, the JAX twin's defaults).
+    ``exact_join.json`` is written; the launches of kernels 1-4 joined from
+    the trace equal the kernels' own counters over the traced calls and the
+    per-step counts times the steps (0 in 3-D); no kernel of the traced calls
+    lost its record (``cli profile`` leaves out the settling call before
+    them, where the profiler loses some); the joined classes and the
+    unjoined row sum to the profiler's device busy time within 1%. Returns
+    the hippocampus run's launches per step."""
+    from supernet_tpu_torch import cli
+    from supernet_tpu_torch.configs import HIPPOCAMPUS
+
+    t_phase = time.perf_counter()
+    per_step = None
+    for config, batch, iters in (("hippocampus", 20, 2), ("unet3d", 4, 1)):
+        out_dir = os.path.join(tmp, f"profile_{config}")
+        t0 = time.perf_counter()
+        if cli.main(["profile", "--config", config, "--batch", str(batch), "--iters",
+                     str(iters), "--by-layer", "--out-dir", out_dir]) != 0:
+            _die(f"cli profile --config {config}: rc != 0")
+        seconds = time.perf_counter() - t0
+        path = os.path.join(out_dir, "exact_join.json")
+        if not os.path.isfile(path):
+            _die(f"cli profile --config {config}: no exact_join.json")
+        with open(path) as f:
+            ej = json.load(f)
+        steps = ej["k_steps"] * ej["n_iters"]
+        if config == "unet3d":
+            want = {k: 0 for k in ej["counted_launches"]}
+        else:
+            want = _scaled(_expected_launches(HIPPOCAMPUS.model, batch, 1, 0), steps)
+            per_step = _expected_launches(HIPPOCAMPUS.model, batch, 1, 0)
+        if ej["kernel_launches"] != ej["counted_launches"] or ej["counted_launches"] != want:
+            _die(f"cli profile --config {config}: launches in the trace "
+                 f"{ej['kernel_launches']}, counted {ej['counted_launches']}, expected {want}")
+        if ej["lost_launches"]:
+            _die(f"cli profile --config {config}: the trace lost the records of "
+                 f"{ej['lost_launches']} kernels of the traced calls")
+        busy, total = ej["device_steps_ms_per_step"], ej["total_ms_per_step"]
+        if not abs(total - busy) <= 0.01 * busy:
+            _die(f"cli profile --config {config}: joined + unjoined {total} ms/step against "
+                 f"the device busy time {busy} ms/step")
+        print(json.dumps({
+            "cli_profile": config, "card": smi, "batch": batch, "k_steps": ej["k_steps"],
+            "n_iters": ej["n_iters"], "act_dtype": ej["act_dtype"],
+            "wall_ms_per_step": ej["wall_ms_per_step"], "device_busy_ms_per_step": busy,
+            "total_ms_per_step": total, "total_over_busy": total / busy,
+            "unmatched_ms_per_step": ej["unmatched_ms_per_step"],
+            "unmatched": ej["unmatched"], "classes": ej["classes"],
+            "layers_mxu": ej.get("layers_mxu"), "kernel_launches": ej["kernel_launches"],
+            "lost_launches": ej["lost_launches"],
+            "settle_lost_launches": ej["settle_lost_launches"],
+            "seconds": seconds}), flush=True)
+    print(json.dumps({"profile": "phase 21", "phase_s": time.perf_counter() - t_phase}),
+          flush=True)
+    return per_step
+
+
 def main() -> int:
     import torch
 
@@ -2995,6 +3402,12 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         member_sums, ens_per_step, ens_session, ens_modes = _ensembles(torch, smi, tmp)
 
+    # 20. the A/B lowerings on the card: the glue fold in 2-D and 3-D, the
+    # 3-D im2col; 21. cli profile
+    fold_launches = _lowerings(torch, smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        profile_per_step = _profile_cli(torch, smi, tmp)
+
     sources = {
         "vdp_conv": ("supernet_tpu_torch/csrc/vdp_conv.cu",
                      "supernet_tpu/ops/pallas/vdp_conv.py:125"),
@@ -3015,7 +3428,10 @@ def main() -> int:
     # three_d_launches: the whole of phase 18 (0: the 3-D family has no
     # hand-written kernel); ensemble_train_launches_per_step: one K=4 vmap
     # step at hippocampus batch 20 (phase 19); ensemble_session_chunk_launches:
-    # one chunk of a 3-member EnsembleSession (phase 19). member_axis_*: the
+    # one chunk of a 3-member EnsembleSession (phase 19);
+    # glue_fold_train_launches_per_step: one hippocampus step (batch 20) under
+    # the glue fold (phase 20); cli_profile_launches_per_step: one step of
+    # cli profile's hippocampus run, joined from its trace (phase 21). member_axis_*: the
     # member-axis launch summed over the layers of one hippocampus step (K=4,
     # batch 20; brats_member_axis_*: BraTS, K=2, batch 2) beside K single
     # launches, CUDA events and device time.
@@ -3087,6 +3503,8 @@ def main() -> int:
             "three_d_launches": three_d_launches[kernel],
             "ensemble_train_launches_per_step": ens_per_step[kernel],
             "ensemble_session_chunk_launches": ens_session[kernel],
+            "glue_fold_train_launches_per_step": fold_launches[kernel],
+            "cli_profile_launches_per_step": profile_per_step[kernel],
             "max_abs_err": check.worst[kernel][0],
             "max_rel_err": check.worst[kernel][1],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,

@@ -11,15 +11,17 @@
     python -m supernet_tpu_torch.cli train3d --config hippocampus --synthetic 40 --epochs 2
     python -m supernet_tpu_torch.cli eval3d --config hippocampus --checkpoint RUN3D --synthetic 8
     python -m supernet_tpu_torch.cli predict3d --config hippocampus --checkpoint RUN3D --volume V.nii.gz
+    python -m supernet_tpu_torch.cli profile --config hippocampus --batch 20 --by-layer
 
 ``train``, ``convert`` (``--to-cubes`` too), ``eval``, ``sweep``,
 ``attack``, ``calibrate``, ``saliency``, ``study``, ``export``
 (``--volumetric`` too) and the 3-D family's ``train3d``, ``predict3d``,
 ``eval3d``, ``attack3d``, ``calibrate3d`` and ``saliency3d`` run, each
-printing the JSON line(s) and writing the files of its twin; ``bench`` and
-``profile`` parse their flags and then raise ``NotImplementedError`` naming
-the ``ROADMAP.md`` item that ports them, as do ``--data-parallel``,
-``--spatial-shard`` and ``--hybrid-shard``. ``train --ensemble K`` and
+printing the JSON line(s) and writing the files of its twin; ``profile``
+traces K-step train calls and prints and writes the exact-join tables
+(``hlo_profile.run``). ``bench`` parses its flags and then raises
+``NotImplementedError`` naming the ``ROADMAP.md`` item that ports it, as do
+``--data-parallel``, ``--spatial-shard`` and ``--hybrid-shard``. ``train --ensemble K`` and
 ``train3d --ensemble K`` (K > 1) train a deep ensemble into
 ``member_{k}/`` (``--ensemble-mode``: ``vmap``, ``unroll`` / ``scan``,
 ``sequential``, or ``auto``, which ``ensemble.choose_ensemble_mode``
@@ -45,8 +47,6 @@ import sys
 # subcommand -> the ROADMAP.md item (Queue 1) that ports it
 _UNPORTED = {
     "bench": "'Port bench and FLOP counts' (supernet_tpu_torch.bench)",
-    "profile": "'CLI and profiling, rest' (python -m "
-               "supernet_tpu_torch.profiling is the port's profiler until then)",
 }
 
 
@@ -450,7 +450,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "(the layer names the forward records)")
     pr.add_argument("--out-dir", default=None,
                     help="trace + exact_join.json destination "
-                         "(default /tmp/ej_<config>_<batch>)")
+                         "(default <tempdir>/ej_<config>_<batch>)")
+    pr.add_argument("--device", default="cuda",
+                    help="torch device to run on (default: the card; there "
+                         "is no fallback to the CPU)")
     return ap
 
 
@@ -1315,6 +1318,17 @@ def main(argv=None) -> int:
     apply_env_overrides()
     if args.cmd in _UNPORTED:
         raise _unported(f"the '{args.cmd}' subcommand", _UNPORTED[args.cmd])
+    if args.cmd == "profile":
+        import tempfile
+
+        from supernet_tpu_torch.hlo_profile import run as profile_run
+
+        out_dir = args.out_dir or os.path.join(
+            tempfile.gettempdir(), f"ej_{args.config}_{args.batch}")
+        os.makedirs(out_dir, exist_ok=True)
+        profile_run(args.config, args.batch, out_dir, n_iters=args.iters,
+                    by_layer=args.by_layer, device=args.device)
+        return 0
     exp = _get_exp(args)
     if args.cmd == "study":
         if args.data_parallel:

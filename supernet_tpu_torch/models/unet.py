@@ -32,12 +32,13 @@ from supernet_tpu_torch.ops import (
     vconv_input_relu,
     vconv_relu,
     vcrop_concat,
+    vglue_conv_relu,
     vmaxpool,
     vpad,
     vsoftmax,
     vunpool_conv2,
 )
-from supernet_tpu_torch.ops.moments import _unpool_one
+from supernet_tpu_torch.ops.moments import _unpool_one, get_glue_fold
 
 Tensor = torch.Tensor
 Params = Dict[str, Dict[str, Tensor]]
@@ -157,9 +158,16 @@ def forward(
     ``torch.utils.checkpoint``: only the block's inputs stay live and the
     backward pass runs the block's forward again (its forward kernels are
     launched twice per step). ``tap`` is called in the first pass only.
+
+    Under ``set_glue_fold("fold")`` the BraTS bottleneck's pre-padded conv
+    and both convs of every decoder block run as ``vglue_conv_relu`` (the
+    pad, crop and concatenation computed inside PyTorch's convs), under
+    their layer names and taps, as ``supernet_tpu/models/unet.py:166-240``
+    dispatches them; kernel 1 then runs only the other k=3 convs.
     """
     depth = cfg.depth
     fill = cfg.sigma_fill
+    glue_fold = get_glue_fold() == "fold"
     if constrain is None:
         constrain = _identity
     _tap, block = _block_helpers(cfg, tap)
@@ -171,8 +179,19 @@ def forward(
         _tap(name, m)
         return m, s
 
+    def folded(pad, with_skip: bool = False):
+        """The conv of ``layer`` as ``vglue_conv_relu`` after a ``pad``
+        (and the crop-concatenation of the skip moments)."""
+        if with_skip:
+            return lambda m, s, m_e, s_e, w_mu, w_sigma: vglue_conv_relu(
+                m, s, w_mu, w_sigma, pad, fill, m_e, s_e)
+        return lambda m, s, w_mu, w_sigma: vglue_conv_relu(m, s, w_mu, w_sigma, pad, fill)
+
     def encoder_block(i: int, m: Tensor, s: Tensor) -> Tuple[Tensor, Tensor]:
         if i == depth - 1 and cfg.bottleneck_pre_pad is not None:
+            if glue_fold:
+                m, s = layer(folded(cfg.bottleneck_pre_pad), f"conv{2 * i}", m, s)
+                return layer(vconv_relu, f"conv{2 * i + 1}", m, s)
             m, s = vpad(m, s, cfg.bottleneck_pre_pad, fill)
             _tap("pre_pad", m)
         m, s = layer(vconv_relu, f"conv{2 * i}", m, s)
@@ -180,6 +199,9 @@ def forward(
 
     def decoder_block(j, m, s, m_e, s_e) -> Tuple[Tensor, Tensor]:
         m, s = layer(vunpool_conv2, f"up{j}_conv2x2", m, s)
+        if glue_fold:
+            m, s = layer(folded((3, 3), True), f"up{j}_conv1", m, s, m_e, s_e)
+            return layer(folded((2, 2)), f"up{j}_conv2", m, s)
         m, s = vpad(m, s, (3, 3), fill)
         _tap(f"up{j}_pad", m)
         m, s = vcrop_concat(m, s, m_e, s_e)

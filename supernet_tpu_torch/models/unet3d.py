@@ -25,12 +25,14 @@ from torch import nn
 from supernet_tpu_torch.configs import ModelConfig
 from supernet_tpu_torch.models.unet import _block_helpers, _identity, _tight_layers
 from supernet_tpu_torch.ops import moments3d as M3
+from supernet_tpu_torch.ops.moments import _per_member, get_glue_fold, lowering
 from supernet_tpu_torch.ops.moments3d import (
     crop_center3d,
     vconv3d,
     vconv3d_input_relu,
     vconv3d_relu,
     vcrop_concat3d,
+    vglue_conv3d_relu,
     vpad3d,
     vsoftmax3d,
     vunpool3d_conv2,
@@ -140,12 +142,26 @@ def forward3d(
     [K, B, out^3, n_classes]. Each conv layer runs its members one after the
     other through cuDNN (the family has no hand-written kernel to take a
     member axis); the pools, pads, crops and the softmax see the members as
-    part of the batch [K*B, ...]."""
+    part of the batch [K*B, ...].
+
+    Under ``set_glue_fold("fold")`` the pre-padded bottleneck conv (where
+    the config has one) and both convs of every decoder block run as
+    ``ops.moments3d.vglue_conv3d_relu`` under their layer names and taps
+    (``supernet_tpu/models/unet3d.py:118-175``)."""
     depth = cfg.depth
     fill = cfg.sigma_fill
+    glue_fold = get_glue_fold() == "fold"
     if constrain is None:
         constrain = _identity
     _tap, block = _block_helpers(cfg, tap)
+
+    def folded(pad, with_skip: bool = False):
+        """The conv of ``layer`` as ``vglue_conv3d_relu`` after a ``pad``
+        (and the crop-concatenation of the skip moments)."""
+        if with_skip:
+            return lambda m, s, m_e, s_e, w_mu, w_sigma: vglue_conv3d_relu(
+                m, s, w_mu, w_sigma, pad, fill, m_e, s_e)
+        return lambda m, s, w_mu, w_sigma: vglue_conv3d_relu(m, s, w_mu, w_sigma, pad, fill)
 
     def layer(fn, name: str, *moments):
         p = params[name]
@@ -159,6 +175,9 @@ def forward3d(
 
     def encoder_block(i: int, m: Tensor, s: Tensor) -> Tuple[Tensor, Tensor]:
         if i == depth - 1 and cfg.bottleneck_pre_pad is not None:
+            if glue_fold:
+                m, s = layer(folded(cfg.bottleneck_pre_pad), f"conv{2 * i}", m, s)
+                return layer(vconv3d_relu, f"conv{2 * i + 1}", m, s)
             m, s = vpad3d(m, s, cfg.bottleneck_pre_pad, fill)
             _tap("pre_pad", m)
         m, s = layer(vconv3d_relu, f"conv{2 * i}", m, s)
@@ -166,6 +185,9 @@ def forward3d(
 
     def decoder_block(j, m, s, m_e, s_e) -> Tuple[Tensor, Tensor]:
         m, s = layer(vunpool3d_conv2, f"up{j}_conv2x2", m, s)
+        if glue_fold:
+            m, s = layer(folded((3, 3), True), f"up{j}_conv1", m, s, m_e, s_e)
+            return layer(folded((2, 2)), f"up{j}_conv2", m, s)
         m, s = vpad3d(m, s, (3, 3), fill)
         m, s = vcrop_concat3d(m, s, m_e, s_e)
         _tap(f"up{j}_concat", m)
@@ -198,19 +220,6 @@ def forward3d(
     if x.dim() == 6:
         return probs.unflatten(0, x.shape[:2]), sigma.unflatten(0, x.shape[:2])
     return probs, sigma
-
-
-def _per_member(fn, moments, w_mu: Tensor, w_sigma: Tensor) -> Tuple[Tensor, Tensor]:
-    """One weighted layer of a member-stacked forward: member k's moments
-    (a slice of [K,B,...] or of [K*B,...]) through ``fn`` with its weights,
-    the outputs concatenated member-major [K*B, ...]."""
-    n = w_mu.shape[0]
-
-    def member(t: Tensor, k: int) -> Tensor:
-        return t[k] if t.dim() == 6 else t.unflatten(0, (n, -1))[k]
-
-    outs = [fn(*(member(t, k) for t in moments), w_mu[k], w_sigma[k]) for k in range(n)]
-    return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
 
 
 def forward_sampled3d(
@@ -268,7 +277,8 @@ def stage_shapes3d(cfg: ModelConfig) -> Tuple[Tuple[str, Tuple[int, ...]], ...]:
     """``(stage name, output shape)`` (batch 1) of every stage of one
     :func:`forward3d`, in order: the forward run on the ``meta`` device,
     which computes shapes and no values (the JAX package traces
-    ``jax.eval_shape``). Raises where the geometry collapses."""
+    ``jax.eval_shape``), with the decoder glue explicit. Raises where the
+    geometry collapses."""
     import dataclasses
 
     cfg = dataclasses.replace(cfg, remat=False)
@@ -280,6 +290,6 @@ def stage_shapes3d(cfg: ModelConfig) -> Tuple[Tuple[str, Tuple[int, ...]], ...]:
     s = cfg.image_size
     x = torch.empty((1, s, s, s, cfg.in_channels), device="meta")
     stages = []
-    with torch.no_grad():
+    with torch.no_grad(), lowering(glue_fold="none"):
         forward3d(params, x, cfg, tap=lambda name, shape: stages.append((name, shape)))
     return tuple(stages)

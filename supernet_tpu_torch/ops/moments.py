@@ -18,14 +18,26 @@ upcast at the kernel boundary and the outputs are cast back
 (``supernet_tpu/ops/pallas/vdp_conv.py:466-477``), so the kernels' backward
 sees float32 cotangents too.
 
-Dispatch: every k > 1 conv goes through ``ops.kernels.vdp_conv.VDPConv``
-and the max-pool through ``ops.kernels.pool.VMaxPool``, the autograd
-Functions around the hand-written kernels (forward and backward). On CUDA
-tensors those launch the kernels; on CPU tensors they run their plain
-versions. The 1x1 head and the unpool conv are matrix products
-(``torch.einsum``), as they are XLA ops in the JAX package; their gradients,
-and those of the pads, crops, concatenations and the softmax, are PyTorch's
-autograd, as they are XLA's AD in the JAX package.
+Dispatch: every stride-1 k > 1 conv goes through
+``ops.kernels.vdp_conv.VDPConv`` and the max-pool through
+``ops.kernels.pool.VMaxPool``, the autograd Functions around the
+hand-written kernels (forward and backward). On CUDA tensors those launch
+the kernels; on CPU tensors they run their plain versions. The 1x1 head and
+the unpool conv are matrix products (``torch.einsum``), as they are XLA ops
+in the JAX package; their gradients, and those of the pads, crops,
+concatenations and the softmax, are PyTorch's autograd, as they are XLA's
+AD in the JAX package.
+
+A/B lowerings (the knobs ``set_conv_fold``, ``set_winsum``,
+``set_sw_scale``, ``set_chansum``, ``set_conv2d_impl``; ``SUPERNET_*``
+through :func:`apply_env_overrides`) follow the JAX package's backend split:
+on a CUDA tensor a stride-1 k > 1 conv takes kernel 1 whatever they say, as
+the JAX package's Pallas backend does; on a CPU tensor a knob off its
+default runs the JAX package's XLA lowering of it, in PyTorch ops. A conv
+of stride > 1 runs that composition on both devices; the 1x1 head honours
+``sw_scale`` on both. The decoder glue fold (``set_glue_fold``,
+:func:`vglue_conv_relu`) is the models' choice; its convs are PyTorch's on
+every device, as they are XLA's on every backend in the JAX package.
 
 Member axis (a deep ensemble's K members in one forward, the counterpart of
 ``jax.vmap`` over a stacked parameter tree): weights stacked along a leading
@@ -40,6 +52,7 @@ the batch.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
 from typing import Sequence, Tuple
@@ -112,43 +125,149 @@ def _f32(x: Tensor) -> Tensor:
     return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
-# SUPERNET_* knobs of the JAX package that the port has no counterpart for,
-# with the reason apply_env_overrides gives on stderr.
-_NO_KERNEL_SWITCH = (
-    "has no counterpart: on a CUDA tensor the port always runs its "
-    "hand-written kernels, on a CPU tensor their plain versions"
-)
-_AB_PATH = ("is not ported yet (ROADMAP.md, Queue 1: 'Remaining 2-D A/B "
-            "paths'); the default lowering runs")
+# The A/B lowering knobs of the JAX package (supernet_tpu/ops/moments.py:162-332,
+# :445-463), with its defaults. They select how the plain composition of a
+# conv is lowered; a stride-1 k > 1 conv on a CUDA tensor takes kernel 1
+# whatever they say, as a stride-1 k > 1 layer on the JAX package's Pallas
+# backend returns from its kernel before any knob is read
+# (supernet_tpu/ops/moments.py:576-579, :649-652). On a CPU tensor a knob
+# that is not at its default runs the JAX package's XLA lowering of that knob.
+#   conv_fold   "none" | "sigma" | "full": the window sum rides the sigma conv
+#               (or one conv computes everything) as extra channels
+#   winsum      "shift" | "conv": separable shifted adds, or a ones-kernel conv
+#   glue_fold   "none" | "fold": the decoder's pad -> [crop-concat ->] conv ->
+#               relu computed inside the convs (vglue_conv_relu; dispatched by
+#               models/unet.py and models/unet3d.py)
+#   sw_scale    "mul" | "dot": ``winsum * s_w`` as a broadcast multiply or a
+#               size-1 contraction
+#   chansum     "reduce" | "dot": the window sum's channel sum as a sum or a
+#               product with a ones vector
+#   conv2d_impl "conv" | "im2col": the k > 1 moment products as convs, or as
+#               one matrix product with the k^2 taps concatenated
+_KNOBS = {
+    "conv_fold": ("none", ("none", "sigma", "full")),
+    "winsum": ("shift", ("shift", "conv")),
+    "glue_fold": ("none", ("none", "fold")),
+    "sw_scale": ("mul", ("mul", "dot")),
+    "chansum": ("reduce", ("reduce", "dot")),
+    "conv2d_impl": ("conv", ("conv", "im2col")),
+}
+_KNOB: dict = {name: default for name, (default, _) in _KNOBS.items()}
+
+
+def _set_knob(name: str, mode: str, what: str) -> None:
+    if mode not in _KNOBS[name][1]:
+        raise ValueError(f"unknown {what} {mode!r}")
+    _KNOB[name] = mode
+
+
+def set_conv_fold(mode: str) -> None:
+    _set_knob("conv_fold", mode, "conv fold mode")
+
+
+def get_conv_fold() -> str:
+    return _KNOB["conv_fold"]
+
+
+def set_winsum(mode: str) -> None:
+    _set_knob("winsum", mode, "winsum mode")
+
+
+def get_winsum() -> str:
+    return _KNOB["winsum"]
+
+
+def set_glue_fold(mode: str) -> None:
+    _set_knob("glue_fold", mode, "glue fold mode")
+
+
+def get_glue_fold() -> str:
+    return _KNOB["glue_fold"]
+
+
+def set_sw_scale(mode: str) -> None:
+    _set_knob("sw_scale", mode, "sw scale mode")
+
+
+def get_sw_scale() -> str:
+    return _KNOB["sw_scale"]
+
+
+def set_chansum(mode: str) -> None:
+    _set_knob("chansum", mode, "chansum mode")
+
+
+def get_chansum() -> str:
+    return _KNOB["chansum"]
+
+
+def set_conv2d_impl(mode: str) -> None:
+    _set_knob("conv2d_impl", mode, "conv2d impl")
+
+
+def get_conv2d_impl() -> str:
+    return _KNOB["conv2d_impl"]
+
+
+@contextlib.contextmanager
+def lowering(**modes):
+    """Run the block under the given knobs (``glue_fold="fold"``,
+    ``winsum="conv"``, ...), then restore every knob as it was."""
+    before = dict(_KNOB)
+    try:
+        for name, mode in modes.items():
+            if name not in _KNOBS:
+                raise ValueError(f"unknown knob {name!r}")
+            _set_knob(name, mode, name)
+        yield
+    finally:
+        _KNOB.update(before)
+
+
+def _lowering_knobs_default() -> bool:
+    """True when every knob that changes a conv's lowering is at its
+    default (the glue fold is the model's choice, not the conv's)."""
+    return all(_KNOB[n] == _KNOBS[n][0] for n in _KNOBS if n != "glue_fold")
+
+
+# The three kernel switches of the JAX package have no counterpart: the
+# port always runs its hand-written kernels on a CUDA tensor.
 _UNMATCHED_ENV = {
-    "SUPERNET_BACKEND": _NO_KERNEL_SWITCH,
-    "SUPERNET_POOL": _NO_KERNEL_SWITCH,
-    "SUPERNET_SIGMA_BWD": _NO_KERNEL_SWITCH,
-    "SUPERNET_CONV_FOLD": _AB_PATH,
-    "SUPERNET_GLUE_FOLD": _AB_PATH,
-    "SUPERNET_WINSUM": _AB_PATH,
-    "SUPERNET_SW_SCALE": _AB_PATH,
-    "SUPERNET_CHANSUM": _AB_PATH,
-    "SUPERNET_CONV2D": _AB_PATH,
+    name: ("has no counterpart: on a CUDA tensor the port always runs its "
+           "hand-written kernels, on a CPU tensor their plain versions")
+    for name in ("SUPERNET_BACKEND", "SUPERNET_POOL", "SUPERNET_SIGMA_BWD")
 }
 
 
 def apply_env_overrides() -> None:
-    """Apply the SUPERNET_* knobs (supernet_tpu/ops/moments.py:358):
+    """Apply the SUPERNET_* knobs (supernet_tpu/ops/moments.py:359-416):
 
-    SUPERNET_ACT_DTYPE=float32|bfloat16   (inter-layer activation dtype)
-    SUPERNET_PRECISION=highest|high|default (PyTorch's own f32 matmuls/convs)
-    SUPERNET_CONV3D=conv                  (the 3-D conv lowering; 'im2col'
-                                           raises: not ported yet)
+    SUPERNET_PRECISION=highest|high|default   (PyTorch's own f32 matmuls/convs)
+    SUPERNET_CONV_FOLD=none|sigma|full        (variance-path fusion mode)
+    SUPERNET_ACT_DTYPE=float32|bfloat16       (inter-layer activation dtype)
+    SUPERNET_GLUE_FOLD=none|fold              (the decoder glue fold)
+    SUPERNET_WINSUM=shift|conv                (window-sum lowering)
+    SUPERNET_SW_SCALE=mul|dot                 (winsum * s_w scale lowering)
+    SUPERNET_CHANSUM=reduce|dot               (channel-sum lowering)
+    SUPERNET_CONV2D=conv|im2col               (2-D moment-conv lowering)
+    SUPERNET_CONV3D=conv|im2col               (3-D moment-conv lowering)
 
-    Every other knob of the JAX package that is set is named on stderr with
-    the reason it does nothing here; none is ignored silently."""
-    v = os.environ.get("SUPERNET_PRECISION")
-    if v:
-        set_mxu_precision(v)
-    v = os.environ.get("SUPERNET_ACT_DTYPE")
-    if v:
-        set_act_dtype(v)
+    SUPERNET_BACKEND, SUPERNET_POOL and SUPERNET_SIGMA_BWD, when set, are
+    named on stderr with the reason they do nothing here."""
+    setters = (
+        ("SUPERNET_PRECISION", set_mxu_precision),
+        ("SUPERNET_CONV_FOLD", set_conv_fold),
+        ("SUPERNET_ACT_DTYPE", set_act_dtype),
+        ("SUPERNET_GLUE_FOLD", set_glue_fold),
+        ("SUPERNET_WINSUM", set_winsum),
+        ("SUPERNET_SW_SCALE", set_sw_scale),
+        ("SUPERNET_CHANSUM", set_chansum),
+        ("SUPERNET_CONV2D", set_conv2d_impl),
+    )
+    for name, setter in setters:
+        v = os.environ.get(name)
+        if v:
+            setter(v)
     v = os.environ.get("SUPERNET_CONV3D")
     if v:
         # late import: moments3d imports this module
@@ -161,16 +280,30 @@ def apply_env_overrides() -> None:
             print(f"warning: {name}={v} {why}", file=sys.stderr)
 
 
-def scale_sw(ws: Tensor, s_w: Tensor) -> Tensor:
-    """``ws [..., 1] * s_w [Cout] -> [..., Cout]``: the per-output-channel
-    variance scale shared by every vconv sigma term. Member-stacked ``s_w``
-    [K, Cout] scales the K member blocks of ``ws`` [K*B, ..., 1] each by
-    its own row."""
+def _scale_mul(ws: Tensor, s_w: Tensor) -> Tensor:
+    """``ws [..., 1] * s_w [Cout]``; member-stacked ``s_w`` [K, Cout] scales
+    the K member blocks of ``ws`` [K*B, ..., 1] each by its own row."""
     if s_w.dim() == 2:
         k = s_w.shape[0]
         rows = s_w.view((k,) + (1,) * (ws.dim() - 1) + (-1,)).to(ws.dtype)
         return (ws.unflatten(0, (k, -1)) * rows).flatten(0, 1)
     return ws * s_w.to(ws.dtype)
+
+
+def scale_sw(ws: Tensor, s_w: Tensor) -> Tensor:
+    """``ws [..., 1] * s_w [Cout] -> [..., Cout]``: the per-output-channel
+    variance scale shared by every vconv sigma term, lowered per
+    ``set_sw_scale``: a broadcast multiply ("mul") or a size-1 contraction
+    ("dot"). Member-stacked ``s_w`` [K, Cout] scales the K member blocks of
+    ``ws`` [K*B, ..., 1] each by its own row."""
+    if _KNOB["sw_scale"] != "dot":
+        return _scale_mul(ws, s_w)
+    s_w = s_w.to(ws.dtype)
+    if s_w.dim() == 2:
+        wk = ws.unflatten(0, (s_w.shape[0], -1))
+        rows = s_w.view((s_w.shape[0],) + (1,) * (wk.dim() - 2) + (1, -1))
+        return torch.matmul(wk, rows).flatten(0, 1)
+    return torch.matmul(ws, s_w[None, :])
 
 
 def _w11(w_mu: Tensor) -> Tensor:
@@ -184,25 +317,93 @@ def _fold(x: Tensor) -> Tensor:
     return x.flatten(0, 1) if x.dim() == 5 else x
 
 
+def _per_member(fn, moments, w_mu: Tensor, w_sigma: Tensor) -> MomentPair:
+    """One conv of member-stacked weights as a loop over the members, what
+    ``jax.vmap`` of ``fn`` computes: member k's moments (a slice of
+    [K,B,...] or of [K*B,...]) through ``fn`` with its weights, the outputs
+    concatenated member-major [K*B, ...]. A moment may be None."""
+    n, rank = w_mu.shape[0], w_mu.dim() - 1
+
+    def member(t, k: int):
+        if t is None:
+            return None
+        return t[k] if t.dim() == rank + 1 else t.unflatten(0, (n, -1))[k]
+
+    outs = [fn(*(member(t, k) for t in moments), w_mu[k], w_sigma[k]) for k in range(n)]
+    return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
+
+
+def _sum_c(x: Tensor) -> Tensor:
+    """Sum over the trailing channel axis -> [..., 1] in float32 (float64
+    stays float64): the "reduce" lowering, and the head's channel sum."""
+    return x.sum(dim=-1, keepdim=True, dtype=torch.promote_types(x.dtype, torch.float32))
+
+
 def chan_sum(x: Tensor) -> Tensor:
-    """Sum over the trailing channel axis -> [..., 1], in float32 (float64
-    input keeps float64, for the gradient checks)."""
-    dtype = torch.promote_types(x.dtype, torch.float32)
-    return x.sum(dim=-1, keepdim=True, dtype=dtype)
+    """Sum over the trailing channel axis -> [..., 1], accumulated in
+    float32 (float64 input keeps float64, for the gradient checks), lowered
+    per ``set_chansum``: a sum ("reduce") or a product with a ones vector
+    ("dot")."""
+    if _KNOB["chansum"] != "dot":
+        return _sum_c(x)
+    dt = torch.promote_types(x.dtype, torch.float32)
+    return torch.matmul(x.to(dt), x.new_ones((x.shape[-1], 1), dtype=dt))
 
 
-def _window_sum(x: Tensor, k: int) -> Tensor:
-    """Sum of x over each k x k VALID window and over all input channels
-    -> [B, H', W', 1]: the channel sum in float32, then the JAX module's
-    shift lowering (per spatial axis, the k shifted views are added)."""
-    s = chan_sum(x)
-    for axis in (1, 2):
-        n = s.shape[axis] - k + 1
-        acc = s.narrow(axis, 0, n)
+def _winsum_shift(s: Tensor, k: int, stride: int = 1) -> Tensor:
+    """Separable VALID window sum over every spatial axis of a
+    single-channel [B, *spatial, 1] tensor: per axis the k (strided) shifted
+    views are added (``supernet_tpu/ops/moments.py:489-508``)."""
+    for axis in range(1, s.dim() - 1):
+        out_len = (s.shape[axis] - k) // stride + 1
+        span = (out_len - 1) * stride + 1
+
+        def view(i: int, s=s, axis=axis, span=span) -> Tensor:
+            v = s.narrow(axis, i, span)
+            if stride == 1:
+                return v
+            index = [slice(None)] * s.dim()
+            index[axis] = slice(None, None, stride)
+            return v[tuple(index)]
+
+        acc = view(0)
         for i in range(1, k):
-            acc = acc + s.narrow(axis, i, n)
+            acc = acc + view(i)
         s = acc
-    return s.to(x.dtype)
+    return s
+
+
+def _winsum_shift_pads(src: Tensor, k: int, *pads) -> Tensor:
+    """Shift-add window sum of a single-channel [B, *spatial, 1] tensor
+    with per-axis ``(lo, hi)`` conv-style padding, positive a zero pad and
+    negative a crop; accumulated in float32 and rounded once to
+    ``src.dtype`` (``supernet_tpu/ops/moments.py:511-524``). The source is
+    one channel wide, so padding it costs 1/C of padding the moments."""
+    flat = [p for lo, hi in reversed(pads) for p in (lo, hi)]
+    s = F.pad(_f32(src), [0, 0] + flat)
+    return _winsum_shift(s, k).to(src.dtype)
+
+
+def _conv_valid(x: Tensor, w: Tensor, stride: int = 1, padding=0) -> Tensor:
+    """VALID 2-D convolution (cross-correlation), NHWC x HWIO -> NHWC in
+    ``x``'s dtype (``padding``: a symmetric zero pad per spatial axis). The
+    NHWC tensor permuted to NCHW is a channels_last tensor, so no copy is
+    made."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), w.to(x.dtype).permute(3, 2, 0, 1),
+                 stride=stride, padding=padding)
+    return y.permute(0, 2, 3, 1)
+
+
+def _window_sum(x: Tensor, k: int, stride: int = 1) -> Tensor:
+    """Sum of x over each k x k VALID window and over all input channels
+    -> [B, H', W', 1], the channel sum in float32 (``chan_sum``) and the
+    result in ``x``'s dtype. Lowered per ``set_winsum``: separable shifted
+    adds ("shift") or a ones-kernel conv ("conv")."""
+    xc = chan_sum(x)
+    if _KNOB["winsum"] == "shift":
+        return _winsum_shift(xc, k, stride).to(x.dtype)
+    ones = x.new_ones((k, k, 1, 1))
+    return _conv_valid(xc.to(x.dtype), ones, stride)
 
 
 def _einsum_1x1(x: Tensor, w: Tensor) -> Tensor:
@@ -210,6 +411,20 @@ def _einsum_1x1(x: Tensor, w: Tensor) -> Tensor:
         xs = x.unflatten(0, (w.shape[0], -1))
         return torch.einsum("kbhwc,kco->kbhwo", xs, w).flatten(0, 1)
     return torch.einsum("bhwc,co->bhwo", x, w)
+
+
+def _im2col2d(x: Tensor, k: int, stride: int = 1) -> Tensor:
+    """The k^2 VALID-window taps concatenated on channels: [B, H, W, C] ->
+    [B, H', W', k^2*C], tap-major (dy, dx) order, C minor:
+    ``w.reshape(k^2*C_in, C_out)``'s row order, so ``patches @ w_flat``
+    equals the VALID conv."""
+    _, h, w, _ = x.shape
+    return torch.cat([x[:, dy:h - (k - 1) + dy:stride, dx:w - (k - 1) + dx:stride]
+                      for dy in range(k) for dx in range(k)], dim=-1)
+
+
+def _im2col2d_dot(patches: Tensor, w_flat: Tensor) -> Tensor:
+    return torch.matmul(patches, w_flat.to(patches.dtype))
 
 
 def _kernel_conv(mu, sigma, w_mu, w_sigma, relu: bool) -> MomentPair:
@@ -223,53 +438,143 @@ def _kernel_conv(mu, sigma, w_mu, w_sigma, relu: bool) -> MomentPair:
     return m.to(dt), s.to(dt)
 
 
-def vconv_input(x: Tensor, w_mu: Tensor, w_sigma: Tensor) -> MomentPair:
+def _use_kernel(x: Tensor, w_mu: Tensor, stride: int) -> bool:
+    """A stride-1 k > 1 conv takes ``VDPConv``: always on a CUDA tensor
+    (kernel 1), on a CPU tensor (its plain version) unless a knob selects
+    another lowering of the composition."""
+    if w_mu.shape[-3] == 1 or stride != 1:
+        return False
+    return x.is_cuda or _lowering_knobs_default()
+
+
+def _one_hot_kernel(kern: Tensor, i: int, o: int) -> Tensor:
+    """``kern`` with 1 added at input channel ``i``, output channel ``o``
+    of every tap (the ones block of a folded kernel)."""
+    e = torch.zeros_like(kern)
+    e[:, :, i, o] = 1.0
+    return kern + e
+
+
+def vconv_input(
+    x: Tensor, w_mu: Tensor, w_sigma: Tensor, stride: int = 1
+) -> MomentPair:
     """First VDP conv: deterministic input, Gaussian weights.
 
-      mu_out    = conv(x, w_mu)                      (VALID)
+      mu_out    = conv(x, w_mu)                      (VALID, ``stride``)
       sigma_out = winsum(x^2) * softplus(w_sigma)
+
+    k == 1 (stride 1) is an einsum and a channel sum; a stride-1 k > 1 conv
+    is ``VDPConv`` (see :func:`_use_kernel`); the rest is the JAX module's
+    XLA composition under the knobs (``supernet_tpu/ops/moments.py:580-631``).
     """
     x = _act(x)
-    if w_mu.shape[-3] == 1:
+    if _use_kernel(x, w_mu, stride):
+        return _kernel_conv(x, None, w_mu, w_sigma, False)
+    if w_mu.shape[-3] == 1 and stride == 1:
         x = _fold(x)
         w2 = _act(_w11(w_mu))
         # the 1-channel sum in float32, cast before the broadcast multiply
-        t = _act(chan_sum(torch.square(_f32(x))))
+        t = _act(_sum_c(torch.square(_f32(x))))
         return _act(_einsum_1x1(x, w2)), scale_sw(t, F.softplus(w_sigma))
-    return _kernel_conv(x, None, w_mu, w_sigma, False)
+    if w_mu.dim() == 5:
+        return _per_member(lambda a, wm, ws: vconv_input(a, wm, ws, stride),
+                           (x,), w_mu, w_sigma)
+    k, cin, cout = w_mu.shape[0], w_mu.shape[2], w_mu.shape[3]
+    s_w = F.softplus(w_sigma)
+    if _KNOB["conv_fold"] != "none":
+        # one conv computes mu and the window sum: input [x | sum(x^2)],
+        # kernel blockdiag [w_mu, 0; 0, ones]
+        t = _sum_c(torch.square(_f32(x))).to(x.dtype)
+        kern = _one_hot_kernel(F.pad(w_mu, (0, 1, 0, 1)), cin, cout)
+        out = _conv_valid(torch.cat([x, t], dim=-1), kern, stride)
+        return _act(out[..., :cout]), _act(out[..., cout:] * s_w)
+    if _KNOB["conv2d_impl"] == "im2col":
+        mu_out = _im2col2d_dot(_im2col2d(x, k, stride), w_mu.reshape(-1, cout))
+        ws = _act(_window_sum(torch.square(x), k, stride))
+        return _act(mu_out), scale_sw(ws, s_w)
+    mu_out = _conv_valid(x, w_mu, stride)
+    ws = _act(_window_sum(torch.square(x), k, stride))
+    return _act(mu_out), scale_sw(ws, s_w)
 
 
-def vconv(mu: Tensor, sigma: Tensor, w_mu: Tensor, w_sigma: Tensor) -> MomentPair:
+def vconv(
+    mu: Tensor, sigma: Tensor, w_mu: Tensor, w_sigma: Tensor, stride: int = 1
+) -> MomentPair:
     """Intermediate VDP conv: Gaussian input and Gaussian weights.
 
       mu_out    = conv(mu, w_mu)
       sigma_out = winsum(mu^2 + sigma) * softplus(w_sigma) + conv(sigma, w_mu^2)
 
-    k == 1 (the softmax head) is two einsums and a channel sum.
+    k == 1 (the softmax head) is two einsums and a channel sum (the JAX
+    head's ``jnp.sum``, not ``chan_sum``); a stride-1 k > 1 conv is
+    ``VDPConv`` (see :func:`_use_kernel`); the rest is the JAX module's XLA
+    composition under the knobs (``supernet_tpu/ops/moments.py:653-743``).
     """
     mu, sigma = _act(mu), _act(sigma)
-    if w_mu.shape[-3] == 1:
+    if _use_kernel(mu, w_mu, stride):
+        return _kernel_conv(mu, sigma, w_mu, w_sigma, False)
+    if w_mu.shape[-3] == 1 and stride == 1:
         w2 = _act(_w11(w_mu))
-        t = _act(chan_sum(mu * mu + sigma))
+        t = _act(_sum_c(mu * mu + sigma))
         sigma_out = scale_sw(t, F.softplus(w_sigma)) + _einsum_1x1(sigma, w2 * w2)
         return _act(_einsum_1x1(mu, w2)), _act(sigma_out)
-    return _kernel_conv(mu, sigma, w_mu, w_sigma, False)
+    if w_mu.dim() == 5:
+        return _per_member(lambda m, s, wm, ws: vconv(m, s, wm, ws, stride),
+                           (mu, sigma), w_mu, w_sigma)
+    k, cin, cout = w_mu.shape[0], w_mu.shape[2], w_mu.shape[3]
+    s_w = F.softplus(w_sigma)
+    fold = _KNOB["conv_fold"]
+    if fold == "full":
+        # one conv: input [mu | sigma | sum(mu^2+sigma)], kernel blockdiag
+        # [w_mu -> mu_out; w_mu^2 -> sig; ones -> winsum]
+        t = _sum_c(mu * mu + sigma).to(mu.dtype)
+        kern = w_mu.new_zeros((k, k, 2 * cin + 1, 2 * cout + 1))
+        kern[:, :, :cin, :cout] = w_mu
+        kern[:, :, cin:2 * cin, cout:2 * cout] = w_mu * w_mu
+        kern[:, :, 2 * cin, 2 * cout] = 1.0
+        out = _conv_valid(torch.cat([mu, sigma, t], dim=-1), kern, stride)
+        sigma_out = out[..., cout:2 * cout] + out[..., 2 * cout:] * s_w
+        return _act(out[..., :cout]), _act(sigma_out)
+    if _KNOB["conv2d_impl"] == "im2col":
+        # both moment products on the packed-contraction matrix product;
+        # the window sum keeps its own lowering
+        w_flat = w_mu.reshape(-1, cout)
+        mu_out = _im2col2d_dot(_im2col2d(mu, k, stride), w_flat)
+        sigma2 = _im2col2d_dot(_im2col2d(sigma, k, stride), torch.square(_f32(w_flat)))
+        ws = _act(_window_sum(mu * mu + sigma, k, stride))
+        return _act(mu_out), _act(scale_sw(ws, s_w) + sigma2)
+    mu_out = _conv_valid(mu, w_mu, stride)
+    if fold == "sigma":
+        # the window sum rides the sigma conv: input [sigma | sum(mu^2+sigma)],
+        # kernel blockdiag [w_mu^2, 0; 0, ones]
+        t = _sum_c(mu * mu + sigma).to(mu.dtype)
+        kern = _one_hot_kernel(F.pad(w_mu * w_mu, (0, 1, 0, 1)), cin, cout)
+        out = _conv_valid(torch.cat([sigma, t], dim=-1), kern, stride)
+        return _act(mu_out), _act(out[..., :cout] + out[..., cout:] * s_w)
+    # the [B,H',W',1] window sum is cast before the broadcast multiply, so
+    # the full-width sigma chain stays in the activation dtype
+    ws = _act(_window_sum(mu * mu + sigma, k, stride))
+    sigma_out = scale_sw(ws, s_w) + _conv_valid(sigma, w_mu * w_mu, stride)
+    return _act(mu_out), _act(sigma_out)
 
 
 def vconv_relu(
     mu: Tensor, sigma: Tensor, w_mu: Tensor, w_sigma: Tensor
 ) -> MomentPair:
-    """``vrelu(*vconv(...))``, the ReLU fused into the conv for k > 1."""
-    if w_mu.shape[-3] == 1:
-        return vrelu(*vconv(mu, sigma, w_mu, w_sigma))
-    return _kernel_conv(_act(mu), _act(sigma), w_mu, w_sigma, True)
+    """``vrelu(*vconv(...))``, the ReLU fused into ``VDPConv`` wherever the
+    conv takes it (:func:`_use_kernel`)."""
+    mu, sigma = _act(mu), _act(sigma)
+    if _use_kernel(mu, w_mu, 1):
+        return _kernel_conv(mu, sigma, w_mu, w_sigma, True)
+    return vrelu(*vconv(mu, sigma, w_mu, w_sigma))
 
 
 def vconv_input_relu(x: Tensor, w_mu: Tensor, w_sigma: Tensor) -> MomentPair:
     """``vrelu(*vconv_input(...))``, fused the same way."""
-    if w_mu.shape[-3] == 1:
-        return vrelu(*vconv_input(x, w_mu, w_sigma))
-    return _kernel_conv(_act(x), None, w_mu, w_sigma, True)
+    x = _act(x)
+    if _use_kernel(x, w_mu, 1):
+        return _kernel_conv(x, None, w_mu, w_sigma, True)
+    return vrelu(*vconv_input(x, w_mu, w_sigma))
 
 
 def vrelu(mu: Tensor, sigma: Tensor) -> MomentPair:
@@ -338,9 +643,9 @@ def vunpool_conv2(
     pixel per window, so it is the channel sum upsampled 2x."""
     mu, sigma = _act(mu), _act(sigma)
     # the [B,h,w,1] channel sum in float32, cast back before the broadcast
-    t_up = _upsample2_nearest(_act(chan_sum(mu * mu + sigma)))
+    t_up = _upsample2_nearest(_act(_sum_c(mu * mu + sigma)))
     mu_out = _unpool_conv(mu, w_mu)
-    sigma_out = scale_sw(t_up, F.softplus(w_sigma)) + _unpool_conv(sigma, w_mu * w_mu)
+    sigma_out = _scale_mul(t_up, F.softplus(w_sigma)) + _unpool_conv(sigma, w_mu * w_mu)
     return mu_out, _act(sigma_out)
 
 
@@ -379,6 +684,131 @@ def vcrop_concat(
         torch.cat([mu_dec, crop_to_match(mu_enc, mu_dec)], dim=-1),
         torch.cat([sigma_dec, crop_to_match(sigma_enc, sigma_dec)], dim=-1),
     )
+
+
+def _conv_pad(x: Tensor, w: Tensor, *pads) -> Tensor:
+    """2-D convolution of NHWC ``x`` with HWIO ``w`` under per-axis
+    ``(lo, hi)`` padding, as XLA's ``padding`` config reads it: positive a
+    zero pad, negative a crop. PyTorch's convs take neither a negative nor
+    an unequal pair, so a crop is a ``narrow`` view of ``x`` and an unequal
+    pad runs the conv at the larger pad and narrows the output; no padded
+    or cropped copy of ``x`` is made here."""
+    return _conv_pads(_conv_valid, x, w, pads)
+
+
+def _conv_pads(conv, x: Tensor, w: Tensor, pads) -> Tensor:
+    """The padded conv of :func:`_conv_pad` for any rank, ``conv`` the VALID
+    conv of that rank taking a ``padding`` tuple."""
+    for axis, (lo, hi) in enumerate(pads, start=1):
+        a, b = max(-lo, 0), max(-hi, 0)
+        if a or b:
+            x = x.narrow(axis, a, x.shape[axis] - a - b)
+    sym = tuple(max(lo, hi, 0) for lo, hi in pads)
+    out = conv(x, w, padding=sym)
+    for axis, ((lo, hi), p) in enumerate(zip(pads, sym), start=1):
+        a, b = p - max(lo, 0), p - max(hi, 0)
+        if a or b:
+            out = out.narrow(axis, a, out.shape[axis] - a - b)
+    return out
+
+
+def _moment_src(mu: Tensor, sigma: Tensor) -> Tensor:
+    """Channel sum of (mu^2 + sigma) in float32, the result in mu's dtype:
+    the window-sum source column (``supernet_tpu/ops/moments.py:1049-1056``)."""
+    return _sum_c(mu * mu + sigma).to(mu.dtype)
+
+
+def _ring(like: Tensor, pads) -> Tensor:
+    """The 1-channel ring of ones around a batch-1 map of zeros of
+    ``like``'s spatial shape, padded by ``pads`` per axis."""
+    flat = [p for lo, hi in reversed(pads) for p in (lo, hi)]
+    zeros = like.new_zeros((1,) + tuple(like.shape[1:-1]) + (1,))
+    return F.pad(zeros, [0, 0] + flat, value=1.0)
+
+
+def _enc_pads(dec_shape, enc_shape, lo: int, hi: int):
+    """Per spatial axis, the center crop of the encoder map to the padded
+    decoder size as negative ``(lo, hi)`` conv padding; an odd difference
+    crops one more at the high end (offsets ``(S - s) // 2``)."""
+    out = []
+    for d, e in zip(dec_shape, enc_shape):
+        t = d + lo + hi
+        o = (e - t) // 2
+        out.append((-o, -(e - o - t)))
+    return tuple(out)
+
+
+def vglue_conv_relu(
+    mu: Tensor,
+    sigma: Tensor,
+    w_mu: Tensor,
+    w_sigma: Tensor,
+    pad_size: Sequence[int],
+    sigma_fill: float,
+    mu_enc: Tensor | None = None,
+    sigma_enc: Tensor | None = None,
+) -> MomentPair:
+    """The decoder's ``vpad -> [vcrop_concat ->] vconv -> vrelu`` computed
+    inside the convs, so none of the padded, cropped or concatenated moment
+    tensors is made (``supernet_tpu/ops/moments.py:1059-1163``). Equal, to
+    float32 summation order, to::
+
+        m, s = vpad(mu, sigma, pad_size, sigma_fill)
+        if mu_enc is not None:
+            m, s = vcrop_concat(m, s, mu_enc, sigma_enc)
+        return vrelu(*vconv(m, s, w_mu, w_sigma))
+
+    The zero mu-pad is the conv's padding; the encoder's center crop is a
+    negative padding (:func:`_conv_pad`); the concatenation splits the
+    kernel into its decoder block ``w_mu[:, :, :c_d]`` and encoder block,
+    two convs summed; the constant ``sigma_fill`` border adds
+    ``c_d * fill * winsum(ring)`` to the window sum and
+    ``fill * conv(ring, sum_cin w_mu^2)`` to the variance conv, convs of a
+    batch-1 ring map broadcast over the batch. Its convs are PyTorch's on
+    every device, as the JAX package's are XLA's on every backend.
+    Member-stacked weights run member by member (:func:`_per_member`)."""
+    if w_mu.dim() == 5:
+        return _per_member(
+            lambda m, s, me, se, wm, ws: vglue_conv_relu(
+                m, s, wm, ws, pad_size, sigma_fill, me, se),
+            (mu, sigma, mu_enc, sigma_enc), w_mu, w_sigma)
+    lo, hi = int(pad_size[0]), int(pad_size[1])
+    k = w_mu.shape[0]
+    c_d = mu.shape[-1]
+    s_w = F.softplus(w_sigma)
+    mu, sigma = _act(mu), _act(sigma)
+    w_d = w_mu[:, :, :c_d] if mu_enc is not None else w_mu
+    pd = ((lo, hi), (lo, hi))
+    shift = _KNOB["winsum"] == "shift"
+    # in shift mode every window sum below is shifted adds on a padded or
+    # cropped single-channel source
+    ones = None if shift else mu.new_ones((k, k, 1, 1))
+
+    def winsum(src: Tensor, pads) -> Tensor:
+        if shift:
+            return _winsum_shift_pads(src, k, *pads)
+        return _conv_pad(src, ones, *pads)
+
+    mu_out = _conv_pad(mu, w_d, *pd)
+    ws = winsum(_moment_src(mu, sigma), pd)
+    sig_conv = _conv_pad(sigma, w_d * w_d, *pd)
+    if sigma_fill != 0.0 and (lo or hi):
+        # each border pixel contributes (mu = 0, sigma = fill) per decoder
+        # channel
+        ring = _ring(mu, pd)
+        fill = float(torch.tensor(sigma_fill, dtype=mu.dtype))  # jnp.asarray's rounding
+        ws = ws + winsum(ring, ((0, 0), (0, 0))) * (c_d * fill)
+        w2_sum = (w_d * w_d).sum(dim=2, keepdim=True)
+        sig_conv = sig_conv + _conv_valid(ring, w2_sum) * fill
+    if mu_enc is not None:
+        mu_enc, sigma_enc = _act(mu_enc), _act(sigma_enc)
+        w_e = w_mu[:, :, c_d:]
+        pe = _enc_pads(mu.shape[1:3], mu_enc.shape[1:3], lo, hi)
+        mu_out = mu_out + _conv_pad(mu_enc, w_e, *pe)
+        ws = ws + winsum(_moment_src(mu_enc, sigma_enc), pe)
+        sig_conv = sig_conv + _conv_pad(sigma_enc, w_e * w_e, *pe)
+    sigma_out = scale_sw(_act(ws), s_w) + sig_conv
+    return vrelu(_act(mu_out), _act(sigma_out))
 
 
 def vsoftmax(mu: Tensor, sigma: Tensor) -> MomentPair:

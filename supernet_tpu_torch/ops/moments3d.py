@@ -31,9 +31,13 @@ gradients against the CPU's with the card's ReLU masks and pool taps): every
 ReLU of the family goes through the module's ``vrelu`` and every pool
 through ``VMaxPool3d.apply``.
 
-The JAX module's A/B lowerings (``set_conv3d_impl("im2col")`` and the
-decoder's glue fold ``vglue_conv3d_relu``) are not ported yet: selecting one
-raises ``NotImplementedError`` naming ROADMAP.md's item.
+The JAX module's A/B lowerings run here on every device, since the family
+has no hand-written kernel: ``set_conv3d_impl("im2col")`` (the k > 1 moment
+products as one matrix product of the k^3 taps concatenated,
+``torch.matmul``, as the JAX module's is an XLA einsum), the 2-D module's
+``winsum``, ``chansum`` and ``sw_scale`` knobs, and the decoder's glue fold
+:func:`vglue_conv3d_relu` (``set_glue_fold``, dispatched by
+``models/unet3d.py``).
 """
 
 from __future__ import annotations
@@ -45,8 +49,15 @@ import torch.nn.functional as F
 
 from supernet_tpu_torch.ops.moments import (  # noqa: F401
     _act,
+    _conv_pads,
+    _enc_pads,
     _f32,
+    _ring,
+    _sum_c,
+    _winsum_shift,
+    _winsum_shift_pads,
     chan_sum,
+    get_winsum,
     scale_sw,
     vrelu,
     vsoftmax,
@@ -55,32 +66,41 @@ from supernet_tpu_torch.ops.moments import (  # noqa: F401
 Tensor = torch.Tensor
 MomentPair = Tuple[Tensor, Tensor]
 
-_AB_ITEM = "ROADMAP.md, Queue 1: 'Remaining 2-D A/B paths'"
+# The k > 1 conv lowering (supernet_tpu/ops/moments3d.py:53-103): "conv"
+# (cuDNN conv3d) or "im2col" (the k^3 taps concatenated on channels, one
+# matrix product with the packed k^3*C_in contraction).
+_CONV3D_IMPL = "conv"
 
 
 def set_conv3d_impl(mode: str) -> None:
-    """The k > 1 conv lowering of the JAX module ('conv' | 'im2col'). Only
-    'conv' (the default, cuDNN ``conv3d``) is ported."""
-    if mode == "conv":
-        return
-    if mode == "im2col":
-        raise NotImplementedError(
-            f"the im2col lowering of the 3-D convs is not ported yet ({_AB_ITEM}, "
-            "ops/moments3d.py:set_conv3d_impl); the default 'conv' runs"
-        )
-    raise ValueError(f"unknown conv3d impl {mode!r}")
+    if mode not in ("conv", "im2col"):
+        raise ValueError(f"unknown conv3d impl {mode!r}")
+    global _CONV3D_IMPL
+    _CONV3D_IMPL = mode
 
 
-def vglue_conv3d_relu(*args, **kwargs) -> MomentPair:
-    """The decoder's pad -> [crop-concat ->] conv -> relu folded into one
-    conv (``supernet_tpu/ops/moments3d.py:442-529``): not ported yet."""
-    raise NotImplementedError(
-        f"vglue_conv3d_relu (the 3-D glue fold) is not ported yet ({_AB_ITEM})"
-    )
+def get_conv3d_impl() -> str:
+    return _CONV3D_IMPL
 
 
-def _conv3d_valid(x: Tensor, w: Tensor, stride: int = 1) -> Tensor:
-    """VALID ``conv3d`` of NDHWC ``x`` with a DHWIO kernel, NDHWC out.
+def _im2col3d(x: Tensor, k: int, stride: int = 1) -> Tensor:
+    """The k^3 VALID-window taps concatenated on channels:
+    [B, D, H, W, C] -> [B, D', H', W', k^3*C], tap-major (dz, dy, dx)
+    order, C minor: ``w.reshape(k^3*C_in, C_out)``'s row order."""
+    _, d, h, w, _ = x.shape
+    return torch.cat([x[:, dz:d - (k - 1) + dz:stride, dy:h - (k - 1) + dy:stride,
+                        dx:w - (k - 1) + dx:stride]
+                      for dz in range(k) for dy in range(k) for dx in range(k)], dim=-1)
+
+
+def _im2col_dot(patches: Tensor, w_flat: Tensor) -> Tensor:
+    """[B, D', H', W', k^3*Cin] @ [k^3*Cin, Cout]."""
+    return torch.matmul(patches, w_flat.to(patches.dtype))
+
+
+def _conv3d_valid(x: Tensor, w: Tensor, stride: int = 1, padding=0) -> Tensor:
+    """VALID ``conv3d`` of NDHWC ``x`` with a DHWIO kernel, NDHWC out
+    (``padding``: a symmetric zero pad per spatial axis).
 
     The NDHWC tensor viewed as NCDHW is ``channels_last_3d``, the layout
     cuDNN takes without a transpose; the kernel is laid out to match
@@ -90,37 +110,39 @@ def _conv3d_valid(x: Tensor, w: Tensor, stride: int = 1) -> Tensor:
     xc = x.permute(0, 4, 1, 2, 3).contiguous(memory_format=torch.channels_last_3d)
     wc = w.to(x.dtype).permute(4, 3, 0, 1, 2).contiguous(
         memory_format=torch.channels_last_3d)
-    return F.conv3d(xc, wc, stride=stride).permute(0, 2, 3, 4, 1).contiguous()
+    y = F.conv3d(xc, wc, stride=stride, padding=padding)
+    return y.permute(0, 2, 3, 4, 1).contiguous()
 
 
-def _winsum_shift3d(s: Tensor, k: int, stride: int = 1) -> Tensor:
-    """Separable VALID window sum of a single-channel [B, D, H, W, 1]
-    tensor: per spatial axis the k (strided) shifted views are added, the
-    JAX module's ``shift`` lowering (``supernet_tpu/ops/moments.py:464``)."""
-    for axis in (1, 2, 3):
-        n = s.shape[axis]
-        out_len = (n - k) // stride + 1
-        span = (out_len - 1) * stride + 1
-
-        def view(i: int, s=s, axis=axis, span=span) -> Tensor:
-            v = s.narrow(axis, i, span)
-            if stride == 1:
-                return v
-            index = [slice(None)] * s.dim()
-            index[axis] = slice(None, None, stride)
-            return v[tuple(index)]
-
-        acc = view(0)
-        for i in range(1, k):
-            acc = acc + view(i)
-        s = acc
-    return s
+def _conv3d_pads(x: Tensor, w: Tensor, pads) -> Tensor:
+    """3-D conv under per-axis ``(lo, hi)`` padding, negative a crop (the
+    2-D ``_conv_pad``, one rank up)."""
+    return _conv_pads(_conv3d_valid, x, w, pads)
 
 
 def _window_sum3d(x: Tensor, k: int, stride: int = 1) -> Tensor:
-    """Channel sum (float32) then the k^3 VALID window sum ->
-    [B, D', H', W', 1] in the activation dtype."""
-    return _act(_winsum_shift3d(chan_sum(x), k, stride))
+    """Channel sum (float32, ``chan_sum``) then the k^3 VALID window sum
+    -> [B, D', H', W', 1] in the activation dtype, lowered per the 2-D
+    module's ``set_winsum``: shifted adds, or a ones-kernel conv3d in
+    float32."""
+    s = chan_sum(x)
+    if get_winsum() == "shift":
+        return _act(_winsum_shift(s, k, stride))
+    return _act(_conv3d_valid(s, s.new_ones((k, k, k, 1, 1)), stride))
+
+
+def _moment_convs(mu: Tensor, sigma: Tensor, w_mu: Tensor, stride: int):
+    """``(conv3d(mu, w_mu), conv3d(sigma, w_mu^2))`` of a k > 1 conv,
+    ``sigma`` None for the first conv, lowered per ``set_conv3d_impl``."""
+    w2 = torch.square(_f32(w_mu))
+    if _CONV3D_IMPL == "im2col":
+        k, cout = w_mu.shape[0], w_mu.shape[-1]
+        mu_out = _im2col_dot(_im2col3d(mu, k, stride), w_mu.reshape(-1, cout))
+        if sigma is None:
+            return mu_out, None
+        return mu_out, _im2col_dot(_im2col3d(sigma, k, stride), w2.reshape(-1, cout))
+    mu_out = _conv3d_valid(mu, w_mu, stride)
+    return mu_out, None if sigma is None else _conv3d_valid(sigma, w2, stride)
 
 
 def _einsum_1x1(x: Tensor, w: Tensor) -> Tensor:
@@ -141,9 +163,9 @@ def vconv3d_input(
     x = _act(x)
     if k == 1 and stride == 1:
         w2 = _act(w_mu[0, 0, 0])
-        t = chan_sum(torch.square(_f32(x)))
+        t = _sum_c(torch.square(_f32(x)))
         return _act(_einsum_1x1(x, w2)), scale_sw(_act(t), s_w)
-    mu_out = _conv3d_valid(x, w_mu, stride)
+    mu_out, _ = _moment_convs(x, None, w_mu, stride)
     ws = _window_sum3d(torch.square(x), k, stride)
     return _act(mu_out), scale_sw(ws, s_w)
 
@@ -163,14 +185,12 @@ def vconv3d(
     if k == 1 and stride == 1:
         mu_a, sigma_a = _act(mu), _act(sigma)
         w2 = _act(w_mu[0, 0, 0])
-        t = chan_sum(torch.square(mu) + sigma)
+        t = _sum_c(torch.square(mu) + sigma)
         sigma_out = scale_sw(_act(t), s_w) + _einsum_1x1(sigma_a, torch.square(w2))
         return _act(_einsum_1x1(mu_a, w2)), _act(sigma_out)
-    mu_out = _conv3d_valid(_act(mu), w_mu, stride)
+    mu_out, sigma2 = _moment_convs(_act(mu), _act(sigma), w_mu, stride)
     ws = _window_sum3d(torch.square(mu) + sigma, k, stride)
-    sigma_out = scale_sw(ws, s_w) + _conv3d_valid(
-        _act(sigma), torch.square(_f32(w_mu)), stride)
-    return _act(mu_out), _act(sigma_out)
+    return _act(mu_out), _act(scale_sw(ws, s_w) + sigma2)
 
 
 def vconv3d_relu(
@@ -317,7 +337,7 @@ def vunpool3d_conv2(
     nonzero voxel per window, so it is the channel sum upsampled 2x."""
     sw = F.softplus(_f32(w_sigma))
     mu, sigma = _act(mu), _act(sigma)
-    t_up = _upsample2_nearest3d(_act(chan_sum(torch.square(mu) + sigma)))
+    t_up = _upsample2_nearest3d(_act(_sum_c(torch.square(mu) + sigma)))
     mu_out = _unpool_conv3d(mu, w_mu)
     sigma_out = t_up * _act(sw) + _unpool_conv3d(sigma, torch.square(_f32(w_mu)))
     return mu_out, _act(sigma_out)
@@ -358,6 +378,61 @@ def vcrop_concat3d(
         torch.cat([mu, crop_center3d(mu_e, d, h, w)], dim=-1),
         torch.cat([sigma, crop_center3d(sigma_e, d, h, w)], dim=-1),
     )
+
+
+def vglue_conv3d_relu(
+    mu: Tensor,
+    sigma: Tensor,
+    w_mu: Tensor,
+    w_sigma: Tensor,
+    pad_size: Sequence[int],
+    sigma_fill: float,
+    mu_enc: Tensor | None = None,
+    sigma_enc: Tensor | None = None,
+) -> MomentPair:
+    """The decoder's ``vpad3d -> [vcrop_concat3d ->] vconv3d -> vrelu``
+    computed inside the convs (``supernet_tpu/ops/moments3d.py:442-529``),
+    the 2-D ``ops.moments.vglue_conv_relu`` one rank up: the zero mu-pad as
+    conv padding, the skip crop as a ``narrow`` view, the concatenation as a
+    split of the kernel's input axis, the constant ``sigma_fill`` border as
+    two terms of a batch-1 ring map. The ReLU is this module's ``vrelu``
+    (the replay seam)."""
+    lo, hi = int(pad_size[0]), int(pad_size[1])
+    k = w_mu.shape[0]
+    c_d = mu.shape[-1]
+    s_w = F.softplus(_f32(w_sigma))
+    mu, sigma = _act(mu), _act(sigma)
+    w_d = w_mu[..., :c_d, :] if mu_enc is not None else w_mu
+    shift = get_winsum() == "shift"
+    ones = None if shift else mu.new_ones((k, k, k, 1, 1))
+    pd = ((lo, hi),) * 3
+
+    def winsum(src: Tensor, pads) -> Tensor:
+        if shift:
+            return _winsum_shift_pads(src, k, *pads)
+        return _conv3d_pads(src, ones, pads)
+
+    def src_of(m: Tensor, s: Tensor) -> Tensor:
+        return _sum_c(torch.square(m) + s).to(m.dtype)
+
+    mu_out = _conv3d_pads(mu, w_d, pd)
+    ws = winsum(src_of(mu, sigma), pd)
+    sig_conv = _conv3d_pads(sigma, torch.square(_f32(w_d)), pd)
+    if sigma_fill != 0.0 and (lo or hi):
+        ring = _ring(mu, pd)
+        fill = float(torch.tensor(sigma_fill, dtype=mu.dtype))  # jnp.asarray's rounding
+        ws = ws + winsum(ring, ((0, 0),) * 3) * (c_d * fill)
+        w2_sum = torch.square(_f32(w_d)).sum(dim=3, keepdim=True)
+        sig_conv = sig_conv + _conv3d_valid(ring, w2_sum) * fill
+    if mu_enc is not None:
+        mu_enc, sigma_enc = _act(mu_enc), _act(sigma_enc)
+        w_e = w_mu[..., c_d:, :]
+        pe = _enc_pads(mu.shape[1:4], mu_enc.shape[1:4], lo, hi)
+        mu_out = mu_out + _conv3d_pads(mu_enc, w_e, pe)
+        ws = ws + winsum(src_of(mu_enc, sigma_enc), pe)
+        sig_conv = sig_conv + _conv3d_pads(sigma_enc, torch.square(_f32(w_e)), pe)
+    sigma_out = scale_sw(_act(ws), s_w) + sig_conv
+    return vrelu(_act(mu_out), _act(sigma_out))
 
 
 def vsoftmax3d(mu: Tensor, sigma: Tensor) -> MomentPair:

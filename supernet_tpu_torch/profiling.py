@@ -58,7 +58,7 @@ import json
 import os
 import statistics
 import time
-from typing import Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -67,6 +67,7 @@ from supernet_tpu_torch import train
 from supernet_tpu_torch.configs import get_config
 from supernet_tpu_torch.models import forward, init_params, layer_names
 from supernet_tpu_torch.ops import get_act_dtype, set_act_dtype, set_mxu_precision
+from supernet_tpu_torch.ops.moments import lowering
 from supernet_tpu_torch.serving import InferenceSession
 
 # (label, substrings of the kernel name), first match wins: the four
@@ -94,6 +95,81 @@ F32_FLOPS_PER_S = 67e12
 TF32_FLOPS_PER_S = 495e12
 
 
+@contextlib.contextmanager
+def recording(warmup: Optional[Callable[[], object]] = None, on_trace_ready=None):
+    """``torch.profiler`` over the block: the CPU ops, and the card's
+    kernels and copies when there is a card. Yields the profiler.
+
+    On the card the trace loses the device records of some of the first
+    kernels launched after recording starts, their launch calls still in
+    it (an H100 with PyTorch 2.11 and CUDA 12.8). The profiler's warm-up
+    phase with launches in it makes that rarer, not rare enough for an
+    exact count: the profiler starts in that phase, ``warmup()`` (one
+    call of the traced work) runs there, its records are discarded, and
+    recording starts at the block. A caller that needs every kernel
+    recorded opens the block with a call it leaves out
+    (``hlo_profile.SETTLE``)."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    schedule = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    with torch.profiler.profile(activities=acts, schedule=schedule,
+                                on_trace_ready=on_trace_ready) as prof:
+        if warmup is not None:
+            warmup()
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+        prof.step()
+        yield prof
+
+
+@contextlib.contextmanager
+def trace(log_dir: str, warmup: Optional[Callable[[], object]] = None):
+    """``with profiling.trace(DIR):`` traces the block (:func:`recording`,
+    with ``warmup`` run first and not recorded) and writes it into ``DIR`` as
+    a Chrome-trace JSON, ``trace_<ns>.pt.trace.json``, which
+    ``xplane.op_buckets`` and ``hlo_profile.join`` read and Perfetto or
+    TensorBoard show (the counterpart of ``supernet_tpu/profiling.py:22-31``).
+    Yields the profiler."""
+    os.makedirs(log_dir, exist_ok=True)
+    path = os.path.join(log_dir, f"trace_{time.time_ns()}.pt.trace.json")
+    with recording(warmup, lambda prof: prof.export_chrome_trace(path)) as prof:
+        yield prof
+
+
+class _NaNCheck(torch.utils._python_dispatch.TorchDispatchMode):
+    """Raises ``FloatingPointError`` when an op's floating output holds a
+    NaN, naming the op."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in torch.utils._pytree.tree_leaves(out):
+            if isinstance(t, torch.Tensor) and t.is_floating_point() and bool(t.isnan().any()):
+                raise FloatingPointError(f"NaN in the output of {func}")
+        return out
+
+
+_NAN_CHECK: List[_NaNCheck] = []
+
+
+def enable_nan_debugging(enabled: bool = True) -> None:
+    """Make a NaN raise where it is made, the counterpart of the JAX
+    package's ``jax_debug_nans`` (``supernet_tpu/profiling.py:91-97``): in
+    the forward every op's output is checked (``FloatingPointError`` naming
+    the op; a dispatch mode on this thread), in the backward autograd's
+    anomaly mode checks every node's gradients (``RuntimeError`` naming the
+    node and the forward op that made it). Each check synchronises with
+    the card, so the program runs far slower. ``enabled=False`` turns both
+    off again."""
+    torch.autograd.set_detect_anomaly(enabled, check_nan=True)
+    if enabled and not _NAN_CHECK:
+        mode = _NaNCheck()
+        mode.__enter__()
+        _NAN_CHECK.append(mode)
+    elif not enabled and _NAN_CHECK:
+        _NAN_CHECK.pop().__exit__(None, None, None)
+
+
 def category(kernel_name: str) -> str:
     name = kernel_name.lower()
     for label, keys in CATEGORIES:
@@ -105,14 +181,14 @@ def category(kernel_name: str) -> str:
 def _device_events(prof) -> List:
     """The kernels, copies and fills on the device. The device timeline
     also carries each ``record_function`` range (the layer names, the
-    optimizer step) as an annotation spanning its kernels; those are left
-    out, or their kernels would count twice."""
+    optimizer step, the profiler's step) as an annotation spanning its
+    kernels; those are left out, or their kernels would count twice."""
     events = prof.events()
     host_names = {e.name for e in events if e.device_type == torch.autograd.DeviceType.CPU}
     return [e for e in events
             if e.device_type == torch.autograd.DeviceType.CUDA
             and not getattr(e, "is_user_annotation", False)
-            and e.name not in host_names]
+            and e.name not in host_names and not e.name.startswith("ProfilerStep")]
 
 
 def _busy_us(events) -> float:
@@ -190,7 +266,8 @@ def _setup(config: str, seed: int):
 
 def _profile(run, per: str, steps: int = STEPS) -> Dict:
     """Time ``run`` (one step or request, ending in a synchronise) ``steps``
-    times untraced, then trace as many more and sort their device time."""
+    times untraced, then trace as many more (after one in the profiler's
+    warm-up phase, :func:`recording`) and sort their device time."""
     for _ in range(WARMUP):
         run()
     torch.cuda.reset_peak_memory_stats()
@@ -201,8 +278,7 @@ def _profile(run, per: str, steps: int = STEPS) -> Dict:
         times.append(time.perf_counter() - t0)
     step_s = statistics.median(times)
     peak = torch.cuda.max_memory_allocated()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with recording(warmup=run) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             run()
@@ -249,12 +325,13 @@ def _profile(run, per: str, steps: int = STEPS) -> Dict:
 def stage_shapes(cfg) -> Tuple[Tuple[str, Tuple[int, ...]], ...]:
     """``(stage name, output shape)`` (batch 1) of every stage of one
     forward in order, from the taps of a float32 CPU forward (the JAX
-    package's ``jax.eval_shape`` of its forward, done by running it)."""
+    package's ``jax.eval_shape`` of its forward, done by running it), with
+    the decoder glue explicit (its pads and concatenations are stages)."""
     cfg = dataclasses.replace(cfg, remat=False)
     params = init_params(torch.Generator().manual_seed(0), cfg, "cpu")
     x = torch.zeros(1, cfg.image_size, cfg.image_size, cfg.in_channels)
     stages = []
-    with torch.inference_mode():
+    with torch.inference_mode(), lowering(glue_fold="none"):
         forward(params, x, cfg, tap=lambda name, shape: stages.append((name, shape)))
     return tuple(stages)
 
@@ -491,10 +568,11 @@ def profile_ensemble_step(config: str, batch: int, seed: int = 0, members: int =
 
 
 def profile_train_step3d(config: str, batch: int, seed: int = 0,
-                         remat: bool = False) -> Dict:
+                         remat: bool = False, steps: int = STEPS) -> Dict:
     """One ``train3d.make_train_step3d`` step on cubes already on the card,
     at the config's cube side, width and depth (``remat`` checkpoints each
-    block). Adds ``vols_per_s`` and ``conv3d_share``, the share of the
+    block), under the lowering knobs as they are set; ``steps`` timed and as
+    many traced. Adds ``vols_per_s`` and ``conv3d_share``, the share of the
     step's device time in cuDNN's convolutions (every conv of the family)."""
     from supernet_tpu_torch import train3d
     from supernet_tpu_torch.models import init_params3d
@@ -519,7 +597,7 @@ def profile_train_step3d(config: str, batch: int, seed: int = 0,
         step(state, x, y)
         torch.cuda.synchronize()
 
-    out = _profile(run, "step")
+    out = _profile(run, "step", steps)
     conv = out["categories_ms_per_step"].get(CATEGORIES[4][0], 0.0)
     return {"mode": "train3d", "config": config, "batch": batch, "remat": remat,
             "cube": s, "out_cube": o, "base_kernels": cfg.base_kernels,

@@ -77,11 +77,11 @@ def test_parser_has_every_subcommand_of_the_jax_cli():
 def test_parser_options_equal_jax(cmd):
     """Every option string of the original with its type, default, choices
     and arity; ``--device`` (default ``cuda``) is the port's one addition,
-    on every subcommand that takes the common flags."""
+    on every subcommand that takes the common flags and on ``profile``."""
     want, got = _options(JSUBS[cmd]), _options(SUBS[cmd])
     device = got.pop("--device", None)
     assert got == want
-    if "--config" in want and "--data" in want:
+    if "--config" in want and "--data" in want or cmd == "profile":
         assert device == (None, "cuda", None, None, False)
     else:
         assert device is None
@@ -94,8 +94,9 @@ _REQUIRED = {"predict3d": ["--volume", "v.nii"]}
 
 def test_ported_subcommands():
     assert PORTED == ["attack", "attack3d", "calibrate", "calibrate3d", "convert", "eval",
-                      "eval3d", "export", "predict3d", "saliency", "saliency3d", "study",
-                      "sweep", "train", "train3d"]
+                      "eval3d", "export", "predict3d", "profile", "saliency", "saliency3d",
+                      "study", "sweep", "train", "train3d"]
+    assert STUBS == ["bench"]
 
 
 @pytest.mark.parametrize("cmd", STUBS)

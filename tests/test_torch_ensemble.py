@@ -386,6 +386,48 @@ def test_vmap_step_matches_single_steps_with_augment(members):
                                        atol=2 * tc.lr * STEPS)
 
 
+@pytest.mark.parametrize("combo", ["remat", "fgsm", "pgd", "bf16", "glue_fold"])
+def test_vmap_step_matches_single_steps_per_member(members, combo):
+    """The vmapped step equals the port's single-model step of every member
+    (loss per step within LOSS_RTOL, parameters within 2 * lr * steps)
+    under each combination ROADMAP.md's Queue 3 checked by hand: blocks
+    rematerialised, FGSM and PGD adversarial training, bf16 activations and
+    the decoder glue fold."""
+    from supernet_tpu_torch import ops
+
+    cfg, tc = CFG, TC
+    if combo == "remat":
+        cfg = dataclasses.replace(CFG, remat=True)
+    elif combo in ("fgsm", "pgd"):
+        tc = dataclasses.replace(TC, adversarial_training=combo, adv_steps=2)
+    x, y = _data(STEPS, K, BATCH, seed=6)
+    knobs = {"glue_fold": "fold"} if combo == "glue_fold" else {}
+    if combo == "bf16":
+        ops.set_act_dtype("bfloat16")
+    try:
+        with ops.moments.lowering(**knobs):
+            state = train.stack_trees([train.create_train_state(
+                load_params_npz(p, "cpu"), tc, "cpu")[0] for p in members])
+            step = train.make_ensemble_train_step(cfg, tc, member_mode="vmap")
+            losses = []
+            for i in range(STEPS):
+                state, m = step(state, x[i], y[i], np.arange(K) + tc.seed)
+                losses.append(m.loss.numpy())
+            for k, path in enumerate(members):
+                tck = dataclasses.replace(tc, seed=tc.seed + k)
+                single = train.create_train_state(load_params_npz(path, "cpu"), tck, "cpu")[0]
+                one = train.make_train_step(cfg, tck)
+                for i in range(STEPS):
+                    single, m = one(single, x[i][k], y[i][k])
+                    np.testing.assert_allclose(losses[i][k], float(m.loss), rtol=LOSS_RTOL)
+                for a, b in zip(train.leaves(train.index_tree(state.params, k)),
+                                train.leaves(single.params)):
+                    np.testing.assert_allclose(a.detach().numpy(), b.detach().numpy(),
+                                               atol=2 * tc.lr * STEPS)
+    finally:
+        ops.set_act_dtype("float32")
+
+
 def test_member_mode_and_mesh_are_checked():
     with pytest.raises(ValueError, match="member_mode"):
         train.make_ensemble_train_step(CFG, TC, member_mode="pmap")

@@ -6,7 +6,6 @@ Tolerances: outputs within ``ATOL`` (float32 sums in another order);
 gradients within ``GRAD_RTOL`` of each gradient's max magnitude. The pool is
 held bit for bit, tap index and backward too."""
 
-import os
 
 import pytest
 
@@ -227,22 +226,35 @@ def test_channels_last_conv_layout():
 
 
 def test_ab_lowerings_name_their_roadmap_item(monkeypatch):
-    """im2col and the glue fold are not ported: selecting either, directly
-    or through SUPERNET_CONV3D, names ROADMAP.md's item."""
-    with pytest.raises(NotImplementedError, match="'Remaining 2-D A/B paths'"):
+    """im2col and the glue fold are ported: selecting im2col, directly or
+    through SUPERNET_CONV3D, runs it with the JAX module's answer, and the
+    3-D glue fold answers; an unknown lowering is refused."""
+    rng = np.random.default_rng(14)
+    mu, sigma = _rand(rng, 1, 7, 7, 7, 3), np.abs(_rand(rng, 1, 7, 7, 7, 3))
+    w_mu, w_sigma = 0.2 * _rand(rng, 3, 3, 3, 3, 4), _rand(rng, 4) - 5.0
+    t = [torch.from_numpy(a) for a in (mu, sigma, w_mu, w_sigma)]
+    j = [jnp.asarray(a) for a in (mu, sigma, w_mu, w_sigma)]
+    try:
         tm3.set_conv3d_impl("im2col")
-    with pytest.raises(NotImplementedError, match="'Remaining 2-D A/B paths'"):
-        tm3.vglue_conv3d_relu(None, None, None, None, (3, 3), 0.0)
+        jm3.set_conv3d_impl("im2col")
+        assert tm3.get_conv3d_impl() == "im2col"
+        _check(tm3.vconv3d(*t), jm3.vconv3d(*j))
+    finally:
+        tm3.set_conv3d_impl("conv")
+        jm3.set_conv3d_impl("conv")
+    m, s = tm3.vglue_conv3d_relu(*t, (2, 2), 0.02)
+    assert m.shape == s.shape == (1, 9, 9, 9, 4)
     with pytest.raises(ValueError):
         tm3.set_conv3d_impl("winograd")
-    tm3.set_conv3d_impl("conv")
     monkeypatch.setenv("SUPERNET_CONV3D", "im2col")
-    with pytest.raises(NotImplementedError, match="Remaining 2-D A/B paths"):
+    try:
         ops.apply_env_overrides()
+        assert tm3.get_conv3d_impl() == "im2col"
+    finally:
+        tm3.set_conv3d_impl("conv")
     monkeypatch.setenv("SUPERNET_CONV3D", "conv")
     ops.apply_env_overrides()
-    with open(os.path.join(os.path.dirname(os.path.dirname(__file__)), "ROADMAP.md")) as f:
-        assert "**Remaining 2-D A/B paths**" in f.read()
+    assert tm3.get_conv3d_impl() == "conv"
 
 
 def test_bf16_casts_follow_the_jax_module():

@@ -151,8 +151,9 @@ def test_port_imports_no_jax():
     the CLI's parser, runs one tiny CPU forward through the serving session,
     takes one CPU train step and one ensemble step, and under bf16
     activations builds an
-    ``EnsembleSession`` and an export bundle (``flops.py`` among the
-    modules)."""
+    ``EnsembleSession`` and an export bundle (``flops.py``, ``hlo_profile.py``
+    and ``xplane.py`` among the modules), and runs a forward under the
+    glue fold and a conv fold."""
     code = textwrap.dedent("""
         import dataclasses, importlib, pkgutil, sys
 
@@ -184,7 +185,9 @@ def test_port_imports_no_jax():
                 "supernet_tpu_torch.data.loaders",
                 "supernet_tpu_torch.data.nifti",
                 "supernet_tpu_torch.data.shards",
-                "supernet_tpu_torch.data.synthetic"} <= set(names), names
+                "supernet_tpu_torch.data.synthetic",
+                "supernet_tpu_torch.hlo_profile",
+                "supernet_tpu_torch.xplane"} <= set(names), names
         from supernet_tpu_torch import cli
         assert cli.build_parser().parse_args(
             ["train", "--synthetic", "4"]).device == "cuda"
@@ -198,6 +201,11 @@ def test_port_imports_no_jax():
         p, s = InferenceSession(params, cfg, batch_size=2, device="cpu").predict(
             np.zeros((1, 32, 32, 1), np.float32))
         assert p.shape == (1, 22, 22, 3) and np.isfinite(s).all()
+        from supernet_tpu_torch.models import forward
+        from supernet_tpu_torch.ops.moments import lowering
+        with lowering(glue_fold="fold", conv_fold="sigma"), torch.no_grad():
+            pf, _ = forward(params, torch.zeros(1, 32, 32, 1), cfg)
+        assert pf.shape == (1, 22 * 22, 3)
         state, _ = train.create_train_state(params, HIPPOCAMPUS.train, "cpu")
         rng = np.random.default_rng(0)
         state, m = train.make_train_step(cfg, HIPPOCAMPUS.train)(
