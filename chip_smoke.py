@@ -231,6 +231,29 @@ Phases (any failure raises and the exit code is not 0):
    1%; the class table, the unjoined row and the records lost in the
    settling call are printed.
 
+22. parallelism on the card: a one-rank NCCL process group on cuda:0
+   (NCCL refuses two ranks on one card: "Duplicate GPU detected"; the
+   multi-rank worlds are proven on the CPU in gloo by the tests), its 1-D
+   mesh and a (1, 1) (data, space) mesh. Under cuDNN's deterministic
+   algorithms: hippocampus b20, 3 steps, through ``make_sharded_train_step``,
+   ``make_spatial_train_step`` and ``make_hybrid_train_step``, and BraTS b2,
+   2 steps, through ``make_sharded_train_step``, each counted (per step
+   (10, 2, 2, 10) with 9 transposed / (18, 4, 4, 18) with 17, the split-K
+   reduces as planned) and again with the choices of ``make_train_step``'s
+   run on the card replayed (``_decisions``), both held against that run
+   (``TRAIN_LOSS_RTOL``, parameters within 2 * lr * steps); at the phase-18
+   width (cube 64, batch 4) ``make_dp_train_step3d`` and
+   ``make_spatial_train_step3d``, 2 steps, against ``make_train_step3d``
+   (``_decisions3d``), kernels 1-4 at 0 launches. Then in process: one epoch
+   of ``Trainer(mesh=)`` on 200 synthetic images (launches of 10 steps and 2
+   validation batches; history and parameters equal to the meshless epoch's
+   bit for bit), ``cli train --data-parallel``, ``train3d --spatial-shard``
+   and ``eval --data-parallel`` (equal to ``eval``), ``InferenceSession(
+   mesh=)`` answering 20, 7 and 45 images and ``EnsembleSession(mesh=)`` of
+   3 members (equal to the meshless sessions), ``EnsembleTrainer(mesh=)`` at
+   K=3 (equal to the meshless trainer). Prints the phase's seconds and its
+   parts'.
+
 In phases 6-15 cuDNN runs its deterministic algorithms, and in 6-7 and 12
 the CPU reference of the gradients replays the card's ReLU masks and pool
 taps (``_decisions``), so that rounding ties do not decide the comparison.
@@ -240,7 +263,8 @@ The last two lines of standard output are the kernels summary
 hippocampus training run, the epoch trainer's run, the CLI's run, one
 attack gradient, the adversarial evaluation, the study, phase 18, one K=4
 ensemble step and one ensemble session chunk, one step under the glue fold,
-one step of ``cli profile``'s trace, errors, times and bounds, and
+one step of ``cli profile``'s trace, one step of each sharded step of
+phase 22, errors, times and bounds, and
 for kernels 1 and 4 the member-axis times beside K single launches) and
 ``{"ok": true, "device": {...}}``.
 """
@@ -3264,6 +3288,326 @@ def _profile_cli(torch, smi, tmp):
     return per_step
 
 
+def _parallel_steps(torch, P, name, exp, batch, steps, meshes, kinds):
+    """Phase 22's 2-D steps: ``steps`` steps of each sharded step in
+    ``kinds`` on a world of one, counted (launches per step) and then with
+    the choices of ``make_train_step``'s run on the same card replayed
+    (``_decisions``), both held against that run: every step's loss within
+    ``TRAIN_LOSS_RTOL``, the parameters after the steps within
+    ``2 * lr * steps``. Returns {kind: launches per step} and a summary."""
+    import numpy as np
+
+    from supernet_tpu_torch import train as T
+
+    cfg, tc = exp.model, exp.train
+    params = _he_params(torch, cfg)
+    rng = np.random.default_rng(SEED)
+    s, o = cfg.image_size, cfg.out_size
+    x = rng.normal(0.0, 1.0, (steps, batch, s, s, cfg.in_channels)).astype(np.float32)
+    y = rng.integers(0, cfg.n_classes, (steps, batch, o, o)).astype(np.int32)
+
+    ref, _ = T.create_train_state(params, tc, "cuda")
+    step = T.make_train_step(cfg, tc)
+    choices, ref_losses = [], []
+    with _decisions(torch, record=choices):
+        for i in range(steps):
+            ref, m = step(ref, x[i], y[i])
+            ref_losses.append(float(m.loss))
+    makers = {
+        "data": lambda: P.make_sharded_train_step(cfg, tc, meshes["data"]),
+        "spatial": lambda: P.make_spatial_train_step(cfg, tc, meshes["data"]),
+        "hybrid": lambda: P.make_hybrid_train_step(cfg, tc, meshes["hybrid"]),
+    }
+    per_step = _expected_launches(cfg, batch, 1, 0)
+    limit = 2.0 * tc.lr * steps
+    out, summary = {}, {"losses": ref_losses, "param_limit": limit}
+    for kind in kinds:
+        mesh = meshes["hybrid" if kind == "hybrid" else "data"]
+        fn = makers[kind]()
+
+        def feed(i):
+            if kind == "data":  # the rows shard_batch gives this rank
+                return P.shard_batch(mesh, x[i], y[i])
+            return x[i], y[i]
+
+        for replay in (False, True):
+            state = P.replicate(mesh, T.create_train_state(params, tc, "cuda")[0])
+            ctx = (_decisions(torch, replay=choices) if replay
+                   else contextlib.nullcontext({}))
+            torch.cuda.synchronize()
+            _zero_launches()
+            times, losses = [], []
+            with ctx as ties:
+                for i in range(steps):
+                    t0 = time.perf_counter()
+                    state, m = fn(state, *feed(i))
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+                    losses.append(float(m.loss))
+            launches = _read_launches()
+            if not replay and launches != _scaled(per_step, steps):
+                _die(f"{name} {kind} sharded training: kernel launches {launches} in "
+                     f"{steps} steps, expected {per_step} per step")
+            loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+            if not loss_err <= TRAIN_LOSS_RTOL:
+                _die(f"{name} {kind} sharded training: losses {losses} against "
+                     f"make_train_step's {ref_losses}")
+            param_err = max(float((a - b).detach().abs().max()) for a, b in
+                            zip(T.leaves(state.params), T.leaves(ref.params)))
+            if not param_err <= limit:
+                _die(f"{name} {kind} sharded training: parameters differ from "
+                     f"make_train_step's by {param_err:.3e} > 2 * lr * steps")
+            tag = f"{kind}_replayed" if replay else kind
+            summary[tag] = {"loss_max_rel_err": loss_err, "param_max_abs_err": param_err,
+                            "median_step_ms": 1e3 * statistics.median(times)}
+            if replay:
+                summary[tag]["ties_replayed"] = dict(ties)
+            else:
+                out[kind] = {k: v // steps for k, v in launches.items()}
+            del state
+    return out, summary
+
+
+def _parallel_3d(torch, P, meshes):
+    """Phase 22's 3-D steps at the phase-18 width: ``make_dp_train_step3d``
+    and ``make_spatial_train_step3d``, 2 steps each, counted (kernels 1-4
+    at 0) and with ``make_train_step3d``'s choices replayed
+    (``_decisions3d``), held against its run on the card."""
+    import numpy as np
+
+    from supernet_tpu_torch import train as T
+    from supernet_tpu_torch import train3d as T3
+    from supernet_tpu_torch.configs import HIPPOCAMPUS
+
+    exp = HIPPOCAMPUS
+    cfg = dataclasses.replace(exp.model, out_size=T3.derive_out_size3d(exp.model))
+    tc, batch, steps = exp.train, 4, 2
+    s, o, c = cfg.image_size, cfg.out_size, cfg.n_classes
+    params = _he_params3d(torch, cfg)
+    rng = np.random.default_rng(SEED)
+    x = rng.normal(0.0, 1.0, (steps, batch, s, s, s, cfg.in_channels)).astype(np.float32)
+    y = rng.integers(0, c, (steps, batch, o, o, o)).astype(np.int32)
+    ref, _ = T.create_train_state(params, tc, "cuda")
+    step = T3.make_train_step3d(cfg, tc)
+    choices, ref_losses = [], []
+    with _decisions3d(torch, record=choices):
+        for i in range(steps):
+            ref, m = step(ref, x[i], y[i])
+            ref_losses.append(float(m.loss))
+    limit = 2.0 * tc.lr * steps
+    summary = {"losses": ref_losses, "param_limit": limit}
+    mesh = meshes["data"]
+    for kind, make in (("data", P.make_dp_train_step3d),
+                       ("spatial", P.make_spatial_train_step3d)):
+        fn = make(cfg, tc, mesh)
+        for replay in (False, True):
+            state = P.replicate(mesh, T.create_train_state(params, tc, "cuda")[0])
+            ctx = (_decisions3d(torch, replay=choices) if replay
+                   else contextlib.nullcontext({}))
+            torch.cuda.synchronize()
+            _zero_launches()
+            losses = []
+            with ctx:
+                for i in range(steps):
+                    xb, yb = ((P.shard_batch(mesh, x[i], y[i])) if kind == "data"
+                              else (x[i], y[i]))
+                    state, m = fn(state, xb, yb)
+                    losses.append(float(m.loss))
+            launches = _read_launches()
+            if any(launches.values()):
+                _die(f"3-D {kind} sharded training launched kernels 1-4: {launches}")
+            loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+            param_err = max(float((a - b).detach().abs().max()) for a, b in
+                            zip(T.leaves(state.params), T.leaves(ref.params)))
+            if not (loss_err <= TRAIN_LOSS_RTOL and param_err <= limit):
+                _die(f"3-D {kind} sharded training: losses {losses} against "
+                     f"{ref_losses}, parameters {param_err:.3e} (limit {limit:.3e})")
+            summary[f"{kind}_replayed" if replay else kind] = {
+                "loss_max_rel_err": loss_err, "param_max_abs_err": param_err}
+            del state
+    return summary
+
+
+def _parallel_entry_points(torch, P, meshes, tmp):
+    """Phase 22's entry points in process: an epoch of ``Trainer(mesh=)``,
+    ``cli train --data-parallel``, ``train3d --spatial-shard``, ``eval
+    --data-parallel``, ``InferenceSession(mesh=)``, ``EnsembleSession(mesh=)``
+    and ``EnsembleTrainer(mesh=)`` at K=3, each against its meshless run on
+    the card. Returns (the trainer's launches, a summary)."""
+    import numpy as np
+
+    from supernet_tpu_torch import cli, ensemble
+    from supernet_tpu_torch.checkpoint import load_params_npz, save_params_npz
+    from supernet_tpu_torch.configs import HIPPOCAMPUS
+    from supernet_tpu_torch.data import PickleDataset, synthetic_dataset
+    from supernet_tpu_torch.serving import EnsembleSession, InferenceSession
+    from supernet_tpu_torch.train import leaves
+    from supernet_tpu_torch.trainer import Trainer
+
+    mesh = meshes["data"]
+    batch = 20
+    exp = HIPPOCAMPUS.replace(train=dataclasses.replace(
+        HIPPOCAMPUS.train, epochs=1, batch_size=batch, log_every=1000))
+    cfg = exp.model
+    npz = os.path.join(tmp, "init.npz")
+    save_params_npz(npz, _he_params(torch, cfg))
+    train_ds = PickleDataset(*synthetic_dataset(cfg, 200, seed=0), cfg.in_channels)
+    val_ds = PickleDataset(*synthetic_dataset(cfg, 40, seed=1), cfg.in_channels)
+    parts, summary = {}, {}
+
+    def timed(part):
+        parts[part] = time.perf_counter()
+
+    def done(part):
+        parts[part] = time.perf_counter() - parts[part]
+
+    # an epoch of the trainer on the mesh against the meshless epoch
+    timed("trainer")
+    runs = {}
+    for sub, m in (("meshless", None), ("mesh", mesh)):
+        tr = Trainer(exp, train_ds, val_ds, out_dir=os.path.join(tmp, f"tr_{sub}"),
+                     mesh=m, initial_params=load_params_npz(npz, "cpu"), device="cuda")
+        torch.cuda.synchronize()
+        _zero_launches()
+        state = tr.run(log=lambda *_: None)
+        runs[sub] = (tr, state, _read_launches())
+    launches = runs["mesh"][2]
+    want = _expected_launches(cfg, batch, 10, 2)
+    if launches != want:
+        _die(f"Trainer(mesh=): kernel launches {launches}, expected {want}")
+    hist = {k: (runs["mesh"][0].history[k], runs["meshless"][0].history[k])
+            for k in ("train_loss", "val_loss", "val_dice")}
+    if any(a != b for a, b in hist.values()):
+        _die(f"Trainer(mesh=): history {hist} differs from the meshless epoch's")
+    param_err = max(float((a - b).detach().abs().max()) for a, b in
+                    zip(leaves(runs["mesh"][1].params), leaves(runs["meshless"][1].params)))
+    if param_err != 0.0:
+        _die(f"Trainer(mesh=): parameters differ from the meshless epoch's by {param_err}")
+    summary["trainer"] = {"launches": launches, "train_loss": hist["train_loss"][0],
+                          "images_per_sec": runs["mesh"][0].history["images_per_sec"],
+                          "meshless_images_per_sec":
+                              runs["meshless"][0].history["images_per_sec"]}
+    del runs
+    done("trainer")
+
+    # the CLI's sharding flags, in process, on the default device
+    timed("cli")
+    line = _cli_json(cli, ["train", "--config", "hippocampus", "--synthetic", "100",
+                           "--epochs", "1", "--data-parallel", "--device", "cuda",
+                           "--out-dir", os.path.join(tmp, "cli_dp")])[-1]
+    line3 = _cli_json(cli, ["train3d", "--config", "hippocampus", "--synthetic", "10",
+                            "--epochs", "1", "--batch-size", "4", "--spatial-shard",
+                            "--device", "cuda",
+                            "--out-dir", os.path.join(tmp, "cli_3d")])[-1]
+    evals = [_cli_json(cli, ["eval", "--config", "hippocampus", "--synthetic", "40",
+                             "--checkpoint", npz, "--images-n", "0", *flag,
+                             "--device", "cuda",
+                             "--out-dir", os.path.join(tmp, f"cli_eval{i}")])[-1]
+             for i, flag in enumerate(([], ["--data-parallel"]))]
+    for what, v in (("train", line["train_loss"]), ("train3d", line3["train_loss"])):
+        if not math.isfinite(v):
+            _die(f"cli {what} with a sharding flag: train_loss {v}")
+    for k in ("accuracy", "dice_anterior", "mean_predictive_variance"):
+        if evals[0][k] != evals[1][k]:
+            _die(f"cli eval --data-parallel: {k} {evals[1][k]} against {evals[0][k]}")
+    summary["cli"] = {"train_loss": line["train_loss"], "train3d_loss": line3["train_loss"],
+                      "eval_accuracy": evals[1]["accuracy"]}
+    done("cli")
+
+    # the sessions: requests of 20, 7 and 45 images, members over the mesh
+    timed("sessions")
+    params = load_params_npz(npz, "cpu")
+    rng = np.random.default_rng(SEED)
+    shape = (cfg.image_size, cfg.image_size, cfg.in_channels)
+    sess = {m: InferenceSession(params, cfg, batch_size=batch, device="cuda", mesh=mm)
+            for m, mm in (("meshless", None), ("mesh", mesh))}
+    for n in (20, 7, 45):
+        xr = rng.normal(0.0, 1.0, (n,) + shape).astype(np.float32)
+        for a, b in zip(sess["mesh"].predict(xr), sess["meshless"].predict(xr)):
+            if not np.array_equal(a, b):
+                _die(f"InferenceSession(mesh=): a request of {n} differs from the "
+                     f"meshless session's by {float(np.abs(a - b).max()):.3e}")
+    members = [_he_params(torch, cfg, seed=SEED + k) for k in range(3)]
+    xr = rng.normal(0.0, 1.0, (7,) + shape).astype(np.float32)
+    got = EnsembleSession(members, cfg, batch_size=batch, device="cuda", mesh=mesh).predict(xr)
+    want = EnsembleSession(members, cfg, batch_size=batch, device="cuda").predict(xr)
+    ens_err = max(float(np.abs(a - b).max()) for a, b in zip(got, want))
+    if ens_err != 0.0:
+        _die(f"EnsembleSession(mesh=) differs from the meshless session by {ens_err:.3e}")
+    done("sessions")
+
+    # the ensemble trainer with its member axis over the mesh, K=3
+    timed("ensemble_trainer")
+    small = PickleDataset(*synthetic_dataset(cfg, 40, seed=2), cfg.in_channels)
+    ens = {}
+    for sub, m in (("meshless", None), ("mesh", mesh)):
+        tr = ensemble.EnsembleTrainer(exp, 3, small, out_dir=os.path.join(tmp, f"ens_{sub}"),
+                                      mesh=m, track_curves=False, device="cuda")
+        ens[sub] = (tr.run(log=lambda *_: None), tr.histories)
+    e_err = max(float((a - b).detach().abs().max()) for a, b in
+                zip(leaves(ens["mesh"][0].params), leaves(ens["meshless"][0].params)))
+    losses = [[h["train_loss"] for h in ens[sub][1]] for sub in ("mesh", "meshless")]
+    if e_err != 0.0 or losses[0] != losses[1]:
+        _die(f"EnsembleTrainer(mesh=) differs from the meshless trainer by {e_err:.3e}")
+    summary["ensemble_trainer"] = {"train_loss": losses[0]}
+    done("ensemble_trainer")
+    return launches, summary, parts
+
+
+def _parallel(torch, smi, tmp):
+    """Phase 22. Returns the launches per step of the hippocampus
+    data-parallel step."""
+    import torch.distributed as dist
+
+    from supernet_tpu_torch import parallel as P
+    from supernet_tpu_torch.configs import BRATS, HIPPOCAMPUS
+
+    t_phase = time.perf_counter()
+    # NCCL admits one rank per card: a second rank on cuda:0 is refused at
+    # its first collective ("Duplicate GPU detected : rank 0 and rank 1 both
+    # on CUDA device", PERF.md section 7), so the card runs a world of one;
+    # the multi-rank worlds are the CPU tests' (tests/test_torch_parallel.py,
+    # _spatial, _hybrid, _multihost, in gloo)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                            rank=0, world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        meshes = {"data": P.make_mesh(), "hybrid": P.make_mesh2d(1, 1)}
+        if str(meshes["data"].device_type) != "cuda":
+            _die(f"phase 22: the mesh's device type is {meshes['data'].device_type}")
+        parts = {}
+        t0 = time.perf_counter()
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=True, allow_tf32=False):
+            hip, hip_sum = _parallel_steps(torch, P, "hippocampus", HIPPOCAMPUS, 20, 3, meshes,
+                                           ("data", "spatial", "hybrid"))
+            parts["steps_2d_hippocampus"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            brats, brats_sum = _parallel_steps(torch, P, "brats", BRATS, 2, 2, meshes,
+                                               ("data",))
+            parts["steps_2d_brats"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            three_d = _parallel_3d(torch, P, meshes)
+            parts["steps_3d"] = time.perf_counter() - t0
+            trainer_launches, entry, entry_parts = _parallel_entry_points(torch, P, meshes, tmp)
+            parts.update(entry_parts)
+    finally:
+        dist.destroy_process_group()
+    phase_s = time.perf_counter() - t_phase
+    print(json.dumps({
+        "parallel": "one-rank NCCL world on cuda:0", "card": smi,
+        "hippocampus_b20": hip_sum, "brats_b2": brats_sum, "three_d_b4": three_d,
+        "launches_per_step": {"hippocampus": hip, "brats": brats},
+        "entry_points": entry, "trainer_launches": trainer_launches,
+        "phase_s": phase_s, "parts_s": parts,
+    }), flush=True)
+    print(f"parallel (phase 22): {phase_s:.1f} s; hippocampus b20 step data "
+          f"{hip_sum['data']['median_step_ms']:.3f} ms, spatial "
+          f"{hip_sum['spatial']['median_step_ms']:.3f} ms, hybrid "
+          f"{hip_sum['hybrid']['median_step_ms']:.3f} ms ({smi})", flush=True)
+    return hip, brats
+
+
 def main() -> int:
     import torch
 
@@ -3408,6 +3752,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         profile_per_step = _profile_cli(torch, smi, tmp)
 
+    # 22. parallelism on the card: the sharded steps, the 3-D ones and the
+    # entry points on a one-rank NCCL mesh
+    with tempfile.TemporaryDirectory() as tmp:
+        par_hip, par_brats = _parallel(torch, smi, tmp)
+
     sources = {
         "vdp_conv": ("supernet_tpu_torch/csrc/vdp_conv.cu",
                      "supernet_tpu/ops/pallas/vdp_conv.py:125"),
@@ -3431,7 +3780,11 @@ def main() -> int:
     # one chunk of a 3-member EnsembleSession (phase 19);
     # glue_fold_train_launches_per_step: one hippocampus step (batch 20) under
     # the glue fold (phase 20); cli_profile_launches_per_step: one step of
-    # cli profile's hippocampus run, joined from its trace (phase 21). member_axis_*: the
+    # cli profile's hippocampus run, joined from its trace (phase 21);
+    # parallel_train_launches_per_step: one hippocampus data-parallel step
+    # (batch 20) on the one-rank NCCL mesh, parallel_spatial_* and
+    # parallel_hybrid_* the spatial and hybrid steps', brats_parallel_* one
+    # BraTS data-parallel step (phase 22). member_axis_*: the
     # member-axis launch summed over the layers of one hippocampus step (K=4,
     # batch 20; brats_member_axis_*: BraTS, K=2, batch 2) beside K single
     # launches, CUDA events and device time.
@@ -3505,6 +3858,10 @@ def main() -> int:
             "ensemble_session_chunk_launches": ens_session[kernel],
             "glue_fold_train_launches_per_step": fold_launches[kernel],
             "cli_profile_launches_per_step": profile_per_step[kernel],
+            "parallel_train_launches_per_step": par_hip["data"][kernel],
+            "parallel_spatial_train_launches_per_step": par_hip["spatial"][kernel],
+            "parallel_hybrid_train_launches_per_step": par_hip["hybrid"][kernel],
+            "brats_parallel_train_launches_per_step": par_brats["data"][kernel],
             "max_abs_err": check.worst[kernel][0],
             "max_rel_err": check.worst[kernel][1],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,

@@ -38,12 +38,17 @@ Tensor = torch.Tensor
 Params = Dict[str, Dict[str, Tensor]]
 
 
-def _single_device(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "attacks over a device mesh are not ported yet (ROADMAP.md, "
-            "Queue 1: 'Parallelism', parallel/data_parallel.py)"
-        )
+def _on_mesh(fn, mesh, n_sharded: int):
+    """``fn`` itself, or with ``mesh`` ``fn`` on each rank's rows of its
+    first ``n_sharded`` arguments (the batch and its labels), the results
+    gathered (``parallel.data_parallel.sharded_apply``). Every quantity of
+    an attack is per sample but the loss's mean, whose positive scale the
+    sign does not see; the data range arrives as the whole batch's."""
+    if mesh is None:
+        return fn
+    from supernet_tpu_torch.parallel.data_parallel import sharded_apply
+
+    return sharded_apply(fn, mesh, n_sharded=n_sharded)
 
 
 def _frozen(params: Params) -> Params:
@@ -119,11 +124,11 @@ def make_pgd_attack(cfg: ModelConfig, ac: AttackConfig, mesh=None, forward_fn=fo
     per-step projection is `Hippocampus.py:930-932`: clip(adv, x - eps,
     x + eps), then clip(adv, x_min, x_max). ``x_min`` / ``x_max`` are the
     batch's data range (`Hippocampus.py:906-907`), numbers or 0-dim tensors.
-    The result is detached.
+    The result is detached. With ``mesh`` each rank attacks its rows of the
+    batch and every rank returns the whole batch's examples.
     """
-    _single_device(mesh)
 
-    def attack(params: Params, x: Tensor, y_flat: Tensor, x_min, x_max) -> Tensor:
+    def attack(x: Tensor, y_flat: Tensor, params: Params, x_min, x_max) -> Tensor:
         x = x.detach()
         lo, hi = _range(x, x_min, x_max)
         ball_lo, ball_hi = x - ac.epsilon, x + ac.epsilon
@@ -135,21 +140,23 @@ def make_pgd_attack(cfg: ModelConfig, ac: AttackConfig, mesh=None, forward_fn=fo
             adv_x = torch.clamp(adv_x, lo, hi)
         return adv_x
 
-    return attack
+    run = _on_mesh(attack, mesh, 2)
+    return lambda params, x, y_flat, x_min, x_max: run(x, y_flat, params, x_min, x_max)
 
 
 def make_fgsm_attack(cfg: ModelConfig, ac: AttackConfig, mesh=None, forward_fn=forward):
     """Single-step FGSM (`Brats.py:984-991`): ``attack(params, x, y_flat,
-    x_min, x_max) -> clip(x + eps * sign, x_min, x_max)``, detached."""
-    _single_device(mesh)
+    x_min, x_max) -> clip(x + eps * sign, x_min, x_max)``, detached;
+    ``mesh`` as for ``make_pgd_attack``."""
 
-    def attack(params: Params, x: Tensor, y_flat: Tensor, x_min, x_max) -> Tensor:
+    def attack(x: Tensor, y_flat: Tensor, params: Params, x_min, x_max) -> Tensor:
         x = x.detach()
         lo, hi = _range(x, x_min, x_max)
         sign = fgsm_sign(params, x, y_flat, cfg, ac, forward_fn)
         return torch.clamp(x + ac.epsilon * sign, lo, hi)
 
-    return attack
+    run = _on_mesh(attack, mesh, 2)
+    return lambda params, x, y_flat, x_min, x_max: run(x, y_flat, params, x_min, x_max)
 
 
 def make_saliency_map(cfg: ModelConfig, forward_fn=forward, mesh=None):
@@ -161,10 +168,10 @@ def make_saliency_map(cfg: ModelConfig, forward_fn=forward, mesh=None):
     ``probs`` depends on the mean chain alone, so the variance chain's
     cotangents are all zero; the sigma-chain backward kernel still runs on
     them (skipping it would need a look at the data, a synchronisation).
+    ``mesh`` as for ``make_pgd_attack`` (the mass is a sum over samples).
     """
-    _single_device(mesh)
 
-    def saliency(params: Params, x: Tensor, class_mask: Tensor) -> Tuple[Tensor, Tensor]:
+    def saliency(x: Tensor, params: Params, class_mask: Tensor) -> Tuple[Tensor, Tensor]:
         with torch.enable_grad():
             x = x.detach().requires_grad_(True)
             probs, _ = forward_fn(_frozen(params), x, cfg)
@@ -172,4 +179,5 @@ def make_saliency_map(cfg: ModelConfig, forward_fn=forward, mesh=None):
             (g,) = torch.autograd.grad(mass, x)
         return g, torch.relu(g)
 
-    return saliency
+    run = _on_mesh(saliency, mesh, 1)
+    return lambda params, x, class_mask: run(x, params, class_mask)

@@ -388,7 +388,10 @@ def run_calibration(
     if mc_samples > 0:
         res["mc_samples"] = mc_samples
     if out_dir:
-        write_calibration_artifacts(out_dir, res, exp.name, len(labels))
+        from supernet_tpu_torch.evaluate import report_dir
+
+        with report_dir(out_dir, mesh) as w:
+            write_calibration_artifacts(w, res, exp.name, len(labels))
         res["out_dir"] = out_dir
     return res
 

@@ -20,8 +20,11 @@
 printing the JSON line(s) and writing the files of its twin; ``profile``
 traces K-step train calls and prints and writes the exact-join tables
 (``hlo_profile.run``). ``bench`` parses its flags and then raises
-``NotImplementedError`` naming the ``ROADMAP.md`` item that ports it, as do
-``--data-parallel``, ``--spatial-shard`` and ``--hybrid-shard``. ``train --ensemble K`` and
+``NotImplementedError`` naming the ``ROADMAP.md`` item that ports it.
+``--data-parallel``, ``--spatial-shard`` and ``--hybrid-shard`` run on one
+process per device: the world torchrun or ``SUPERNET_COORDINATOR`` describes
+(``parallel.initialize_from_env``), else a world of one on ``--device``;
+every rank prints the same line and rank 0 writes. ``train --ensemble K`` and
 ``train3d --ensemble K`` (K > 1) train a deep ensemble into
 ``member_{k}/`` (``--ensemble-mode``: ``vmap``, ``unroll`` / ``scan``,
 ``sequential``, or ``auto``, which ``ensemble.choose_ensemble_mode``
@@ -57,6 +60,76 @@ def _unported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet (ROADMAP.md, Queue 1: {item})"
     )
+
+
+def _bring_up(args) -> int:
+    """The process group of a sharded run: the world torchrun or
+    ``SUPERNET_COORDINATOR`` describes (``parallel.initialize_from_env``),
+    else a world of one on ``--device`` (an in-process store). Returns the
+    world size."""
+    import torch
+    import torch.distributed as dist
+
+    from supernet_tpu_torch import parallel
+
+    if not parallel.initialize_from_env(args.device):
+        device = torch.device(args.device)
+        kw = {}
+        if device.type == "cuda":
+            kw["device_id"] = torch.device("cuda", device.index or 0)
+            torch.cuda.set_device(kw["device_id"])
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                                store=dist.HashStore(), rank=0, world_size=1, **kw)
+    return dist.get_world_size()
+
+
+def _batch_mesh(args, batch_size: int):
+    """``--data-parallel``'s 1-D mesh: the whole world over several nodes
+    (the batch must divide it), else the largest rank count that divides
+    ``batch_size``; the mesh size goes to stderr."""
+    from supernet_tpu_torch import parallel
+
+    world = _bring_up(args)
+    if parallel.multihost.multi_node():
+        # the local-rows feed hands every rank an equal contiguous block;
+        # a shrunken mesh could split unevenly across nodes, so a
+        # multi-node run requires the FULL mesh and a divisible batch
+        if batch_size % world != 0:
+            raise SystemExit(
+                f"multi-host training needs a batch_size ({batch_size}) "
+                f"divisible by the global device count ({world}); adjust "
+                "--batch-size"
+            )
+        mesh = parallel.global_mesh()
+    else:
+        mesh = parallel.make_mesh_for_batch(batch_size)
+    n = int(mesh.mesh.numel())
+    if n < world:
+        print(f"note: batch {batch_size} does not divide over {world} "
+              f"devices; using a {n}-device mesh (pass --batch-size as a "
+              "multiple of the device count to use all devices)",
+              file=sys.stderr)
+    print(f"data-parallel mesh: {n} device(s)", file=sys.stderr)
+    return mesh
+
+
+def _member_mesh(n_members: int):
+    """The mesh that shards K ensemble members: the shrunken mesh of the
+    largest rank count dividing K, or the whole world with the member axis
+    padded, whichever runs fewer member rounds."""
+    import torch.distributed as dist
+
+    from supernet_tpu_torch import parallel
+
+    n_dev = dist.get_world_size()
+    shrunk = parallel.make_mesh_for_batch(n_members)
+    n_shrunk = int(shrunk.mesh.numel())
+    full_rounds = -(-n_members // n_dev)
+    shrunk_rounds = n_members // n_shrunk
+    emesh = parallel.make_mesh(n_dev) if full_rounds < shrunk_rounds else shrunk
+    print(f"ensemble members sharded over {int(emesh.mesh.numel())} devices",
+          file=sys.stderr)
+    return emesh
 
 
 def _add_common(
@@ -756,6 +829,8 @@ def _run_study(exp, args) -> int:
         common += ["--data", args.data]
     if args.batch_size:
         common += ["--batch-size", str(args.batch_size)]
+    if args.data_parallel:
+        common += ["--data-parallel"]
 
     summary = {"out_dir": out, "stages": {}}
 
@@ -796,9 +871,10 @@ def _run_study(exp, args) -> int:
     run_stage("calibrate", ["calibrate", *common, *ckpt,
                             "--out-dir", os.path.join(out, "calibration")])
 
-    os.makedirs(out, exist_ok=True)
+    from supernet_tpu_torch.evaluate import report_dir
+
     path = os.path.join(out, "study.json")
-    with open(path, "w") as f:
+    with report_dir(out, args.data_parallel) as w, open(os.path.join(w, "study.json"), "w") as f:
         json.dump(summary, f, indent=1)
     # headline line: clean dice / ECE / AUSE / wall time
     head = {"study": path}
@@ -827,15 +903,16 @@ def _scalars(res) -> str:
                        if isinstance(v, (int, float, str))})
 
 
-def _saliency(exp, args, params, ds) -> int:
+def _saliency(exp, args, params, ds, mesh=None) -> int:
     import numpy as np
     import torch
 
     from supernet_tpu_torch.attacks import make_saliency_map
+    from supernet_tpu_torch.evaluate import report_dir
     from supernet_tpu_torch.reports import save_saliency_maps
 
     cfg = exp.model
-    sal = make_saliency_map(cfg)
+    sal = make_saliency_map(cfg, mesh=mesh)
     cmask = torch.zeros(cfg.n_classes, device=args.device)
     if args.target_class is None:  # all foreground ("all tumor")
         cmask[1:] = 1.0
@@ -843,16 +920,17 @@ def _saliency(exp, args, params, ds) -> int:
         cmask[args.target_class] = 1.0
     out_dir = args.out_dir or f"{exp.out_dir}/{exp.name}/saliency"
     count = 0
-    for x, _ in ds.batches(exp.train.batch_size):
-        xb = torch.as_tensor(x, dtype=torch.float32, device=args.device)
-        g, g_relu = (t.cpu().numpy() for t in sal(params, xb, cmask))
-        for i in range(len(x)):
+    with report_dir(out_dir, mesh) as w:
+        for x, _ in ds.batches(exp.train.batch_size):
+            xb = torch.as_tensor(x, dtype=torch.float32, device=args.device)
+            g, g_relu = (t.cpu().numpy() for t in sal(params, xb, cmask))
+            for i in range(len(x)):
+                if count >= args.images_n:
+                    break
+                save_saliency_maps(w, np.asarray(x[i]), g[i], g_relu[i], index=count)
+                count += 1
             if count >= args.images_n:
                 break
-            save_saliency_maps(out_dir, np.asarray(x[i]), g[i], g_relu[i], index=count)
-            count += 1
-        if count >= args.images_n:
-            break
     print(json.dumps({"saliency_maps": count, "out_dir": out_dir}))
     return 0
 
@@ -860,9 +938,13 @@ def _saliency(exp, args, params, ds) -> int:
 def _evaluate(exp, args) -> int:
     """eval, calibrate, attack, saliency and sweep: a checkpoint (or, for
     eval/calibrate/sweep, an ensemble of them) on the test split."""
+    mesh = None
     if args.data_parallel:
-        raise _unported(f"{args.cmd} --data-parallel",
-                        "'Parallelism' (parallel/data_parallel.py)")
+        if getattr(args, "mc_samples", 0):
+            raise SystemExit(
+                "--mc-samples is a single-device mode; drop --data-parallel"
+            )
+        mesh = _batch_mesh(args, exp.train.batch_size)
     params = _load_maybe_ensemble(
         _load_params, exp, args,
         cmd_ok=args.cmd in ("eval", "calibrate", "sweep"),
@@ -874,7 +956,7 @@ def _evaluate(exp, args) -> int:
 
         print(_scalars(run_testing(
             exp, params, ds, images_n=args.images_n, out_dir=args.out_dir,
-            mc_samples=args.mc_samples,
+            mesh=mesh, mc_samples=args.mc_samples,
             artifact_max_samples=args.artifact_max_samples,
             device=args.device)))
     elif args.cmd == "calibrate":
@@ -883,21 +965,21 @@ def _evaluate(exp, args) -> int:
         out_dir = args.out_dir or f"{exp.out_dir}/{exp.name}/calibration"
         print(_scalars(run_calibration(
             exp, params, ds, out_dir=out_dir, n_bins=args.bins,
-            mc_samples=args.mc_samples, device=args.device)))
+            mesh=mesh, mc_samples=args.mc_samples, device=args.device)))
     elif args.cmd == "attack":
         from supernet_tpu_torch.evaluate import run_adversarial
 
         print(_scalars(run_adversarial(
             exp, params, ds, images_n=args.images_n, out_dir=args.out_dir,
-            artifact_max_samples=args.artifact_max_samples,
+            mesh=mesh, artifact_max_samples=args.artifact_max_samples,
             device=args.device)))
     elif args.cmd == "saliency":
-        return _saliency(exp, args, params, ds)
+        return _saliency(exp, args, params, ds, mesh)
     else:
         from supernet_tpu_torch.evaluate import run_noise_sweep
 
         for r in run_noise_sweep(
-                exp, params, ds, images_n=args.images_n,
+                exp, params, ds, images_n=args.images_n, mesh=mesh,
                 artifact_max_samples=args.artifact_max_samples,
                 device=args.device):
             print(_scalars(r))
@@ -932,9 +1014,7 @@ def _export(exp, args) -> int:
 def _train(exp, args) -> int:
     from supernet_tpu_torch.trainer import Trainer
 
-    if args.data_parallel:
-        raise _unported("train --data-parallel",
-                        "'Parallelism' (parallel/data_parallel.py)")
+    mesh = _batch_mesh(args, exp.train.batch_size) if args.data_parallel else None
     train_ds = _load_data(exp, args, "train")
     if getattr(args, "val_data", None):
         val_ds = _load_data(exp.replace(data_path=args.val_data), args, "test")
@@ -946,8 +1026,8 @@ def _train(exp, args) -> int:
                   "pass --val-data for a held-out split", file=sys.stderr)
         val_ds = _load_data(exp, args, "test")
     if args.ensemble > 1:
-        return _train_ensemble(exp, args, train_ds, val_ds)
-    tr = Trainer(exp, train_ds, val_ds, out_dir=args.out_dir,
+        return _train_ensemble(exp, args, train_ds, val_ds, mesh)
+    tr = Trainer(exp, train_ds, val_ds, out_dir=args.out_dir, mesh=mesh,
                  steps_per_dispatch=args.steps_per_dispatch,
                  device=args.device)
     tr.run()
@@ -959,15 +1039,15 @@ def _finals(histories):
     return [{m: v[-1] for m, v in h.items() if v} for h in histories]
 
 
-def _ensemble_mode(args, total_steps, step_s=None, step_ratio=None) -> str:
+def _ensemble_mode(args, total_steps, step_s=None, step_ratio=None, mesh=None) -> str:
     """``--ensemble-mode``, with ``auto`` decided by
     ``ensemble.choose_ensemble_mode`` (the note goes to stderr)."""
     if args.ensemble_mode != "auto":
         return args.ensemble_mode
     from supernet_tpu_torch.ensemble import choose_ensemble_mode
 
-    mode, why = choose_ensemble_mode(args.ensemble, total_steps, step_s=step_s,
-                                     step_ratio=step_ratio)
+    mode, why = choose_ensemble_mode(args.ensemble, total_steps, mesh=mesh,
+                                     step_s=step_s, step_ratio=step_ratio)
     print(f"ensemble auto mode -> {mode} ({why})", file=sys.stderr)
     return mode
 
@@ -979,7 +1059,7 @@ def _note_steps_per_dispatch(args) -> None:
               file=sys.stderr)
 
 
-def _train_ensemble(exp, args, train_ds, val_ds) -> int:
+def _train_ensemble(exp, args, train_ds, val_ds, mesh=None) -> int:
     """``train --ensemble K``: K members (seeds seed..seed+K-1, which also
     drive each member's shuffle) into ``member_{k}/``, as one stacked
     ensemble or, ``sequential``, K full ``Trainer`` runs."""
@@ -990,13 +1070,15 @@ def _train_ensemble(exp, args, train_ds, val_ds) -> int:
         total_steps = exp.train.epochs * (len(train_ds) // exp.train.batch_size)
     except TypeError:  # an unsized stream
         total_steps = None
-    mode = _ensemble_mode(args, total_steps)
+    mode = _ensemble_mode(args, total_steps, mesh=mesh)
     if mode != "sequential":
         from supernet_tpu_torch.ensemble import EnsembleTrainer
 
         _note_steps_per_dispatch(args)
+        # --data-parallel + a one-program ensemble = members over the ranks
+        emesh = None if mesh is None else _member_mesh(args.ensemble)
         tr = EnsembleTrainer(exp, args.ensemble, train_ds, val_ds, out_dir=base,
-                             member_mode=mode, device=args.device)
+                             mesh=emesh, member_mode=mode, device=args.device)
         tr.run()
         dirs, finals = tr.member_dirs, _finals(tr.histories)
     else:
@@ -1007,7 +1089,7 @@ def _train_ensemble(exp, args, train_ds, val_ds) -> int:
             member_dir = f"{base}/member_{k}"
             print(f"ensemble member {k}/{args.ensemble} -> {member_dir}",
                   file=sys.stderr)
-            tr = Trainer(exp_k, train_ds, val_ds, out_dir=member_dir,
+            tr = Trainer(exp_k, train_ds, val_ds, out_dir=member_dir, mesh=mesh,
                          steps_per_dispatch=args.steps_per_dispatch,
                          device=args.device)
             tr.run()
@@ -1026,12 +1108,7 @@ def _train3d(exp, args) -> int:
             "train3d resumes via --continue-training from --out-dir; "
             "--checkpoint is not used here"
         )
-    for flag, on in (("--spatial-shard", args.spatial_shard),
-                     ("--hybrid-shard", args.hybrid_shard),
-                     ("--data-parallel", args.data_parallel)):
-        if on:
-            raise _unported(f"train3d {flag}", "'Parallelism' (parallel/spatial.py, "
-                            "parallel/hybrid.py, parallel/data_parallel.py)")
+    mesh3d, shard3d = _mesh3d(exp, args)
     exp = _cfg3d(exp, args)
     x, y = _load_volumes(exp, args, seed=0)
     # --val-frac 0 means no validation (see _val_count)
@@ -1051,20 +1128,84 @@ def _train3d(exp, args) -> int:
         print(f"transfer init: inflated 2-D checkpoint {args.init_from_2d} "
               "into the 3-D model", file=sys.stderr)
     if args.ensemble > 1:
-        return _train3d_ensemble(exp, args, (x_tr, y_tr, x_val, y_val), init3d)
+        return _train3d_ensemble(exp, args, (x_tr, y_tr, x_val, y_val), init3d,
+                                 mesh3d, shard3d)
     tr = Trainer3D(exp, x_tr, y_tr, x_val, y_val, out_dir=args.out_dir,
-                   initial_params=init3d,
+                   mesh=mesh3d, shard=shard3d, initial_params=init3d,
                    steps_per_dispatch=args.steps_per_dispatch, device=args.device)
     tr.run()
     print(json.dumps({k: v[-1] for k, v in tr.history.items() if v}))
     return 0
 
 
-def _train3d_ensemble(exp, args, data, init3d) -> int:
+def _mesh3d(exp, args):
+    """``(mesh, shard)`` of train3d's sharding flags, after the JAX CLI's
+    guards: ``--hybrid-shard N_DATA`` a (N_DATA x ranks/N_DATA) mesh,
+    ``--spatial-shard`` a mesh over every rank splitting the D axis,
+    ``--data-parallel`` the batch mesh."""
+    from supernet_tpu_torch import parallel
+
+    n_modes = sum(1 for f in (args.spatial_shard, args.data_parallel,
+                              args.hybrid_shard) if f)
+    if n_modes > 1:
+        raise SystemExit(
+            "--spatial-shard / --data-parallel / --hybrid-shard are "
+            "different sharding regimes (scan axis / batch / both on "
+            "a 2-D mesh); pass exactly one"
+        )
+    if n_modes and args.steps_per_dispatch > 1:
+        # Trainer3D's ValueError as a clean CLI error
+        raise SystemExit(
+            "--steps-per-dispatch > 1 is not supported together with "
+            "a device mesh yet; drop one of the two options"
+        )
+    if args.hybrid_shard:
+        n_dev = _bring_up(args)
+        if parallel.multihost.multi_node():
+            raise SystemExit(
+                "--hybrid-shard is single-host for now; use "
+                "--data-parallel for multi-host 3-D training"
+            )
+        n_data = args.hybrid_shard
+        if n_data < 1:
+            raise SystemExit(
+                f"--hybrid-shard {n_data}: the data-axis size must be "
+                "a positive integer"
+            )
+        if n_dev % n_data != 0:
+            raise SystemExit(
+                f"--hybrid-shard {n_data}: the data axis must divide "
+                f"the device count ({n_dev})"
+            )
+        if exp.train.batch_size % n_data != 0:
+            raise SystemExit(
+                f"--hybrid-shard {n_data}: batch_size "
+                f"{exp.train.batch_size} must divide over the data axis"
+            )
+        print(f"hybrid mesh: {n_data} x {n_dev // n_data} (batch x scan-axis)",
+              file=sys.stderr)
+        return parallel.make_mesh2d(n_data, n_dev // n_data), "hybrid"
+    if args.spatial_shard:
+        n_dev = _bring_up(args)
+        if parallel.multihost.multi_node():
+            raise SystemExit(
+                "--spatial-shard is single-host (the scan-axis feed "
+                "materializes whole volumes per process); use "
+                "--data-parallel for multi-host 3-D training"
+            )
+        print(f"spatial mesh: {n_dev} device(s) (scan axis)", file=sys.stderr)
+        return parallel.make_mesh(n_dev), "scan"
+    if args.data_parallel:
+        return _batch_mesh(args, exp.train.batch_size), "batch"
+    return None, "batch"
+
+
+def _train3d_ensemble(exp, args, data, init3d, mesh3d=None, shard3d="batch") -> int:
     """``train3d --ensemble K``: K members (seeds seed..seed+K-1) into
     ``member_{k}/``; a shared ``--init-from-2d`` inflation starts every
     member from the same weights, so diversity then comes from the shuffle
     alone."""
+    from supernet_tpu_torch import parallel
     from supernet_tpu_torch.ensemble import ONE_PROGRAM_STEP3D_RATIO, SEQUENTIAL_STEP3D_S
     from supernet_tpu_torch.train3d import Trainer3D
 
@@ -1072,13 +1213,27 @@ def _train3d_ensemble(exp, args, data, init3d) -> int:
     base = args.out_dir or f"{exp.out_dir}/{exp.name}_3d/ensemble"
     # the 3-D step's own measured ratio: its vmap gains nothing on the card
     mode = _ensemble_mode(args, exp.train.epochs * (len(x_tr) // exp.train.batch_size),
-                          step_s=SEQUENTIAL_STEP3D_S, step_ratio=ONE_PROGRAM_STEP3D_RATIO)
-    if mode != "sequential":
+                          step_s=SEQUENTIAL_STEP3D_S, step_ratio=ONE_PROGRAM_STEP3D_RATIO,
+                          mesh=mesh3d)
+    one_program = mode != "sequential"
+    if one_program and shard3d != "batch":
+        # spatial/hybrid sharding splits each volume across the mesh;
+        # a member axis on top of it is not composed: sequential members
+        print(f"note: --ensemble-mode {args.ensemble_mode} does not compose "
+              "with --spatial-shard/--hybrid yet; training members "
+              "sequentially", file=sys.stderr)
+        one_program = False
+    if one_program and mesh3d is not None and parallel.multihost.multi_node():
+        print("note: one-program ensemble training is single-host; "
+              "training members sequentially", file=sys.stderr)
+        one_program = False
+    if one_program:
         from supernet_tpu_torch.ensemble import EnsembleTrainer3D
 
         _note_steps_per_dispatch(args)
+        emesh = None if mesh3d is None else _member_mesh(args.ensemble)
         tr = EnsembleTrainer3D(exp, args.ensemble, x_tr, y_tr, x_val, y_val,
-                               out_dir=base, member_mode=mode,
+                               out_dir=base, mesh=emesh, member_mode=mode,
                                initial_params=init3d, device=args.device)
         tr.run()
         print(json.dumps({"members": args.ensemble, "mode": mode,
@@ -1092,7 +1247,7 @@ def _train3d_ensemble(exp, args, data, init3d) -> int:
         member_dir = f"{base}/member_{k}"
         print(f"ensemble member {k}/{args.ensemble} -> {member_dir}", file=sys.stderr)
         tr = Trainer3D(exp_k, x_tr, y_tr, x_val, y_val, out_dir=member_dir,
-                       initial_params=init3d,
+                       mesh=mesh3d, shard=shard3d, initial_params=init3d,
                        steps_per_dispatch=args.steps_per_dispatch, device=args.device)
         tr.run()
         dirs.append(member_dir)
@@ -1139,9 +1294,6 @@ def _predict3d(exp, args) -> int:
 
     from supernet_tpu_torch.serving import EnsembleSession, InferenceSession
 
-    if args.data_parallel:
-        raise _unported("predict3d --data-parallel",
-                        "'Parallelism' (parallel/data_parallel.py)")
     exp = _cfg3d(exp, args)
     cfg = exp.model
     if os.path.isdir(args.volume):
@@ -1161,71 +1313,97 @@ def _predict3d(exp, args) -> int:
                   temperature=args.temperature, device=args.device)
     srcs = _checkpoint_list(args)
     if len(srcs) > 1:
-        sess = EnsembleSession([_load_params3d(exp, args, src=s) for s in srcs],
-                               cfg, **common)
-    else:
-        sess = InferenceSession(_load_params3d(exp, args), cfg, **common)
-    out_dir = args.out_dir or f"{exp.out_dir}/{exp.name}_3d/predict"
-    os.makedirs(out_dir, exist_ok=True)
-    multi = len(paths) > 1
-    for path in paths:
-        vol, is_nifti = _load_volume_file(path, cfg, exp.name)
-        probs, sigma = sess.predict_volume(
-            vol, overlap=args.overlap, weight=args.blend, pad_mode=args.pad_mode)
-        seg = np.argmax(probs, axis=-1).astype(np.int32)
-        # the predictive variance at the predicted class
-        unc = np.take_along_axis(sigma, seg[..., None], axis=-1)[..., 0]
-        stem = os.path.basename(path)
-        for suf in (".nii.gz", ".nii", ".npy"):
-            if stem.endswith(suf):
-                stem = stem[: -len(suf)]
-                break
-        pre = f"{stem}_" if multi else ""
-        ext = ".nii.gz" if is_nifti else ".npy"
-        seg_path = os.path.join(out_dir, f"{pre}segmentation{ext}")
-        unc_path = os.path.join(out_dir, f"{pre}uncertainty{ext}")
-        if is_nifti:
-            from supernet_tpu_torch.data import write_nifti
+        mesh = None
+        if args.data_parallel:
+            from supernet_tpu_torch import parallel
 
-            write_nifti(seg_path, seg)
-            write_nifti(unc_path, unc.astype(np.float32))
-        else:
-            np.save(seg_path, seg)
-            np.save(unc_path, unc.astype(np.float32))
-        extra = {}
-        if args.save_probs:
-            pp = os.path.join(out_dir, f"{pre}probs.npy")
-            sp = os.path.join(out_dir, f"{pre}sigma.npy")
-            np.save(pp, probs)
-            np.save(sp, sigma)
-            extra = {"probs": pp, "sigma": sp}
-        counts = np.bincount(seg.ravel(), minlength=cfg.n_classes)
-        print(json.dumps({
-            "input": path,
-            "volume": list(vol.shape),
-            "cube": cfg.image_size,
-            "out_cube": cfg.out_size,
-            "overlap": args.overlap,
-            "blend": args.blend,
-            "class_voxels": [int(c) for c in counts],
-            "mean_uncertainty": float(unc.mean()),
-            "max_uncertainty": float(unc.max()),
-            "segmentation": seg_path,
-            "uncertainty": unc_path,
-            **extra,
-        }))
+            # member-parallel serving: the largest rank count that divides
+            # K runs K/n members per rank; the mixture sums all-reduce
+            n = _bring_up(args)
+            while n > 1 and len(srcs) % n != 0:
+                n -= 1
+            mesh = parallel.make_mesh(n)
+            print(f"ensemble members sharded over {n} devices", file=sys.stderr)
+        sess = EnsembleSession([_load_params3d(exp, args, src=s) for s in srcs],
+                               cfg, mesh=mesh, **common)
+    else:
+        mesh = None
+        if args.data_parallel:
+            # a chunk's cubes over the ranks (the batch divides the mesh)
+            mesh = _batch_mesh(args, common["batch_size"])
+        sess = InferenceSession(_load_params3d(exp, args), cfg, mesh=mesh, **common)
+    from supernet_tpu_torch.evaluate import report_dir
+
+    out_dir = args.out_dir or f"{exp.out_dir}/{exp.name}_3d/predict"
+    multi = len(paths) > 1
+    with report_dir(out_dir, mesh) as w:
+        for path in paths:
+            _predict_one(args, cfg, exp.name, sess, path, multi, out_dir, w)
     return 0
 
 
-def _saliency3d(exp, args, params, x) -> dict:
+def _predict_one(args, cfg, name, sess, path, multi, out_dir, write_dir) -> None:
+    """One volume of predict3d: its segmentation and uncertainty (and with
+    ``--save-probs`` the moments) written under ``write_dir``, its JSON line
+    naming them under ``out_dir``."""
+    import numpy as np
+
+    vol, is_nifti = _load_volume_file(path, cfg, name)
+    probs, sigma = sess.predict_volume(
+        vol, overlap=args.overlap, weight=args.blend, pad_mode=args.pad_mode)
+    seg = np.argmax(probs, axis=-1).astype(np.int32)
+    # the predictive variance at the predicted class
+    unc = np.take_along_axis(sigma, seg[..., None], axis=-1)[..., 0]
+    stem = os.path.basename(path)
+    for suf in (".nii.gz", ".nii", ".npy"):
+        if stem.endswith(suf):
+            stem = stem[: -len(suf)]
+            break
+    pre = f"{stem}_" if multi else ""
+    ext = ".nii.gz" if is_nifti else ".npy"
+    seg_name, unc_name = f"{pre}segmentation{ext}", f"{pre}uncertainty{ext}"
+    if is_nifti:
+        from supernet_tpu_torch.data import write_nifti
+
+        write_nifti(os.path.join(write_dir, seg_name), seg)
+        write_nifti(os.path.join(write_dir, unc_name), unc.astype(np.float32))
+    else:
+        np.save(os.path.join(write_dir, seg_name), seg)
+        np.save(os.path.join(write_dir, unc_name), unc.astype(np.float32))
+    extra = {}
+    if args.save_probs:
+        np.save(os.path.join(write_dir, f"{pre}probs.npy"), probs)
+        np.save(os.path.join(write_dir, f"{pre}sigma.npy"), sigma)
+        extra = {"probs": os.path.join(out_dir, f"{pre}probs.npy"),
+                 "sigma": os.path.join(out_dir, f"{pre}sigma.npy")}
+    counts = np.bincount(seg.ravel(), minlength=cfg.n_classes)
+    print(json.dumps({
+        "input": path,
+        "volume": list(vol.shape),
+        "cube": cfg.image_size,
+        "out_cube": cfg.out_size,
+        "overlap": args.overlap,
+        "blend": args.blend,
+        "class_voxels": [int(c) for c in counts],
+        "mean_uncertainty": float(unc.mean()),
+        "max_uncertainty": float(unc.max()),
+        "segmentation": os.path.join(out_dir, seg_name),
+        "uncertainty": os.path.join(out_dir, unc_name),
+        **extra,
+    }))
+
+
+def _saliency3d(exp, args, params, x, mesh=None) -> dict:
     import torch
 
     from supernet_tpu_torch.attacks import make_saliency_map
+    from supernet_tpu_torch.evaluate import report_dir
     from supernet_tpu_torch.models import forward3d
     from supernet_tpu_torch.reports import save_saliency_maps
 
     cfg = exp.model
-    sal = make_saliency_map(cfg, forward_fn=forward3d)
+    # under a mesh each rank takes its volumes of a batch
+    sal = make_saliency_map(cfg, forward_fn=forward3d, mesh=mesh)
     cmask = torch.zeros(cfg.n_classes, device=args.device)
     if args.target_class is None:  # all foreground
         cmask[1:] = 1.0
@@ -1234,20 +1412,21 @@ def _saliency3d(exp, args, params, x) -> dict:
     out_dir = args.out_dir or f"{exp.out_dir}/{exp.name}_3d/saliency"
     count = 0
     b = exp.train.batch_size
-    for i in range(0, len(x), b):
-        x_np = x[i : i + b]
-        xb = torch.as_tensor(x_np, device=args.device)
-        g, g_relu = (t.cpu().numpy() for t in sal(params, xb, cmask))
-        mid = xb.shape[1] // 2
-        for j in range(len(x_np)):
+    with report_dir(out_dir, mesh) as w:
+        for i in range(0, len(x), b):
+            x_np = x[i : i + b]
+            xb = torch.as_tensor(x_np, device=args.device)
+            g, g_relu = (t.cpu().numpy() for t in sal(params, xb, cmask))
+            mid = xb.shape[1] // 2
+            for j in range(len(x_np)):
+                if count >= args.images_n:
+                    break
+                # the center axial slice of the volumetric gradient
+                save_saliency_maps(w, x_np[j, mid], g[j, mid], g_relu[j, mid],
+                                   index=count)
+                count += 1
             if count >= args.images_n:
                 break
-            # the center axial slice of the volumetric gradient
-            save_saliency_maps(out_dir, x_np[j, mid], g[j, mid], g_relu[j, mid],
-                               index=count)
-            count += 1
-        if count >= args.images_n:
-            break
     return {"saliency_maps": count, "out_dir": out_dir}
 
 
@@ -1255,9 +1434,19 @@ def _evaluate3d(exp, args) -> int:
     """eval3d, attack3d, calibrate3d and saliency3d on cubes: a checkpoint
     (or, for eval3d / calibrate3d, an ensemble of them) on held-out
     volumes."""
+    # --data-parallel = SPATIAL sharding for the 3-D family: the volume's
+    # D axis is split over every rank (whole-volume regime)
+    mesh = None
     if args.data_parallel:
-        raise _unported(f"{args.cmd} --data-parallel (the scan-axis sharding)",
-                        "'Parallelism' (parallel/spatial.py)")
+        if getattr(args, "mc_samples", 0):
+            raise SystemExit(
+                "--mc-samples is a single-device mode; drop --data-parallel"
+            )
+        from supernet_tpu_torch import parallel
+
+        mesh = parallel.make_mesh(_bring_up(args))
+        print(f"spatial mesh: {int(mesh.mesh.numel())} device(s) (scan axis)",
+              file=sys.stderr)
     exp = _cfg3d(exp, args)
     x, y = _load_volumes(exp, args, seed=1)
     # score the held-out volumes only: the trailing train3d --val-frac
@@ -1279,7 +1468,7 @@ def _evaluate3d(exp, args) -> int:
     if args.cmd == "eval3d":
         if args.sweep:
             for r in E3.run_noise_sweep3d(
-                    exp, params, x, y, images_n=args.images_n,
+                    exp, params, x, y, images_n=args.images_n, mesh=mesh,
                     mc_samples=args.mc_samples,
                     artifact_max_samples=args.artifact_max_samples,
                     device=args.device):
@@ -1290,20 +1479,22 @@ def _evaluate3d(exp, args) -> int:
         nc = NoiseConfig(kind=args.noise_kind, std=args.noise_std,
                          region=args.noise_region)
         res = E3.run_testing3d(exp, params, x, y, nc, out_dir=args.out_dir,
-                               images_n=args.images_n, mc_samples=args.mc_samples,
+                               images_n=args.images_n, mesh=mesh,
+                               mc_samples=args.mc_samples,
                                artifact_max_samples=args.artifact_max_samples,
                                device=args.device)
     elif args.cmd == "attack3d":
         res = E3.run_adversarial3d(exp, params, x, y, out_dir=args.out_dir,
-                                   images_n=args.images_n,
+                                   images_n=args.images_n, mesh=mesh,
                                    artifact_max_samples=args.artifact_max_samples,
                                    device=args.device)
     elif args.cmd == "saliency3d":
-        res = _saliency3d(exp, args, params, x)
+        res = _saliency3d(exp, args, params, x, mesh)
     else:
         out_dir = args.out_dir or f"{exp.out_dir}/{exp.name}_3d/calibration"
         res = E3.run_calibration3d(exp, params, x, y, out_dir=out_dir,
-                                   n_bins=args.bins, mc_samples=args.mc_samples,
+                                   n_bins=args.bins, mesh=mesh,
+                                   mc_samples=args.mc_samples,
                                    device=args.device)
     print(_scalars(res))
     return 0
@@ -1331,9 +1522,6 @@ def main(argv=None) -> int:
         return 0
     exp = _get_exp(args)
     if args.cmd == "study":
-        if args.data_parallel:
-            raise _unported("study --data-parallel",
-                            "'Parallelism' (parallel/data_parallel.py)")
         return _run_study(exp, args)
     if args.cmd == "convert":
         return _convert(exp, args)

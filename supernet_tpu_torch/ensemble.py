@@ -19,8 +19,13 @@ all K members. The semantics are those of K sequential runs:
   them have.
 
 ``choose_ensemble_mode`` is the JAX package's crossover rule with constants
-measured on the card (see its docstring). A mesh raises naming ROADMAP.md's
-'Parallelism'.
+measured on the card (see its docstring).
+
+With a ``mesh`` (one process per device) the member axis is sharded: each
+rank trains a contiguous block of members and the updated rows are gathered
+into every rank's state (``train.make_ensemble_train_step(mesh=)``). When K
+does not divide the mesh the member axis is padded with members K.. (seeds
+``seed + k``) that train and are discarded; rank 0 validates and writes.
 """
 
 from __future__ import annotations
@@ -114,14 +119,24 @@ def choose_ensemble_mode(
     return "sequential", why
 
 
-def _check(n_members: int, mesh, what: str) -> None:
+def _check(n_members: int, what: str) -> None:
     if n_members < 2:
         raise ValueError(f"{what} needs n_members >= 2")
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{what} over a device mesh (member sharding) is not ported yet "
-            "(ROADMAP.md, Queue 1: 'Parallelism', ensemble.py)"
+
+
+def _n_pad(n_members: int, mesh) -> int:
+    """Members added so that the member axis divides the mesh."""
+    if mesh is None:
+        return 0
+    n_dev = int(mesh.mesh.numel())
+    n_pad = (-n_members) % n_dev
+    if n_pad:
+        print(
+            f"note: padding the member axis {n_members} -> "
+            f"{n_members + n_pad} so it divides the {n_dev}-"
+            "device mesh (pad members are trained and discarded)"
         )
+    return n_pad
 
 
 def _member_mode(member_mode: Optional[str]) -> str:
@@ -137,9 +152,34 @@ class _Base:
     """The epoch loop shared by the 2-D and 3-D trainers: state, resume,
     checkpoints, roll-back."""
 
+    def _setup_mesh(self, n_members: int, mesh) -> None:
+        from supernet_tpu_torch import parallel
+
+        self.mesh = mesh
+        self.n_train = n_members + _n_pad(n_members, mesh)
+        self.writes = mesh is None or parallel.multihost.is_writer()
+
+    def _sits_out(self) -> bool:
+        """A rank outside a shrunken mesh: it builds no step and trains
+        nothing."""
+        from supernet_tpu_torch.parallel._comm import in_mesh
+
+        return self.mesh is not None and not in_mesh(self.mesh)
+
+    def _stack(self, members) -> TrainState:
+        state = stack_trees(members)
+        if self.mesh is not None:
+            from supernet_tpu_torch import parallel
+
+            state = parallel.replicate(self.mesh, state)
+        return state
+
+    def _fresh(self, k: int) -> TrainState:
+        return create_train_state(self._init_one(k), self.tc, self.device)[0]
+
     def _init_members(self, init_one) -> TrainState:
-        members = [create_train_state(init_one(k), self.tc, self.device)[0]
-                   for k in range(self.n_members)]
+        self._init_one = init_one
+        members = [self._fresh(k) for k in range(self.n_train)]
         self.start_epoch = 0
         if self.tc.continue_training:
             latest = [ckpt.latest_epoch(d) for d in self.member_dirs]
@@ -148,23 +188,29 @@ class _Base:
                 # an epoch ahead for some members)
                 epoch = min(latest)
                 members = [ckpt.restore_state(d, epoch, self.tc, self.device)
-                           for d in self.member_dirs]
+                           for d in self.member_dirs] + members[self.n_members:]
                 self.start_epoch = epoch + 1
             elif any(e is not None for e in latest):
                 raise FileNotFoundError(
                     "continue_training: only some member dirs have "
                     f"checkpoints ({latest}); refusing a mixed resume"
                 )
-        return stack_trees(members)
+        return self._stack(members)
 
     def _restore(self, epoch: int) -> TrainState:
-        return stack_trees([ckpt.restore_state(d, epoch, self.tc, self.device)
-                            for d in self.member_dirs])
+        """Every member's ``epoch`` checkpoint (pad members start afresh)."""
+        return self._stack(
+            [ckpt.restore_state(d, epoch, self.tc, self.device) for d in self.member_dirs]
+            + [self._fresh(k) for k in range(self.n_members, self.n_train)])
 
-    def run(self, epochs: Optional[int] = None, log=print) -> TrainState:
+    def run(self, epochs: Optional[int] = None, log=print) -> Optional[TrainState]:
+        from supernet_tpu_torch.trainer import _Writer
+
+        if self._sits_out():
+            return None
         state = self.init_state()
         epochs = epochs if epochs is not None else self.tc.epochs
-        writers = [ckpt.AsyncEpochCheckpointer(d) for d in self.member_dirs]
+        writers = [_Writer(d, self.writes, self.mesh) for d in self.member_dirs]
         t_start = time.perf_counter()
         last_good: Optional[int] = None
         try:
@@ -187,7 +233,7 @@ class _Base:
                         w.wait()
                     state = self._restore(last_good)
                     continue
-                if self._has_validation():
+                if self._has_validation() and self.writes:
                     self._validate(state, epoch, log)
                 if (epoch + 1) % self.tc.checkpoint_every == 0:
                     # one host copy of the stacked state, sliced per member
@@ -201,7 +247,13 @@ class _Base:
             for w in writers:
                 w.close()
         self.total_time = time.perf_counter() - t_start
-        self._finalize(state)
+        if self.mesh is not None:
+            # rank 0 validated: every rank reports the histories
+            from supernet_tpu_torch.parallel._comm import broadcast_object
+
+            self.histories = broadcast_object(self.histories, self.mesh)
+        if self.writes:
+            self._finalize(state)
         return state
 
 
@@ -212,7 +264,8 @@ class EnsembleTrainer(_Base):
     ``member_mode``: ``vmap`` (the member axis through the kernels),
     ``unroll`` / ``scan`` (a loop of the single-model step's forward and
     backward); None takes ``SUPERNET_ENSEMBLE_MODE`` or ``ONE_PROGRAM_MODE``.
-    ``mesh`` raises (ROADMAP.md, Queue 1: 'Parallelism')."""
+    ``mesh`` shards the member axis (``vmap`` only; see the module
+    docstring)."""
 
     def __init__(
         self,
@@ -226,9 +279,10 @@ class EnsembleTrainer(_Base):
         member_mode: Optional[str] = None,
         device="cuda",
     ):
-        _check(n_members, mesh, "EnsembleTrainer")
+        _check(n_members, "EnsembleTrainer")
         self.exp, self.cfg, self.tc = exp, exp.model, exp.train
         self.n_members = n_members
+        self._setup_mesh(n_members, mesh)
         self.train_ds, self.val_ds = train_ds, val_ds
         self.device = torch.device(device)
         self.base_dir = out_dir or os.path.join(exp.out_dir, exp.name, "ensemble")
@@ -241,11 +295,11 @@ class EnsembleTrainer(_Base):
         self.track_curves = track_curves
         self.track_train_curves = track_curves and exp.train.augment is None
         self.member_mode = _member_mode(member_mode)
-        self.step_fn = make_ensemble_train_step(
+        self.step_fn = None if self._sits_out() else make_ensemble_train_step(
             self.cfg, self.tc, with_pred=self.track_train_curves,
-            member_mode=self.member_mode)
+            mesh=mesh, member_mode=self.member_mode)
         self.eval_fn = make_ensemble_eval_step(self.cfg, self.tc)
-        self.seeds = np.arange(n_members, dtype=np.int32) + self.tc.seed
+        self.seeds = np.arange(self.n_train, dtype=np.int32) + self.tc.seed
         self.histories = [_empty_history() for _ in range(n_members)]
 
     def init_state(self) -> TrainState:
@@ -264,7 +318,7 @@ class EnsembleTrainer(_Base):
 
         iters = [self.train_ds.batches(self.tc.batch_size, shuffle=True,
                                        seed=self.tc.seed + k, epoch=epoch)
-                 for k in range(self.n_members)]
+                 for k in range(self.n_train)]
         for group in zip(*iters):
             xs, ys = [], []
             for x, y in group:
@@ -305,8 +359,8 @@ class EnsembleTrainer(_Base):
                 host_s = time.perf_counter() - t0
             else:
                 state, m = self.step_fn(state, xb, yb, self.seeds)
-            loss_k = m.loss.cpu().numpy()
-            acc_k = m.accuracy.cpu().numpy()
+            loss_k = m.loss.cpu().numpy()[:k_n]  # pad members are discarded
+            acc_k = m.accuracy.cpu().numpy()[:k_n]
             for k in range(k_n):
                 losses[k].append(float(loss_k[k]))
                 accs[k].append(float(acc_k[k]))
@@ -434,9 +488,10 @@ class EnsembleTrainer3D(_Base):
             make_ensemble_train_step3d,
         )
 
-        _check(n_members, mesh, "EnsembleTrainer3D")
+        _check(n_members, "EnsembleTrainer3D")
         self.exp, self.cfg, self.tc = exp, exp.model, exp.train
         self.n_members = n_members
+        self._setup_mesh(n_members, mesh)
         self.device = torch.device(device)
         self.x = np.asarray(x, np.float32)
         self.y = np.asarray(y, np.int32)
@@ -456,10 +511,10 @@ class EnsembleTrainer3D(_Base):
                             for k in range(n_members)]
         self.member_mode = _member_mode(member_mode)
         self.initial_params = initial_params
-        self.step_fn = make_ensemble_train_step3d(self.cfg, self.tc,
-                                                  member_mode=self.member_mode)
+        self.step_fn = None if self._sits_out() else make_ensemble_train_step3d(
+            self.cfg, self.tc, mesh=mesh, member_mode=self.member_mode)
         self.eval_fn = make_ensemble_eval_step3d(self.cfg, self.tc)
-        self.seeds = np.arange(n_members, dtype=np.int32) + self.tc.seed
+        self.seeds = np.arange(self.n_train, dtype=np.int32) + self.tc.seed
         self.histories = [_empty_history() for _ in range(n_members)]
 
     def init_state(self) -> TrainState:
@@ -476,7 +531,7 @@ class EnsembleTrainer3D(_Base):
         # rng from the seed on resume, so epoch `start` takes its FIRST
         # permutation
         self._rngs = [np.random.default_rng(self.tc.seed + k)
-                      for k in range(self.n_members)]
+                      for k in range(self.n_train)]
         return state
 
     def _has_validation(self) -> bool:

@@ -24,15 +24,19 @@ directory scheme are the JAX package's.
 Every runner takes ``device`` (default the card; nothing falls back to the
 CPU) and copies the parameters there. A batch's noise and the Monte-Carlo
 weight draws come from CPU generators keyed by the seed and the batch index,
-so a run sees the same draws on every device. A mesh raises
-``NotImplementedError``.
+so a run sees the same draws on every device. With ``mesh`` (one process
+per device, ``parallel.make_mesh``) every forward and attack runs each
+rank's rows of the batch and gathers the outputs, so every rank computes
+the single-device report; rank 0 writes its files (``report_dir``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import os
+import tempfile
 import time
 from typing import Dict, List, Optional
 
@@ -66,14 +70,6 @@ _REGION_DIR = {
 }
 
 
-def _single_device(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "evaluation over a device mesh is not ported yet (ROADMAP.md, "
-            "Queue 1: 'Parallelism', parallel/data_parallel.py)"
-        )
-
-
 def make_eval_forward(
     cfg,
     mesh,
@@ -81,11 +77,16 @@ def make_eval_forward(
     mc_seed: int,
     forward_fn,
     sampled_fn,
+    sharded_factory=None,
 ):
     """The eval forward ``f(params, x) -> (probs, sigma)``, without
     gradients.
 
-    Plain ``forward_fn`` by default. ``mc_samples > 0`` switches to the
+    Plain ``forward_fn`` by default. With ``mesh``, ``sharded_factory(cfg,
+    mesh)`` (the volumes' D-split forward), else ``forward_fn`` on each
+    rank's rows of the batch (any batch size: the tail is padded and cut),
+    the outputs gathered so that every rank holds the whole batch's and
+    every report equals the single-device one. ``mc_samples > 0`` switches to the
     Monte-Carlo ensemble that the VDP propagation replaces (the paper's
     baseline: "instead of Monte Carlo sampling"): N posterior weight draws
     through the deterministic twin ``sampled_fn``, returning the empirical
@@ -93,7 +94,15 @@ def make_eval_forward(
     every downstream metric and artifact path works unchanged. The draws are
     deterministic per (mc_seed, batch index) and the same on every device;
     the mode costs N forwards per batch against the VDP's one."""
-    _single_device(mesh)
+    if mesh is not None:
+        if mc_samples > 0:
+            raise ValueError("mc_samples mode is single-device; drop mesh")
+        if sharded_factory is not None:
+            return sharded_factory(cfg, mesh)
+        from supernet_tpu_torch.parallel.data_parallel import sharded_apply
+
+        run = sharded_apply(lambda xs, p: forward_fn(p, xs, cfg), mesh)
+        return torch.no_grad()(lambda params, x: run(x, params))
     if mc_samples > 0:
         counter = [0]
 
@@ -147,6 +156,23 @@ def ensemble_forward(fwd, params_list):
     return efn, members
 
 
+@contextlib.contextmanager
+def report_dir(out_dir: str, sharded):
+    """The directory a runner writes ``out_dir``'s files into. In a sharded
+    run (``sharded``: its mesh, or any true value) every rank computes the
+    same report and rank 0 writes it; another rank writes into a temporary
+    directory that is removed when the runner is done (the results it
+    returns still name ``out_dir``)."""
+    from supernet_tpu_torch.parallel.multihost import is_writer
+
+    if not sharded or is_writer():
+        os.makedirs(out_dir, exist_ok=True)
+        yield out_dir
+        return
+    with tempfile.TemporaryDirectory() as tmp:
+        yield tmp
+
+
 def _reject_ensemble_modes(params, mesh, mc_samples=0) -> bool:
     """Shared guard: list-of-members params compose with the plain VDP
     forward only (the mixture is not defined for the MC baseline)."""
@@ -168,18 +194,21 @@ def _forward_fn(cfg, mesh=None, mc_samples: int = 0, mc_seed: int = 0):
 
 
 def eval_forward_and_params(cfg, params, device, mesh=None, mc_samples=0, mc_seed=0,
-                            forward_fn=forward, sampled_fn=forward_sampled):
+                            forward_fn=forward, sampled_fn=forward_sampled,
+                            sharded_factory=None):
     """``(fwd, params)`` for a runner: the parameters (one JAX-layout dict,
     or a list of ensemble members) copied to ``device``, and the forward
     that takes them (the model family of ``forward_fn`` / ``sampled_fn``,
     see `make_eval_forward`)."""
     if mc_samples > 0 and mesh is not None:
         raise ValueError("mc_samples mode is single-device; drop mesh")
-    fwd = make_eval_forward(cfg, mesh, mc_samples, mc_seed, forward_fn, sampled_fn)
     if _reject_ensemble_modes(params, mesh, mc_samples):
+        fwd = make_eval_forward(cfg, None, mc_samples, mc_seed, forward_fn, sampled_fn)
         return ensemble_forward(
             fwd, [params_from_jax(p, device) for p in params]
         )
+    fwd = make_eval_forward(cfg, mesh, mc_samples, mc_seed, forward_fn, sampled_fn,
+                            sharded_factory)
     return fwd, params_from_jax(params, device)
 
 
@@ -355,25 +384,23 @@ def run_testing(
     region_dir = _REGION_DIR.get(noise.region, "on_all")
     sub = "clean" if not noisy_run else f"{noise.kind}_{noise.std}/{region_dir}"
     out_dir = out_dir or os.path.join(exp.out_dir, exp.name, "testing", sub)
-    os.makedirs(out_dir, exist_ok=True)
 
     result = scores.result(out_dir)
     if mc_samples > 0:
         result["mc_samples"] = mc_samples
     _aggregate_structures(result, scores.structs, scores.acc_metrics)
-    scores.save_artifact(
-        result, out_dir,
-        reports.uncertainty_artifact_name(
-            0.0 if noise.kind == "none" else noise.std, noise.region
-        ),
-    )
-    unc = rep.finalize(out_dir)
-    result["mean_predictive_variance"] = unc["mean"]
-    reports.write_hyperparameters(
-        out_dir,
-        "Related_hyperparameters.txt",
-        {**dataclasses.asdict(noise), **result},
-    )
+    name = reports.uncertainty_artifact_name(
+        0.0 if noise.kind == "none" else noise.std, noise.region)
+    with report_dir(out_dir, mesh) as w:
+        scores.save_artifact(result, w, name)
+        result["artifact"] = os.path.join(out_dir, name)
+        unc = rep.finalize(w)
+        result["mean_predictive_variance"] = unc["mean"]
+        reports.write_hyperparameters(
+            w,
+            "Related_hyperparameters.txt",
+            {**dataclasses.asdict(noise), **result},
+        )
     return result
 
 
@@ -446,23 +473,24 @@ def run_adversarial(
     out_dir = out_dir or os.path.join(
         exp.out_dir, exp.name, "adversarial", f"{mode}_eps{ac.epsilon}"
     )
-    os.makedirs(out_dir, exist_ok=True)
 
     result = scores.result(out_dir)
     _aggregate_structures(result, scores.structs, scores.acc_metrics)
-    scores.save_artifact(result, out_dir, "uncertainty_info.pkl")
-    unc = rep.finalize(out_dir)
-    result["mean_predictive_variance"] = unc["mean"]
-    # per-class / per-structure predictive variance lines the reference
-    # appends for targeted attacks (`Hippocampus.py:1105-1112`)
-    for k, v in unc.items():
-        if k != "mean":
-            result[f"predictive_variance_{k}"] = v
-    reports.write_hyperparameters(
-        out_dir,
-        "Related_hyperparameters_adversarial.txt",
-        {**dataclasses.asdict(ac), **result},
-    )
+    with report_dir(out_dir, mesh) as w:
+        scores.save_artifact(result, w, "uncertainty_info.pkl")
+        result["artifact"] = os.path.join(out_dir, "uncertainty_info.pkl")
+        unc = rep.finalize(w)
+        result["mean_predictive_variance"] = unc["mean"]
+        # per-class / per-structure predictive variance lines the reference
+        # appends for targeted attacks (`Hippocampus.py:1105-1112`)
+        for k, v in unc.items():
+            if k != "mean":
+                result[f"predictive_variance_{k}"] = v
+        reports.write_hyperparameters(
+            w,
+            "Related_hyperparameters_adversarial.txt",
+            {**dataclasses.asdict(ac), **result},
+        )
     return result
 
 

@@ -23,7 +23,10 @@ CPU). A batch's noise comes from a CPU generator keyed by the seed and the
 batch index, the Monte-Carlo draws likewise, so a run sees the same draws
 on every device. A comma-separated ensemble (a list of parameter dicts) is
 served by one member-stacked forward and mixed (``evaluate.ensemble_forward``).
-A mesh raises ``NotImplementedError`` (ROADMAP.md, Queue 1: 'Parallelism').
+With ``mesh`` the volume's D (scan) axis is split over the ranks
+(``parallel.make_spatial_forward3d``) and the attacks split the batch;
+every rank holds the whole outputs, so the reports are the single-device
+ones.
 """
 
 from __future__ import annotations
@@ -45,35 +48,34 @@ from supernet_tpu_torch.evaluate import (
     _aggregate_structures,
     eval_forward_and_params,
     make_eval_forward,
+    report_dir,
 )
 from supernet_tpu_torch.models import forward3d, forward_sampled3d
 from supernet_tpu_torch.ops.moments3d import crop_center3d
 from supernet_tpu_torch.train import one_hot_flatten
 
 
-def _single_device(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "volumetric evaluation over a device mesh is not ported yet "
-            "(ROADMAP.md, Queue 1: 'Parallelism', parallel/spatial.py)"
-        )
+def _sharded3d(cfg, mesh):
+    from supernet_tpu_torch.parallel import make_spatial_forward3d
+
+    return make_spatial_forward3d(cfg, mesh)
 
 
 def _forward3d_fn(cfg, mesh=None, mc_samples: int = 0, mc_seed: int = 0):
     """The volumetric eval forward ``f(params, x) -> (probs, sigma)``
-    without gradients: ``forward3d``, or with ``mc_samples > 0`` the
+    without gradients: ``forward3d``, with ``mesh`` the D-split
+    ``parallel.make_spatial_forward3d``, or with ``mc_samples > 0`` the
     Monte-Carlo ensemble of ``forward_sampled3d`` over weight draws."""
-    _single_device(mesh)
-    return make_eval_forward(cfg, mesh, mc_samples, mc_seed, forward3d, forward_sampled3d)
+    return make_eval_forward(cfg, mesh, mc_samples, mc_seed, forward3d,
+                             forward_sampled3d, _sharded3d)
 
 
 def _forward_and_params(cfg, params, device, mesh=None, mc_samples=0, mc_seed=0):
     """``(fwd, params)``: the parameters (one JAX-layout dict, or a list of
     ensemble members) copied to ``device`` and the volumetric forward that
     takes them."""
-    _single_device(mesh)
     return eval_forward_and_params(cfg, params, device, mesh, mc_samples, mc_seed,
-                                   forward3d, forward_sampled3d)
+                                   forward3d, forward_sampled3d, _sharded3d)
 
 
 def _as2d(v: np.ndarray) -> np.ndarray:
@@ -201,7 +203,6 @@ def run_testing3d(
     region_dir = _REGION_DIR.get(noise.region, "on_all")
     sub = "clean" if not noisy_run else f"{noise.kind}_{noise.std}/{region_dir}"
     out_dir = out_dir or os.path.join(exp.out_dir, exp.name + "_3d", "testing", sub)
-    os.makedirs(out_dir, exist_ok=True)
 
     result: Dict[str, object] = {
         "accuracy": float(np.mean(accs)),
@@ -213,13 +214,14 @@ def run_testing3d(
         result["mc_samples"] = mc_samples
     _aggregate_structures(result, structs, acc_metrics)
     probs_a, sigma_a, xs, ys = rows.arrays()
-    reports.save_uncertainty_slices3d(
-        out_dir, probs_a, sigma_a, xs, ys, images_n=images_n, n_classes=cfg.n_classes)
-    unc = rep.finalize(out_dir)
-    result["mean_predictive_variance"] = unc["mean"]
-    result["artifact_samples"] = rows.n_kept
-    reports.write_hyperparameters(
-        out_dir, "Related_hyperparameters.txt", {**dataclasses.asdict(noise), **result})
+    with report_dir(out_dir, mesh) as w:
+        reports.save_uncertainty_slices3d(
+            w, probs_a, sigma_a, xs, ys, images_n=images_n, n_classes=cfg.n_classes)
+        unc = rep.finalize(w)
+        result["mean_predictive_variance"] = unc["mean"]
+        result["artifact_samples"] = rows.n_kept
+        reports.write_hyperparameters(
+            w, "Related_hyperparameters.txt", {**dataclasses.asdict(noise), **result})
     return result
 
 
@@ -287,7 +289,6 @@ def run_adversarial3d(
     mode = "targeted" if ac.targeted else "untargeted"
     out_dir = out_dir or os.path.join(
         exp.out_dir, exp.name + "_3d", "adversarial", f"{mode}_eps{ac.epsilon}")
-    os.makedirs(out_dir, exist_ok=True)
 
     result: Dict[str, object] = {
         "accuracy": float(np.mean(accs)),
@@ -297,17 +298,18 @@ def run_adversarial3d(
     }
     _aggregate_structures(result, structs, acc_metrics)
     probs_a, sigma_a, advs, ys = rows.arrays()
-    reports.save_uncertainty_slices3d(
-        out_dir, probs_a, sigma_a, advs, ys, images_n=images_n, n_classes=cfg.n_classes)
-    pv = rep.finalize(out_dir)
-    result["mean_predictive_variance"] = pv["mean"]
-    result["artifact_samples"] = rows.n_kept
-    for k, v in pv.items():
-        if k != "mean":
-            result[f"predictive_variance_{k}"] = v
-    reports.write_hyperparameters(
-        out_dir, "Related_hyperparameters_adversarial.txt",
-        {**dataclasses.asdict(ac), **result})
+    with report_dir(out_dir, mesh) as w:
+        reports.save_uncertainty_slices3d(
+            w, probs_a, sigma_a, advs, ys, images_n=images_n, n_classes=cfg.n_classes)
+        pv = rep.finalize(w)
+        result["mean_predictive_variance"] = pv["mean"]
+        result["artifact_samples"] = rows.n_kept
+        for k, v in pv.items():
+            if k != "mean":
+                result[f"predictive_variance_{k}"] = v
+        reports.write_hyperparameters(
+            w, "Related_hyperparameters_adversarial.txt",
+            {**dataclasses.asdict(ac), **result})
     return result
 
 
@@ -348,7 +350,8 @@ def run_calibration3d(
     if mc_samples > 0:
         res["mc_samples"] = mc_samples
     if out_dir:
-        write_calibration_artifacts(out_dir, res, exp.name + "_3d", len(labels))
+        with report_dir(out_dir, mesh) as w:
+            write_calibration_artifacts(w, res, exp.name + "_3d", len(labels))
         res["out_dir"] = out_dir
     return res
 

@@ -1,6 +1,10 @@
 """Serving: the padded-batch inference session, the deep-ensemble session and
-the export bundle, the meshless counterparts of ``supernet_tpu/serving.py``,
-for images and (``volumetric=True``) for the 3-D family's cubes.
+the export bundle, the counterparts of ``supernet_tpu/serving.py``, for
+images and (``volumetric=True``) for the 3-D family's cubes, on one device
+or (``mesh=``) on one process per device: a chunk's images split over the
+ranks (``shard="batch"``), a volume's D axis split over them
+(``shard="scan"``, volumetric), or an ensemble's members split over them;
+every rank answers the whole request.
 
 The parameters stay resident on the session's device and every request is
 cut into chunks of the session's fixed batch size; the last chunk is padded
@@ -91,12 +95,6 @@ def mixture(
     return mean, var
 
 
-def _unported(what: str, item: str, where: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, Queue 1: '{item}', {where})"
-    )
-
-
 class InferenceSession:
     """Fixed-batch inference on one device.
 
@@ -106,6 +104,13 @@ class InferenceSession:
     ``variance_scale`` / ``temperature`` apply a fitted recalibration to
     every answer. ``volumetric=True`` serves the 3-D family: cubes in, cubes
     out, and ``predict_volume`` for whole volumes.
+
+    ``mesh`` (a ``parallel.make_mesh`` mesh; every rank builds the session
+    and sends the same requests) splits each chunk: ``shard="batch"`` its
+    images over the ranks (``batch_size`` divisible by the mesh),
+    ``shard="scan"`` each volume's D axis (volumetric only; for volumes
+    whose activations do not fit one device). Every rank gets the whole
+    answer.
     """
 
     def __init__(
@@ -118,17 +123,27 @@ class InferenceSession:
         volumetric: bool = False,
         variance_scale: float = 1.0,
         temperature: float = 1.0,
+        mesh=None,
+        shard: str = "batch",
     ):
         self.cfg = cfg
         self.volumetric = bool(volumetric)
         self.batch_size = int(batch_size)
         if self.batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+        _check_shard(mesh, shard, self.volumetric, self.batch_size)
         self.device = torch.device(device)
         self._params = params_from_jax(params, self.device)
         self._recalibrate = _make_recalibrate(variance_scale, temperature)
         self._host = None  # (images, probs, sigma) host buffers of a request
         self._lock = threading.Lock()
+        self._mesh = mesh
+        self._run = lambda x: _shaped_forward(self._params, x, self.cfg, self.volumetric)
+        if mesh is not None:
+            from supernet_tpu_torch import parallel
+
+            parallel.replicate(mesh, self._params)
+            self._run = _mesh_run(self, mesh, shard)
 
     def _buffers(self, n: int):
         """Host buffers for ``n`` images (a whole number of chunks): pinned
@@ -154,8 +169,7 @@ class InferenceSession:
     def _forward(self, x: Tensor) -> Tuple[Tensor, Tensor]:
         """One chunk on the device -> recalibrated image- or cube-shaped
         moments."""
-        return self._recalibrate(
-            *_shaped_forward(self._params, x, self.cfg, self.volumetric))
+        return self._recalibrate(*self._run(x))
 
     def warmup(self) -> "InferenceSession":
         """Build the kernels (on a CUDA device) and run one batch outside
@@ -240,6 +254,50 @@ class InferenceSession:
         )
 
 
+def _check_shard(mesh, shard: str, volumetric: bool, batch_size: int) -> None:
+    """The JAX session's guards on ``mesh`` / ``shard``."""
+    if shard not in ("batch", "scan"):
+        raise ValueError(f"unknown shard mode {shard!r}")
+    if shard == "scan" and not volumetric:
+        raise ValueError(
+            "shard='scan' shards a volume's D axis — volumetric only"
+        )
+    if shard == "scan" and mesh is None:
+        raise ValueError(
+            "shard='scan' needs a mesh to shard the D axis over — the "
+            "whole point of the mode is multi-chip whole-volume serving"
+        )
+    if mesh is not None and shard == "batch":
+        n_dev = int(mesh.mesh.numel())
+        if batch_size % n_dev != 0:
+            raise ValueError(
+                f"batch_size {batch_size} is not divisible by the "
+                f"{n_dev}-device mesh; the compiled batch must shard "
+                "evenly over the data axis"
+            )
+
+
+def _mesh_run(session: "InferenceSession", mesh, shard: str):
+    """A chunk's shaped ``(probs, sigma)`` under ``mesh``: the chunk's images
+    over the ranks, or (``scan``) each volume's D axis, gathered."""
+    from supernet_tpu_torch import parallel
+    from supernet_tpu_torch.parallel.data_parallel import sharded_apply
+
+    cfg = session.cfg
+    if shard == "batch":
+        return sharded_apply(
+            lambda xs: _shaped_forward(session._params, xs, cfg, session.volumetric),
+            mesh)
+    f = parallel.make_spatial_forward3d(cfg, mesh)
+
+    def run(x):
+        probs, sigma = f(session._params, x)
+        shape = (x.shape[0],) + session._out_shape()
+        return probs.reshape(shape), sigma.reshape(shape)
+
+    return run
+
+
 def members_forward(stacked, x: Tensor, cfg: ModelConfig, volumetric: bool = False):
     """``(probs, sigma)`` of every member of member-stacked parameters on
     one batch ``x``, each [K, B, o, o(, o), n_classes]: the batch is read by
@@ -264,7 +322,13 @@ class EnsembleSession(InferenceSession):
     the counterpart of the JAX session's ``jax.vmap``), and the members'
     moments are mixed by :func:`mixture`. Recalibration applies after the
     mixture. ``predict`` / ``predict_image`` / ``predict_volume`` are
-    inherited; ``mesh=`` raises (ROADMAP.md Queue 1, **Parallelism**)."""
+    inherited.
+
+    With a ``mesh`` the MEMBER axis is split over the ranks: each rank runs
+    its block of members on the whole chunk and the mixture's sums are
+    all-reduced. When K does not divide the mesh, the member axis is padded
+    with repeats of the last member whose mixture weight is 0, so any K
+    serves on any mesh."""
 
     def __init__(
         self,
@@ -278,26 +342,45 @@ class EnsembleSession(InferenceSession):
         temperature: float = 1.0,
         mesh=None,
     ):
-        if mesh is not None:
-            raise _unported("an ensemble session over a device mesh",
-                            "Parallelism", "parallel/data_parallel.py")
         params_list = list(params_list)
         if not params_list:
             raise ValueError("params_list must hold at least one member")
+        self.n_members = k = len(params_list)
+        self._axis = None
+        self._weights = [1.0 / k] * k
+        if mesh is not None:
+            from supernet_tpu_torch.parallel._comm import axis
+
+            self._axis = ax = axis(mesh, "data")
+            padded = params_list + [params_list[-1]] * ((-k) % ax.size)
+            per = len(padded) // ax.size
+            first = ax.index * per
+            params_list = padded[first:first + per]
+            self._weights = [1.0 / k if first + i < k else 0.0 for i in range(per)]
         super().__init__(
             params_list[0], cfg, batch_size, device=device, volumetric=volumetric,
             variance_scale=variance_scale, temperature=temperature,
         )
         from supernet_tpu_torch.train import stack_trees
 
-        self.n_members = len(params_list)
         self._params = stack_trees([self._params] + [
             params_from_jax(p, self.device) for p in params_list[1:]
         ])
 
     def _forward(self, x: Tensor) -> Tuple[Tensor, Tensor]:
         probs, sigma = members_forward(self._params, x, self.cfg, self.volumetric)
-        return self._recalibrate(*mixture(probs.unbind(0), sigma.unbind(0)))
+        if self._axis is None:
+            return self._recalibrate(*mixture(probs.unbind(0), sigma.unbind(0)))
+        # the mixture of ``mixture`` over every rank's members: the weighted
+        # sums of the mean and of the variance, each all-reduced
+        from supernet_tpu_torch.parallel._comm import all_reduce_sum_
+
+        mean = sum(w * p for w, p in zip(self._weights, probs.unbind(0)))
+        all_reduce_sum_([mean], self._axis)
+        var = sum(w * (s + torch.square(p - mean))
+                  for w, p, s in zip(self._weights, probs.unbind(0), sigma.unbind(0)))
+        all_reduce_sum_([var], self._axis)
+        return self._recalibrate(mean, var)
 
 
 class _Member(torch.nn.Module):

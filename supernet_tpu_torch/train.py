@@ -193,12 +193,15 @@ def loss_fn(
 
 
 def make_adversarial_examples(
-    params: Params, x: Tensor, y: Tensor, cfg: ModelConfig, tc: TrainConfig
+    params: Params, x: Tensor, y: Tensor, cfg: ModelConfig, tc: TrainConfig,
+    x_range=None,
 ) -> Tensor:
     """FGSM / PGD examples for adversarial training, made against the
     current parameters and detached. ``y`` is one-hot flattened. The
     projection is the eval attack's (`Hippocampus.py:930-932`): the L-inf
-    ball of ``tc.adv_epsilon`` around ``x`` cut with the batch's data range."""
+    ball of ``tc.adv_epsilon`` around ``x`` cut with the batch's data range,
+    ``x_range`` = (min, max) when given (a shard passes the global batch's:
+    ``parallel/data_parallel.py``), else ``x``'s own."""
     ac = AttackConfig(
         epsilon=tc.adv_epsilon,
         step_size=tc.adv_step_size,
@@ -212,7 +215,8 @@ def make_adversarial_examples(
         raise ValueError(
             f"unknown adversarial_training mode {tc.adversarial_training!r}"
         )
-    return attack(params, x, y, x.min(), x.max())
+    lo, hi = (x.min(), x.max()) if x_range is None else x_range
+    return attack(params, x, y, lo, hi)
 
 
 def mixed_loss(
@@ -229,15 +233,17 @@ def mixed_loss(
 
 
 def training_loss(
-    params: Params, x: Tensor, y: Tensor, cfg: ModelConfig, tc: TrainConfig
+    params: Params, x: Tensor, y: Tensor, cfg: ModelConfig, tc: TrainConfig,
+    x_range=None,
 ):
     """The training objective and its auxiliaries: ``loss_fn``, or with
     ``tc.adversarial_training`` the mixed loss on examples made here (the
     objective of the JAX package's ``value_and_grad_step``). ``y`` must be
-    one-hot flattened in the adversarial modes."""
+    one-hot flattened in the adversarial modes; ``x_range`` as in
+    ``make_adversarial_examples``."""
     if tc.adversarial_training == "none":
         return loss_fn(params, x, y, cfg, tc)
-    adv_x = make_adversarial_examples(params, x, y, cfg, tc)
+    adv_x = make_adversarial_examples(params, x, y, cfg, tc, x_range)
     return mixed_loss(params, x, adv_x, y, cfg, tc)
 
 
@@ -415,13 +421,74 @@ def _seeds(seeds, k_members: int, tc: TrainConfig):
 
 
 def _check_member_mode(member_mode: str, mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "ensemble training over a device mesh (member sharding) is not "
-            "ported yet (ROADMAP.md, Queue 1: 'Parallelism', ensemble.py)"
-        )
     if member_mode not in ("vmap", "unroll", "scan"):
         raise ValueError(f"unknown member_mode {member_mode!r}")
+    if mesh is not None and member_mode != "vmap":
+        raise ValueError(
+            "mesh-sharded ensemble training requires member_mode='vmap'"
+        )
+
+
+def _block_view(state: TrainState, block: Optional[slice]):
+    """The parameters the step differentiates: all members, or views of the
+    members in ``block`` (their gradient lands in the stacked tensors'
+    rows, the other rows' gradient is 0)."""
+    if block is None:
+        return state.params
+    return _tree_map(lambda a: a[block], state.params)
+
+
+def _member_sharded(step_block, mesh):
+    """Member sharding over ``mesh``: ``step(state, x, y, seeds)`` with the
+    whole member axis on every rank (K divisible by the mesh); each rank
+    runs ``step_block`` on its block of members, then every rank's updated
+    rows of the parameters and the Adam moments are gathered into every
+    rank's state (the state stays replicated; no collective touches the
+    forward or the backward), and the per-member metrics (and predictions)
+    are gathered too."""
+    from supernet_tpu_torch.parallel._comm import axis, gather_rows
+
+    ax = axis(mesh, "data")
+
+    def step(state: TrainState, x, y, seeds=None):
+        k_members = n_members(state.params)
+        if k_members % ax.size != 0:
+            raise ValueError(
+                f"{k_members} members must divide over the {ax.size}-rank "
+                "mesh (parallel.make_mesh_for_batch(K), or pad the member "
+                "axis as EnsembleTrainer does)"
+            )
+        per = k_members // ax.size
+        block = slice(ax.index * per, (ax.index + 1) * per)
+        state, m, pred = step_block(state, x, y, seeds, block)
+        _gather_member_rows(state, block, ax)
+        counts = [per] * ax.size
+        m = StepMetrics(*(gather_rows(t, counts, ax) for t in m))
+        return state, m, (None if pred is None else gather_rows(pred, counts, ax))
+
+    return step
+
+
+@torch.no_grad()
+def _gather_member_rows(state: TrainState, block: slice, ax) -> None:
+    """Every rank's ``block`` rows of each stacked parameter and Adam moment
+    into every rank's tensors: one all-gather of a flat buffer."""
+    from supernet_tpu_torch.parallel._comm import gather_rows
+
+    tensors = leaves(state.params) + [
+        v for st in state.opt_state.state.values() for k, v in st.items()
+        if k != "step" and isinstance(v, Tensor)
+    ]
+    if ax.size == 1:
+        return
+    local = torch.cat([t[block].reshape(-1) for t in tensors])
+    every = gather_rows(local, [local.numel()] * ax.size, ax).view(ax.size, -1)
+    per = block.stop - block.start
+    off = 0
+    for t in tensors:
+        n = t[block].numel()
+        t.copy_(every[:, off:off + n].reshape((ax.size * per,) + tuple(t.shape[1:])))
+        off += n
 
 
 def _member_accuracy(probs: Tensor, y1: Tensor) -> Tuple[Tensor, Tensor]:
@@ -477,12 +544,23 @@ def _members_training_loss(params: Params, x: Tensor, y1: Tensor, cfg: ModelConf
     return tc.adv_alpha * loss_c + (1.0 - tc.adv_alpha) * loss_a, aux
 
 
+def _block_inputs(x, y, seeds, block: Optional[slice], tc: TrainConfig):
+    """``x``, ``y`` and the seeds of the members in ``block`` (all without)."""
+    if block is None:
+        return x, y, seeds
+    k_members = len(x)
+    seeds = _seeds(seeds, k_members, tc)
+    return x[block], y[block], seeds[block]
+
+
 def _ensemble_step(state: TrainState, x, y, seeds, cfg: ModelConfig, tc: TrainConfig,
-                   member_mode: str):
+                   member_mode: str, block: Optional[slice] = None):
+    x, y, seeds = _block_inputs(x, y, seeds, block, tc)
+    params = _block_view(state, block)
     x, y1 = _ensemble_batch(state, x, y, seeds, cfg, tc)
     state.opt_state.zero_grad(set_to_none=True)
     if member_mode == "vmap":
-        loss, (nll, kl, probs) = _members_training_loss(state.params, x, y1, cfg, tc)
+        loss, (nll, kl, probs) = _members_training_loss(params, x, y1, cfg, tc)
         # summed, not averaged: each member's gradient is that of its own loss
         loss.sum().backward()
         loss = loss.detach()
@@ -490,7 +568,7 @@ def _ensemble_step(state: TrainState, x, y, seeds, cfg: ModelConfig, tc: TrainCo
         outs = []
         for k in range(x.shape[0]):
             loss_k, (nll_k, kl_k, probs_k, _) = training_loss(
-                index_tree(state.params, k), x[k], y1[k], cfg, tc)
+                index_tree(params, k), x[k], y1[k], cfg, tc)
             loss_k.backward()
             outs.append((loss_k.detach(), nll_k, kl_k, probs_k))
         loss, nll, kl = (torch.stack([o[i] for o in outs]) for i in range(3))
@@ -524,12 +602,21 @@ def make_ensemble_train_step(cfg: ModelConfig, tc: TrainConfig, with_pred: bool 
       two names, kept for the JAX package's.
 
     Both update with one Adam over the stacked tensors after the per-member
-    clip. ``mesh`` raises (ROADMAP.md, Queue 1: 'Parallelism'); an unknown
-    mode raises ``ValueError``."""
+    clip; an unknown mode raises ``ValueError``.
+
+    ``mesh`` (``parallel.make_mesh``, one process per device; ``"vmap"``
+    only) shards the member axis: each rank trains its contiguous block of
+    members (K must divide over the mesh) and the updated rows are gathered
+    into every rank's state (see ``_member_sharded``)."""
     _check_member_mode(member_mode, mesh)
 
+    def run(state, x, y, seeds, block=None):
+        return _ensemble_step(state, x, y, seeds, cfg, tc, member_mode, block)
+
+    inner = run if mesh is None else _member_sharded(run, mesh)
+
     def step(state: TrainState, x, y, seeds=None):
-        state, m, pred = _ensemble_step(state, x, y, seeds, cfg, tc, member_mode)
+        state, m, pred = inner(state, x, y, seeds)
         return (state, m, pred) if with_pred else (state, m)
 
     return step

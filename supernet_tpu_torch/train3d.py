@@ -12,8 +12,12 @@ and the center-slice uncertainty report.
 
 Data: [N, S, S, S, C] cubes and [N, S, S, S] integer labels, what
 ``data.volume_to_cube`` or ``data.synthetic_volumes`` produce. Everything
-runs on one device (``device``, the card unless the caller names another);
-the mesh modes raise ``NotImplementedError`` naming their ROADMAP.md item.
+runs on one device (``device``, the card unless the caller names another),
+or with a ``mesh`` on one process per device: ``shard="batch"`` splits the
+volumes of a batch (``parallel.make_dp_train_step3d``), ``"scan"`` each
+volume's D axis (``make_spatial_train_step3d``), ``"hybrid"`` both on a
+(data, space) mesh (``make_hybrid_train_step3d``); rank 0 validates and
+writes.
 The deep-ensemble steps (``make_ensemble_train_step3d``,
 ``make_ensemble_eval_step3d``) take the 2-D steps' member-stacked state;
 their epoch loop is ``ensemble.EnsembleTrainer3D``.
@@ -30,7 +34,7 @@ import numpy as np
 import torch
 
 from supernet_tpu_torch import checkpoint as ckpt
-from supernet_tpu_torch import reports
+from supernet_tpu_torch import parallel, reports
 from supernet_tpu_torch.configs import ExperimentConfig, ModelConfig, TrainConfig
 from supernet_tpu_torch.losses import elbo_loss, nll_gaussian
 from supernet_tpu_torch.models import forward3d, init_params3d, kl_regularizer3d
@@ -40,7 +44,10 @@ from supernet_tpu_torch.train import (
     StepMetrics,
     TrainState,
     _accuracy,
+    _block_inputs,
+    _block_view,
     _check_member_mode,
+    _member_sharded,
     _member_accuracy,
     _seeds,
     _stack,
@@ -55,12 +62,6 @@ from supernet_tpu_torch.train import (
 )
 
 Tensor = torch.Tensor
-
-
-def _unported(what: str, item: str, where: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, Queue 1: '{item}', {where})"
-    )
 
 
 def _crop_center_vol(y: np.ndarray, size: int) -> np.ndarray:
@@ -82,22 +83,28 @@ def _loss3d(params, x: Tensor, y1h: Tensor, cfg: ModelConfig, tc: TrainConfig,
 
 
 def _train_step3d(state: TrainState, x, y, cfg: ModelConfig, tc: TrainConfig,
-                  constrain=None):
+                  constrain=None, index_offset: int = 0, reduce=None):
     """The volumetric step (``supernet_tpu/train3d.py:_train_step3d``):
     ``y`` is an int label cube [B, out, out, out], one-hot encoded on the
     device. With ``tc.augment`` the batch is augmented there first, keyed by
-    the seed and the state's step counter. ``kl`` in the metrics is that of
-    the updated parameters, as in the JAX step."""
+    the seed, the state's step counter and the global volume index
+    (``index_offset`` for a shard of a larger batch). ``reduce(state)``,
+    when given, runs between the backward pass and the update (the
+    data-parallel step averages the gradients there). ``kl`` in the metrics
+    is that of the updated parameters, as in the JAX step."""
     x, y = _to_device(state.params, x, y)
     if tc.augment is not None:
         from supernet_tpu_torch.data.augment import _mix, augment_volumes
 
         with torch.no_grad():
-            x, y = augment_volumes(_mix(tc.seed, state.step), x, y, tc.augment)
+            x, y = augment_volumes(_mix(tc.seed, state.step), x, y, tc.augment,
+                                   index_offset)
     y1h = one_hot_flatten(y, cfg.n_classes)
     state.opt_state.zero_grad(set_to_none=True)
     loss, nll, probs = _loss3d(state.params, x, y1h, cfg, tc, constrain)
     loss.backward()
+    if reduce is not None:
+        reduce(state)
     _update(state, tc)
     with torch.no_grad():
         _, acc = _accuracy(probs, y1h)
@@ -129,7 +136,9 @@ def make_multi_train_step3d(cfg: ModelConfig, tc: TrainConfig, k_steps: int):
 
 
 def _ensemble_step3d(state: TrainState, x, y, seeds, cfg: ModelConfig,
-                     tc: TrainConfig, member_mode: str):
+                     tc: TrainConfig, member_mode: str, block=None):
+    x, y, seeds = _block_inputs(x, y, seeds, block, tc)
+    params = _block_view(state, block)
     x, y = _to_device(state.params, x, y)
     k_members = x.shape[0]
     if tc.augment is not None:
@@ -143,8 +152,8 @@ def _ensemble_step3d(state: TrainState, x, y, seeds, cfg: ModelConfig,
     y1h = one_hot_flatten(y.flatten(0, 1), cfg.n_classes).unflatten(0, (k_members, -1))
     state.opt_state.zero_grad(set_to_none=True)
     if member_mode == "vmap":
-        probs, sigma = forward3d(state.params, x, cfg)
-        loss = elbo_loss(y1h, probs, sigma, kl_regularizer3d(state.params),
+        probs, sigma = forward3d(params, x, cfg)
+        loss = elbo_loss(y1h, probs, sigma, kl_regularizer3d(params),
                          tc.kl_factor, tc.sigma_clip_min, tc.sigma_clip_max,
                          members=True)
         with torch.no_grad():
@@ -155,7 +164,7 @@ def _ensemble_step3d(state: TrainState, x, y, seeds, cfg: ModelConfig,
     else:
         outs = []
         for k in range(k_members):
-            loss_k, nll_k, probs_k = _loss3d(index_tree(state.params, k), x[k],
+            loss_k, nll_k, probs_k = _loss3d(index_tree(params, k), x[k],
                                              y1h[k], cfg, tc)
             loss_k.backward()
             outs.append((loss_k.detach(), nll_k, probs_k))
@@ -166,8 +175,8 @@ def _ensemble_step3d(state: TrainState, x, y, seeds, cfg: ModelConfig,
     state.step += 1
     with torch.no_grad():
         _, acc = _member_accuracy(probs, y1h)
-        kl = kl_regularizer3d(state.params)
-    return state, StepMetrics(loss, nll, kl, acc)
+        kl = kl_regularizer3d(params)
+    return state, StepMetrics(loss, nll, kl, acc), None
 
 
 def make_ensemble_train_step3d(cfg: ModelConfig, tc: TrainConfig, mesh=None,
@@ -181,11 +190,18 @@ def make_ensemble_train_step3d(cfg: ModelConfig, tc: TrainConfig, mesh=None,
     ``"vmap"`` runs one member-stacked forward (``forward3d``: each conv
     layer's members one after the other through cuDNN) and one backward;
     ``"unroll"`` and ``"scan"`` loop the single-model forward and backward
-    over the members. ``mesh`` raises naming 'Parallelism'."""
+    over the members. ``mesh`` shards the member axis as the 2-D step's
+    does (``"vmap"`` only)."""
     _check_member_mode(member_mode, mesh)
 
+    def run(state, x, y, seeds, block=None):
+        return _ensemble_step3d(state, x, y, seeds, cfg, tc, member_mode, block)
+
+    inner = run if mesh is None else _member_sharded(run, mesh)
+
     def step(state: TrainState, x, y, seeds=None):
-        return _ensemble_step3d(state, x, y, seeds, cfg, tc, member_mode)
+        state, m, _ = inner(state, x, y, seeds)
+        return state, m
 
     return step
 
@@ -245,8 +261,12 @@ class Trainer3D:
     ``initial_params`` (a JAX-layout dict, e.g. ``models.inflate_params3d``
     of a 2-D checkpoint) replaces the seeded init; a checkpoint found under
     ``continue_training`` still wins. ``steps_per_dispatch = K > 1`` runs K
-    batches per call of ``make_multi_train_step3d``. ``mesh`` raises
-    (ROADMAP.md, Queue 1: 'Parallelism')."""
+    batches per call of ``make_multi_train_step3d``. ``mesh`` trains on one
+    process per device, ``shard`` picking the axis: ``"batch"`` (volumes
+    over the mesh; batch_size % ranks == 0), ``"scan"`` (each volume's D
+    axis over the mesh) or ``"hybrid"`` (both, on a ``make_mesh2d`` mesh);
+    the steps share the single-device step's body, rank 0 validates and
+    writes the files."""
 
     def __init__(
         self,
@@ -262,10 +282,8 @@ class Trainer3D:
         steps_per_dispatch: int = 1,
         device="cuda",
     ):
-        if mesh is not None:
-            raise _unported(f"Trainer3D over a device mesh (shard={shard!r})",
-                            "Parallelism", "parallel/spatial.py")
         self.exp, self.cfg, self.tc = exp, exp.model, exp.train
+        self.mesh, self.shard = mesh, shard
         self.device = torch.device(device)
         self.initial_params = initial_params
         self.x, self.y = np.asarray(x, np.float32), np.asarray(y, np.int32)
@@ -286,18 +304,76 @@ class Trainer3D:
         )
         self.k_steps = max(1, steps_per_dispatch)
         self._single_step = None
-        if self.k_steps > 1:
-            self.step_fn = make_multi_train_step3d(self.cfg, self.tc, self.k_steps)
+        self.writes = True
+        if mesh is not None and self.k_steps > 1:
+            raise ValueError(
+                "steps_per_dispatch > 1 is not supported together with a "
+                "device mesh yet; drop one of the two options"
+            )
+        if mesh is None:
+            if self.k_steps > 1:
+                self.step_fn = make_multi_train_step3d(self.cfg, self.tc, self.k_steps)
+            else:
+                self.step_fn = make_train_step3d(self.cfg, self.tc)
         else:
-            self.step_fn = make_train_step3d(self.cfg, self.tc)
+            # a rank outside a shrunken mesh builds no step: it sits out
+            self.step_fn = (self._mesh_step(mesh, shard)
+                            if parallel._comm.in_mesh(mesh) else None)
+            self.writes = parallel.multihost.is_writer()
+            if parallel.multihost.multi_node() and self.x_val is not None:
+                print(
+                    "note: validation disabled on multi-host 3-D runs "
+                    "(predictions span non-addressable devices)"
+                )
+                self.x_val = self.y_val = None
         self.eval_fn = make_eval_step3d(self.cfg, self.tc)
         self.history: Dict[str, List[float]] = {
             "train_loss": [], "train_acc": [],
             "val_loss": [], "val_acc": [], "val_dice": [],
         }
 
+    def _mesh_step(self, mesh, shard: str):
+        """The sharded step of ``shard``, after the JAX trainer's guards;
+        under ``"batch"`` each rank is fed its block of every batch."""
+        b = self.tc.batch_size
+        if shard == "batch":
+            n_dev = int(mesh.mesh.numel())
+            if b % n_dev != 0:
+                raise ValueError(
+                    f"batch_size {b} does not divide over the {n_dev}-device "
+                    "mesh; use parallel.make_mesh_for_batch or adjust batch_size"
+                )
+            ax = parallel._comm.axis(mesh, "data")
+            self._rows = parallel.process_local_rows(b, ax.index, ax.size)
+            return parallel.make_dp_train_step3d(self.cfg, self.tc, mesh)
+        if shard == "scan":
+            return parallel.make_spatial_train_step3d(self.cfg, self.tc, mesh)
+        if shard == "hybrid":
+            if set(mesh.mesh_dim_names or ()) != {"data", "space"}:
+                raise ValueError(
+                    "shard='hybrid' needs a 2-D mesh with axes "
+                    "('data', 'space'): build it with "
+                    f"parallel.make_mesh2d; got {mesh.mesh_dim_names}"
+                )
+            n_data = mesh.mesh.shape[mesh.mesh_dim_names.index("data")]
+            if b % n_data != 0:
+                raise ValueError(
+                    f"batch_size {b} does not divide over the mesh's "
+                    f"{n_data}-way data axis"
+                )
+            return parallel.make_hybrid_train_step3d(self.cfg, self.tc, mesh)
+        raise ValueError(f"unknown shard mode {shard!r}")
+
     def _put(self, a) -> Tensor:
         return torch.as_tensor(np.ascontiguousarray(a), device=self.device)
+
+    def _put_batch(self, a) -> Tensor:
+        """A training batch as the step takes it: this rank's block under
+        ``shard="batch"``, the whole batch otherwise."""
+        if self.mesh is not None and self.shard == "batch":
+            lo, hi = self._rows
+            return parallel.global_batch(self.mesh, np.ascontiguousarray(a[lo:hi]))
+        return self._put(a)
 
     def _batches(self, x, y, rng):
         """Full batches in a fresh permutation."""
@@ -316,20 +392,35 @@ class Trainer3D:
         if self.tc.continue_training:
             latest = ckpt.latest_epoch(self.out_dir)
             if latest is not None:
-                state = ckpt.restore_state(self.out_dir, latest, self.tc, self.device)
+                state = self._restore(latest)
                 self.start_epoch = latest + 1
+        if self.mesh is not None:
+            state = parallel.replicate(self.mesh, state)
         return state
 
-    def run(self, epochs: Optional[int] = None, log=print) -> TrainState:
+    def _restore(self, epoch: int) -> TrainState:
+        state = ckpt.restore_state(self.out_dir, epoch, self.tc, self.device)
+        if self.mesh is not None:
+            state = parallel.replicate(self.mesh, state)
+        return state
+
+    def run(self, epochs: Optional[int] = None, log=print) -> Optional[TrainState]:
+        from supernet_tpu_torch.trainer import _Writer
+
+        if self.mesh is not None and not parallel._comm.in_mesh(self.mesh):
+            return None  # a rank outside a shrunken mesh sits the run out
         epochs = epochs if epochs is not None else self.tc.epochs
         state = self.init_state()
         rng = np.random.default_rng(self.tc.seed)
-        writer = ckpt.AsyncEpochCheckpointer(self.out_dir)
+        writer = _Writer(self.out_dir, self.writes, self.mesh)
         try:
             state = self._run_epochs(state, self.start_epoch, epochs, rng, writer, log)
             writer.wait()
         finally:
             writer.close()
+        if self.mesh is not None:
+            # rank 0 validated: every rank reports its history
+            self.history = parallel._comm.broadcast_object(self.history, self.mesh)
         return self._finish(state)
 
     def _run_epochs(self, state, start, epochs, rng, writer, log):
@@ -351,7 +442,7 @@ class Trainer3D:
                     losses += ms.loss.cpu().tolist()
                     accs += ms.accuracy.cpu().tolist()
                     continue
-                state, m = self.step_fn(state, self._put(xb), self._put(yb))
+                state, m = self.step_fn(state, self._put_batch(xb), self._put_batch(yb))
                 losses.append(float(m.loss))
                 accs.append(float(m.accuracy))
             for xb, yb in zip(xs, ys):
@@ -380,10 +471,10 @@ class Trainer3D:
                     f"epoch {last_good} checkpoint"
                 )
                 writer.wait()  # the roll-back target may still be in flight
-                state = ckpt.restore_state(self.out_dir, last_good, tc, self.device)
+                state = self._restore(last_good)
                 t0 = time.perf_counter()
                 continue
-            if self.x_val is not None:
+            if self.x_val is not None and self.writes:
                 self._validate(state, epoch, log)
             if (epoch + 1) % tc.checkpoint_every == 0:
                 writer.save(epoch, state)
@@ -392,6 +483,8 @@ class Trainer3D:
         return state
 
     def _finish(self, state: TrainState) -> TrainState:
+        if not self.writes:
+            return state
         reports.save_training_curves(self.out_dir, self.history)
         reports.save_history_pickle(self.out_dir, self.history)
         if self.x_val is not None and len(self.x_val) >= self.tc.batch_size:

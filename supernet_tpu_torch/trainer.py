@@ -11,8 +11,16 @@ curves + hyperparameter dumps. The counterpart of ``supernet_tpu/trainer.py``.
 - the artifact set: curve PNGs (when matplotlib is installed), history
   pickle, ``Related_hyperparameters.txt``.
 
-History keys and artifact names are the JAX trainer's. The trainer runs on
-one device; a mesh raises ``NotImplementedError``.
+History keys and artifact names are the JAX trainer's. With a ``mesh``
+(``parallel.make_mesh``: one process per device) each rank trains on the
+rows of every global batch its mesh coordinate names
+(``parallel.process_local_rows``) through ``make_sharded_train_step``; the
+parameters stay replicated, so rank 0 alone writes checkpoints, the history
+and the reports. A world on one node keeps the single-host surface (rank 0
+records the train curves from the gathered predictions and validates); a
+world over several nodes takes the JAX trainer's multi-host path (no train
+curves, no in-loop validation, no reports). Ranks outside a shrunken mesh
+(``make_mesh_for_batch``) sit the run out.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ import torch
 
 from supernet_tpu_torch import checkpoint as ckpt
 from supernet_tpu_torch import metrics as M
+from supernet_tpu_torch import parallel
 from supernet_tpu_torch import reports
 from supernet_tpu_torch.configs import ExperimentConfig
 from supernet_tpu_torch.data.loaders import BatchIterator, center_crop_np
@@ -50,6 +59,31 @@ def _prep_batch(x: np.ndarray, y: np.ndarray, out_size: int, n_classes: int):
     return x, y_c
 
 
+class _Writer:
+    """``AsyncEpochCheckpointer`` on the writing rank, nothing on the
+    others; under a mesh ``wait()`` also holds every rank until the writer
+    has drained (a roll-back reads the file on every rank)."""
+
+    def __init__(self, out_dir: str, writes: bool, mesh):
+        self.ckpt = ckpt.AsyncEpochCheckpointer(out_dir) if writes else None
+        self.mesh = mesh
+
+    def save(self, epoch: int, state) -> None:
+        if self.ckpt is not None:
+            self.ckpt.save(epoch, state)
+
+    def wait(self) -> None:
+        if self.ckpt is not None:
+            self.ckpt.wait()
+        if self.mesh is not None:
+            for name in self.mesh.mesh_dim_names:
+                torch.distributed.barrier(group=self.mesh.get_group(name))
+
+    def close(self) -> None:
+        if self.ckpt is not None:
+            self.ckpt.close()
+
+
 class Trainer:
     def __init__(
         self,
@@ -63,11 +97,6 @@ class Trainer:
         device="cuda",
         initial_params=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "training over a device mesh is not ported yet (ROADMAP.md, "
-                "Queue 1: 'Parallelism', parallel/data_parallel.py)"
-            )
         self.exp = exp
         self.cfg = exp.model
         self.tc = exp.train
@@ -88,7 +117,16 @@ class Trainer:
         # train-side curves are off under augmentation: the step's
         # prediction is of the augmented batch while the host holds the
         # unaugmented labels (validation curves are unaffected)
+        self.mesh = mesh
+        self.multi_host = mesh is not None and parallel.multihost.multi_node()
+        self.writes = parallel.multihost.is_writer()
         self.track_train_curves = track_curves
+        if track_curves and self.multi_host:
+            print(
+                "note: per-structure train curves disabled on multi-host "
+                "runs (predictions span non-addressable devices)"
+            )
+            self.track_train_curves = False
         if track_curves and exp.train.augment is not None:
             print(
                 "note: per-structure train curves disabled with "
@@ -101,7 +139,25 @@ class Trainer:
         # make_multi_train_step (one host-to-device copy and one metric
         # fetch per chunk)
         self.k_steps = max(1, steps_per_dispatch)
-        if self.k_steps > 1:
+        if mesh is not None and self.k_steps > 1:
+            raise ValueError(
+                "steps_per_dispatch > 1 is not supported together with a "
+                "device mesh yet; drop one of the two options"
+            )
+        if mesh is not None:
+            n_dev = int(mesh.mesh.numel())
+            if self.tc.batch_size % n_dev != 0:
+                raise ValueError(
+                    f"batch_size {self.tc.batch_size} is not divisible by "
+                    f"the {n_dev}-device mesh; use "
+                    "parallel.make_mesh_for_batch(batch_size) or pick a "
+                    "batch that is a multiple of the device count"
+                )
+            # a rank outside a shrunken mesh builds no step: it sits out
+            self.step_fn = parallel.make_sharded_train_step(
+                self.cfg, self.tc, mesh, with_pred=self.track_train_curves
+            ) if parallel._comm.in_mesh(mesh) else None
+        elif self.k_steps > 1:
             self.step_fn = make_multi_train_step(
                 self.cfg, self.tc, self.k_steps,
                 with_pred=self.track_train_curves,
@@ -128,6 +184,11 @@ class Trainer:
         }
 
     def _put(self, a, dtype=None) -> torch.Tensor:
+        if self.mesh is not None:
+            # this rank's block of the global batch the loader yields
+            ax = parallel._comm.axis(self.mesh, "data")
+            lo, hi = parallel.process_local_rows(len(a), ax.index, ax.size)
+            a = parallel.global_batch(self.mesh, np.asarray(a)[lo:hi])
         return torch.as_tensor(a, dtype=dtype, device=self.device)
 
     def init_state(self) -> TrainState:
@@ -145,15 +206,28 @@ class Trainer:
                     self.out_dir, latest, self.tc, self.device
                 )
                 start_epoch = latest + 1
+        if self.mesh is not None:
+            state = parallel.replicate(self.mesh, state)
         self.start_epoch = start_epoch
         return state
 
-    def run(self, epochs: Optional[int] = None, log=print) -> TrainState:
+    def _restore(self, epoch: int) -> TrainState:
+        """The state of the ``epoch`` checkpoint on every rank: each reads
+        it (the checkpoint directory is shared, as in the JAX trainer) once
+        rank 0's writer has finished it."""
+        state = ckpt.restore_state(self.out_dir, epoch, self.tc, self.device)
+        if self.mesh is not None:
+            state = parallel.replicate(self.mesh, state)
+        return state
+
+    def run(self, epochs: Optional[int] = None, log=print) -> Optional[TrainState]:
+        if self.mesh is not None and not parallel._comm.in_mesh(self.mesh):
+            return None  # a rank outside a shrunken mesh sits the run out
         state = self.init_state()
         epochs = epochs if epochs is not None else self.tc.epochs
         # async writer: checkpoints stream to disk while the next epoch
         # trains (the reference blocks on a sync save every epoch)
-        writer = ckpt.AsyncEpochCheckpointer(self.out_dir)
+        writer = _Writer(self.out_dir, self.writes, self.mesh)
         t_start = time.perf_counter()
         last_good: Optional[int] = None
         try:
@@ -173,11 +247,12 @@ class Trainer:
                         f"epoch {last_good} checkpoint"
                     )
                     writer.wait()  # the rollback target may still be in flight
-                    state = ckpt.restore_state(
-                        self.out_dir, last_good, self.tc, self.device
-                    )
+                    state = self._restore(last_good)
                     continue
-                if self.val_ds is not None:
+                if self.val_ds is not None and self.writes and not self.multi_host:
+                    # multi-host: the in-loop validation and report surface
+                    # is single-host work; evaluate the saved checkpoints
+                    # afterwards (`cli eval`)
                     t0 = time.perf_counter()
                     self._validate(state, epoch, log)
                     self.timings["validate_s"].append(time.perf_counter() - t0)
@@ -192,7 +267,15 @@ class Trainer:
         finally:
             writer.close()
         self.total_time = time.perf_counter() - t_start
-        self._finalize(state)
+        if self.mesh is not None:
+            # rank 0 validated: every rank reports its history
+            self.history = parallel._comm.broadcast_object(self.history, self.mesh)
+        if self.multi_host:
+            # checkpoints are the multi-host product; the curve/report
+            # surface assumes the in-loop validation history this mode skips
+            log("multi-host run done; skipping single-host report surface")
+        elif self.writes:
+            self._finalize(state)
         return state
 
     def _leftover_step(self, state, xb, yb):
@@ -293,7 +376,8 @@ class Trainer:
             host_s = 0.0
             if self.track_train_curves:
                 state, m, pred = self.step_fn(state, xb, yb)
-                host_s = record(pred, y_c)
+                if self.writes:
+                    host_s = record(pred, y_c)
             else:
                 state, m = self.step_fn(state, xb, yb)
             if step % self.tc.log_every == 0:

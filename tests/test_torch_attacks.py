@@ -29,6 +29,7 @@ from supernet_tpu import train as jtrain  # noqa: E402
 from supernet_tpu.models import init_params as jinit  # noqa: E402
 from supernet_tpu_torch import attacks, configs, train  # noqa: E402
 from supernet_tpu_torch.checkpoint import params_from_jax  # noqa: E402
+from _torch_parallel_ranks import mesh1  # noqa: E402,F401  (a fixture)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -251,10 +252,23 @@ def test_saliency_matches_jax(params, jparams):
 
 
 @pytest.mark.parametrize("make", ["make_pgd_attack", "make_fgsm_attack", "make_saliency_map"])
-def test_a_mesh_names_its_roadmap_item(make):
-    args = (CFG,) if make == "make_saliency_map" else (CFG, _ac(configs))
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.*'Parallelism'"):
-        getattr(attacks, make)(*args, mesh=object())
+def test_a_mesh_names_its_roadmap_item(make, mesh1, params):
+    """With a mesh (a one-rank gloo world here; the multi-rank worlds are in
+    test_torch_parallel.py) each rank attacks its rows of the batch and every
+    rank gets the whole batch's result: the single-device answer. (Named
+    for the stub it replaced, which raised naming ROADMAP's 'Parallelism'.)"""
+    args = (CFG,) if make == "make_saliency_map" else (CFG, _ac(configs, max_adv_step=2))
+    x, y = _batch(b=3, seed=3)
+    x = torch.from_numpy(x)
+    if make == "make_saliency_map":
+        call = (params, x, torch.tensor([0.0, 1.0, 1.0]))
+    else:
+        call = (params, x, train.one_hot_flatten(torch.from_numpy(y), 3), x.min(), x.max())
+    want = getattr(attacks, make)(*args)(*call)
+    got = getattr(attacks, make)(*args, mesh=mesh1)(*call)
+    for a, b in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        assert torch.equal(a, b)
 
 
 # ------------------------------------------------------ adversarial training

@@ -25,6 +25,7 @@ from supernet_tpu.models import init_params as jinit  # noqa: E402
 from supernet_tpu_torch import calibration as cal  # noqa: E402
 from supernet_tpu_torch import configs  # noqa: E402
 from supernet_tpu_torch.data import PickleDataset, synthetic_dataset  # noqa: E402
+from _torch_parallel_ranks import mesh1  # noqa: E402,F401  (a fixture)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -244,7 +245,7 @@ def test_run_calibration_matches_jax(tmp_path):
     assert [ln.split(":")[0] for ln in lines] == [ln.split(":")[0] for ln in jlines]
 
 
-def test_run_calibration_modes(tmp_path):
+def test_run_calibration_modes(tmp_path, mesh1):
     """MC mode, an ensemble, no out_dir, and the modes that are refused."""
     exp, jexp = _exps()
     x, y = synthetic_dataset(exp.model, 6, seed=0)
@@ -258,5 +259,12 @@ def test_run_calibration_modes(tmp_path):
     assert ens["mean_uncertainty"] == pytest.approx(jens["mean_uncertainty"], rel=RUN_ATOL)
     with pytest.raises(ValueError, match="single-device VDP only"):
         cal.run_calibration(exp, members, ds, mc_samples=2, device="cpu")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.*'Parallelism'"):
-        cal.run_calibration(exp, members[0], ds, mesh=object(), device="cpu")
+    # a mesh (a one-rank gloo world; more ranks in test_torch_parallel.py)
+    # shards each batch and gathers it: the single-device report
+    one = cal.run_calibration(exp, members[0], ds, out_dir=str(tmp_path / "one"),
+                              device="cpu")
+    sharded = cal.run_calibration(exp, members[0], ds, out_dir=str(tmp_path / "mesh"),
+                                  mesh=mesh1, device="cpu")
+    for k, v in one.items():
+        if isinstance(v, float):
+            assert sharded[k] == pytest.approx(v, rel=1e-6, abs=1e-9, nan_ok=True), k

@@ -34,6 +34,7 @@ from supernet_tpu_torch.checkpoint import load_params_npz  # noqa: E402
 from supernet_tpu_torch.data import PickleDataset, synthetic_dataset  # noqa: E402
 from supernet_tpu_torch.models import forward  # noqa: E402
 from supernet_tpu_torch.ops.kernels import sigma_bwd, vdp_conv  # noqa: E402
+from _torch_parallel_ranks import mesh1  # noqa: E402,F401  (a fixture)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -428,11 +429,72 @@ def test_vmap_step_matches_single_steps_per_member(members, combo):
         ops.set_act_dtype("float32")
 
 
-def test_member_mode_and_mesh_are_checked():
+@pytest.mark.parametrize("combo", [
+    "remat",
+    pytest.param("fgsm", marks=pytest.mark.slow),
+    pytest.param("pgd", marks=pytest.mark.slow),
+    pytest.param("bf16", marks=pytest.mark.slow),
+])
+def test_member_sharded_step_matches_single_steps_per_member(members, combo, tmp_path):
+    """The member-sharded step (``make_ensemble_train_step(mesh=)``, two
+    gloo ranks, one member each) under each combination Queue 3 names: every
+    member's losses and parameters equal its own single-model steps (the
+    tolerances of ``test_vmap_step_matches_single_steps_per_member``), and
+    both ranks hold every member's parameters bit for bit."""
+    from supernet_tpu_torch import ops
+    from _torch_parallel_ranks import rank_ensemble_step, spawn
+
+    cfg, tc = CFG, TC
+    if combo == "remat":
+        cfg = dataclasses.replace(CFG, remat=True)
+    elif combo in ("fgsm", "pgd"):
+        tc = dataclasses.replace(TC, adversarial_training=combo, adv_steps=2)
+    dtype = "bfloat16" if combo == "bf16" else "float32"
+    x, y = _data(STEPS, K, BATCH, seed=7)
+    members_np = [{k: {n: v.numpy() for n, v in w.items()}
+                   for k, w in load_params_npz(p, "cpu").items()} for p in members]
+    outs = spawn(rank_ensemble_step, 2, tmp_path, cfg, tc, members_np, list(x), list(y),
+                 dtype)
+    ops.set_act_dtype(dtype)
+    try:
+        for k in range(K):
+            tck = dataclasses.replace(tc, seed=tc.seed + k)
+            single = train.create_train_state(members_np[k], tck, "cpu")[0]
+            one = train.make_train_step(cfg, tck)
+            for i in range(STEPS):
+                single, m = one(single, x[i][k], y[i][k])
+                np.testing.assert_allclose(outs[0]["losses"][i][k], float(m.loss),
+                                           rtol=LOSS_RTOL)
+            for layer, ws in single.params.items():
+                for name, v in ws.items():
+                    np.testing.assert_allclose(outs[0]["params"][layer][name][k],
+                                               v.detach().numpy(), atol=2 * tc.lr * STEPS)
+    finally:
+        ops.set_act_dtype("float32")
+    for layer, ws in outs[0]["params"].items():
+        for name, v in ws.items():
+            np.testing.assert_array_equal(v, outs[1]["params"][layer][name])
+
+
+def test_member_mode_and_mesh_are_checked(members, mesh1):
+    """An unknown mode is a ValueError, and so is a mesh with another mode
+    than vmap (the JAX step's rule); the member-sharded step on a mesh (a
+    one-rank gloo world; more ranks in test_torch_parallel.py) is the
+    meshless one, bit for bit."""
     with pytest.raises(ValueError, match="member_mode"):
         train.make_ensemble_train_step(CFG, TC, member_mode="pmap")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*'Parallelism'"):
-        train.make_ensemble_train_step(CFG, TC, mesh=object())
+    with pytest.raises(ValueError, match="requires member_mode='vmap'"):
+        train.make_ensemble_train_step(CFG, TC, mesh=mesh1, member_mode="unroll")
+    x, y = _data(1, K, BATCH, seed=2)
+    out = []
+    for mesh in (None, mesh1):
+        state = train.stack_trees([train.create_train_state(
+            load_params_npz(p, "cpu"), TC, "cpu")[0] for p in members])
+        step = train.make_ensemble_train_step(CFG, TC, with_pred=True, mesh=mesh)
+        state, m, pred = step(state, x[0], y[0])
+        out.append((train.leaves(state.params), list(m), pred))
+    (pa, ma, qa), (pb, mb, qb) = out
+    assert all(torch.equal(a, b) for a, b in zip(pa + ma + [qa], pb + mb + [qb]))
 
 
 # ------------------------------------------------- serving and the mixture
@@ -522,10 +584,11 @@ def test_trainer_matches_sequential_runs(tmp_path):
                                        atol=2 * TC.lr * 4)
 
 
-def test_trainer_checkpoints_and_resume(tmp_path):
+def test_trainer_checkpoints_and_resume(tmp_path, mesh1):
     """member_{k}/epoch_{N} checkpoints, history, hyperparameters;
     continue_training resumes from the newest epoch every member has, bit
-    for bit; a mixed resume, one member, and a mesh are refused."""
+    for bit; a mixed resume and one member are refused; on a mesh (a
+    one-rank gloo world) the trainer trains what it trains without one."""
     base = str(tmp_path / "ens")
     kw = dict(out_dir=base, track_curves=False, device="cpu")
     full = ensemble.EnsembleTrainer(EXP, K, _ds(), _ds(4, seed=1), **kw)
@@ -563,8 +626,13 @@ def test_trainer_checkpoints_and_resume(tmp_path):
             epochs=3, log=_quiet)
     with pytest.raises(ValueError, match="n_members >= 2"):
         ensemble.EnsembleTrainer(EXP, 1, _ds(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*'Parallelism'"):
-        ensemble.EnsembleTrainer(EXP, 2, _ds(), mesh=object(), device="cpu")
+    runs = [ensemble.EnsembleTrainer(EXP, 2, _ds(), mesh=mesh, track_curves=False,
+                                     device="cpu", out_dir=str(tmp_path / f"m{i}"))
+            for i, mesh in enumerate((None, mesh1))]
+    states = [r.run(epochs=1, log=_quiet) for r in runs]
+    assert runs[0].histories[0]["train_loss"] == runs[1].histories[0]["train_loss"]
+    for a, b in zip(train.leaves(states[0].params), train.leaves(states[1].params)):
+        assert torch.equal(a, b)
 
 
 # --------------------------------------------------------------------- CLI
@@ -603,7 +671,17 @@ def test_cli_train_ensemble(tiny, tmp_path, capsys, mode):
                            ["accuracy"])
 
 
-def test_cli_ensemble_with_a_mesh_names_parallelism(tiny, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.*'Parallelism'"):
-        cli.main(["train", "--synthetic", "8", "--ensemble", "2", "--data-parallel",
-                  "--device", "cpu", "--out-dir", str(tmp_path)])
+def test_cli_ensemble_with_a_mesh_names_parallelism(tiny, tmp_path, capsys, mesh1):
+    """``train --ensemble 2 --data-parallel`` (members sharded over a
+    one-rank gloo world here) prints what the meshless command prints.
+    (Named for the stub it replaced, which raised naming 'Parallelism'.)"""
+    lines = []
+    for flag, out in (([], "a"), (["--data-parallel"], "b")):
+        assert cli.main(["train", "--synthetic", "8", "--batch-size", "4", "--epochs", "1",
+                         "--ensemble", "2", "--ensemble-mode", "vmap", *flag,
+                         "--device", "cpu", "--out-dir", str(tmp_path / out)]) == 0
+        lines.append(json.loads(capsys.readouterr().out.strip().splitlines()[-1]))
+    def numbers(line):
+        return [{k: v for k, v in f.items() if "per_sec" not in k} for f in line["final"]]
+
+    assert numbers(lines[0]) == numbers(lines[1]) and lines[1]["mode"] == "vmap"

@@ -31,6 +31,7 @@ from supernet_tpu_torch import cli, ensemble, serving, train, train3d  # noqa: E
 from supernet_tpu_torch.configs import HIPPOCAMPUS, AugmentConfig  # noqa: E402
 from supernet_tpu_torch.data import synthetic_volumes  # noqa: E402
 from supernet_tpu_torch.models import forward3d  # noqa: E402
+from _torch_parallel_ranks import mesh1  # noqa: E402,F401  (a fixture)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -144,12 +145,20 @@ def test_vmap_step3d_matches_single_steps_with_augment(members):
                                        atol=2 * tc.lr * STEPS)
 
 
-def test_modes_and_mesh_are_checked():
+def test_modes_and_mesh_are_checked(tmp_path, mesh1):
+    """An unknown mode is refused; on a mesh (a one-rank gloo world; more
+    ranks in test_torch_parallel.py) EnsembleTrainer3D shards the member
+    axis and trains what it trains without one."""
     with pytest.raises(ValueError, match="member_mode"):
         train3d.make_ensemble_train_step3d(CFG, TC, member_mode="pmap")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*'Parallelism'"):
-        ensemble.EnsembleTrainer3D(EXP, 2, *synthetic_volumes(CFG, 4, seed=0),
-                                   mesh=object(), device="cpu")
+    vols = synthetic_volumes(CFG, 4, seed=0)
+    runs = [ensemble.EnsembleTrainer3D(EXP, 2, *vols, mesh=mesh, device="cpu",
+                                       out_dir=str(tmp_path / f"m{i}"))
+            for i, mesh in enumerate((None, mesh1))]
+    states = [r.run(epochs=1, log=_quiet) for r in runs]
+    assert runs[0].histories == runs[1].histories
+    for a, b in zip(train.leaves(states[0].params), train.leaves(states[1].params)):
+        assert torch.equal(a, b)
     with pytest.raises(ValueError, match="n_members >= 2"):
         ensemble.EnsembleTrainer3D(EXP, 1, *synthetic_volumes(CFG, 4, seed=0), device="cpu")
 

@@ -43,6 +43,7 @@ from supernet_tpu_torch.checkpoint import load_params_npz  # noqa: E402
 from supernet_tpu_torch.configs import HIPPOCAMPUS, NoiseConfig  # noqa: E402
 from supernet_tpu_torch.data import synthetic_volumes, write_nifti  # noqa: E402
 from supernet_tpu_torch.ops.moments3d import crop_center3d  # noqa: E402
+from _torch_parallel_ranks import mesh1  # noqa: E402,F401  (a fixture)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -207,7 +208,7 @@ def test_run_testing3d_noise_and_cap(npz, tmp_path):
     assert _files(got["out_dir"]) == _files(want["out_dir"])
 
 
-def test_run_testing3d_mc_and_ensemble(npz, tmp_path):
+def test_run_testing3d_mc_and_ensemble(npz, tmp_path, mesh1):
     """``mc_samples`` evaluates the Monte-Carlo baseline (finite, the same
     keys plus ``mc_samples``); an ensemble of two equal members gives the
     single member's metrics (the mixture of equal members is the member)."""
@@ -224,8 +225,14 @@ def test_run_testing3d_mc_and_ensemble(npz, tmp_path):
         assert ens[k] == pytest.approx(one[k], rel=1e-6)
     with pytest.raises(ValueError, match="single-device VDP"):
         evaluate3d.run_testing3d(EXP, [p, p], x, y, mc_samples=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*'Parallelism'"):
-        evaluate3d.run_testing3d(EXP, p, x, y, mesh=object(), device="cpu")
+    # a mesh (a one-rank gloo world) splits each volume's D axis over the
+    # ranks (parallel.make_spatial_forward3d): the single-device metrics
+    split = evaluate3d.run_testing3d(EXP, p, x, y, out_dir=str(tmp_path / "mesh"),
+                                     images_n=0, mesh=mesh1, device="cpu")
+    for k in ("accuracy", "dice_anterior", "mean_predictive_variance"):
+        assert split[k] == pytest.approx(one[k], rel=1e-6)
+    with pytest.raises(ValueError, match="single-device; drop mesh"):
+        evaluate3d.run_testing3d(EXP, p, x, y, mesh=mesh1, mc_samples=2, device="cpu")
 
 
 def test_run_adversarial3d_matches_jax(npz, tmp_path):
@@ -405,7 +412,7 @@ def test_cli_evaluation_commands_match_jax(cmd, extra, atol, npz, tmp_path, caps
     assert _files(tmp_path / "t") == _files(tmp_path / "j")
 
 
-def test_cli_eval3d_ensemble_and_rejections(npz, tmp_path, capsys):
+def test_cli_eval3d_ensemble_and_rejections(npz, tmp_path, capsys, mesh1):
     """A comma-separated --checkpoint is an ensemble for eval3d (equal
     members: the member's numbers) and refused by attack3d; unported modes
     name their ROADMAP.md item; Keras .h5 stays 2-D only."""
@@ -419,14 +426,29 @@ def test_cli_eval3d_ensemble_and_rejections(npz, tmp_path, capsys):
         cli.main(["attack3d", "--checkpoint", f"{npz},{npz}", *base])
     with pytest.raises(SystemExit, match="2-D-only"):
         cli.main(["eval3d", "--checkpoint", "w.h5", *base])
-    for argv, item in ((["train3d", "--spatial-shard"], "Parallelism"),
-                       (["train3d", "--hybrid-shard", "2"], "Parallelism"),
-                       (["train3d", "--data-parallel"], "Parallelism"),
-                       (["train3d", "--ensemble", "2", "--spatial-shard"], "Parallelism"),
-                       (["eval3d", "--data-parallel"], "Parallelism"),
-                       (["predict3d", "--volume", "v.npy", "--data-parallel"], "Parallelism")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.*'{item}'"):
-            cli.main(argv + base)
+    # the sharding flags (ROADMAP's 'Parallelism', ported) in a one-rank
+    # gloo world: each prints what the command prints without its flag
+    vol = str(tmp_path / "v.npy")
+    np.save(vol, np.random.default_rng(3).normal(0, 1, (18, 16, 16)).astype(np.float32))
+    train = ["train3d", "--epochs", "1", "--val-frac", "0.4"]
+    for i, (argv, flag) in enumerate((
+            (train, ["--spatial-shard"]),
+            (train, ["--hybrid-shard", "1"]),
+            (train, ["--data-parallel"]),
+            (train + ["--ensemble", "2", "--ensemble-mode", "sequential"],
+             ["--spatial-shard"]),
+            (["eval3d", "--checkpoint", npz], ["--data-parallel"]),
+            (["predict3d", "--volume", vol, "--checkpoint", npz], ["--data-parallel"]))):
+        want, got = (_run(cli.main, argv + f + base + ["--out-dir", str(tmp_path / f"{i}{j}")],
+                          capsys) for j, f in enumerate(([], flag)))
+        assert len(got) == len(want) >= 1
+        for g, w in zip(got, want):
+            assert set(g) == set(w)
+            for k, v in w.items():
+                if isinstance(v, float) and "per_sec" not in k and "time" not in k:
+                    assert g[k] == pytest.approx(v, rel=1e-5, abs=1e-7, nan_ok=True), (argv, k)
+    with pytest.raises(SystemExit, match="must divide the device count"):
+        cli.main(train + ["--hybrid-shard", "2"] + base)
 
 
 def test_cli_predict3d_matches_jax(npz, tmp_path, capsys):

@@ -36,6 +36,7 @@ from supernet_tpu_torch import configs, evaluate, reports  # noqa: E402
 from supernet_tpu_torch.checkpoint import load_params_npz  # noqa: E402
 from supernet_tpu_torch.data import PickleDataset, synthetic_dataset  # noqa: E402
 from supernet_tpu_torch.models import forward  # noqa: E402
+from _torch_parallel_ranks import mesh1  # noqa: E402,F401  (a fixture)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -322,11 +323,22 @@ def test_ensemble_run_testing_and_rejected_modes(npz, data, tmp_path):
 
 
 @pytest.mark.parametrize("runner", ["run_testing", "run_adversarial", "run_noise_sweep"])
-def test_a_mesh_names_its_roadmap_item(npz, data, runner):
+def test_a_mesh_names_its_roadmap_item(npz, data, runner, mesh1, tmp_path):
+    """With a mesh (a one-rank gloo world here; two ranks and the uneven
+    tail in test_torch_parallel.py) every forward and attack runs each
+    rank's rows and gathers them: the single-device report, the partial
+    final batch included. (Named for the stub it replaced, which raised
+    naming ROADMAP's 'Parallelism'.)"""
     ds, _ = _both_ds(data)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.*'Parallelism'"):
-        getattr(evaluate, runner)(EXP, load_params_npz(npz, "cpu"), ds, mesh=object(),
-                                  device="cpu")
+    exp = _exp(configs, max_adv_step=2)
+    run = getattr(evaluate, runner)
+    p = load_params_npz(npz, "cpu")
+    got = run(exp.replace(out_dir=str(tmp_path / "mesh")), p, ds, mesh=mesh1, device="cpu")
+    want = run(exp.replace(out_dir=str(tmp_path / "one")), p, ds, device="cpu")
+    for g, w in zip(*((r if isinstance(r, list) else [r]) for r in (got, want))):
+        g = {k: v for k, v in g.items() if k not in ("out_dir", "artifact")}
+        w = {k: v for k, v in w.items() if k not in ("out_dir", "artifact")}
+        _assert_metrics_close(g, w, 1e-6)
 
 
 def test_runners_default_to_the_card():

@@ -24,6 +24,7 @@ from supernet_tpu.models import init_params as jinit  # noqa: E402
 from supernet_tpu_torch import checkpoint as ckpt  # noqa: E402
 from supernet_tpu_torch import cli, configs, serving  # noqa: E402
 from supernet_tpu_torch.models import forward_images  # noqa: E402
+from _torch_parallel_ranks import mesh1  # noqa: E402,F401  (a fixture)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -96,7 +97,7 @@ def test_disagreement_raises_the_variance(members):
     np.testing.assert_allclose(pk.sum(-1), 1.0, atol=1e-5)
 
 
-def test_recalibration_after_the_mixture(members):
+def test_recalibration_after_the_mixture(members, mesh1):
     x = _x(2, seed=13)
     raw_p, raw_s = serving.EnsembleSession(members[:2], CFG, batch_size=2,
                                            device="cpu").predict(x)
@@ -107,8 +108,14 @@ def test_recalibration_after_the_mixture(members):
     np.testing.assert_allclose(cal_p, want / want.sum(-1, keepdims=True), rtol=1e-5, atol=1e-7)
     with pytest.raises(ValueError, match="at least one member"):
         serving.EnsembleSession([], CFG, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*'Parallelism'"):
-        serving.EnsembleSession(members, CFG, device="cpu", mesh=object())
+    # on a mesh (a one-rank gloo world; more ranks and the zero-weight
+    # member padding in test_torch_parallel.py) the members are split over
+    # the ranks and the mixture's sums all-reduced: the meshless answer
+    for got, want in zip(serving.EnsembleSession(members, CFG, batch_size=2, device="cpu",
+                                                 mesh=mesh1).predict(x),
+                         serving.EnsembleSession(members, CFG, batch_size=2,
+                                                 device="cpu").predict(x)):
+        np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("ensemble", [False, True])

@@ -152,8 +152,9 @@ def test_port_imports_no_jax():
     takes one CPU train step and one ensemble step, and under bf16
     activations builds an
     ``EnsembleSession`` and an export bundle (``flops.py``, ``hlo_profile.py``
-    and ``xplane.py`` among the modules), and runs a forward under the
-    glue fold and a conv fold."""
+    and ``xplane.py`` among the modules), runs a forward under the
+    glue fold and a conv fold, and takes one data-parallel step in a gloo
+    world of one (``supernet_tpu_torch.parallel`` among the modules)."""
     code = textwrap.dedent("""
         import dataclasses, importlib, pkgutil, sys
 
@@ -187,7 +188,12 @@ def test_port_imports_no_jax():
                 "supernet_tpu_torch.data.shards",
                 "supernet_tpu_torch.data.synthetic",
                 "supernet_tpu_torch.hlo_profile",
-                "supernet_tpu_torch.xplane"} <= set(names), names
+                "supernet_tpu_torch.xplane",
+                "supernet_tpu_torch.parallel",
+                "supernet_tpu_torch.parallel.data_parallel",
+                "supernet_tpu_torch.parallel.spatial",
+                "supernet_tpu_torch.parallel.hybrid",
+                "supernet_tpu_torch.parallel.multihost"} <= set(names), names
         from supernet_tpu_torch import cli
         assert cli.build_parser().parse_args(
             ["train", "--synthetic", "4"]).device == "cuda"
@@ -219,6 +225,18 @@ def test_port_imports_no_jax():
             members, rng.normal(0, 1, (2, 2, 32, 32, 1)).astype(np.float32),
             rng.integers(0, 3, (2, 2, 22, 22)).astype(np.int32))
         assert members.step == 1 and m.loss.shape == (2,)
+        import torch.distributed as dist
+        from supernet_tpu_torch import parallel
+        dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+        mesh = parallel.make_mesh()
+        state = parallel.replicate(mesh, state)
+        xs, ys = parallel.shard_batch(
+            mesh, rng.normal(0, 1, (2, 32, 32, 1)).astype(np.float32),
+            rng.integers(0, 3, (2, 22, 22)).astype(np.int32))
+        state, m = parallel.make_sharded_train_step(cfg, HIPPOCAMPUS.train, mesh)(
+            state, xs, ys)
+        assert state.step == 2 and all(np.isfinite(float(v)) for v in m)
+        dist.destroy_process_group()
         import tempfile
         from supernet_tpu_torch import ops
         from supernet_tpu_torch.serving import EnsembleSession, export_bundle

@@ -31,6 +31,7 @@ from supernet_tpu_torch.configs import HIPPOCAMPUS, AugmentConfig  # noqa: E402
 from supernet_tpu_torch.data import augment_volumes, synthetic_volumes  # noqa: E402
 from supernet_tpu_torch.data.augment import _mix, volume_draws  # noqa: E402
 from supernet_tpu_torch.train import create_train_state, leaves  # noqa: E402
+from _torch_parallel_ranks import mesh1  # noqa: E402,F401  (a fixture)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -252,16 +253,30 @@ def test_trainer3d_rolls_back_on_nonfinite_loss(jparams, tmp_path):
         bad.run(log=_quiet)
 
 
-def test_trainer3d_checks_and_unported_modes(volumes):
+def test_trainer3d_checks_and_unported_modes(volumes, jparams, tmp_path, mesh1):
+    """The guards, and the mesh modes (ROADMAP's 'Parallelism', ported) on a
+    one-rank gloo world: ``shard="scan"`` trains what the single device
+    trains (to float32 summation order: the sharded loss sums each rank's
+    pixels), ``shard="batch"`` bit for bit, an unknown shard is refused; the
+    member-sharded ensemble step is the meshless one."""
     x, y = volumes
     with pytest.raises(ValueError, match="batch_size"):
         train3d.Trainer3D(EXP, x[:1], y[:1], device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*'Parallelism'"):
-        train3d.Trainer3D(EXP, x, y, mesh=object(), shard="scan", device="cpu")
-    # the ensemble steps are ported: a mesh names Parallelism, a mode
-    # nobody knows is a ValueError
-    with pytest.raises(NotImplementedError, match="ROADMAP.*'Parallelism'"):
-        train3d.make_ensemble_train_step3d(CFG, TC, mesh=object())
+    runs = {}
+    for shard in (None, "scan", "batch"):
+        tr = train3d.Trainer3D(EXP, x[:4], y[:4], mesh=None if shard is None else mesh1,
+                               shard=shard or "batch", initial_params=jparams,
+                               out_dir=str(tmp_path / str(shard)), device="cpu")
+        runs[shard] = (tr.run(epochs=1, log=_quiet), tr.history["train_loss"])
+    for shard, rtol in (("scan", 1e-5), ("batch", 0)):
+        np.testing.assert_allclose(runs[shard][1], runs[None][1], rtol=rtol)
+        for a, b in zip(leaves(runs[shard][0].params), leaves(runs[None][0].params)):
+            np.testing.assert_allclose(a.detach().numpy(), b.detach().numpy(),
+                                       rtol=2e-5, atol=1e-6 if rtol else 0)
+    with pytest.raises(ValueError, match="unknown shard mode"):
+        train3d.Trainer3D(EXP, x, y, mesh=mesh1, shard="rows", device="cpu")
+    with pytest.raises(ValueError, match="requires member_mode='vmap'"):
+        train3d.make_ensemble_train_step3d(CFG, TC, mesh=mesh1, member_mode="unroll")
     with pytest.raises(ValueError, match="member_mode"):
         train3d.make_ensemble_train_step3d(CFG, TC, member_mode="pmap")
     assert callable(train3d.make_ensemble_eval_step3d(CFG, TC))

@@ -34,6 +34,7 @@ from supernet_tpu_torch.models import (  # noqa: E402
     sample_weights,
 )
 from supernet_tpu_torch.trainer import Trainer, _prep_batch  # noqa: E402
+from _torch_parallel_ranks import mesh1  # noqa: E402,F401  (a fixture)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -422,9 +423,18 @@ def test_steps_per_dispatch_trains_trailing_batches(tmp_path, curves):
     assert len(t2.timings["epoch_s"]) == 1 and t2.timings["checkpoint_s"][0] >= 0
 
 
-def test_trainer_options(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.*Parallelism"):
-        Trainer(EXP, _ds(4), mesh=object(), device="cpu")
+def test_trainer_options(tmp_path, mesh1):
+    # a mesh (a one-rank gloo world; more ranks in test_torch_parallel.py)
+    # trains through make_sharded_train_step: the meshless epoch, bit for bit
+    runs = [Trainer(EXP, _ds(8), _ds(4, seed=1), out_dir=str(tmp_path / f"m{i}"),
+                    mesh=mesh, device="cpu") for i, mesh in enumerate((None, mesh1))]
+    states = [r.run(epochs=1, log=_quiet) for r in runs]
+    for key in ("train_loss", "val_loss", "train_dice_anterior", "val_dice"):
+        assert runs[0].history[key] == runs[1].history[key], key
+    for a, b in zip(train.leaves(states[0].params), train.leaves(states[1].params)):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="steps_per_dispatch"):
+        Trainer(EXP, _ds(4), mesh=mesh1, steps_per_dispatch=2, device="cpu")
     # adversarial training is an option of the trainer now: an epoch of it trains
     exp = EXP.replace(train=dataclasses.replace(EXP.train, adversarial_training="pgd",
                                                 adv_steps=2, adv_epsilon=0.01))
