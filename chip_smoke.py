@@ -251,8 +251,33 @@ Phases (any failure raises and the exit code is not 0):
    and ``eval --data-parallel`` (equal to ``eval``), ``InferenceSession(
    mesh=)`` answering 20, 7 and 45 images and ``EnsembleSession(mesh=)`` of
    3 members (equal to the meshless sessions), ``EnsembleTrainer(mesh=)`` at
-   K=3 (equal to the meshless trainer). Prints the phase's seconds and its
-   parts'.
+   K=3 (equal to the meshless trainer). Under the decoder glue fold: the
+   spatial and hybrid steps at hippocampus b20 and BraTS b2, 2 steps each,
+   counted (kernels 1 and 4 at the unfolded convs only: (6, 2, 2, 6) with 5
+   transposed / (9, 4, 4, 9) with 8), then step 1 with ``make_train_step``'s
+   choices under the fold replayed; both held against that run
+   (``TRAIN_LOSS_RTOL``, parameters within 2 * lr per step), the replayed
+   step's gradients within ``TRAIN_GRAD_TOL``, the weight where the
+   parameters part most named with its gradient at each step. Prints the
+   phase's seconds and its parts'.
+
+23. the benchmark: ``cli.main(["bench"])`` in process at the bench's
+   defaults but ``SUPERNET_BENCH_ITERS=40`` (bf16 activations, TF32 in
+   PyTorch's own products, every section on), each ``_bench_model`` call
+   counted. The line must parse, name the card and its peaks (989 TFLOP/s
+   and 3350 GB/s on an H100 80GB HBM3), give positive rates in the
+   headline, ``best``, ``brats``, ``unet3d``, ``ensemble_train`` and
+   ``inference``, an MFU in (0, 1] and ``hbm_utilization_min`` in (0, 1.05],
+   a measured ``vs_baseline``, and no section error (a sweep's
+   out-of-memory entry is printed on a line of its own). The hippocampus
+   b20 headline launches one train step's kernels per step; the naive
+   baseline launches none. The kernels at the line's 2-D shapes: the
+   kernel forward (one forward's launches) against the naive forward at
+   hippocampus b20 and b256 and BraTS b2, b20 and b128 (He scale, TF32
+   off) within the serving limits, and a train step's step-1 gradient at
+   hippocampus b64 (one step's launches) against the CPU's with the card's
+   choices replayed (``TRAIN_GRAD_TOL``). Prints the bench line and the
+   phase's seconds.
 
 In phases 6-15 cuDNN runs its deterministic algorithms, and in 6-7 and 12
 the CPU reference of the gradients replays the card's ReLU masks and pool
@@ -264,7 +289,8 @@ hippocampus training run, the epoch trainer's run, the CLI's run, one
 attack gradient, the adversarial evaluation, the study, phase 18, one K=4
 ensemble step and one ensemble session chunk, one step under the glue fold,
 one step of ``cli profile``'s trace, one step of each sharded step of
-phase 22, errors, times and bounds, and
+phase 22 and of the spatial step under the fold, one step of the bench's
+headline and its naive baseline run, errors, times and bounds, and
 for kernels 1 and 4 the member-axis times beside K single launches) and
 ``{"ok": true, "device": {...}}``.
 """
@@ -998,6 +1024,34 @@ def _max_rel(torch, got, want) -> float:
     return d / max(float(want.abs().max()), 1e-30)
 
 
+def _gradient_vs_cpu(torch, name, cfg, tc, gpu, cpu, x, y):
+    """The step-1 gradients of ``loss_fn`` from the train states ``gpu``
+    (on the card) and ``cpu`` on one batch, the CPU replaying the card's
+    ReLU masks, pool taps and sigma clips (``_decisions``), each leaf held
+    to ``TRAIN_GRAD_TOL`` of its max. Returns the gradient function
+    (``grads(state)``), the card's choices, both gradients, the worst
+    leaf's error and the ties replayed."""
+    from supernet_tpu_torch import train as T
+
+    def grads(state):
+        dev = state.params["conv_input"]["w_mu"].device
+        loss, _ = T.loss_fn(state.params, torch.from_numpy(x).to(dev),
+                            torch.from_numpy(y).to(dev), cfg, tc)
+        return torch.autograd.grad(loss, T.leaves(state.params))
+
+    choices = []
+    with _decisions(torch, record=choices):
+        g_gpu = grads(gpu)
+    with _decisions(torch, replay=choices) as ties:
+        g_cpu = grads(cpu)
+    worst = max(_max_rel(torch, g, r) for g, r in zip(g_gpu, g_cpu))
+    if not worst <= TRAIN_GRAD_TOL:
+        _die(f"{name} training: step-1 gradients differ from the CPU's by "
+             f"{worst:.3e} of a leaf's max > {TRAIN_GRAD_TOL}")
+    return {"grads": grads, "choices": choices, "card": g_gpu, "cpu": g_cpu,
+            "max_rel_err": worst, "ties": ties}
+
+
 def _train(torch, name, cfg, tc, batch, steps):
     """``steps`` train steps on the card with the launch counters zeroed
     before and read after, held against the same steps on the CPU from the
@@ -1015,29 +1069,14 @@ def _train(torch, name, cfg, tc, batch, steps):
     gpu, _ = T.create_train_state(params, tc, "cuda")
     cpu, _ = T.create_train_state(params, tc, "cpu")
 
-    # step-1 gradients, outside the counted run; the CPU replays the card's
-    # ReLU masks and pool taps (see _decisions)
-    def grads(state):
-        dev = state.params["conv_input"]["w_mu"].device
-        loss, _ = T.loss_fn(state.params, torch.from_numpy(x[0]).to(dev),
-                            torch.from_numpy(y[0]).to(dev), cfg, tc)
-        return torch.autograd.grad(loss, T.leaves(state.params))
-
-    choices = []
-    with _decisions(torch, record=choices):
-        g_gpu = grads(gpu)
-    with _decisions(torch, replay=choices) as ties:
-        g_cpu = grads(cpu)
+    # step-1 gradients, outside the counted run
+    check = _gradient_vs_cpu(torch, name, cfg, tc, gpu, cpu, x[0], y[0])
+    grads, choices, g_gpu, g_cpu = (check[k] for k in ("grads", "choices", "card", "cpu"))
+    worst_g, ties = check["max_rel_err"], check["ties"]
     with _decisions(torch, replay=choices, clips=False):
         g_cpu_own_clips = grads(cpu)
     worst_own_clips = max(_max_rel(torch, g, r) for g, r in zip(g_gpu, g_cpu_own_clips))
     del g_cpu_own_clips
-    worst_g = 0.0
-    for g, r in zip(g_gpu, g_cpu):
-        worst_g = max(worst_g, _max_rel(torch, g, r))
-    if not worst_g <= TRAIN_GRAD_TOL:
-        _die(f"{name} training: step-1 gradients differ from the CPU's by "
-             f"{worst_g:.3e} of a leaf's max > {TRAIN_GRAD_TOL}")
     # the same gradients on the card with the backward's transposed
     # convolutions through cuDNN instead of kernel 1 (the path before it),
     # the card's choices replayed: printed beside the limit, not held to it
@@ -3368,6 +3407,125 @@ def _parallel_steps(torch, P, name, exp, batch, steps, meshes, kinds):
     return out, summary
 
 
+@contextlib.contextmanager
+def _step_grads(into: list):
+    """Append to ``into`` the gradients of each train step taken inside,
+    before the clip and Adam: ``train._update`` wrapped (``make_train_step``
+    looks it up at each step, ``make_rows_step`` when it is made, so a
+    sharded step is made inside)."""
+    from supernet_tpu_torch import train as T
+
+    real = T._update
+
+    def update(state, tc):
+        into.append([t.grad.detach().clone() for t in T.leaves(state.params)])
+        real(state, tc)
+
+    T._update = update
+    try:
+        yield into
+    finally:
+        T._update = real
+
+
+def _parallel_fold_steps(torch, P, name, exp, batch, steps, meshes):
+    """Phase 22 under the decoder glue fold: ``steps`` steps of the spatial
+    and the hybrid step on the world of one with ``glue_fold="fold"``,
+    counted (kernels 1 and 4 launch at the unfolded convs only,
+    ``_folded_layers``), then step 1 again with the choices of
+    ``make_train_step``'s run under the fold on the same card replayed
+    (``_decisions``; after step 1 the runs' parameters part, and a later
+    choice is no longer a tie). Both are held against that run: every
+    step's loss within ``TRAIN_LOSS_RTOL``, the parameters within
+    ``2 * lr`` per step, and the replayed step's gradients before the clip
+    and Adam within ``TRAIN_GRAD_TOL`` of each leaf's max. Adam's first step
+    moves a weight by lr * g / (|g| + eps), about lr whatever |g| is, so
+    where g is a rounding of zero two correct runs part by up to 2 * lr:
+    the summary names the weight where the parameters part most, its
+    gradient at each step in both runs and its leaf's largest.
+    Returns {kind: launches per step} and a summary."""
+    import numpy as np
+
+    from supernet_tpu_torch import train as T
+    from supernet_tpu_torch.ops.moments import lowering
+
+    cfg, tc = exp.model, exp.train
+    params = _he_params(torch, cfg)
+    rng = np.random.default_rng(SEED + 22)
+    s, o = cfg.image_size, cfg.out_size
+    x = rng.normal(0.0, 1.0, (steps, batch, s, s, cfg.in_channels)).astype(np.float32)
+    y = rng.integers(0, cfg.n_classes, (steps, batch, o, o)).astype(np.int32)
+    per_step = _expected_launches(cfg, batch, 1, 0, skip=_folded_layers(cfg))
+    limit = 2.0 * tc.lr * steps
+    names = [f"{layer}/{k}" for layer, p in params.items() for k in p]
+    with lowering(glue_fold="fold"):
+        ref, _ = T.create_train_state(params, tc, "cuda")
+        choices, ref_losses = [], []
+        with _decisions(torch, record=choices), _step_grads([]) as ref_g:
+            step = T.make_train_step(cfg, tc)
+            for i in range(steps):
+                ref, m = step(ref, x[i], y[i])
+                ref_losses.append(float(m.loss))
+                if i == 0:  # the parameters after step 1, for the replayed step
+                    ref1 = [t.detach().clone() for t in T.leaves(ref.params)]
+        out, summary = {}, {"losses": ref_losses, "param_limit": limit,
+                            "adam_eps": tc.adam_eps}
+        makers = {"spatial": lambda: P.make_spatial_train_step(cfg, tc, meshes["data"]),
+                  "hybrid": lambda: P.make_hybrid_train_step(cfg, tc, meshes["hybrid"])}
+        for kind, make in makers.items():
+            mesh = meshes["hybrid" if kind == "hybrid" else "data"]
+            for replay in (False, True):
+                with _step_grads([]) as got_g:
+                    fn = make()
+                state = P.replicate(mesh, T.create_train_state(params, tc, "cuda")[0])
+                ctx = (_decisions(torch, replay=choices) if replay
+                       else contextlib.nullcontext({}))
+                torch.cuda.synchronize()
+                _zero_launches()
+                times, losses = [], []
+                n = 1 if replay else steps
+                with ctx as ties:
+                    for i in range(n):
+                        t0 = time.perf_counter()
+                        state, m = fn(state, x[i], y[i])
+                        torch.cuda.synchronize()
+                        times.append(time.perf_counter() - t0)
+                        losses.append(float(m.loss))
+                launches = _read_launches()
+                if not replay and launches != _scaled(per_step, steps):
+                    _die(f"{name} {kind} sharded training under the glue fold: kernel "
+                         f"launches {launches} in {steps} steps, expected {per_step} per step")
+                loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+                diffs = [(a - b).detach().abs() for a, b in
+                         zip(T.leaves(state.params), ref1 if replay else T.leaves(ref.params))]
+                leaf = max(range(len(diffs)), key=lambda i: float(diffs[i].max()))
+                param_err = float(diffs[leaf].max())
+                grad_err = max(_max_rel(torch, g, r) for g, r in zip(got_g[0], ref_g[0]))
+                if not (loss_err <= TRAIN_LOSS_RTOL and param_err <= 2.0 * tc.lr * n) or (
+                        replay and not grad_err <= TRAIN_GRAD_TOL):
+                    _die(f"{name} {kind} sharded training under the glue fold"
+                         f"{' (choices replayed)' if replay else ''}: losses {losses} against "
+                         f"{ref_losses}, parameters {param_err:.3e} apart, step-1 gradients "
+                         f"{grad_err:.3e} of a leaf's max")
+                at = int(diffs[leaf].argmax())
+                tag = f"{kind}_replayed" if replay else kind
+                summary[tag] = {
+                    "loss_max_rel_err": loss_err, "param_max_abs_err": param_err,
+                    "grad_max_rel_err": grad_err,
+                    "worst_weight": {
+                        "leaf": names[leaf], "index": at,
+                        "grads_ref": [float(g[leaf].flatten()[at]) for g in ref_g[:n]],
+                        "grads": [float(g[leaf].flatten()[at]) for g in got_g],
+                        "leaf_max_grads_ref": [float(g[leaf].abs().max()) for g in ref_g[:n]]},
+                    "median_step_ms": 1e3 * statistics.median(times)}
+                if replay:
+                    summary[tag]["ties_replayed"] = dict(ties)
+                else:
+                    out[kind] = {k: v // steps for k, v in launches.items()}
+                del state, got_g, diffs
+    return out, summary
+
+
 def _parallel_3d(torch, P, meshes):
     """Phase 22's 3-D steps at the phase-18 width: ``make_dp_train_step3d``
     and ``make_spatial_train_step3d``, 2 steps each, counted (kernels 1-4
@@ -3587,6 +3745,11 @@ def _parallel(torch, smi, tmp):
                                                ("data",))
             parts["steps_2d_brats"] = time.perf_counter() - t0
             t0 = time.perf_counter()
+            fold, fold_sum = _parallel_fold_steps(torch, P, "hippocampus", HIPPOCAMPUS, 20, 2,
+                                                  meshes)
+            fold_b, fold_b_sum = _parallel_fold_steps(torch, P, "brats", BRATS, 2, 2, meshes)
+            parts["steps_2d_glue_fold"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
             three_d = _parallel_3d(torch, P, meshes)
             parts["steps_3d"] = time.perf_counter() - t0
             trainer_launches, entry, entry_parts = _parallel_entry_points(torch, P, meshes, tmp)
@@ -3597,15 +3760,244 @@ def _parallel(torch, smi, tmp):
     print(json.dumps({
         "parallel": "one-rank NCCL world on cuda:0", "card": smi,
         "hippocampus_b20": hip_sum, "brats_b2": brats_sum, "three_d_b4": three_d,
-        "launches_per_step": {"hippocampus": hip, "brats": brats},
+        "glue_fold": {"hippocampus_b20": fold_sum, "brats_b2": fold_b_sum},
+        "launches_per_step": {"hippocampus": hip, "brats": brats,
+                              "glue_fold_hippocampus": fold, "glue_fold_brats": fold_b},
         "entry_points": entry, "trainer_launches": trainer_launches,
         "phase_s": phase_s, "parts_s": parts,
     }), flush=True)
     print(f"parallel (phase 22): {phase_s:.1f} s; hippocampus b20 step data "
           f"{hip_sum['data']['median_step_ms']:.3f} ms, spatial "
           f"{hip_sum['spatial']['median_step_ms']:.3f} ms, hybrid "
-          f"{hip_sum['hybrid']['median_step_ms']:.3f} ms ({smi})", flush=True)
-    return hip, brats
+          f"{hip_sum['hybrid']['median_step_ms']:.3f} ms; under the glue fold spatial "
+          f"{fold_sum['spatial']['median_step_ms']:.3f} ms, hybrid "
+          f"{fold_sum['hybrid']['median_step_ms']:.3f} ms ({smi})", flush=True)
+    return hip, brats, fold
+
+
+BENCH_ITERS = "40"  # phase 23's SUPERNET_BENCH_ITERS; every other knob at its default
+# the bench line's peaks on an H100 80GB HBM3, the SXM part (flops.py's table)
+BENCH_PEAKS = {"NVIDIA H100 80GB HBM3": (989.0, 3350.0)}
+
+
+def _bench_scaling_errors(out):
+    """Every error entry of the bench line's batch sweeps, as (section,
+    batch, message); any other section error fails the phase."""
+    errors = []
+    for section, v in [("headline", out)] + [(k, v) for k, v in out.items()
+                                             if isinstance(v, dict)]:
+        if section != "headline" and "error" in v:
+            _die(f"bench: the {section} section failed: {v['error']}")
+        for b, rate in v.get("batch_scaling", {}).items() if isinstance(v, dict) else ():
+            if isinstance(rate, str):
+                if "out of memory" not in rate.lower():
+                    _die(f"bench: {section} at batch {b}: {rate}")
+                errors.append((section, b, rate))
+    return errors
+
+
+# (config, batch) of phase 23's naive-against-kernels forwards: the parity
+# batches of phase 3 and each 2-D sweep's first and last batch (the
+# planners cut no conv into K slices from hippocampus b64 and BraTS b64 on;
+# BraTS b20 still cuts one)
+BENCH_FORWARDS = (("hippocampus", "HIPPOCAMPUS", 20), ("hippocampus", "HIPPOCAMPUS", 256),
+                  ("brats", "BRATS", 2), ("brats", "BRATS", 20), ("brats", "BRATS", 128))
+NAIVE_CHUNK = 32  # images per naive forward: its patch matrices at BraTS
+
+
+def _naive_agreement(torch, cname, exp_name, batch):
+    """The kernel forward of a He-scaled model at ``batch`` on the card,
+    counted (one forward's launches), against the naive backend's forward
+    of the same images (in chunks of ``NAIVE_CHUNK``, no kernel launched)
+    within the serving limits; TF32 off. Returns the errors."""
+    import numpy as np
+
+    from supernet_tpu_torch import configs
+    from supernet_tpu_torch.models import forward
+    from supernet_tpu_torch.ops import set_backend
+
+    c = getattr(configs, exp_name).model
+    params = {n: {k: t.cuda() for k, t in p.items()} for n, p in _he_params(torch, c).items()}
+    x = torch.from_numpy(np.random.default_rng(SEED + 23).normal(
+        0.0, 1.0, (batch, c.image_size, c.image_size, c.in_channels))
+        .astype(np.float32)).cuda()
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        _zero_launches()
+        ref_p, ref_s = forward(params, x, c)
+        torch.cuda.synchronize()
+        kernel_launches = _read_launches()
+        set_backend("naive")
+        try:
+            parts = [forward(params, x[i:i + NAIVE_CHUNK], c)
+                     for i in range(0, batch, NAIVE_CHUNK)]
+            torch.cuda.synchronize()
+        finally:
+            set_backend("kernels")
+        naive_launches = {k: v - kernel_launches[k] for k, v in _read_launches().items()}
+    want = _expected_launches(c, batch, 0, 1)
+    if kernel_launches != want or any(naive_launches.values()):
+        _die(f"bench: the {cname} b{batch} forwards launched {kernel_launches} (kernels, "
+             f"expected {want}) and {naive_launches} (naive, expected none)")
+    p = torch.cat([q[0] for q in parts]).cpu().numpy()
+    sg = torch.cat([q[1] for q in parts]).cpu().numpy()
+    err_p, err_s, share = _serving_close(f"naive {cname} b{batch} forward", p, sg,
+                                         ref_p.cpu().numpy(), ref_s.cpu().numpy())
+    del params, x, ref_p, ref_s, parts
+    torch.cuda.empty_cache()
+    return {"probs_max_abs_err": err_p, "sigma_max_rel_err": err_s,
+            "sigma_share_beyond": share, "kernel_launches": kernel_launches}
+
+
+def _bench_gradient(torch, exp, batch):
+    """A train step's step-1 gradient at a batch of the bench's sweep on
+    the card, counted (one step's launches, outside the bench's counts),
+    against the CPU's with the card's choices replayed (``_gradient_vs_cpu``,
+    ``TRAIN_GRAD_TOL``). Returns the error and the launches."""
+    import numpy as np
+
+    from supernet_tpu_torch import train as T
+
+    cfg, tc = exp.model, exp.train
+    params = _he_params(torch, cfg)
+    rng = np.random.default_rng(SEED + 24)
+    s, o = cfg.image_size, cfg.out_size
+    x = rng.normal(0.0, 1.0, (batch, s, s, cfg.in_channels)).astype(np.float32)
+    y = rng.integers(0, cfg.n_classes, (batch, o, o)).astype(np.int32)
+    gpu, _ = T.create_train_state(params, tc, "cuda")
+    cpu, _ = T.create_train_state(params, tc, "cpu")
+    torch.cuda.synchronize()
+    _zero_launches()
+    check = _gradient_vs_cpu(torch, f"bench hippocampus b{batch}", cfg, tc, gpu, cpu, x, y)
+    launches = _read_launches()
+    want = _per_step(cfg, batch)
+    want["vmaxpool"] *= 2  # _decisions' record pools again for the taps
+    if launches != want:
+        _die(f"bench: the hippocampus b{batch} gradient launched {launches}, expected {want}")
+    del check["grads"], check["choices"], check["card"], check["cpu"], gpu, cpu
+    torch.cuda.empty_cache()
+    return {"grad_max_rel_err_vs_cpu": check["max_rel_err"],
+            "grad_share_of_limit": check["max_rel_err"] / TRAIN_GRAD_TOL,
+            "ties_replayed": dict(check["ties"]), "launches": launches}
+
+
+def _bench(torch, smi):
+    """Phase 23: ``cli.main(["bench"])`` in process at the bench's defaults
+    but ``SUPERNET_BENCH_ITERS=40``, every ``_bench_model`` call counted
+    (the launches between its start and its end). The line must parse and
+    name the card, the card's peaks, positive rates in every section, an
+    MFU in (0, 1], ``hbm_utilization_min`` in (0, 1.05], a measured
+    ``vs_baseline``, and no section error; a sweep's out-of-memory entry is
+    allowed and printed on its own line. The hippocampus b20 headline run
+    launches ``_per_step(cfg, 20)`` per step; the naive baseline launches no
+    kernel; the naive forward agrees with the kernel forward at hippocampus
+    b20 and BraTS b2 from He-scaled parameters within the serving limits.
+    Returns the headline's launches per step and the naive run's
+    launches."""
+    import io
+
+    from supernet_tpu_torch import bench, cli
+    from supernet_tpu_torch import flops as F
+    from supernet_tpu_torch.configs import HIPPOCAMPUS
+    from supernet_tpu_torch.ops import get_backend
+
+    t_phase = time.perf_counter()
+    calls = []
+    real = bench._bench_model
+
+    def counted(name, n_iters, data_parallel, batch_override=0, device="cuda"):
+        before = _read_launches()
+        stats = real(name, n_iters, data_parallel, batch_override, device)
+        after = _read_launches()
+        calls.append({"model": name, "batch": stats["batch"], "n_iters": n_iters,
+                      "backend": get_backend(),
+                      "launches": {k: after[k] - before[k] for k in after}})
+        return stats
+
+    saved = os.environ.get("SUPERNET_BENCH_ITERS")
+    os.environ["SUPERNET_BENCH_ITERS"] = BENCH_ITERS
+    bench._bench_model = counted
+    buf = io.StringIO()
+    try:
+        torch.cuda.synchronize()
+        _zero_launches()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["bench"])
+        launches = _read_launches()
+    finally:
+        bench._bench_model = real
+        if saved is None:
+            os.environ.pop("SUPERNET_BENCH_ITERS")
+        else:
+            os.environ["SUPERNET_BENCH_ITERS"] = saved
+    bench_s = time.perf_counter() - t_phase
+    lines = [ln for ln in buf.getvalue().splitlines() if ln.strip()]
+    if rc != 0 or len(lines) != 1:
+        _die(f"bench: exit {rc}, printed {lines}")
+    print(lines[0], flush=True)
+    out = json.loads(lines[0])
+
+    name = torch.cuda.get_device_name(0)
+    peaks = BENCH_PEAKS.get(name) or (F.peak_tflops(0), F.peak_hbm_gbps(0))
+    if out["device_kind"] != name or (out["peak_tflops"], out["peak_hbm_gbps"]) != peaks:
+        _die(f"bench: device_kind {out['device_kind']!r}, peaks {out['peak_tflops']} / "
+             f"{out['peak_hbm_gbps']}, expected {name!r} and {peaks}")
+    rates = {"value": out["value"], "best": out["best"]["images_per_sec"],
+             "brats": out["brats"].get("images_per_sec", 0.0),
+             "unet3d": out["unet3d"].get("vols_per_sec", 0.0),
+             "ensemble_train": out["ensemble_train"].get("member_images_per_sec", 0.0),
+             "inference": out["inference"].get("images_per_sec", 0.0)}
+    oom = _bench_scaling_errors(out)
+    for section, b, msg in oom:
+        print(json.dumps({"bench_batch_scaling_error": section, "batch": b, "error": msg}),
+              flush=True)
+    if not all(v > 0 for v in rates.values()):
+        _die(f"bench: a rate is not positive: {rates}")
+    if not (0 < out["mfu"] <= 1 and 0 < out["hbm_utilization_min"] <= 1.05):
+        _die(f"bench: mfu {out['mfu']}, hbm_utilization_min {out['hbm_utilization_min']}")
+    if out.get("vs_baseline_is_estimate") or "baseline_measured_images_per_sec" not in out:
+        _die("bench: vs_baseline was not measured")
+
+    cfg = HIPPOCAMPUS.model
+    head = calls[0]
+    k = int(os.environ.get("SUPERNET_BENCH_DISPATCH", "8"))
+    steps = (1 + max(1, head["n_iters"] // k)) * k  # the warm-up call and the timed ones
+    want = _per_step(cfg, 20)
+    per_step = {kk: v // steps for kk, v in head["launches"].items()}
+    if (head["model"], head["batch"], head["backend"]) != ("hippocampus", 20, "kernels") or (
+            head["launches"] != _scaled(want, steps)):
+        _die(f"bench: the headline run {head['model']} b{head['batch']} "
+             f"({head['backend']}) launched {head['launches']} in {steps} steps, expected "
+             f"{want} per step")
+    naive_calls = [c for c in calls if c["backend"] == "naive"]
+    naive = {kk: sum(c["launches"][kk] for c in naive_calls) for kk in want}
+    if len(naive_calls) != 1 or any(naive.values()):
+        _die(f"bench: the naive baseline runs {naive_calls}")
+    for kernel in ("vdp_conv", "vmaxpool", "vmaxpool_bwd", "sigma_bwd"):
+        if not launches[kernel] > 0:
+            _die(f"bench: kernel {kernel} was not launched in the run: {launches}")
+
+    # the kernels against plain versions at the line's 2-D shapes: the
+    # kernels' plans (split-K slices, tiles per SM) follow the batch, and
+    # they compute in float32 whatever the activations' dtype, so float32
+    # at the bench's batches runs the launches the bench makes
+    agree = {f"{c}_b{b}": _naive_agreement(torch, c, exp, b)
+             for c, exp, b in BENCH_FORWARDS}
+    agree["gradient_hippocampus_b64"] = _bench_gradient(torch, HIPPOCAMPUS, 64)
+    phase_s = time.perf_counter() - t_phase
+    print(json.dumps({
+        "bench": "cli bench in process", "card": smi, "iters": int(BENCH_ITERS),
+        "headline_launches_per_step": per_step, "headline_steps": steps,
+        "naive_launches": naive, "run_launches": launches,
+        "calls": [{kk: c[kk] for kk in ("model", "batch", "n_iters", "backend")}
+                  for c in calls],
+        "batch_scaling_errors": len(oom), "naive_vs_kernels": agree,
+        "bench_s": bench_s, "phase_s": phase_s,
+    }), flush=True)
+    print(f"bench (phase 23): {phase_s:.1f} s (cli bench {bench_s:.1f} s); hippocampus b20 "
+          f"{out['value']} img/s, mfu {out['mfu']}, vs_baseline {out['vs_baseline']} "
+          f"({smi})", flush=True)
+    return per_step, naive
 
 
 def main() -> int:
@@ -3755,7 +4147,11 @@ def main() -> int:
     # 22. parallelism on the card: the sharded steps, the 3-D ones and the
     # entry points on a one-rank NCCL mesh
     with tempfile.TemporaryDirectory() as tmp:
-        par_hip, par_brats = _parallel(torch, smi, tmp)
+        par_hip, par_brats, par_fold = _parallel(torch, smi, tmp)
+
+    # 23. the benchmark: cli bench in process, its launches per step, the
+    # naive baseline at 0 launches, the naive forward against the kernels'
+    bench_hip, bench_naive = _bench(torch, smi)
 
     sources = {
         "vdp_conv": ("supernet_tpu_torch/csrc/vdp_conv.cu",
@@ -3784,7 +4180,11 @@ def main() -> int:
     # parallel_train_launches_per_step: one hippocampus data-parallel step
     # (batch 20) on the one-rank NCCL mesh, parallel_spatial_* and
     # parallel_hybrid_* the spatial and hybrid steps', brats_parallel_* one
-    # BraTS data-parallel step (phase 22). member_axis_*: the
+    # BraTS data-parallel step, parallel_spatial_fold_* one hippocampus
+    # spatial step under the glue fold (phase 22);
+    # bench_train_launches_per_step: one step of cli bench's hippocampus b20
+    # headline run, bench_naive_launches: its naive baseline run (phase 23).
+    # member_axis_*: the
     # member-axis launch summed over the layers of one hippocampus step (K=4,
     # batch 20; brats_member_axis_*: BraTS, K=2, batch 2) beside K single
     # launches, CUDA events and device time.
@@ -3862,6 +4262,9 @@ def main() -> int:
             "parallel_spatial_train_launches_per_step": par_hip["spatial"][kernel],
             "parallel_hybrid_train_launches_per_step": par_hip["hybrid"][kernel],
             "brats_parallel_train_launches_per_step": par_brats["data"][kernel],
+            "parallel_spatial_fold_launches_per_step": par_fold["spatial"][kernel],
+            "bench_train_launches_per_step": bench_hip[kernel],
+            "bench_naive_launches": bench_naive[kernel],
             "max_abs_err": check.worst[kernel][0],
             "max_rel_err": check.worst[kernel][1],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,

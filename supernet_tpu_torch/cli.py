@@ -12,6 +12,7 @@
     python -m supernet_tpu_torch.cli eval3d --config hippocampus --checkpoint RUN3D --synthetic 8
     python -m supernet_tpu_torch.cli predict3d --config hippocampus --checkpoint RUN3D --volume V.nii.gz
     python -m supernet_tpu_torch.cli profile --config hippocampus --batch 20 --by-layer
+    python -m supernet_tpu_torch.cli bench
 
 ``train``, ``convert`` (``--to-cubes`` too), ``eval``, ``sweep``,
 ``attack``, ``calibrate``, ``saliency``, ``study``, ``export``
@@ -19,8 +20,9 @@
 ``eval3d``, ``attack3d``, ``calibrate3d`` and ``saliency3d`` run, each
 printing the JSON line(s) and writing the files of its twin; ``profile``
 traces K-step train calls and prints and writes the exact-join tables
-(``hlo_profile.run``). ``bench`` parses its flags and then raises
-``NotImplementedError`` naming the ``ROADMAP.md`` item that ports it.
+(``hlo_profile.run``); ``bench`` measures training, serving, ensemble and
+3-D throughput with MFU and prints ``bench.py``'s JSON line
+(``supernet_tpu_torch.bench``).
 ``--data-parallel``, ``--spatial-shard`` and ``--hybrid-shard`` run on one
 process per device: the world torchrun or ``SUPERNET_COORDINATOR`` describes
 (``parallel.initialize_from_env``), else a world of one on ``--device``;
@@ -47,19 +49,11 @@ import json
 import os
 import sys
 
-# subcommand -> the ROADMAP.md item (Queue 1) that ports it
-_UNPORTED = {
-    "bench": "'Port bench and FLOP counts' (supernet_tpu_torch.bench)",
-}
+# subcommand -> the ROADMAP.md item (Queue 1) that ports it: none is left
+_UNPORTED: dict = {}
 
 
 _UNSET = object()
-
-
-def _unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, Queue 1: {item})"
-    )
 
 
 def _bring_up(args) -> int:
@@ -507,6 +501,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "exported computation")
 
     b = sub.add_parser("bench", help="throughput benchmark")
+    b.add_argument("--device", default="cuda",
+                   help="torch device to run on (default: the card; there "
+                        "is no fallback to the CPU)")
     pr = sub.add_parser(
         "profile",
         help="exact-join device profile of the train step (per-op class "
@@ -1507,8 +1504,11 @@ def main(argv=None) -> int:
     from supernet_tpu_torch.ops import apply_env_overrides
 
     apply_env_overrides()
-    if args.cmd in _UNPORTED:
-        raise _unported(f"the '{args.cmd}' subcommand", _UNPORTED[args.cmd])
+    if args.cmd == "bench":
+        from supernet_tpu_torch import bench
+
+        bench.main(device=args.device)
+        return 0
     if args.cmd == "profile":
         import tempfile
 

@@ -11,15 +11,104 @@ written once. The volumetric counts are the same one rank up (k^2 -> k^3,
 HW -> DHW). The geometry comes from ``models.layer_names`` and the stage
 taps of one forward (``profiling.stage_shapes``; in 3-D
 ``models.unet3d.stage_shapes3d``, a forward on the ``meta`` device);
-nothing here imports JAX. The peak tables, ``mfu`` and ``hbm_utilization``
-come with the port's benchmark (ROADMAP.md, Queue 1).
+nothing here imports JAX.
+
+The card's peaks (``peak_tflops``, ``peak_hbm_gbps``; ``supernet_tpu/flops.py:35-90``)
+are NVIDIA's published dense rates, looked up by a substring of
+``torch.cuda.get_device_name``: the bf16 tensor-core peak, as the JAX
+package's table holds each TPU's bf16 peak, so that ``mfu`` reads the same
+convention on both. An unknown card or a CPU device reads 0.0, and ``mfu``
+and ``hbm_utilization`` then read 0.0: unavailable, never wrong. The
+variables ``SUPERNET_TPU_PEAK_TFLOPS`` and ``SUPERNET_TPU_PEAK_HBM_GBPS``
+override the tables, under the JAX package's names.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict
 
 from supernet_tpu_torch.configs import ModelConfig
+
+# bf16 dense (no sparsity) TFLOP/s per card, keyed by a substring of the
+# device name lower-cased without spaces; the first match wins, so the
+# longer names come first. Each rate is half the datasheet's sparse figure.
+_PEAK_BF16_TFLOPS = (
+    ("h200nvl", 835.5),  # NVIDIA H200 datasheet, H200 NVL: 1,671 sparse
+    ("h200", 989.0),  # NVIDIA H200 datasheet, H200 SXM: 1,979 sparse
+    ("h100nvl", 835.5),  # NVIDIA H100 datasheet, H100 NVL: 1,671 sparse
+    ("h100pcie", 756.5),  # NVIDIA H100 datasheet, H100 PCIe: 1,513 sparse
+    ("h10080gbhbm3", 989.0),  # NVIDIA H100 datasheet, H100 SXM: 1,979 sparse
+    ("h100sxm", 989.0),  # the same part under its other name
+)
+
+# peak HBM GB/s per card (the same datasheets).
+_PEAK_HBM_GBPS = (
+    ("h200nvl", 4800.0),  # NVIDIA H200 datasheet, H200 NVL: 4.8 TB/s
+    ("h200", 4800.0),  # NVIDIA H200 datasheet, H200 SXM: 4.8 TB/s
+    ("h100nvl", 3900.0),  # NVIDIA H100 datasheet, H100 NVL: 3.9 TB/s
+    ("h100pcie", 2000.0),  # NVIDIA H100 datasheet, H100 PCIe: 2 TB/s
+    ("h10080gbhbm3", 3350.0),  # NVIDIA H100 datasheet, H100 SXM: 3.35 TB/s
+    ("h100sxm", 3350.0),
+)
+
+
+def _device_kind(device) -> str:
+    """The device's name, lower-cased without spaces; '' for a CPU device
+    and, with ``device=None``, when no card is visible."""
+    import torch
+
+    if device is None:
+        if not torch.cuda.is_available():
+            return ""
+        device = torch.cuda.current_device()
+    if isinstance(device, int):  # a card's index
+        device = torch.device("cuda", device)
+    if torch.device(device).type != "cuda":
+        return ""
+    return torch.cuda.get_device_name(device).lower().replace(" ", "")
+
+
+def _lookup(table, env: str, device) -> float:
+    v = os.environ.get(env)
+    if v:
+        return float(v)
+    kind = _device_kind(device)
+    for key, rate in table:
+        if key in kind:
+            return rate
+    return 0.0
+
+
+def peak_tflops(device=None) -> float:
+    """bf16 dense peak TFLOP/s of ``device`` (default: the current card);
+    0.0 when unknown or on the CPU, so MFU reads as unavailable, never
+    wrong. Override with SUPERNET_TPU_PEAK_TFLOPS."""
+    return _lookup(_PEAK_BF16_TFLOPS, "SUPERNET_TPU_PEAK_TFLOPS", device)
+
+
+def peak_hbm_gbps(device=None) -> float:
+    """Peak HBM GB/s of ``device`` (default: the current card); 0.0 when
+    unknown or on the CPU. Override with SUPERNET_TPU_PEAK_HBM_GBPS."""
+    return _lookup(_PEAK_HBM_GBPS, "SUPERNET_TPU_PEAK_HBM_GBPS", device)
+
+
+def mfu(flops_per_second: float, device=None) -> float:
+    """Model FLOP utilization against the card's bf16 peak; 0.0 if the peak
+    is unknown."""
+    peak = peak_tflops(device)
+    if peak <= 0:
+        return 0.0
+    return flops_per_second / (peak * 1e12)
+
+
+def hbm_utilization(bytes_per_second: float, device=None) -> float:
+    """Achieved HBM bandwidth against the card's peak; 0.0 if the peak is
+    unknown."""
+    peak = peak_hbm_gbps(device)
+    if peak <= 0:
+        return 0.0
+    return bytes_per_second / (peak * 1e9)
 
 
 def _conv_sizes(cfg: ModelConfig) -> Dict[str, int]:

@@ -38,7 +38,7 @@ from supernet_tpu_torch.ops import (
     vsoftmax,
     vunpool_conv2,
 )
-from supernet_tpu_torch.ops.moments import _unpool_one, get_glue_fold
+from supernet_tpu_torch.ops.moments import _unpool_one, glue_fold_active
 
 Tensor = torch.Tensor
 Params = Dict[str, Dict[str, Tensor]]
@@ -163,11 +163,13 @@ def forward(
     and both convs of every decoder block run as ``vglue_conv_relu`` (the
     pad, crop and concatenation computed inside PyTorch's convs), under
     their layer names and taps, as ``supernet_tpu/models/unet.py:166-240``
-    dispatches them; kernel 1 then runs only the other k=3 convs.
+    dispatches them; kernel 1 then runs only the other k=3 convs. The naive
+    backend (``ops.set_backend("naive")``) ignores the fold, as
+    ``supernet_tpu/models/unet.py:170`` does.
     """
     depth = cfg.depth
     fill = cfg.sigma_fill
-    glue_fold = get_glue_fold() == "fold"
+    glue_fold = glue_fold_active()
     if constrain is None:
         constrain = _identity
     _tap, block = _block_helpers(cfg, tap)

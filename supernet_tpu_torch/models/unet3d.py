@@ -25,7 +25,7 @@ from torch import nn
 from supernet_tpu_torch.configs import ModelConfig
 from supernet_tpu_torch.models.unet import _block_helpers, _identity, _tight_layers
 from supernet_tpu_torch.ops import moments3d as M3
-from supernet_tpu_torch.ops.moments import _per_member, get_glue_fold, lowering
+from supernet_tpu_torch.ops.moments import _per_member, glue_fold_active, lowering
 from supernet_tpu_torch.ops.moments3d import (
     crop_center3d,
     vconv3d,
@@ -147,10 +147,11 @@ def forward3d(
     Under ``set_glue_fold("fold")`` the pre-padded bottleneck conv (where
     the config has one) and both convs of every decoder block run as
     ``ops.moments3d.vglue_conv3d_relu`` under their layer names and taps
-    (``supernet_tpu/models/unet3d.py:118-175``)."""
+    (``supernet_tpu/models/unet3d.py:118-175``); the naive backend ignores
+    the fold (``unet3d.py:119``)."""
     depth = cfg.depth
     fill = cfg.sigma_fill
-    glue_fold = get_glue_fold() == "fold"
+    glue_fold = glue_fold_active()
     if constrain is None:
         constrain = _identity
     _tap, block = _block_helpers(cfg, tap)

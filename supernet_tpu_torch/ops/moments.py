@@ -26,7 +26,9 @@ the kernels; on CPU tensors they run their plain versions. The 1x1 head and
 the unpool conv are matrix products (``torch.einsum``), as they are XLA ops
 in the JAX package; their gradients, and those of the pads, crops,
 concatenations and the softmax, are PyTorch's autograd, as they are XLA's
-AD in the JAX package.
+AD in the JAX package. ``set_backend("naive")`` leaves the kernels: the five
+ops the JAX package's naive backend routes run the reference's patch-matmul
+algorithm (``ops/naive.py``) on any device.
 
 A/B lowerings (the knobs ``set_conv_fold``, ``set_winsum``,
 ``set_sw_scale``, ``set_chansum``, ``set_conv2d_impl``; ``SUPERNET_*``
@@ -60,6 +62,7 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from supernet_tpu_torch.ops import naive
 from supernet_tpu_torch.ops.kernels import pool as _pool
 from supernet_tpu_torch.ops.kernels import vdp_conv as _vdp
 
@@ -230,13 +233,48 @@ def _lowering_knobs_default() -> bool:
     return all(_KNOB[n] == _KNOBS[n][0] for n in _KNOBS if n != "glue_fold")
 
 
-# The three kernel switches of the JAX package have no counterpart: the
-# port always runs its hand-written kernels on a CUDA tensor.
-_UNMATCHED_ENV = {
-    name: ("has no counterpart: on a CUDA tensor the port always runs its "
-           "hand-written kernels, on a CPU tensor their plain versions")
-    for name in ("SUPERNET_BACKEND", "SUPERNET_POOL", "SUPERNET_SIGMA_BWD")
-}
+# The op backend (supernet_tpu/ops/moments.py:76-93). "kernels", the port's
+# one path: the hand-written kernels on a CUDA tensor, their plain versions
+# on a CPU tensor. "naive": the reference's patch-matmul algorithm
+# (ops/naive.py) for the five ops the JAX package routes to it, on any
+# device, with autograd through the plain tensor ops; the models then ignore
+# the glue fold. A measured same-hardware baseline for the benchmark, never
+# a production path.
+_BACKEND: str = "kernels"
+
+
+def set_backend(backend: str) -> None:
+    if backend not in ("kernels", "naive"):
+        raise ValueError(f"unknown backend {backend!r}")
+    global _BACKEND
+    _BACKEND = backend
+
+
+def get_backend() -> str:
+    return _BACKEND
+
+
+def glue_fold_active() -> bool:
+    """True when the models compute the decoder glue inside the convs: the
+    fold is set and the backend is not naive (supernet_tpu/models/unet.py:170)."""
+    return _KNOB["glue_fold"] == "fold" and _BACKEND != "naive"
+
+
+def _promoted(*ts):
+    """The naive path's operands in their promoted dtype, as the JAX naive
+    ops see a bf16 moment against float32 weights."""
+    dt = torch.float32
+    for t in ts:
+        dt = torch.promote_types(dt, t.dtype)
+    return tuple(t.to(dt) for t in ts)
+
+
+# The JAX package's other kernel switches and its xla | pallas | auto
+# backends have no counterpart: the port always runs its hand-written
+# kernels on a CUDA tensor.
+_NO_COUNTERPART = ("has no counterpart: on a CUDA tensor the port always runs its "
+                   "hand-written kernels, on a CPU tensor their plain versions")
+_UNMATCHED_ENV = {name: _NO_COUNTERPART for name in ("SUPERNET_POOL", "SUPERNET_SIGMA_BWD")}
 
 
 def apply_env_overrides() -> None:
@@ -252,8 +290,10 @@ def apply_env_overrides() -> None:
     SUPERNET_CONV2D=conv|im2col               (2-D moment-conv lowering)
     SUPERNET_CONV3D=conv|im2col               (3-D moment-conv lowering)
 
-    SUPERNET_BACKEND, SUPERNET_POOL and SUPERNET_SIGMA_BWD, when set, are
-    named on stderr with the reason they do nothing here."""
+    SUPERNET_BACKEND=naive|kernels            (the reference's patch-matmul ops)
+
+    SUPERNET_BACKEND=xla|pallas|auto, SUPERNET_POOL and SUPERNET_SIGMA_BWD,
+    when set, are named on stderr with the reason they do nothing here."""
     setters = (
         ("SUPERNET_PRECISION", set_mxu_precision),
         ("SUPERNET_CONV_FOLD", set_conv_fold),
@@ -274,6 +314,11 @@ def apply_env_overrides() -> None:
         from supernet_tpu_torch.ops import moments3d
 
         moments3d.set_conv3d_impl(v)
+    v = os.environ.get("SUPERNET_BACKEND")
+    if v in ("xla", "pallas", "auto"):
+        print(f"warning: SUPERNET_BACKEND={v} {_NO_COUNTERPART}", file=sys.stderr)
+    elif v:
+        set_backend(v)
     for name, why in _UNMATCHED_ENV.items():
         v = os.environ.get(name)
         if v:
@@ -442,7 +487,7 @@ def _use_kernel(x: Tensor, w_mu: Tensor, stride: int) -> bool:
     """A stride-1 k > 1 conv takes ``VDPConv``: always on a CUDA tensor
     (kernel 1), on a CPU tensor (its plain version) unless a knob selects
     another lowering of the composition."""
-    if w_mu.shape[-3] == 1 or stride != 1:
+    if w_mu.shape[-3] == 1 or stride != 1 or _BACKEND == "naive":
         return False
     return x.is_cuda or _lowering_knobs_default()
 
@@ -466,7 +511,10 @@ def vconv_input(
     k == 1 (stride 1) is an einsum and a channel sum; a stride-1 k > 1 conv
     is ``VDPConv`` (see :func:`_use_kernel`); the rest is the JAX module's
     XLA composition under the knobs (``supernet_tpu/ops/moments.py:580-631``).
+    Under the naive backend: ``ops.naive.vconv_input_naive``.
     """
+    if _BACKEND == "naive":
+        return _naive_conv(naive.vconv_input_naive, (x,), w_mu, w_sigma, stride)
     x = _act(x)
     if _use_kernel(x, w_mu, stride):
         return _kernel_conv(x, None, w_mu, w_sigma, False)
@@ -509,7 +557,10 @@ def vconv(
     head's ``jnp.sum``, not ``chan_sum``); a stride-1 k > 1 conv is
     ``VDPConv`` (see :func:`_use_kernel`); the rest is the JAX module's XLA
     composition under the knobs (``supernet_tpu/ops/moments.py:653-743``).
+    Under the naive backend: ``ops.naive.vconv_naive``.
     """
+    if _BACKEND == "naive":
+        return _naive_conv(naive.vconv_naive, (mu, sigma), w_mu, w_sigma, stride)
     mu, sigma = _act(mu), _act(sigma)
     if _use_kernel(mu, w_mu, stride):
         return _kernel_conv(mu, sigma, w_mu, w_sigma, False)
@@ -558,22 +609,30 @@ def vconv(
     return _act(mu_out), _act(sigma_out)
 
 
+def _naive_conv(fn, moments, w_mu: Tensor, w_sigma: Tensor, stride: int) -> MomentPair:
+    """A conv of the naive backend: ``fn`` (an ``ops.naive`` conv) on the
+    promoted operands, member-stacked weights member by member (the JAX
+    naive path runs under ``jax.vmap``)."""
+    if w_mu.dim() == 5:
+        return _per_member(
+            lambda *a: _naive_conv(fn, a[:-2], a[-2], a[-1], stride), moments, w_mu, w_sigma)
+    return fn(*_promoted(*moments, w_mu, w_sigma), stride=stride)
+
+
 def vconv_relu(
     mu: Tensor, sigma: Tensor, w_mu: Tensor, w_sigma: Tensor
 ) -> MomentPair:
     """``vrelu(*vconv(...))``, the ReLU fused into ``VDPConv`` wherever the
     conv takes it (:func:`_use_kernel`)."""
-    mu, sigma = _act(mu), _act(sigma)
     if _use_kernel(mu, w_mu, 1):
-        return _kernel_conv(mu, sigma, w_mu, w_sigma, True)
+        return _kernel_conv(_act(mu), _act(sigma), w_mu, w_sigma, True)
     return vrelu(*vconv(mu, sigma, w_mu, w_sigma))
 
 
 def vconv_input_relu(x: Tensor, w_mu: Tensor, w_sigma: Tensor) -> MomentPair:
     """``vrelu(*vconv_input(...))``, fused the same way."""
-    x = _act(x)
     if _use_kernel(x, w_mu, 1):
-        return _kernel_conv(x, None, w_mu, w_sigma, True)
+        return _kernel_conv(_act(x), None, w_mu, w_sigma, True)
     return vrelu(*vconv_input(x, w_mu, w_sigma))
 
 
@@ -589,7 +648,10 @@ def vmaxpool(mu: Tensor, sigma: Tensor) -> MomentPair:
     first-occurrence ties, in the gradient too; odd sizes padded with
     ``finfo.min``. Keeps its input's dtype: half-precision moments are
     upcast at the kernel boundary and the outputs cast back, which is exact
-    (the TPU kernel loads bf16, selects in float32 and stores bf16)."""
+    (the TPU kernel loads bf16, selects in float32 and stores bf16).
+    Under the naive backend: ``ops.naive.vmaxpool_naive``."""
+    if _BACKEND == "naive":
+        return naive.vmaxpool_naive(mu, sigma)
     dt = mu.dtype
     if dt in _HALF:
         mu, sigma = mu.float(), sigma.float()
@@ -640,7 +702,11 @@ def vunpool_conv2(
 ) -> MomentPair:
     """Fused ``vunpool`` + 2x2 VALID ``vconv`` (the decoder's first pair).
     The 2x2 window sum of the interleaved (mu^2 + sigma) sees one nonzero
-    pixel per window, so it is the channel sum upsampled 2x."""
+    pixel per window, so it is the channel sum upsampled 2x. Under the
+    naive backend: the reference's choreography, the zero-interleaved
+    upsample made and a 2x2 ``ops.naive.vconv_naive`` over it."""
+    if _BACKEND == "naive":
+        return _naive_conv(naive.vconv_naive, vunpool(mu, sigma), w_mu, w_sigma, 1)
     mu, sigma = _act(mu), _act(sigma)
     # the [B,h,w,1] channel sum in float32, cast back before the broadcast
     t_up = _upsample2_nearest(_act(_sum_c(mu * mu + sigma)))
@@ -726,16 +792,25 @@ def _ring(like: Tensor, pads) -> Tensor:
     return F.pad(zeros, [0, 0] + flat, value=1.0)
 
 
-def _enc_pads(dec_shape, enc_shape, lo: int, hi: int):
+def _enc_pads(dec_shape, enc_shape, pads):
     """Per spatial axis, the center crop of the encoder map to the padded
-    decoder size as negative ``(lo, hi)`` conv padding; an odd difference
-    crops one more at the high end (offsets ``(S - s) // 2``)."""
+    decoder size (``pads``: the decoder's ``(lo, hi)`` per axis) as negative
+    ``(lo, hi)`` conv padding; an odd difference crops one more at the high
+    end (offsets ``(S - s) // 2``)."""
     out = []
-    for d, e in zip(dec_shape, enc_shape):
+    for d, e, (lo, hi) in zip(dec_shape, enc_shape, pads):
         t = d + lo + hi
         o = (e - t) // 2
         out.append((-o, -(e - o - t)))
     return tuple(out)
+
+
+def _axis_pads(pad_size, n: int):
+    """``pad_size`` as one ``(lo, hi)`` per spatial axis: a single
+    ``(lo, hi)`` pair pads every one of the ``n`` axes alike."""
+    if isinstance(pad_size[0], (tuple, list)):
+        return tuple((int(lo), int(hi)) for lo, hi in pad_size)
+    return ((int(pad_size[0]), int(pad_size[1])),) * n
 
 
 def vglue_conv_relu(
@@ -743,7 +818,7 @@ def vglue_conv_relu(
     sigma: Tensor,
     w_mu: Tensor,
     w_sigma: Tensor,
-    pad_size: Sequence[int],
+    pad_size,
     sigma_fill: float,
     mu_enc: Tensor | None = None,
     sigma_enc: Tensor | None = None,
@@ -766,19 +841,25 @@ def vglue_conv_relu(
     ``fill * conv(ring, sum_cin w_mu^2)`` to the variance conv, convs of a
     batch-1 ring map broadcast over the batch. Its convs are PyTorch's on
     every device, as the JAX package's are XLA's on every backend.
-    Member-stacked weights run member by member (:func:`_per_member`)."""
+    Member-stacked weights run member by member (:func:`_per_member`).
+
+    ``pad_size`` is one ``(lo, hi)`` for both spatial axes, as ``vpad``
+    takes it, or a ``(lo, hi) >= 0`` per axis: the local conv of the
+    row-sharded fold (``parallel/spatial.py``), whose block of rows is
+    padded only on a side that is an edge of the whole image. The
+    ``sigma_fill`` ring covers exactly the padded sides, and the encoder's
+    crop is taken to the padded block's size on each axis."""
     if w_mu.dim() == 5:
         return _per_member(
             lambda m, s, me, se, wm, ws: vglue_conv_relu(
                 m, s, wm, ws, pad_size, sigma_fill, me, se),
             (mu, sigma, mu_enc, sigma_enc), w_mu, w_sigma)
-    lo, hi = int(pad_size[0]), int(pad_size[1])
     k = w_mu.shape[0]
     c_d = mu.shape[-1]
     s_w = F.softplus(w_sigma)
     mu, sigma = _act(mu), _act(sigma)
     w_d = w_mu[:, :, :c_d] if mu_enc is not None else w_mu
-    pd = ((lo, hi), (lo, hi))
+    pd = _axis_pads(pad_size, 2)
     shift = _KNOB["winsum"] == "shift"
     # in shift mode every window sum below is shifted adds on a padded or
     # cropped single-channel source
@@ -792,7 +873,7 @@ def vglue_conv_relu(
     mu_out = _conv_pad(mu, w_d, *pd)
     ws = winsum(_moment_src(mu, sigma), pd)
     sig_conv = _conv_pad(sigma, w_d * w_d, *pd)
-    if sigma_fill != 0.0 and (lo or hi):
+    if sigma_fill != 0.0 and any(lo or hi for lo, hi in pd):
         # each border pixel contributes (mu = 0, sigma = fill) per decoder
         # channel
         ring = _ring(mu, pd)
@@ -803,7 +884,7 @@ def vglue_conv_relu(
     if mu_enc is not None:
         mu_enc, sigma_enc = _act(mu_enc), _act(sigma_enc)
         w_e = w_mu[:, :, c_d:]
-        pe = _enc_pads(mu.shape[1:3], mu_enc.shape[1:3], lo, hi)
+        pe = _enc_pads(mu.shape[1:3], mu_enc.shape[1:3], pd)
         mu_out = mu_out + _conv_pad(mu_enc, w_e, *pe)
         ws = ws + winsum(_moment_src(mu_enc, sigma_enc), pe)
         sig_conv = sig_conv + _conv_pad(sigma_enc, w_e * w_e, *pe)
@@ -818,7 +899,10 @@ def vsoftmax(mu: Tensor, sigma: Tensor) -> MomentPair:
         sigma_out_c = p_c^2 * ((1 - 2 p_c) * sigma_c + sum_j p_j^2 sigma_j)
 
     Outputs are flattened to [B, H*W, C]; the batch dim is never squeezed.
+    Under the naive backend: ``ops.naive.vsoftmax_naive``.
     """
+    if _BACKEND == "naive":
+        return naive.vsoftmax_naive(mu, sigma)
     b, h, w, c = mu.shape
     mu_flat = mu.reshape(b, h * w, c).float()
     sigma_flat = sigma.reshape(b, h * w, c).float()

@@ -49,6 +49,7 @@ import torch.nn.functional as F
 
 from supernet_tpu_torch.ops.moments import (  # noqa: F401
     _act,
+    _axis_pads,
     _conv_pads,
     _enc_pads,
     _f32,
@@ -385,7 +386,7 @@ def vglue_conv3d_relu(
     sigma: Tensor,
     w_mu: Tensor,
     w_sigma: Tensor,
-    pad_size: Sequence[int],
+    pad_size,
     sigma_fill: float,
     mu_enc: Tensor | None = None,
     sigma_enc: Tensor | None = None,
@@ -396,8 +397,10 @@ def vglue_conv3d_relu(
     conv padding, the skip crop as a ``narrow`` view, the concatenation as a
     split of the kernel's input axis, the constant ``sigma_fill`` border as
     two terms of a batch-1 ring map. The ReLU is this module's ``vrelu``
-    (the replay seam)."""
-    lo, hi = int(pad_size[0]), int(pad_size[1])
+    (the replay seam). ``pad_size`` is one ``(lo, hi)`` for every spatial
+    axis or a ``(lo, hi) >= 0`` per axis: the local conv of the D-sharded
+    fold, padded on a side only where that side is an edge of the whole
+    volume."""
     k = w_mu.shape[0]
     c_d = mu.shape[-1]
     s_w = F.softplus(_f32(w_sigma))
@@ -405,7 +408,7 @@ def vglue_conv3d_relu(
     w_d = w_mu[..., :c_d, :] if mu_enc is not None else w_mu
     shift = get_winsum() == "shift"
     ones = None if shift else mu.new_ones((k, k, k, 1, 1))
-    pd = ((lo, hi),) * 3
+    pd = _axis_pads(pad_size, 3)
 
     def winsum(src: Tensor, pads) -> Tensor:
         if shift:
@@ -418,7 +421,7 @@ def vglue_conv3d_relu(
     mu_out = _conv3d_pads(mu, w_d, pd)
     ws = winsum(src_of(mu, sigma), pd)
     sig_conv = _conv3d_pads(sigma, torch.square(_f32(w_d)), pd)
-    if sigma_fill != 0.0 and (lo or hi):
+    if sigma_fill != 0.0 and any(lo or hi for lo, hi in pd):
         ring = _ring(mu, pd)
         fill = float(torch.tensor(sigma_fill, dtype=mu.dtype))  # jnp.asarray's rounding
         ws = ws + winsum(ring, ((0, 0),) * 3) * (c_d * fill)
@@ -427,7 +430,7 @@ def vglue_conv3d_relu(
     if mu_enc is not None:
         mu_enc, sigma_enc = _act(mu_enc), _act(sigma_enc)
         w_e = w_mu[..., c_d:, :]
-        pe = _enc_pads(mu.shape[1:4], mu_enc.shape[1:4], lo, hi)
+        pe = _enc_pads(mu.shape[1:4], mu_enc.shape[1:4], pd)
         mu_out = mu_out + _conv3d_pads(mu_enc, w_e, pe)
         ws = ws + winsum(src_of(mu_enc, sigma_enc), pe)
         sig_conv = sig_conv + _conv3d_pads(sigma_enc, torch.square(_f32(w_e)), pe)

@@ -6,8 +6,11 @@ materializes ``[B, H'W', k^2 C]`` matrices and computes the variance terms
 with dense matmuls against a broadcast per-channel kernel variance.
 
 It exists as a cross-check (the tests hold ``ops.moments`` equal to it) and
-as the algorithmic baseline of a benchmark. It is not a kernel, it shares no
-code with the primitives it checks, and no path of the package calls it.
+as the algorithmic baseline of the benchmark: ``ops.set_backend("naive")``
+(or ``SUPERNET_BACKEND=naive``) routes ``vconv_input``, ``vconv``,
+``vmaxpool``, the unpool conv and ``vsoftmax`` here, as the JAX package's
+naive backend does. It is not a kernel and shares no code with the
+primitives it checks.
 """
 
 from __future__ import annotations

@@ -17,7 +17,11 @@ per-block sharding constraint; here the bookkeeping is written out:
   shard starts on an even global row (``vmaxpool`` pads an odd end, so an
   odd offset would pool the wrong windows), the unpool is local and
   doubles the rows, a pad adds rows at the global edges only, and the skip
-  concatenation fetches the skip's rows in global coordinates;
+  concatenation fetches the skip's rows in global coordinates; under the
+  decoder glue fold (``glue_fold="fold"``) the pad, the concatenation and
+  the conv are one op that fetches the decoder rows under its window and
+  pads them only at the image's global top and bottom
+  (``vglue_conv_relu`` with a ``(lo, hi)`` pad per axis);
 - a level with fewer rows than ranks (the bottleneck of a deep split)
   leaves the last ranks with no rows: such a rank computes the last output
   row as well and drops it, so every rank runs the same ops in the same
@@ -227,6 +231,7 @@ def _family(three_d: bool) -> Dict[str, Callable]:
             "pad": lambda *a: M.vpad3d(*a),
             "unpool": lambda *a: M.vunpool3d_conv2(*a),
             "concat": lambda *a: M.vcrop_concat3d(*a),
+            "glue": lambda *a: M.vglue_conv3d_relu(*a),
             "softmax": lambda *a: M.vsoftmax3d(*a),
         }
     from supernet_tpu_torch.ops import moments as M
@@ -239,6 +244,7 @@ def _family(three_d: bool) -> Dict[str, Callable]:
         "pad": lambda *a: M.vpad(*a),
         "unpool": lambda *a: M.vunpool_conv2(*a),
         "concat": lambda *a: M.vcrop_concat(*a),
+        "glue": lambda *a: M.vglue_conv_relu(*a),
         "softmax": lambda *a: M.vsoftmax(*a),
     }
 
@@ -324,27 +330,56 @@ class _RowNet:
         ms, ss = self.fetch(skip, [(lo + off, hi + off) for lo, hi in dec.ranges])
         return _Rows(self.ops["concat"](*dec.ts, ms, ss), dec.ranges, dec.n)
 
+    def glue(self, rows: _Rows, pad, fill: float, w_mu: Tensor, w_sigma: Tensor,
+             skip: Optional[_Rows] = None) -> _Rows:
+        """The glue fold's ``vpad -> [concat ->] conv -> relu`` in one
+        (``vglue_conv_relu``): a block of output rows reads the decoder rows
+        under its window, which the fold pads only on a side that is the
+        image's global top or bottom (the other axes locally), and the
+        skip's rows at their global places (the center-crop offset)."""
+        k = w_mu.shape[0]
+        p0, p1 = int(pad[0]), int(pad[1])
+        n_pad = rows.n + p0 + p1
+        n_out = n_pad - k + 1
+        own = _split(n_out, self.ax.size)
+        # a window that lies wholly in a pad widens toward the image, so
+        # that every rank's conv reads at least one decoder row
+        comp = [(min(lo, rows.n + p0 - 1), max(hi, p0 - k + 2))
+                for lo, hi in self._compute(own, n_out)]
+        # the window of output rows [a, b) is padded rows [a, b + k - 1),
+        # decoder rows p0 lower
+        want = [(max(a - p0, 0), min(b + k - 1 - p0, rows.n)) for a, b in comp]
+        m, s = self.fetch(rows, want)
+        (a, b), (r0, r1) = comp[self.ax.index], want[self.ax.index]
+        pads = ((r0 + p0 - a, b + k - 1 - p0 - r1),) + ((p0, p1),) * (m.dim() - 3)
+        enc = (None, None)
+        if skip is not None:
+            off = (skip.n - n_pad) // 2
+            enc = self.fetch(skip, [(lo + off, hi + k - 1 + off) for lo, hi in comp])
+        return self._take(self.ops["glue"](m, s, w_mu, w_sigma, pads, fill, *enc),
+                          own, comp, n_out)
+
     # -- the model -------------------------------------------------------
 
     def forward(self, params, x: Tensor) -> Tuple[Tensor, Tensor, _Rows]:
         """``(probs, sigma)`` of this rank's output rows, flattened like the
         model's ([B, rows * W(*H), C]), and the output's ``_Rows`` layout."""
-        from supernet_tpu_torch.ops import get_glue_fold
+        from supernet_tpu_torch.ops.moments import glue_fold_active
 
         cfg = self.cfg
-        if get_glue_fold() == "fold":
-            raise NotImplementedError(
-                "the decoder glue fold under row sharding is not ported yet "
-                "(ROADMAP.md, Queue 1: 'Sharded glue fold'); run the sharded "
-                "paths with glue_fold='none'"
-            )
         depth, fill = cfg.depth, cfg.sigma_fill
         remat = cfg.remat and torch.is_grad_enabled()
+        fold = glue_fold_active()
 
         def layer(rows, op, name):
             p = params[name]
             with torch.profiler.record_function(name):
                 return self.conv(rows, op, p["w_mu"], p["w_sigma"])
+
+        def glue(rows, pad, name, skip=None):
+            p = params[name]
+            with torch.profiler.record_function(name):
+                return self.glue(rows, pad, fill, p["w_mu"], p["w_sigma"], skip)
 
         def block(fn, *args):
             if not remat:
@@ -353,6 +388,9 @@ class _RowNet:
 
         def encoder_block(i, rows):
             if i == depth - 1 and cfg.bottleneck_pre_pad is not None:
+                if fold:
+                    rows = glue(rows, cfg.bottleneck_pre_pad, f"conv{2 * i}")
+                    return layer(rows, "conv_relu", f"conv{2 * i + 1}")
                 rows = self.pad(rows, cfg.bottleneck_pre_pad, fill)
             rows = layer(rows, "conv_relu", f"conv{2 * i}")
             return layer(rows, "conv_relu", f"conv{2 * i + 1}")
@@ -361,6 +399,9 @@ class _RowNet:
             p = params[f"up{j}_conv2x2"]
             with torch.profiler.record_function(f"up{j}_conv2x2"):
                 rows = self.unpool(rows, p["w_mu"], p["w_sigma"])
+            if fold:
+                rows = glue(rows, (3, 3), f"up{j}_conv1", skip)
+                return glue(rows, (2, 2), f"up{j}_conv2")
             rows = self.pad(rows, (3, 3), fill)
             rows = self.concat(rows, skip)
             rows = layer(rows, "conv_relu", f"up{j}_conv1")

@@ -325,3 +325,35 @@ def rank_ensemble_step(rank, world, cfg, tc, members_np, xs, ys, act_dtype="floa
         return to_numpy({"params": state.params, "losses": losses})
     finally:
         ops.set_act_dtype("float32")
+
+
+def rank_fold(rank, world, kind, cfg, tc, params_np, x, y, n_data=1, three_d=False):
+    """The sharded forward of ``x`` and one sharded train step on ``(x, y)``
+    under ``glue_fold="none"`` and under ``"fold"`` (``kind``: ``"spatial"``
+    or ``"hybrid"``): ``{mode: {"out": (probs, sigma), "params": ...,
+    "metrics": [...]}}``."""
+    from supernet_tpu_torch import parallel
+    from supernet_tpu_torch.ops.moments import lowering
+    from supernet_tpu_torch.parallel.spatial import make_rows_forward
+    from supernet_tpu_torch.train import create_train_state
+
+    mesh = _mesh(kind, world, n_data)
+    if kind == "hybrid":
+        # the volumetric forward on a (data, space) mesh has no named maker
+        fwd = make_rows_forward(cfg, mesh, "space", "data", three_d)
+        step = (parallel.make_hybrid_train_step3d if three_d
+                else parallel.make_hybrid_train_step)(cfg, tc, mesh)
+    else:
+        fwd = (parallel.make_spatial_forward3d if three_d
+               else parallel.make_spatial_forward)(cfg, mesh)
+        step = (parallel.make_spatial_train_step3d if three_d
+                else parallel.make_spatial_train_step)(cfg, tc, mesh)
+    out = {}
+    for mode in ("none", "fold"):
+        with lowering(glue_fold=mode):
+            pred = fwd(_params(params_np), torch.from_numpy(x))
+            state, _ = create_train_state(params_np, tc, "cpu")
+            state, m = step(state, x, y)
+        out[mode] = to_numpy({"out": pred, "params": state.params,
+                              "metrics": [float(v) for v in m]})
+    return out

@@ -219,9 +219,12 @@ def test_apply_env_overrides(monkeypatch, capsys):
 
 def test_cli_reads_the_knobs_first(monkeypatch):
     """``cli.main`` applies the knobs before it dispatches
-    (supernet_tpu/cli.py:773-775), even for a subcommand that then raises."""
+    (supernet_tpu/cli.py:773-775), ``bench`` included (run here as a stub:
+    the bench itself is tests/test_torch_bench.py's)."""
+    from supernet_tpu_torch import bench
+
     calls = []
-    monkeypatch.setattr(ops, "apply_env_overrides", lambda: calls.append(1))
-    with pytest.raises(NotImplementedError):
-        cli.main(["bench"])
-    assert calls == [1]
+    monkeypatch.setattr(ops, "apply_env_overrides", lambda: calls.append("knobs"))
+    monkeypatch.setattr(bench, "main", lambda device="cuda": calls.append(("bench", device)))
+    assert cli.main(["bench"]) == 0
+    assert calls == ["knobs", ("bench", "cuda")]

@@ -47,3 +47,52 @@ def test_remat_does_not_change_the_counts():
 
     cfg = configs.BRATS.model
     assert flops.forward_flops(dataclasses.replace(cfg, remat=True)) == flops.forward_flops(cfg)
+
+
+@pytest.mark.parametrize("name,tflops,gbps", [
+    ("NVIDIA H100 80GB HBM3", 989.0, 3350.0),
+    ("NVIDIA H100 PCIe", 756.5, 2000.0),
+    ("NVIDIA H100 NVL", 835.5, 3900.0),
+    ("NVIDIA H200", 989.0, 4800.0),
+    ("NVIDIA H200 NVL", 835.5, 4800.0),
+    ("NVIDIA A100-SXM4-80GB", 0.0, 0.0),  # no row: unavailable, never wrong
+])
+def test_peaks_by_device_name(monkeypatch, name, tflops, gbps):
+    """The bf16 dense peak and the HBM peak looked up by a substring of the
+    card's name (``torch.cuda.get_device_name``); an unknown card reads 0.0
+    and so do ``mfu`` and ``hbm_utilization``."""
+    for var in ("SUPERNET_TPU_PEAK_TFLOPS", "SUPERNET_TPU_PEAK_HBM_GBPS"):
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda device=None: name)
+    for device in (None, "cuda", 0, torch.device("cuda", 0)):
+        assert flops.peak_tflops(device) == tflops
+        assert flops.peak_hbm_gbps(device) == gbps
+    assert flops.mfu(tflops * 0.25e12) == (0.25 if tflops else 0.0)
+    assert flops.hbm_utilization(gbps * 0.5e9) == (0.5 if gbps else 0.0)
+
+
+def test_peaks_on_the_cpu_read_zero(monkeypatch):
+    for var in ("SUPERNET_TPU_PEAK_TFLOPS", "SUPERNET_TPU_PEAK_HBM_GBPS"):
+        monkeypatch.delenv(var, raising=False)
+    for device in ("cpu", torch.device("cpu")):
+        assert flops.peak_tflops(device) == 0.0 and flops.peak_hbm_gbps(device) == 0.0
+        assert flops.mfu(1e15, device) == 0.0 and flops.hbm_utilization(1e12, device) == 0.0
+    if not torch.cuda.is_available():
+        assert flops.peak_tflops() == 0.0 and flops.peak_hbm_gbps() == 0.0
+
+
+def test_env_overrides_and_utilizations_equal_jax(monkeypatch):
+    """``SUPERNET_TPU_PEAK_TFLOPS`` / ``_HBM_GBPS`` override the table on
+    any device, and with the same override on both sides ``mfu`` and
+    ``hbm_utilization`` equal the JAX package's."""
+    monkeypatch.setenv("SUPERNET_TPU_PEAK_TFLOPS", "123.5")
+    monkeypatch.setenv("SUPERNET_TPU_PEAK_HBM_GBPS", "2048")
+    assert flops.peak_tflops("cpu") == 123.5 and flops.peak_hbm_gbps("cpu") == 2048.0
+    assert flops.peak_tflops() == jflops.peak_tflops()
+    assert flops.peak_hbm_gbps() == jflops.peak_hbm_gbps()
+    for rate in (0.0, 3.7e13, 9.9e14):
+        assert flops.mfu(rate, "cpu") == pytest.approx(jflops.mfu(rate), rel=1e-15)
+        assert flops.hbm_utilization(rate / 100, "cpu") == pytest.approx(
+            jflops.hbm_utilization(rate / 100), rel=1e-15)

@@ -5,7 +5,8 @@ mesh of spawned ranks, against the JAX package's unsharded step, forward and
 (step loss rtol 1e-5, forward atol 2e-5) and ``tests/test_parallel.py``
 (parameters rtol 2e-5, atol 1e-6); the ranks' parameters equal bit for bit.
 The image's 32 rows split over 3 space ranks unevenly, as the JAX docstring
-allows."""
+allows. The decoder glue fold on a (2, 2) mesh against the unfolded hybrid
+path and JAX's single-device fold."""
 
 import dataclasses
 
@@ -23,7 +24,8 @@ from supernet_tpu.models import forward as jforward  # noqa: E402
 from supernet_tpu.models import init_params as jinit  # noqa: E402
 from supernet_tpu_torch import configs  # noqa: E402
 from supernet_tpu_torch.data.augment import augment_train_batch  # noqa: E402
-from _torch_parallel_ranks import rank_forward, rank_train, spawn  # noqa: E402
+from _torch_parallel_ranks import rank_fold, rank_forward, rank_train, spawn  # noqa: E402
+from test_torch_spatial import check_sharded_fold, fold_case  # noqa: E402
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -125,6 +127,16 @@ def test_hybrid_train_step3d_matches_jax(tmp_path):
     state, m = jstep3d(jcfg, JTC)(state, jnp.asarray(x), jnp.asarray(y))
     assert outs[0]["metrics"][0][0] == pytest.approx(float(m.loss), rel=LOSS_RTOL)
     _assert_params(outs, state)
+
+
+@pytest.mark.parametrize("three_d", [False, pytest.param(True, marks=pytest.mark.slow)])
+def test_hybrid_glue_fold_matches_unfolded_and_jax(tmp_path, three_d):
+    """The glue fold on a (2, 2) mesh (the batch over data, rows over
+    space), forward and one train step, against the unfolded hybrid path in
+    the same world and the JAX single-device fold."""
+    cfg, jcfg, jp, x, y = fold_case(three_d)
+    outs = spawn(rank_fold, 4, tmp_path, "hybrid", cfg, TC, _np(jp), x, y, 2, three_d)
+    check_sharded_fold(outs, jp, x, jcfg, three_d)
 
 
 def test_make_mesh2d_shape_and_axes(tmp_path):

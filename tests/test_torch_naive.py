@@ -126,10 +126,17 @@ def test_vsoftmax_naive(b, c):
     _close(got, [f.numpy() for f in tm.vsoftmax(*_t(mu, sigma))], atol=1e-6)
 
 
-def test_no_path_of_the_port_calls_the_baseline():
-    """It is a cross-check and a baseline, not a kernel: nothing else in the
-    package imports it."""
+def test_no_path_of_the_port_calls_the_baseline(monkeypatch):
+    """It is a cross-check and a baseline, not a kernel: the one module that
+    imports it is ``ops/moments.py``, whose naive backend
+    (``set_backend("naive")``) routes to it, and on the default backend a
+    forward and a backward never call it."""
+    import dataclasses
     import os
+    import re
+
+    from supernet_tpu_torch import configs
+    from supernet_tpu_torch.models import forward, init_params
 
     root = os.path.dirname(os.path.abspath(naive.__file__))
     pkg = os.path.dirname(root)
@@ -139,6 +146,20 @@ def test_no_path_of_the_port_calls_the_baseline():
             path = os.path.join(d, f)
             if f.endswith(".py") and path != os.path.abspath(naive.__file__):
                 with open(path) as fh:
-                    if "naive" in fh.read():
+                    if re.search(r"import naive\b|ops\.naive import", fh.read()):
                         users.append(os.path.relpath(path, pkg))
-    assert users == []
+    assert users == [os.path.join("ops", "moments.py")]
+
+    def refuse(*a, **k):
+        raise AssertionError("the default path called ops/naive.py")
+
+    for name in ("vconv_input_naive", "vconv_naive", "vmaxpool_naive", "vsoftmax_naive"):
+        monkeypatch.setattr(naive, name, refuse)
+    assert tm.get_backend() == "kernels"
+    cfg = dataclasses.replace(configs.HIPPOCAMPUS.model, image_size=32, out_size=22,
+                              base_kernels=4)
+    params = init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    for t in (t for p in params.values() for t in p.values()):
+        t.requires_grad_(True)
+    probs, sigma = forward(params, torch.zeros(1, 32, 32, 1), cfg)
+    (probs.sum() + sigma.sum()).backward()

@@ -154,7 +154,8 @@ def test_port_imports_no_jax():
     ``EnsembleSession`` and an export bundle (``flops.py``, ``hlo_profile.py``
     and ``xplane.py`` among the modules), runs a forward under the
     glue fold and a conv fold, and takes one data-parallel step in a gloo
-    world of one (``supernet_tpu_torch.parallel`` among the modules)."""
+    world of one (``supernet_tpu_torch.parallel`` and
+    ``supernet_tpu_torch.bench`` among the modules)."""
     code = textwrap.dedent("""
         import dataclasses, importlib, pkgutil, sys
 
@@ -193,7 +194,8 @@ def test_port_imports_no_jax():
                 "supernet_tpu_torch.parallel.data_parallel",
                 "supernet_tpu_torch.parallel.spatial",
                 "supernet_tpu_torch.parallel.hybrid",
-                "supernet_tpu_torch.parallel.multihost"} <= set(names), names
+                "supernet_tpu_torch.parallel.multihost",
+                "supernet_tpu_torch.bench"} <= set(names), names
         from supernet_tpu_torch import cli
         assert cli.build_parser().parse_args(
             ["train", "--synthetic", "4"]).device == "cuda"

@@ -7,7 +7,9 @@ outputs, and the halo's gradient against ``jax.grad`` through
 unsharded functions, with the tolerances of ``tests/test_spatial.py``
 (forward atol 2e-5, step loss rtol 1e-5) and ``tests/test_parallel.py``
 (parameters rtol 2e-5, atol 1e-6); ranks' parameters equal bit for bit. At
-the tiny size on 4 ranks the bottleneck holds fewer rows than ranks."""
+the tiny size on 4 ranks the bottleneck holds fewer rows than ranks. The
+decoder glue fold under row sharding against the unfolded sharded path and
+JAX's single-device fold, in 2-D and 3-D."""
 
 import dataclasses
 
@@ -32,6 +34,7 @@ from supernet_tpu_torch.parallel import spatial  # noqa: E402
 from _torch_parallel_ranks import (  # noqa: E402
     mesh1,  # noqa: F401  (a fixture)
     rank_block,
+    rank_fold,
     rank_forward,
     rank_halo,
     rank_session,
@@ -247,18 +250,100 @@ def test_scan_sharded_volumetric_session_matches_jax(tmp_path):
             np.testing.assert_allclose(got, w, rtol=1e-4, atol=1e-6)
 
 
-def test_glue_fold_under_row_sharding_names_its_roadmap_item(jparams, mesh1):
-    """The decoder glue fold does not run row-sharded: it raises naming its
-    ROADMAP.md Queue 1 item, which the file lists."""
-    import os
-
+def test_glue_fold_under_row_sharding_runs(jparams, mesh1):
+    """The decoder glue fold under row sharding, in a world of one: the
+    sharded forward under ``glue_fold="fold"`` is the meshless folded
+    forward."""
     from supernet_tpu_torch import parallel
     from supernet_tpu_torch.checkpoint import params_from_jax
+    from supernet_tpu_torch.models import forward
 
-    f = parallel.make_spatial_forward(CFG, mesh1)
-    x = torch.zeros(1, 32, 32, 1)
+    params = params_from_jax(_np(jparams), "cpu")
+    x = torch.from_numpy(np.random.default_rng(4).normal(0, 1, (2, 32, 32, 1))
+                         .astype(np.float32))
     with ops.moments.lowering(glue_fold="fold"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1: 'Sharded glue fold'"):
-            f(params_from_jax(_np(jparams), "cpu"), x)
-    with open(os.path.join(os.path.dirname(os.path.dirname(__file__)), "ROADMAP.md")) as fh:
-        assert "**Sharded glue fold**" in fh.read()
+        got = parallel.make_spatial_forward(CFG, mesh1)(params, x)
+        want = forward(params, x, CFG)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=FWD_ATOL)
+
+
+def _jax_fold_forward(jp, x, jcfg, three_d):
+    from supernet_tpu.models import forward3d as jforward3d
+    from supernet_tpu.ops import moments as jm
+
+    jm.set_glue_fold("fold")
+    try:
+        return (jforward3d if three_d else jforward)(jp, jnp.asarray(x), jcfg)
+    finally:
+        jm.set_glue_fold("none")
+
+
+def check_sharded_fold(outs, jp, x, jcfg, three_d):
+    """Each rank's folded sharded forward and step against its unfolded
+    sharded run (forward atol 2e-5; parameters rtol 2e-5 / atol 1e-6; the
+    step's metrics rtol 1e-5), the folded forward against JAX's
+    single-device fold, the ranks' parameters bit-equal."""
+    want = _jax_fold_forward(jp, x, jcfg, three_d)
+    for o in outs:
+        fold, none = o["fold"], o["none"]
+        for got, ref, w in zip(fold["out"], none["out"], want):
+            np.testing.assert_allclose(got, ref, atol=FWD_ATOL)
+            np.testing.assert_allclose(got, np.asarray(w), atol=FWD_ATOL)
+        np.testing.assert_allclose(fold["metrics"], none["metrics"], rtol=LOSS_RTOL)
+        for layer, ws in none["params"].items():
+            for k, v in ws.items():
+                np.testing.assert_allclose(fold["params"][layer][k], v, rtol=PARAM_RTOL,
+                                           atol=PARAM_ATOL, err_msg=f"{layer}/{k}")
+                np.testing.assert_array_equal(fold["params"][layer][k],
+                                              outs[0]["fold"]["params"][layer][k])
+
+
+SHAPE3 = dict(image_size=16, out_size=10, base_kernels=2, depth=2)
+
+
+def fold_case(three_d):
+    """(cfg, jcfg, JAX params, x, y) of the sharded-fold cases: the tiny
+    2-D config, or a 16^3 cube at depth 2."""
+    from supernet_tpu.models import init_params3d as jinit3d
+
+    rng = np.random.default_rng(6)
+    if three_d:
+        cfg = dataclasses.replace(configs.HIPPOCAMPUS.model, **SHAPE3)
+        jcfg = dataclasses.replace(jconfigs.HIPPOCAMPUS.model, **SHAPE3)
+        return (cfg, jcfg, jinit3d(jax.random.PRNGKey(0), jcfg),
+                rng.normal(0, 1, (2, 16, 16, 16, 1)).astype(np.float32),
+                rng.integers(0, 3, (2, 10, 10, 10)).astype(np.int32))
+    return (CFG, JCFG, jinit(jax.random.PRNGKey(0), JCFG),
+            rng.normal(0, 1, (2, 32, 32, 1)).astype(np.float32),
+            rng.integers(0, 3, (2, 22, 22)).astype(np.int32))
+
+
+@pytest.mark.parametrize("world,three_d", [
+    (4, False),  # 32 rows: the bottleneck and the first decoder levels hold
+                 # fewer rows than ranks, windows wholly in a pad widen
+    (2, True),
+    pytest.param(2, False, marks=pytest.mark.slow),
+    pytest.param(4, True, marks=pytest.mark.slow),
+])
+def test_sharded_glue_fold_matches_unfolded_and_jax(tmp_path, world, three_d):
+    """The glue fold with H (D) split over ``world`` ranks, forward and one
+    train step, against the unfolded sharded path in the same world and
+    the JAX single-device fold."""
+    cfg, jcfg, jp, x, y = fold_case(three_d)
+    outs = spawn(rank_fold, world, tmp_path, "spatial", cfg, TC, _np(jp), x, y, 1, three_d)
+    check_sharded_fold(outs, jp, x, jcfg, three_d)
+
+
+@pytest.mark.slow
+def test_sharded_glue_fold_with_the_bottleneck_pre_pad(tmp_path):
+    """The BraTS geometry at a test width (depth 5, the (1, 0) pre-pad
+    folded into the bottleneck's first conv) over 3 ranks."""
+    cfg = dataclasses.replace(configs.BRATS.model, base_kernels=2)
+    jcfg = dataclasses.replace(jconfigs.BRATS.model, base_kernels=2)
+    jp = jinit(jax.random.PRNGKey(1), jcfg)
+    rng = np.random.default_rng(7)
+    x = rng.normal(0, 1, (1, 204, 204, 4)).astype(np.float32)
+    y = rng.integers(0, 5, (1, 186, 186)).astype(np.int32)
+    outs = spawn(rank_fold, 3, tmp_path, "spatial", cfg, configs.BRATS.train, _np(jp), x, y)
+    check_sharded_fold(outs, jp, x, jcfg, False)
