@@ -21,7 +21,14 @@ Phases (any failure raises and the exit code is not 0):
    also by its device time alone and beside cuDNN's mu product alone (TF32
    off, a yardstick the port never calls), with its path ("wgmma" or
    "simt"), K slices and its float32 and 3xTF32 bounds. One JSON line per
-   shape.
+   shape. Then the bf16 case at every layer shape (and extra k=2, k=1,
+   C=130 and odd cases): kernels 1 (with its ReLU mask) and 2 on bf16
+   moments must (a) equal, bit for bit, the same kernel on the float32
+   upcast of those inputs with the outputs cast to their dtype (the mask
+   the float32 ``mu_out > 0``), and (b) lie within the float32 limit of
+   the plain version on the same bf16 inputs plus ``BF16_STEP`` of the
+   element; each timed (CUDA events, device time) beside its bound at
+   2-byte moments.
 3. serving, hippocampus at full width: ``InferenceSession`` (batch 20),
    with ``init_params`` weights rescaled to He scale, answers requests of
    20, 7 and 45 images; the kernel launch counters are zeroed just before
@@ -51,6 +58,12 @@ Phases (any failure raises and the exit code is not 0):
    attack and saliency map is, and again with weights that require no
    gradient (the attack's case: the weight gradients are skipped).
    Each is timed with CUDA events beside its plain version.
+   Then the bf16 cases at the same shapes, held (a) and (b) as in phase 2:
+   kernel 4 on a bf16 g with VDPConv's float32 t (and with a bf16 t), kernel
+   1's transposed pair on bf16 cotangents (float32 out), kernel 3 on bf16
+   (a 16-byte load holds 8 channels, so C = 36 takes the general kernel),
+   and VDPConv's bf16 gradients against its float32 gradients on the
+   upcast inputs (cuDNN deterministic) and autograd of the plain version.
 6. training, hippocampus at full width, batch 20: 5 steps of
    ``train.make_train_step`` from He-scaled ``init_params`` on a seeded
    batch with integer labels. The launch counters are zeroed just before
@@ -147,8 +160,13 @@ Phases (any failure raises and the exit code is not 0):
    at full width in bf16 against the card's float32 answer and the CPU's
    bf16 answer (``BF16_PROBS_ATOL``, ``BF16_AGREE``), and 5 / 2 train steps
    against the float32 steps (``BF16_LOSS_RTOL``; parameters, gradients and
-   loss float32); launches equal to float32's; ``profiling``'s serve and
-   train profiles (wall, device time, peak memory) in both dtypes.
+   loss float32); the same in bf16 with the kernels fed float32 through
+   casts (``_kernels_fed_float32``, the boundary before the kernels took
+   bf16): its answer bit-equal to the bf16 kernels' and its losses within
+   ``BF16_LOSS_RTOL``; launches equal to float32's in all three;
+   ``profiling``'s serve and train profiles (wall, device time, idle share,
+   peak memory, dtype-conversion kernels per request and per step) in the
+   three.
 17. ``EnsembleSession`` of 3 members at hippocampus b20 against the CPU
    (launches one forward's: the members run member-stacked, phase 19),
    ``cli export`` in process on its default
@@ -182,7 +200,8 @@ Phases (any failure raises and the exit code is not 0):
    hippocampus step with K=4 at batch 20 and a BraTS step with K=2 at batch
    2, within the single-member checks' limits, timed (CUDA events and device
    time) against K single launches; the stride-0 input (one batch for every
-   member) bit-equal to the same batch copied per member. Then, under
+   member) bit-equal to the same batch copied per member; the same member
+   launches on bf16 held (a) and (b) as in phase 2, with their device time. Then, under
    cuDNN's deterministic algorithms, ``make_ensemble_train_step`` at full
    hippocampus width (K=4, batch 20, He-scaled members seeded SEED + k): the
    step-1 loss and gradients of the member-stacked loss against each
@@ -276,8 +295,13 @@ Phases (any failure raises and the exit code is not 0):
    hippocampus b20 and b256 and BraTS b2, b20 and b128 (He scale, TF32
    off) within the serving limits, and a train step's step-1 gradient at
    hippocampus b64 (one step's launches) against the CPU's with the card's
-   choices replayed (``TRAIN_GRAD_TOL``). Prints the bench line and the
-   phase's seconds.
+   choices replayed (``TRAIN_GRAD_TOL``). The same in bf16, which the
+   bench runs by default: each forward bit-equal to the forward with the
+   kernels fed float32 through casts and within ``BF16_PROBS_ATOL`` /
+   ``BF16_AGREE`` of the naive one, and the b64 gradient bit-equal to the
+   gradient with the kernels fed float32, its loss within
+   ``BF16_LOSS_RTOL`` of float32's. Prints the bench line and the phase's
+   seconds.
 
 In phases 6-15 cuDNN runs its deterministic algorithms, and in 6-7 and 12
 the CPU reference of the gradients replays the card's ReLU masks and pool
@@ -290,8 +314,10 @@ attack gradient, the adversarial evaluation, the study, phase 18, one K=4
 ensemble step and one ensemble session chunk, one step under the glue fold,
 one step of ``cli profile``'s trace, one step of each sharded step of
 phase 22 and of the spatial step under the fold, one step of the bench's
-headline and its naive baseline run, errors, times and bounds, and
-for kernels 1 and 4 the member-axis times beside K single launches) and
+headline and its naive baseline run, errors, times and bounds, the bf16
+case's times, plain times and bounds at 2-byte moments (``bf16_*``,
+``brats_bf16_*``), and for kernels 1 and 4 the member-axis times beside K
+single launches, in float32 and bf16) and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -366,6 +392,13 @@ BF16_AGREE = 0.99
 # relative and the loss is a mean over 58,320 (hippocampus b20) or 69,192
 # (BraTS b2) pixels, so it moves by far less than one rounding; 1e-2 is five
 BF16_LOSS_RTOL = 1e-2
+# a bf16 case of phases 2, 5 and 19 against its plain version on the same
+# bf16 inputs: the float32 limit of the kernel (VDP_TOL, SIGMA_BWD_TOL,
+# VDP_BWD_TOL) of the plain output's max, plus, for a bf16 output, one bf16
+# step of the element. The kernel and the plain version each round a
+# float32 value to bf16 once (2^-8 of the element each), so two float32
+# values within the limit land at most one step (2^-7) apart.
+BF16_STEP = 2.0 ** -7
 TIMING_RUNS = 20
 
 
@@ -469,11 +502,14 @@ class KernelCheck:
         self.gen = torch.Generator(device="cuda").manual_seed(SEED)
         self.worst = {}
         self.ms = {}
-        self.vdp = {}  # (config) -> summed device, cuDNN and 3xTF32 bound ms
+        # (config) -> summed device, cuDNN and 3xTF32 bound ms; (config,
+        # "bf16") -> device ms, 0 and the 2xTF32 bound
+        self.vdp = {}
         self.paths = {}  # kernel 3 or 4 -> the planner's paths its shapes took
         self.dev = {}  # (kernel 3 or 4, config) -> summed device ms
         # (config) -> the dgrad's summed device ms, cuDNN's conv_transpose2d
-        # pair's and the dgrad's 3xTF32 bound
+        # pair's and the dgrad's 3xTF32 bound; (config, "bf16") -> device ms,
+        # 0 and the 2xTF32 bound
         self.dgrad_ms = {}
 
     def _randn(self, *shape):
@@ -534,6 +570,7 @@ class KernelCheck:
     def vmaxpool(self, config, layer, b, h, w, c, ties=False):
         torch = self.torch
         from supernet_tpu_torch.ops.kernels import pool as P
+        from supernet_tpu_torch.profiling import device_ms
 
         mu = self._randn(b, h, w, c)
         if ties:
@@ -548,10 +585,12 @@ class KernelCheck:
                     _die(f"vmaxpool {config}/{layer}: {name} is not bit-exact")
             ms = _time_ms(torch, lambda: P.vmaxpool(mu, sigma))
             plain_ms = _time_ms(torch, lambda: P.vmaxpool_plain(mu, sigma))
+            dev_ms = device_ms(lambda: P.vmaxpool(mu, sigma))
+        self.dev[("vmaxpool", config)] = self.dev.get(("vmaxpool", config), 0.0) + dev_ms
         n_out = got[0].numel()
         self._record("vmaxpool", config, 0.0, 0.0, ms, plain_ms,
                      _bound(4 * (2 * mu.numel() + 2 * n_out), 0), {
-            "layer": layer, "shape": [b, h, w, c], "ties": ties,
+            "layer": layer, "shape": [b, h, w, c], "ties": ties, "device_ms": dev_ms,
         })
 
     def vmaxpool_bwd(self, config, layer, b, h, w, c, ties=False):
@@ -758,6 +797,285 @@ class KernelCheck:
             "device_ms": dev_ms, "cudnn_conv_transpose_ms": cudnn_ms,
         })
 
+    # ---- bf16 cases: (a) the kernel on bf16 inputs against the same kernel
+    # on their float32 upcast, outputs cast (_equal_on_upcast); (b) against
+    # the plain version on the same bf16 inputs (_bf16_errors)
+
+    def vdp_conv_bf16(self, config, layer, b, h, w, cin, cout, k, has_sigma, relu):
+        """Kernel 1 with the window sum on bf16 moments, with the ReLU's
+        mask where ``relu``: bf16 mu_out and sig_out, float32 win, and the
+        mask equal to the float32 call's ``mu_out > 0``."""
+        torch = self.torch
+        from supernet_tpu_torch.ops.kernels import vdp_conv as V
+        from supernet_tpu_torch.profiling import device_ms, vdp_conv_bounds
+
+        bf = torch.bfloat16
+        what = f"vdp_conv bf16 {config}/{layer}"
+        mu = self._randn(b, h, w, cin).to(bf)
+        sigma = (0.05 * self._randn(b, h, w, cin).abs()).to(bf) if has_sigma else None
+        w_mu = 0.1 * self._randn(k, k, cin, cout)
+        w_sigma = -4.0 + self._randn(cout)
+        up = (mu.float(), None if sigma is None else sigma.float())
+        plan = V.plan(b, h, w, cin, cout, k, 1, _sms())
+        with torch.inference_mode():
+            got = V.vdp_conv(mu, sigma, w_mu, w_sigma, relu, relu_mask=relu)
+            ref = V.vdp_conv(*up, w_mu, w_sigma, relu, relu_mask=relu)
+            want = V.vdp_conv_plain(mu, sigma, w_mu, w_sigma, relu)
+            torch.cuda.synchronize()
+            _equal_on_upcast(torch, what, got, ref)
+            if relu and not torch.equal(got[3], ref[0] > 0):
+                _die(f"{what}: the ReLU mask is not the float32 mu_out > 0")
+            keep = None
+            flips = 0
+            if relu:
+                tie = (got[0] > 0) != (want[0] > 0)
+                flips = int(tie.sum())
+                if flips and float(torch.maximum(got[0].float().abs(), want[0].float().abs())[tie]
+                                   .max()) > VDP_TOL * float(want[0].float().abs().max()):
+                    _die(f"{what}: a ReLU mask differs away from mu = 0")
+                keep = [None, ~tie, None]
+            abs_err, rel_err = _bf16_errors(torch, what, got[:3], want, VDP_TOL, keep)
+            ms = _time_ms(torch, lambda: V.vdp_conv(mu, sigma, w_mu, w_sigma, relu))
+            plain_ms = _time_ms(
+                torch, lambda: V.vdp_conv_plain(mu, sigma, w_mu, w_sigma, relu))
+            dev_ms = device_ms(lambda: V.vdp_conv(mu, sigma, w_mu, w_sigma, relu))
+        bounds = vdp_conv_bounds(b, h, w, cin, cout, k, has_sigma, itemsize=2)
+        acc = self.vdp.setdefault((config, "bf16"), [0.0, 0.0, 0.0])
+        acc[0] += dev_ms
+        acc[2] += bounds["bound_2xtf32_ms"]
+        self._record("vdp_conv_bf16", config, abs_err, rel_err, ms, plain_ms,
+                     (bounds["bound_ms"], bounds["bytes_ms"], bounds["f32_ms"]), {
+            "layer": layer, "shape": [b, h, w, cin, cout, k], "dtype": "bfloat16",
+            "sigma": has_sigma, "relu": relu, "relu_ties": flips,
+            "path": plan.path, "splits": plan.splits, "equal_to_float32_on_upcast": True,
+            "device_ms": dev_ms, "bound_2xtf32_ms": bounds["bound_2xtf32_ms"],
+        })
+
+    def vmaxpool_bf16(self, config, layer, b, h, w, c, ties=False):
+        """Kernel 2 on bf16: mx, so and idx in bf16, bit for bit the float32
+        kernel's on the upcast inputs and the plain version's."""
+        torch = self.torch
+        from supernet_tpu_torch.ops.kernels import pool as P
+        from supernet_tpu_torch.profiling import device_ms
+
+        bf = torch.bfloat16
+        what = f"vmaxpool bf16 {config}/{layer}"
+        mu = self._randn(b, h, w, c)
+        if ties:
+            mu = torch.round(3.0 * mu)
+        mu, sigma = mu.to(bf), self._randn(b, h, w, c).abs().to(bf)
+        with torch.inference_mode():
+            got = P.vmaxpool(mu, sigma, return_idx=True)
+            ref = P.vmaxpool(mu.float(), sigma.float(), return_idx=True)
+            want = P.vmaxpool_plain(mu, sigma)
+            torch.cuda.synchronize()
+            _equal_on_upcast(torch, what, got, ref)
+            if not all(g.dtype == bf and torch.equal(g, r) for g, r in zip(got, want)):
+                _die(f"{what}: not bit-exact with the plain version")
+            ms = _time_ms(torch, lambda: P.vmaxpool(mu, sigma))
+            plain_ms = _time_ms(torch, lambda: P.vmaxpool_plain(mu, sigma))
+            dev_ms = device_ms(lambda: P.vmaxpool(mu, sigma))
+        key = ("vmaxpool_bf16", config)
+        self.dev[key] = self.dev.get(key, 0.0) + dev_ms
+        n_out = got[0].numel()
+        self._record("vmaxpool_bf16", config, 0.0, 0.0, ms, plain_ms,
+                     _bound(2 * (2 * mu.numel() + 2 * n_out), 0), {
+            "layer": layer, "shape": [b, h, w, c], "ties": ties, "dtype": "bfloat16",
+            "equal_to_float32_on_upcast": True, "device_ms": dev_ms,
+        })
+
+    def vmaxpool_bwd_bf16(self, config, layer, b, h, w, c, ties=False):
+        """Kernel 3 on bf16 idx and gradients: bf16 out, bit for bit the
+        float32 kernel's on the upcast inputs and the plain version's."""
+        torch = self.torch
+        from supernet_tpu_torch.ops.kernels import pool as P
+        from supernet_tpu_torch.profiling import device_ms
+
+        bf = torch.bfloat16
+        what = f"vmaxpool_bwd bf16 {config}/{layer}"
+        mu = self._randn(b, h, w, c)
+        if ties:
+            mu = torch.round(3.0 * mu)
+        with torch.inference_mode():
+            _, _, idx = P.vmaxpool(mu.to(bf), self._randn(b, h, w, c).abs().to(bf),
+                                   return_idx=True)
+            g_mu = self._randn(*idx.shape).to(bf)
+            g_sigma = self._randn(*idx.shape).to(bf)
+            got = P.vmaxpool_bwd(idx, g_mu, g_sigma, h, w)
+            ref = P.vmaxpool_bwd(idx.float(), g_mu.float(), g_sigma.float(), h, w)
+            want = P.vmaxpool_bwd_plain(idx, g_mu, g_sigma, h, w)
+            torch.cuda.synchronize()
+            _equal_on_upcast(torch, what, got, ref)
+            if not all(g.dtype == bf and torch.equal(g, r) for g, r in zip(got, want)):
+                _die(f"{what}: not bit-exact with the plain version")
+            ms = _time_ms(torch, lambda: P.vmaxpool_bwd(idx, g_mu, g_sigma, h, w))
+            plain_ms = _time_ms(
+                torch, lambda: P.vmaxpool_bwd_plain(idx, g_mu, g_sigma, h, w))
+            dev_ms = device_ms(lambda: P.vmaxpool_bwd(idx, g_mu, g_sigma, h, w))
+        plan = P.plan_bwd(b, h, w, c, 2)
+        self._seen("vmaxpool_bwd_bf16", config, plan.path, dev_ms)
+        self._record("vmaxpool_bwd_bf16", config, 0.0, 0.0, ms, plain_ms,
+                     _bound(2 * (3 * idx.numel() + 2 * b * h * w * c), 0), {
+            "layer": layer, "shape": [b, h, w, c], "ties": ties, "dtype": "bfloat16",
+            "path": plan.path, "blocks": plan.blocks, "device_ms": dev_ms,
+            "equal_to_float32_on_upcast": True,
+        })
+
+    def sigma_bwd_bf16(self, config, layer, b, hp, wp, c, k, t_bf16=False):
+        """Kernel 4 on a bf16 cotangent g with a float32 t (VDPConv's case:
+        t is kernel 1's float32 win, so u stays float32), or with ``t_bf16``
+        both in bf16 (u bf16). dsw is float32 either way; the same bits in
+        two runs."""
+        torch = self.torch
+        import torch.nn.functional as F
+
+        from supernet_tpu_torch.ops.kernels import sigma_bwd as S
+        from supernet_tpu_torch.profiling import device_ms
+
+        bf = torch.bfloat16
+        what = f"sigma_bwd bf16 {config}/{layer}" + (" (t bf16)" if t_bf16 else "")
+        g = self._randn(b, hp, wp, c).to(bf)
+        t = 10.0 * self._randn(b, hp, wp).abs()
+        if t_bf16:
+            t = t.to(bf)
+        s_w = F.softplus(self._randn(c) - 4.0)
+        with torch.inference_mode():
+            got = S.winsum_spread_bwd(g, t, s_w, k)
+            again = S.winsum_spread_bwd(g, t, s_w, k)
+            ref = S.winsum_spread_bwd(g.float(), t.float(), s_w, k)
+            want = S.winsum_spread_bwd_plain(g, t, s_w, k)
+            torch.cuda.synchronize()
+            if got[0].dtype != t.dtype or got[1].dtype != torch.float32:
+                _die(f"{what}: u {got[0].dtype}, dsw {got[1].dtype}")
+            if not all(torch.equal(a, a2) for a, a2 in zip(got, again)):
+                _die(f"{what}: two runs on the same input differ")
+            _equal_on_upcast(torch, what, got, ref)
+            abs_err, rel_err = _bf16_errors(torch, what, got, want, SIGMA_BWD_TOL)
+            ms = _time_ms(torch, lambda: S.winsum_spread_bwd(g, t, s_w, k))
+            plain_ms = _time_ms(torch, lambda: S.winsum_spread_bwd_plain(g, t, s_w, k))
+            dev_ms = device_ms(lambda: S.winsum_spread_bwd(g, t, s_w, k))
+        plan = S.plan(b, hp, wp, c, k, 1, _sms())
+        name = "sigma_bwd_bf16" + ("_t" if t_bf16 else "")
+        self._seen(name, config, plan.path, dev_ms)
+        h, w = hp + k - 1, wp + k - 1
+        nbytes = (2 * g.numel() + t.element_size() * (t.numel() + b * h * w)
+                  + 4 * 2 * c)
+        flops = 4 * g.numel() + k * k * b * h * w
+        self._record(name, config, abs_err, rel_err, ms, plain_ms,
+                     _bound(nbytes, flops), {
+            "layer": layer, "shape": [b, hp, wp, c, k], "dtype": "bfloat16",
+            "t_dtype": str(t.dtype), "path": plan.path, "blocks": plan.blocks,
+            "same_bits_in_two_runs": True, "equal_to_float32_on_upcast": True,
+            "device_ms": dev_ms,
+        })
+
+    def dgrad_bf16(self, config, layer, b, h, w, cin, cout, with_sigma):
+        """Kernel 1 without the window sum on bf16 cotangents, as VDPConv's
+        backward runs it under bf16: float32 out, equal to the float32 pair
+        on the upcast cotangents, against PyTorch's conv_transpose2d on them
+        within VDP_TOL."""
+        torch = self.torch
+        from supernet_tpu_torch.ops.kernels import vdp_conv as V
+        from supernet_tpu_torch.profiling import TF32_FLOPS_PER_S, device_ms
+
+        bf = torch.bfloat16
+        what = f"vdp_conv dgrad bf16 {config}/{layer}"
+        g1 = self._randn(b, h - 2, w - 2, cout).to(bf)
+        g2 = self._randn(b, h - 2, w - 2, cout).to(bf) if with_sigma else None
+        w_mu = 0.1 * self._randn(3, 3, cin, cout)
+        up2 = None if g2 is None else g2.float()
+        with torch.inference_mode():
+            got = V.conv_t_pair(g1, g2, w_mu)
+            ref = V.conv_t_pair(g1.float(), up2, w_mu)
+            want = V.conv_t_pair_plain(g1, g2, w_mu)
+            torch.cuda.synchronize()
+            if any(x is not None and x.dtype != torch.float32 for x in got):
+                _die(f"{what}: the outputs are not float32")
+            _equal_on_upcast(torch, what, got, ref)
+            abs_err, rel_err = _bf16_errors(torch, what, got, want, VDP_TOL)
+            ms = _time_ms(torch, lambda: V.conv_t_pair(g1, g2, w_mu))
+            plain_ms = _time_ms(torch, lambda: V.conv_t_pair_plain(g1, g2, w_mu))
+            dev_ms = device_ms(lambda: V.conv_t_pair(g1, g2, w_mu))
+        key = ("vdp_conv_dgrad_bf16", config)
+        self.dev[key] = self.dev.get(key, 0.0) + dev_ms
+        n = 2 if with_sigma else 1
+        nbytes = 2 * n * g1.numel() + 4 * (9 * cin * cout + n * b * h * w * cin)
+        flops = n * 2 * 9 * cin * cout * b * h * w
+        bound = _bound(nbytes, flops)
+        # the cotangents' small TF32 half is 0: two TF32 passes
+        b2 = max(bound[1], 1e3 * 2 * flops / TF32_FLOPS_PER_S)
+        acc = self.dgrad_ms.setdefault((config, "bf16"), [0.0, 0.0, 0.0])
+        acc[0] += dev_ms
+        acc[2] += b2
+        plan = V.plan(b, h + 2, w + 2, cout, cin, 3, 1, _sms())
+        self._record("vdp_conv_dgrad_bf16", config, abs_err, rel_err, ms, plain_ms, bound, {
+            "layer": layer, "shape": [b, h, w, cin, cout, 3], "sigma": with_sigma,
+            "dtype": "bfloat16", "path": plan.path, "splits": plan.splits,
+            "equal_to_float32_on_upcast": True, "device_ms": dev_ms,
+            "bound_2xtf32_ms": b2,
+        })
+
+    def vdp_conv_bwd_bf16(self, config, layer, b, h, w, cin, cout, k, has_sigma, relu):
+        """VDPConv's gradients on bf16 moments (kernel 1 forward with its
+        mask, kernel 4 and kernel 1's transposed pair on bf16 cotangents,
+        cuDNN's filter gradients on float32 operands): bf16 input gradients
+        and float32 weight gradients, equal to VDPConv's float32 gradients
+        on the upcast inputs and cotangents, cast (cuDNN deterministic), and
+        against autograd of the plain version on the bf16 inputs."""
+        torch = self.torch
+        from supernet_tpu_torch.ops.kernels import vdp_conv as V
+
+        bf = torch.bfloat16
+        what = f"vdp_conv_bwd bf16 {config}/{layer}"
+        mu0 = self._randn(b, h, w, cin).to(bf)
+        sg0 = (0.05 * self._randn(b, h, w, cin).abs()).to(bf) if has_sigma else None
+        w_mu = (0.1 * self._randn(k, k, cin, cout)).requires_grad_()
+        w_sigma = (-4.0 + self._randn(cout)).requires_grad_()
+        g1 = self._randn(b, h - k + 1, w - k + 1, cout).to(bf)
+        g2 = self._randn(b, h - k + 1, w - k + 1, cout).to(bf)
+
+        def leaves(dt):
+            mu = mu0.to(dt).requires_grad_()
+            sg = None if sg0 is None else sg0.to(dt).requires_grad_()
+            return mu, sg, [t for t in (mu, sg, w_mu, w_sigma) if t is not None]
+
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=True, allow_tf32=False):
+            mu, sg, ins = leaves(bf)
+            got = V.VDPConv.apply(mu, sg, w_mu, w_sigma, relu)
+            d_got = torch.autograd.grad(got, ins, (g1, g2), retain_graph=True)
+            mu32, sg32, ins32 = leaves(torch.float32)
+            d_ref = torch.autograd.grad(V.VDPConv.apply(mu32, sg32, w_mu, w_sigma, relu),
+                                        ins32, (g1.float(), g2.float()))
+            _equal_on_upcast(torch, what, d_got, d_ref)
+            if [d.dtype for d in d_got] != [t.dtype for t in ins]:
+                _die(f"{what}: gradient dtypes {[d.dtype for d in d_got]}")
+        want = V.vdp_conv_plain(mu, sg, w_mu, w_sigma, relu)[:2]
+        c1, c2 = g1, g2
+        flips = 0
+        if relu:
+            tie = (got[0].detach() > 0) != (want[0].detach() > 0)
+            flips = int(tie.sum())
+            if flips:
+                m_got, m_want = got[0].detach().float(), want[0].detach().float()
+                if float(torch.maximum(m_got.abs(), m_want.abs())[tie].max()) > \
+                        VDP_TOL * float(m_want.abs().max()):
+                    _die(f"{what}: a ReLU mask differs away from mu = 0")
+                c1, c2 = torch.where(tie, 0.0, g1), torch.where(tie, 0.0, g2)
+                d_got = torch.autograd.grad(got, ins, (c1, c2), retain_graph=True)
+        d_want = torch.autograd.grad(want, ins, (c1, c2), retain_graph=True)
+        torch.cuda.synchronize()
+        abs_err, rel_err = _bf16_errors(torch, what, d_got, d_want, VDP_BWD_TOL)
+        ms = _time_ms(torch, lambda: torch.autograd.grad(got, ins, (c1, c2),
+                                                         retain_graph=True))
+        plain_ms = _time_ms(torch, lambda: torch.autograd.grad(want, ins, (c1, c2),
+                                                               retain_graph=True))
+        self._record("vdp_conv_bwd_bf16", config, abs_err, rel_err, ms, plain_ms, None, {
+            "layer": layer, "shape": [b, h, w, cin, cout, k], "dtype": "bfloat16",
+            "sigma": has_sigma, "relu": relu, "relu_ties": flips,
+            "equal_to_float32_on_upcast": True,
+        })
+
     def _seen(self, kernel, config, path, dev_ms):
         """Note the path a backward kernel's plan took and add its device
         time (the stream held by a sleep) to the config's sum."""
@@ -781,6 +1099,46 @@ class KernelCheck:
                 t[i] += v
             line["bound_ms"] = bound[0]
         print(json.dumps(line), flush=True)
+
+
+def _equal_on_upcast(torch, what, got, ref) -> None:
+    """Check (a) of a bf16 case: output by output, the kernel on bf16
+    inputs returns the same kernel's outputs on their float32 upcast, cast
+    to its own output's dtype (bit for bit; None outputs skipped)."""
+    for i, (g, r) in enumerate(zip(got, ref)):
+        if g is None and r is None:
+            continue
+        if g is None or r is None or not torch.equal(g, r.to(g.dtype)):
+            _die(f"{what}: output {i} on bf16 inputs is not the float32 kernel's "
+                 f"output on the upcast inputs, cast to its dtype")
+
+
+def _bf16_errors(torch, what, got, want, tol, keep=None):
+    """Check (b) of a bf16 case: each output within ``tol`` of the plain
+    version's max magnitude, plus BF16_STEP of the element where the output
+    is bf16; ``keep`` (per output, a boolean mask or None) leaves elements
+    out. Returns (max abs error, max error / max |plain|)."""
+    abs_err = rel_err = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        if w is None:
+            continue
+        step = BF16_STEP if g.dtype == torch.bfloat16 else 0.0
+        g, w = g.detach().float(), w.detach().float()
+        scale = max(float(w.abs().max()), 1e-30)
+        d = (g - w).abs()
+        over = d - tol * scale - step * torch.maximum(g.abs(), w.abs())
+        m = None if keep is None else keep[i]
+        if m is not None:
+            d, over = d[m], over[m]
+        if not d.numel():
+            continue
+        if float(over.max()) > 0:
+            _die(f"{what}: output {i} differs from its plain version by "
+                 f"{float(d.max()):.3e} ({float(d.max()) / scale:.3e} of its max), "
+                 f"beyond {tol} of the max plus {step} of the element")
+        abs_err = max(abs_err, float(d.max()))
+        rel_err = max(rel_err, float(d.max()) / scale)
+    return abs_err, rel_err
 
 
 def _vdp_errors(torch, got, want, relu, tol):
@@ -1973,8 +2331,28 @@ def _serving_close(name, probs, sigma, ref_p, ref_s):
     return worst_p, float(d.max()), share
 
 
+@contextlib.contextmanager
+def _kernels_fed_float32(torch, on: bool):
+    """With ``on``, the moment ops' boundary before the kernels took bf16:
+    ``ops.moments`` upcasts bf16 moments before kernels 1 and 2 and casts
+    their outputs back (its float16 rule widened to bf16), so every kernel
+    computes on float32 tensors behind conversion kernels. Phase 16's
+    baseline, run in the same call as the bf16 kernels."""
+    from supernet_tpu_torch.ops import moments as M
+
+    before = M._HALF
+    if on:
+        M._HALF = (torch.bfloat16, torch.float16)
+    try:
+        yield
+    finally:
+        M._HALF = before
+
+
 def _bf16(torch, smi):
-    """Phase 16. Returns {config: {"float32" | "bfloat16": train launches}}."""
+    """Phase 16. Returns {config: {"float32" | "bfloat16" |
+    "bfloat16_upcast": train launches}}; "bfloat16_upcast" is bf16 with the
+    kernels fed float32 (:func:`_kernels_fed_float32`)."""
     import numpy as np
 
     from supernet_tpu_torch import train as T
@@ -1992,8 +2370,8 @@ def _bf16(torch, smi):
         x = rng.normal(0.0, 1.0, (steps, batch, s, s, c)).astype(np.float32)
         y = rng.integers(0, cfg.n_classes, (steps, batch, o, o)).astype(np.int32)
         serve, train, prof = {}, {}, {}
-        for dt in ("float32", "bfloat16"):
-            with act_dtype(dt):
+        for dt in ("float32", "bfloat16", "bfloat16_upcast"):
+            with act_dtype(dt.split("_")[0]), _kernels_fed_float32(torch, dt.endswith("upcast")):
                 gpu = InferenceSession(params, cfg, batch, device="cuda").warmup()
                 _zero_launches()
                 answer = gpu.predict(xs)
@@ -2020,9 +2398,23 @@ def _bf16(torch, smi):
             cpu16 = InferenceSession(params, cfg, batch, device="cpu").predict(xs)
         (p32, _), l32 = serve["float32"]
         (p16, s16), l16 = serve["bfloat16"]
+        (pu, su), lu = serve["bfloat16_upcast"]
         if l16 != l32 or train["bfloat16"][1] != train["float32"][1]:
             _die(f"bf16 {name}: launches {l16} / {train['bfloat16'][1]} differ from "
                  f"float32's {l32} / {train['float32'][1]}")
+        if lu != l32 or train["bfloat16_upcast"][1] != train["float32"][1]:
+            _die(f"bf16 {name}, kernels fed float32: launches {lu} / "
+                 f"{train['bfloat16_upcast'][1]} differ from float32's")
+        # the kernels round once where the casts rounded: the same answer
+        if not (np.array_equal(p16, pu) and np.array_equal(s16, su)):
+            _die(f"bf16 {name}: the answer with bf16 kernels differs from the one "
+                 f"with the kernels fed float32 (probs {float(np.abs(p16 - pu).max()):.3e}, "
+                 f"sigma {float(np.abs(s16 - su).max()):.3e})")
+        upcast_loss_err = max(abs(a - b) / abs(b) for a, b in
+                              zip(train["bfloat16"][0], train["bfloat16_upcast"][0]))
+        if not upcast_loss_err <= BF16_LOSS_RTOL:
+            _die(f"bf16 {name}: losses {train['bfloat16'][0]} against the kernels fed "
+                 f"float32 {train['bfloat16_upcast'][0]}")
         agree = {}
         for ref_name, ref in (("card_float32", p32), ("cpu_bfloat16", cpu16[0])):
             err = float(np.abs(p16 - ref).max())
@@ -2038,7 +2430,8 @@ def _bf16(torch, smi):
             _die(f"bf16 {name} training: losses {l16s} against float32's {l32s} "
                  f"({loss_err:.3e} relative), dtypes {train['bfloat16'][2]}")
         keys = ("request_ms_median", "step_ms_median", "device_ms_per_request",
-                "device_ms_per_step", "peak_memory_bytes", "idle_share")
+                "device_ms_per_step", "peak_memory_bytes", "idle_share",
+                "conversion_kernels_per_request", "conversion_kernels_per_step")
         print(json.dumps({
             "bf16": name, "card": smi, "batch": batch, "steps": steps,
             "serve_launches": l16, "train_launches": train["bfloat16"][1],
@@ -2047,6 +2440,8 @@ def _bf16(torch, smi):
             "probs_max_abs_err_vs_cpu_bfloat16": agree["cpu_bfloat16"][0],
             "argmax_agreement_vs_cpu_bfloat16": agree["cpu_bfloat16"][1],
             "losses": l16s, "float32_losses": l32s, "loss_max_rel_err_vs_float32": loss_err,
+            "answer_equal_to_kernels_fed_float32": True,
+            "loss_max_rel_err_vs_kernels_fed_float32": upcast_loss_err,
             "dtypes_of_params_grads_loss": train["bfloat16"][2],
             "profiles": {dt: {mode: {k: v for k, v in r.items() if k in keys}
                               for mode, r in pr.items()} for dt, pr in prof.items()},
@@ -2561,6 +2956,60 @@ def _member_kernels(torch):
                  f"{rel_err:.3e} > {tol}")
         return abs_err, rel_err
 
+    def member_bf16(config, layer, shape, k_n, mu, sigma, w_mu, w_sigma, g1, g2, t, s_w):
+        """The member launches of kernels 1 (both forms) and 4 on bf16
+        moments and cotangents: (a) equal to the float32 member launch on
+        the upcast inputs, cast; (b) within the single-member checks' limits
+        of the plain versions plus one bf16 step; the stride-0 input at
+        hippocampus conv_input bit-equal to the copied batch. Device time
+        of each bf16 member launch."""
+        bf = torch.bfloat16
+        mb, sb = mu.to(bf), None if sigma is None else sigma.to(bf)
+        g1b, g2b = g1.to(bf), None if g2 is None else g2.to(bf)
+        up = (mb.float(), None if sb is None else sb.float())
+        what = f"member-axis bf16 {config}/{layer}"
+        line = {"member_kernel_bf16": what, "members": k_n, "shape": shape}
+        got = V.vdp_conv(mb, sb, w_mu, w_sigma, True, relu_mask=True)
+        _equal_on_upcast(torch, what + " vdp_conv", got,
+                         V.vdp_conv(*up, w_mu, w_sigma, True, relu_mask=True))
+        want = V.vdp_conv_plain(mb, sb, w_mu, w_sigma, True)
+        tie = (got[0] > 0) != (want[0] > 0)
+        if tie.any() and float(torch.maximum(got[0].float().abs(), want[0].float().abs())[tie]
+                               .max()) > VDP_TOL * float(want[0].float().abs().max()):
+            _die(f"{what}: a ReLU mask differs away from mu = 0")
+        fwd_err = _bf16_errors(torch, what + " vdp_conv", got[:3], want, VDP_TOL,
+                               [None, ~tie, None])
+        line["vdp_conv"] = {"max_rel_err": fwd_err[1], "relu_ties": int(tie.sum()),
+                            "device_ms": device_ms(
+                                lambda: V.vdp_conv(mb, sb, w_mu, w_sigma, True))}
+        if config == "hippocampus" and layer == "conv_input":
+            x = mb.unflatten(0, (k_n, -1))[0]
+            shared = V.vdp_conv(x.expand(k_n, *x.shape), None, w_mu, w_sigma, True)
+            copied = V.vdp_conv(x.repeat(k_n, 1, 1, 1), None, w_mu, w_sigma, True)
+            if not all(torch.equal(a, b) for a, b in zip(shared, copied)):
+                _die(f"{what}: the stride-0 bf16 input differs from the copied batch")
+            line["stride0_bit_equal_to_copied_batch"] = True
+        got = V.conv_t_pair(g1b, g2b, w_mu)
+        _equal_on_upcast(torch, what + " dgrad", got,
+                         V.conv_t_pair(g1b.float(), None if g2b is None else g2b.float(), w_mu))
+        d_err = _bf16_errors(torch, what + " dgrad", got, V.conv_t_pair_plain(g1b, g2b, w_mu),
+                             VDP_TOL)
+        line["vdp_conv_dgrad"] = {"max_rel_err": d_err[1], "device_ms": device_ms(
+            lambda: V.conv_t_pair(g1b, g2b, w_mu))}
+        got = S.winsum_spread_bwd(g1b, t, s_w, 3)
+        _equal_on_upcast(torch, what + " sigma_bwd", got,
+                         S.winsum_spread_bwd(g1b.float(), t, s_w, 3))
+        s_err = _bf16_errors(torch, what + " sigma_bwd", got,
+                             S.winsum_spread_bwd_plain(g1b, t, s_w, 3), SIGMA_BWD_TOL)
+        line["sigma_bwd"] = {"max_rel_err": s_err[1], "device_ms": device_ms(
+            lambda: S.winsum_spread_bwd(g1b, t, s_w, 3))}
+        for kernel in ("vdp_conv", "vdp_conv_dgrad", "sigma_bwd"):
+            acc = sums.setdefault((kernel + "_bf16", config), [0.0, 0.0])
+            acc[0] += line[kernel]["device_ms"]
+            acc[1] = max(acc[1], line[kernel]["max_rel_err"])
+        line["equal_to_float32_on_upcast"] = True
+        print(json.dumps(line), flush=True)
+
     for config, cfg, batch, k_n in (("hippocampus", HIPPOCAMPUS.model, 20, 4),
                                     ("brats", BRATS.model, 2, 2)):
         for layer, (_, h, w, cin), cout in layer_shapes(cfg)[0]:
@@ -2635,6 +3084,8 @@ def _member_kernels(torch):
                                 for i in range(k_n)],
                        {"path": splan.path, "blocks_per_member": splan.blocks,
                         "same_bits_in_two_runs": True})
+                member_bf16(config, layer, shape, k_n, mu, sigma, w_mu, w_sigma, g1, g2,
+                            t, s_w)
     return sums
 
 
@@ -3805,28 +4256,46 @@ BENCH_FORWARDS = (("hippocampus", "HIPPOCAMPUS", 20), ("hippocampus", "HIPPOCAMP
 NAIVE_CHUNK = 32  # images per naive forward: its patch matrices at BraTS
 
 
-def _naive_agreement(torch, cname, exp_name, batch):
-    """The kernel forward of a He-scaled model at ``batch`` on the card,
-    counted (one forward's launches), against the naive backend's forward
-    of the same images (in chunks of ``NAIVE_CHUNK``, no kernel launched)
-    within the serving limits; TF32 off. Returns the errors."""
+def _naive_agreement(torch, cname, exp_name, batch, dtype="float32"):
+    """The kernel forward of a He-scaled model at ``batch`` on the card
+    under activation dtype ``dtype``, counted (one forward's launches),
+    against the naive backend's forward of the same images (in chunks of
+    ``NAIVE_CHUNK``, no kernel launched); TF32 off. float32: within the
+    serving limits. bfloat16 (the bench's default): the answer bit-equal to
+    the same forward with the kernels fed float32 through casts
+    (``_kernels_fed_float32``; check (a) of phase 2 over the whole model, at
+    the plans this batch takes), and the naive forward within
+    ``BF16_PROBS_ATOL`` and ``BF16_AGREE``. Returns the errors."""
     import numpy as np
 
     from supernet_tpu_torch import configs
     from supernet_tpu_torch.models import forward
     from supernet_tpu_torch.ops import set_backend
+    from supernet_tpu_torch.profiling import act_dtype
 
+    what = f"bench: the {cname} b{batch} forward in {dtype}"
     c = getattr(configs, exp_name).model
     params = {n: {k: t.cuda() for k, t in p.items()} for n, p in _he_params(torch, c).items()}
     x = torch.from_numpy(np.random.default_rng(SEED + 23).normal(
         0.0, 1.0, (batch, c.image_size, c.image_size, c.in_channels))
         .astype(np.float32)).cuda()
-    with torch.no_grad():
+    out = {}
+    with torch.no_grad(), act_dtype(dtype):
         torch.cuda.synchronize()
         _zero_launches()
         ref_p, ref_s = forward(params, x, c)
         torch.cuda.synchronize()
         kernel_launches = _read_launches()
+        if dtype == "bfloat16":
+            with _kernels_fed_float32(torch, True):
+                up_p, up_s = forward(params, x, c)
+            if not (torch.equal(ref_p, up_p) and torch.equal(ref_s, up_s)):
+                _die(f"{what} differs from the one with the kernels fed float32 (probs "
+                     f"{float((ref_p.float() - up_p.float()).abs().max()):.3e})")
+            out["equal_to_kernels_fed_float32"] = True
+            del up_p, up_s
+        torch.cuda.synchronize()
+        _zero_launches()
         set_backend("naive")
         try:
             parts = [forward(params, x[i:i + NAIVE_CHUNK], c)
@@ -3834,19 +4303,31 @@ def _naive_agreement(torch, cname, exp_name, batch):
             torch.cuda.synchronize()
         finally:
             set_backend("kernels")
-        naive_launches = {k: v - kernel_launches[k] for k, v in _read_launches().items()}
+        naive_launches = _read_launches()
     want = _expected_launches(c, batch, 0, 1)
     if kernel_launches != want or any(naive_launches.values()):
-        _die(f"bench: the {cname} b{batch} forwards launched {kernel_launches} (kernels, "
-             f"expected {want}) and {naive_launches} (naive, expected none)")
-    p = torch.cat([q[0] for q in parts]).cpu().numpy()
-    sg = torch.cat([q[1] for q in parts]).cpu().numpy()
-    err_p, err_s, share = _serving_close(f"naive {cname} b{batch} forward", p, sg,
-                                         ref_p.cpu().numpy(), ref_s.cpu().numpy())
-    del params, x, ref_p, ref_s, parts
+        _die(f"{what} launched {kernel_launches} (kernels, expected {want}) and "
+             f"{naive_launches} (naive, expected none)")
+    p = torch.cat([q[0] for q in parts]).float().cpu().numpy()
+    sg = torch.cat([q[1] for q in parts]).float().cpu().numpy()
+    ref_p, ref_s = ref_p.float().cpu().numpy(), ref_s.float().cpu().numpy()
+    if dtype == "float32":
+        err_p, err_s, share = _serving_close(f"naive {cname} b{batch} forward", p, sg,
+                                             ref_p, ref_s)
+        out.update({"probs_max_abs_err": err_p, "sigma_max_rel_err": err_s,
+                    "sigma_share_beyond": share})
+    else:
+        err_p = float(np.abs(p - ref_p).max())
+        agree = float(np.mean(p.argmax(-1) == ref_p.argmax(-1)))
+        if ref_p.shape != p.shape or not (np.isfinite(ref_p).all() and np.isfinite(ref_s).all()) \
+                or err_p > BF16_PROBS_ATOL or not agree > BF16_AGREE:
+            _die(f"{what} against the naive forward: shape {ref_p.shape}, probs "
+                 f"{err_p:.3e} (limit {BF16_PROBS_ATOL}), argmax agreement {agree:.5f} "
+                 f"(limit {BF16_AGREE})")
+        out.update({"probs_max_abs_err": err_p, "argmax_agreement": agree})
+    del params, x, parts
     torch.cuda.empty_cache()
-    return {"probs_max_abs_err": err_p, "sigma_max_rel_err": err_s,
-            "sigma_share_beyond": share, "kernel_launches": kernel_launches}
+    return {**out, "kernel_launches": kernel_launches}
 
 
 def _bench_gradient(torch, exp, batch):
@@ -3881,6 +4362,59 @@ def _bench_gradient(torch, exp, batch):
             "ties_replayed": dict(check["ties"]), "launches": launches}
 
 
+def _bench_gradient_bf16(torch, exp, batch):
+    """The bf16 twin of :func:`_bench_gradient` (bf16 is the bench's
+    default): the step-1 gradient at ``batch`` under bf16 activations,
+    counted (one step's launches), bit-equal to the same gradient with the
+    kernels fed float32 through casts (each kernel rounds once where the
+    casts rounded; cuDNN deterministic for the float32 filter gradients),
+    and its loss within ``BF16_LOSS_RTOL`` of the float32 loss. Returns the
+    loss error and the launches."""
+    import numpy as np
+
+    from supernet_tpu_torch import train as T
+    from supernet_tpu_torch.profiling import act_dtype
+
+    cfg, tc = exp.model, exp.train
+    rng = np.random.default_rng(SEED + 24)
+    s, o = cfg.image_size, cfg.out_size
+    x = torch.from_numpy(rng.normal(0.0, 1.0, (batch, s, s, cfg.in_channels))
+                         .astype(np.float32)).cuda()
+    y = torch.from_numpy(rng.integers(0, cfg.n_classes, (batch, o, o)).astype(np.int32)).cuda()
+    state, _ = T.create_train_state(_he_params(torch, cfg), tc, "cuda")
+
+    def grads(dtype, fed_float32=False):
+        with act_dtype(dtype), _kernels_fed_float32(torch, fed_float32):
+            loss, _ = T.loss_fn(state.params, x, y, cfg, tc)
+            return float(loss.detach()), torch.autograd.grad(loss, T.leaves(state.params))
+
+    what = f"bench: the hippocampus b{batch} bf16 gradient"
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        torch.cuda.synchronize()
+        _zero_launches()
+        loss16, g16 = grads("bfloat16")
+        torch.cuda.synchronize()
+        launches = _read_launches()
+        loss_up, g_up = grads("bfloat16", fed_float32=True)
+        loss32, _ = grads("float32")
+    want = _per_step(cfg, batch)
+    if launches != want:
+        _die(f"{what} launched {launches}, expected {want}")
+    if loss16 != loss_up or not all(torch.equal(a, b) for a, b in zip(g16, g_up)):
+        worst = max(_max_rel(torch, a, b) for a, b in zip(g16, g_up))
+        _die(f"{what} differs from the one with the kernels fed float32: losses "
+             f"{loss16} / {loss_up}, {worst:.3e} of a leaf's max")
+    loss_err = abs(loss16 - loss32) / abs(loss32)
+    if not (all(bool(torch.isfinite(g).all()) for g in g16) and loss_err <= BF16_LOSS_RTOL):
+        _die(f"{what}: loss {loss16} against float32's {loss32} ({loss_err:.3e} relative) "
+             f"or a non-finite gradient")
+    del state, g16, g_up
+    torch.cuda.empty_cache()
+    return {"equal_to_kernels_fed_float32": True, "loss_max_rel_err_vs_float32": loss_err,
+            "launches": launches}
+
+
 def _bench(torch, smi):
     """Phase 23: ``cli.main(["bench"])`` in process at the bench's defaults
     but ``SUPERNET_BENCH_ITERS=40``, every ``_bench_model`` call counted
@@ -3890,9 +4424,10 @@ def _bench(torch, smi):
     ``vs_baseline``, and no section error; a sweep's out-of-memory entry is
     allowed and printed on its own line. The hippocampus b20 headline run
     launches ``_per_step(cfg, 20)`` per step; the naive baseline launches no
-    kernel; the naive forward agrees with the kernel forward at hippocampus
-    b20 and BraTS b2 from He-scaled parameters within the serving limits.
-    Returns the headline's launches per step and the naive run's
+    kernel; the naive forward agrees with the kernel forward at
+    ``BENCH_FORWARDS`` from He-scaled parameters, in float32 and bf16, and
+    the hippocampus b64 gradient holds (``_bench_gradient`` and its bf16
+    twin). Returns the headline's launches per step and the naive run's
     launches."""
     import io
 
@@ -3979,11 +4514,13 @@ def _bench(torch, smi):
 
     # the kernels against plain versions at the line's 2-D shapes: the
     # kernels' plans (split-K slices, tiles per SM) follow the batch, and
-    # they compute in float32 whatever the activations' dtype, so float32
-    # at the bench's batches runs the launches the bench makes
-    agree = {f"{c}_b{b}": _naive_agreement(torch, c, exp, b)
-             for c, exp, b in BENCH_FORWARDS}
+    # the bench runs them on bf16 moments (its default) and on float32
+    # (SUPERNET_ACT_DTYPE=float32), so both dtypes at the bench's batches
+    agree = {f"{c}_b{b}{sfx}": _naive_agreement(torch, c, exp, b, dt)
+             for c, exp, b in BENCH_FORWARDS
+             for dt, sfx in (("float32", ""), ("bfloat16", "_bf16"))}
     agree["gradient_hippocampus_b64"] = _bench_gradient(torch, HIPPOCAMPUS, 64)
+    agree["gradient_hippocampus_b64_bf16"] = _bench_gradient_bf16(torch, HIPPOCAMPUS, 64)
     phase_s = time.perf_counter() - t_phase
     print(json.dumps({
         "bench": "cli bench in process", "card": smi, "iters": int(BENCH_ITERS),
@@ -4037,8 +4574,11 @@ def main() -> int:
         for layer, (_, h, w, cin), cout in convs:
             check.vdp_conv(config, layer, batch, h, w, cin, cout, 3,
                            has_sigma=layer != "conv_input", relu=True)
+            check.vdp_conv_bf16(config, layer, batch, h, w, cin, cout, 3,
+                                has_sigma=layer != "conv_input", relu=True)
         for layer, (_, h, w, c) in pools:
             check.vmaxpool(config, layer, batch, h, w, c)
+            check.vmaxpool_bf16(config, layer, batch, h, w, c)
     for k in (2, 1):
         for has_sigma in (True, False):
             for relu in (False, True):
@@ -4046,6 +4586,12 @@ def main() -> int:
     check.vdp_conv("extra", "k3_no_relu", 3, 17, 19, 3, 96, 3, True, False)
     check.vmaxpool("extra", "ties", 20, 60, 60, 32, ties=True)
     check.vmaxpool("extra", "odd", 3, 13, 15, 36, ties=True)
+    check.vdp_conv_bf16("extra", "k2", 4, 33, 29, 24, 40, 2, True, True)
+    check.vdp_conv_bf16("extra", "k1_input", 4, 33, 29, 24, 40, 1, False, False)
+    check.vdp_conv_bf16("extra", "k3_no_relu", 3, 17, 19, 3, 96, 3, True, False)
+    check.vdp_conv_bf16("extra", "k3_c130", 3, 17, 19, 24, 130, 3, True, True)
+    check.vmaxpool_bf16("extra", "ties", 20, 60, 60, 32, ties=True)
+    check.vmaxpool_bf16("extra", "odd", 3, 13, 15, 36, ties=True)
 
     # 3-4. serving at full width
     serve_launches, img_s = _serve(torch, "hippocampus", HIPPOCAMPUS.model, 20, (20, 7, 45))
@@ -4062,8 +4608,14 @@ def main() -> int:
                         with_sigma=layer != "conv_input")
             check.vdp_conv_bwd(config, layer, batch, h, w, cin, cout, 3,
                                has_sigma=layer != "conv_input", relu=True)
+            check.sigma_bwd_bf16(config, layer, batch, h - 2, w - 2, cout, 3)
+            check.dgrad_bf16(config, layer, batch, h, w, cin, cout,
+                             with_sigma=layer != "conv_input")
+            check.vdp_conv_bwd_bf16(config, layer, batch, h, w, cin, cout, 3,
+                                    has_sigma=layer != "conv_input", relu=True)
         for layer, (_, h, w, c) in pools:
             check.vmaxpool_bwd(config, layer, batch, h, w, c)
+            check.vmaxpool_bwd_bf16(config, layer, batch, h, w, c)
     check.vmaxpool_bwd("extra", "ties", 20, 60, 60, 32, ties=True)
     check.vmaxpool_bwd("extra", "c130", 3, 8, 8, 130, ties=True)
     check.vmaxpool_bwd("extra", "odd", 3, 13, 15, 36, ties=True)
@@ -4072,8 +4624,24 @@ def main() -> int:
     check.sigma_bwd("extra", "c130_odd", 3, 17, 19, 130, 3)
     check.sigma_bwd("extra", "c36_odd", 3, 17, 19, 36, 3)
     check.sigma_bwd("extra", "k2", 4, 32, 28, 40, 2)
+    # bf16: a 16-byte load holds 8 channels, so C = 36 takes the pool
+    # backward's general kernel; kernel 4 keeps the float32 plan
+    check.vmaxpool_bwd_bf16("extra", "ties", 20, 60, 60, 32, ties=True)
+    check.vmaxpool_bwd_bf16("extra", "c130", 3, 8, 8, 130, ties=True)
+    check.vmaxpool_bwd_bf16("extra", "odd", 3, 13, 15, 36, ties=True)
+    check.vmaxpool_bwd_bf16("extra", "c64_odd", 2, 9, 7, 64, ties=True)
+    check.sigma_bwd_bf16("extra", "c130_odd", 3, 17, 19, 130, 3)
+    check.sigma_bwd_bf16("extra", "c36_odd", 3, 17, 19, 36, 3, t_bf16=True)
+    check.sigma_bwd_bf16("extra", "c130_odd", 3, 17, 19, 130, 3, t_bf16=True)
+    check.sigma_bwd_bf16("extra", "hippocampus_conv1", 20, 60, 60, 32, 3, t_bf16=True)
+    check.dgrad_bf16("extra", "k3_c130", 3, 17, 19, 130, 24, True)
+    check.vdp_conv_bwd_bf16("extra", "k3_no_relu_c130", 3, 17, 19, 24, 130, 3, True, False)
+    check.vdp_conv_bwd_bf16("extra", "k2_relu", 4, 33, 29, 24, 40, 2, True, True)
     for kernel, both in (("vmaxpool_bwd", {"vec4", "scalar"}),
-                         ("sigma_bwd", {"vec4", "rows"})):
+                         ("sigma_bwd", {"vec4", "rows"}),
+                         ("vmaxpool_bwd_bf16", {"vec4", "scalar"}),
+                         ("sigma_bwd_bf16", {"vec4", "rows"}),
+                         ("sigma_bwd_bf16_t", {"vec4", "rows"})):
         if check.paths[kernel] != both:
             _die(f"{kernel}: the shapes reached the paths "
                  f"{sorted(check.paths[kernel])}, expected {sorted(both)}")
@@ -4189,7 +4757,8 @@ def main() -> int:
     # batch 20; brats_member_axis_*: BraTS, K=2, batch 2) beside K single
     # launches, CUDA events and device time.
     # vdp_conv's bound_ms is the CUDA cores' float32 bound; bound_3xtf32_ms
-    # that of its tensor-core path.
+    # that of its tensor-core path, and bf16_bound_2xtf32_ms that path's on
+    # bf16 moments, whose small TF32 half is 0 (two passes).
     summary = []
     for kernel, (source, replaces) in sources.items():
         ms, plain_ms, bound_ms, bytes_ms, ops_ms = check.ms[(kernel, "hippocampus")]
@@ -4226,11 +4795,33 @@ def main() -> int:
                 "brats_dgrad_bound_3xtf32_ms": db3_b,
                 "backward_conv_max_rel_err_vs_float64": conv_calls,
             })
-        elif kernel in check.paths:
+        else:
             # the stream held by a sleep, so no host time counts; summed like ms
             extra = {"device_ms": check.dev[(kernel, "hippocampus")],
-                     "brats_device_ms": check.dev[(kernel, "brats")],
-                     "paths": sorted(check.paths[kernel])}
+                     "brats_device_ms": check.dev[(kernel, "brats")]}
+            if kernel in check.paths:
+                extra["paths"] = sorted(check.paths[kernel])
+        # the bf16 case of phases 2 and 5 at the same shapes: the kernel on
+        # bf16 inputs (equal to its float32 run on their upcast) beside its
+        # plain version and its bound at 2-byte moments
+        for config, pre in (("hippocampus", "bf16_"), ("brats", "brats_bf16_")):
+            b_ms, b_plain, b_bound = check.ms[(kernel + "_bf16", config)][:3]
+            extra.update({f"{pre}ms": b_ms, f"{pre}plain_ms": b_plain,
+                          f"{pre}bound_ms": b_bound})
+            if kernel == "vdp_conv":
+                extra[f"{pre}device_ms"] = check.vdp[(config, "bf16")][0]
+                extra[f"{pre}bound_2xtf32_ms"] = check.vdp[(config, "bf16")][2]
+                d = check.ms[("vdp_conv_dgrad_bf16", config)]
+                extra.update({f"{pre}dgrad_ms": d[0], f"{pre}dgrad_plain_ms": d[1],
+                              f"{pre}dgrad_bound_ms": d[2],
+                              f"{pre}dgrad_device_ms": check.dev[("vdp_conv_dgrad_bf16",
+                                                                  config)],
+                              f"{pre}dgrad_bound_2xtf32_ms":
+                                  check.dgrad_ms[(config, "bf16")][2]})
+            else:
+                extra[f"{pre}device_ms"] = check.dev[(kernel + "_bf16", config)]
+        extra["bf16_max_rel_err"] = check.worst[kernel + "_bf16"][1]
+        extra["bf16_equal_to_float32_on_upcast"] = True
         for mk, prefix in ((kernel, "member_axis_"), ("vdp_conv_dgrad", "member_axis_dgrad_")):
             if (mk, "hippocampus") not in member_sums or (
                     mk == "vdp_conv_dgrad" and kernel != "vdp_conv"):
@@ -4241,6 +4832,15 @@ def main() -> int:
                               f"{pre}{prefix}device_ms": m_dev,
                               f"{pre}{prefix}k_single_device_ms": k_dev,
                               f"{pre}{prefix}max_rel_err": m_rel})
+        # the member launches on bf16 (phase 19), summed over the layers
+        for mk, prefix in ((kernel, "member_axis_bf16_"),
+                           ("vdp_conv_dgrad", "member_axis_dgrad_bf16_")):
+            if (mk + "_bf16", "hippocampus") not in member_sums or (
+                    mk == "vdp_conv_dgrad" and kernel != "vdp_conv"):
+                continue
+            for config, pre in (("hippocampus", ""), ("brats", "brats_")):
+                dev, err = member_sums[(mk + "_bf16", config)]
+                extra.update({f"{pre}{prefix}device_ms": dev, f"{pre}{prefix}max_rel_err": err})
         summary.append({
             "name": kernel, "route": "cuda", "source": source,
             "replaces": replaces, "launches": train_launches[kernel],
@@ -4281,6 +4881,12 @@ def main() -> int:
         "max_rel_err": check.worst["vdp_conv_bwd"][1],
         "ms": bwd[0], "plain_ms": bwd[1],
         "brats_ms": bwd_b[0], "brats_plain_ms": bwd_b[1],
+        "bf16_max_rel_err": check.worst["vdp_conv_bwd_bf16"][1],
+        "bf16_ms": check.ms[("vdp_conv_bwd_bf16", "hippocampus")][0],
+        "bf16_plain_ms": check.ms[("vdp_conv_bwd_bf16", "hippocampus")][1],
+        "brats_bf16_ms": check.ms[("vdp_conv_bwd_bf16", "brats")][0],
+        "brats_bf16_plain_ms": check.ms[("vdp_conv_bwd_bf16", "brats")][1],
+        "bf16_equal_to_float32_on_upcast": True,
     }))
     print(f"hippocampus serving: {img_s:.1f} img/s (batch 20, 45-image request)")
     print(f"hippocampus training: {20 / step_s:.1f} img/s "

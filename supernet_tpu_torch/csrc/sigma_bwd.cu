@@ -9,6 +9,13 @@
 //   u   = the transposed k x k ones-spread of dt [B,H'+k-1,W'+k-1]
 //   dsw = sum_{b,h',w'} g * win                  [C]
 //
+// Dtypes, as the TPU kernel's (sigma_bwd.py:82-84, 106, 172-173): g and t
+// are each float32 or bf16, s_w is float32; every product and sum runs in
+// float32 on the loaded values (a bf16 value converts exactly), u comes out
+// in t's dtype, rounded once as it is stored, and dsw in float32. Both paths
+// keep the float32 plan and its order of sums, so a bf16 call computes the
+// float32 call on the same values.
+//
 // What bounds it: bytes. Each element of g is read once for two
 // multiply-adds, so the work is a streaming pass over g at device-memory
 // bandwidth; dt and u are 1/C of g. The small layers are bound by the cost
@@ -20,9 +27,9 @@
 // carry: two kernels, the first over g flat by pixel, the second over u.
 //
 // Pass 1 (sigma_bwd_dt_kernel, C % 4 == 0, C <= 512). A pixel's channels are
-// C/4 float4; a group of LANES lanes (8, 16 or 32) covers them in STEPS
-// 16-byte loads per lane, so at C = 32 one load instruction of a warp reads
-// four pixels. The groups of the whole grid walk the pixels with the stride
+// C/4 quads of 4 channels (16 bytes of float32, 8 of bf16); a group of LANES
+// lanes (8, 16 or 32) covers them in STEPS quad loads per lane, so at C = 32
+// one load instruction of a warp reads four pixels. The groups of the whole grid walk the pixels with the stride
 // of their number, UNROLL pixels per trip, which keeps four independent
 // 16-byte loads of every lane in flight. A lane owns the same channels for
 // its whole walk: s_w and its dsw sums stay in registers. dt of a pixel is
@@ -61,7 +68,14 @@
 
 #include <cuda_runtime.h>
 
+#include "dtype.cuh"
+
 namespace {
+
+using supernet::bf16;
+using supernet::from_f32;
+using supernet::load4;
+using supernet::to_f32;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -82,17 +96,17 @@ __device__ __forceinline__ void axpy4(float4& acc, const float4 v, float s) {
   acc.w = fmaf(v.w, s, acc.w);
 }
 
-// Per member (blockIdx.y): g as float4: [P][C4]; t, dt: [P]; sw as float4:
+// Per member (blockIdx.y): g: [P][C4][4]; t, dt: [P]; sw as float4:
 // [C4]; part as float4: [gridDim.x][C4]. LANES * STEPS >= C4.
-template <int LANES, int STEPS, int UNROLL>
+template <int LANES, int STEPS, int UNROLL, typename TG, typename TT>
 __global__ void __launch_bounds__(kThreads) sigma_bwd_dt_kernel(
-    const float4* __restrict__ g, const float* __restrict__ t,
+    const TG* __restrict__ g, const TT* __restrict__ t,
     const float4* __restrict__ sw, float* __restrict__ dt,
     float4* __restrict__ part, long long P, int C4) {
   constexpr int kGroups = kThreads / LANES;  // pixel groups per block
   __shared__ float4 s_part[kWarps][LANES * STEPS];
   const long long member = blockIdx.y;
-  g += member * P * C4;
+  g += member * P * C4 * 4;
   t += member * P;
   dt += member * P;
   sw += member * C4;
@@ -126,10 +140,10 @@ __global__ void __launch_bounds__(kThreads) sigma_bwd_dt_kernel(
     for (int j = 0; j < UNROLL; ++j) {
       const long long p = base + grp + j * stride;
       const bool ok = p < P;
-      tv[j] = ok ? t[p] : 0.f;
+      tv[j] = ok ? to_f32(t[p]) : 0.f;
 #pragma unroll
       for (int s = 0; s < STEPS; ++s) {
-        v[j][s] = (ok && on[s]) ? g[p * C4 + sub + s * LANES]
+        v[j][s] = (ok && on[s]) ? load4(g + 4 * (p * C4 + sub + s * LANES))
                                 : make_float4(0.f, 0.f, 0.f, 0.f);
       }
     }
@@ -183,8 +197,9 @@ __global__ void __launch_bounds__(kThreads) sigma_bwd_dt_kernel(
 // the others write u. dt and part are written by pass 1 while this kernel
 // may already be resident, so they are not declared read-only (no
 // non-coherent loads).
+template <typename TT>
 __global__ void __launch_bounds__(kThreads) sigma_bwd_spread_kernel(
-    const float* dt, const float* part, float* __restrict__ u,
+    const float* dt, const float* part, TT* __restrict__ u,
     float* __restrict__ dsw, int Hp, int Wp, int C, int k, int n_part,
     int dsw_blocks, unsigned total) {
   const int tid = threadIdx.x;
@@ -232,12 +247,13 @@ __global__ void __launch_bounds__(kThreads) sigma_bwd_spread_kernel(
       if (xx >= 0 && xx < Wp) acc += img[yy * Wp + xx];
     }
   }
-  u[e] = acc;
+  u[e] = from_f32<TT>(acc);
 }
 
+template <typename TG, typename TT>
 __global__ void __launch_bounds__(kThreads) sigma_bwd_rows_kernel(
-    const float* __restrict__ g, const float* __restrict__ t,
-    const float* __restrict__ sw, float* __restrict__ u,
+    const TG* __restrict__ g, const TT* __restrict__ t,
+    const float* __restrict__ sw, TT* __restrict__ u,
     float* __restrict__ dsw_part, int Hp, int Wp, int C, int k, int rows,
     int tiles, int B) {
   const int H = Hp + k - 1, W = Wp + k - 1;
@@ -266,12 +282,12 @@ __global__ void __launch_bounds__(kThreads) sigma_bwd_rows_kernel(
     const int row = y0 - (k - 1) + m;
     if (row < 0 || row >= Hp) continue;  // uniform across the warp
     const long long pix = (b * Hp + row) * Wp + x;
-    const float* gp = g + pix * C;
+    const TG* gp = g + pix * C;
     const bool own = row >= y0;
-    const float tv = own ? t[pix] : 0.f;
+    const float tv = own ? to_f32(t[pix]) : 0.f;
     float acc = 0.f;
     for (int c = lane; c < C; c += 32) {
-      const float gv = gp[c];
+      const float gv = to_f32(gp[c]);
       acc = fmaf(gv, s_sw[c], acc);
       if (own) my_dsw[c] = fmaf(gv, tv, my_dsw[c]);
     }
@@ -291,7 +307,7 @@ __global__ void __launch_bounds__(kThreads) sigma_bwd_rows_kernel(
       const float* dr = s_dt + (r + k - 1 - di) * pw + x + k - 1;
       for (int dj = 0; dj < k; ++dj) acc += dr[-dj];
     }
-    u[(b * H + y0 + r) * W + x] = acc;
+    u[(b * H + y0 + r) * W + x] = from_f32<TT>(acc);
   }
 
   for (int c = tid; c < C; c += kThreads) {
@@ -308,47 +324,30 @@ long long smem_floats(int Wp, int C, int k, int rows) {
          static_cast<long long>(1 + kWarps) * C;
 }
 
-template <int LANES, int STEPS, int UNROLL>
-void launch_dt(const float* g, const float* t, const float* sw, float* dt,
+template <int LANES, int STEPS, int UNROLL, typename TG, typename TT>
+void launch_dt(const TG* g, const TT* t, const float* sw, float* dt,
                float* part, long long P, int C4, int blocks, int members,
                cudaStream_t stream) {
-  sigma_bwd_dt_kernel<LANES, STEPS, UNROLL>
+  sigma_bwd_dt_kernel<LANES, STEPS, UNROLL, TG, TT>
       <<<dim3(static_cast<unsigned>(blocks), members), kThreads, 0, stream>>>(
-          reinterpret_cast<const float4*>(g), t,
-          reinterpret_cast<const float4*>(sw), dt,
+          g, t, reinterpret_cast<const float4*>(sw), dt,
           reinterpret_cast<float4*>(part), P, C4);
 }
 
-}  // namespace
-
-// The two-pass path. g: [members B, Hp, Wp, C] with C % 4 == 0;
-// t: [members B, Hp, Wp]; sw: [members, C]; all float32, contiguous, g, sw
-// and part on 16 bytes. dt: [members B, Hp, Wp] and part:
-// [members, blocks, C] are scratch; u: [members B, Hp+k-1, Wp+k-1]; dsw:
-// [members, C]. `lanes` (8, 16 or 32) times `steps` (1..4, above 1 only with
-// 32 lanes) covers C/4; `blocks` is pass 1's grid per member. Launches both
-// kernels on `stream`, the second as a programmatic dependent of the first,
-// and returns the first launch error.
-extern "C" int supernet_sigma_bwd_vec(const void* g, const void* t,
-                                      const void* sw, void* dt, void* part,
-                                      void* u, void* dsw, int B, int Hp,
-                                      int Wp, int C, int k, int lanes,
-                                      int steps, int blocks, int members,
-                                      void* stream) {
+template <typename TG, typename TT>
+int sigma_bwd_vec(const void* g, const void* t, const void* sw, void* dt,
+                  void* part, void* u, void* dsw, int B, int Hp, int Wp, int C,
+                  int k, int lanes, int steps, int blocks, int members,
+                  cudaStream_t st) {
   const int C4 = C / 4;
   const long long P = static_cast<long long>(B) * Hp * Wp;
   const long long total = static_cast<long long>(members) * B *
                           (Hp + k - 1) * (Wp + k - 1);
-  if (C % 4 != 0 || lanes * steps < C4 || blocks < 1 || members < 1 ||
-      members > 65535 || total >= (1ll << 31)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const auto* gp = static_cast<const float*>(g);
-  const auto* tp = static_cast<const float*>(t);
+  const auto* gp = static_cast<const TG*>(g);
+  const auto* tp = static_cast<const TT*>(t);
   const auto* sp = static_cast<const float*>(sw);
   auto* dp = static_cast<float*>(dt);
   auto* pp = static_cast<float*>(part);
-  auto st = static_cast<cudaStream_t>(stream);
   const int key = lanes * 8 + steps;
   switch (key) {
     case 8 * 8 + 1: launch_dt<8, 1, 4>(gp, tp, sp, dp, pp, P, C4, blocks, members, st); break;
@@ -372,40 +371,105 @@ extern "C" int supernet_sigma_bwd_vec(const void* g, const void* t,
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, sigma_bwd_spread_kernel,
+  err = cudaLaunchKernelEx(&cfg, sigma_bwd_spread_kernel<TT>,
                            static_cast<const float*>(dp),
-                           static_cast<const float*>(pp),
-                           static_cast<float*>(u), static_cast<float*>(dsw), Hp,
-                           Wp, C, k, blocks, dsw_blocks,
-                           static_cast<unsigned>(total));
+                           static_cast<const float*>(pp), static_cast<TT*>(u),
+                           static_cast<float*>(dsw), Hp, Wp, C, k, blocks,
+                           dsw_blocks, static_cast<unsigned>(total));
   return static_cast<int>(err);
 }
 
-// The general path. g: [members B, Hp, Wp, C]; t: [members B, Hp, Wp]; sw:
-// [members, C]; all float32, contiguous. u: [members B, Hp+k-1, Wp+k-1];
-// dsw_part: [members B tiles, C] with tiles = ceil((Hp+k-1) / rows), one
-// partial per block (member-major). Launches on `stream` and returns
-// cudaGetLastError(); a tile that needs more shared memory than a block may
-// have comes back as the error of cudaFuncSetAttribute.
-extern "C" int supernet_sigma_bwd(const void* g, const void* t, const void* sw,
-                                  void* u, void* dsw_part, int B, int Hp,
-                                  int Wp, int C, int k, int rows, int members,
-                                  void* stream) {
-  if (members < 1) return static_cast<int>(cudaErrorInvalidValue);
+template <typename TG, typename TT>
+int sigma_bwd_rows(const void* g, const void* t, const void* sw, void* u,
+                   void* dsw_part, int B, int Hp, int Wp, int C, int k,
+                   int rows, int members, cudaStream_t st) {
   const int H = Hp + k - 1;
   const int tiles = (H + rows - 1) / rows;
   const size_t bytes = smem_floats(Wp, C, k, rows) * sizeof(float);
+  auto kernel = sigma_bwd_rows_kernel<TG, TT>;
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        sigma_bwd_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const long long blocks = static_cast<long long>(members) * B * tiles;
-  sigma_bwd_rows_kernel<<<static_cast<unsigned>(blocks), kThreads, bytes,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(g), static_cast<const float*>(t),
-      static_cast<const float*>(sw), static_cast<float*>(u),
+  kernel<<<static_cast<unsigned>(blocks), kThreads, bytes, st>>>(
+      static_cast<const TG*>(g), static_cast<const TT*>(t),
+      static_cast<const float*>(sw), static_cast<TT*>(u),
       static_cast<float*>(dsw_part), Hp, Wp, C, k, rows, tiles, B);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// The two-pass path. g: [members B, Hp, Wp, C] with C % 4 == 0, of dtype
+// g_dtype; t: [members B, Hp, Wp] of dtype t_dtype (0 float32, 1 bf16);
+// sw: [members, C] float32; all contiguous, g, sw and part on 16 bytes. dt:
+// [members B, Hp, Wp] and part: [members, blocks, C] are float32 scratch;
+// u: [members B, Hp+k-1, Wp+k-1] of t's dtype; dsw: [members, C] float32.
+// `lanes` (8, 16 or 32) times `steps` (1..4, above 1 only with 32 lanes)
+// covers C/4; `blocks` is pass 1's grid per member. Launches both kernels on
+// `stream`, the second as a programmatic dependent of the first, and
+// returns the first launch error.
+extern "C" int supernet_sigma_bwd_vec(const void* g, const void* t,
+                                      const void* sw, void* dt, void* part,
+                                      void* u, void* dsw, int B, int Hp,
+                                      int Wp, int C, int k, int lanes,
+                                      int steps, int blocks, int members,
+                                      int g_dtype, int t_dtype, void* stream) {
+  const long long total = static_cast<long long>(members) * B *
+                          (Hp + k - 1) * (Wp + k - 1);
+  if (C % 4 != 0 || lanes * steps < C / 4 || blocks < 1 || members < 1 ||
+      members > 65535 || total >= (1ll << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto st = static_cast<cudaStream_t>(stream);
+  constexpr int F = supernet::kFloat32, H = supernet::kBFloat16;
+  if (g_dtype == F && t_dtype == F) {
+    return sigma_bwd_vec<float, float>(g, t, sw, dt, part, u, dsw, B, Hp, Wp, C, k,
+                                       lanes, steps, blocks, members, st);
+  }
+  if (g_dtype == H && t_dtype == F) {
+    return sigma_bwd_vec<bf16, float>(g, t, sw, dt, part, u, dsw, B, Hp, Wp, C, k,
+                                      lanes, steps, blocks, members, st);
+  }
+  if (g_dtype == F && t_dtype == H) {
+    return sigma_bwd_vec<float, bf16>(g, t, sw, dt, part, u, dsw, B, Hp, Wp, C, k,
+                                      lanes, steps, blocks, members, st);
+  }
+  if (g_dtype == H && t_dtype == H) {
+    return sigma_bwd_vec<bf16, bf16>(g, t, sw, dt, part, u, dsw, B, Hp, Wp, C, k,
+                                     lanes, steps, blocks, members, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The general path. g: [members B, Hp, Wp, C] of dtype g_dtype; t: [members
+// B, Hp, Wp] of dtype t_dtype; sw: [members, C] float32; all contiguous. u:
+// [members B, Hp+k-1, Wp+k-1] of t's dtype; dsw_part: [members B tiles, C]
+// float32 with tiles = ceil((Hp+k-1) / rows), one partial per block
+// (member-major). Launches on `stream` and returns cudaGetLastError(); a
+// tile that needs more shared memory than a block may have comes back as
+// the error of cudaFuncSetAttribute.
+extern "C" int supernet_sigma_bwd(const void* g, const void* t, const void* sw,
+                                  void* u, void* dsw_part, int B, int Hp,
+                                  int Wp, int C, int k, int rows, int members,
+                                  int g_dtype, int t_dtype, void* stream) {
+  if (members < 1) return static_cast<int>(cudaErrorInvalidValue);
+  auto st = static_cast<cudaStream_t>(stream);
+  constexpr int F = supernet::kFloat32, H = supernet::kBFloat16;
+  if (g_dtype == F && t_dtype == F) {
+    return sigma_bwd_rows<float, float>(g, t, sw, u, dsw_part, B, Hp, Wp, C, k, rows, members, st);
+  }
+  if (g_dtype == H && t_dtype == F) {
+    return sigma_bwd_rows<bf16, float>(g, t, sw, u, dsw_part, B, Hp, Wp, C, k, rows, members, st);
+  }
+  if (g_dtype == F && t_dtype == H) {
+    return sigma_bwd_rows<float, bf16>(g, t, sw, u, dsw_part, B, Hp, Wp, C, k, rows, members, st);
+  }
+  if (g_dtype == H && t_dtype == H) {
+    return sigma_bwd_rows<bf16, bf16>(g, t, sw, u, dsw_part, B, Hp, Wp, C, k, rows, members, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

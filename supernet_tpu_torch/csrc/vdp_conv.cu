@@ -91,13 +91,43 @@
 // counted per member (its M is B H' W'), so a tile never holds pixels of two
 // members, and the split-K scratch holds one [S, M, Cout] x 2 + [S, M] block
 // per member.
+//
+// Dtypes (csrc/dtype.cuh). mu and sigma are float32 or bf16, one dtype for
+// both; w_mu and sw are float32. Every sum runs in float32 on the loaded
+// values, which a bf16 value converts to exactly. With the window sum,
+// mu_out and sig_out come out in the input's dtype, each rounded once as it
+// is stored (to nearest even, as torch's .to(bfloat16) rounds), and win in
+// float32, the backward's residual. Without it (the transposed pair) the
+// outputs are float32: they feed sums that VDPConv keeps in float32. With
+// the ReLU a caller may ask for its mask, mu_out > 0 in float32 before the
+// rounding, as bytes: a positive mu_out below bf16's least subnormal rounds
+// to 0, so the mask cannot be read back from a bf16 mu_out. The TPU kernel
+// computes in float32 behind a cast at its wrapper (vdp_conv.py:460-477);
+// here the conversions happen in the loads and the stores. A bf16 patch
+// staged in shared memory converts at the fragment load; its value fits
+// TF32, so the small half of its 3xTF32 split is 0 and the products and
+// sums are those of the float32 kernel on the same values, in the same
+// order: the plan is the float32 plan (the shape alone picks it), and only
+// the staging (16 bytes carry the 8 channels of a K step) and the stores
+// differ.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 #include <type_traits>
 
+#include "dtype.cuh"
+
 namespace {
+
+using supernet::bf16;
+using supernet::from_f32;
+using supernet::to_f32;
+
+// The output type of a call: the input's with the window sum, float32
+// without it (the transposed pair).
+template <bool WIN, typename TI>
+using OutT = std::conditional_t<WIN, TI, float>;
 
 constexpr int kThreads = 256;
 constexpr int kChunk = 8;  // input channels staged per step
@@ -123,14 +153,16 @@ long long smem_floats(int k, bool has_sigma) {
          static_cast<long long>(k) * k * kChunk * CT + halo + T::TP;
 }
 
-template <int CT, bool HAS_SIGMA, bool RELU, bool WIN>
+template <int CT, bool HAS_SIGMA, bool RELU, bool WIN, typename TI>
 __global__ void __launch_bounds__(kThreads) vdp_conv_kernel(
-    const float* __restrict__ mu, const float* __restrict__ sigma,
+    const TI* __restrict__ mu, const TI* __restrict__ sigma,
     const float* __restrict__ w_mu, const float* __restrict__ sw,
-    float* __restrict__ mu_out, float* __restrict__ sig_out,
-    float* __restrict__ win_out, int B, int H, int W, int Cin, int Cout, int k,
-    int Ho, int Wo, int tiles_w, long long x_ms, long long w_ms, long long sw_ms) {
+    OutT<WIN, TI>* __restrict__ mu_out, OutT<WIN, TI>* __restrict__ sig_out,
+    float* __restrict__ win_out, uint8_t* __restrict__ mask_out, int B, int H,
+    int W, int Cin, int Cout, int k, int Ho, int Wo, int tiles_w,
+    long long x_ms, long long w_ms, long long sw_ms) {
   using T = Tile<CT>;
+  using TO = OutT<WIN, TI>;
   const int hw = T::TW + k - 1;  // halo tile width
   const int halo = (T::TH + k - 1) * hw;
 
@@ -188,8 +220,8 @@ __global__ void __launch_bounds__(kThreads) vdp_conv_kernel(
       float m = 0.f, s = 0.f;
       if (y < H && x < W && c0 + c < Cin) {
         const long long off = ((b * H + y) * W + x) * Cin + c0 + c;
-        m = mu[off];
-        if (HAS_SIGMA) s = sigma[off];
+        m = to_f32(mu[off]);
+        if (HAS_SIGMA) s = to_f32(sigma[off]);
       }
       s_mu[c * halo + p] = m;
       if (HAS_SIGMA) s_sg[c * halo + p] = s;
@@ -284,79 +316,72 @@ __global__ void __launch_bounds__(kThreads) vdp_conv_kernel(
       float m = acc_mu[i][j];
       float s = WIN ? wn * swv[j] : 0.f;
       if (HAS_SIGMA) s += acc_s2[i][j];
-      if (RELU && !(m > 0.f)) {
-        m = 0.f;
-        s = 0.f;
+      if (RELU) {
+        const bool on = m > 0.f;
+        if (!on) {
+          m = 0.f;
+          s = 0.f;
+        }
+        if (mask_out != nullptr) mask_out[pix * Cout + co] = on;
       }
-      mu_out[pix * Cout + co] = m;
-      if (HAS_SIGMA || WIN) sig_out[pix * Cout + co] = s;
+      mu_out[pix * Cout + co] = from_f32<TO>(m);
+      if (HAS_SIGMA || WIN) sig_out[pix * Cout + co] = from_f32<TO>(s);
     }
     if (WIN && blockIdx.y == 0 && tc == 0) win_out[pix] = wn;
   }
 }
 
-// The member strides and count of the CUDA-core path.
-struct Members {
-  int n;
+// The pointers of one call, the member strides and count (in elements).
+struct Args {
+  const void *mu, *sigma;
+  const float *w_mu, *sw;
+  void *mu_out, *sig_out;
+  float *win, *part;
+  uint8_t* mask;
+  int B, H, W, Cin, Cout, k, splits, members;
   long long x_ms, w_ms, sw_ms;
+  cudaStream_t stream;
 };
 
-template <int CT, bool HAS_SIGMA, bool RELU, bool WIN>
-cudaError_t launch(const float* mu, const float* sigma, const float* w_mu,
-                   const float* sw, float* mu_out, float* sig_out, float* win,
-                   int B, int H, int W, int Cin, int Cout, int k,
-                   const Members& mem, cudaStream_t stream) {
+template <int CT, bool HAS_SIGMA, bool RELU, bool WIN, typename TI>
+cudaError_t launch(const Args& a) {
   using T = Tile<CT>;
-  const int Ho = H - k + 1, Wo = W - k + 1;
+  using TO = OutT<WIN, TI>;
+  const int Ho = a.H - a.k + 1, Wo = a.W - a.k + 1;
   const int tiles_h = (Ho + T::TH - 1) / T::TH;
   const int tiles_w = (Wo + T::TW - 1) / T::TW;
-  const dim3 grid(tiles_h * tiles_w, (Cout + CT - 1) / CT, mem.n * B);
-  const size_t bytes = smem_floats<CT>(k, HAS_SIGMA) * sizeof(float);
-  auto kernel = vdp_conv_kernel<CT, HAS_SIGMA, RELU, WIN>;
+  const dim3 grid(tiles_h * tiles_w, (a.Cout + CT - 1) / CT, a.members * a.B);
+  const size_t bytes = smem_floats<CT>(a.k, HAS_SIGMA) * sizeof(float);
+  auto kernel = vdp_conv_kernel<CT, HAS_SIGMA, RELU, WIN, TI>;
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(bytes));
     if (err != cudaSuccess) return err;
   }
-  kernel<<<grid, kThreads, bytes, stream>>>(mu, sigma, w_mu, sw, mu_out,
-                                            sig_out, win, B, H, W, Cin, Cout,
-                                            k, Ho, Wo, tiles_w, mem.x_ms,
-                                            mem.w_ms, mem.sw_ms);
+  kernel<<<grid, kThreads, bytes, a.stream>>>(
+      static_cast<const TI*>(a.mu), static_cast<const TI*>(a.sigma), a.w_mu,
+      a.sw, static_cast<TO*>(a.mu_out), static_cast<TO*>(a.sig_out), a.win,
+      a.mask, a.B, a.H, a.W, a.Cin, a.Cout, a.k, Ho, Wo, tiles_w, a.x_ms,
+      a.w_ms, a.sw_ms);
   return cudaGetLastError();
 }
 
 // The instance for (sigma or not, ReLU or not, window sum or not); the form
 // without the window sum has no ReLU (the entry refuses the pair).
-template <int CT>
-cudaError_t dispatch(const float* mu, const float* sigma, const float* w_mu,
-                     const float* sw, float* mu_out, float* sig_out,
-                     float* win, int B, int H, int W, int Cin, int Cout, int k,
-                     bool relu, bool with_win, const Members& mem,
-                     cudaStream_t stream) {
+template <int CT, typename TI>
+cudaError_t dispatch(const Args& a, bool relu, bool with_win) {
+  const bool has_sigma = a.sigma != nullptr;
   if (!with_win) {
-    return sigma != nullptr
-               ? launch<CT, true, false, false>(mu, sigma, w_mu, sw, mu_out,
-                                                sig_out, win, B, H, W, Cin,
-                                                Cout, k, mem, stream)
-               : launch<CT, false, false, false>(mu, sigma, w_mu, sw, mu_out,
-                                                 sig_out, win, B, H, W, Cin,
-                                                 Cout, k, mem, stream);
+    return has_sigma ? launch<CT, true, false, false, TI>(a)
+                     : launch<CT, false, false, false, TI>(a);
   }
-  if (sigma != nullptr) {
-    return relu ? launch<CT, true, true, true>(mu, sigma, w_mu, sw, mu_out,
-                                               sig_out, win, B, H, W, Cin,
-                                               Cout, k, mem, stream)
-                : launch<CT, true, false, true>(mu, sigma, w_mu, sw, mu_out,
-                                                sig_out, win, B, H, W, Cin,
-                                                Cout, k, mem, stream);
+  if (has_sigma) {
+    return relu ? launch<CT, true, true, true, TI>(a)
+                : launch<CT, true, false, true, TI>(a);
   }
-  return relu ? launch<CT, false, true, true>(mu, sigma, w_mu, sw, mu_out,
-                                              sig_out, win, B, H, W, Cin, Cout,
-                                              k, mem, stream)
-              : launch<CT, false, false, true>(mu, sigma, w_mu, sw, mu_out,
-                                               sig_out, win, B, H, W, Cin,
-                                               Cout, k, mem, stream);
+  return relu ? launch<CT, false, true, true, TI>(a)
+              : launch<CT, false, false, true, TI>(a);
 }
 
 // ---------------------------------------------------------------------------
@@ -368,17 +393,22 @@ constexpr int kTileM = 64;     // output pixels per block: wgmma's M
 constexpr int kK = 8;          // one K step: 8 channels of one tap (k8)
 constexpr int kTaps = 9;       // k = 3
 constexpr int kStages = 4;     // cp.async ring depth, in K steps
-constexpr int kARow = 12;      // floats per staged patch row: 8 channels and
-                               // 4 of padding, so that the 8 rows one
-                               // fragment load touches fall in distinct banks
+constexpr int kARow = 12;      // floats per staged float32 patch row: 8
+                               // channels and 4 of padding, so that the 8
+                               // rows one fragment load touches fall in
+                               // distinct banks. A bf16 row is its 8
+                               // channels in 16 bytes, 4 floats: the 8 rows
+                               // of a fragment load are 8 distinct words.
 
-template <int NT>
+template <int NT, typename TI>
 struct Smem {
-  static constexpr int a = kTileM * kARow;  // one patch tile (mu or sigma)
-  static constexpr int wrow = NT + 8;       // padded raw weight row
+  static constexpr int arow = sizeof(TI) == 4 ? kARow : 4;  // floats per row
+  static constexpr int rowe = arow * 4 / sizeof(TI);       // elements per row
+  static constexpr int a = kTileM * arow;  // one patch tile (mu or sigma)
+  static constexpr int wrow = NT + 8;      // padded raw weight row
   static constexpr int stage = 2 * a + kK * wrow;
-  static constexpr int b = kK * NT;         // one split B operand
-  static constexpr int bset = 4 * b;        // w big, w small, w^2 big, w^2 small
+  static constexpr int b = kK * NT;        // one split B operand
+  static constexpr int bset = 4 * b;       // w big, w small, w^2 big, w^2 small
   static constexpr int floats = 2 * bset + kStages * stage;
 };
 
@@ -389,7 +419,7 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 // 16 bytes global -> shared, zero-filled where !valid (src is then not read).
 // The activations go through L1 (.ca): the nine taps of a chunk read
 // overlapping pixels. The weights bypass it (.cg).
-__device__ __forceinline__ void cp_async_ca(float* dst, const float* src,
+__device__ __forceinline__ void cp_async_ca(void* dst, const void* src,
                                             bool valid) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_u32(dst)),
@@ -397,7 +427,7 @@ __device__ __forceinline__ void cp_async_ca(float* dst, const float* src,
                : "memory");
 }
 
-__device__ __forceinline__ void cp_async_cg(float* dst, const float* src,
+__device__ __forceinline__ void cp_async_cg(void* dst, const void* src,
                                             bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_u32(dst)),
@@ -415,7 +445,8 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Round to the nearest TF32 (10 mantissa bits), ties away from zero: what
-// cvt.rna.tf32.f32 gives for finite x, in two integer operations.
+// cvt.rna.tf32.f32 gives for finite x, in two integer operations. A value
+// with at most 10 mantissa bits (every bf16 value) is left as it is.
 __device__ __forceinline__ uint32_t round_tf32(float x) {
   return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
@@ -522,16 +553,18 @@ struct Mma<64> {
 // member's block of `part` ([S][M][Cout] mu, [S][M][Cout] sigma product,
 // [S][M] window sum) instead of the outputs. !WIN: no window sum (sw,
 // win_out and the window partials are not touched), and without sigma no
-// sig_out either.
-template <int NT, bool HAS_SIGMA, bool RELU, bool SPLIT, bool WIN>
+// sig_out either. TI: the activations' type, float or bf16.
+template <int NT, bool HAS_SIGMA, bool RELU, bool SPLIT, bool WIN, typename TI>
 __global__ void __launch_bounds__(kThreads) vdp_conv_kernel_wgmma(
-    const float* __restrict__ mu, const float* __restrict__ sigma,
+    const TI* __restrict__ mu, const TI* __restrict__ sigma,
     const float* __restrict__ w_mu, const float* __restrict__ sw,
-    float* __restrict__ mu_out, float* __restrict__ sig_out,
-    float* __restrict__ win_out, float* __restrict__ part, int H, int W,
-    int Cin, int Cout, int Ho, int Wo, long long M, int chunks_per_split,
-    int splits, long long x_ms, long long w_ms, long long sw_ms) {
-  using L = Smem<NT>;
+    OutT<WIN, TI>* __restrict__ mu_out, OutT<WIN, TI>* __restrict__ sig_out,
+    float* __restrict__ win_out, float* __restrict__ part,
+    uint8_t* __restrict__ mask_out, int H, int W, int Cin, int Cout, int Ho,
+    int Wo, long long M, int chunks_per_split, int splits, long long x_ms,
+    long long w_ms, long long sw_ms) {
+  using L = Smem<NT, TI>;
+  constexpr bool kHalf = sizeof(TI) == 2;  // bf16 activations
   constexpr int R = NT / 2;  // accumulator registers per thread and product
   extern __shared__ __align__(128) float smem[];
   float* s_b = smem;                   // [2][4][kK * NT] split B operands
@@ -554,28 +587,36 @@ __global__ void __launch_bounds__(kThreads) vdp_conv_kernel_wgmma(
   }
   mu_out += member * M * Cout;
   if (HAS_SIGMA || WIN) sig_out += member * M * Cout;
+  if (RELU && mask_out != nullptr) mask_out += member * M * Cout;
   if (SPLIT) part += member * splits * (2 * M * Cout + M);
 
   // Every address below that does not change from step to step is formed
   // once here; the steps only advance counters.
-  // This thread's copies of each patch tile: row tid / 2, channels
-  // 4 (tid % 2) .. +3 of the step's chunk.
+  // This thread's copies of each patch tile: row tid / 2; in float32 the
+  // channels 4 (tid % 2) .. +3 of the step's chunk of mu and of sigma, in
+  // bf16 all 8 channels of mu (even tid) or of sigma (odd tid).
   // A row past M is zero-filled; its source address stays that of pixel 0
   // plus the step's offset, which lies inside the tensor (the offset is
   // below 3 W Cin <= H W Cin).
   const int a_row = tid / 2;
   const long long am = m0 + a_row;
   const bool a_valid = am < M;
-  long long a_base = c_begin + 4 * (tid % 2);
+  const int a_part = kHalf ? 0 : 4 * (tid % 2);  // channel offset of the piece
+  long long a_base = c_begin + a_part;
   if (a_valid) {
     const long long hw = static_cast<long long>(Ho) * Wo;
     const long long b = am / hw, rem = am - b * hw;
     const long long oy = rem / Wo, ox = rem - oy * Wo;
     a_base += ((b * H + oy) * W + ox) * Cin;
   }
-  const float* a_mu = mu + a_base;
-  const float* a_sg = HAS_SIGMA ? sigma + a_base : nullptr;
-  const int a_dst = a_row * kARow + 4 * (tid % 2);
+  const TI* a_mu = mu + a_base;
+  const TI* a_sg = HAS_SIGMA ? sigma + a_base : nullptr;
+  const int a_dst = a_row * L::arow + (kHalf ? 0 : a_part);  // in floats
+  // bf16: the one 16-byte piece of this thread, and whether it has one
+  const bool h_sg = kHalf && (tid & 1);
+  const TI* h_src = h_sg ? a_sg : a_mu;
+  const int h_dst = a_dst + (h_sg ? L::a : 0);
+  const bool h_on = !h_sg || HAS_SIGMA;
   // This thread's 16-byte pieces of each step's 8 x NT weights: piece e is
   // row e / (NT / 4), columns 4 (e % (NT / 4)) .. +3; columns past Cout
   // are zero-filled.
@@ -607,9 +648,13 @@ __global__ void __launch_bounds__(kThreads) vdp_conv_kernel_wgmma(
   int ld_tap = 0, ld_dy = 0, ld_dx = 0, ld_c = 0, ld_slot = 0;
   auto load_next = [&]() {
     float* st = s_ring + ld_slot * L::stage;
-    const int shift = (ld_dy * W + ld_dx) * Cin + ld_c;
-    cp_async_ca(st + a_dst, a_mu + shift, a_valid);
-    if (HAS_SIGMA) cp_async_ca(st + L::a + a_dst, a_sg + shift, a_valid);
+    const int shift = (ld_dy * W + ld_dx) * Cin + ld_c;  // in elements
+    if (kHalf) {
+      if (h_on) cp_async_ca(st + h_dst, h_src + shift, a_valid);
+    } else {
+      cp_async_ca(st + a_dst, a_mu + shift, a_valid);
+      if (HAS_SIGMA) cp_async_ca(st + L::a + a_dst, a_sg + shift, a_valid);
+    }
     const int w_row = (ld_tap * Cin + ld_c) * Cout;
 #pragma unroll
     for (int i = 0; i < kWIter; ++i) {
@@ -649,7 +694,9 @@ __global__ void __launch_bounds__(kThreads) vdp_conv_kernel_wgmma(
   // and sigma, in the layout of frag_row and frag_ch.
   uint32_t mu_hi[2][4], mu_lo[2][4], sg_hi[2][4], sg_lo[2][4];
   float win0 = 0.f, win1 = 0.f;  // window-sum shares of rows r and r + 8
-  const int frag = (16 * warp + lane / 4) * kARow + lane % 4;
+  // in elements of TI from the start of a patch tile
+  const int frag = (16 * warp + lane / 4) * L::rowe + lane % 4;
+  constexpr int kSgE = L::a * 4 / static_cast<int>(sizeof(TI));  // sigma tile
 
 #pragma unroll
   for (int i = 0; i < kStages - 1; ++i) {
@@ -666,6 +713,7 @@ __global__ void __launch_bounds__(kThreads) vdp_conv_kernel_wgmma(
   auto prepare = [&](auto parity) {
     constexpr int P = decltype(parity)::value;
     const float* st = s_ring + pr_slot * L::stage;
+    const TI* sa = reinterpret_cast<const TI*>(st);
     float* bo = s_b + P * L::bset;
     const float* wr = st + 2 * L::a + b_src;
 #pragma unroll
@@ -684,12 +732,12 @@ __global__ void __launch_bounds__(kThreads) vdp_conv_kernel_wgmma(
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int ofs = frag + frag_row(i) * 8 * kARow + frag_ch(i) * 4;
-      const float x = st[ofs];
+      const int ofs = frag + frag_row(i) * 8 * L::rowe + frag_ch(i) * 4;
+      const float x = to_f32(sa[ofs]);
       split(x, mu_hi[P][i], mu_lo[P][i]);
       float t = x * x;
       if (HAS_SIGMA) {
-        const float y = st[L::a + ofs];
+        const float y = to_f32(sa[kSgE + ofs]);
         split(y, sg_hi[P][i], sg_lo[P][i]);
         t += y;
       }
@@ -800,13 +848,16 @@ __global__ void __launch_bounds__(kThreads) vdp_conv_kernel_wgmma(
           vs.y += wn * sw[co + 1];
         }
         if (RELU) {
-          if (!(vm.x > 0.f)) vm.x = vs.x = 0.f;
-          if (!(vm.y > 0.f)) vm.y = vs.y = 0.f;
+          const bool on_x = vm.x > 0.f, on_y = vm.y > 0.f;
+          if (!on_x) vm.x = vs.x = 0.f;
+          if (!on_y) vm.y = vs.y = 0.f;
+          if (mask_out != nullptr) {
+            *reinterpret_cast<uchar2*>(mask_out + m * Cout + co) =
+                make_uchar2(on_x, on_y);
+          }
         }
-        *reinterpret_cast<float2*>(mu_out + m * Cout + co) = vm;
-        if (HAS_SIGMA || WIN) {
-          *reinterpret_cast<float2*>(sig_out + m * Cout + co) = vs;
-        }
+        supernet::store2(mu_out + m * Cout + co, vm.x, vm.y);
+        if (HAS_SIGMA || WIN) supernet::store2(sig_out + m * Cout + co, vs.x, vs.y);
       }
     }
     if (WIN && blockIdx.y == 0 && lane % 4 == 0) {
@@ -819,15 +870,15 @@ __global__ void __launch_bounds__(kThreads) vdp_conv_kernel_wgmma(
   }
 }
 
-// Sums the S slices of the split path in slice order and writes the outputs;
-// one thread per 4 output channels of one pixel, blockIdx.y the member.
-// !WIN: no window sum; !S2: no sigma product either (mu_out alone).
-template <bool RELU, bool WIN, bool S2>
+// Sums the S slices of the split path in slice order and writes the outputs
+// in TO; one thread per 4 output channels of one pixel, blockIdx.y the
+// member. !WIN: no window sum; !S2: no sigma product either (mu_out alone).
+template <bool RELU, bool WIN, bool S2, typename TO>
 __global__ void __launch_bounds__(256) vdp_conv_kernel_splitk_reduce(
     const float* __restrict__ part, const float* __restrict__ sw,
-    float* __restrict__ mu_out, float* __restrict__ sig_out,
-    float* __restrict__ win_out, long long M, int Cout, int S,
-    long long sw_ms) {
+    TO* __restrict__ mu_out, TO* __restrict__ sig_out,
+    float* __restrict__ win_out, uint8_t* __restrict__ mask_out, long long M,
+    int Cout, int S, long long sw_ms) {
   const int nq = Cout / 4;
   const long long plane = M * Cout;
   const long long member = blockIdx.y;
@@ -838,6 +889,7 @@ __global__ void __launch_bounds__(256) vdp_conv_kernel_splitk_reduce(
     sw += member * sw_ms;
     win_out += member * M;
   }
+  if (RELU && mask_out != nullptr) mask_out += member * plane;
   const float* part_s2 = part + S * plane;
   const float* part_win = part + 2 * S * plane;
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
@@ -863,92 +915,104 @@ __global__ void __launch_bounds__(256) vdp_conv_kernel_splitk_reduce(
       vs.x += wn * v.x; vs.y += wn * v.y; vs.z += wn * v.z; vs.w += wn * v.w;
     }
     if (RELU) {
-      if (!(vm.x > 0.f)) vm.x = vs.x = 0.f;
-      if (!(vm.y > 0.f)) vm.y = vs.y = 0.f;
-      if (!(vm.z > 0.f)) vm.z = vs.z = 0.f;
-      if (!(vm.w > 0.f)) vm.w = vs.w = 0.f;
+      const bool on_x = vm.x > 0.f, on_y = vm.y > 0.f;
+      const bool on_z = vm.z > 0.f, on_w = vm.w > 0.f;
+      if (!on_x) vm.x = vs.x = 0.f;
+      if (!on_y) vm.y = vs.y = 0.f;
+      if (!on_z) vm.z = vs.z = 0.f;
+      if (!on_w) vm.w = vs.w = 0.f;
+      if (mask_out != nullptr) {
+        *reinterpret_cast<uchar4*>(mask_out + o) = make_uchar4(on_x, on_y, on_z, on_w);
+      }
     }
-    *reinterpret_cast<float4*>(mu_out + o) = vm;
-    if (S2) *reinterpret_cast<float4*>(sig_out + o) = vs;
+    supernet::store4(mu_out + o, vm);
+    if (S2) supernet::store4(sig_out + o, vs);
     if (WIN && co == 0) win_out[m] = wn;
   }
 }
 
-struct Args {
-  const float *mu, *sigma, *w_mu, *sw;
-  float *mu_out, *sig_out, *win, *part;
-  int B, H, W, Cin, Cout, splits, members;
-  long long x_ms, w_ms, sw_ms;
-  cudaStream_t stream;
-};
-
-template <int NT, bool HAS_SIGMA, bool RELU, bool SPLIT, bool WIN>
+template <int NT, bool HAS_SIGMA, bool RELU, bool SPLIT, bool WIN, typename TI>
 cudaError_t launch_wgmma(const Args& a) {
+  using TO = OutT<WIN, TI>;
   const int Ho = a.H - 2, Wo = a.W - 2;
   const long long M = static_cast<long long>(a.B) * Ho * Wo;
   const long long m_tiles = (M + kTileM - 1) / kTileM;
   if (m_tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
   const dim3 grid(static_cast<unsigned>(m_tiles), (a.Cout + NT - 1) / NT,
                   a.members * a.splits);
-  const size_t bytes = Smem<NT>::floats * sizeof(float);
-  auto kernel = vdp_conv_kernel_wgmma<NT, HAS_SIGMA, RELU, SPLIT, WIN>;
+  const size_t bytes = Smem<NT, TI>::floats * sizeof(float);
+  auto kernel = vdp_conv_kernel_wgmma<NT, HAS_SIGMA, RELU, SPLIT, WIN, TI>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
   kernel<<<grid, kThreads, bytes, a.stream>>>(
-      a.mu, a.sigma, a.w_mu, a.sw, a.mu_out, a.sig_out, a.win, a.part, a.H,
-      a.W, a.Cin, a.Cout, Ho, Wo, M, a.Cin / kK / a.splits, a.splits,
-      a.x_ms, a.w_ms, a.sw_ms);
+      static_cast<const TI*>(a.mu), static_cast<const TI*>(a.sigma), a.w_mu,
+      a.sw, static_cast<TO*>(a.mu_out), static_cast<TO*>(a.sig_out), a.win,
+      a.part, a.mask, a.H, a.W, a.Cin, a.Cout, Ho, Wo, M,
+      a.Cin / kK / a.splits, a.splits, a.x_ms, a.w_ms, a.sw_ms);
   err = cudaGetLastError();
   if (err != cudaSuccess || !SPLIT) return err;
   const long long quads = M * (a.Cout / 4);
   const long long blocks = (quads + 255) / 256;
-  vdp_conv_kernel_splitk_reduce<RELU, WIN, HAS_SIGMA || WIN>
+  vdp_conv_kernel_splitk_reduce<RELU, WIN, HAS_SIGMA || WIN, TO>
       <<<dim3(static_cast<unsigned>(blocks < 65535 ? blocks : 65535),
               a.members),
-         256, 0, a.stream>>>(a.part, a.sw, a.mu_out, a.sig_out, a.win, M,
+         256, 0, a.stream>>>(a.part, a.sw, static_cast<TO*>(a.mu_out),
+                             static_cast<TO*>(a.sig_out), a.win, a.mask, M,
                              a.Cout, a.splits, a.sw_ms);
   return cudaGetLastError();
 }
 
 // The instance for (sigma or not, ReLU or not, split or not, window sum or
 // not); the form without the window sum has no ReLU.
-template <int NT>
+template <int NT, typename TI>
 cudaError_t dispatch_wgmma(const Args& a, bool relu, bool with_win) {
   const bool split = a.splits > 1;
   if (!with_win) {
     if (a.sigma != nullptr) {
-      return split ? launch_wgmma<NT, true, false, true, false>(a)
-                   : launch_wgmma<NT, true, false, false, false>(a);
+      return split ? launch_wgmma<NT, true, false, true, false, TI>(a)
+                   : launch_wgmma<NT, true, false, false, false, TI>(a);
     }
-    return split ? launch_wgmma<NT, false, false, true, false>(a)
-                 : launch_wgmma<NT, false, false, false, false>(a);
+    return split ? launch_wgmma<NT, false, false, true, false, TI>(a)
+                 : launch_wgmma<NT, false, false, false, false, TI>(a);
   }
   if (a.sigma != nullptr) {
     if (relu) {
-      return split ? launch_wgmma<NT, true, true, true, true>(a)
-                   : launch_wgmma<NT, true, true, false, true>(a);
+      return split ? launch_wgmma<NT, true, true, true, true, TI>(a)
+                   : launch_wgmma<NT, true, true, false, true, TI>(a);
     }
-    return split ? launch_wgmma<NT, true, false, true, true>(a)
-                 : launch_wgmma<NT, true, false, false, true>(a);
+    return split ? launch_wgmma<NT, true, false, true, true, TI>(a)
+                 : launch_wgmma<NT, true, false, false, true, TI>(a);
   }
   if (relu) {
-    return split ? launch_wgmma<NT, false, true, true, true>(a)
-                 : launch_wgmma<NT, false, true, false, true>(a);
+    return split ? launch_wgmma<NT, false, true, true, true, TI>(a)
+                 : launch_wgmma<NT, false, true, false, true, TI>(a);
   }
-  return split ? launch_wgmma<NT, false, false, true, true>(a)
-               : launch_wgmma<NT, false, false, false, true>(a);
+  return split ? launch_wgmma<NT, false, false, true, true, TI>(a)
+               : launch_wgmma<NT, false, false, false, true, TI>(a);
 }
 
 }  // namespace tc
 
+template <typename TI>
+cudaError_t run(const Args& a, bool relu, bool with_win, int path, int tile_n) {
+  if (path == 0) {
+    return tile_n == 64 ? dispatch<64, TI>(a, relu, with_win)
+                        : dispatch<32, TI>(a, relu, with_win);
+  }
+  return tile_n == 64 ? tc::dispatch_wgmma<64, TI>(a, relu, with_win)
+                      : tc::dispatch_wgmma<32, TI>(a, relu, with_win);
+}
+
 }  // namespace
 
-// mu (and sigma, or null for the input layer): [B, H, W, Cin] float32;
-// w_mu: [k, k, Cin, Cout] (HWIO); sw: softplus(w_sigma), [Cout].
-// mu_out, sig_out: [B, H-k+1, W-k+1, Cout]; win: [B, H-k+1, W-k+1, 1].
-// All contiguous, and 16-byte aligned on the tensor-core path.
+// mu (and sigma, or null for the input layer): [B, H, W, Cin] of dtype
+// `dtype` (0 float32, 1 bf16); w_mu: [k, k, Cin, Cout] (HWIO) float32; sw:
+// softplus(w_sigma), [Cout] float32. mu_out, sig_out: [B, H-k+1, W-k+1,
+// Cout], of `dtype` with the window sum and float32 without it; win: [B,
+// H-k+1, W-k+1, 1] float32. All contiguous, and 16-byte aligned on the
+// tensor-core path.
 // path 0: the CUDA-core kernel, tile_n (CT) 32 or 64, splits 1.
 // path 1: the tensor-core kernel: k 3, Cin % 8 == 0, Cout % 4 == 0,
 //   9 Cin Cout and 3 W Cin below 2^31 (its step offsets are ints),
@@ -956,9 +1020,11 @@ cudaError_t dispatch_wgmma(const Args& a, bool relu, bool with_win) {
 //   holds 2 splits M Cout + splits M floats (M = B (H-2) (W-2)).
 // with_win 0: no window sum and no ReLU; sw and win are not read or
 //   written (may be null), and without sigma neither is sig_out.
+// mask: null, or with the ReLU [B, H-k+1, W-k+1, Cout] bytes that receive
+//   mu_out > 0 as computed in float32 before the ReLU and the rounding.
 // members: the member axis (1 for one parameter set). w_mu, sw and the
 //   outputs then hold `members` blocks one after another, and member m reads
-//   mu + m x_ms, sigma + m x_ms, w_mu + m w_ms and sw + m sw_ms (floats;
+//   mu + m x_ms, sigma + m x_ms, w_mu + m w_ms and sw + m sw_ms (elements;
 //   x_ms 0 is one input batch shared by every member); with splits > 1,
 //   `scratch` holds `members` times the floats above.
 // The plan comes from ops/kernels/vdp_conv.py:plan. Launches on `stream`
@@ -969,47 +1035,39 @@ cudaError_t dispatch_wgmma(const Args& a, bool relu, bool with_win) {
 extern "C" int supernet_vdp_conv_fwd(const void* mu, const void* sigma,
                                      const void* w_mu, const void* sw,
                                      void* mu_out, void* sig_out, void* win,
-                                     void* scratch, int B, int H, int W,
-                                     int Cin, int Cout, int k, int fuse_relu,
-                                     int with_win, int path, int tile_n,
-                                     int splits, int members, long long x_ms,
-                                     long long w_ms, long long sw_ms,
-                                     void* stream) {
-  const auto* m = static_cast<const float*>(mu);
-  const auto* s = static_cast<const float*>(sigma);
-  const auto* w = static_cast<const float*>(w_mu);
-  const auto* v = static_cast<const float*>(sw);
-  auto* mo = static_cast<float*>(mu_out);
-  auto* so = static_cast<float*>(sig_out);
-  auto* wo = static_cast<float*>(win);
-  auto* part = static_cast<float*>(scratch);
-  auto st = static_cast<cudaStream_t>(stream);
+                                     void* scratch, void* mask, int B, int H,
+                                     int W, int Cin, int Cout, int k,
+                                     int fuse_relu, int with_win, int path,
+                                     int tile_n, int splits, int members,
+                                     int dtype, long long x_ms, long long w_ms,
+                                     long long sw_ms, void* stream) {
   const bool relu = fuse_relu != 0;
   const bool ww = with_win != 0;
-  if (ww ? (v == nullptr || so == nullptr || wo == nullptr)
-         : (relu || (s != nullptr && so == nullptr))) {
+  const Args a{mu, sigma, static_cast<const float*>(w_mu),
+               static_cast<const float*>(sw), mu_out, sig_out,
+               static_cast<float*>(win), static_cast<float*>(scratch),
+               static_cast<uint8_t*>(mask), B, H, W, Cin, Cout, k, splits,
+               members, x_ms, w_ms, sw_ms, static_cast<cudaStream_t>(stream)};
+  if (ww ? (sw == nullptr || sig_out == nullptr || win == nullptr)
+         : (relu || (sigma != nullptr && sig_out == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (members < 1 || x_ms < 0 || w_ms < 0 || sw_ms < 0) {
+  if (members < 1 || x_ms < 0 || w_ms < 0 || sw_ms < 0 ||
+      (mask != nullptr && !relu) ||
+      (dtype != supernet::kFloat32 && dtype != supernet::kBFloat16)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t err = cudaErrorInvalidValue;
-  if (path == 0 && splits == 1 && (tile_n == 32 || tile_n == 64) &&
-      static_cast<long long>(members) * B <= 65535) {
-    const Members mem{members, x_ms, w_ms, sw_ms};
-    err = tile_n == 64 ? dispatch<64>(m, s, w, v, mo, so, wo, B, H, W, Cin,
-                                      Cout, k, relu, ww, mem, st)
-                       : dispatch<32>(m, s, w, v, mo, so, wo, B, H, W, Cin,
-                                      Cout, k, relu, ww, mem, st);
-  } else if (path == 1 && k == 3 && Cin % tc::kK == 0 && Cout % 4 == 0 &&
-             9LL * Cin * Cout < (1LL << 31) && 3LL * W * Cin < (1LL << 31) &&
-             splits >= 1 && (Cin / tc::kK) % splits == 0 &&
-             static_cast<long long>(members) * splits <= 65535 &&
-             (splits == 1 || part != nullptr)) {
-    const tc::Args a{m, s, w, v, mo, so, wo, part, B, H, W, Cin, Cout, splits,
-                     members, x_ms, w_ms, sw_ms, st};
-    if (tile_n == 32) err = tc::dispatch_wgmma<32>(a, relu, ww);
-    if (tile_n == 64) err = tc::dispatch_wgmma<64>(a, relu, ww);
-  }
+  const bool simt_ok = path == 0 && splits == 1 && (tile_n == 32 || tile_n == 64) &&
+                       static_cast<long long>(members) * B <= 65535;
+  const bool tc_ok = path == 1 && k == 3 && Cin % tc::kK == 0 && Cout % 4 == 0 &&
+                     9LL * Cin * Cout < (1LL << 31) && 3LL * W * Cin < (1LL << 31) &&
+                     splits >= 1 && (Cin / tc::kK) % splits == 0 &&
+                     static_cast<long long>(members) * splits <= 65535 &&
+                     (splits == 1 || scratch != nullptr) &&
+                     (tile_n == 32 || tile_n == 64);
+  if (!simt_ok && !tc_ok) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = dtype == supernet::kBFloat16
+                              ? run<bf16>(a, relu, ww, path, tile_n)
+                              : run<float>(a, relu, ww, path, tile_n);
   return static_cast<int>(err);
 }

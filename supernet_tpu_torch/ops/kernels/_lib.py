@@ -26,6 +26,8 @@ import tempfile
 import threading
 from pathlib import Path
 
+import torch
+
 _CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -36,6 +38,10 @@ _lib: ctypes.CDLL | None = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+# the dtypes a kernel takes for a moment tensor (csrc/dtype.cuh), by the
+# code its C entry point takes
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+MOMENT_DTYPES = tuple(_DTYPE_CODES)
 
 
 def _nvcc() -> str:
@@ -112,15 +118,15 @@ def load() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            lib.supernet_vdp_conv_fwd.argtypes = [_P] * 8 + [_I] * 12 + [_LL] * 3 + [_P]
+            lib.supernet_vdp_conv_fwd.argtypes = [_P] * 9 + [_I] * 13 + [_LL] * 3 + [_P]
             lib.supernet_vdp_conv_fwd.restype = _I
-            lib.supernet_vmaxpool_fwd.argtypes = [_P] * 5 + [_I] * 4 + [_P]
+            lib.supernet_vmaxpool_fwd.argtypes = [_P] * 5 + [_I] * 5 + [_P]
             lib.supernet_vmaxpool_fwd.restype = _I
-            lib.supernet_vmaxpool_bwd.argtypes = [_P] * 5 + [_I] * 5 + [_P]
+            lib.supernet_vmaxpool_bwd.argtypes = [_P] * 5 + [_I] * 6 + [_P]
             lib.supernet_vmaxpool_bwd.restype = _I
-            lib.supernet_sigma_bwd.argtypes = [_P] * 5 + [_I] * 7 + [_P]
+            lib.supernet_sigma_bwd.argtypes = [_P] * 5 + [_I] * 9 + [_P]
             lib.supernet_sigma_bwd.restype = _I
-            lib.supernet_sigma_bwd_vec.argtypes = [_P] * 7 + [_I] * 9 + [_P]
+            lib.supernet_sigma_bwd_vec.argtypes = [_P] * 7 + [_I] * 11 + [_P]
             lib.supernet_sigma_bwd_vec.restype = _I
             lib.supernet_empty_launch.argtypes = [_P]
             lib.supernet_empty_launch.restype = _I
@@ -130,16 +136,31 @@ def load() -> ctypes.CDLL:
         return _lib
 
 
-def check_input(op: str, name: str, t, shape) -> None:
-    """Raise unless ``t`` is a contiguous float32 CUDA tensor of ``shape``
-    (the kernels take no other; under bf16 activations the moment ops of
-    ``ops/moments.py`` upcast at the kernel boundary, so nothing reaches a
-    kernel unconverted)."""
-    import torch
+def dtype_code(dtype) -> int:
+    """The dtype argument of the kernels' C entry points: 0 float32, 1 bf16
+    (``csrc/dtype.cuh``)."""
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f"the kernels take float32 or bfloat16, not {dtype}")
+    return _DTYPE_CODES[dtype]
 
-    if not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous():
+
+def wide(t):
+    """``t`` in the dtype the plain versions compute in: a bf16 tensor
+    converted to float32, float32 and float64 as they are; None stays
+    None."""
+    return None if t is None else t.to(torch.promote_types(t.dtype, torch.float32))
+
+
+def check_input(op: str, name: str, t, shape, dtypes=None) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``shape`` whose
+    dtype is one of ``dtypes`` (default float32 alone: the weights). A
+    moment tensor takes ``MOMENT_DTYPES``, or the dtype of the moment it
+    must match; every other dtype raises, naming those the kernel takes."""
+    dtypes = (torch.float32,) if dtypes is None else tuple(dtypes)
+    if not t.is_cuda or t.dtype not in dtypes or not t.is_contiguous():
+        names = " or ".join(str(d).replace("torch.", "") for d in dtypes)
         raise ValueError(
-            f"{op}: {name} must be a contiguous float32 CUDA tensor "
+            f"{op}: {name} must be a contiguous {names} CUDA tensor "
             f"(got {t.dtype} on {t.device}, contiguous={t.is_contiguous()})"
         )
     if tuple(t.shape) != tuple(shape):
@@ -150,16 +171,12 @@ def check_input(op: str, name: str, t, shape) -> None:
 
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
-    import torch
-
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def sm_count(device) -> int:
     """The streaming multiprocessors of the card holding ``device`` (132 on
     an H100 SXM, 114 on an H100 PCIe): what the planners fill."""
-    import torch
-
     device = torch.device(device)
     return _sm_count(torch.cuda.current_device() if device.index is None
                      else device.index)

@@ -3,11 +3,14 @@
 Counterpart of ``supernet_tpu/ops/pallas/pool.py``. Both kernels are in
 ``csrc/pool.cu``: the forward (``vmaxpool``) and the backward
 (``vmaxpool_bwd``), which routes each output gradient to the selected window
-tap. Both are bound by bytes. The backward has two kernels, picked by
-:func:`plan_bwd` from the shape alone: ``"vec4"`` (C % 4 == 0: one thread per
-pooled window and 4 channels, 16-byte loads and stores) and ``"scalar"`` (any
-other C: one thread per full-resolution element). Both write every output
-once, without atomics, bit-exact with the plain version.
+tap. Both are bound by bytes. Both take float32 or bf16 and return their
+input's dtype (the tap index too), as the TPU kernels do: bf16 moments are
+compared in float32 registers and stored back unchanged. The backward has two
+kernels, picked by :func:`plan_bwd` from the shape and the element size:
+``"vec4"`` (C a multiple of the channels in 16 bytes, 4 float32 or 8 bf16: one
+thread per pooled window and 16 bytes of channels, 16-byte loads and stores)
+and ``"scalar"`` (any other C: one thread per full-resolution element). Both
+write every output once, without atomics, bit-exact with the plain version.
 :class:`VMaxPool` is the autograd pair of forward and backward. Each wrapper
 launches its kernel for CUDA tensors and takes its plain version only for
 CPU tensors.
@@ -44,6 +47,8 @@ def vmaxpool_plain(
     the bottom/right with ``finfo.min`` for mu and 0 for sigma; ties go to
     the first tap in row-major order; ``idx`` is the selected tap 0..3 in
     mu's dtype. ``torch.maximum`` propagates NaN, as ``jnp.maximum`` does.
+    Every output is one of the inputs (or the padding), so computing in the
+    input's dtype is the kernel's float32 compare of the same values.
     """
     b, h, w, c = mu.shape
     if h % 2 or w % 2:
@@ -87,13 +92,13 @@ def _launch(mu, sigma, return_idx):
     global launches
     if mu.dim() != 4:
         raise ValueError(f"vmaxpool: mu must be [B,H,W,C], got {tuple(mu.shape)}")
-    _lib.check_input("vmaxpool", "mu", mu, mu.shape)
-    _lib.check_input("vmaxpool", "sigma", sigma, mu.shape)
+    _lib.check_input("vmaxpool", "mu", mu, mu.shape, _lib.MOMENT_DTYPES)
+    _lib.check_input("vmaxpool", "sigma", sigma, mu.shape, (mu.dtype,))
     if sigma.device != mu.device:
         raise ValueError("vmaxpool: mu and sigma are on different devices")
     b, h, w, c = mu.shape
     out_shape = (b, (h + 1) // 2, (w + 1) // 2, c)
-    mx = torch.empty(out_shape, device=mu.device, dtype=torch.float32)
+    mx = torch.empty(out_shape, device=mu.device, dtype=mu.dtype)
     so = torch.empty_like(mx)
     idx = torch.empty_like(mx) if return_idx else None
     if mx.numel():
@@ -102,7 +107,8 @@ def _launch(mu, sigma, return_idx):
             err = lib.supernet_vmaxpool_fwd(
                 mu.data_ptr(), sigma.data_ptr(), mx.data_ptr(), so.data_ptr(),
                 idx.data_ptr() if idx is not None else None,
-                b, h, w, c, torch.cuda.current_stream(mu.device).cuda_stream,
+                b, h, w, c, _lib.dtype_code(mu.dtype),
+                torch.cuda.current_stream(mu.device).cuda_stream,
             )
         _lib.check(err, "vmaxpool kernel launch")
         launches += 1
@@ -130,8 +136,9 @@ THREADS = 256  # per block, both backward kernels
 
 class BwdPlan(NamedTuple):
     """How one pool backward runs: ``path`` "vec4" or "scalar", the
-    channels one thread handles, the threads that do work (windows x C/4,
-    or full-resolution elements) and the blocks of THREADS that hold them."""
+    channels one thread handles, the threads that do work (windows x
+    C/channels, or full-resolution elements) and the blocks of THREADS that
+    hold them."""
 
     path: str
     channels: int
@@ -140,15 +147,17 @@ class BwdPlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=None)
-def plan_bwd(b: int, h: int, w: int, c: int) -> BwdPlan:
-    """The backward's kernel plan for d_mu [b,h,w,c], from the shape alone
-    (no CUDA: the CPU tests call it). "vec4" takes C % 4 == 0 with fewer
-    than 2^31 threads; a window at an odd bottom or right edge writes only
-    the taps that lie inside h x w."""
+def plan_bwd(b: int, h: int, w: int, c: int, itemsize: int = 4) -> BwdPlan:
+    """The backward's kernel plan for d_mu [b,h,w,c] of ``itemsize``-byte
+    elements (4 float32, 2 bf16), from the shape alone (no CUDA: the CPU
+    tests call it). "vec4" takes C a multiple of the 16 / itemsize channels
+    of one 16-byte load with fewer than 2^31 threads; a window at an odd
+    bottom or right edge writes only the taps that lie inside h x w."""
     ho, wo = (h + 1) // 2, (w + 1) // 2
-    if c % 4 == 0 and b * ho * wo * (c // 4) < 2 ** 31:
-        items = b * ho * wo * (c // 4)
-        return BwdPlan("vec4", 4, items, -(-items // THREADS))
+    v = 16 // itemsize
+    if c % v == 0 and b * ho * wo * (c // v) < 2 ** 31:
+        items = b * ho * wo * (c // v)
+        return BwdPlan("vec4", v, items, -(-items // THREADS))
     items = b * h * w * c
     return BwdPlan("scalar", 1, items, -(-items // THREADS))
 
@@ -162,14 +171,15 @@ def _launch_bwd(idx, g_mu, g_sigma, h, w):
         raise ValueError(
             f"vmaxpool_bwd: output {h}x{w} does not pool to {ho}x{wo}"
         )
-    for name, t in (("idx", idx), ("g_mu", g_mu), ("g_sigma", g_sigma)):
-        _lib.check_input("vmaxpool_bwd", name, t, idx.shape)
+    _lib.check_input("vmaxpool_bwd", "idx", idx, idx.shape, _lib.MOMENT_DTYPES)
+    for name, t in (("g_mu", g_mu), ("g_sigma", g_sigma)):
+        _lib.check_input("vmaxpool_bwd", name, t, idx.shape, (idx.dtype,))
         if t.device != idx.device:
             raise ValueError("vmaxpool_bwd: inputs are on different devices")
-    d_mu = torch.empty((b, h, w, c), device=idx.device, dtype=torch.float32)
+    d_mu = torch.empty((b, h, w, c), device=idx.device, dtype=idx.dtype)
     d_sigma = torch.empty_like(d_mu)
     if d_mu.numel():
-        p = plan_bwd(b, h, w, c)
+        p = plan_bwd(b, h, w, c, idx.element_size())
         if p.path == "vec4":
             idx, g_mu, g_sigma = (_lib.aligned(t) for t in (idx, g_mu, g_sigma))
         lib = _lib.load()
@@ -177,7 +187,7 @@ def _launch_bwd(idx, g_mu, g_sigma, h, w):
             err = lib.supernet_vmaxpool_bwd(
                 idx.data_ptr(), g_mu.data_ptr(), g_sigma.data_ptr(),
                 d_mu.data_ptr(), d_sigma.data_ptr(), b, h, w, c,
-                int(p.path == "vec4"),
+                int(p.path == "vec4"), _lib.dtype_code(idx.dtype),
                 torch.cuda.current_stream(idx.device).cuda_stream,
             )
         _lib.check(err, f"vmaxpool_bwd kernel launch ({p.path})")
@@ -191,6 +201,7 @@ def vmaxpool_bwd(
     """The pool's backward: ``idx``, ``g_mu``, ``g_sigma`` [B,ceil(h/2),
     ceil(w/2),C] -> ``(d_mu, d_sigma)`` [B,h,w,C]: each full-resolution
     element takes its window's gradient where ``idx`` names its tap, else 0.
+    The three inputs share one dtype, float32 or bf16, and so do the outputs.
 
     CUDA tensors go to the kernel :func:`plan_bwd` picks (or raise); CPU
     tensors to
@@ -208,7 +219,8 @@ class VMaxPool(torch.autograd.Function):
     (keeping the tap index when a gradient is needed), backward
     :func:`vmaxpool_bwd`. Autograd of ``torch.maximum`` would split a tied
     gradient in half; this routes it to the first tap, as the reference
-    does."""
+    does. The tap index is saved in the moments' dtype, as the JAX package
+    saves it, and the gradients come back in it."""
 
     @staticmethod
     def forward(ctx, mu, sigma):

@@ -25,6 +25,12 @@ it out from the shape alone:
 Neither uses atomics, and the grid and the order of every sum depend on the
 shape only, so ``u`` and ``dsw`` are the same bits in every run.
 
+Dtypes, as the TPU kernel's (``sigma_bwd.py:82-84, 106, 172-173``): ``g``
+and ``t`` are each float32 or bf16 and ``s_w`` float32; the sums run in
+float32, ``u`` comes out in ``t``'s dtype and ``dsw`` in float32. A bf16
+call keeps the float32 plan, so it computes the float32 call on the same
+values and rounds ``u`` once.
+
 Member axis (a deep ensemble's K parameter sets in one launch, the
 counterpart of ``jax.vmap`` over the Pallas call): ``s_w`` [K, C] with ``g``
 [K*B,H',W',C] and ``t`` [K*B,H',W'] member-major give ``u`` [K*B,H,W] and
@@ -139,17 +145,22 @@ def winsum_spread_bwd_plain(
     g: torch.Tensor, t: torch.Tensor, s_w: torch.Tensor, k: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """PyTorch composition: ``(u, dsw)`` as in the module docstring; with
-    ``s_w`` [K, C], member by member."""
+    ``s_w`` [K, C], member by member. A bf16 ``g`` or ``t`` is converted to
+    float32 first; ``u`` comes out in ``t``'s dtype, ``dsw`` in float32 (or
+    float64 for float64 inputs)."""
     if s_w.dim() == 2:
         n = s_w.shape[0]
         outs = [winsum_spread_bwd_plain(gi, ti, s_w[i], k) for i, (gi, ti)
                 in enumerate(zip(g.unflatten(0, (n, -1)), t.unflatten(0, (n, -1))))]
         return torch.cat([o[0] for o in outs]), torch.stack([o[1] for o in outs])
+    u_dtype = t.dtype
+    g, t = _lib.wide(g), _lib.wide(t)
     dt = (g * s_w).sum(dim=-1)
     ones = torch.ones((1, 1, k, k), dtype=g.dtype, device=g.device)
     u = F.conv_transpose2d(dt[:, None], ones)[:, 0]
     dsw = (g * t[..., None]).sum(dim=(0, 1, 2))
-    return u.contiguous(), dsw
+    return u.to(u_dtype).contiguous(), dsw
+
 
 
 def _launch(g, t, s_w, k):
@@ -162,17 +173,18 @@ def _launch(g, t, s_w, k):
     if kb % members:
         raise ValueError(f"winsum_spread_bwd: {kb} images for {members} members")
     b = kb // members
-    _lib.check_input("winsum_spread_bwd", "g", g, g.shape)
-    _lib.check_input("winsum_spread_bwd", "t", t, (kb, hp, wp))
+    _lib.check_input("winsum_spread_bwd", "g", g, g.shape, _lib.MOMENT_DTYPES)
+    _lib.check_input("winsum_spread_bwd", "t", t, (kb, hp, wp), _lib.MOMENT_DTYPES)
     _lib.check_input("winsum_spread_bwd", "s_w", s_w, tuple(s_w.shape[:-1]) + (c,))
     if t.device != g.device or s_w.device != g.device:
         raise ValueError("winsum_spread_bwd: inputs are on different devices")
     if k < 1 or c < 1 or min(hp, wp) < 1:
         raise ValueError(f"winsum_spread_bwd: unsupported sizes {tuple(g.shape)}, k={k}")
-    u = torch.empty((kb, hp + k - 1, wp + k - 1), device=g.device, dtype=torch.float32)
+    u = torch.empty((kb, hp + k - 1, wp + k - 1), device=g.device, dtype=t.dtype)
     if b == 0:
         return u, torch.zeros(s_w.shape, device=g.device, dtype=torch.float32)
     p = plan(b, hp, wp, c, k, members, _lib.sm_count(g.device))
+    dtypes = (_lib.dtype_code(g.dtype), _lib.dtype_code(t.dtype))
     lib = _lib.load()
     stream = torch.cuda.current_stream(g.device).cuda_stream
     if p.path == "vec4":
@@ -184,14 +196,14 @@ def _launch(g, t, s_w, k):
             err = lib.supernet_sigma_bwd_vec(
                 g.data_ptr(), t.data_ptr(), s_w.data_ptr(), scratch.data_ptr(),
                 part.data_ptr(), u.data_ptr(), dsw.data_ptr(),
-                b, hp, wp, c, k, p.lanes, p.steps, p.blocks, members, stream,
+                b, hp, wp, c, k, p.lanes, p.steps, p.blocks, members, *dtypes, stream,
             )
     else:
         part = torch.empty((p.blocks, c), device=g.device, dtype=torch.float32)
         with torch.cuda.device(g.device):
             err = lib.supernet_sigma_bwd(
                 g.data_ptr(), t.data_ptr(), s_w.data_ptr(), u.data_ptr(),
-                part.data_ptr(), b, hp, wp, c, k, ROWS, members, stream,
+                part.data_ptr(), b, hp, wp, c, k, ROWS, members, *dtypes, stream,
             )
         dsw = part.view(members, -1, c).sum(dim=1).view(s_w.shape)
     _lib.check(err, f"winsum_spread_bwd kernel launch ({p.path}, {p.blocks} blocks)")
@@ -204,7 +216,9 @@ def winsum_spread_bwd(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(u, dsw)`` from ``g`` [B,H',W',C], ``t`` [B,H',W'] (the forward's
     ``win``) and ``s_w`` [C]; or, for K members, ``s_w`` [K,C] with ``g``
-    and ``t`` [K*B,...] member-major and ``dsw`` [K,C].
+    and ``t`` [K*B,...] member-major and ``dsw`` [K,C]. ``g`` and ``t`` are
+    each float32 or bf16; ``u`` comes out in ``t``'s dtype, ``dsw`` in
+    float32.
 
     CUDA tensors go to the kernels :func:`plan` picks (or raise), and give
     the same bits in every run; CPU tensors go to

@@ -29,6 +29,18 @@ package. Layouts are the JAX package's: NHWC
 activations, HWIO ``w_mu`` [k,k,Cin,Cout] and the raw (pre-softplus)
 ``w_sigma`` [Cout].
 
+Dtypes: ``mu`` and ``sigma`` are float32 or bf16 (one dtype), the weights
+float32. The kernel converts as it loads and computes in float32, as the TPU
+kernel does behind its wrapper's cast (``vdp_conv.py:460-477``). With the
+window sum, ``mu_out`` and ``sig_out`` come out in the moments' dtype,
+rounded once, and ``win`` in float32; without it (the transposed pair) both
+outputs are float32. A bf16 call runs the float32 plan on the same values,
+so it returns the float32 call's outputs rounded to bf16. The plain versions
+take the same dtypes and compute in float32 as well. :class:`VDPConv` takes
+the rounding points of the JAX package's bf16 mode, whose casts sit outside
+the custom VJP: the backward sums in float32 from bf16 cotangents and
+rounds each input gradient once.
+
 Member axis (a deep ensemble's K parameter sets, the counterpart of
 ``jax.vmap`` over the Pallas call): ``w_mu`` [K,k,k,Cin,Cout] and
 ``w_sigma`` [K,Cout] make every function here run all K members in one
@@ -43,16 +55,14 @@ member by member.
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
 from supernet_tpu_torch.ops.kernels import _lib
-from supernet_tpu_torch.ops.kernels._lib import aligned as _aligned
+from supernet_tpu_torch.ops.kernels._lib import aligned as _aligned, wide as _wide
 from supernet_tpu_torch.ops.kernels.sigma_bwd import winsum_spread_bwd
-
-Triple = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 # Kernel launches in this process; chip_smoke.py zeroes and reads them to
 # show that a path went through the kernels. `launches` counts calls of the
@@ -170,10 +180,14 @@ def vdp_conv_plain(
     w_mu: torch.Tensor,
     w_sigma: torch.Tensor,
     fuse_relu: bool = False,
-) -> Triple:
+    relu_mask: bool = False,
+):
     """PyTorch composition of the fused conv (the XLA path of
     ``ops/moments.py:vconv``/``vconv_input``, plus ``win``); with stacked
-    weights, member by member, concatenated member-major."""
+    weights, member by member, concatenated member-major. bf16 moments are
+    converted to float32 first and ``mu_out``, ``sig_out`` rounded back, as
+    the kernel does. With ``relu_mask`` a fourth output: the ReLU's mask
+    ``mu_out > 0`` before the rounding (None without the ReLU)."""
     # imported here: ops.moments imports this module
     from supernet_tpu_torch.ops.moments import _window_sum
 
@@ -181,9 +195,12 @@ def vdp_conv_plain(
         n = w_mu.shape[0]
         outs = [vdp_conv_plain(_member(mu, i, n),
                                None if sigma is None else _member(sigma, i, n),
-                               w_mu[i], w_sigma[i], fuse_relu) for i in range(n)]
-        return tuple(torch.cat(o) for o in zip(*outs))
+                               w_mu[i], w_sigma[i], fuse_relu, relu_mask)
+                for i in range(n)]
+        return tuple(None if o[0] is None else torch.cat(o) for o in zip(*outs))
 
+    out_dtype = mu.dtype
+    mu, sigma = _wide(mu), _wide(sigma)
     k = w_mu.shape[0]
     mu_out = _conv_valid(mu, w_mu)
     t = mu * mu if sigma is None else mu * mu + sigma
@@ -191,23 +208,26 @@ def vdp_conv_plain(
     sig_out = win * F.softplus(w_sigma)
     if sigma is not None:
         sig_out = sig_out + _conv_valid(sigma, w_mu * w_mu)
+    mask = None
     if fuse_relu:
         mask = mu_out > 0
         mu_out = torch.where(mask, mu_out, 0.0)
         sig_out = torch.where(mask, sig_out, 0.0)
-    return mu_out.contiguous(), sig_out.contiguous(), win.contiguous()
+    out = (mu_out.to(out_dtype).contiguous(), sig_out.to(out_dtype).contiguous(),
+           win.contiguous())
+    return out + (mask,) if relu_mask else out
 
 
-def _input(name: str, t: torch.Tensor, members: int):
-    """``(t, per-member shape [B,H,W,C], member stride in floats)`` of an
-    activation operand in either member layout; raises unless it is float32
-    on the card and each member contiguous."""
+def _input(name: str, t: torch.Tensor, members: int, dtypes):
+    """``(t, per-member shape [B,H,W,C], member stride in elements)`` of an
+    activation operand in either member layout; raises unless it is on the
+    card in one of ``dtypes`` and each member contiguous."""
     if t.dim() == 5:
         if t.shape[0] != members:
             raise ValueError(f"vdp_conv: {name} has {t.shape[0]} members, the "
                              f"weights {members}")
         one = t[0]
-        _lib.check_input("vdp_conv", name, one, one.shape)
+        _lib.check_input("vdp_conv", name, one, one.shape, dtypes)
         ms = t.stride(0) if members > 1 else one.numel()
         if ms not in (0, one.numel()):
             raise ValueError(f"vdp_conv: {name}'s member stride {ms} is neither "
@@ -216,7 +236,7 @@ def _input(name: str, t: torch.Tensor, members: int):
     if t.dim() != 4 or t.shape[0] % members:
         raise ValueError(f"vdp_conv: {name} must be [K*B,H,W,C] or [K,B,H,W,C] "
                          f"for {members} member(s), got {tuple(t.shape)}")
-    _lib.check_input("vdp_conv", name, t, t.shape)
+    _lib.check_input("vdp_conv", name, t, t.shape, dtypes)
     shape = (t.shape[0] // members,) + tuple(t.shape[1:])
     return t, shape, t.numel() // members
 
@@ -231,20 +251,22 @@ def _aligned_input(t: torch.Tensor, ms: int) -> torch.Tensor:
     return t.clone()
 
 
-def _launch(mu, sigma, w_mu, w_sigma, fuse_relu) -> Triple:
-    """The kernel on CUDA tensors; ``w_sigma=None`` is the form without the
-    window sum (and without the ReLU), which returns ``(mu_out, sig_out or
-    None, None)``. Stacked weights run every member in the same launch."""
+def _launch(mu, sigma, w_mu, w_sigma, fuse_relu, relu_mask=False):
+    """The kernel on CUDA tensors -> ``(mu_out, sig_out, win, mask)``;
+    ``w_sigma=None`` is the form without the window sum (and without the
+    ReLU), which returns ``(mu_out, sig_out or None, None, None)`` in
+    float32. ``relu_mask`` asks for the ReLU's mask (bool, [K*B,H',W',
+    Cout]). Stacked weights run every member in the same launch."""
     global launches, reduce_launches, dgrad_launches, dgrad_reduce_launches
     with_win = w_sigma is not None
     if w_mu.dim() not in (4, 5):
         raise ValueError(f"vdp_conv: w_mu must be [k,k,Cin,Cout] or "
                          f"[K,k,k,Cin,Cout], got {tuple(w_mu.shape)}")
     members = w_mu.shape[0] if _stacked(w_mu) else 1
-    mu, (b, h, w, cin), x_ms = _input("mu", mu, members)
+    mu, (b, h, w, cin), x_ms = _input("mu", mu, members, _lib.MOMENT_DTYPES)
     k, cout = w_mu.shape[-3], w_mu.shape[-1]
     if sigma is not None:
-        sigma, s_shape, s_ms = _input("sigma", sigma, members)
+        sigma, s_shape, s_ms = _input("sigma", sigma, members, (mu.dtype,))
         if s_shape != (b, h, w, cin) or s_ms != x_ms:
             raise ValueError("vdp_conv: sigma must have mu's shape and member stride")
     lead = (members,) if _stacked(w_mu) else ()
@@ -264,13 +286,15 @@ def _launch(mu, sigma, w_mu, w_sigma, fuse_relu) -> Triple:
         )
     ho, wo = h - k + 1, w - k + 1
     mu_out = torch.empty((members * b, ho, wo, cout), device=mu.device,
-                         dtype=torch.float32)
+                         dtype=mu.dtype if with_win else torch.float32)
     sig_out = (torch.empty_like(mu_out)
                if with_win or sigma is not None else None)
     win = (torch.empty((members * b, ho, wo, 1), device=mu.device,
                        dtype=torch.float32) if with_win else None)
+    mask = (torch.empty(mu_out.shape, device=mu.device, dtype=torch.bool)
+            if relu_mask and fuse_relu else None)
     if b == 0:
-        return mu_out, sig_out, win
+        return mu_out, sig_out, win, mask
     p = plan(b, h, w, cin, cout, k, members, _lib.sm_count(mu.device))
     sw = F.softplus(w_sigma).contiguous() if with_win else None
     scratch = None
@@ -290,9 +314,10 @@ def _launch(mu, sigma, w_mu, w_sigma, fuse_relu) -> Triple:
             sig_out.data_ptr() if sig_out is not None else None,
             win.data_ptr() if win is not None else None,
             scratch.data_ptr() if scratch is not None else None,
+            mask.data_ptr() if mask is not None else None,
             b, h, w, cin, cout, k, int(fuse_relu), int(with_win),
             _PATH_ID[p.path], p.tile_n, p.splits, members,
-            x_ms, k * k * cin * cout, cout,
+            _lib.dtype_code(mu.dtype), x_ms, k * k * cin * cout, cout,
             torch.cuda.current_stream(mu.device).cuda_stream,
         )
     _lib.check(err, f"vdp_conv kernel launch ({p.path}, {p.splits} K slices, "
@@ -303,7 +328,7 @@ def _launch(mu, sigma, w_mu, w_sigma, fuse_relu) -> Triple:
     else:
         dgrad_launches += 1
         dgrad_reduce_launches += p.splits > 1
-    return mu_out, sig_out, win
+    return mu_out, sig_out, win, mask
 
 
 def vdp_conv(
@@ -312,18 +337,24 @@ def vdp_conv(
     w_mu: torch.Tensor,
     w_sigma: torch.Tensor,
     fuse_relu: bool = False,
-) -> Triple:
+    relu_mask: bool = False,
+):
     """Fused VDP conv (+ optional ReLU) -> ``(mu_out, sig_out, win)``.
     ``sigma=None`` is the deterministic-input form (the first layer).
+    ``mu`` and ``sigma`` float32 or bf16: ``mu_out`` and ``sig_out`` come
+    out in their dtype, ``win`` in float32. With ``relu_mask`` a fourth
+    output: the ReLU's mask, the float32 ``mu_out > 0`` before the
+    rounding (bool; None without the ReLU).
 
     CUDA tensors go to the kernel (or raise); CPU tensors to
     :func:`vdp_conv_plain`. Any other device raises.
     """
     if mu.is_cuda:
-        return _launch(mu, sigma, w_mu, w_sigma, fuse_relu)
+        out = _launch(mu, sigma, w_mu, w_sigma, fuse_relu, relu_mask)
+        return out if relu_mask else out[:3]
     if mu.device.type != "cpu":
         raise ValueError(f"vdp_conv: unsupported device {mu.device}")
-    return vdp_conv_plain(mu, sigma, w_mu, w_sigma, fuse_relu)
+    return vdp_conv_plain(mu, sigma, w_mu, w_sigma, fuse_relu, relu_mask)
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -365,10 +396,11 @@ def _per_member(fn, g1, g2, w_mu):
 def conv_t_pair_plain(g1, g2, w_mu):
     """PyTorch composition of the padded, flipped form: ``(convT(g1, w_mu),
     convT(g2, w_mu^2))`` (the second None when ``g2`` is), as the kernel
-    computes them without the window sum."""
+    computes them without the window sum: bf16 cotangents converted to
+    float32, float32 out."""
     if _stacked(w_mu):
         return _per_member(conv_t_pair_plain, g1, g2, w_mu)
-    mu, sigma, w = dgrad_operands(g1, g2, w_mu)
+    mu, sigma, w = dgrad_operands(_wide(g1), _wide(g2), w_mu)
     d1 = _conv_valid(mu, w).contiguous()
     d2 = None if sigma is None else _conv_valid(sigma, w * w).contiguous()
     return d1, d2
@@ -376,19 +408,22 @@ def conv_t_pair_plain(g1, g2, w_mu):
 
 def conv_t_pair(g1, g2, w_mu):
     """``(convT(g1, w_mu), convT(g2, w_mu^2))``, ``g2`` may be None: the two
-    transposed convolutions of :class:`VDPConv`'s backward.
+    transposed convolutions of :class:`VDPConv`'s backward. ``g1`` and
+    ``g2`` float32 or bf16 (one dtype); the outputs are float32.
 
     CUDA tensors: one launch of the kernel without the window sum on
-    :func:`dgrad_operands` (or raise), for all members of stacked weights.
-    CPU tensors: :func:`_conv_t`, member by member."""
+    :func:`dgrad_operands` (or raise), for all members of stacked weights;
+    bf16 cotangents are padded and read as bf16. CPU tensors:
+    :func:`_conv_t` in float32, member by member."""
     if g1.is_cuda:
         mu, sigma, w = dgrad_operands(g1, g2, w_mu)
-        d1, d2, _ = _launch(mu, sigma, w, None, False)
+        d1, d2, _, _ = _launch(mu, sigma, w, None, False)
         return d1, d2
     if g1.device.type != "cpu":
         raise ValueError(f"vdp_conv: unsupported device {g1.device}")
     if _stacked(w_mu):
         return _per_member(conv_t_pair, g1, g2, w_mu)
+    g1, g2 = _wide(g1), _wide(g2)
     return _conv_t(g1, w_mu), None if g2 is None else _conv_t(g2, w_mu * w_mu)
 
 
@@ -426,26 +461,41 @@ class VDPConv(torch.autograd.Function):
     filter gradients are one cuDNN call per member. ``mu`` may then be one
     batch that every member reads (member stride 0); autograd sums its
     gradient over the members.
+
+    bf16 moments: the residuals are saved as they come (``mu``, ``sigma``
+    in bf16, ``win`` in float32); ``g1`` and ``g2`` reach kernels 4 and 1
+    in bf16, ``u``, ``c1`` and ``c2`` are float32, and ``d_mu``, ``d_sigma``
+    are rounded to bf16 once, at the end. The filter gradients are float32
+    products of float32 operands, as in the JAX package (cuDNN's on bf16
+    operands would return a bf16 gradient). The ReLU's mask is the float32
+    ``mu_out > 0``: a positive ``mu_out`` below bf16's least subnormal
+    rounds to 0, so under bf16 the forward saves the kernel's mask instead
+    of reading it back from the rounded ``mu_out``.
     """
 
     @staticmethod
     def forward(ctx, mu, sigma, w_mu, w_sigma, fuse_relu):
-        mu_out, sig_out, win = vdp_conv(mu, sigma, w_mu, w_sigma, fuse_relu)
+        keep_mask = (fuse_relu and mu.dtype == torch.bfloat16
+                     and any(ctx.needs_input_grad))
+        out = vdp_conv(mu, sigma, w_mu, w_sigma, fuse_relu, relu_mask=keep_mask)
+        mu_out, sig_out, win = out[:3]
         ctx.fuse_relu = fuse_relu
-        ctx.save_for_backward(mu, sigma, w_mu, w_sigma, win, mu_out)
+        ctx.save_for_backward(mu, sigma, w_mu, w_sigma, win,
+                              out[3] if keep_mask else mu_out)
         return mu_out, sig_out
 
     @staticmethod
     def backward(ctx, g1, g2):
-        mu, sigma, w_mu, w_sigma, win, mu_out = ctx.saved_tensors
+        mu, sigma, w_mu, w_sigma, win, relu_out = ctx.saved_tensors
         need_mu, need_sigma, need_w, need_ws, _ = ctx.needs_input_grad
         if ctx.fuse_relu:
-            mask = mu_out > 0
+            # the saved mask (bool), or mu_out itself
+            mask = relu_out if relu_out.dtype == torch.bool else relu_out > 0
             g1 = torch.where(mask, g1, 0.0)
             g2 = torch.where(mask, g2, 0.0)
         g2 = g2.contiguous()
         k = w_mu.shape[-3]
-        b, ho, wo, _ = mu_out.shape
+        b, ho, wo, _ = g1.shape
         u, d_sw = winsum_spread_bwd(
             g2, win.reshape(b, ho, wo), F.softplus(w_sigma).contiguous(), k
         )
@@ -454,14 +504,19 @@ class VDPConv(torch.autograd.Function):
         if need_mu or need_sigma:
             c1, c2 = conv_t_pair(g1, g2 if need_sigma else None, w_mu)
             # a [K,B,...] input (a shared one too) gets its gradient in its
-            # own shape; autograd sums a shared one over the members
+            # own shape; autograd sums a shared one over the members. 2 mu
+            # is exact in bf16, and its product with the float32 u is
+            # float32
             if need_mu:
                 d_mu = (c1 + 2.0 * mu.reshape(c1.shape) * g_win).view(mu.shape)
+                d_mu = d_mu.to(mu.dtype)
             if need_sigma:
-                d_sigma = (g_win + c2).view(sigma.shape)
+                d_sigma = (g_win + c2).view(sigma.shape).to(sigma.dtype)
         if need_w:
+            mu, g1 = _wide(mu), _wide(g1)
             d_w = _filter_grad(mu, g1, w_mu.shape)
             if sigma is not None:
+                sigma, g2 = _wide(sigma), _wide(g2)
                 d_w = d_w + 2.0 * w_mu * _filter_grad(sigma, g2, w_mu.shape)
         if need_ws:
             d_ws = d_sw * torch.sigmoid(w_sigma)

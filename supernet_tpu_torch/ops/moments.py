@@ -13,10 +13,14 @@ JAX package's production mode. The casts sit where the JAX module's default
 path puts them: ``_act`` on the moments entering a conv and on its outputs,
 channel sums in float32 and cast back before the broadcast multiply, the
 softmax head in float32. Weights stay float32; the casts' backward returns
-their gradients in float32. The kernels compute in float32: a bf16 moment is
-upcast at the kernel boundary and the outputs are cast back
-(``supernet_tpu/ops/pallas/vdp_conv.py:466-477``), so the kernels' backward
-sees float32 cotangents too.
+their gradients in float32. The kernels take bf16 moments as they are, as
+the TPU kernels take them: they load bf16, compute in float32 and store bf16
+(kernel 1 keeps its window-sum residual in float32), so no cast stands
+between a moment op and its kernel, forward or backward. Where the JAX
+package casts around kernel 1 (``supernet_tpu/ops/pallas/vdp_conv.py:
+466-477``), the kernel's rounding at its store and ``VDPConv``'s rounding of
+each input gradient are the same roundings. float16, which no mode
+produces, is still upcast at the kernel boundary and cast back.
 
 Dispatch: every stride-1 k > 1 conv goes through
 ``ops.kernels.vdp_conv.VDPConv`` and the max-pool through
@@ -96,7 +100,9 @@ def get_mxu_precision() -> str:
 
 # The inter-layer activation dtype (supernet_tpu/ops/moments.py:342).
 _ACT_DTYPE: torch.dtype = torch.float32
-_HALF = (torch.bfloat16, torch.float16)
+# the half-precision dtypes the kernels do not take (bf16 they do): upcast at
+# the kernel boundary and cast back
+_HALF = (torch.float16,)
 
 
 def set_act_dtype(dtype: str) -> None:
@@ -473,8 +479,9 @@ def _im2col2d_dot(patches: Tensor, w_flat: Tensor) -> Tensor:
 
 
 def _kernel_conv(mu, sigma, w_mu, w_sigma, relu: bool) -> MomentPair:
-    """The fused conv (kernel 1 on CUDA tensors): half-precision moments are
-    upcast at the boundary and the outputs cast back to their dtype."""
+    """The fused conv (kernel 1 on CUDA tensors): float32 and bf16 moments
+    go to ``VDPConv`` as they are and come back in their dtype; float16
+    moments are upcast at the boundary and the outputs cast back."""
     dt = mu.dtype
     if dt in _HALF:
         mu = mu.float()
@@ -646,9 +653,10 @@ def vrelu(mu: Tensor, sigma: Tensor) -> MomentPair:
 def vmaxpool(mu: Tensor, sigma: Tensor) -> MomentPair:
     """2x2/stride-2 max-pool of ``mu`` with ``sigma`` at the argmax;
     first-occurrence ties, in the gradient too; odd sizes padded with
-    ``finfo.min``. Keeps its input's dtype: half-precision moments are
-    upcast at the kernel boundary and the outputs cast back, which is exact
-    (the TPU kernel loads bf16, selects in float32 and stores bf16).
+    ``finfo.min``. Keeps its input's dtype: float32 and bf16 moments go to
+    ``VMaxPool`` as they are (the kernels load bf16, select in float32 and
+    store bf16, the tap index too, as the TPU kernel does); float16 moments
+    are upcast at the boundary and cast back, which is exact.
     Under the naive backend: ``ops.naive.vmaxpool_naive``."""
     if _BACKEND == "naive":
         return naive.vmaxpool_naive(mu, sigma)

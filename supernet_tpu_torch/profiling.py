@@ -43,8 +43,11 @@ forward and backward), or ``sequential``: one ``make_train_step`` step of
 each of K single-model states in turn, the sequential path's work for the
 same K member-steps; ``member_step_ms`` is the step over K.
 ``--act-dtype bfloat16`` runs the train and serve modes in the bf16
-activation mode (``ops.set_act_dtype``). Prints one JSON object; ``--out DIR``
-also writes it there. Needs a CUDA device: there is no CPU fallback.
+activation mode (``ops.set_act_dtype``). The train and serve modes also
+count the dtype-conversion kernels of one step (request) from a trace with
+the operators' input types (:func:`conversion_kernels`). Prints one JSON
+object; ``--out DIR`` also writes it there. Needs a CUDA device: there is no
+CPU fallback.
 """
 
 from __future__ import annotations
@@ -57,6 +60,7 @@ import functools
 import json
 import os
 import statistics
+import tempfile
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -64,6 +68,7 @@ import numpy as np
 import torch
 
 from supernet_tpu_torch import train
+from supernet_tpu_torch import xplane as X
 from supernet_tpu_torch.configs import get_config
 from supernet_tpu_torch.models import forward, init_params, layer_names
 from supernet_tpu_torch.ops import get_act_dtype, set_act_dtype, set_mxu_precision
@@ -96,7 +101,8 @@ TF32_FLOPS_PER_S = 495e12
 
 
 @contextlib.contextmanager
-def recording(warmup: Optional[Callable[[], object]] = None, on_trace_ready=None):
+def recording(warmup: Optional[Callable[[], object]] = None, on_trace_ready=None,
+              record_shapes: bool = False):
     """``torch.profiler`` over the block: the CPU ops, and the card's
     kernels and copies when there is a card. Yields the profiler.
 
@@ -108,13 +114,15 @@ def recording(warmup: Optional[Callable[[], object]] = None, on_trace_ready=None
     call of the traced work) runs there, its records are discarded, and
     recording starts at the block. A caller that needs every kernel
     recorded opens the block with a call it leaves out
-    (``hlo_profile.SETTLE``)."""
+    (``hlo_profile.SETTLE``). ``record_shapes`` records each operator's
+    input shapes and types (the trace's "Input Dims" and "Input type")."""
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     schedule = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
     with torch.profiler.profile(activities=acts, schedule=schedule,
-                                on_trace_ready=on_trace_ready) as prof:
+                                on_trace_ready=on_trace_ready,
+                                record_shapes=record_shapes) as prof:
         if warmup is not None:
             warmup()
             if torch.cuda.is_available():
@@ -135,6 +143,46 @@ def trace(log_dir: str, warmup: Optional[Callable[[], object]] = None):
     path = os.path.join(log_dir, f"trace_{time.time_ns()}.pt.trace.json")
     with recording(warmup, lambda prof: prof.export_chrome_trace(path)) as prof:
         yield prof
+
+
+def _converts(op) -> bool:
+    """True for an ``aten::copy_`` whose destination and source types (the
+    first two "Input type"s of a trace with shapes) differ: a dtype
+    conversion, such as ``.to(torch.bfloat16)`` or ``.float()``."""
+    types = op.args.get("Input type") or []
+    return (op.name == "aten::copy_" and len(types) >= 2 and bool(types[0])
+            and bool(types[1]) and types[0] != types[1])
+
+
+def count_conversions(events) -> int:
+    """The dtype-conversion kernels in the events of a trace recorded with
+    shapes (``xplane.load_trace``): the device kernels whose "External id"
+    is that of a converting ``aten::copy_`` (:func:`_converts`). On a trace
+    without device events (a CPU run) the converting operators themselves,
+    each of which launches one kernel on the card."""
+    ops = {e.args.get("External id") for e in events
+           if e.cat == "cpu_op" and _converts(e)}
+    device = X.device_events(events)
+    if not device:
+        return len(ops)
+    return sum(1 for e in device if e.args.get("External id") in ops)
+
+
+def conversion_kernels(run: Callable[[], object], calls: int = 2) -> float:
+    """Dtype-conversion kernels per call of ``run``: ``calls`` calls traced
+    with the operators' input types (after one untraced call in the
+    profiler's warm-up phase, :func:`recording`), counted by
+    :func:`count_conversions`."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        with recording(warmup=run, on_trace_ready=lambda p: p.export_chrome_trace(path),
+                       record_shapes=True):
+            for _ in range(calls):
+                run()
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+        events = X.load_trace(path)
+    return count_conversions(events) / calls
 
 
 class _NaNCheck(torch.utils._python_dispatch.TorchDispatchMode):
@@ -352,20 +400,28 @@ def layer_shapes(cfg) -> Tuple[List, List]:
     return convs, pools
 
 
-def vdp_conv_bounds(b, h, w, cin, cout, k, has_sigma) -> Dict:
+def vdp_conv_bounds(b, h, w, cin, cout, k, has_sigma, itemsize: int = 4) -> Dict:
     """The least time the card could take for one fused VDP conv: bytes
-    (each input read once, each output written once) over the memory rate,
-    and the multiply-adds of both products as float32 operations on the
-    CUDA cores or as three TF32 passes on the tensor cores (3xTF32)."""
+    (each input read once, each output written once; the moments in and
+    out at ``itemsize`` bytes, 2 for bf16, the weights and ``win`` float32)
+    over the memory rate, and the multiply-adds of both products as float32
+    operations on the CUDA cores or as three TF32 passes on the tensor cores
+    (3xTF32). For bf16 moments also ``bound_2xtf32_ms``: a bf16 value's
+    small TF32 half is exactly 0, so two passes (big x big, big x the
+    weight's small half) compute the same function."""
     ho, wo = h - k + 1, w - k + 1
     n_in = (2 if has_sigma else 1) * b * h * w * cin
-    nbytes = 4 * (n_in + k * k * cin * cout + cout + 2 * b * ho * wo * cout + b * ho * wo)
+    nbytes = (itemsize * (n_in + 2 * b * ho * wo * cout)
+              + 4 * (k * k * cin * cout + cout + b * ho * wo))
     flops = (2 if has_sigma else 1) * 2 * k * k * cin * cout * b * ho * wo
     bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
-    return {"bytes": nbytes, "flops": flops, "bytes_ms": bytes_ms,
-            "f32_ms": 1e3 * flops / F32_FLOPS_PER_S,
-            "bound_ms": max(bytes_ms, 1e3 * flops / F32_FLOPS_PER_S),
-            "bound_3xtf32_ms": max(bytes_ms, 1e3 * 3 * flops / TF32_FLOPS_PER_S)}
+    out = {"bytes": nbytes, "flops": flops, "bytes_ms": bytes_ms,
+           "f32_ms": 1e3 * flops / F32_FLOPS_PER_S,
+           "bound_ms": max(bytes_ms, 1e3 * flops / F32_FLOPS_PER_S),
+           "bound_3xtf32_ms": max(bytes_ms, 1e3 * 3 * flops / TF32_FLOPS_PER_S)}
+    if itemsize == 2:
+        out["bound_2xtf32_ms"] = max(bytes_ms, 1e3 * 2 * flops / TF32_FLOPS_PER_S)
+    return out
 
 
 def device_ms(fn, runs: int = 20) -> float:
@@ -517,7 +573,8 @@ def profile_train_step(config: str, batch: int, seed: int = 0) -> Dict:
 
     out = _profile(run, "step")
     return {"mode": "train", "config": config, "batch": batch,
-            "img_per_s": batch / (out["step_ms_median"] / 1e3), **out}
+            "img_per_s": batch / (out["step_ms_median"] / 1e3), **out,
+            "conversion_kernels_per_step": conversion_kernels(run)}
 
 
 def ensemble_step_runner(config: str, batch: int, seed: int = 0, members: int = 4,
@@ -666,7 +723,8 @@ def profile_serving(config: str, batch: int, seed: int = 0) -> Dict:
     x = rng.normal(0, 1, (images, s, s, cfg.in_channels)).astype(np.float32)
     out = _profile(lambda: sess.predict(x), "request")
     return {"mode": "serve", "config": config, "batch": batch, "images": images,
-            "img_per_s": images / (out["request_ms_median"] / 1e3), **out}
+            "img_per_s": images / (out["request_ms_median"] / 1e3), **out,
+            "conversion_kernels_per_request": conversion_kernels(lambda: sess.predict(x))}
 
 
 def main(argv=None) -> int:

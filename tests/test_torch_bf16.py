@@ -2,8 +2,8 @@
 ``SUPERNET_ACT_DTYPE``) on the CPU: the port's bf16 forward against the JAX
 package's bf16 forward on the same parameters and input, the dtypes of every
 moment op and of the gradients (after ``tests/test_moments.py:
-test_act_dtype_bfloat16_mode``), the float32 kernel boundary, and the
-environment knobs."""
+test_act_dtype_bfloat16_mode``), the kernels' bf16 boundary (bf16 moments
+in, float32 weights and weight gradients), and the environment knobs."""
 
 import dataclasses
 
@@ -139,35 +139,49 @@ def test_full_width_bf16_mode_like_jax(bf16):
 def test_moment_op_dtypes_and_float32_kernel_boundary(bf16, monkeypatch):
     """Every moment op keeps bf16 between layers (the pool and the pads
     their input's dtype), channel sums run in float32, the softmax head
-    returns float32, and the two kernel ops are reached with float32
-    moments only."""
+    returns float32. The two kernel ops are reached with bf16 moments as
+    they are (no upcast on the way, as the TPU kernels take them), and the
+    float32 boundary is the weights': every weight gradient comes back
+    float32, while the moments' gradients keep bf16."""
     from supernet_tpu_torch.ops.kernels import pool as P
     from supernet_tpu_torch.ops.kernels import vdp_conv as V
 
     seen = []
     conv, pool = V.VDPConv.apply, P.VMaxPool.apply
     monkeypatch.setattr(V.VDPConv, "apply", lambda mu, sg, *a: (
-        seen.append((mu.dtype, None if sg is None else sg.dtype)) or conv(mu, sg, *a)))
+        seen.append(("conv", mu.dtype, None if sg is None else sg.dtype))
+        or conv(mu, sg, *a)))
     monkeypatch.setattr(P.VMaxPool, "apply", lambda mu, sg: (
-        seen.append((mu.dtype, sg.dtype)) or pool(mu, sg)))
+        seen.append(("pool", mu.dtype, sg.dtype)) or pool(mu, sg)))
     rng = np.random.default_rng(1)
     t = lambda *s: torch.from_numpy(rng.normal(0, 1, s).astype(np.float32))  # noqa: E731
     x, w3, w2, w1 = t(2, 10, 10, 3), 0.3 * t(3, 3, 3, 8), 0.3 * t(2, 2, 8, 4), 0.3 * t(1, 1, 8, 5)
     ws8, ws4, ws5 = t(8) - 3, t(4) - 3, t(5) - 3
+    w33 = 0.3 * t(3, 3, 8, 8)
+    weights = (w3, ws8, w33)
+    for w in weights:
+        w.requires_grad_(True)
     bf = torch.bfloat16
     m, s = ops.vconv_input_relu(x, w3, ws8)
     assert m.dtype == s.dtype == bf
-    m2, s2 = ops.vconv_relu(m, s, 0.3 * t(3, 3, 8, 8), ws8)
+    m2, s2 = ops.vconv_relu(m, s, w33, ws8)
     assert m2.dtype == s2.dtype == bf
-    for out in (ops.vconv(m, s, 0.3 * t(3, 3, 8, 8), ws8), ops.vconv(m, s, w1, ws5),
+    for out in (ops.vconv(m, s, w33, ws8), ops.vconv(m, s, w1, ws5),
                 ops.vconv_input(x, w3, ws8), ops.vconv_input(x, 0.3 * t(1, 1, 3, 8), ws8),
                 ops.vmaxpool(m, s), ops.vunpool_conv2(m, s, w2, ws4),
                 ops.vpad(m, s, (2, 2), 0.02), ops.vcrop_concat(m2, s2, m, s)):
         assert out[0].dtype == out[1].dtype == bf
     p, v = ops.vsoftmax(*ops.vconv(m, s, w1, ws5))
     assert p.dtype == v.dtype == torch.float32
-    assert seen and all(d in (torch.float32, None) for pair in seen for d in pair)
+    assert {k for k, *_ in seen} == {"conv", "pool"}
+    assert all(d in (bf, None) for _, *pair in seen for d in pair)
     assert ops.chan_sum(m).dtype == torch.float32
+    # the gradients: float32 for every weight, bf16 for a moment
+    pm, ps = ops.vmaxpool(m2, s2)
+    loss = pm.float().sum() + ps.float().sum()
+    grads = torch.autograd.grad(loss, weights + (m,))
+    assert all(g.dtype == torch.float32 and bool(torch.isfinite(g).all()) for g in grads[:3])
+    assert grads[3].dtype == bf
 
 
 def test_train_step_under_bf16(bf16):
