@@ -28,7 +28,14 @@ Phases (any failure raises and the exit code is not 0):
    the float32 ``mu_out > 0``), and (b) lie within the float32 limit of
    the plain version on the same bf16 inputs plus ``BF16_STEP`` of the
    element; each timed (CUDA events, device time) beside its bound at
-   2-byte moments.
+   2-byte moments. Kernel 2 in both dtypes: bit for bit the plain
+   version's in both forms (NaN where it has NaN), served (mx, so) and
+   training (with idx), each timed hot and L2-cold (a buffer of twice the
+   L2 written before every call) beside its byte bound, with its plan's
+   path, block size and blocks; every model pool takes the vector path,
+   the ties, NaN, C=130, C=36 and odd-edge C=40 cases reach both paths in
+   each dtype; at every model pool the training form also at every block
+   size of ``plan_fwd``'s and through the scalar kernel, summed per step.
 3. serving, hippocampus at full width: ``InferenceSession`` (batch 20),
    with ``init_params`` weights rescaled to He scale, answers requests of
    20, 7 and 45 images; the kernel launch counters are zeroed just before
@@ -506,7 +513,12 @@ class KernelCheck:
         # "bf16") -> device ms, 0 and the 2xTF32 bound
         self.vdp = {}
         self.paths = {}  # kernel 3 or 4 -> the planner's paths its shapes took
-        self.dev = {}  # (kernel 3 or 4, config) -> summed device ms
+        self.dev = {}  # (kernel 2, 3 or 4, config) -> summed device ms
+        # (kernel 2 or its bf16 case, config) -> its other times, summed
+        self.pool_fwd = {}
+        # (config, dtype, kernel 2's path and block size) -> summed hot and
+        # cold device ms of its training form
+        self.blocks = {}
         # (config) -> the dgrad's summed device ms, cuDNN's conv_transpose2d
         # pair's and the dgrad's 3xTF32 bound; (config, "bf16") -> device ms,
         # 0 and the 2xTF32 bound
@@ -567,31 +579,105 @@ class KernelCheck:
             "cudnn_mu_ms": cudnn_ms,
         })
 
-    def vmaxpool(self, config, layer, b, h, w, c, ties=False):
+    def vmaxpool(self, config, layer, b, h, w, c, ties=False, nan=False, bf16=False):
+        """Kernel 2 on float32 or bf16 moments: mx, so and idx bit for bit
+        the plain version's (NaN where it has NaN) in both forms, and on
+        bf16 the float32 kernel's on the upcast inputs. Timed in both forms,
+        served (mx, so) and training (with idx), each hot and L2-cold beside
+        its byte bound (2 or 3 outputs)."""
         torch = self.torch
         from supernet_tpu_torch.ops.kernels import pool as P
-        from supernet_tpu_torch.profiling import device_ms
+        from supernet_tpu_torch.profiling import cold_device_ms, device_ms
 
+        kernel = "vmaxpool_bf16" if bf16 else "vmaxpool"
+        what = f"{kernel} {config}/{layer}"
         mu = self._randn(b, h, w, c)
         if ties:
             mu = torch.round(3.0 * mu)
+        if nan:
+            mu.view(-1)[::7] = float("nan")
         sigma = self._randn(b, h, w, c).abs()
+        if bf16:
+            mu, sigma = mu.to(torch.bfloat16), sigma.to(torch.bfloat16)
+        plan = P.plan_fwd(b, h, w, c, mu.element_size(), _sms())
+        if config != "extra" and plan.path != "vec":
+            _die(f"{what}: a model pool takes the {plan.path} path")
         with torch.inference_mode():
             got = P.vmaxpool(mu, sigma, return_idx=True)
+            served = P.vmaxpool(mu, sigma)
             want = P.vmaxpool_plain(mu, sigma)
             torch.cuda.synchronize()
-            for name, g, r in zip(("mx", "so", "idx"), got, want):
-                if not torch.equal(g, r):
-                    _die(f"vmaxpool {config}/{layer}: {name} is not bit-exact")
+            for name, g, r in zip(("mx", "so", "idx", "served mx", "served so"),
+                                  got + served, want + want[:2]):
+                if g.dtype != mu.dtype or not _same_bits(torch, g, r):
+                    _die(f"{what}: {name} is not bit-exact with the plain version")
+            if bf16:
+                ref = P.vmaxpool(mu.float(), sigma.float(), return_idx=True)
+                for name, g, r in zip(("mx", "so", "idx"), got, ref):
+                    if not _same_bits(torch, g, r.to(g.dtype)):
+                        _die(f"{what}: {name} on bf16 inputs is not the float32 "
+                             f"kernel's output on the upcast inputs, cast to bf16")
             ms = _time_ms(torch, lambda: P.vmaxpool(mu, sigma))
             plain_ms = _time_ms(torch, lambda: P.vmaxpool_plain(mu, sigma))
-            dev_ms = device_ms(lambda: P.vmaxpool(mu, sigma))
-        self.dev[("vmaxpool", config)] = self.dev.get(("vmaxpool", config), 0.0) + dev_ms
-        n_out = got[0].numel()
-        self._record("vmaxpool", config, 0.0, 0.0, ms, plain_ms,
-                     _bound(4 * (2 * mu.numel() + 2 * n_out), 0), {
-            "layer": layer, "shape": [b, h, w, c], "ties": ties, "device_ms": dev_ms,
+            times = {
+                "device_ms": device_ms(lambda: P.vmaxpool(mu, sigma)),
+                "cold_device_ms": cold_device_ms(lambda: P.vmaxpool(mu, sigma)),
+                "train_device_ms": device_ms(lambda: P.vmaxpool(mu, sigma, True)),
+                "train_cold_device_ms": cold_device_ms(lambda: P.vmaxpool(mu, sigma, True)),
+            }
+        n_in, n_out, size = mu.numel(), got[0].numel(), mu.element_size()
+        times["train_bound_ms"] = _bound(size * (2 * n_in + 3 * n_out), 0)[0]
+        self.paths.setdefault(kernel, set()).add(plan.path)
+        self.dev[(kernel, config)] = self.dev.get((kernel, config), 0.0) + times["device_ms"]
+        sums = self.pool_fwd.setdefault((kernel, config), dict.fromkeys(times, 0.0))
+        for k, v in times.items():
+            sums[k] += v
+        self._record(kernel, config, 0.0, 0.0, ms, plain_ms,
+                     _bound(size * (2 * n_in + 2 * n_out), 0), {
+            "layer": layer, "shape": [b, h, w, c], "ties": ties, "nan": nan,
+            "dtype": str(mu.dtype).replace("torch.", ""), "path": plan.path,
+            "threads": plan.threads, "blocks": plan.blocks, **times,
+            **({"equal_to_float32_on_upcast": True} if bf16 else {}),
         })
+
+    def vmaxpool_blocks(self, config, layer, b, h, w, c):
+        """Kernel 2's training form at one layer shape in float32 and bf16:
+        the vector path in blocks of 256, 128, 64 and 32 threads (the plan
+        picks from ``FWD_THREADS``) and the scalar kernel (one thread per
+        output element, the only design before the vector path), each
+        bit-exact with the plain version, hot and L2-cold device time. Sums
+        go to ``self.blocks``."""
+        torch = self.torch
+        from supernet_tpu_torch.ops.kernels import pool as P
+        from supernet_tpu_torch.profiling import cold_device_ms, device_ms
+
+        for dt in (torch.float32, torch.bfloat16):
+            mu = self._randn(b, h, w, c).to(dt)
+            sigma = self._randn(b, h, w, c).abs().to(dt)
+            plan = P.plan_fwd(b, h, w, c, mu.element_size(), _sms())
+            n_out = b * ((h + 1) // 2) * ((w + 1) // 2) * c
+            variants = {f"vec{t}": plan._replace(threads=t, blocks=-(-plan.items // t))
+                        for t in (256, 128, 64, 32)}
+            variants["scalar"] = P.FwdPlan("scalar", 1, n_out, P.THREADS,
+                                           -(-n_out // P.THREADS))
+            dtype = str(dt).replace("torch.", "")
+            line = {"kernel": "vmaxpool_blocks", "config": config, "layer": layer,
+                    "shape": [b, h, w, c], "dtype": dtype, "plan_threads": plan.threads}
+            with torch.inference_mode():
+                want = P.vmaxpool_plain(mu, sigma)
+                for name, p in variants.items():
+                    got = P._launch(mu, sigma, True, p)
+                    torch.cuda.synchronize()
+                    if not all(_same_bits(torch, g, r) for g, r in zip(got, want)):
+                        _die(f"vmaxpool {config}/{layer} {dtype} {name}: not bit-exact")
+                    fn = lambda p=p: P._launch(mu, sigma, True, p)
+                    hot, cold = device_ms(fn), cold_device_ms(fn)
+                    line[name] = {"blocks": -(-p.items // p.threads),
+                                  "device_ms": hot, "cold_device_ms": cold}
+                    acc = self.blocks.setdefault((config, dtype, name), [0.0, 0.0])
+                    acc[0] += hot
+                    acc[1] += cold
+            print(json.dumps(line), flush=True)
 
     def vmaxpool_bwd(self, config, layer, b, h, w, c, ties=False):
         torch = self.torch
@@ -851,39 +937,6 @@ class KernelCheck:
             "device_ms": dev_ms, "bound_2xtf32_ms": bounds["bound_2xtf32_ms"],
         })
 
-    def vmaxpool_bf16(self, config, layer, b, h, w, c, ties=False):
-        """Kernel 2 on bf16: mx, so and idx in bf16, bit for bit the float32
-        kernel's on the upcast inputs and the plain version's."""
-        torch = self.torch
-        from supernet_tpu_torch.ops.kernels import pool as P
-        from supernet_tpu_torch.profiling import device_ms
-
-        bf = torch.bfloat16
-        what = f"vmaxpool bf16 {config}/{layer}"
-        mu = self._randn(b, h, w, c)
-        if ties:
-            mu = torch.round(3.0 * mu)
-        mu, sigma = mu.to(bf), self._randn(b, h, w, c).abs().to(bf)
-        with torch.inference_mode():
-            got = P.vmaxpool(mu, sigma, return_idx=True)
-            ref = P.vmaxpool(mu.float(), sigma.float(), return_idx=True)
-            want = P.vmaxpool_plain(mu, sigma)
-            torch.cuda.synchronize()
-            _equal_on_upcast(torch, what, got, ref)
-            if not all(g.dtype == bf and torch.equal(g, r) for g, r in zip(got, want)):
-                _die(f"{what}: not bit-exact with the plain version")
-            ms = _time_ms(torch, lambda: P.vmaxpool(mu, sigma))
-            plain_ms = _time_ms(torch, lambda: P.vmaxpool_plain(mu, sigma))
-            dev_ms = device_ms(lambda: P.vmaxpool(mu, sigma))
-        key = ("vmaxpool_bf16", config)
-        self.dev[key] = self.dev.get(key, 0.0) + dev_ms
-        n_out = got[0].numel()
-        self._record("vmaxpool_bf16", config, 0.0, 0.0, ms, plain_ms,
-                     _bound(2 * (2 * mu.numel() + 2 * n_out), 0), {
-            "layer": layer, "shape": [b, h, w, c], "ties": ties, "dtype": "bfloat16",
-            "equal_to_float32_on_upcast": True, "device_ms": dev_ms,
-        })
-
     def vmaxpool_bwd_bf16(self, config, layer, b, h, w, c, ties=False):
         """Kernel 3 on bf16 idx and gradients: bf16 out, bit for bit the
         float32 kernel's on the upcast inputs and the plain version's."""
@@ -1111,6 +1164,13 @@ def _equal_on_upcast(torch, what, got, ref) -> None:
         if g is None or r is None or not torch.equal(g, r.to(g.dtype)):
             _die(f"{what}: output {i} on bf16 inputs is not the float32 kernel's "
                  f"output on the upcast inputs, cast to its dtype")
+
+
+def _same_bits(torch, got, want) -> bool:
+    """``got`` equals ``want`` element for element, a NaN where it has a
+    NaN (torch.equal calls two NaNs unequal)."""
+    return torch.equal(got.isnan(), want.isnan()) and torch.equal(
+        got.nan_to_num(0.0), want.nan_to_num(0.0))
 
 
 def _bf16_errors(torch, what, got, want, tol, keep=None):
@@ -3730,6 +3790,7 @@ def _profile_cli(torch, smi, tmp):
     unjoined row sum to the profiler's device busy time within 1%. Returns
     the hippocampus run's launches per step."""
     from supernet_tpu_torch import cli
+    from supernet_tpu_torch import xplane as X
     from supernet_tpu_torch.configs import HIPPOCAMPUS
 
     t_phase = time.perf_counter()
@@ -3755,6 +3816,11 @@ def _profile_cli(torch, smi, tmp):
         if ej["kernel_launches"] != ej["counted_launches"] or ej["counted_launches"] != want:
             _die(f"cli profile --config {config}: launches in the trace "
                  f"{ej['kernel_launches']}, counted {ej['counted_launches']}, expected {want}")
+        # every kernel 2 launch filed under its own class, none elsewhere
+        pool = next((r for r in ej["classes"] if r["class"] == X.POOL_FWD), None)
+        if (pool["events"] if pool else 0) != ej["counted_launches"]["vmaxpool"]:
+            _die(f"cli profile --config {config}: {pool} under {X.POOL_FWD}, counted "
+                 f"{ej['counted_launches']['vmaxpool']} kernel 2 launches")
         if ej["lost_launches"]:
             _die(f"cli profile --config {config}: the trace lost the records of "
                  f"{ej['lost_launches']} kernels of the traced calls")
@@ -4537,6 +4603,40 @@ def _bench(torch, smi):
     return per_step, naive
 
 
+def _pool_forward_checks(check, smi) -> None:
+    """Phase 2's kernel 2: every pool of a hippocampus (b20) and a BraTS
+    (b2) step in float32 and bf16 (the vector path), the block sizes and
+    the scalar kernel at the same shapes, then ties, NaN, C = 130 (the
+    scalar path in both dtypes), C = 36 (vector in float32, scalar in bf16)
+    and C = 40 at an odd edge (vector in both). Prints the block sizes'
+    sums per config and dtype."""
+    from supernet_tpu_torch.configs import BRATS, HIPPOCAMPUS
+    from supernet_tpu_torch.profiling import layer_shapes
+
+    for config, cfg, batch in (("hippocampus", HIPPOCAMPUS.model, 20),
+                               ("brats", BRATS.model, 2)):
+        for layer, (_, h, w, c) in layer_shapes(cfg)[1]:
+            check.vmaxpool(config, layer, batch, h, w, c)
+            check.vmaxpool(config, layer, batch, h, w, c, bf16=True)
+            check.vmaxpool_blocks(config, layer, batch, h, w, c)
+    for bf16 in (False, True):
+        check.vmaxpool("extra", "ties", 20, 60, 60, 32, ties=True, bf16=bf16)
+        check.vmaxpool("extra", "nan", 20, 60, 60, 32, ties=True, nan=True, bf16=bf16)
+        check.vmaxpool("extra", "odd", 3, 13, 15, 36, ties=True, bf16=bf16)
+        check.vmaxpool("extra", "c40_odd", 3, 13, 15, 40, ties=True, nan=True, bf16=bf16)
+        check.vmaxpool("extra", "c130", 3, 8, 8, 130, ties=True, bf16=bf16)
+        check.vmaxpool("extra", "c130_odd", 3, 13, 15, 130, ties=True, bf16=bf16)
+    for kernel in ("vmaxpool", "vmaxpool_bf16"):
+        if check.paths[kernel] != {"vec", "scalar"}:
+            _die(f"{kernel}: the shapes reached the paths {sorted(check.paths[kernel])}")
+    sums = {}
+    for (config, dtype, name), (hot, cold) in check.blocks.items():
+        sums.setdefault(f"{config}_{dtype}", {})[name] = {"device_ms": hot,
+                                                          "cold_device_ms": cold}
+    print(json.dumps({"vmaxpool_blocks": "kernel 2, training form, summed over a step's "
+                      "pools", "card": smi, "sums": sums}), flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -4570,28 +4670,22 @@ def main() -> int:
     check = KernelCheck(torch)
     for config, cfg, batch in (("hippocampus", HIPPOCAMPUS.model, 20),
                                ("brats", BRATS.model, 2)):
-        convs, pools = layer_shapes(cfg)
+        convs = layer_shapes(cfg)[0]
         for layer, (_, h, w, cin), cout in convs:
             check.vdp_conv(config, layer, batch, h, w, cin, cout, 3,
                            has_sigma=layer != "conv_input", relu=True)
             check.vdp_conv_bf16(config, layer, batch, h, w, cin, cout, 3,
                                 has_sigma=layer != "conv_input", relu=True)
-        for layer, (_, h, w, c) in pools:
-            check.vmaxpool(config, layer, batch, h, w, c)
-            check.vmaxpool_bf16(config, layer, batch, h, w, c)
     for k in (2, 1):
         for has_sigma in (True, False):
             for relu in (False, True):
                 check.vdp_conv("extra", f"k{k}", 4, 33, 29, 24, 40, k, has_sigma, relu)
     check.vdp_conv("extra", "k3_no_relu", 3, 17, 19, 3, 96, 3, True, False)
-    check.vmaxpool("extra", "ties", 20, 60, 60, 32, ties=True)
-    check.vmaxpool("extra", "odd", 3, 13, 15, 36, ties=True)
     check.vdp_conv_bf16("extra", "k2", 4, 33, 29, 24, 40, 2, True, True)
     check.vdp_conv_bf16("extra", "k1_input", 4, 33, 29, 24, 40, 1, False, False)
     check.vdp_conv_bf16("extra", "k3_no_relu", 3, 17, 19, 3, 96, 3, True, False)
     check.vdp_conv_bf16("extra", "k3_c130", 3, 17, 19, 24, 130, 3, True, True)
-    check.vmaxpool_bf16("extra", "ties", 20, 60, 60, 32, ties=True)
-    check.vmaxpool_bf16("extra", "odd", 3, 13, 15, 36, ties=True)
+    _pool_forward_checks(check, smi)
 
     # 3-4. serving at full width
     serve_launches, img_s = _serve(torch, "hippocampus", HIPPOCAMPUS.model, 20, (20, 7, 45))
@@ -4801,6 +4895,15 @@ def main() -> int:
                      "brats_device_ms": check.dev[(kernel, "brats")]}
             if kernel in check.paths:
                 extra["paths"] = sorted(check.paths[kernel])
+        if kernel == "vmaxpool":
+            # kernel 2's other times, summed like device_ms: L2-cold, and the
+            # training form (idx written) hot and cold beside its own bound
+            extra["bf16_paths"] = sorted(check.paths["vmaxpool_bf16"])
+            for config, pre in (("hippocampus", ""), ("brats", "brats_")):
+                for k2, pre2 in (("vmaxpool", ""), ("vmaxpool_bf16", "bf16_")):
+                    for key, v in check.pool_fwd[(k2, config)].items():
+                        if key != "device_ms":
+                            extra[f"{pre}{pre2}{key}"] = v
         # the bf16 case of phases 2 and 5 at the same shapes: the kernel on
         # bf16 inputs (equal to its float32 run on their upcast) beside its
         # plain version and its bound at 2-byte moments

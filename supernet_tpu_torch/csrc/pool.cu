@@ -14,15 +14,31 @@
 // Dtypes, as the TPU kernel's (pool.py:17-19, 73-95): mu and sigma are
 // float32 or bf16, and mx, so and idx come out in that dtype (0..3 are exact
 // in bf16). The compares and selects run in float32 registers on the loaded
-// values, which a bf16 value converts to exactly; a selected value stored
-// back is the value loaded, so the bf16 forward is the float32 forward of
-// the same values, bit for bit.
+// values, which a bf16 value converts to exactly (the vector kernel compares
+// bf16 pairs, which is exact as well); a selected value stored back is the
+// value loaded, so the bf16 forward is the float32 forward of the same
+// values, bit for bit.
 //
 // What bounds it: bytes. Each output reads 8 elements and writes 2 or 3,
 // with one compare tree in between, so the kernel is a pure streaming pass
-// at device-memory bandwidth. Design: one thread per output element with the
-// channel index fastest, so a warp's loads and stores cover consecutive
-// addresses of the NHWC tensors; 64-bit offsets throughout.
+// at device-memory bandwidth. Design, for C a multiple of the channels in
+// 16 bytes (4 float32 or 8 bf16; vmaxpool_fwd_vec_kernel): one thread per
+// pooled window and 16 bytes of channels. It issues its eight 16-byte loads
+// (four taps of mu and of sigma, through the read-only path) before any
+// compare, selects per element, and writes mx, so and idx as one 16-byte
+// store each. Channels run fastest, then the window, so a warp's loads use
+// every 32-byte sector they touch and every input byte is read by exactly
+// one thread. Index math is 32-bit. A window at an odd bottom or right edge
+// skips the loads of its missing taps. Each kernel runs in one wave: its
+// loads, then its compares, then its stores, so the compare tree's
+// instructions add to the bytes' time instead of hiding under it. Hence the
+// max is one max.NaN instruction, and bf16 compares as bf16x2 pairs (two
+// elements an instruction; a max and an equality are exact on bf16 values
+// as on their float32 upcasts), so that a bf16 pool's instructions halve
+// with its bytes; a selected so or idx is moved as bits. The block size
+// comes from the planner (ops/kernels/pool.py:plan_fwd), measured on the
+// card. Any other C takes vmaxpool_fwd_kernel: one thread per output
+// element, channel fastest, compared in float32, 64-bit offsets.
 //
 // The backward replaces pool.py:_pool_bwd_kernel (launched by
 // _pool_bwd_call): each full-resolution element (y, x) takes its window's
@@ -56,12 +72,26 @@ using supernet::to_f32;
 
 constexpr int kThreads = 256;
 
-// jnp.maximum semantics: a NaN in either operand is the result (fmaxf would
-// drop it).
+// jnp.maximum semantics: a NaN in either operand makes the result NaN
+// (fmaxf would drop it). One instruction; the NaN it returns is canonical.
 __device__ __forceinline__ float nan_max(float a, float b) {
-  if (a != a) return a;
-  if (b != b) return b;
-  return a > b ? a : b;
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
+// The same on two bf16 values in one 32-bit word, and their equality as a
+// mask of 0xffff per equal half. Both are exact, as on the float32 upcasts:
+// a max is one of its operands (or NaN), and NaN equals nothing.
+__device__ __forceinline__ unsigned nan_max2(unsigned a, unsigned b) {
+  unsigned d;
+  asm("max.NaN.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ unsigned eq2(unsigned a, unsigned b) {
+  unsigned d;
+  asm("set.eq.u32.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
 }
 
 template <typename T>
@@ -69,7 +99,7 @@ __global__ void __launch_bounds__(kThreads) vmaxpool_fwd_kernel(
     const T* __restrict__ mu, const T* __restrict__ sigma,
     T* __restrict__ mx_out, T* __restrict__ so_out, T* __restrict__ idx_out,
     int H, int W, int C, int Ho, int Wo, long long total) {
-  const long long i = blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x;
+  const long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
   if (i >= total) return;
   const int c = static_cast<int>(i % C);
   long long r = i / C;
@@ -102,6 +132,98 @@ __global__ void __launch_bounds__(kThreads) vmaxpool_fwd_kernel(
   if (idx_out != nullptr) {
     idx_out[i] = from_f32<T>(p0 ? 0.f : (p1 ? 1.f : (p2 ? 2.f : 3.f)));
   }
+}
+
+// The selection of one thread of the vector forward: m and s hold the four
+// taps' 16 bytes of mu and sigma (a missing tap's words 0), has which taps
+// lie inside H x W. Per element: mx, so at the first tap that equals it, and
+// that tap's index 0..3, written as 16 bytes each.
+template <typename T>
+__device__ __forceinline__ void select_taps(const uint4 (&m)[4], const uint4 (&s)[4],
+                                            const bool (&has)[4], uint4& mx, uint4& so,
+                                            uint4& idx);
+
+// float32: four elements, one per word
+template <>
+__device__ __forceinline__ void select_taps<float>(const uint4 (&m)[4], const uint4 (&s)[4],
+                                                   const bool (&has)[4], uint4& mx,
+                                                   uint4& so, uint4& idx) {
+  const float pad = supernet::lowest<float>();
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    float t[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) t[k] = has[k] ? __uint_as_float((&m[k].x)[j]) : pad;
+    const float x = nan_max(nan_max(t[0], t[1]), nan_max(t[2], t[3]));
+    const bool p0 = t[0] == x;
+    const bool p1 = !p0 && t[1] == x;
+    const bool p2 = !(p0 || p1) && t[2] == x;
+    (&mx.x)[j] = __float_as_uint(x);
+    (&so.x)[j] = p0 ? (&s[0].x)[j]
+                    : (p1 ? (&s[1].x)[j] : (p2 ? (&s[2].x)[j] : (&s[3].x)[j]));
+    (&idx.x)[j] = __float_as_uint(p0 ? 0.f : (p1 ? 1.f : (p2 ? 2.f : 3.f)));
+  }
+}
+
+// bf16: eight elements, two per word, compared as bf16x2 pairs
+template <>
+__device__ __forceinline__ void select_taps<bf16>(const uint4 (&m)[4], const uint4 (&s)[4],
+                                                  const bool (&has)[4], uint4& mx,
+                                                  uint4& so, uint4& idx) {
+  const unsigned pad = 0xff7fff7fu;  // finfo(bfloat16).min, twice
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    unsigned t[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) t[k] = has[k] ? (&m[k].x)[j] : pad;
+    const unsigned x = nan_max2(nan_max2(t[0], t[1]), nan_max2(t[2], t[3]));
+    const unsigned p0 = eq2(t[0], x);
+    const unsigned p1 = ~p0 & eq2(t[1], x);
+    const unsigned p2 = ~(p0 | p1) & eq2(t[2], x);
+    const unsigned p3 = ~(p0 | p1 | p2);
+    (&mx.x)[j] = x;
+    (&so.x)[j] = ((&s[0].x)[j] & p0) | ((&s[1].x)[j] & p1) | ((&s[2].x)[j] & p2) |
+                 ((&s[3].x)[j] & p3);
+    // 1.0, 2.0 and 3.0 in bf16, twice (0 is all zero bits)
+    (&idx.x)[j] = (0x3f803f80u & p1) | (0x40004000u & p2) | (0x40404040u & p3);
+  }
+}
+
+// One thread per pooled window x 16 bytes of channels (4 float32 or 8
+// bf16); CV = C / those, total = B Ho Wo CV, the block size the launch's.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) vmaxpool_fwd_vec_kernel(
+    const uint4* __restrict__ mu, const uint4* __restrict__ sigma,
+    uint4* __restrict__ mx_out, uint4* __restrict__ so_out,
+    uint4* __restrict__ idx_out, int H, int W, int CV, int Ho, int Wo,
+    unsigned total) {
+  const unsigned i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const unsigned r = i / CV;
+  const int cv = static_cast<int>(i - r * CV);
+  const unsigned r2 = r / Wo;
+  const int ox = static_cast<int>(r - r2 * Wo);
+  const unsigned b = r2 / Ho;
+  const int oy = static_cast<int>(r2 - b * Ho);
+
+  const int y0 = 2 * oy, x0 = 2 * ox;
+  const bool has_x1 = x0 + 1 < W, has_y1 = y0 + 1 < H;
+  const bool has[4] = {true, has_x1, has_y1, has_x1 && has_y1};
+  const long long base = ((static_cast<long long>(b) * H + y0) * W + x0) * CV + cv;
+  const long long off[4] = {0, CV, static_cast<long long>(W) * CV,
+                            static_cast<long long>(W + 1) * CV};
+  // all eight loads in flight before the first compare
+  uint4 m[4], s[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    m[k] = has[k] ? __ldg(mu + base + off[k]) : make_uint4(0u, 0u, 0u, 0u);
+    s[k] = has[k] ? __ldg(sigma + base + off[k]) : make_uint4(0u, 0u, 0u, 0u);
+  }
+  uint4 mx, so, idx;
+  select_taps<T>(m, s, has, mx, so, idx);
+  mx_out[i] = mx;
+  so_out[i] = so;
+  if (idx_out != nullptr) idx_out[i] = idx;
 }
 
 // T: float or bf16; the gradients move as their bit patterns R.
@@ -181,11 +303,29 @@ __global__ void __launch_bounds__(kThreads) vmaxpool_bwd_vec_kernel(
 
 template <typename T>
 int pool_fwd(const void* mu, const void* sigma, void* mx, void* so, void* idx,
-             int B, int H, int W, int C, cudaStream_t stream) {
+             int B, int H, int W, int C, int vec, int threads,
+             cudaStream_t stream) {
   const int Ho = (H + 1) / 2, Wo = (W + 1) / 2;
+  if (threads < 32 || threads > kThreads || threads % 32 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (vec) {
+    constexpr int V = 16 / sizeof(T);
+    const int CV = C / V;
+    const long long total = static_cast<long long>(B) * Ho * Wo * CV;
+    if (C % V != 0 || total >= (1ll << 31)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const long long blocks = (total + threads - 1) / threads;
+    vmaxpool_fwd_vec_kernel<T><<<static_cast<unsigned>(blocks), threads, 0, stream>>>(
+        static_cast<const uint4*>(mu), static_cast<const uint4*>(sigma),
+        static_cast<uint4*>(mx), static_cast<uint4*>(so), static_cast<uint4*>(idx),
+        H, W, CV, Ho, Wo, static_cast<unsigned>(total));
+    return static_cast<int>(cudaGetLastError());
+  }
   const long long total = static_cast<long long>(B) * Ho * Wo * C;
-  const long long blocks = (total + kThreads - 1) / kThreads;
-  vmaxpool_fwd_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+  const long long blocks = (total + threads - 1) / threads;
+  vmaxpool_fwd_kernel<T><<<static_cast<unsigned>(blocks), threads, 0, stream>>>(
       static_cast<const T*>(mu), static_cast<const T*>(sigma),
       static_cast<T*>(mx), static_cast<T*>(so), static_cast<T*>(idx), H, W, C,
       Ho, Wo, total);
@@ -225,15 +365,22 @@ int pool_bwd(const void* idx, const void* g_mu, const void* g_sigma,
 
 // mu, sigma: [B, H, W, C], contiguous, of dtype `dtype` (0 float32, 1 bf16).
 // mx, so (and idx, or null): [B, ceil(H/2), ceil(W/2), C] of the same dtype.
-// Launches on `stream` and returns cudaGetLastError() so a refused launch is
-// seen by the caller.
+// `vec` picks the 16-byte kernel: C a multiple of 16 / element size, every
+// pointer on 16 bytes and fewer than 2^31 windows x C / (16 / element size).
+// `threads` is the block size, a multiple of 32 up to 256. Launches on
+// `stream` and returns cudaGetLastError() so a refused launch is seen by the
+// caller.
 extern "C" int supernet_vmaxpool_fwd(const void* mu, const void* sigma,
                                      void* mx, void* so, void* idx, int B,
-                                     int H, int W, int C, int dtype,
-                                     void* stream) {
+                                     int H, int W, int C, int vec, int threads,
+                                     int dtype, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == supernet::kFloat32) return pool_fwd<float>(mu, sigma, mx, so, idx, B, H, W, C, st);
-  if (dtype == supernet::kBFloat16) return pool_fwd<bf16>(mu, sigma, mx, so, idx, B, H, W, C, st);
+  if (dtype == supernet::kFloat32) {
+    return pool_fwd<float>(mu, sigma, mx, so, idx, B, H, W, C, vec, threads, st);
+  }
+  if (dtype == supernet::kBFloat16) {
+    return pool_fwd<bf16>(mu, sigma, mx, so, idx, B, H, W, C, vec, threads, st);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

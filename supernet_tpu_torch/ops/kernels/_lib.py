@@ -120,7 +120,7 @@ def load() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build()))
             lib.supernet_vdp_conv_fwd.argtypes = [_P] * 9 + [_I] * 13 + [_LL] * 3 + [_P]
             lib.supernet_vdp_conv_fwd.restype = _I
-            lib.supernet_vmaxpool_fwd.argtypes = [_P] * 5 + [_I] * 5 + [_P]
+            lib.supernet_vmaxpool_fwd.argtypes = [_P] * 5 + [_I] * 7 + [_P]
             lib.supernet_vmaxpool_fwd.restype = _I
             lib.supernet_vmaxpool_bwd.argtypes = [_P] * 5 + [_I] * 6 + [_P]
             lib.supernet_vmaxpool_bwd.restype = _I

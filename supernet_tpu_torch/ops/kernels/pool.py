@@ -5,15 +5,17 @@ Counterpart of ``supernet_tpu/ops/pallas/pool.py``. Both kernels are in
 (``vmaxpool_bwd``), which routes each output gradient to the selected window
 tap. Both are bound by bytes. Both take float32 or bf16 and return their
 input's dtype (the tap index too), as the TPU kernels do: bf16 moments are
-compared in float32 registers and stored back unchanged. The backward has two
-kernels, picked by :func:`plan_bwd` from the shape and the element size:
-``"vec4"`` (C a multiple of the channels in 16 bytes, 4 float32 or 8 bf16: one
-thread per pooled window and 16 bytes of channels, 16-byte loads and stores)
-and ``"scalar"`` (any other C: one thread per full-resolution element). Both
-write every output once, without atomics, bit-exact with the plain version.
-:class:`VMaxPool` is the autograd pair of forward and backward. Each wrapper
-launches its kernel for CUDA tensors and takes its plain version only for
-CPU tensors.
+compared exactly (in float32 registers, or as bf16 pairs on the forward's
+vector path) and stored back unchanged. Each has two
+kernels, picked by :func:`plan_fwd` and :func:`plan_bwd` from the shape and
+the element size: a vector path for C a multiple of the channels in 16
+bytes (4 float32 or 8 bf16: one thread per pooled window and 16 bytes of
+channels, 16-byte loads and stores) and ``"scalar"`` for any other C (one
+thread per output element forward, per full-resolution element backward).
+Both write every output once, without atomics, bit-exact with the plain
+version. :class:`VMaxPool` is the autograd pair of forward and backward.
+Each wrapper launches its kernel for CUDA tensors and takes its plain
+version only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -88,7 +90,51 @@ def vmaxpool_bwd_plain(
     return d_mu[:, :h, :w].contiguous(), d_sigma[:, :h, :w].contiguous()
 
 
-def _launch(mu, sigma, return_idx):
+THREADS = 256  # per block: the largest the kernels take, and the backward's
+# the forward's vector path takes the largest of these block sizes that still
+# gives every SM a block, else the smallest: on an H100 blocks of 64 beat
+# blocks of 128 and 256 at every model pool, and blocks of 32 tie with them
+# where 64 leaves SMs idle (chip_smoke.py's vmaxpool_blocks lines)
+FWD_THREADS = (64, 32)
+
+
+class FwdPlan(NamedTuple):
+    """How one pool forward runs: ``path`` "vec" or "scalar", the channels
+    one thread handles, the threads that do work (windows x C/channels, or
+    output elements), the block size and the blocks that hold them."""
+
+    path: str
+    channels: int
+    items: int
+    threads: int
+    blocks: int
+
+
+@functools.lru_cache(maxsize=None)
+def plan_fwd(b: int, h: int, w: int, c: int, itemsize: int = 4,
+             sms: int = 132) -> FwdPlan:
+    """The forward's kernel plan for mu [b,h,w,c] of ``itemsize``-byte
+    elements (4 float32, 2 bf16) on a card of ``sms`` SMs, from the shape
+    alone (no CUDA: the CPU tests call it). "vec" takes C a multiple of the
+    16 / itemsize channels of one 16-byte load with fewer than 2^31
+    threads, in blocks as large as :data:`FWD_THREADS` allows while every
+    SM still gets one; a window at an odd bottom or right edge loads only
+    the taps that lie inside h x w."""
+    ho, wo = (h + 1) // 2, (w + 1) // 2
+    v = 16 // itemsize
+    if c % v == 0 and b * ho * wo * (c // v) < 2 ** 31:
+        items = b * ho * wo * (c // v)
+        threads = next((t for t in FWD_THREADS if -(-items // t) >= sms),
+                       FWD_THREADS[-1])
+        return FwdPlan("vec", v, items, threads, -(-items // threads))
+    items = b * ho * wo * c
+    return FwdPlan("scalar", 1, items, THREADS, -(-items // THREADS))
+
+
+def _launch(mu, sigma, return_idx, plan=None):
+    """The forward kernel on CUDA tensors; ``plan`` (default
+    :func:`plan_fwd`'s) may name another path or block size, as the card's
+    measurements of them do."""
     global launches
     if mu.dim() != 4:
         raise ValueError(f"vmaxpool: mu must be [B,H,W,C], got {tuple(mu.shape)}")
@@ -102,15 +148,19 @@ def _launch(mu, sigma, return_idx):
     so = torch.empty_like(mx)
     idx = torch.empty_like(mx) if return_idx else None
     if mx.numel():
+        p = plan or plan_fwd(b, h, w, c, mu.element_size(), _lib.sm_count(mu.device))
+        if p.path == "vec":
+            mu, sigma = _lib.aligned(mu), _lib.aligned(sigma)
         lib = _lib.load()
         with torch.cuda.device(mu.device):
             err = lib.supernet_vmaxpool_fwd(
                 mu.data_ptr(), sigma.data_ptr(), mx.data_ptr(), so.data_ptr(),
                 idx.data_ptr() if idx is not None else None,
-                b, h, w, c, _lib.dtype_code(mu.dtype),
+                b, h, w, c, int(p.path == "vec"), p.threads,
+                _lib.dtype_code(mu.dtype),
                 torch.cuda.current_stream(mu.device).cuda_stream,
             )
-        _lib.check(err, "vmaxpool kernel launch")
+        _lib.check(err, f"vmaxpool kernel launch ({p.path})")
         launches += 1
     return (mx, so, idx) if return_idx else (mx, so)
 
@@ -120,8 +170,8 @@ def vmaxpool(mu: torch.Tensor, sigma: torch.Tensor, return_idx: bool = False):
     ``(mx, so)``, or ``(mx, so, idx)`` with ``return_idx``. No autograd:
     :class:`VMaxPool` is the differentiable form.
 
-    CUDA tensors go to the kernel (or raise); CPU tensors to
-    :func:`vmaxpool_plain`. Any other device raises.
+    CUDA tensors go to the kernel :func:`plan_fwd` picks (or raise); CPU
+    tensors to :func:`vmaxpool_plain`. Any other device raises.
     """
     if mu.is_cuda:
         return _launch(mu, sigma, return_idx)
@@ -129,9 +179,6 @@ def vmaxpool(mu: torch.Tensor, sigma: torch.Tensor, return_idx: bool = False):
         raise ValueError(f"vmaxpool: unsupported device {mu.device}")
     mx, so, idx = vmaxpool_plain(mu, sigma)
     return (mx, so, idx) if return_idx else (mx, so)
-
-
-THREADS = 256  # per block, both backward kernels
 
 
 class BwdPlan(NamedTuple):

@@ -82,7 +82,7 @@ from supernet_tpu_torch.serving import InferenceSession
 # (cf32) products; the port itself computes nothing complex.
 CATEGORIES = (
     ("vdp_conv (kernel 1)", ("vdp_conv_kernel",)),
-    ("pool forward (kernel 2)", ("vmaxpool_fwd_kernel",)),
+    ("pool forward (kernel 2)", ("vmaxpool_fwd",)),
     ("pool backward (kernel 3)", ("vmaxpool_bwd",)),
     ("sigma backward (kernel 4)", ("sigma_bwd",)),
     ("cuDNN convolutions (VDPConv backward)", ("conv", "dgrad", "wgrad", "fprop", "cudnn", "fft", "cf32")),
@@ -440,6 +440,30 @@ def device_ms(fn, runs: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / runs
+
+
+def cold_device_ms(fn, runs: int = 20) -> float:
+    """Median device time of one call of ``fn`` in ms with a cold L2: before
+    each call the stream writes a buffer of twice the L2's size, and CUDA
+    events bracket the call alone. The stream sleeps while the host queues
+    the runs, so no host time counts."""
+    l2 = torch.cuda.get_device_properties(torch.cuda.current_device()).L2_cache_size
+    flush = torch.empty(2 * l2, dtype=torch.uint8, device="cuda")
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)
+    events = []
+    for _ in range(runs):
+        flush.fill_(1)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
 def bytes_ms(n_floats: int) -> float:

@@ -1,13 +1,17 @@
-"""The planners of the sigma-chain backward (kernel 4) and the pool backward
-(kernel 3) on the CPU: for every layer shape of both configs and the extra
-shapes chip_smoke.py drives, the plan's grid covers the work exactly once and
-fills the card; a torch emulation of what the planned kernels compute (flat
-dt, spread, per-block dsw partials folded in the kernel's order; one write
-per window tap) agrees with the plain versions and with the JAX package's
-Pallas kernels in interpret mode. The CUDA kernels themselves are held
-against the same plain versions on the card by chip_smoke.py."""
+"""The planners of the sigma-chain backward (kernel 4), the pool backward
+(kernel 3) and the pool forward (kernel 2) on the CPU: for every layer shape
+of both configs and the extra shapes chip_smoke.py drives, the plan's grid
+covers the work exactly once and fills the card; an emulation of what the
+planned kernels compute (flat dt, spread, per-block dsw partials folded in
+the kernel's order; one write per window tap; one read of every input and
+one write of every output per pooled window and 16 bytes of channels)
+agrees with the plain versions and with the JAX package's Pallas kernels in
+interpret mode. The CUDA kernels themselves are held against the same plain
+versions on the card by chip_smoke.py."""
 
 import functools
+import re
+from pathlib import Path
 
 import pytest
 
@@ -19,7 +23,8 @@ import numpy as np  # noqa: E402
 from supernet_tpu.ops.moments import _vmaxpool_bwd, _vmaxpool_fwd_impl  # noqa: E402
 from supernet_tpu.ops.pallas import pool as jpool  # noqa: E402
 from supernet_tpu.ops.pallas import sigma_bwd as jsigma_bwd  # noqa: E402
-from supernet_tpu_torch import profiling  # noqa: E402
+from supernet_tpu_torch import hlo_profile, profiling  # noqa: E402
+from supernet_tpu_torch import xplane as X  # noqa: E402
 from supernet_tpu_torch.configs import get_config  # noqa: E402
 from supernet_tpu_torch.models import layer_names  # noqa: E402
 from supernet_tpu_torch.ops.kernels import pool, sigma_bwd  # noqa: E402
@@ -378,3 +383,172 @@ def test_layer_shapes_name_every_conv_and_pool(config):
     convs, pools = _shapes(config)
     assert set(convs) == {name for c, name in CONVS if c == config}
     assert set(pools) == {name for c, name in POOLS if c == config}
+
+
+# ---------------------------------------------------------------- kernel 2
+
+
+def _nan_max(a, b):
+    """The kernel's nan_max: a NaN in either operand is the result."""
+    return np.where(np.isnan(a), a, np.where(np.isnan(b), b, np.where(a > b, a, b)))
+
+
+def _emulate_pool_fwd(mu, sigma, p, pad):
+    """What the planned forward writes, and how often it reads each input
+    element and writes each output element. Thread i of ``p.items`` takes
+    one pooled window and ``p.channels`` channels (1 on the scalar path),
+    channels fastest; it loads the taps that lie inside h x w, a missing
+    tap counting as ``pad`` for mu and 0 for sigma, and selects in float32
+    (the bf16 kernel's bf16x2 max and equality are the same relations on
+    the same values). ``mu``, ``sigma``: float32 numpy arrays holding
+    values of the moments' dtype. Unwritten outputs stay NaN."""
+    b, h, w, c = mu.shape
+    ho, wo = (h + 1) // 2, (w + 1) // 2
+    v = p.channels
+    assert c % v == 0 and p.items == b * ho * wo * (c // v)
+    assert p.blocks == -(-p.items // p.threads) and p.threads % 32 == 0
+    i = np.arange(p.items, dtype=np.int64)
+    cv, r = i % (c // v), i // (c // v)
+    ox, r = r % wo, r // wo
+    oy, bb = r % ho, r // ho
+    ch = (cv * v)[:, None] + np.arange(v)[None, :]  # [items, v]
+    taps_m, taps_s, flat_in = [], [], []
+    for tap in range(4):
+        y, x = 2 * oy + (tap >> 1), 2 * ox + (tap & 1)
+        inside = (y < h) & (x < w)
+        flat = ((bb * h + np.where(inside, y, 0)) * w + np.where(inside, x, 0))[:, None] * c + ch
+        taps_m.append(np.where(inside[:, None], mu.reshape(-1)[flat], pad))
+        taps_s.append(np.where(inside[:, None], sigma.reshape(-1)[flat], 0.0).astype(np.float32))
+        flat_in.append(flat[inside].ravel())
+    reads = np.bincount(np.concatenate(flat_in), minlength=mu.size).reshape(mu.shape)
+    m00, m01, m10, m11 = taps_m
+    s00, s01, s10, s11 = taps_s
+    with np.errstate(invalid="ignore"):
+        mx = _nan_max(_nan_max(m00, m01), _nan_max(m10, m11))
+        p0 = m00 == mx
+        p1 = ~p0 & (m01 == mx)
+        p2 = ~(p0 | p1) & (m10 == mx)
+    so = np.where(p0, s00, np.where(p1, s01, np.where(p2, s10, s11)))
+    tap = np.where(p0, 0.0, np.where(p1, 1.0, np.where(p2, 2.0, 3.0))).astype(np.float32)
+    out_flat = ((bb * ho + oy) * wo + ox)[:, None] * c + ch
+    writes = np.bincount(out_flat.ravel(), minlength=b * ho * wo * c)
+    outs = []
+    for val in (mx, so, tap):
+        o = np.full(b * ho * wo * c, np.nan, np.float32)
+        o[out_flat.ravel()] = val.ravel()
+        outs.append(o.reshape(b, ho, wo, c))
+    return outs, reads, writes.reshape(b, ho, wo, c)
+
+
+DTYPES = {"float32": (torch.float32, jnp.float32), "bfloat16": (torch.bfloat16, jnp.bfloat16)}
+
+
+def _pool_fwd_inputs(b, h, w, c, dtype, nan, seed=0):
+    """Seeded mu with ties (and with ``nan`` a NaN every 7th element) and
+    sigma >= 0, as float32 numpy arrays of values exact in ``dtype``."""
+    rng = np.random.default_rng(seed)
+    mu = rng.integers(-3, 3, (b, h, w, c)).astype(np.float32)
+    if nan:
+        mu.reshape(-1)[::7] = np.nan
+    sigma = np.abs(rng.normal(0, 1, (b, h, w, c))).astype(np.float32)
+    tdt = DTYPES[dtype][0]
+    return mu, torch.from_numpy(sigma).to(tdt).float().numpy()
+
+
+def _check_pool_fwd(b, h, w, c, dtype, nan=False):
+    """The planned forward emulated at one shape: every input element read
+    once, every output written once, bit-exact with the JAX package (the
+    Pallas kernel in interpret mode for even sizes, its composition for odd
+    ones) and with the plain version. Returns the plan."""
+    tdt, jdt = DTYPES[dtype]
+    itemsize = torch.finfo(tdt).bits // 8
+    p = pool.plan_fwd(b, h, w, c, itemsize, 132)
+    v = 16 // itemsize
+    assert p.path == ("vec" if c % v == 0 else "scalar")
+    assert p.channels == (v if c % v == 0 else 1)
+    mu, sigma = _pool_fwd_inputs(b, h, w, c, dtype, nan)
+    pad = float(torch.finfo(tdt).min)
+    got, reads, writes = _emulate_pool_fwd(mu, sigma, p, np.float32(pad))
+    assert (reads == 1).all() and (writes == 1).all()  # odd edges included
+    got = [torch.from_numpy(x).to(tdt) for x in got]
+    jmu, jsigma = jnp.asarray(mu).astype(jdt), jnp.asarray(sigma).astype(jdt)
+    if h % 2 == 0 and w % 2 == 0:
+        jpool.set_interpret(True)
+        try:
+            (jmx, jso), jidx = jpool._vmp_fwd(jmu, jsigma)
+        finally:
+            jpool.set_interpret(False)
+    else:
+        jmx, jso, (jidx, _) = _vmaxpool_fwd_impl(jmu, jsigma)
+    plain = pool.vmaxpool_plain(torch.from_numpy(mu).to(tdt), torch.from_numpy(sigma).to(tdt))
+    for x, r, q in zip(got, (jmx, jso, jidx), plain):
+        assert r.dtype == jdt and q.dtype == tdt
+        np.testing.assert_array_equal(x.float().numpy(), np.asarray(r.astype(jnp.float32)))
+        np.testing.assert_array_equal(x.float().numpy(), q.float().numpy())
+    return p
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("config,layer", POOLS)
+def test_pool_fwd_plan_every_layer_bit_exact_vs_jax(config, layer, dtype):
+    b, h, w, c = _shapes(config)[1][layer]
+    p = _check_pool_fwd(b, h, w, c, dtype)
+    assert p.path == "vec"
+    # every SM gets a block where the layer has the threads for it
+    if p.items >= 132 * pool.FWD_THREADS[-1]:
+        assert p.blocks >= 132
+
+
+@pytest.mark.parametrize("nan", [False, True])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", EXTRA_POOL)
+def test_pool_fwd_plan_extra_shapes_bit_exact_vs_jax(shape, dtype, nan):
+    """C = 130 on the scalar path in both dtypes, C = 36 in bf16 too;
+    odd sizes on either path; a NaN every 7th mu."""
+    _check_pool_fwd(*shape, dtype, nan)
+
+
+def test_pool_fwd_plan_block_size():
+    """Blocks as large as FWD_THREADS allows while every SM gets one: a
+    large pool in the largest blocks, a small one in smaller blocks, the
+    smallest when even those leave SMs idle; the SM count is the card's."""
+    big_t, small_t = pool.FWD_THREADS[0], pool.FWD_THREADS[-1]
+    assert big_t > small_t
+    big = pool.plan_fwd(20, 60, 60, 32, 2, 132)
+    assert (big.items, big.threads, big.blocks) == (72000, big_t, -(-72000 // big_t))
+    small = pool.plan_fwd(2, 18, 18, 256, 2, 132)  # BraTS pool3 in bf16
+    assert (small.items, small.threads) == (5184, small_t)
+    assert -(-5184 // big_t) < 132 <= small.blocks
+    assert pool.plan_fwd(2, 18, 18, 256, 2, -(-5184 // big_t)).threads == big_t
+    tiny = pool.plan_fwd(1, 2, 2, 8, 2, 132)
+    assert (tiny.threads, tiny.blocks) == (small_t, 1)
+    assert pool.plan_fwd(3, 8, 8, 130, 2, 132).threads == pool.THREADS
+
+
+def test_cpu_pool_fwd_never_counts_a_launch():
+    pool.launches = 0
+    mu = torch.zeros(1, 4, 4, 8)
+    pool.vmaxpool(mu, mu, return_idx=True)
+    pool.VMaxPool.apply(mu.requires_grad_(), mu)
+    assert pool.launches == 0
+
+
+def _pool_kernel_names():
+    src = (Path(pool.__file__).resolve().parents[2] / "csrc" / "pool.cu").read_text()
+    names = re.findall(r"__global__ void __launch_bounds__\(\w+\) (\w+)\(", src)
+    assert len(names) == 4
+    return names
+
+
+@pytest.mark.parametrize("kernel", _pool_kernel_names())
+def test_every_pool_kernel_name_falls_in_its_category(kernel):
+    """The profiler's three name keys (``profiling.CATEGORIES``,
+    ``hlo_profile.launch_counter``, ``xplane.op_class``) file each
+    ``__global__`` of csrc/pool.cu, in both dtypes, under its own kernel."""
+    fwd = "_fwd" in kernel
+    for t in ("float", "__nv_bfloat16"):
+        name = f"void (anonymous namespace)::{kernel}<{t}>(uint4 const*, int, int)"
+        assert profiling.category(name) == (
+            "pool forward (kernel 2)" if fwd else "pool backward (kernel 3)")
+        assert hlo_profile.launch_counter(name) == ("vmaxpool" if fwd else "vmaxpool_bwd")
+        assert X.op_class(name, "kernel") == (X.POOL_FWD if fwd else X.POOL_BWD)
