@@ -28,7 +28,17 @@ Phases (any failure raises and the exit code is not 0):
    the float32 ``mu_out > 0``), and (b) lie within the float32 limit of
    the plain version on the same bf16 inputs plus ``BF16_STEP`` of the
    element; each timed (CUDA events, device time) beside its bound at
-   2-byte moments. Kernel 2 in both dtypes: bit for bit the plain
+   2-byte moments. Then kernel 1 in one bf16 pass (precision "default") at
+   every layer shape in float32 and bf16 moments: one launch, counted in
+   ``bf16_launches``; within 1e-5 of the max of the plain version's one
+   pass run in float64 on the same rounded operands (a bf16 output also
+   within ``BF16_STEP`` of the element); before the ReLU within
+   ``BF16_PRODUCT`` of "highest" and not bit-equal to it; "high" bit-equal
+   to "highest"; timed by device time beside its one-pass bound (989
+   TFLOP/s) and cuDNN's bf16 conv of mu alone (a yardstick the port never
+   calls); the member axis in one pass (K=4 hippocampus members on one
+   stride-0 batch, K=2 BraTS members at a split-K layer). Kernel 2 in both
+   dtypes: bit for bit the plain
    version's in both forms (NaN where it has NaN), served (mx, so) and
    training (with idx), each timed hot and L2-cold (a buffer of twice the
    L2 written before every call) beside its byte bound, with its plan's
@@ -42,7 +52,17 @@ Phases (any failure raises and the exit code is not 0):
    and read just after, and must show every k=3 conv and every pool of
    every chunk, and a split-K reduce for every layer planned with K
    slices; the answers are checked for shape, finiteness, the simplex
-   and sigma >= 0, and against the same session on the CPU.
+   and sigma >= 0, and against the same session on the CPU. Then the first
+   request again under ``set_mxu_precision("default")`` (PyTorch's own
+   products kept at float32 on the card, as on the CPU): one forward's
+   launches per chunk at the one-pass plans, every kernel-1 launch in one
+   bf16 pass and within 1e-5 of the max of its plain one pass in float64
+   on its own inputs, the answer not bit-equal to the "highest" answer and
+   near the CPU session's under "default", measured against how far the
+   CPU's two precisions part (``DEFAULT_MAX_SHARE`` of their largest probs
+   difference, ``DEFAULT_MEAN_SHARE`` of their mean probs and sigma
+   differences: a float32 value a rounding apart lands on another bf16
+   operand at every layer, so the whole answers are not compared closer).
 4. serving, BraTS at full width (batch 2), the same checks.
 5. backward kernels: the pool backward (kernel 3) and the sigma-chain
    backward (kernel 4) against their plain versions on the card, at every
@@ -71,6 +91,9 @@ Phases (any failure raises and the exit code is not 0):
    (a 16-byte load holds 8 channels, so C = 36 takes the general kernel),
    and VDPConv's bf16 gradients against its float32 gradients on the
    upcast inputs (cuDNN deterministic) and autograd of the plain version.
+   Then the transposed pair in one bf16 pass at every layer shape, in
+   float32 and bf16 cotangents, held as phase 2 holds the forward; its
+   yardstick cuDNN's bf16 ``conv_transpose2d`` of g1 alone.
 6. training, hippocampus at full width, batch 20: 5 steps of
    ``train.make_train_step`` from He-scaled ``init_params`` on a seeded
    batch with integer labels. The launch counters are zeroed just before
@@ -295,9 +318,12 @@ Phases (any failure raises and the exit code is not 0):
    headline, ``best``, ``brats``, ``unet3d``, ``ensemble_train`` and
    ``inference``, an MFU in (0, 1] and ``hbm_utilization_min`` in (0, 1.05],
    a measured ``vs_baseline``, and no section error (a sweep's
-   out-of-memory entry is printed on a line of its own). The hippocampus
-   b20 headline launches one train step's kernels per step; the naive
-   baseline launches none. The kernels at the line's 2-D shapes: the
+   out-of-memory entry is printed on a line of its own). The line's
+   precision is "default", so every kernel-1 launch of the run, forward
+   and transposed, must be one bf16 pass (``bf16_launches``). The
+   hippocampus b20 headline launches one train step's kernels per step (at
+   the one-pass plans); the naive baseline launches none. The kernels at
+   the line's 2-D shapes: the
    kernel forward (one forward's launches) against the naive forward at
    hippocampus b20 and b256 and BraTS b2, b20 and b128 (He scale, TF32
    off) within the serving limits, and a train step's step-1 gradient at
@@ -307,8 +333,13 @@ Phases (any failure raises and the exit code is not 0):
    kernels fed float32 through casts and within ``BF16_PROBS_ATOL`` /
    ``BF16_AGREE`` of the naive one, and the b64 gradient bit-equal to the
    gradient with the kernels fed float32, its loss within
-   ``BF16_LOSS_RTOL`` of float32's. Prints the bench line and the phase's
-   seconds.
+   ``BF16_LOSS_RTOL`` of float32's. These run at "highest"; then at the
+   bench's "default" (TF32 off): the same forwards in both dtypes and the
+   b64 gradient in bf16 and float32, counted at the one-pass plans, every
+   kernel-1 call, forward and transposed, within 1e-5 of the max of its
+   plain one pass in float64 on its own inputs, each answer not bit-equal
+   to "highest", the bf16 ones bit-equal to the kernels fed float32.
+   Prints the bench line and the phase's seconds.
 
 In phases 6-15 cuDNN runs its deterministic algorithms, and in 6-7 and 12
 the CPU reference of the gradients replays the card's ReLU masks and pool
@@ -323,8 +354,10 @@ one step of ``cli profile``'s trace, one step of each sharded step of
 phase 22 and of the spatial step under the fold, one step of the bench's
 headline and its naive baseline run, errors, times and bounds, the bf16
 case's times, plain times and bounds at 2-byte moments (``bf16_*``,
-``brats_bf16_*``), and for kernels 1 and 4 the member-axis times beside K
-single launches, in float32 and bf16) and
+``brats_bf16_*``), for kernels 1 and 4 the member-axis times beside K
+single launches, in float32 and bf16, and for kernel 1 the one-bf16-pass
+sums ``[brats_][bf16_][dgrad_]default_*`` and the bench's one-pass launches
+per step) and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -406,6 +439,23 @@ BF16_LOSS_RTOL = 1e-2
 # float32 value to bf16 once (2^-8 of the element each), so two float32
 # values within the limit land at most one step (2^-7) apart.
 BF16_STEP = 2.0 ** -7
+# kernel 1 in one bf16 pass (precision "default") against "highest", element
+# by element: a bf16 operand lies within 2^-8 of its float32 value (round to
+# nearest, 8 significant bits), so a product of two lies within 2^-7
+# (+ 2^-16) of the exact one and a sum within that share of the sum of its
+# terms' magnitudes (plus VDP_TOL of the max for the float32 orders, and
+# BF16_STEP of the element for a bf16 output)
+BF16_PRODUCT = 2.0 ** -7 * (1 + 2.0 ** -9)
+# a served answer under "default" (one bf16 pass), card against CPU, as a
+# share of how far the CPU's own "default" and "highest" answers part (the
+# card's "highest" answer lies about 1.0 of it away): the largest probs
+# difference, and the mean differences of probs and sigma. On an H100, four
+# requests each read 0.36-0.45 / 0.13-0.16 / 0.16-0.19 of it at
+# hippocampus and 0.50-0.59 / 0.46-0.47 / 0.59-0.62 at BraTS, where a
+# one-ulp change of the input moves the CPU's own answer about as far
+# (PERF.md, section 6)
+DEFAULT_MAX_SHARE = 0.75
+DEFAULT_MEAN_SHARE = 0.75
 TIMING_RUNS = 20
 
 
@@ -465,27 +515,29 @@ def _sms() -> int:
     return _lib.sm_count("cuda")
 
 
-def _split_layers(cfg, batch, members=1, skip=()) -> int:
+def _split_layers(cfg, batch, members=1, skip=(), precision="highest") -> int:
     """The k=3 convs of one forward at ``batch`` (of ``members`` ensemble
     members in one launch) that vdp_conv's planner cuts into K slices on this
-    card: each launches the split-K reduce once. Layers named in ``skip``
-    (the glue fold's, ``_folded_layers``) do not run kernel 1."""
+    card at ``precision``: each launches the split-K reduce once. Layers
+    named in ``skip`` (the glue fold's, ``_folded_layers``) do not run
+    kernel 1."""
     from supernet_tpu_torch.ops.kernels.vdp_conv import plan
     from supernet_tpu_torch.profiling import layer_shapes
 
-    return sum(plan(batch, h, w, cin, cout, 3, members, _sms()).splits > 1
+    return sum(plan(batch, h, w, cin, cout, 3, members, _sms(), precision).splits > 1
                for name, (_, h, w, cin), cout in layer_shapes(cfg)[0] if name not in skip)
 
 
-def _dgrad_split_layers(cfg, batch, with_input: bool, members=1, skip=()) -> int:
+def _dgrad_split_layers(cfg, batch, with_input: bool, members=1, skip=(),
+                        precision="highest") -> int:
     """The k=3 convs whose input gradient (kernel 1 without the window sum,
     a conv of [b, h+2, w+2, Cout] into Cin channels) the planner cuts into K
-    slices; conv_input's counts only ``with_input`` (a gradient with respect
-    to the image); layers in ``skip`` not at all."""
+    slices at ``precision``; conv_input's counts only ``with_input`` (a
+    gradient with respect to the image); layers in ``skip`` not at all."""
     from supernet_tpu_torch.ops.kernels.vdp_conv import plan
     from supernet_tpu_torch.profiling import layer_shapes
 
-    return sum(plan(batch, h + 2, w + 2, cout, cin, 3, members, _sms()).splits > 1
+    return sum(plan(batch, h + 2, w + 2, cout, cin, 3, members, _sms(), precision).splits > 1
                for name, (_, h, w, cin), cout in layer_shapes(cfg)[0]
                if (with_input or name != "conv_input") and name not in skip)
 
@@ -523,6 +575,12 @@ class KernelCheck:
         # pair's and the dgrad's 3xTF32 bound; (config, "bf16") -> device ms,
         # 0 and the 2xTF32 bound
         self.dgrad_ms = {}
+        # kernel 1 in one bf16 pass: (config, "float32" or "bf16", "forward"
+        # or "dgrad") -> summed device ms, one-pass bound ms, cuDNN's bf16
+        # yardstick ms, and the worst error against float64; the seconds its
+        # cases took
+        self.default = {}
+        self.default_s = 0.0
 
     def _randn(self, *shape):
         return self.torch.randn(shape, device="cuda", generator=self.gen)
@@ -1129,6 +1187,212 @@ class KernelCheck:
             "equal_to_float32_on_upcast": True,
         })
 
+    # ---- kernel 1 in one bf16 pass (precision "default")
+
+    def _one_pass_vs_highest(self, what, got, hi, terms, bf16):
+        """``got`` (one bf16 pass) against ``hi`` ("highest") output by
+        output: each element within BF16_PRODUCT of ``terms`` (the
+        magnitudes it sums; None: no product) plus VDP_TOL of the max, plus
+        BF16_STEP of the element for a bf16 output, and the first output not
+        bit-equal. Returns the largest difference over the max."""
+        torch = self.torch
+        if torch.equal(got[0], hi[0]):
+            _die(f'{what}: one bf16 pass equals "highest" bit for bit')
+        worst = 0.0
+        for i, (g, h, t) in enumerate(zip(got, hi, terms)):
+            if g is None:
+                continue
+            half = bf16 and g.dtype == torch.bfloat16
+            g, h = g.float(), h.float()
+            d = (g - h).abs()
+            scale = max(float(h.abs().max()), 1e-30)
+            limit = VDP_TOL * scale + (0.0 if t is None else BF16_PRODUCT * t)
+            if half:
+                limit = limit + BF16_STEP * torch.maximum(g.abs(), h.abs())
+            if not bool((d <= limit).all()):
+                _die(f'{what}: output {i} differs from "highest" beyond the bf16 limit '
+                     f"({float(d.max()) / scale:.3e} of its max)")
+            worst = max(worst, float(d.max()) / scale)
+        return worst
+
+    def _add_default(self, key, dev_ms, bound_ms, lib_ms, err):
+        acc = self.default.setdefault(key, [0.0, 0.0, 0.0, 0.0])
+        acc[0] += dev_ms
+        acc[1] += bound_ms
+        acc[2] += lib_ms
+        acc[3] = max(acc[3], err)
+
+    def vdp_conv_default(self, config, layer, b, h, w, cin, cout, has_sigma, bf16=False):
+        """Kernel 1 with the window sum and the ReLU in one bf16 pass
+        (precision "default") on float32 or bf16 moments: one launch, counted
+        as one pass; within VDP_F64_TOL of the max of the plain version's one
+        bf16 pass run in float64 on the same inputs (the same rounded
+        operands; a bf16 output also within BF16_STEP of the element); before
+        the ReLU against "highest" within the bf16 limit
+        (``_one_pass_vs_highest``) and not bit-equal, and "high" bit-equal to
+        "highest". Device time beside the one-pass bound and cuDNN's bf16
+        conv of mu alone (a yardstick the port never calls)."""
+        torch = self.torch
+        from supernet_tpu_torch.ops.kernels import vdp_conv as V
+        from supernet_tpu_torch.profiling import device_ms, vdp_conv_bounds
+
+        t0 = time.perf_counter()
+        dt = torch.bfloat16 if bf16 else torch.float32
+        tag = "bf16" if bf16 else "float32"
+        what = f"vdp_conv default {tag} {config}/{layer}"
+        mu = self._randn(b, h, w, cin).to(dt)
+        sigma = (0.05 * self._randn(b, h, w, cin).abs()).to(dt) if has_sigma else None
+        w_mu = 0.1 * self._randn(3, 3, cin, cout)
+        w_sigma = -4.0 + self._randn(cout)
+        plan = V.plan(b, h, w, cin, cout, 3, 1, _sms(), "default")
+
+        def wide(t):
+            return None if t is None else t.double()
+
+        with torch.inference_mode():
+            _zero_launches()
+            got = V.vdp_conv(mu, sigma, w_mu, w_sigma, True, precision="default")
+            torch.cuda.synchronize()
+            if (V.launches, V.bf16_launches) != (1, 1):
+                _die(f"{what}: {V.launches} launches, {V.bf16_launches} in one bf16 pass")
+            want = V.vdp_conv_plain(wide(mu), wide(sigma), w_mu.double(), w_sigma.double(),
+                                    True, precision="default")
+            tie = (got[0].double() > 0) != (want[0] > 0)
+            flips = int(tie.sum())
+            if flips and float(torch.maximum(got[0].double().abs(), want[0].abs())[tie]
+                               .max()) > VDP_TOL * float(want[0].abs().max()):
+                _die(f"{what}: a ReLU mask differs away from mu = 0")
+            abs_err, f64_err = _bf16_errors(torch, what, got, want, VDP_F64_TOL,
+                                            [None, ~tie, None])
+            del want
+            pre = V.vdp_conv(mu, sigma, w_mu, w_sigma, False, precision="default")
+            hi = V.vdp_conv(mu, sigma, w_mu, w_sigma, False, precision="highest")
+            high = V.vdp_conv(mu, sigma, w_mu, w_sigma, False, precision="high")
+            if not all(torch.equal(x, y) for x, y in zip(high, hi)):
+                _die(f'{what}: "high" is not "highest" bit for bit')
+            terms = (V._conv_valid(mu.float().abs(), w_mu.abs()),
+                     None if sigma is None else V._conv_valid(sigma.float(), w_mu * w_mu),
+                     None)
+            vs_highest = self._one_pass_vs_highest(what, pre, hi, terms, bf16)
+            del pre, hi, high, terms
+            dev_ms = device_ms(lambda: V.vdp_conv(mu, sigma, w_mu, w_sigma, True,
+                                                  precision="default"))
+            mu16, w16 = mu.to(torch.bfloat16), w_mu.to(torch.bfloat16)
+            cudnn_ms = device_ms(lambda: V._conv_valid(mu16, w16))
+        bound = vdp_conv_bounds(b, h, w, cin, cout, 3, has_sigma,
+                                itemsize=2 if bf16 else 4)["bound_bf16_ms"]
+        self._add_default((config, tag, "forward"), dev_ms, bound, cudnn_ms, f64_err)
+        self.default_s += time.perf_counter() - t0
+        print(json.dumps({
+            "kernel": "vdp_conv_default", "config": config, "layer": layer, "dtype": tag,
+            "shape": [b, h, w, cin, cout, 3], "path": plan.path, "splits": plan.splits,
+            "relu_ties": flips, "max_abs_err": abs_err, "f64_max_rel_err": f64_err,
+            "vs_highest_max_rel": vs_highest, "high_equals_highest": True,
+            "device_ms": dev_ms, "bound_bf16_ms": bound, "cudnn_bf16_mu_ms": cudnn_ms,
+        }), flush=True)
+
+    def dgrad_default(self, config, layer, b, h, w, cin, cout, with_sigma, bf16=False):
+        """Kernel 1's transposed pair in one bf16 pass (``conv_t_pair`` at
+        precision "default") on float32 or bf16 cotangents, as
+        :meth:`vdp_conv_default` holds the forward: one launch counted as one
+        pass, within VDP_F64_TOL of the plain pair's one pass in float64,
+        within the bf16 limit of "highest" and not bit-equal, "high"
+        bit-equal to "highest"; device time beside the one-pass bound and
+        cuDNN's bf16 conv_transpose2d of g1 alone."""
+        torch = self.torch
+        from supernet_tpu_torch.ops.kernels import vdp_conv as V
+        from supernet_tpu_torch.profiling import BF16_FLOPS_PER_S, device_ms
+
+        t0 = time.perf_counter()
+        dt = torch.bfloat16 if bf16 else torch.float32
+        tag = "bf16" if bf16 else "float32"
+        what = f"vdp_conv dgrad default {tag} {config}/{layer}"
+        g1 = self._randn(b, h - 2, w - 2, cout).to(dt)
+        g2 = self._randn(b, h - 2, w - 2, cout).to(dt) if with_sigma else None
+        w_mu = 0.1 * self._randn(3, 3, cin, cout)
+        plan = V.plan(b, h + 2, w + 2, cout, cin, 3, 1, _sms(), "default")
+        with torch.inference_mode():
+            _zero_launches()
+            got = V.conv_t_pair(g1, g2, w_mu, "default")
+            torch.cuda.synchronize()
+            if (V.dgrad_launches, V.bf16_launches) != (1, 1):
+                _die(f"{what}: {V.dgrad_launches} launches, {V.bf16_launches} in one bf16 pass")
+            want = V.conv_t_pair_plain(g1.double(), None if g2 is None else g2.double(),
+                                       w_mu.double(), "default")
+            abs_err, f64_err = _bf16_errors(torch, what, got, want, VDP_F64_TOL)
+            del want
+            hi = V.conv_t_pair(g1, g2, w_mu, "highest")
+            high = V.conv_t_pair(g1, g2, w_mu, "high")
+            if not all(x is None or torch.equal(x, y) for x, y in zip(high, hi)):
+                _die(f'{what}: "high" is not "highest" bit for bit')
+            p1, p2, wf = V.dgrad_operands(g1.float().abs(),
+                                          None if g2 is None else g2.float().abs(), w_mu.abs())
+            terms = (V._conv_valid(p1, wf), None if p2 is None else V._conv_valid(p2, wf * wf))
+            vs_highest = self._one_pass_vs_highest(what, got, hi, terms, False)
+            del hi, high, terms, p1, p2
+            dev_ms = device_ms(lambda: V.conv_t_pair(g1, g2, w_mu, "default"))
+            g16, w16 = g1.to(torch.bfloat16), w_mu.to(torch.bfloat16)
+            cudnn_ms = device_ms(lambda: V._conv_t(g16, w16))
+        n = 2 if with_sigma else 1
+        itemsize = 2 if bf16 else 4
+        nbytes = itemsize * n * g1.numel() + 4 * (9 * cin * cout + n * b * h * w * cin)
+        flops = n * 2 * 9 * cin * cout * b * h * w
+        bound = max(_bound(nbytes, 0)[1], 1e3 * flops / BF16_FLOPS_PER_S)
+        self._add_default((config, tag, "dgrad"), dev_ms, bound, cudnn_ms, f64_err)
+        self.default_s += time.perf_counter() - t0
+        print(json.dumps({
+            "kernel": "vdp_conv_dgrad_default", "config": config, "layer": layer, "dtype": tag,
+            "shape": [b, h, w, cin, cout, 3], "sigma": with_sigma, "path": plan.path,
+            "splits": plan.splits, "max_abs_err": abs_err, "f64_max_rel_err": f64_err,
+            "vs_highest_max_rel": vs_highest, "high_equals_highest": True,
+            "device_ms": dev_ms, "bound_bf16_ms": bound,
+            "cudnn_bf16_conv_transpose_g1_ms": cudnn_ms,
+        }), flush=True)
+
+    def default_members(self, config, layer, b, h, w, cin, cout, k_n, shared):
+        """Kernel 1 in one bf16 pass with a member axis of ``k_n`` (a shared
+        input read at member stride 0, or one batch per member), forward and
+        transposed pair, against the plain version's one pass in float64
+        member by member within VDP_F64_TOL."""
+        torch = self.torch
+        from supernet_tpu_torch.ops.kernels import vdp_conv as V
+
+        t0 = time.perf_counter()
+        what = f"vdp_conv default members {config}/{layer}"
+        if shared:
+            mu = self._randn(b, h, w, cin).expand(k_n, b, h, w, cin)
+            sigma = (0.05 * self._randn(b, h, w, cin).abs()).expand(k_n, b, h, w, cin)
+        else:
+            mu = self._randn(k_n, b, h, w, cin)
+            sigma = 0.05 * self._randn(k_n, b, h, w, cin).abs()
+        w_mu = 0.1 * self._randn(k_n, 3, 3, cin, cout)
+        w_sigma = -4.0 + self._randn(k_n, cout)
+        g1 = self._randn(k_n * b, h - 2, w - 2, cout)
+        g2 = self._randn(k_n * b, h - 2, w - 2, cout)
+        plan = V.plan(b, h, w, cin, cout, 3, k_n, _sms(), "default")
+        with torch.inference_mode():
+            _zero_launches()
+            got = V.vdp_conv(mu, sigma, w_mu, w_sigma, True, precision="default")
+            d = V.conv_t_pair(g1, g2, w_mu, "default")
+            torch.cuda.synchronize()
+            if (V.launches, V.dgrad_launches, V.bf16_launches) != (1, 1, 2):
+                _die(f"{what}: launches {(V.launches, V.dgrad_launches, V.bf16_launches)}")
+            want = V.vdp_conv_plain(mu.double(), sigma.double(), w_mu.double(),
+                                    w_sigma.double(), True, precision="default")
+            tie = (got[0].double() > 0) != (want[0] > 0)
+            if tie.any() and float(torch.maximum(got[0].double().abs(), want[0].abs())[tie]
+                                   .max()) > VDP_TOL * float(want[0].abs().max()):
+                _die(f"{what}: a ReLU mask differs away from mu = 0")
+            _, err = _bf16_errors(torch, what, got, want, VDP_F64_TOL, [None, ~tie, None])
+            want_d = V.conv_t_pair_plain(g1.double(), g2.double(), w_mu.double(), "default")
+            _, err_d = _bf16_errors(torch, what + " dgrad", d, want_d, VDP_F64_TOL)
+        self.default_s += time.perf_counter() - t0
+        print(json.dumps({
+            "kernel": "vdp_conv_default_members", "config": config, "layer": layer,
+            "members": k_n, "shared_input": shared, "path": plan.path, "splits": plan.splits,
+            "f64_max_rel_err": err, "dgrad_f64_max_rel_err": err_d,
+        }), flush=True)
+
     def _seen(self, kernel, config, path, dev_ms):
         """Note the path a backward kernel's plan took and add its device
         time (the stream held by a sleep) to the config's sum."""
@@ -1236,7 +1500,7 @@ def _zero_launches() -> None:
     from supernet_tpu_torch.ops.kernels import vdp_conv as V
 
     V.launches = V.reduce_launches = P.launches = P.bwd_launches = S.launches = 0
-    V.dgrad_launches = V.dgrad_reduce_launches = 0
+    V.dgrad_launches = V.dgrad_reduce_launches = V.bf16_launches = 0
 
 
 def _read_launches() -> dict:
@@ -1301,6 +1565,7 @@ def _serve(torch, name, cfg, batch, sizes):
              f"(probs {worst_p:.3e}; sigma beyond {SERVE_SIGMA_RTOL} relative "
              f"on {share:.3%} of the elements, max {worst_s:.3e})")
     img_s = sizes[-1] / answers[-1][2]
+    default = _serve_default(torch, name, cfg, batch, gpu, cpu, requests[0], answers[0])
     print(json.dumps({
         "serving": name, "batch": batch, "requests": list(sizes),
         "launches": launches, "chunks": chunks,
@@ -1308,8 +1573,154 @@ def _serve(torch, name, cfg, batch, sizes):
         "sigma_share_beyond_rtol": share,
         "img_per_s_last_request": img_s,
         "request_s": [a[2] for a in answers],
+        "default": default,
     }), flush=True)
     return launches, img_s
+
+
+@contextlib.contextmanager
+def _default_precision(torch):
+    """``set_mxu_precision("default")`` with PyTorch's own products kept at
+    float32 on the card (TF32 off for cuDNN and cuBLAS), as on the CPU, so
+    that only kernel 1's arithmetic differs from "highest"; "highest" again
+    on the way out."""
+    from supernet_tpu_torch.ops import set_mxu_precision
+
+    set_mxu_precision("default")
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        set_mxu_precision("highest")
+
+
+@contextlib.contextmanager
+def _one_pass_checked(torch, what):
+    """Inside, every kernel-1 call of ``VDPConv`` (its forward through
+    ``vdp_conv``, its backward's transposed pair through ``conv_t_pair``)
+    must run in one bf16 pass and is held, on its own inputs, against the
+    plain version's one pass in float64 within VDP_F64_TOL of the max (a
+    bf16 output also within BF16_STEP of the element); a ReLU mask may
+    differ only where mu_out lies within VDP_TOL of the max of 0. So a
+    whole forward or step is checked call by call at the plans its batch
+    takes, where the layers' answers cannot be compared with a reference
+    that sums in another order (an operand a rounding apart lands on
+    another bf16 value, and the flips spread). Yields the calls, the worst
+    error over the max and the ReLU ties."""
+    from supernet_tpu_torch.ops.kernels import vdp_conv as V
+
+    fwd, pair = V.vdp_conv, V.conv_t_pair
+    seen = {"forward_calls": 0, "dgrad_calls": 0, "f64_max_rel_err": 0.0, "relu_ties": 0}
+
+    def wide(t):
+        return None if t is None else t.detach().double()
+
+    def one_pass(precision, kind):
+        if precision != "default":
+            _die(f"{what}: a kernel-1 {kind} ran at {precision!r}, not one bf16 pass")
+
+    def checked_fwd(mu, sigma, w_mu, w_sigma, fuse_relu=False, relu_mask=False,
+                    precision="highest"):
+        one_pass(precision, "forward")
+        out = fwd(mu, sigma, w_mu, w_sigma, fuse_relu, relu_mask, precision)
+        with torch.no_grad():
+            want = V.vdp_conv_plain(wide(mu), wide(sigma), wide(w_mu), wide(w_sigma),
+                                    fuse_relu, precision="default")
+            got = out[0].detach().double()
+            tie = (got > 0) != (want[0] > 0)
+            if tie.any() and float(torch.maximum(got.abs(), want[0].abs())[tie].max()) \
+                    > VDP_TOL * float(want[0].abs().max()):
+                _die(f"{what}: a ReLU mask differs away from mu = 0")
+            _, err = _bf16_errors(torch, what, out[:3], want, VDP_F64_TOL,
+                                  [None, ~tie, None])
+        seen["forward_calls"] += 1
+        seen["relu_ties"] += int(tie.sum())
+        seen["f64_max_rel_err"] = max(seen["f64_max_rel_err"], err)
+        return out
+
+    def checked_pair(g1, g2, w_mu, precision="highest"):
+        one_pass(precision, "transposed pair")
+        out = pair(g1, g2, w_mu, precision)
+        with torch.no_grad():
+            want = V.conv_t_pair_plain(wide(g1), wide(g2), wide(w_mu), "default")
+            _, err = _bf16_errors(torch, what + " dgrad", out, want, VDP_F64_TOL)
+        seen["dgrad_calls"] += 1
+        seen["f64_max_rel_err"] = max(seen["f64_max_rel_err"], err)
+        return out
+
+    V.vdp_conv, V.conv_t_pair = checked_fwd, checked_pair
+    try:
+        yield seen
+    finally:
+        V.vdp_conv, V.conv_t_pair = fwd, pair
+
+
+def _answer_gap(np, a, b) -> dict:
+    """How far answer ``a`` = (probs, sigma) lies from ``b``: probs' largest
+    and mean absolute difference, sigma's largest difference over the max
+    of ``b``'s and its mean difference over the mean of ``b``'s."""
+    dp, ds = np.abs(a[0] - b[0]), np.abs(a[1] - b[1])
+    return {"probs_max": float(dp.max()), "probs_mean": float(dp.mean()),
+            "sigma_max_rel": float(ds.max()) / max(float(np.abs(b[1]).max()), 1e-30),
+            "sigma_mean_rel": float(ds.mean()) / max(float(np.abs(b[1]).mean()), 1e-30)}
+
+
+def _serve_default(torch, name, cfg, batch, gpu, cpu, x, highest):
+    """One request of ``x`` under "default" (``_default_precision``) through
+    the CUDA session against the CPU session under "default": kernel 1 in
+    one bf16 pass on the card, its plain version's one pass on the CPU.
+    The launches must be one forward's per chunk at the one-pass plans,
+    every kernel-1 launch one pass, and each call within VDP_F64_TOL of its
+    plain one pass in float64 on its own inputs (``_one_pass_checked``).
+    The answer must be finite, not bit-equal to the card's "highest" answer
+    ``highest``, and near the CPU's "default" answer measured against how
+    far the CPU's own two precisions part (``_answer_gap``, ``gap``): the
+    largest probs difference within DEFAULT_MAX_SHARE of the gap's, probs'
+    and sigma's mean differences within DEFAULT_MEAN_SHARE of the gap's.
+    One bf16 pass turns a float32 rounding difference between two
+    summation orders into an operand a bf16 step apart, and such flips
+    spread layer by layer, so the largest difference is a large share of
+    the gap: printed beside it, how far the CPU's own "default" answer
+    moves when the input moves by one float32 ulp, the scale of those
+    flips. Returns the readings and the launches."""
+    import numpy as np
+
+    from supernet_tpu_torch.ops.kernels import vdp_conv as V
+
+    t0 = time.perf_counter()
+    ref_hi = cpu.predict(x)
+    with _default_precision(torch):
+        with _one_pass_checked(torch, f'{name} under "default"') as calls:
+            _zero_launches()
+            probs, sigma = gpu.predict(x)
+            launches, bf16_pass = _read_launches(), V.bf16_launches
+        ref = cpu.predict(x)
+        ulp = cpu.predict(np.nextafter(x, np.float32(np.inf)))
+    chunks = math.ceil(len(x) / batch)
+    want = _expected_launches(cfg, batch, 0, chunks, precision="default")
+    if launches != want or bf16_pass != launches["vdp_conv"]:
+        _die(f"{name} under \"default\": launches {launches} ({bf16_pass} in one bf16 "
+             f"pass), expected {want}, every kernel-1 launch in one pass")
+    if not (np.isfinite(probs).all() and np.isfinite(sigma).all() and (sigma >= 0).all()):
+        _die(f'{name} under "default": a non-finite or negative answer')
+    if np.array_equal(probs, highest[0]) and np.array_equal(sigma, highest[1]):
+        _die(f'{name} under "default": the answer is the "highest" one bit for bit')
+    card, gap = _answer_gap(np, (probs, sigma), ref), _answer_gap(np, ref, ref_hi)
+    limits = {"probs_max": DEFAULT_MAX_SHARE, "probs_mean": DEFAULT_MEAN_SHARE,
+              "sigma_mean_rel": DEFAULT_MEAN_SHARE}
+    over = {k: (card[k], gap[k]) for k, share in limits.items()
+            if not card[k] <= share * gap[k]}
+    if over:
+        _die(f'{name} under "default": the CUDA session against the CPU session, '
+             f"(card, the CPU's gap between the precisions) {over}, limits {limits} "
+             f"of the gap")
+    return {"images": len(x), "launches": launches, "bf16_pass_launches": bf16_pass,
+            "checked_calls": calls, "vs_cpu": card, "cpu_gap_default_vs_highest": gap,
+            "share_of_gap": {k: card[k] / max(gap[k], 1e-30) for k in card},
+            "argmax_agreement_vs_cpu": float(np.mean(probs.argmax(-1) == ref[0].argmax(-1))),
+            "vs_card_highest": _answer_gap(np, (probs, sigma), highest),
+            "cpu_one_ulp_input": _answer_gap(np, ulp, ref),
+            "seconds": time.perf_counter() - t0}
 
 
 @contextlib.contextmanager
@@ -1359,14 +1770,14 @@ def _decisions(torch, record=None, replay=None, clips=True):
             ties["relu"] += int(tie.sum())
         return torch.where(mask, mu, 0.0), torch.where(mask, sigma, 0.0)
 
-    def conv(mu, sigma, w_mu, w_sigma, relu):
+    def conv(mu, sigma, w_mu, w_sigma, relu, precision="highest"):
         if not relu:
-            return conv_apply(mu, sigma, w_mu, w_sigma, relu)
+            return conv_apply(mu, sigma, w_mu, w_sigma, relu, precision)
         if queue is None:
-            out = conv_apply(mu, sigma, w_mu, w_sigma, relu)
+            out = conv_apply(mu, sigma, w_mu, w_sigma, relu, precision)
             record.append(out[0].detach() > 0)
             return out
-        m, s = conv_apply(mu, sigma, w_mu, w_sigma, False)
+        m, s = conv_apply(mu, sigma, w_mu, w_sigma, False, precision)
         mask = next(queue).to(m.device)
         tie = mask != (m.detach() > 0)
         if tie.any():
@@ -1428,7 +1839,7 @@ def _cudnn_dgrad():
     from supernet_tpu_torch.ops.kernels import vdp_conv as V
 
     kernel = V.conv_t_pair
-    V.conv_t_pair = lambda g1, g2, w: (
+    V.conv_t_pair = lambda g1, g2, w, precision="highest": (
         V._conv_t(g1, w), None if g2 is None else V._conv_t(g2, w * w))
     try:
         yield
@@ -1558,20 +1969,21 @@ def _train(torch, name, cfg, tc, batch, steps):
 
 
 
-def _per_forward(cfg, batch, members=1, skip=()) -> dict:
+def _per_forward(cfg, batch, members=1, skip=(), precision="highest") -> dict:
     """Launches of one forward (vdp_conv, its split-K reduces, pool), of
-    ``members`` ensemble members in one member-stacked forward; the k=3
-    convs named in ``skip`` run no kernel (the glue fold's)."""
+    ``members`` ensemble members in one member-stacked forward, at
+    ``precision``; the k=3 convs named in ``skip`` run no kernel (the glue
+    fold's)."""
     from supernet_tpu_torch.models import layer_names
 
     return {"vdp_conv": sum(1 for name, k, _, _ in layer_names(cfg)
                             if k == 3 and name not in skip),
-            "vdp_conv_reduce": _split_layers(cfg, batch, members, skip),
+            "vdp_conv_reduce": _split_layers(cfg, batch, members, skip, precision),
             "vmaxpool": cfg.depth - 1}
 
 
 def _expected_launches(cfg, batch, steps, eval_batches, input_grads=0, members=1,
-                       skip=()) -> dict:
+                       skip=(), precision="highest") -> dict:
     """Launches of ``steps`` train steps (gradients of the weights alone),
     ``eval_batches`` forwards and ``input_grads`` gradients with respect to
     the image (the weights frozen), each of ``members`` ensemble members in
@@ -1579,8 +1991,9 @@ def _expected_launches(cfg, batch, steps, eval_batches, input_grads=0, members=1
     conv and kernel 1 without the window sum at each k=3 conv whose input
     needs a gradient: all but conv_input in a train step, all of them in a
     gradient with respect to the image. The convs in ``skip`` (the glue
-    fold's, never conv_input) run neither."""
-    f = _per_forward(cfg, batch, members, skip)
+    fold's, never conv_input) run neither. ``precision``: the plans' (the
+    split-K reduces follow the K step of the one-bf16-pass path)."""
+    f = _per_forward(cfg, batch, members, skip, precision)
     fwd = steps + eval_batches + input_grads
     bwd = steps + input_grads
     return {"vdp_conv": fwd * f["vdp_conv"],
@@ -1590,8 +2003,9 @@ def _expected_launches(cfg, batch, steps, eval_batches, input_grads=0, members=1
             "sigma_bwd": bwd * f["vdp_conv"],
             "vdp_conv_dgrad": steps * (f["vdp_conv"] - 1) + input_grads * f["vdp_conv"],
             "vdp_conv_dgrad_reduce": (
-                steps * _dgrad_split_layers(cfg, batch, False, members, skip)
-                + input_grads * _dgrad_split_layers(cfg, batch, True, members, skip))}
+                steps * _dgrad_split_layers(cfg, batch, False, members, skip, precision)
+                + input_grads * _dgrad_split_layers(cfg, batch, True, members, skip,
+                                                    precision))}
 
 
 def _state_tensors(state):
@@ -1911,9 +2325,9 @@ def _per_gradient(cfg, batch) -> dict:
     return _expected_launches(cfg, batch, 0, 0, input_grads=1)
 
 
-def _per_step(cfg, batch) -> dict:
-    """Launches of one train step's forward and backward."""
-    return _expected_launches(cfg, batch, 1, 0)
+def _per_step(cfg, batch, precision="highest") -> dict:
+    """Launches of one train step's forward and backward at ``precision``."""
+    return _expected_launches(cfg, batch, 1, 0, precision=precision)
 
 
 def _scaled(launches: dict, n: int) -> dict:
@@ -2066,10 +2480,10 @@ def _backward_conv_calls(torch, name, exp, batch):
     dgrads, wgrads = [], []
     pair, fgrad = V.conv_t_pair, V._filter_grad
 
-    def rec_pair(g1, g2, w):
+    def rec_pair(g1, g2, w, precision="highest"):
         dgrads.append((g1.detach().clone(), None if g2 is None else g2.detach().clone(),
                        w.detach().clone()))
-        return pair(g1, g2, w)
+        return pair(g1, g2, w, precision)
 
     def rec_fgrad(xx, g, shape):
         wgrads.append((xx.detach().clone(), g.detach().clone(), tuple(shape)))
@@ -4322,6 +4736,77 @@ BENCH_FORWARDS = (("hippocampus", "HIPPOCAMPUS", 20), ("hippocampus", "HIPPOCAMP
 NAIVE_CHUNK = 32  # images per naive forward: its patch matrices at BraTS
 
 
+def _bench_inputs(torch, exp_name, batch):
+    """The model config, He-scaled parameters and a batch of images on the
+    card for phase 23's forwards at ``batch``."""
+    import numpy as np
+
+    from supernet_tpu_torch import configs
+
+    c = getattr(configs, exp_name).model
+    params = {n: {k: t.cuda() for k, t in p.items()} for n, p in _he_params(torch, c).items()}
+    x = torch.from_numpy(np.random.default_rng(SEED + 23).normal(
+        0.0, 1.0, (batch, c.image_size, c.image_size, c.in_channels))
+        .astype(np.float32)).cuda()
+    return c, params, x
+
+
+def _bench_forward_default(torch, cname, exp_name, batch, dtype):
+    """The bench's own arithmetic at a batch of ``BENCH_FORWARDS``: the
+    kernel forward of :func:`_naive_agreement`'s model and images under
+    precision "default" (``_default_precision``) in activation dtype
+    ``dtype``, counted (one forward's launches at the one-pass plans, every
+    kernel-1 launch one pass), every kernel-1 call within VDP_F64_TOL of
+    its plain one pass in float64 on its own inputs (``_one_pass_checked``);
+    the answer finite and not bit-equal to the same forward at "highest"
+    (its distance printed); bf16: bit-equal to the same forward with the
+    kernels fed float32 through casts. Returns the readings."""
+    import numpy as np
+
+    from supernet_tpu_torch.models import forward
+    from supernet_tpu_torch.ops.kernels import vdp_conv as V
+    from supernet_tpu_torch.profiling import act_dtype
+
+    t0 = time.perf_counter()
+    what = f'bench: the {cname} b{batch} forward in {dtype} under "default"'
+    c, params, x = _bench_inputs(torch, exp_name, batch)
+    out = {}
+    with torch.no_grad(), act_dtype(dtype):
+        hi_p, hi_s = forward(params, x, c)
+        with _default_precision(torch):
+            with _one_pass_checked(torch, what) as calls:
+                torch.cuda.synchronize()
+                _zero_launches()
+                p, sg = forward(params, x, c)
+                torch.cuda.synchronize()
+                launches, bf16_pass = _read_launches(), V.bf16_launches
+            if dtype == "bfloat16":
+                with _kernels_fed_float32(torch, True):
+                    up_p, up_s = forward(params, x, c)
+                if not (torch.equal(p, up_p) and torch.equal(sg, up_s)):
+                    _die(f"{what} differs from the one with the kernels fed float32 (probs "
+                         f"{float((p.float() - up_p.float()).abs().max()):.3e})")
+                out["equal_to_kernels_fed_float32"] = True
+                del up_p, up_s
+    want = _expected_launches(c, batch, 0, 1, precision="default")
+    if launches != want or bf16_pass != launches["vdp_conv"]:
+        _die(f"{what} launched {launches} ({bf16_pass} in one bf16 pass), expected "
+             f"{want}, every kernel-1 launch in one pass")
+    if calls["forward_calls"] != launches["vdp_conv"]:
+        _die(f"{what}: {calls['forward_calls']} calls checked of {launches['vdp_conv']}")
+    p, sg = p.float().cpu().numpy(), sg.float().cpu().numpy()
+    hi = (hi_p.float().cpu().numpy(), hi_s.float().cpu().numpy())
+    if not (np.isfinite(p).all() and np.isfinite(sg).all() and (sg >= 0).all()):
+        _die(f"{what}: a non-finite or negative answer")
+    if np.array_equal(p, hi[0]) and np.array_equal(sg, hi[1]):
+        _die(f'{what}: the answer is the "highest" one bit for bit')
+    del params, x
+    torch.cuda.empty_cache()
+    return {**out, "kernel_launches": launches, "bf16_pass_launches": bf16_pass,
+            "checked_calls": calls, "vs_highest": _answer_gap(np, (p, sg), hi),
+            "seconds": time.perf_counter() - t0}
+
+
 def _naive_agreement(torch, cname, exp_name, batch, dtype="float32"):
     """The kernel forward of a He-scaled model at ``batch`` on the card
     under activation dtype ``dtype``, counted (one forward's launches),
@@ -4334,17 +4819,12 @@ def _naive_agreement(torch, cname, exp_name, batch, dtype="float32"):
     ``BF16_PROBS_ATOL`` and ``BF16_AGREE``. Returns the errors."""
     import numpy as np
 
-    from supernet_tpu_torch import configs
     from supernet_tpu_torch.models import forward
     from supernet_tpu_torch.ops import set_backend
     from supernet_tpu_torch.profiling import act_dtype
 
     what = f"bench: the {cname} b{batch} forward in {dtype}"
-    c = getattr(configs, exp_name).model
-    params = {n: {k: t.cuda() for k, t in p.items()} for n, p in _he_params(torch, c).items()}
-    x = torch.from_numpy(np.random.default_rng(SEED + 23).normal(
-        0.0, 1.0, (batch, c.image_size, c.image_size, c.in_channels))
-        .astype(np.float32)).cuda()
+    c, params, x = _bench_inputs(torch, exp_name, batch)
     out = {}
     with torch.no_grad(), act_dtype(dtype):
         torch.cuda.synchronize()
@@ -4428,17 +4908,23 @@ def _bench_gradient(torch, exp, batch):
             "ties_replayed": dict(check["ties"]), "launches": launches}
 
 
-def _bench_gradient_bf16(torch, exp, batch):
+def _bench_gradient_bf16(torch, exp, batch, precision="highest"):
     """The bf16 twin of :func:`_bench_gradient` (bf16 is the bench's
     default): the step-1 gradient at ``batch`` under bf16 activations,
     counted (one step's launches), bit-equal to the same gradient with the
     kernels fed float32 through casts (each kernel rounds once where the
     casts rounded; cuDNN deterministic for the float32 filter gradients),
-    and its loss within ``BF16_LOSS_RTOL`` of the float32 loss. Returns the
-    loss error and the launches."""
+    and its loss within ``BF16_LOSS_RTOL`` of the float32 loss. Under
+    ``precision="default"`` (the bench's, ``_default_precision``) the
+    launches are at the one-pass plans, every kernel-1 launch one pass, and
+    every kernel-1 call of the bf16 and the float32 gradient, forward and
+    transposed pair, is held to its plain one pass in float64 on its own
+    inputs (``_one_pass_checked``). Returns the loss error and the
+    launches."""
     import numpy as np
 
     from supernet_tpu_torch import train as T
+    from supernet_tpu_torch.ops.kernels import vdp_conv as V
     from supernet_tpu_torch.profiling import act_dtype
 
     cfg, tc = exp.model, exp.train
@@ -4448,25 +4934,37 @@ def _bench_gradient_bf16(torch, exp, batch):
                          .astype(np.float32)).cuda()
     y = torch.from_numpy(rng.integers(0, cfg.n_classes, (batch, o, o)).astype(np.int32)).cuda()
     state, _ = T.create_train_state(_he_params(torch, cfg), tc, "cuda")
+    default = precision == "default"
+    what = f"bench: the hippocampus b{batch} bf16 gradient" + (
+        ' under "default"' if default else "")
 
     def grads(dtype, fed_float32=False):
         with act_dtype(dtype), _kernels_fed_float32(torch, fed_float32):
             loss, _ = T.loss_fn(state.params, x, y, cfg, tc)
             return float(loss.detach()), torch.autograd.grad(loss, T.leaves(state.params))
 
-    what = f"bench: the hippocampus b{batch} bf16 gradient"
+    def checked():
+        return _one_pass_checked(torch, what) if default else contextlib.nullcontext({})
+
     with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
-                                    allow_tf32=False):
+                                    allow_tf32=False), \
+            (_default_precision(torch) if default else contextlib.nullcontext()):
         torch.cuda.synchronize()
         _zero_launches()
-        loss16, g16 = grads("bfloat16")
+        with checked() as calls16:
+            loss16, g16 = grads("bfloat16")
         torch.cuda.synchronize()
-        launches = _read_launches()
+        launches, bf16_pass = _read_launches(), V.bf16_launches
         loss_up, g_up = grads("bfloat16", fed_float32=True)
-        loss32, _ = grads("float32")
-    want = _per_step(cfg, batch)
-    if launches != want:
-        _die(f"{what} launched {launches}, expected {want}")
+        with checked() as calls32:
+            loss32, _ = grads("float32")
+    want = _per_step(cfg, batch, precision)
+    kernel1 = launches["vdp_conv"] + launches["vdp_conv_dgrad"]
+    if launches != want or bf16_pass != (kernel1 if default else 0):
+        _die(f"{what} launched {launches} ({bf16_pass} in one bf16 pass), expected {want}")
+    if default and (calls16["forward_calls"], calls16["dgrad_calls"]) != (
+            launches["vdp_conv"], launches["vdp_conv_dgrad"]):
+        _die(f"{what}: {calls16} checked of the launches {launches}")
     if loss16 != loss_up or not all(torch.equal(a, b) for a, b in zip(g16, g_up)):
         worst = max(_max_rel(torch, a, b) for a, b in zip(g16, g_up))
         _die(f"{what} differs from the one with the kernels fed float32: losses "
@@ -4477,8 +4975,12 @@ def _bench_gradient_bf16(torch, exp, batch):
              f"or a non-finite gradient")
     del state, g16, g_up
     torch.cuda.empty_cache()
-    return {"equal_to_kernels_fed_float32": True, "loss_max_rel_err_vs_float32": loss_err,
-            "launches": launches}
+    out = {"equal_to_kernels_fed_float32": True, "loss_max_rel_err_vs_float32": loss_err,
+           "launches": launches}
+    if default:
+        out.update({"bf16_pass_launches": bf16_pass, "checked_calls_bf16": calls16,
+                    "checked_calls_float32": calls32})
+    return out
 
 
 def _bench(torch, smi):
@@ -4489,30 +4991,35 @@ def _bench(torch, smi):
     MFU in (0, 1], ``hbm_utilization_min`` in (0, 1.05], a measured
     ``vs_baseline``, and no section error; a sweep's out-of-memory entry is
     allowed and printed on its own line. The hippocampus b20 headline run
-    launches ``_per_step(cfg, 20)`` per step; the naive baseline launches no
+    launches ``_per_step(cfg, 20, "default")`` per step, every kernel-1
+    launch of the run in one bf16 pass; the naive baseline launches no
     kernel; the naive forward agrees with the kernel forward at
     ``BENCH_FORWARDS`` from He-scaled parameters, in float32 and bf16, and
     the hippocampus b64 gradient holds (``_bench_gradient`` and its bf16
-    twin). Returns the headline's launches per step and the naive run's
-    launches."""
+    twin), at "highest"; and at the bench's "default" the same forwards and
+    the bf16 gradient hold call by call against the plain one pass
+    (``_bench_forward_default``, ``_bench_gradient_bf16``). Returns the
+    headline's launches per step and the naive run's launches."""
     import io
 
     from supernet_tpu_torch import bench, cli
     from supernet_tpu_torch import flops as F
     from supernet_tpu_torch.configs import HIPPOCAMPUS
     from supernet_tpu_torch.ops import get_backend
+    from supernet_tpu_torch.ops.kernels import vdp_conv as V
 
     t_phase = time.perf_counter()
     calls = []
     real = bench._bench_model
 
     def counted(name, n_iters, data_parallel, batch_override=0, device="cuda"):
-        before = _read_launches()
+        before, before_bf16 = _read_launches(), V.bf16_launches
         stats = real(name, n_iters, data_parallel, batch_override, device)
         after = _read_launches()
         calls.append({"model": name, "batch": stats["batch"], "n_iters": n_iters,
                       "backend": get_backend(),
-                      "launches": {k: after[k] - before[k] for k in after}})
+                      "launches": {k: after[k] - before[k] for k in after},
+                      "bf16_pass_launches": V.bf16_launches - before_bf16})
         return stats
 
     saved = os.environ.get("SUPERNET_BENCH_ITERS")
@@ -4524,7 +5031,7 @@ def _bench(torch, smi):
         _zero_launches()
         with contextlib.redirect_stdout(buf):
             rc = cli.main(["bench"])
-        launches = _read_launches()
+        launches, bf16_pass = _read_launches(), V.bf16_launches
     finally:
         bench._bench_model = real
         if saved is None:
@@ -4563,7 +5070,17 @@ def _bench(torch, smi):
     head = calls[0]
     k = int(os.environ.get("SUPERNET_BENCH_DISPATCH", "8"))
     steps = (1 + max(1, head["n_iters"] // k)) * k  # the warm-up call and the timed ones
-    want = _per_step(cfg, 20)
+    # the bench runs precision "default": kernel 1 in one bf16 pass, at the
+    # plans (and split-K reduces) of that path; every kernel-1 launch of the
+    # run, forward and transposed, must have taken it
+    if out["precision"] != "default":
+        _die(f"bench: precision {out['precision']!r}, expected the default \"default\"")
+    kernel1 = launches["vdp_conv"] + launches["vdp_conv_dgrad"]
+    head_k1 = head["launches"]["vdp_conv"] + head["launches"]["vdp_conv_dgrad"]
+    if bf16_pass != kernel1 or head["bf16_pass_launches"] != head_k1 or not head_k1:
+        _die(f"bench: {bf16_pass} of the run's {kernel1} kernel-1 launches and "
+             f"{head['bf16_pass_launches']} of the headline's {head_k1} took one bf16 pass")
+    want = _per_step(cfg, 20, precision="default")
     per_step = {kk: v // steps for kk, v in head["launches"].items()}
     if (head["model"], head["batch"], head["backend"]) != ("hippocampus", 20, "kernels") or (
             head["launches"] != _scaled(want, steps)):
@@ -4587,20 +5104,32 @@ def _bench(torch, smi):
              for dt, sfx in (("float32", ""), ("bfloat16", "_bf16"))}
     agree["gradient_hippocampus_b64"] = _bench_gradient(torch, HIPPOCAMPUS, 64)
     agree["gradient_hippocampus_b64_bf16"] = _bench_gradient_bf16(torch, HIPPOCAMPUS, 64)
+    # and at the bench's own precision, "default": kernel 1 in one bf16 pass,
+    # call by call against its plain one pass, at the same batches
+    t_default = time.perf_counter()
+    default = {f"{c}_b{b}{sfx}": _bench_forward_default(torch, c, exp, b, dt)
+               for c, exp, b in BENCH_FORWARDS
+               for dt, sfx in (("float32", ""), ("bfloat16", "_bf16"))}
+    default["gradient_hippocampus_b64_bf16"] = _bench_gradient_bf16(
+        torch, HIPPOCAMPUS, 64, precision="default")
+    default_s = time.perf_counter() - t_default
     phase_s = time.perf_counter() - t_phase
     print(json.dumps({
         "bench": "cli bench in process", "card": smi, "iters": int(BENCH_ITERS),
         "headline_launches_per_step": per_step, "headline_steps": steps,
         "naive_launches": naive, "run_launches": launches,
+        "run_bf16_pass_launches": bf16_pass,
+        "headline_bf16_pass_launches_per_step": head["bf16_pass_launches"] // steps,
         "calls": [{kk: c[kk] for kk in ("model", "batch", "n_iters", "backend")}
                   for c in calls],
         "batch_scaling_errors": len(oom), "naive_vs_kernels": agree,
+        "default_one_pass": default, "default_checks_s": default_s,
         "bench_s": bench_s, "phase_s": phase_s,
     }), flush=True)
     print(f"bench (phase 23): {phase_s:.1f} s (cli bench {bench_s:.1f} s); hippocampus b20 "
           f"{out['value']} img/s, mfu {out['mfu']}, vs_baseline {out['vs_baseline']} "
           f"({smi})", flush=True)
-    return per_step, naive
+    return {**per_step, "bf16_pass": head["bf16_pass_launches"] // steps}, naive
 
 
 def _pool_forward_checks(check, smi) -> None:
@@ -4676,6 +5205,16 @@ def main() -> int:
                            has_sigma=layer != "conv_input", relu=True)
             check.vdp_conv_bf16(config, layer, batch, h, w, cin, cout, 3,
                                 has_sigma=layer != "conv_input", relu=True)
+            for bf16 in (False, True):
+                check.vdp_conv_default(config, layer, batch, h, w, cin, cout,
+                                       has_sigma=layer != "conv_input", bf16=bf16)
+    # one bf16 pass with a member axis: K=4 hippocampus members reading one
+    # batch (member stride 0), K=2 BraTS members at a split-K layer
+    for config, cfg, batch, layer, k_n, shared in (
+            ("hippocampus", HIPPOCAMPUS.model, 20, "conv1", 4, True),
+            ("brats", BRATS.model, 2, "conv8", 2, False)):
+        (_, h, w, cin), cout = {n: (shp, c) for n, shp, c in layer_shapes(cfg)[0]}[layer]
+        check.default_members(config, layer, batch, h, w, cin, cout, k_n, shared)
     for k in (2, 1):
         for has_sigma in (True, False):
             for relu in (False, True):
@@ -4705,6 +5244,9 @@ def main() -> int:
             check.sigma_bwd_bf16(config, layer, batch, h - 2, w - 2, cout, 3)
             check.dgrad_bf16(config, layer, batch, h, w, cin, cout,
                              with_sigma=layer != "conv_input")
+            for bf16 in (False, True):
+                check.dgrad_default(config, layer, batch, h, w, cin, cout,
+                                    with_sigma=layer != "conv_input", bf16=bf16)
             check.vdp_conv_bwd_bf16(config, layer, batch, h, w, cin, cout, 3,
                                     has_sigma=layer != "conv_input", relu=True)
         for layer, (_, h, w, c) in pools:
@@ -4816,7 +5358,7 @@ def main() -> int:
     bench_hip, bench_naive = _bench(torch, smi)
 
     sources = {
-        "vdp_conv": ("supernet_tpu_torch/csrc/vdp_conv.cu",
+        "vdp_conv": ("supernet_tpu_torch/csrc/vdp_conv.cuh",
                      "supernet_tpu/ops/pallas/vdp_conv.py:125"),
         "vmaxpool": ("supernet_tpu_torch/csrc/pool.cu",
                      "supernet_tpu/ops/pallas/pool.py:72"),
@@ -4889,6 +5431,24 @@ def main() -> int:
                 "brats_dgrad_bound_3xtf32_ms": db3_b,
                 "backward_conv_max_rel_err_vs_float64": conv_calls,
             })
+            # one bf16 pass (precision "default", phases 2 and 5), summed
+            # over the layer shapes like device_ms: device time, the bound at
+            # 989 TFLOP/s, cuDNN's bf16 conv of mu alone (conv_transpose2d of
+            # g1 alone for the transposed pair), the worst error against the
+            # plain version's one pass in float64; and the one-pass launches
+            # per step of the bench's headline (phase 23)
+            for config, cpre in (("hippocampus", ""), ("brats", "brats_")):
+                for tag, dpre in (("float32", ""), ("bf16", "bf16_")):
+                    for mode, mpre in (("forward", ""), ("dgrad", "dgrad_")):
+                        dev, bound, lib, err = check.default[(config, tag, mode)]
+                        key = f"{cpre}{dpre}{mpre}default_"
+                        extra.update({key + "device_ms": dev, key + "bound_bf16_ms": bound,
+                                      key + "cudnn_bf16_ms": lib,
+                                      key + "max_rel_err_vs_float64": err})
+            extra["bench_bf16_pass_launches_per_step"] = bench_hip["bf16_pass"]
+            # the seconds the one-pass cases of phases 2 and 5 took (phases 3
+            # and 4 print their request's under "default" / "seconds")
+            extra["default_checks_s"] = check.default_s
         else:
             # the stream held by a sleep, so no host time counts; summed like ms
             extra = {"device_ms": check.dev[(kernel, "hippocampus")],

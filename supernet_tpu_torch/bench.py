@@ -43,8 +43,8 @@ brats|lungs, SUPERNET_BENCH_ITERS (default 200), SUPERNET_BENCH_EXTRA,
 SUPERNET_BENCH_BASELINE (default on for Hippocampus only),
 SUPERNET_BENCH_SCALING, SUPERNET_BENCH_DISPATCH, SUPERNET_BENCH_3D,
 SUPERNET_BENCH_ENSEMBLE, SUPERNET_BENCH_INFER (each "1" or "0", default
-"1"), SUPERNET_PRECISION (default "default": TF32 allowed in PyTorch's own
-matmuls and convolutions), SUPERNET_ACT_DTYPE (default bfloat16, the
+"1"), SUPERNET_PRECISION (default "default": kernel 1 in one bf16 pass,
+TF32 allowed in PyTorch's own matmuls and convolutions), SUPERNET_ACT_DTYPE (default bfloat16, the
 production mode), SUPERNET_CONV_FOLD, SUPERNET_BACKEND (``naive`` runs the
 headline through the naive backend), SUPERNET_DATA_PARALLEL=1 (with a world
 of more than one rank, from torchrun or SUPERNET_COORDINATOR: the
@@ -318,11 +318,11 @@ def main(device="cuda") -> None:
     device_kind = _discover(device)
     from supernet_tpu_torch.ops import get_backend, set_backend
 
-    # SUPERNET_PRECISION=highest|high|default: "default" lets PyTorch's own
-    # matmuls and convolutions use TF32, the counterpart of the JAX bench's
-    # one-pass bf16 MXU default; the kernels compute at float32 accuracy
-    # whatever it says. SUPERNET_ACT_DTYPE: bf16 by default, the production
-    # mode the JAX bench measures (bench.py:316).
+    # SUPERNET_PRECISION=highest|high|default: "default", the JAX bench's
+    # one-pass bf16 MXU default, runs kernel 1 in one bf16 pass and lets
+    # PyTorch's own matmuls and convolutions use TF32. SUPERNET_ACT_DTYPE:
+    # bf16 by default, the production mode the JAX bench measures
+    # (bench.py:316).
     precision = os.environ.get("SUPERNET_PRECISION", "default")
     act_dtype = os.environ.get("SUPERNET_ACT_DTYPE", "bfloat16")
     backend = os.environ.get("SUPERNET_BACKEND", get_backend())

@@ -75,6 +75,19 @@ __device__ __forceinline__ void store4(bf16* p, float4 v) {
   *reinterpret_cast<uint2*>(p) = r;
 }
 
+// x rounded to the nearest bf16 (ties to even) and back: the operand a
+// tensor core takes in one bf16 pass.
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// Two float32 values rounded to bf16 (ties to even), lo in the low half:
+// a bf16x2 operand register, lower K index first.
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
 // The dtype codes of the C entry points: 0 float32, 1 bfloat16.
 constexpr int kFloat32 = 0;
 constexpr int kBFloat16 = 1;

@@ -13,12 +13,25 @@ and returns ``(mu_out, sig_out, win)``; ``win`` [B,H',W',1] is the backward
 residual. Without the window sum (``w_sigma=None``) a call computes
 ``conv(mu, w_mu)`` and ``conv(sigma, w_mu^2)`` alone: the form in which
 :func:`conv_t_pair` runs the backward's two transposed convolutions. The
-kernels are ``csrc/vdp_conv.cu``: a 3xTF32 implicit GEMM on
-the tensor cores (wgmma), with split-K for the layers whose output tiles
-alone do not fill the card, and a CUDA-core kernel for the other shapes.
-:func:`plan` picks the path, the tile and the number of K slices from the
-shape alone. :func:`vdp_conv` launches the planned kernel for CUDA tensors
-and takes :func:`vdp_conv_plain` only for CPU tensors.
+kernels are ``csrc/vdp_conv.cuh`` (built from ``vdp_conv.cu`` and
+``vdp_conv_bf16.cu``): an implicit GEMM on the tensor cores (wgmma), with
+split-K for the layers whose output tiles alone do not fill the card, and a
+CUDA-core kernel for the other shapes. :func:`plan` picks the path, the tile
+and the number of K slices from the shape and the precision.
+:func:`vdp_conv` launches the planned kernel for CUDA tensors and takes
+:func:`vdp_conv_plain` only for CPU tensors.
+
+Precision (``precision``, the global ``SUPERNET_PRECISION`` that
+``ops.moments`` passes in), as the Pallas kernel takes it into its two MXU
+dots (``supernet_tpu/ops/pallas/vdp_conv.py:108-121``): ``"highest"`` and
+``"high"`` compute at float32 accuracy (3xTF32 on the tensor cores: Mosaic
+rounds "high" up to "highest"); ``"default"`` is one bf16 pass, each
+product's operands (``mu``, ``sigma``, ``w_mu`` and ``w_mu^2``, squared in
+float32 first) rounded to bf16 to nearest even and the sums in float32. The
+window sum is no product: it is taken from the unrounded moments under every
+setting. The transposed pair rounds ``g1``, ``g2`` and the flipped weights
+alike. The plain versions round where the kernel does, so the port on the
+CPU under ``"default"`` computes the TPU's arithmetic.
 :class:`VDPConv` is the differentiable form: its backward is the JAX
 package's hand-derived VJP (``_bwd_common``), with the window-sum term
 through the sigma-chain kernel (``ops/kernels/sigma_bwd.py``), both
@@ -68,30 +81,39 @@ from supernet_tpu_torch.ops.kernels.sigma_bwd import winsum_spread_bwd
 # show that a path went through the kernels. `launches` counts calls of the
 # op (one main kernel each), `reduce_launches` the split-K reduce kernel;
 # `dgrad_launches` and `dgrad_reduce_launches` the same for the calls
-# without the window sum (the backward's transposed convolutions).
+# without the window sum (the backward's transposed convolutions);
+# `bf16_launches` the calls of either form made in one bf16 pass
+# (precision "default").
 launches = 0
 reduce_launches = 0
 dgrad_launches = 0
 dgrad_reduce_launches = 0
+bf16_launches = 0
 
 # The planner's constants: the SM count of the shape-only plan (H100 SXM;
 # a launch plans with its own card's count, ``_lib.sm_count``), the
 # tensor-core kernel's output pixels per block (wgmma's M) and input
-# channels per K step, the caps on the number of K slices and on their
-# scratch, and the grid's z extent (members x K slices, members x images).
+# channels per K step (8 in 3xTF32, 16 in one bf16 pass), the caps on the
+# number of K slices and on their scratch, and the grid's z extent (members
+# x K slices, members x images).
 SMS = 132
 TC_TILE_M = 64
 TC_CHUNK = 8
+TC_CHUNK_BF16 = 16
 MAX_SPLITS = 16
 MAX_SCRATCH_BYTES = 64 << 20
 MAX_GRID_Z = 65535
 _PATH_ID = {"simt": 0, "wgmma": 1}
+PRECISIONS = ("highest", "high", "default")
 
 
 class Plan(NamedTuple):
     """How one vdp_conv call runs: ``path`` "wgmma" (tensor cores) or
     "simt" (CUDA cores), output pixels x channels per block, K slices, the
-    main launch's blocks (slices included) and the split-K scratch."""
+    main launch's blocks (slices included), the split-K scratch, and
+    ``bf16``: the products in one bf16 pass (precision "default"; the
+    tensor cores' wgmma k16 bf16) or at float32 accuracy (3xTF32 on the
+    tensor cores)."""
 
     path: str
     tile_m: int
@@ -99,40 +121,64 @@ class Plan(NamedTuple):
     splits: int
     blocks: int
     scratch_bytes: int
+    bf16: bool = False
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def _one_pass(precision: str) -> bool:
+    """True where ``precision`` computes the products in one bf16 pass
+    ("default"); "high" and "highest" compute at float32 accuracy. Raises
+    on any other value."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"vdp_conv: unknown precision {precision!r}")
+    return precision == "default"
+
+
+def _rounded(t: Optional[torch.Tensor], bf16: bool) -> Optional[torch.Tensor]:
+    """``t`` rounded to bf16 (to nearest even) and back to its dtype where
+    ``bf16``: a product's operand in one bf16 pass; else ``t``."""
+    if t is None or not bf16:
+        return t
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
 @functools.lru_cache(maxsize=None)
 def plan(b: int, h: int, w: int, cin: int, cout: int, k: int,
-         members: int = 1, sms: int = SMS) -> Plan:
+         members: int = 1, sms: int = SMS, precision: str = "highest") -> Plan:
     """The kernel plan for ``members`` members of mu [b,h,w,cin] and w_mu
-    [k,k,cin,cout], from the shape alone (no CUDA: the CPU tests call it),
-    for a card of ``sms`` SMs.
+    [k,k,cin,cout] at ``precision``, from the shape alone (no CUDA: the CPU
+    tests call it), for a card of ``sms`` SMs.
 
-    The tensor-core path takes k = 3 with Cin % 8 == 0 (its K steps are 8
-    channels of one tap), Cout % 8 == 0 (whole 8-column groups of the N
-    tile: the 1- and 4-channel input gradient of conv_input takes the CUDA
-    cores) and step offsets that fit an int (9 Cin Cout and 3 W Cin below 2^31): N = 32
-    for Cout <= 32, else 64, and 64 output pixels (one warpgroup) per block.
-    Its blocks are members x M tiles x N tiles, the M tiles counted per
-    member (M = b H' W'), so that no tile holds pixels of two members;
-    where they are fewer than the SMs, the Cin/8 chunks are cut into the
+    The tensor-core path takes k = 3 with Cin a multiple of its K step's
+    channels (8 of one tap in 3xTF32 under "highest" and "high"; 16 in one
+    bf16 pass, ``bf16``, under "default"), Cout % 8 == 0
+    (whole 8-column groups of the N tile: the 1- and 4-channel input
+    gradient of conv_input takes the CUDA cores) and step offsets that fit
+    an int (9 Cin Cout and 3 W Cin below 2^31): N = 32 for Cout <= 32, else
+    64, and 64 output pixels (one warpgroup) per block. Its blocks are
+    members x M tiles x N tiles, the M tiles counted per member (M = b H'
+    W'), so that no tile holds pixels of two members; where they are fewer
+    than the SMs, the Cin chunks (of 8 or 16 channels) are cut into the
     fewest slices S (a divisor of the chunks) that fill one wave, at most
     MAX_SPLITS, within MAX_SCRATCH_BYTES (members x S partials) and with
     members x S within the grid, and a reduce kernel sums them. Everything
     else takes the CUDA-core kernel (CT = 64 output channels per block for
     Cout >= 64, else 32; tiles of 8x8 or 8x16 pixels of one image of one
-    member)."""
+    member); under "default" it rounds each product's operand to bf16 as it
+    reads it, so a Cin that is a multiple of 8 but not of 16 computes the
+    one bf16 pass there."""
+    bf16 = _one_pass(precision)
+    chunk = TC_CHUNK_BF16 if bf16 else TC_CHUNK
     ho, wo = h - k + 1, w - k + 1
     m = b * ho * wo
-    if (k == 3 and cin % TC_CHUNK == 0 and cout % TC_CHUNK == 0
+    if (k == 3 and cin % chunk == 0 and cout % TC_CHUNK == 0
             and 9 * cin * cout < 2 ** 31 and 3 * w * cin < 2 ** 31):
         tile_n = 32 if cout <= 32 else 64
         tiles = members * _cdiv(m, TC_TILE_M) * _cdiv(cout, tile_n)
-        chunks = cin // TC_CHUNK
+        chunks = cin // chunk
 
         def scratch(s: int) -> int:
             return 0 if s == 1 else 4 * members * s * m * (2 * cout + 1)
@@ -146,12 +192,12 @@ def plan(b: int, h: int, w: int, cin: int, cout: int, k: int,
             if tiles * s >= sms:
                 break
         return Plan("wgmma", TC_TILE_M, tile_n, splits, tiles * splits,
-                    scratch(splits))
+                    scratch(splits), bf16)
     ct = 64 if cout >= 64 else 32
     tw = 8 if ct == 64 else 16
     th = 8
     blocks = _cdiv(ho, th) * _cdiv(wo, tw) * _cdiv(cout, ct) * b * members
-    return Plan("simt", th * tw, ct, 1, blocks, 0)
+    return Plan("simt", th * tw, ct, 1, blocks, 0, bf16)
 
 
 def _member(x: torch.Tensor, k: int, members: int) -> torch.Tensor:
@@ -181,13 +227,17 @@ def vdp_conv_plain(
     w_sigma: torch.Tensor,
     fuse_relu: bool = False,
     relu_mask: bool = False,
+    precision: str = "highest",
 ):
     """PyTorch composition of the fused conv (the XLA path of
     ``ops/moments.py:vconv``/``vconv_input``, plus ``win``); with stacked
     weights, member by member, concatenated member-major. bf16 moments are
     converted to float32 first and ``mu_out``, ``sig_out`` rounded back, as
-    the kernel does. With ``relu_mask`` a fourth output: the ReLU's mask
-    ``mu_out > 0`` before the rounding (None without the ReLU)."""
+    the kernel does. Under ``precision="default"`` each product's operands
+    are rounded to bf16 (``w_mu^2`` after squaring), the window sum taken
+    from the unrounded moments, as the kernel's one bf16 pass does. With
+    ``relu_mask`` a fourth output: the ReLU's mask ``mu_out > 0`` before
+    the rounding (None without the ReLU)."""
     # imported here: ops.moments imports this module
     from supernet_tpu_torch.ops.moments import _window_sum
 
@@ -195,19 +245,21 @@ def vdp_conv_plain(
         n = w_mu.shape[0]
         outs = [vdp_conv_plain(_member(mu, i, n),
                                None if sigma is None else _member(sigma, i, n),
-                               w_mu[i], w_sigma[i], fuse_relu, relu_mask)
+                               w_mu[i], w_sigma[i], fuse_relu, relu_mask, precision)
                 for i in range(n)]
         return tuple(None if o[0] is None else torch.cat(o) for o in zip(*outs))
 
+    bf16 = _one_pass(precision)
     out_dtype = mu.dtype
     mu, sigma = _wide(mu), _wide(sigma)
     k = w_mu.shape[0]
-    mu_out = _conv_valid(mu, w_mu)
+    mu_out = _conv_valid(_rounded(mu, bf16), _rounded(w_mu, bf16))
     t = mu * mu if sigma is None else mu * mu + sigma
     win = _window_sum(t, k)
     sig_out = win * F.softplus(w_sigma)
     if sigma is not None:
-        sig_out = sig_out + _conv_valid(sigma, w_mu * w_mu)
+        sig_out = sig_out + _conv_valid(_rounded(sigma, bf16),
+                                        _rounded(w_mu * w_mu, bf16))
     mask = None
     if fuse_relu:
         mask = mu_out > 0
@@ -251,13 +303,16 @@ def _aligned_input(t: torch.Tensor, ms: int) -> torch.Tensor:
     return t.clone()
 
 
-def _launch(mu, sigma, w_mu, w_sigma, fuse_relu, relu_mask=False):
+def _launch(mu, sigma, w_mu, w_sigma, fuse_relu, relu_mask=False,
+            precision="highest"):
     """The kernel on CUDA tensors -> ``(mu_out, sig_out, win, mask)``;
     ``w_sigma=None`` is the form without the window sum (and without the
     ReLU), which returns ``(mu_out, sig_out or None, None, None)`` in
     float32. ``relu_mask`` asks for the ReLU's mask (bool, [K*B,H',W',
-    Cout]). Stacked weights run every member in the same launch."""
+    Cout]). Stacked weights run every member in the same launch; the
+    precision picks the plan and the kernels' arithmetic."""
     global launches, reduce_launches, dgrad_launches, dgrad_reduce_launches
+    global bf16_launches
     with_win = w_sigma is not None
     if w_mu.dim() not in (4, 5):
         raise ValueError(f"vdp_conv: w_mu must be [k,k,Cin,Cout] or "
@@ -293,12 +348,12 @@ def _launch(mu, sigma, w_mu, w_sigma, fuse_relu, relu_mask=False):
                        dtype=torch.float32) if with_win else None)
     mask = (torch.empty(mu_out.shape, device=mu.device, dtype=torch.bool)
             if relu_mask and fuse_relu else None)
+    p = plan(b, h, w, cin, cout, k, members, _lib.sm_count(mu.device), precision)
     if b == 0:
         return mu_out, sig_out, win, mask
-    p = plan(b, h, w, cin, cout, k, members, _lib.sm_count(mu.device))
     sw = F.softplus(w_sigma).contiguous() if with_win else None
     scratch = None
-    if p.path == "wgmma":
+    if p.path != "simt":
         mu, sigma = _aligned_input(mu, x_ms), _aligned_input(sigma, x_ms)
         w_mu, sw = _aligned(w_mu), _aligned(sw)
         if p.splits > 1:
@@ -317,17 +372,19 @@ def _launch(mu, sigma, w_mu, w_sigma, fuse_relu, relu_mask=False):
             mask.data_ptr() if mask is not None else None,
             b, h, w, cin, cout, k, int(fuse_relu), int(with_win),
             _PATH_ID[p.path], p.tile_n, p.splits, members,
-            _lib.dtype_code(mu.dtype), x_ms, k * k * cin * cout, cout,
+            _lib.dtype_code(mu.dtype), int(p.bf16), x_ms, k * k * cin * cout, cout,
             torch.cuda.current_stream(mu.device).cuda_stream,
         )
     _lib.check(err, f"vdp_conv kernel launch ({p.path}, {p.splits} K slices, "
-                    f"{members} member(s){'' if with_win else ', no window sum'})")
+                    f"{members} member(s){'' if with_win else ', no window sum'}, "
+                    f"precision {precision})")
     if with_win:
         launches += 1
         reduce_launches += p.splits > 1
     else:
         dgrad_launches += 1
         dgrad_reduce_launches += p.splits > 1
+    bf16_launches += p.bf16
     return mu_out, sig_out, win, mask
 
 
@@ -338,23 +395,25 @@ def vdp_conv(
     w_sigma: torch.Tensor,
     fuse_relu: bool = False,
     relu_mask: bool = False,
+    precision: str = "highest",
 ):
     """Fused VDP conv (+ optional ReLU) -> ``(mu_out, sig_out, win)``.
     ``sigma=None`` is the deterministic-input form (the first layer).
     ``mu`` and ``sigma`` float32 or bf16: ``mu_out`` and ``sig_out`` come
     out in their dtype, ``win`` in float32. With ``relu_mask`` a fourth
     output: the ReLU's mask, the float32 ``mu_out > 0`` before the
-    rounding (bool; None without the ReLU).
+    rounding (bool; None without the ReLU). ``precision``: see the module
+    docstring ("default" is one bf16 pass).
 
     CUDA tensors go to the kernel (or raise); CPU tensors to
     :func:`vdp_conv_plain`. Any other device raises.
     """
     if mu.is_cuda:
-        out = _launch(mu, sigma, w_mu, w_sigma, fuse_relu, relu_mask)
+        out = _launch(mu, sigma, w_mu, w_sigma, fuse_relu, relu_mask, precision)
         return out if relu_mask else out[:3]
     if mu.device.type != "cpu":
         raise ValueError(f"vdp_conv: unsupported device {mu.device}")
-    return vdp_conv_plain(mu, sigma, w_mu, w_sigma, fuse_relu, relu_mask)
+    return vdp_conv_plain(mu, sigma, w_mu, w_sigma, fuse_relu, relu_mask, precision)
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -383,33 +442,37 @@ def dgrad_operands(g1, g2, w_mu):
     return (F.pad(g1, pad), None if g2 is None else F.pad(g2, pad), w)
 
 
-def _per_member(fn, g1, g2, w_mu):
-    """``fn(g1, g2, w_mu)`` member by member for stacked weights, the
-    results concatenated member-major."""
+def _per_member(fn, g1, g2, w_mu, precision):
+    """``fn(g1, g2, w_mu, precision)`` member by member for stacked weights,
+    the results concatenated member-major."""
     n = w_mu.shape[0]
     outs = [fn(_member(g1, i, n), None if g2 is None else _member(g2, i, n),
-               w_mu[i]) for i in range(n)]
+               w_mu[i], precision) for i in range(n)]
     return (torch.cat([o[0] for o in outs]),
             None if g2 is None else torch.cat([o[1] for o in outs]))
 
 
-def conv_t_pair_plain(g1, g2, w_mu):
+def conv_t_pair_plain(g1, g2, w_mu, precision="highest"):
     """PyTorch composition of the padded, flipped form: ``(convT(g1, w_mu),
     convT(g2, w_mu^2))`` (the second None when ``g2`` is), as the kernel
     computes them without the window sum: bf16 cotangents converted to
-    float32, float32 out."""
+    float32, float32 out; under ``precision="default"`` the cotangents and
+    both weights rounded to bf16 (``w_mu^2`` after squaring)."""
     if _stacked(w_mu):
-        return _per_member(conv_t_pair_plain, g1, g2, w_mu)
+        return _per_member(conv_t_pair_plain, g1, g2, w_mu, precision)
+    bf16 = _one_pass(precision)
     mu, sigma, w = dgrad_operands(_wide(g1), _wide(g2), w_mu)
-    d1 = _conv_valid(mu, w).contiguous()
-    d2 = None if sigma is None else _conv_valid(sigma, w * w).contiguous()
+    d1 = _conv_valid(_rounded(mu, bf16), _rounded(w, bf16)).contiguous()
+    d2 = (None if sigma is None else
+          _conv_valid(_rounded(sigma, bf16), _rounded(w * w, bf16)).contiguous())
     return d1, d2
 
 
-def conv_t_pair(g1, g2, w_mu):
+def conv_t_pair(g1, g2, w_mu, precision="highest"):
     """``(convT(g1, w_mu), convT(g2, w_mu^2))``, ``g2`` may be None: the two
     transposed convolutions of :class:`VDPConv`'s backward. ``g1`` and
-    ``g2`` float32 or bf16 (one dtype); the outputs are float32.
+    ``g2`` float32 or bf16 (one dtype); the outputs are float32. Under
+    ``precision="default"`` one bf16 pass, as :func:`conv_t_pair_plain`.
 
     CUDA tensors: one launch of the kernel without the window sum on
     :func:`dgrad_operands` (or raise), for all members of stacked weights;
@@ -417,14 +480,16 @@ def conv_t_pair(g1, g2, w_mu):
     :func:`_conv_t` in float32, member by member."""
     if g1.is_cuda:
         mu, sigma, w = dgrad_operands(g1, g2, w_mu)
-        d1, d2, _, _ = _launch(mu, sigma, w, None, False)
+        d1, d2, _, _ = _launch(mu, sigma, w, None, False, precision=precision)
         return d1, d2
     if g1.device.type != "cpu":
         raise ValueError(f"vdp_conv: unsupported device {g1.device}")
     if _stacked(w_mu):
-        return _per_member(conv_t_pair, g1, g2, w_mu)
-    g1, g2 = _wide(g1), _wide(g2)
-    return _conv_t(g1, w_mu), None if g2 is None else _conv_t(g2, w_mu * w_mu)
+        return _per_member(conv_t_pair, g1, g2, w_mu, precision)
+    bf16 = _one_pass(precision)
+    g1, g2 = _rounded(_wide(g1), bf16), _rounded(_wide(g2), bf16)
+    d1 = _conv_t(g1, _rounded(w_mu, bf16))
+    return d1, None if g2 is None else _conv_t(g2, _rounded(w_mu * w_mu, bf16))
 
 
 def _filter_grad(x: torch.Tensor, g: torch.Tensor, w_shape) -> torch.Tensor:
@@ -442,8 +507,16 @@ def _filter_grad(x: torch.Tensor, g: torch.Tensor, w_shape) -> torch.Tensor:
 
 class VDPConv(torch.autograd.Function):
     """The fused VDP conv (+ optional ReLU) with its gradient: ``apply(mu,
-    sigma, w_mu, w_sigma, fuse_relu) -> (mu_out, sig_out)``, ``sigma`` None
-    for the deterministic first layer.
+    sigma, w_mu, w_sigma, fuse_relu, precision="highest") -> (mu_out,
+    sig_out)``, ``sigma`` None for the deterministic first layer.
+    ``precision`` (see the module docstring; ``ops.moments`` passes the
+    global one) is kept for the backward, whose transposed pair runs at the
+    forward's precision even if the global changes in between: one bf16
+    pass under "default", as ``_bwd_common``'s convolutions take the
+    precision there. The filter gradients stay cuDNN's (TF32 under
+    "default" and "high", through ``set_mxu_precision``'s flags), and
+    kernel 4 keeps ``u`` in float32: the Pallas ``sigma_bwd`` kernel takes
+    no precision.
 
     Forward: :func:`vdp_conv`. Backward, after
     ``supernet_tpu/ops/pallas/vdp_conv.py:_bwd_common``:
@@ -474,12 +547,14 @@ class VDPConv(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, mu, sigma, w_mu, w_sigma, fuse_relu):
+    def forward(ctx, mu, sigma, w_mu, w_sigma, fuse_relu, precision="highest"):
         keep_mask = (fuse_relu and mu.dtype == torch.bfloat16
                      and any(ctx.needs_input_grad))
-        out = vdp_conv(mu, sigma, w_mu, w_sigma, fuse_relu, relu_mask=keep_mask)
+        out = vdp_conv(mu, sigma, w_mu, w_sigma, fuse_relu, relu_mask=keep_mask,
+                       precision=precision)
         mu_out, sig_out, win = out[:3]
         ctx.fuse_relu = fuse_relu
+        ctx.precision = precision
         ctx.save_for_backward(mu, sigma, w_mu, w_sigma, win,
                               out[3] if keep_mask else mu_out)
         return mu_out, sig_out
@@ -487,7 +562,7 @@ class VDPConv(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g1, g2):
         mu, sigma, w_mu, w_sigma, win, relu_out = ctx.saved_tensors
-        need_mu, need_sigma, need_w, need_ws, _ = ctx.needs_input_grad
+        need_mu, need_sigma, need_w, need_ws = ctx.needs_input_grad[:4]
         if ctx.fuse_relu:
             # the saved mask (bool), or mu_out itself
             mask = relu_out if relu_out.dtype == torch.bool else relu_out > 0
@@ -502,7 +577,7 @@ class VDPConv(torch.autograd.Function):
         g_win = u[..., None]
         d_mu = d_sigma = d_w = d_ws = None
         if need_mu or need_sigma:
-            c1, c2 = conv_t_pair(g1, g2 if need_sigma else None, w_mu)
+            c1, c2 = conv_t_pair(g1, g2 if need_sigma else None, w_mu, ctx.precision)
             # a [K,B,...] input (a shared one too) gets its gradient in its
             # own shape; autograd sums a shared one over the members. 2 mu
             # is exact in bf16, and its product with the float32 u is
@@ -520,4 +595,4 @@ class VDPConv(torch.autograd.Function):
                 d_w = d_w + 2.0 * w_mu * _filter_grad(sigma, g2, w_mu.shape)
         if need_ws:
             d_ws = d_sw * torch.sigmoid(w_sigma)
-        return d_mu, d_sigma, d_w, d_ws, None
+        return d_mu, d_sigma, d_w, d_ws, None, None

@@ -73,20 +73,30 @@ from supernet_tpu_torch.ops.kernels import vdp_conv as _vdp
 Tensor = torch.Tensor
 MomentPair = Tuple[Tensor, Tensor]
 
-# "highest" is true float32 in every matrix product and convolution that
-# PyTorch runs on the card (TF32 off); "high" and "default" allow TF32.
+# The precision of the moment convolutions (supernet_tpu/ops/moments.py:58-
+# 70): "highest" is true float32 in kernel 1 and in every matrix product and
+# convolution that PyTorch runs on the card (TF32 off); "high" keeps kernel 1
+# at float32 accuracy and allows TF32 in PyTorch's own; "default" runs kernel
+# 1 in one bf16 pass and allows TF32 in PyTorch's own.
 _MXU_PRECISION: str = "highest"
 
 
 def set_mxu_precision(precision: str) -> None:
-    """Set the float32 precision of PyTorch's own matmuls and convolutions
-    on the card ('highest' | 'high' | 'default'). 'highest' turns TF32 off
-    for both cuDNN and cuBLAS; the others turn it on. The hand-written
-    kernels compute at float32 accuracy whatever the setting: vdp_conv by
-    3xTF32 on the tensor cores (each operand split into two TF32 halves,
-    three products summed in float32), the others in float32."""
+    """Set the precision of the moment convolutions ('highest' | 'high' |
+    'default'), as the JAX package's global reaches its Pallas conv's dots.
+
+    Kernel 1 (``VDPConv``, forward and transposed pair; each call reads the
+    global once): under 'default' one bf16 pass, each product's operands
+    rounded to bf16 and the sums in float32, as the TPU's MXU computes a
+    DEFAULT dot; under 'high' and 'highest' float32 accuracy, 3xTF32 on the
+    tensor cores (each operand split into two TF32 halves, three products
+    summed in float32), as Mosaic rounds 'high' up to 'highest'. Its plain
+    version on a CPU tensor rounds alike. PyTorch's own matmuls and
+    convolutions on the card (cuDNN's filter gradients among them): 'highest'
+    turns TF32 off for both cuDNN and cuBLAS, the others turn it on. The
+    other hand-written kernels compute in float32 whatever the setting."""
     global _MXU_PRECISION
-    if precision not in ("highest", "default", "high"):
+    if precision not in _vdp.PRECISIONS:
         raise ValueError(f"unknown precision {precision!r}")
     _MXU_PRECISION = precision
     tf32 = precision != "highest"
@@ -286,7 +296,7 @@ _UNMATCHED_ENV = {name: _NO_COUNTERPART for name in ("SUPERNET_POOL", "SUPERNET_
 def apply_env_overrides() -> None:
     """Apply the SUPERNET_* knobs (supernet_tpu/ops/moments.py:359-416):
 
-    SUPERNET_PRECISION=highest|high|default   (PyTorch's own f32 matmuls/convs)
+    SUPERNET_PRECISION=highest|high|default   (kernel 1, PyTorch's f32 matmuls/convs)
     SUPERNET_CONV_FOLD=none|sigma|full        (variance-path fusion mode)
     SUPERNET_ACT_DTYPE=float32|bfloat16       (inter-layer activation dtype)
     SUPERNET_GLUE_FOLD=none|fold              (the decoder glue fold)
@@ -479,14 +489,15 @@ def _im2col2d_dot(patches: Tensor, w_flat: Tensor) -> Tensor:
 
 
 def _kernel_conv(mu, sigma, w_mu, w_sigma, relu: bool) -> MomentPair:
-    """The fused conv (kernel 1 on CUDA tensors): float32 and bf16 moments
-    go to ``VDPConv`` as they are and come back in their dtype; float16
-    moments are upcast at the boundary and the outputs cast back."""
+    """The fused conv (kernel 1 on CUDA tensors) at the global precision:
+    float32 and bf16 moments go to ``VDPConv`` as they are and come back in
+    their dtype; float16 moments are upcast at the boundary and the outputs
+    cast back."""
     dt = mu.dtype
     if dt in _HALF:
         mu = mu.float()
         sigma = None if sigma is None else sigma.float()
-    m, s = _vdp.VDPConv.apply(mu, sigma, w_mu, w_sigma, relu)
+    m, s = _vdp.VDPConv.apply(mu, sigma, w_mu, w_sigma, relu, _MXU_PRECISION)
     return m.to(dt), s.to(dt)
 
 

@@ -43,7 +43,10 @@ forward and backward), or ``sequential``: one ``make_train_step`` step of
 each of K single-model states in turn, the sequential path's work for the
 same K member-steps; ``member_step_ms`` is the step over K.
 ``--act-dtype bfloat16`` runs the train and serve modes in the bf16
-activation mode (``ops.set_act_dtype``). The train and serve modes also
+activation mode (``ops.set_act_dtype``). ``SUPERNET_PRECISION`` sets the
+precision of the train, serve and ensemble modes (``set_mxu_precision``;
+"highest" when unset, "default" for kernel 1 in one bf16 pass as ``cli
+bench`` runs it). The train and serve modes also
 count the dtype-conversion kernels of one step (request) from a trace with
 the operators' input types (:func:`conversion_kernels`). Prints one JSON
 object; ``--out DIR`` also writes it there. Needs a CUDA device: there is no
@@ -71,7 +74,8 @@ from supernet_tpu_torch import train
 from supernet_tpu_torch import xplane as X
 from supernet_tpu_torch.configs import get_config
 from supernet_tpu_torch.models import forward, init_params, layer_names
-from supernet_tpu_torch.ops import get_act_dtype, set_act_dtype, set_mxu_precision
+from supernet_tpu_torch.ops import (get_act_dtype, get_mxu_precision, set_act_dtype,
+                                   set_mxu_precision)
 from supernet_tpu_torch.ops.moments import lowering
 from supernet_tpu_torch.serving import InferenceSession
 
@@ -94,10 +98,11 @@ OTHER = "other (elementwise, reductions, clip norms)"
 _PORT_CATEGORIES = tuple(label for label, _ in CATEGORIES[:4])
 WARMUP, STEPS = 3, 10
 # H100 SXM peaks (NVIDIA's data sheet): device memory bandwidth, the CUDA
-# cores' float32 rate and the tensor cores' dense TF32 rate.
+# cores' float32 rate and the tensor cores' dense TF32 and bf16 rates.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 TF32_FLOPS_PER_S = 495e12
+BF16_FLOPS_PER_S = 989e12
 
 
 @contextlib.contextmanager
@@ -306,7 +311,7 @@ def device_memory_stats() -> Dict[str, Dict[str, int]]:
 def _setup(config: str, seed: int):
     if not torch.cuda.is_available():
         raise RuntimeError("profiling needs a CUDA device; there is no CPU fallback")
-    set_mxu_precision("highest")
+    set_mxu_precision(os.environ.get("SUPERNET_PRECISION") or "highest")
     exp = get_config(config)
     params = init_params(torch.Generator().manual_seed(seed), exp.model, "cpu")
     return exp.model, exp.train, params, np.random.default_rng(seed)
@@ -406,9 +411,10 @@ def vdp_conv_bounds(b, h, w, cin, cout, k, has_sigma, itemsize: int = 4) -> Dict
     out at ``itemsize`` bytes, 2 for bf16, the weights and ``win`` float32)
     over the memory rate, and the multiply-adds of both products as float32
     operations on the CUDA cores or as three TF32 passes on the tensor cores
-    (3xTF32). For bf16 moments also ``bound_2xtf32_ms``: a bf16 value's
-    small TF32 half is exactly 0, so two passes (big x big, big x the
-    weight's small half) compute the same function."""
+    (3xTF32), or as one bf16 pass (``bound_bf16_ms``, the products of
+    precision "default"). For bf16 moments also ``bound_2xtf32_ms``: a bf16
+    value's small TF32 half is exactly 0, so two passes (big x big, big x
+    the weight's small half) compute the same function."""
     ho, wo = h - k + 1, w - k + 1
     n_in = (2 if has_sigma else 1) * b * h * w * cin
     nbytes = (itemsize * (n_in + 2 * b * ho * wo * cout)
@@ -418,7 +424,8 @@ def vdp_conv_bounds(b, h, w, cin, cout, k, has_sigma, itemsize: int = 4) -> Dict
     out = {"bytes": nbytes, "flops": flops, "bytes_ms": bytes_ms,
            "f32_ms": 1e3 * flops / F32_FLOPS_PER_S,
            "bound_ms": max(bytes_ms, 1e3 * flops / F32_FLOPS_PER_S),
-           "bound_3xtf32_ms": max(bytes_ms, 1e3 * 3 * flops / TF32_FLOPS_PER_S)}
+           "bound_3xtf32_ms": max(bytes_ms, 1e3 * 3 * flops / TF32_FLOPS_PER_S),
+           "bound_bf16_ms": max(bytes_ms, 1e3 * flops / BF16_FLOPS_PER_S)}
     if itemsize == 2:
         out["bound_2xtf32_ms"] = max(bytes_ms, 1e3 * 2 * flops / TF32_FLOPS_PER_S)
     return out
@@ -781,10 +788,12 @@ def main(argv=None) -> int:
     with act_dtype(a.act_dtype):
         res = fn(a.config, a.batch)
     res["act_dtype"] = a.act_dtype
+    res["precision"] = precision = get_mxu_precision()
     line = json.dumps(res)
     if a.out:
         os.makedirs(a.out, exist_ok=True)
         tag = ("" if a.act_dtype == "float32" else f"_{a.act_dtype}") + (
+            "" if precision == "highest" else f"_{precision}") + (
             "_remat" if a.remat else "") + (
             f"_k{a.members}_{a.ensemble_mode}" if a.mode == "ensemble" else "")
         with open(os.path.join(a.out, f"profile_{a.mode}_{a.config}_b{a.batch}{tag}.json"), "w") as f:

@@ -154,8 +154,8 @@ def test_calls_per_gradient(name, monkeypatch):
     assert n3 == {"hippocampus": 10, "brats": 18}[name]
     calls = []
     real = V.conv_t_pair
-    monkeypatch.setattr(V, "conv_t_pair", lambda g1, g2, w: calls.append(g2 is None)
-                        or real(g1, g2, w))
+    monkeypatch.setattr(V, "conv_t_pair", lambda g1, g2, w, *a: calls.append(g2 is None)
+                        or real(g1, g2, w, *a))
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.normal(0, 1, (2, cfg.image_size, cfg.image_size,
                                            cfg.in_channels)).astype(np.float32))

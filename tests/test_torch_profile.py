@@ -84,6 +84,12 @@ K1F, K1T = xplane.KERNEL_CLASSES["forward"], xplane.KERNEL_CLASSES["transposed"]
      "vdp_conv"),
     ("void vdp_conv_kernel_wgmma<32, (bool)1, (bool)0, (bool)1, (bool)0>(WgArgs)", "kernel",
      True, K1T, "vdp_conv_dgrad"),
+    # one bf16 pass: the precision flag follows the element type, the
+    # namespace is the kernels' header's
+    ("void supernet::vdp::(anonymous namespace)::tc::vdp_conv_kernel_wgmma<64, true, true, "
+     "false, true, __nv_bfloat16, true>(WgArgs)", "kernel", False, K1F, "vdp_conv"),
+    ("void supernet::vdp::(anonymous namespace)::vdp_conv_kernel<32, false, false, false, "
+     "float, true>(VdpArgs)", "kernel", True, K1T, "vdp_conv_dgrad"),
     ("void vdp_conv_kernel_splitk_reduce<true, true, false>(RedArgs)", "kernel", False, K1F,
      "vdp_conv_reduce"),
     ("void vdp_conv_kernel_splitk_reduce<false, false, true>(RedArgs)", "kernel", True, K1T,

@@ -1,11 +1,12 @@
 """The fused VDP conv's tensor-core path on the CPU: the planner that picks
-the path, tile and K slices for every layer shape of both configs, a numpy
-emulation of TF32 rounding that shows why the path computes in 3xTF32, and
-the path's arithmetic (3xTF32 split products, per-chunk promotion of the mu
-sum, the window sum from the patch fragments) emulated in numpy against the
-JAX package's Pallas kernel in interpret mode. The CUDA kernels themselves
-are held against the plain version, and against float64, on the card by
-chip_smoke.py."""
+the path, tile and K slices for every layer shape of both configs (at
+float32 accuracy and in one bf16 pass), a numpy emulation of TF32 rounding
+that shows why the path computes in 3xTF32, and the path's arithmetic
+(3xTF32 split products, per-chunk promotion of the mu sum, the window sum
+from the patch fragments; under "default" exact bf16 products folded per
+chunk of 16 channels) emulated in numpy against the JAX package's Pallas
+kernel in interpret mode. The CUDA kernels themselves are held against the
+plain version, and against float64, on the card by chip_smoke.py."""
 
 import functools
 
@@ -83,6 +84,53 @@ def test_plan_every_layer(config, layer):
         assert p.scratch_bytes <= vdp_conv.MAX_SCRATCH_BYTES
     else:
         assert p.scratch_bytes == 0
+
+
+@pytest.mark.parametrize("config,layer", LAYERS)
+def test_plan_default_every_layer(config, layer):
+    """Under "default" every k=3 layer but conv_input (Cin 1 or 4) and every
+    transposed shape but conv_input's input gradient (Cout 1 or 4) takes the
+    one-bf16-pass tensor-core path: every Cin and Cout of both models past
+    the first layer is a multiple of 16. Its K slices divide the Cin/16
+    chunks and fill one wave as the 3xTF32 plan's do; "high" plans as
+    "highest"."""
+    h, w, cin, cout = _conv_inputs(config)[layer]
+    b = BATCH[config]
+    for shape in ((b, h, w, cin, cout), (b, h + 2, w + 2, cout, cin)):  # forward, transposed
+        p = vdp_conv.plan(*shape, 3, precision="default")
+        hi = vdp_conv.plan(*shape, 3)
+        assert vdp_conv.plan(*shape, 3, precision="high") == hi
+        if layer == "conv_input":  # Cin (forward) or Cout (transposed) 1 or 4
+            assert p.path == "simt" and p.bf16 and p == hi._replace(bf16=True)
+            continue
+        pb, ph, pw, pc, po = shape
+        assert pc % vdp_conv.TC_CHUNK_BF16 == 0
+        assert (p.path, p.tile_m, p.tile_n, p.bf16) == ("wgmma", hi.tile_m, hi.tile_n, True)
+        assert not hi.bf16
+        m = pb * (ph - 2) * (pw - 2)
+        tiles = -(-m // p.tile_m) * -(-po // p.tile_n)
+        chunks = pc // vdp_conv.TC_CHUNK_BF16
+        assert chunks % p.splits == 0 and p.blocks == tiles * p.splits
+        cap = max(s for s in range(1, min(chunks, vdp_conv.MAX_SPLITS) + 1)
+                  if chunks % s == 0
+                  and 4 * s * m * (2 * po + 1) <= vdp_conv.MAX_SCRATCH_BYTES)
+        assert p.blocks >= vdp_conv.SMS or p.splits == cap
+        if p.splits > 1:
+            assert tiles * max(s for s in range(1, p.splits) if chunks % s == 0) < vdp_conv.SMS
+            assert p.scratch_bytes == 4 * p.splits * m * (2 * po + 1)
+
+
+def _route(p):
+    """A plan's path and whether it runs one bf16 pass."""
+    return p.path, p.bf16
+
+
+def test_plan_default_cin_not_a_multiple_of_16_takes_the_cuda_cores():
+    """Cin = 24 is a multiple of 8 (3xTF32 on the tensor cores) but not of 16:
+    under "default" the CUDA-core kernel rounds its operands instead."""
+    assert _route(vdp_conv.plan(2, 12, 12, 24, 32, 3)) == ("wgmma", False)
+    assert _route(vdp_conv.plan(2, 12, 12, 24, 32, 3, precision="default")) == ("simt", True)
+    assert _route(vdp_conv.plan(2, 12, 12, 32, 32, 3, precision="default")) == ("wgmma", True)
 
 
 MEMBERS = {"hippocampus": 4, "brats": 2}  # the ensembles chip_smoke.py drives
@@ -285,6 +333,101 @@ def test_emulated_wgmma_path_matches_pallas_interpret(cin, cout, fuse_relu):
     plain = vdp_conv.vdp_conv_plain(*(torch.from_numpy(a) for a in
                                       (mu, sigma, w_mu, w_sigma)), fuse_relu)
     assert np.abs(got[2] - plain[2].numpy()).max() <= F64_TOL * float(plain[2].abs().max())
+
+
+# ------------------------------------------------ the one-bf16-pass path
+
+
+def _bf16(x):
+    """float32 rounded to the nearest bf16, ties to even, as the kernel's
+    cvt.rn.bf16x2.f32 rounds (finite values)."""
+    u = np.asarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    u = (u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000
+    return u.astype(np.uint32).view(np.float32)
+
+
+def test_bf16_rounding_is_torchs():
+    rng = np.random.default_rng(1)
+    x = np.concatenate([rng.normal(0, 1, 10000).astype(np.float32) * np.float32(1e3),
+                        np.array([1.0 + 2.0 ** -8, 1.0 + 3 * 2.0 ** -8, -0.0, 0.0],
+                                 np.float32)])
+    want = torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+    np.testing.assert_array_equal(_bf16(x), want)
+    assert _bf16(np.float32(1.0 + 2.0 ** -8)) == 1.0  # a tie goes to even
+
+
+def _emulate_wgmma_bf16_path(mu, sigma, w_mu, w_sigma, fuse_relu):
+    """The one-bf16-pass kernel's arithmetic in numpy: im2col patches with K
+    ordered (chunk of 16 channels, tap, channel), the products of bf16
+    operands (w^2 squared in float32, then rounded) exact in float64 and
+    summed in float32 per chunk (the mu product restarted every chunk and
+    folded into a float32 total, the sigma product throughout), the window
+    sum over the unrounded patches."""
+    b, h, w, cin = mu.shape
+    cout = w_mu.shape[3]
+    ho, wo = h - 2, w - 2
+    c = vdp_conv.TC_CHUNK_BF16
+
+    def patches(x):
+        cols = [x[:, dy:dy + ho, dx:dx + wo, c0:c0 + c]
+                for c0 in range(0, cin, c) for dy in range(3) for dx in range(3)]
+        return np.concatenate(cols, axis=-1).reshape(b * ho * wo, 9 * cin)
+
+    wk = np.concatenate([w_mu[dy, dx, c0:c0 + c]
+                         for c0 in range(0, cin, c)
+                         for dy in range(3) for dx in range(3)])
+    pm, ps = patches(mu), patches(sigma)
+    am, asg = _bf16(pm).astype(np.float64), _bf16(ps).astype(np.float64)
+    bw, bq = _bf16(wk).astype(np.float64), _bf16(wk * wk).astype(np.float64)
+    mu_out = np.zeros((b * ho * wo, cout), np.float32)
+    s2 = np.zeros((b * ho * wo, cout), np.float32)
+    for k0 in range(0, 9 * cin, 9 * c):
+        sl = slice(k0, k0 + 9 * c)
+        mu_out += (am[:, sl] @ bw[sl]).astype(np.float32)
+        s2 += (asg[:, sl] @ bq[sl]).astype(np.float32)
+    win = (pm * pm + ps).sum(-1, keepdims=True, dtype=np.float32)
+    sw = np.log1p(np.exp(w_sigma)).astype(np.float32)
+    sig_out = win * sw + s2
+    if fuse_relu:
+        mask = mu_out > 0
+        mu_out, sig_out = np.where(mask, mu_out, 0), np.where(mask, sig_out, 0)
+    shape = (b, ho, wo)
+    return (mu_out.reshape(*shape, cout), sig_out.reshape(*shape, cout),
+            win.reshape(*shape, 1))
+
+
+@pytest.mark.parametrize("cin,cout,fuse_relu", [(16, 32, True), (32, 64, False)])
+def test_emulated_wgmma_bf16_path_matches_pallas_on_rounded_operands(cin, cout, fuse_relu):
+    """The one-pass emulation against the JAX package's conv on
+    bf16-rounded operands with the Pallas kernel's unrounded window sum (as
+    tests/test_torch_precision.py holds the plain version), and against the
+    plain version under "default", within F64_TOL of the max."""
+    from supernet_tpu.ops.pallas.vdp_conv import _conv, _pallas_forward
+
+    rng = np.random.default_rng(cin + 1)
+    mu = rng.normal(0, 1, (2, 11, 10, cin)).astype(np.float32)
+    sigma = np.abs(rng.normal(0, 1, (2, 11, 10, cin))).astype(np.float32)
+    w_mu = (0.3 * rng.normal(0, 1, (3, 3, cin, cout))).astype(np.float32)
+    w_sigma = (rng.normal(0, 1, cout) - 5.0).astype(np.float32)
+    assert _route(vdp_conv.plan(2, 11, 10, cin, cout, 3, precision="default")) == ("wgmma", True)
+    got = _emulate_wgmma_bf16_path(mu, sigma, w_mu, w_sigma, fuse_relu)
+    jm, js, jw, jws = (jnp.asarray(a) for a in (mu, sigma, w_mu, w_sigma))
+    _, _, win = _pallas_forward(jm, js, jw, jws, fuse_relu=False, precision="highest",
+                                interpret=True)
+    want_mu = np.asarray(_conv(jnp.asarray(_bf16(mu)), jnp.asarray(_bf16(w_mu)),
+                               "VALID", "highest"))
+    want_sig = np.asarray(win * jnp.log1p(jnp.exp(jws)) + _conv(
+        jnp.asarray(_bf16(sigma)), jnp.asarray(_bf16(w_mu * w_mu)), "VALID", "highest"))
+    if fuse_relu:
+        mask = want_mu > 0
+        want_mu, want_sig = np.where(mask, want_mu, 0), np.where(mask, want_sig, 0)
+    for g, r in zip(got, (want_mu, want_sig, np.asarray(win))):
+        assert np.abs(g - r).max() <= F64_TOL * np.abs(r).max()
+    plain = vdp_conv.vdp_conv_plain(*(torch.from_numpy(a) for a in
+                                      (mu, sigma, w_mu, w_sigma)), fuse_relu,
+                                    precision="default")
+    for g, p in zip(got, plain):
+        assert np.abs(g - p.numpy()).max() <= F64_TOL * float(p.abs().max())
 
 
 def test_cpu_tensors_never_count_a_launch():
