@@ -1,0 +1,16 @@
+"""The median time of ``InferenceSession.predict`` per request in the window
+(the session's own service time, without the queue's wait), by the host's
+clock around each call."""
+
+import statistics
+
+LAYER = "session"
+UNIT = "ms"
+SOURCE = "host_clock"
+MOVES = "serve_samples_per_s"
+
+
+def read(ctx):
+    if ctx.kind != "serve" or not ctx.predict_s:
+        return None
+    return 1e3 * statistics.median(ctx.predict_s)
