@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from supernet_tpu_torch import tracing
 from supernet_tpu_torch.configs import ModelConfig
 from supernet_tpu_torch.ops import (
     crop_center,
@@ -145,7 +146,7 @@ def forward(
 
     ``tap(stage_name, shape)``, when given, is called with every
     intermediate's shape, under the JAX forward's stage names. Each conv
-    runs under ``torch.profiler.record_function(layer_name)``.
+    runs under ``tracing.span(layer_name)``.
 
     ``constrain(m, s) -> (m, s)``, when given, is applied to the moment pair
     after ``conv1``, after every encoder block, every pool and every decoder
@@ -176,7 +177,7 @@ def forward(
 
     def layer(fn, name: str, *moments):
         p = params[name]
-        with torch.profiler.record_function(name):
+        with tracing.span(name):
             m, s = fn(*moments, p["w_mu"], p["w_sigma"])
         _tap(name, m)
         return m, s

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from supernet_tpu_torch import tracing
 from supernet_tpu_torch.configs import ModelConfig
 from supernet_tpu_torch.models.unet import _block_helpers, _identity, _tight_layers
 from supernet_tpu_torch.ops import moments3d as M3
@@ -130,7 +131,7 @@ def forward3d(
 
     ``tap(stage_name, shape)`` is called with every stage's shape under the
     JAX forward's stage names; each conv runs under
-    ``torch.profiler.record_function(layer_name)``. ``constrain(m, s)`` is
+    ``tracing.span(layer_name)``. ``constrain(m, s)`` is
     applied to the moment pair after ``conv1``, every encoder block, every
     pool and every decoder block, as in ``supernet_tpu/models/unet3d.py``.
     With ``cfg.remat`` and gradients enabled every encoder block after the
@@ -166,7 +167,7 @@ def forward3d(
 
     def layer(fn, name: str, *moments):
         p = params[name]
-        with torch.profiler.record_function(name):
+        with tracing.span(name):
             if p["w_mu"].dim() == 6:
                 m, s = _per_member(fn, moments, p["w_mu"], p["w_sigma"])
             else:

@@ -73,6 +73,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from supernet_tpu_torch import tracing
 from supernet_tpu_torch.ops.kernels import _lib
 from supernet_tpu_torch.ops.kernels._lib import aligned as _aligned, wide as _wide
 from supernet_tpu_torch.ops.kernels.sigma_bwd import winsum_spread_bwd
@@ -83,7 +84,8 @@ from supernet_tpu_torch.ops.kernels.sigma_bwd import winsum_spread_bwd
 # `dgrad_launches` and `dgrad_reduce_launches` the same for the calls
 # without the window sum (the backward's transposed convolutions);
 # `bf16_launches` the calls of either form made in one bf16 pass
-# (precision "default").
+# (precision "default"). Beside them, ``tracing.count`` counts each call's
+# plan path: ``kernel1.path.<simt|wgmma>``.
 launches = 0
 reduce_launches = 0
 dgrad_launches = 0
@@ -104,6 +106,7 @@ MAX_SPLITS = 16
 MAX_SCRATCH_BYTES = 64 << 20
 MAX_GRID_Z = 65535
 _PATH_ID = {"simt": 0, "wgmma": 1}
+_PATH_COUNTER = {path: f"kernel1.path.{path}" for path in _PATH_ID}
 PRECISIONS = ("highest", "high", "default")
 
 
@@ -385,6 +388,7 @@ def _launch(mu, sigma, w_mu, w_sigma, fuse_relu, relu_mask=False,
         dgrad_launches += 1
         dgrad_reduce_launches += p.splits > 1
     bf16_launches += p.bf16
+    tracing.count(_PATH_COUNTER[p.path])
     return mu_out, sig_out, win, mask
 
 

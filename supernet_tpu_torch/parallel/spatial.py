@@ -49,7 +49,7 @@ import torch
 import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
-from supernet_tpu_torch import losses
+from supernet_tpu_torch import losses, tracing
 from supernet_tpu_torch.configs import ModelConfig, TrainConfig
 from supernet_tpu_torch.parallel._comm import (
     Axis,
@@ -373,12 +373,12 @@ class _RowNet:
 
         def layer(rows, op, name):
             p = params[name]
-            with torch.profiler.record_function(name):
+            with tracing.span(name):
                 return self.conv(rows, op, p["w_mu"], p["w_sigma"])
 
         def glue(rows, pad, name, skip=None):
             p = params[name]
-            with torch.profiler.record_function(name):
+            with tracing.span(name):
                 return self.glue(rows, pad, fill, p["w_mu"], p["w_sigma"], skip)
 
         def block(fn, *args):
@@ -397,7 +397,7 @@ class _RowNet:
 
         def decoder_block(j, rows, skip):
             p = params[f"up{j}_conv2x2"]
-            with torch.profiler.record_function(f"up{j}_conv2x2"):
+            with tracing.span(f"up{j}_conv2x2"):
                 rows = self.unpool(rows, p["w_mu"], p["w_sigma"])
             if fold:
                 rows = glue(rows, (3, 3), f"up{j}_conv1", skip)

@@ -259,10 +259,10 @@ def _busy_us(events) -> float:
 
 
 class StepTimer:
-    """Rolling throughput meter of the epoch trainer: ``tick()`` marks a
-    step boundary, ``rate(window)`` is steps/sec over the last ``window``
-    steps. Kernels are queued asynchronously: call ``sync`` before reading
-    a rate in code that has not already fetched a value of the step."""
+    """Step boundaries of the epoch trainer: ``tick()`` marks one, and
+    ``total_seconds()`` is the time from the first to the last. Kernels are
+    queued asynchronously: call ``sync`` before a tick in code that has not
+    already fetched a value of the step."""
 
     def __init__(self) -> None:
         self.times: List[float] = []
@@ -279,12 +279,6 @@ class StepTimer:
         if x is None or getattr(x, "is_cuda", False):
             if torch.cuda.is_available():
                 torch.cuda.synchronize()
-
-    def rate(self, window: int = 50) -> float:
-        t = self.times[-window:]
-        if len(t) < 2:
-            return 0.0
-        return (len(t) - 1) / (t[-1] - t[0])
 
     def total_seconds(self) -> float:
         if len(self.times) < 2:
@@ -332,10 +326,8 @@ def _profile(run, per: str, steps: int = STEPS) -> Dict:
     step_s = statistics.median(times)
     peak = torch.cuda.max_memory_allocated()
     with recording(warmup=run) as prof:
-        t0 = time.perf_counter()
         for _ in range(steps):
             run()
-        traced_s = time.perf_counter() - t0
     events = _device_events(prof)
     if not events:
         raise RuntimeError("torch.profiler recorded no device events")
@@ -356,7 +348,6 @@ def _profile(run, per: str, steps: int = STEPS) -> Dict:
     return {
         "device": torch.cuda.get_device_name(0), "steps": steps,
         f"{per}_ms_median": 1e3 * step_s,
-        f"traced_{per}_ms": 1e3 * traced_s / steps,
         f"device_ms_per_{per}": sum(by_cat.values()) / 1e3 / steps,
         f"device_events_per_{per}": len(events) / steps,
         f"device_busy_ms_per_{per}": busy_ms,

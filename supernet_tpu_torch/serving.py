@@ -39,6 +39,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from supernet_tpu_torch import tracing
 from supernet_tpu_torch.checkpoint import params_from_jax, save_params_npz
 from supernet_tpu_torch.configs import ModelConfig
 from supernet_tpu_torch.models import forward, forward3d, forward_images
@@ -150,6 +151,7 @@ class InferenceSession:
         on a CUDA session, allocated once and grown when a request is
         larger than any before it."""
         if self._host is None or len(self._host[0]) < n:
+            tracing.count("session.buffer_grows")
             pin = self.device.type == "cuda"
             self._host = (
                 torch.empty((n,) + self._in_shape(), pin_memory=pin),
@@ -183,26 +185,45 @@ class InferenceSession:
 
     def predict(self, x) -> Tuple[np.ndarray, np.ndarray]:
         """[N, H, W, C] -> (probs, sigma), each [N, out, out, n_classes]
-        ([N, D, H, W, C] -> [N, out, out, out, n_classes] volumetric)."""
-        x = np.asarray(x, np.float32)
-        n, bs = len(x), self.batch_size
-        shape = (n,) + self._out_shape()
-        if n == 0:
-            return np.zeros(shape, np.float32), np.zeros(shape, np.float32)
-        padded = -(-n // bs) * bs
-        with self._lock, torch.inference_mode():
-            xh, probs, sigma = self._buffers(padded)
-            images = xh.numpy()
-            images[:n] = x
-            images[n:padded] = x[-1]  # the tail chunk repeats the last image
-            for i in range(0, n, bs):
-                b = min(bs, n - i)
-                p, s = self._forward(xh[i : i + bs].to(self.device, non_blocking=True))
-                probs[i : i + b].copy_(p[:b], non_blocking=True)
-                sigma[i : i + b].copy_(s[:b], non_blocking=True)
-            if self.device.type == "cuda":
-                torch.cuda.current_stream(self.device).synchronize()
-            return probs[:n].numpy().copy(), sigma[:n].numpy().copy()
+        ([N, D, H, W, C] -> [N, out, out, out, n_classes] volumetric).
+
+        Spans (``tracing``): ``session.predict`` around the request, and in
+        it ``session.stage_in`` (twice: the request made float32, then, under
+        the session's lock, copied into the pinned buffer and the tail
+        padded), ``session.dispatch`` (every chunk's copy in, forward and
+        copies out enqueued), ``session.wait`` (the one synchronisation) and
+        ``session.stage_out`` (the answers copied out of the pinned buffers).
+        Counters: ``session.requests``, ``session.slices`` (the request's),
+        ``session.slices_computed`` (padded to whole chunks) and
+        ``session.buffer_grows``."""
+        with tracing.span("session.predict"):
+            with tracing.span("session.stage_in"):
+                x = np.asarray(x, np.float32)
+            n, bs = len(x), self.batch_size
+            padded = -(-n // bs) * bs
+            tracing.count("session.requests")
+            tracing.count("session.slices", n)
+            tracing.count("session.slices_computed", padded)
+            if n == 0:
+                shape = (n,) + self._out_shape()
+                return np.zeros(shape, np.float32), np.zeros(shape, np.float32)
+            with self._lock, torch.inference_mode():
+                with tracing.span("session.stage_in"):
+                    xh, probs, sigma = self._buffers(padded)
+                    images = xh.numpy()
+                    images[:n] = x
+                    images[n:padded] = x[-1]  # the tail chunk repeats the last image
+                with tracing.span("session.dispatch"):
+                    for i in range(0, n, bs):
+                        b = min(bs, n - i)
+                        p, s = self._forward(xh[i : i + bs].to(self.device, non_blocking=True))
+                        probs[i : i + b].copy_(p[:b], non_blocking=True)
+                        sigma[i : i + b].copy_(s[:b], non_blocking=True)
+                with tracing.span("session.wait"):
+                    if self.device.type == "cuda":
+                        torch.cuda.current_stream(self.device).synchronize()
+                with tracing.span("session.stage_out"):
+                    return probs[:n].numpy().copy(), sigma[:n].numpy().copy()
 
     def predict_image(
         self,

@@ -43,6 +43,7 @@ from typing import Iterable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from supernet_tpu_torch import tracing
 from supernet_tpu_torch.attacks import make_fgsm_attack, make_pgd_attack
 from supernet_tpu_torch.checkpoint import Params, params_from_jax
 from supernet_tpu_torch.configs import AttackConfig, ModelConfig, TrainConfig
@@ -261,14 +262,24 @@ def _update(state: TrainState, tc: TrainConfig) -> None:
 
 
 def _train_step(state: TrainState, x, y, cfg: ModelConfig, tc: TrainConfig):
-    x, y = _to_device(state.params, x, y)
-    x, y = maybe_augment(state.step, x, y, cfg, tc)
-    y = ensure_one_hot(y, cfg.n_classes)
-    state.opt_state.zero_grad(set_to_none=True)
-    loss, (nll, kl, probs, _) = training_loss(state.params, x, y, cfg, tc)
-    loss.backward()
-    _update(state, tc)
-    pred, acc = _accuracy(probs, y)
+    """One step, under the spans (``tracing``) ``train.step`` and in it
+    ``train.forward`` (the transfer, augmentation, one-hot labels and the
+    loss), ``train.backward``, ``train.update`` (the clip, Adam's step and
+    the cleared gradients), each also timed on the device, and
+    ``train.metrics`` (the accuracy)."""
+    with tracing.span("train.step"):
+        with tracing.span("train.forward", device=True):
+            x, y = _to_device(state.params, x, y)
+            x, y = maybe_augment(state.step, x, y, cfg, tc)
+            y = ensure_one_hot(y, cfg.n_classes)
+            state.opt_state.zero_grad(set_to_none=True)
+            loss, (nll, kl, probs, _) = training_loss(state.params, x, y, cfg, tc)
+        with tracing.span("train.backward", device=True):
+            loss.backward()
+        with tracing.span("train.update", device=True):
+            _update(state, tc)
+        with tracing.span("train.metrics"):
+            pred, acc = _accuracy(probs, y)
     return state, StepMetrics(loss.detach(), nll, kl, acc), pred
 
 

@@ -269,10 +269,10 @@ def test_shape_chain_matches_jax(name):
 
 def test_step_timer_and_memory_stats():
     t = profiling.StepTimer()
-    assert t.rate() == 0.0 and t.total_seconds() == 0.0
+    assert t.total_seconds() == 0.0
     for _ in range(4):
         t.tick()
-    assert t.rate() > 0 and t.total_seconds() >= 0 and len(t.times) == 4
+    assert t.total_seconds() >= 0 and len(t.times) == 4
     t.sync({"a": {"w": torch.zeros(1)}})  # a CPU leaf: nothing to wait for
     t.sync()
     stats = profiling.device_memory_stats()
