@@ -12,11 +12,17 @@ by repeating the request's last row and the padding is sliced off the
 outputs (the scheme of ``supernet_tpu/serving.py:293-315``), so every
 forward runs at one shape. On a CUDA device each forward goes through the
 hand-written kernels (``ops/kernels``); on the CPU through their plain
-versions. A request is enqueued whole: its images go to the card from a
-pinned host buffer, every chunk's outputs are copied into pinned host
-buffers without waiting, and the host waits once, at the end. The pinned
-buffers belong to the session and are reused by the next request (a lock
-keeps two threads from sharing them).
+versions. A request is enqueued whole: its images go to the card from the
+session's pinned input buffer (reused by the next request; a lock keeps two
+threads from sharing it), every chunk's outputs are copied without waiting
+into the rows of the request's own answer (pinned on a CUDA session, from
+PyTorch's caching host allocator), and the host waits once, at the end. The
+answer is handed to the caller in the memory the copies wrote: nothing
+writes it again, and its block goes back to the allocator when the caller
+drops it. While the answers a session has handed out and that are still
+alive hold more than :data:`ANSWER_BUDGET` bytes, a request is copied out of
+the session's own output buffers into fresh arrays instead, so a caller that
+keeps every answer pins no more memory.
 
 A volumetric session answers cubes [N, S, S, S, C] with [N, o, o, o, K]
 moments through ``forward3d`` (cuDNN ``conv3d`` and PyTorch ops on the card;
@@ -32,8 +38,10 @@ exported) and ``export_meta.json``.
 from __future__ import annotations
 
 import json
+import math
 import os
 import threading
+import weakref
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -45,6 +53,34 @@ from supernet_tpu_torch.configs import ModelConfig
 from supernet_tpu_torch.models import forward, forward3d, forward_images
 
 Tensor = torch.Tensor
+
+# the most bytes of the answers a session has handed out in place that may
+# be alive at once (pinned memory on a CUDA session, which cannot be swapped
+# and which the caching host allocator keeps); a request beyond it is copied
+# into fresh arrays
+ANSWER_BUDGET = 2 << 30
+
+
+class _Handed:
+    """The bytes of the answers a session has handed out in place that are
+    still alive: an answer counts from its allocation until its numpy array
+    and every view of it have died, on whichever thread drops the last."""
+
+    def __init__(self):
+        self.live = 0
+        self._lock = threading.Lock()
+
+    def hold(self, t: Tensor) -> np.ndarray:
+        """The numpy view of ``t``, counted until it dies."""
+        a, nbytes = t.numpy(), t.nbytes
+        with self._lock:
+            self.live += nbytes
+        weakref.finalize(a, self._release, nbytes).atexit = False
+        return a
+
+    def _release(self, nbytes: int) -> None:
+        with self._lock:
+            self.live -= nbytes
 
 
 def _make_recalibrate(variance_scale: float, temperature: float):
@@ -136,7 +172,8 @@ class InferenceSession:
         self.device = torch.device(device)
         self._params = params_from_jax(params, self.device)
         self._recalibrate = _make_recalibrate(variance_scale, temperature)
-        self._host = None  # (images, probs, sigma) host buffers of a request
+        self._host = {}  # the session's host buffers by name
+        self._handed = _Handed()
         self._lock = threading.Lock()
         self._mesh = mesh
         self._run = lambda x: _shaped_forward(self._params, x, self.cfg, self.volumetric)
@@ -146,19 +183,29 @@ class InferenceSession:
             parallel.replicate(mesh, self._params)
             self._run = _mesh_run(self, mesh, shard)
 
-    def _buffers(self, n: int):
-        """Host buffers for ``n`` images (a whole number of chunks): pinned
-        on a CUDA session, allocated once and grown when a request is
-        larger than any before it."""
-        if self._host is None or len(self._host[0]) < n:
+    def _buffer(self, name: str, n: int, row: Tuple[int, ...]) -> Tensor:
+        """The session's host buffer ``name`` with room for ``n`` rows of
+        shape ``row``: pinned on a CUDA session, allocated on first use and
+        grown when a request is larger than any before it."""
+        buf = self._host.get(name)
+        if buf is None or len(buf) < n:
             tracing.count("session.buffer_grows")
-            pin = self.device.type == "cuda"
-            self._host = (
-                torch.empty((n,) + self._in_shape(), pin_memory=pin),
-                torch.empty((n,) + self._out_shape(), pin_memory=pin),
-                torch.empty((n,) + self._out_shape(), pin_memory=pin),
-            )
-        return self._host
+            buf = self._host[name] = torch.empty(
+                (n,) + row, pin_memory=self.device.type == "cuda")
+        return buf[:n]
+
+    def _answer(self, n: int):
+        """``(tensors, arrays)``: two float32 tensors of ``n`` rows for
+        ``probs`` and ``sigma`` (pinned on a CUDA session) and their numpy
+        views, counted as handed out; or None when they would take the
+        session's answers alive over :data:`ANSWER_BUDGET`. Called under
+        the session's lock, so only releases run beside the check."""
+        shape = (n,) + self._out_shape()
+        if self._handed.live + 2 * 4 * math.prod(shape) > ANSWER_BUDGET:
+            return None
+        pin = self.device.type == "cuda"
+        tensors = [torch.empty(shape, dtype=torch.float32, pin_memory=pin) for _ in range(2)]
+        return tensors, tuple(self._handed.hold(t) for t in tensors)
 
     def _in_shape(self) -> Tuple[int, ...]:
         s = self.cfg.image_size
@@ -189,13 +236,17 @@ class InferenceSession:
 
         Spans (``tracing``): ``session.predict`` around the request, and in
         it ``session.stage_in`` (twice: the request made float32, then, under
-        the session's lock, copied into the pinned buffer and the tail
-        padded), ``session.dispatch`` (every chunk's copy in, forward and
-        copies out enqueued), ``session.wait`` (the one synchronisation) and
-        ``session.stage_out`` (the answers copied out of the pinned buffers).
+        the session's lock, copied into the pinned input buffer with the tail
+        padded, and the answer's two tensors allocated), ``session.dispatch``
+        (every chunk's copy in, forward and copies out enqueued),
+        ``session.wait`` (the one synchronisation) and ``session.stage_out``
+        (the answers handed over: two numpy views of the memory the copies
+        wrote, or over the budget two copies into fresh arrays). The answers
+        are C-contiguous, writeable float32 arrays that nothing else writes.
         Counters: ``session.requests``, ``session.slices`` (the request's),
-        ``session.slices_computed`` (padded to whole chunks) and
-        ``session.buffer_grows``."""
+        ``session.slices_computed`` (padded to whole chunks),
+        ``session.buffer_grows``, and per non-empty request
+        ``session.answers_in_place`` or ``session.answers_copied``."""
         with tracing.span("session.predict"):
             with tracing.span("session.stage_in"):
                 x = np.asarray(x, np.float32)
@@ -209,10 +260,14 @@ class InferenceSession:
                 return np.zeros(shape, np.float32), np.zeros(shape, np.float32)
             with self._lock, torch.inference_mode():
                 with tracing.span("session.stage_in"):
-                    xh, probs, sigma = self._buffers(padded)
+                    xh = self._buffer("images", padded, self._in_shape())
                     images = xh.numpy()
                     images[:n] = x
                     images[n:padded] = x[-1]  # the tail chunk repeats the last image
+                    answer = self._answer(n)
+                    probs, sigma = answer[0] if answer else (
+                        self._buffer("probs", n, self._out_shape()),
+                        self._buffer("sigma", n, self._out_shape()))
                 with tracing.span("session.dispatch"):
                     for i in range(0, n, bs):
                         b = min(bs, n - i)
@@ -223,7 +278,11 @@ class InferenceSession:
                     if self.device.type == "cuda":
                         torch.cuda.current_stream(self.device).synchronize()
                 with tracing.span("session.stage_out"):
-                    return probs[:n].numpy().copy(), sigma[:n].numpy().copy()
+                    if answer is not None:
+                        tracing.count("session.answers_in_place")
+                        return answer[1]
+                    tracing.count("session.answers_copied")
+                    return probs.numpy().copy(), sigma.numpy().copy()
 
     def predict_image(
         self,

@@ -74,8 +74,8 @@ def test_padding_rows_never_leak(params):
 
 
 def test_request_of_45_equals_chunk_by_chunk(params):
-    """``predict`` enqueues every chunk and copies into preallocated host
-    buffers: a request of 45 images at batch 20 gives the bits of running
+    """``predict`` enqueues every chunk and copies each into its rows of
+    the answer: a request of 45 images at batch 20 gives the bits of running
     the three chunks (the last padded with its final image) one by one."""
     sess = serving.InferenceSession(params, CFG, batch_size=20, device="cpu")
     x = _x(45, seed=5)
@@ -91,6 +91,117 @@ def test_request_of_45_equals_chunk_by_chunk(params):
     for g, w in zip(got, want):
         assert g.shape == (45, 22, 22, 3)
         np.testing.assert_array_equal(g, np.concatenate(w))
+
+
+def _session(kind, params, batch_size=4):
+    if kind == "ensemble":
+        p2 = jinit(jax.random.PRNGKey(4), CFG)
+        return serving.EnsembleSession([params, p2], CFG, batch_size=batch_size, device="cpu")
+    return serving.InferenceSession(params, CFG, batch_size=batch_size, device="cpu")
+
+
+def _in_place_and_copied():
+    from supernet_tpu_torch import tracing
+
+    c = tracing.counters()
+    return c.get("session.answers_in_place", 0), c.get("session.answers_copied", 0)
+
+
+def _assert_bits(got, want):
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("kind", ["single", "ensemble"])
+def test_a_held_answer_keeps_its_bits(params, kind):
+    """An answer is handed over in the memory its copies wrote: three later
+    requests with other images write their own answers, never the held
+    one."""
+    sess = _session(kind, params)
+    held = sess.predict(_x(7, seed=10))
+    bits = [a.copy() for a in held]
+    later = [sess.predict(_x(7, seed=11 + k)) for k in range(3)]
+    _assert_bits(held, bits)
+    for answer in later:
+        assert not any(np.shares_memory(a, h) for a in answer for h in held)
+        assert not np.array_equal(answer[0], held[0])
+
+
+def test_answers_are_the_copy_paths_bits(params, monkeypatch):
+    """A request of 45 at batch 20 answered in place: exactly 45 rows,
+    float32, C-contiguous and writeable, with the bits of the same request
+    copied out of the session's buffers (the path over the budget)."""
+    sess = serving.InferenceSession(params, CFG, batch_size=20, device="cpu")
+    x = _x(45, seed=5)
+    before = _in_place_and_copied()
+    got = sess.predict(x)
+    monkeypatch.setattr(serving, "ANSWER_BUDGET", 0)
+    want = sess.predict(x)
+    after = _in_place_and_copied()
+    assert (after[0] - before[0], after[1] - before[1]) == (1, 1)
+    for g, w in zip(got, want):
+        assert g.shape == (45, 22, 22, 3) and g.dtype == np.float32
+        assert g.flags.c_contiguous and g.flags.writeable
+        np.testing.assert_array_equal(g, w)
+        assert not np.shares_memory(g, w)
+
+
+def test_over_the_budget_answers_are_copied(params, monkeypatch):
+    """Below one answer's bytes every request is copied into fresh arrays
+    (counted, right, unaliased); at one answer's bytes a held answer sends
+    the next request through the copy, and dropping it brings the one after
+    back in place."""
+    sess = serving.InferenceSession(params, CFG, batch_size=4, device="cpu")
+    xs = [_x(5, seed=20 + k) for k in range(3)]
+    want = [tuple(a.copy() for a in sess.predict(x)) for x in xs]
+    pair = sum(a.nbytes for a in want[0])
+    assert sess._handed.live == 0
+    monkeypatch.setattr(serving, "ANSWER_BUDGET", pair - 1)
+    before = _in_place_and_copied()
+    got = [sess.predict(x) for x in xs]
+    after = _in_place_and_copied()
+    assert (after[0] - before[0], after[1] - before[1]) == (0, 3)
+    for g, w in zip(got, want):
+        _assert_bits(g, w)
+    assert not any(np.shares_memory(a, b) for a in got[0] for b in got[1] + got[2])
+
+    monkeypatch.setattr(serving, "ANSWER_BUDGET", pair)
+    held = sess.predict(xs[0])
+    assert sess._handed.live == pair
+    copied = sess.predict(xs[1])
+    assert _in_place_and_copied()[1] - after[1] == 1
+    del held
+    again = sess.predict(xs[2])
+    assert _in_place_and_copied() == (after[0] + 2, after[1] + 1)
+    assert sess._handed.live == pair
+    _assert_bits(copied, want[1])
+    _assert_bits(again, want[2])
+    del again
+    assert sess._handed.live == 0
+
+
+def test_answers_dropped_on_many_threads_are_all_released(params):
+    """The live bytes are updated under a lock: answers dropped on eight
+    threads at a short switch interval leave none counted."""
+    import threading
+
+    sess = serving.InferenceSession(params, CFG, batch_size=4, device="cpu")
+    answers = [sess.predict(_x(2, seed=k)) for k in range(64)]
+    assert sess._handed.live == sum(a.nbytes for ans in answers for a in ans)
+    chunks = [answers[k::8] for k in range(8)]
+    del answers
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=chunk.clear) for chunk in chunks]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(switch)
+    assert not any(t.is_alive() for t in threads)
+    assert sess._handed.live == 0
 
 
 def test_recalibration_matches_jax(params):

@@ -26,7 +26,7 @@ SESSION = ("session.predict", "session.stage_in", "session.dispatch", "session.w
            "session.stage_out")
 STEP = ("train.step", "train.forward", "train.backward", "train.update", "train.metrics")
 COUNTERS = ("session.requests", "session.slices", "session.slices_computed",
-            "session.buffer_grows")
+            "session.buffer_grows", "session.answers_in_place", "session.answers_copied")
 
 
 @pytest.fixture(autouse=True)
@@ -218,13 +218,30 @@ def test_a_request_has_five_session_spans_under_one_root(params):
     assert layers and all(r["parent"] == dispatch["id"] for r in layers)
     assert len([r for r in layers if r["name"] == "conv1"]) == 2  # one per chunk
     after = tracing.counters()
-    delta = {k: after[k] - before.get(k, 0) for k in COUNTERS}
+    delta = {k: after.get(k, 0) - before.get(k, 0) for k in COUNTERS}
     assert delta == {"session.requests": 1, "session.slices": 7,
-                     "session.slices_computed": 8, "session.buffer_grows": 1}
-    session.predict(_x(6))  # the buffers hold it: no growth
+                     "session.slices_computed": 8, "session.buffer_grows": 1,
+                     "session.answers_in_place": 1, "session.answers_copied": 0}
+    session.predict(_x(6))  # the input buffer holds it: no growth
     again = tracing.counters()
     assert again["session.buffer_grows"] == after["session.buffer_grows"]
     assert again["session.slices_computed"] - after["session.slices_computed"] == 8
+
+
+def test_the_answer_counters_add_up_to_the_non_empty_requests(params, monkeypatch):
+    """Every non-empty request is answered in place or, over the budget,
+    copied; the empty request is neither."""
+    session = serving.InferenceSession(params, CFG, batch_size=4, device="cpu")
+    before = tracing.counters()
+    held = [session.predict(_x(5)), session.predict(_x(0))]
+    monkeypatch.setattr(serving, "ANSWER_BUDGET", 0)
+    held += [session.predict(_x(3)), session.predict(_x(0)), session.predict(_x(2))]
+    after = tracing.counters()
+    delta = {k: after.get(k, 0) - before.get(k, 0) for k in COUNTERS}
+    assert delta["session.requests"] == 5
+    assert (delta["session.answers_in_place"], delta["session.answers_copied"]) == (1, 2)
+    assert delta["session.answers_in_place"] + delta["session.answers_copied"] == sum(
+        len(p) > 0 for p, _ in held)
 
 
 def test_a_request_is_made_float32_outside_the_sessions_lock(params):
