@@ -11,6 +11,7 @@
     python -m supernet_tpu_torch.cli train3d --config hippocampus --synthetic 40 --epochs 2
     python -m supernet_tpu_torch.cli eval3d --config hippocampus --checkpoint RUN3D --synthetic 8
     python -m supernet_tpu_torch.cli predict3d --config hippocampus --checkpoint RUN3D --volume V.nii.gz
+    python -m supernet_tpu_torch.cli train3d --config cicek3d --synthetic 10 --epochs 2
     python -m supernet_tpu_torch.cli profile --config hippocampus --batch 20 --by-layer
     python -m supernet_tpu_torch.cli bench
 
@@ -129,9 +130,16 @@ def _member_mesh(n_members: int):
 def _add_common(
     p: argparse.ArgumentParser,
     dp_help: str = "shard the batch over all visible devices",
+    three_d: bool = False,
 ) -> None:
-    p.add_argument("--config", default="hippocampus",
-                   choices=["hippocampus", "brats", "lungs"])
+    """The flags every command takes; a 3-D command's ``--config`` also
+    names the 3-D layer plans' experiments (``cicek3d``)."""
+    names = ["hippocampus", "brats", "lungs"]
+    if three_d:
+        from supernet_tpu_torch.models.unet3d import EXPERIMENTS3D
+
+        names += sorted(EXPERIMENTS3D)
+    p.add_argument("--config", default="hippocampus", choices=names)
     p.add_argument("--data", default=None, help="dataset pickle/pattern")
     p.add_argument("--synthetic", type=int, default=0,
                    help="use N synthetic samples instead of real data")
@@ -217,7 +225,7 @@ def build_parser() -> argparse.ArgumentParser:
         help="train the volumetric VDP U-Net on cubes (NIfTI task dir or "
              "--synthetic); out_size is derived from the geometry",
     )
-    _add_common(t3)
+    _add_common(t3, three_d=True)
     _add_3d_shape(t3)
     _add_augment(t3)
     t3.add_argument("--epochs", type=int, default=None)
@@ -270,7 +278,7 @@ def build_parser() -> argparse.ArgumentParser:
              "on whole volumes (region-masked noise, SNR, per-structure "
              "metrics, center-slice artifacts)",
     )
-    _add_common(e3, dp_help=_DP3D_HELP)
+    _add_common(e3, dp_help=_DP3D_HELP, three_d=True)
     _add_3d_shape(e3)
     e3.add_argument("--val-frac", type=float, default=0.2,
                     help="evaluate only the trailing fraction of the "
@@ -300,7 +308,7 @@ def build_parser() -> argparse.ArgumentParser:
     a3 = sub.add_parser(
         "attack3d", help="FGSM/PGD adversarial evaluation on volumes"
     )
-    _add_common(a3, dp_help=_DP3D_HELP)
+    _add_common(a3, dp_help=_DP3D_HELP, three_d=True)
     _add_3d_shape(a3)
     a3.add_argument("--val-frac", type=float, default=0.2,
                     help="attack only the trailing (held-out) fraction of "
@@ -322,7 +330,7 @@ def build_parser() -> argparse.ArgumentParser:
         help="voxel-wise uncertainty-quality report for the 3-D family "
              "(sparsification/AUSE, ECE + reliability)",
     )
-    _add_common(c3, dp_help=_DP3D_HELP)
+    _add_common(c3, dp_help=_DP3D_HELP, three_d=True)
     _add_3d_shape(c3)
     c3.add_argument("--bins", type=int, default=15)
     c3.add_argument("--val-frac", type=float, default=0.2,
@@ -411,7 +419,7 @@ def build_parser() -> argparse.ArgumentParser:
         help="gradient saliency on volumes (center-slice renders of the "
              "3-D input gradient)",
     )
-    _add_common(sl3, dp_help=_DP3D_HELP)
+    _add_common(sl3, dp_help=_DP3D_HELP, three_d=True)
     _add_3d_shape(sl3)
     sl3.add_argument("--val-frac", type=float, default=0.2,
                      help="render saliency only for the trailing (held-out) "
@@ -431,7 +439,7 @@ def build_parser() -> argparse.ArgumentParser:
              "a comma-separated --checkpoint list serves the deep "
              "ensemble (member disagreement enters the variance map)",
     )
-    _add_common(p3)
+    _add_common(p3, three_d=True)
     _add_3d_shape(p3)
     p3.add_argument("--volume", required=True,
                     help="input volume (.nii / .nii.gz / .npy, [D,H,W] or "

@@ -11,6 +11,10 @@ nothing of the JAX package. Defaults are lifted from the reference drivers:
 - Lungs: scripts absent from the snapshot (`README.md:16-29`); per
   `README.md:18` it follows the same single-channel noise-sweep protocol, so
   it is a config of the generic pipeline (SURVEY.md §7.2 step 7).
+
+Besides them, and outside ``__all__``: ``CICEK3D``, the 3D U-Net of Cicek
+et al. under its own layer plan (``CicekConfig``, read by
+``models/unet3d.py``), the port's one experiment with no JAX twin.
 """
 
 from __future__ import annotations
@@ -206,7 +210,43 @@ LUNGS = ExperimentConfig(
     noise_regions=("O", "B", "all"),
 )
 
-_CONFIGS = {c.name: c for c in (HIPPOCAMPUS, BRATS, LUNGS)}
+
+@dataclass(frozen=True)
+class CicekConfig(ModelConfig):
+    """A ``ModelConfig`` under the layer plan of the 3D U-Net of Cicek et
+    al. (arXiv:1606.06650, Fig. 1), read by every function of
+    ``models/unet3d.py`` and by ``train3d.derive_out_size3d``. At encoder
+    level i the first conv keeps ``base * 2^i`` channels (takes
+    ``in_channels`` at level 0) and the second doubles them; a 2x2x2 pool follows every level but the last.
+    Decoder j: the up-conv (the fused unpool + 2^3 conv) keeps the channel
+    count, the skip is centre-cropped and concatenated after the decoder's
+    channels, and two convs take ``base * 2^(depth-j)`` channels. No decoder
+    pads; the head is the 1x1x1 conv from ``2 * base`` channels. The fields
+    are ``ModelConfig``'s (``bottleneck_pre_pad`` still applies where set)."""
+
+
+# The port's own (not in ``__all__``, no JAX twin): the 3D U-Net of Cicek
+# et al. as a VDP network, at its published widths and depth, with a 132^3
+# tile (the paper's is 132x132x116: the family takes one side). The paper's
+# network is deterministic, so the weight variances are an assumption:
+# SUPER-Net's raw w_sigma ranges moved down by 6 (variances / 403). A VDP
+# conv adds winsum(sum_c mu^2 + sigma) * softplus(w_sigma) to the variance,
+# 27 * C_in * softplus(w_sigma) times its input's per layer: at these
+# widths (C_in up to 768) SUPER-Net's ranges make that 30-2000x per decoder
+# layer and every voxel's sigma 1e7-1e9 at the head, far above the loss's
+# clip (1e3), where the ELBO's data term is a constant. Moved down, the
+# factor stays under about 1 and the head's sigma near the loss's 1e-3.
+# The train block is assumed too (the paper trained with SGD): BraTS's ELBO
+# settings at batch 2.
+CICEK3D = ExperimentConfig(
+    name="cicek3d",
+    model=CicekConfig(in_channels=3, n_classes=3, image_size=132, out_size=44,
+                      base_kernels=32, depth=4, sigma_min=-18.0, sigma_max=-10.6,
+                      tight_sigma_min=-10.6, tight_sigma_max=-8.2),
+    train=TrainConfig(batch_size=2, epochs=100, lr=1e-3, kl_factor=1e-5),
+)
+
+_CONFIGS = {c.name: c for c in (HIPPOCAMPUS, BRATS, LUNGS, CICEK3D)}
 
 
 def get_config(name: str) -> ExperimentConfig:

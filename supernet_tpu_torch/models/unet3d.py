@@ -11,6 +11,12 @@ JAX package's layouts, so a JAX checkpoint maps 1:1
 side; the output cube side follows from the geometry (64 -> 54 at depth 3,
 ``train3d.derive_out_size3d``). The flattened [B, D*H*W, C] outputs feed the
 2-D loss head unchanged.
+
+A second layer plan runs through the same functions: :class:`CicekConfig`,
+the 3D U-Net of Cicek et al. (MICCAI 2016, arXiv:1606.06650, Fig. 1) as a
+VDP network. Its encoder's second conv doubles the channels, its up-convs
+keep them, and it pads nowhere: 132^3 -> 44^3 at depth 4, base 32
+(:data:`CICEK3D`, 18 convs, 19,067,616 ``w_mu`` elements).
 """
 
 from __future__ import annotations
@@ -23,7 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from supernet_tpu_torch import tracing
-from supernet_tpu_torch.configs import ModelConfig
+from supernet_tpu_torch.configs import CICEK3D, CicekConfig, ModelConfig
 from supernet_tpu_torch.models.unet import _block_helpers, _identity, _tight_layers
 from supernet_tpu_torch.ops import moments3d as M3
 from supernet_tpu_torch.ops.moments import _per_member, glue_fold_active, lowering
@@ -43,9 +49,46 @@ Tensor = torch.Tensor
 Params = Dict[str, Dict[str, Tensor]]
 
 
+def is_cicek(cfg: ModelConfig) -> bool:
+    return isinstance(cfg, CicekConfig)
+
+
+# the standard deviation of a unit normal cut at +-2
+_TRUNC2_STD = 0.8796256610342398
+
+# the experiments of the 3-D layer plans, by name (every 3-D command's
+# ``--config`` offers them), and the config class of each plan
+EXPERIMENTS3D = {CICEK3D.name: CICEK3D}
+PLANS3D = {"supernet": ModelConfig, "cicek": CicekConfig}
+
+
+def _cicek_layers(cfg: ModelConfig) -> List[Tuple[str, int, int, int]]:
+    b, depth = cfg.base_kernels, cfg.depth
+    names = [("conv_input", 3, cfg.in_channels, b), ("conv1", 3, b, 2 * b)]
+    for i in range(1, depth):
+        c = b * 2 ** i
+        names += [(f"conv{2 * i}", 3, c, c), (f"conv{2 * i + 1}", 3, c, 2 * c)]
+    ch = b * 2 ** depth
+    for j in range(1, depth):
+        c = b * 2 ** (depth - j)
+        names += [(f"up{j}_conv2x2", 2, ch, ch), (f"up{j}_conv1", 3, ch + c, c),
+                  (f"up{j}_conv2", 3, c, c)]
+        ch = c
+    names.append(("conv_final", 1, ch, cfg.n_classes))
+    return names
+
+
+def _decoder_pads(cfg: ModelConfig):
+    """The pads before a decoder block's two convs: SUPER-Net's (3,3) and
+    (2,2), none under the Cicek plan."""
+    return (None, None) if is_cicek(cfg) else ((3, 3), (2, 2))
+
+
 def layer_names3d(cfg: ModelConfig) -> List[Tuple[str, int, int, int]]:
     """Ordered (name, k, cin, cout) of every conv layer: the 2-D naming
-    scheme with k^3 kernels."""
+    scheme with k^3 kernels, under the config's layer plan."""
+    if is_cicek(cfg):
+        return _cicek_layers(cfg)
     enc = [cfg.base_kernels * (2 ** i) for i in range(cfg.depth)]
     dec = [cfg.base_kernels * (2 ** (cfg.depth - 2 - j))
            for j in range(cfg.depth - 1)]
@@ -75,17 +118,21 @@ def init_params3d(
     the raw w_sigma (the tighter range on the leading decoder 2^3 convs and
     the head). Drawn on the CPU from ``generator``, then moved to
     ``device``; ``torch.Generator`` streams differ from ``jax.random``, so
-    compare with the JAX init by distribution."""
+    compare with the JAX init by distribution.
+
+    Under the Cicek plan w_mu is the U-Net family's He init instead
+    (Ronneberger et al. 2015, section 3: a Gaussian of std sqrt(2 / fan_in)),
+    cut at 2 std and scaled so that std is the drawn weights' own;
+    ``mean_mu`` and ``mean_sigma`` are then unused."""
     params: Params = {}
     tight = _tight_layers(cfg)
     for name, k, cin, cout in layer_names3d(cfg):
         w_mu = torch.empty((k, k, k, cin, cout), dtype=torch.float32)
+        mean, std = cfg.mean_mu, cfg.mean_sigma
+        if is_cicek(cfg):
+            mean, std = 0.0, math.sqrt(2.0 / (k ** 3 * cin)) / _TRUNC2_STD
         nn.init.trunc_normal_(
-            w_mu,
-            mean=cfg.mean_mu,
-            std=cfg.mean_sigma,
-            a=cfg.mean_mu - 2.0 * cfg.mean_sigma,
-            b=cfg.mean_mu + 2.0 * cfg.mean_sigma,
+            w_mu, mean=mean, std=std, a=mean - 2.0 * std, b=mean + 2.0 * std,
             generator=generator,
         )
         lo, hi = (
@@ -149,7 +196,10 @@ def forward3d(
     the config has one) and both convs of every decoder block run as
     ``ops.moments3d.vglue_conv3d_relu`` under their layer names and taps
     (``supernet_tpu/models/unet3d.py:118-175``); the naive backend ignores
-    the fold (``unet3d.py:119``)."""
+    the fold (``unet3d.py:119``). Under the Cicek plan, which pads nowhere,
+    the fold takes each decoder block's first conv with its skip (the
+    crop-concatenation as a split of the kernel) and leaves the second
+    conv as it is."""
     depth = cfg.depth
     fill = cfg.sigma_fill
     glue_fold = glue_fold_active()
@@ -185,16 +235,22 @@ def forward3d(
         m, s = layer(vconv3d_relu, f"conv{2 * i}", m, s)
         return layer(vconv3d_relu, f"conv{2 * i + 1}", m, s)
 
+    pad1, pad2 = _decoder_pads(cfg)
+
     def decoder_block(j, m, s, m_e, s_e) -> Tuple[Tensor, Tensor]:
         m, s = layer(vunpool3d_conv2, f"up{j}_conv2x2", m, s)
         if glue_fold:
-            m, s = layer(folded((3, 3), True), f"up{j}_conv1", m, s, m_e, s_e)
-            return layer(folded((2, 2)), f"up{j}_conv2", m, s)
-        m, s = vpad3d(m, s, (3, 3), fill)
+            m, s = layer(folded(pad1 or (0, 0), True), f"up{j}_conv1", m, s, m_e, s_e)
+            if pad2 is None:
+                return layer(vconv3d_relu, f"up{j}_conv2", m, s)
+            return layer(folded(pad2), f"up{j}_conv2", m, s)
+        if pad1 is not None:
+            m, s = vpad3d(m, s, pad1, fill)
         m, s = vcrop_concat3d(m, s, m_e, s_e)
         _tap(f"up{j}_concat", m)
         m, s = layer(vconv3d_relu, f"up{j}_conv1", m, s)
-        m, s = vpad3d(m, s, (2, 2), fill)
+        if pad2 is not None:
+            m, s = vpad3d(m, s, pad2, fill)
         return layer(vconv3d_relu, f"up{j}_conv2", m, s)
 
     skips: List[Tuple[Tensor, Tensor]] = []
@@ -232,7 +288,7 @@ def forward_sampled3d(
     returns the softmax probabilities [B, out_size^3, n_classes]. Mapped
     over N weight draws it is the Monte-Carlo ensemble whose (mean,
     variance) the propagated moments approximate. The pool is the max over
-    SAME-padded 2x2x2 windows."""
+    SAME-padded 2x2x2 windows. Either layer plan."""
     depth = cfg.depth
 
     def conv(name: str, h: Tensor) -> Tensor:
@@ -261,14 +317,17 @@ def forward_sampled3d(
         if i < depth - 1:
             skips.append(h)
             h = pool(h)
+    pad1, pad2 = _decoder_pads(cfg)
     for j in range(1, depth):
         h = conv(f"up{j}_conv2x2", M3._unpool3d_one(h))
-        h = pad(h, (3, 3))
+        if pad1 is not None:
+            h = pad(h, pad1)
         enc = skips[depth - 1 - j]
         d, hh, w = h.shape[1:4]
         h = torch.cat([h, crop_center3d(enc, d, hh, w)], dim=-1)
         h = conv_relu(f"up{j}_conv1", h)
-        h = pad(h, (2, 2))
+        if pad2 is not None:
+            h = pad(h, pad2)
         h = conv_relu(f"up{j}_conv2", h)
     h = conv("conv_final", h)
     b, c = h.shape[0], h.shape[-1]

@@ -37,7 +37,9 @@ products as one matrix product of the k^3 taps concatenated,
 ``torch.matmul``, as the JAX module's is an XLA einsum), the 2-D module's
 ``winsum``, ``chansum`` and ``sw_scale`` knobs, and the decoder's glue fold
 :func:`vglue_conv3d_relu` (``set_glue_fold``, dispatched by
-``models/unet3d.py``).
+``models/unet3d.py``). The counters ``moments3d.products.conv3d`` and
+``.im2col`` (``tracing.counters``) count the k > 1 moment products each
+lowering ran.
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from supernet_tpu_torch import tracing
 from supernet_tpu_torch.ops.moments import (  # noqa: F401
     _act,
     _axis_pads,
@@ -71,6 +74,9 @@ MomentPair = Tuple[Tensor, Tensor]
 # (cuDNN conv3d) or "im2col" (the k^3 taps concatenated on channels, one
 # matrix product with the packed k^3*C_in contraction).
 _CONV3D_IMPL = "conv"
+# the counter of each lowering's moment products
+_PRODUCT_COUNTERS = {"conv": "moments3d.products.conv3d",
+                     "im2col": "moments3d.products.im2col"}
 
 
 def set_conv3d_impl(mode: str) -> None:
@@ -134,8 +140,11 @@ def _window_sum3d(x: Tensor, k: int, stride: int = 1) -> Tensor:
 
 def _moment_convs(mu: Tensor, sigma: Tensor, w_mu: Tensor, stride: int):
     """``(conv3d(mu, w_mu), conv3d(sigma, w_mu^2))`` of a k > 1 conv,
-    ``sigma`` None for the first conv, lowered per ``set_conv3d_impl``."""
+    ``sigma`` None for the first conv, lowered per ``set_conv3d_impl``.
+    Each product adds 1 to the counter ``moments3d.products.<lowering>``
+    (``conv3d`` or ``im2col``)."""
     w2 = torch.square(_f32(w_mu))
+    tracing.count(_PRODUCT_COUNTERS[_CONV3D_IMPL], 1 if sigma is None else 2)
     if _CONV3D_IMPL == "im2col":
         k, cout = w_mu.shape[0], w_mu.shape[-1]
         mu_out = _im2col_dot(_im2col3d(mu, k, stride), w_mu.reshape(-1, cout))

@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from supernet_tpu_torch import checkpoint as ckpt
-from supernet_tpu_torch import parallel, reports
+from supernet_tpu_torch import parallel, reports, tracing
 from supernet_tpu_torch.configs import ExperimentConfig, ModelConfig, TrainConfig
 from supernet_tpu_torch.losses import elbo_loss, nll_gaussian
 from supernet_tpu_torch.models import forward3d, init_params3d, kl_regularizer3d
@@ -91,24 +91,34 @@ def _train_step3d(state: TrainState, x, y, cfg: ModelConfig, tc: TrainConfig,
     (``index_offset`` for a shard of a larger batch). ``reduce(state)``,
     when given, runs between the backward pass and the update (the
     data-parallel step averages the gradients there). ``kl`` in the metrics
-    is that of the updated parameters, as in the JAX step."""
-    x, y = _to_device(state.params, x, y)
-    if tc.augment is not None:
-        from supernet_tpu_torch.data.augment import _mix, augment_volumes
+    is that of the updated parameters, as in the JAX step.
 
-        with torch.no_grad():
-            x, y = augment_volumes(_mix(tc.seed, state.step), x, y, tc.augment,
-                                   index_offset)
-    y1h = one_hot_flatten(y, cfg.n_classes)
-    state.opt_state.zero_grad(set_to_none=True)
-    loss, nll, probs = _loss3d(state.params, x, y1h, cfg, tc, constrain)
-    loss.backward()
-    if reduce is not None:
-        reduce(state)
-    _update(state, tc)
-    with torch.no_grad():
-        _, acc = _accuracy(probs, y1h)
-        kl = kl_regularizer3d(state.params)
+    The spans (``tracing``) are the 2-D step's (``train._train_step``):
+    ``train.step`` and in it ``train.forward`` (transfer, augmentation,
+    one-hot labels, the loss), ``train.backward`` (with ``reduce``),
+    ``train.update`` (clip, Adam, cleared gradients), each also timed on
+    the device, and ``train.metrics`` (the accuracy and the KL)."""
+    with tracing.span("train.step"):
+        with tracing.span("train.forward", device=True):
+            x, y = _to_device(state.params, x, y)
+            if tc.augment is not None:
+                from supernet_tpu_torch.data.augment import _mix, augment_volumes
+
+                with torch.no_grad():
+                    x, y = augment_volumes(_mix(tc.seed, state.step), x, y, tc.augment,
+                                           index_offset)
+            y1h = one_hot_flatten(y, cfg.n_classes)
+            state.opt_state.zero_grad(set_to_none=True)
+            loss, nll, probs = _loss3d(state.params, x, y1h, cfg, tc, constrain)
+        with tracing.span("train.backward", device=True):
+            loss.backward()
+            if reduce is not None:
+                reduce(state)
+        with tracing.span("train.update", device=True):
+            _update(state, tc)
+        with tracing.span("train.metrics"), torch.no_grad():
+            _, acc = _accuracy(probs, y1h)
+            kl = kl_regularizer3d(state.params)
     return state, StepMetrics(loss.detach(), nll, kl, acc)
 
 

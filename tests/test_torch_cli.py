@@ -78,9 +78,16 @@ def test_parser_has_every_subcommand_of_the_jax_cli():
 def test_parser_options_equal_jax(cmd):
     """Every option string of the original with its type, default, choices
     and arity; ``--device`` (default ``cuda``) is the port's one addition,
-    on every subcommand that takes the common flags and on ``profile``."""
+    on every subcommand that takes the common flags and on ``profile``. The
+    3-D subcommands' ``--config`` also names the port's 3-D layer plans'
+    experiments (``models.unet3d.EXPERIMENTS3D``), after the original's."""
+    from supernet_tpu_torch.models.unet3d import EXPERIMENTS3D
+
     want, got = _options(JSUBS[cmd]), _options(SUBS[cmd])
     device = got.pop("--device", None)
+    if cmd.endswith("3d"):
+        t, default, choices, nargs, required = want["--config"]
+        want["--config"] = (t, default, choices + sorted(EXPERIMENTS3D), nargs, required)
     assert got == want
     if "--config" in want and "--data" in want or cmd in ("profile", "bench"):
         assert device == (None, "cuda", None, None, False)

@@ -304,3 +304,40 @@ def test_the_trace_variable_writes_records_and_counters_at_exit(tmp_path):
     assert inner["parent"] == outer["id"] == inner["root"]
     assert last["counters"]["things"] == 3 and last["counters"]["vdp_conv.launches"] == 0
     assert set(inner) == {"name", "id", "parent", "root", "start_ns", "end_ns", "device_ms"}
+
+
+@pytest.mark.parametrize("impl", ["conv", "im2col"])
+def test_a_3d_step_has_its_phase_spans_and_counts_its_moment_products(impl):
+    """``train3d``'s step under the 2-D step's five spans, and one count
+    per k > 1 moment product of its forward under the lowering that ran it
+    (the Cicek plan at base 4, depth 3: ten 3^3 convs, the first without a
+    variance product)."""
+    from supernet_tpu_torch import train3d
+    from supernet_tpu_torch.models import unet3d
+    from supernet_tpu_torch.ops import moments3d
+
+    cfg = dataclasses.replace(unet3d.CICEK3D.model, image_size=44, out_size=4,
+                              base_kernels=4, depth=3)
+    params = unet3d.init_params3d(torch.Generator().manual_seed(2), cfg, "cpu")
+    state, _ = train.create_train_state(params, unet3d.CICEK3D.train, "cpu")
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.normal(0, 1, (1, 44, 44, 44, 3)).astype(np.float32))
+    y = torch.from_numpy(rng.integers(0, 3, (1, 4, 4, 4)).astype(np.int32))
+    step = train3d.make_train_step3d(cfg, unet3d.CICEK3D.train)
+    moments3d.set_conv3d_impl(impl)
+    try:
+        tracing.enable()
+        step(state, x, y)
+    finally:
+        moments3d.set_conv3d_impl("conv")
+    recs = tracing.records()
+    (root,) = [r for r in recs if r["name"] == "train.step"]
+    phases = sorted((r for r in recs if r["parent"] == root["id"]), key=lambda r: r["start_ns"])
+    assert tuple(r["name"] for r in phases) == STEP[1:]
+    assert {r["parent"] for r in recs if r["name"].startswith("up")} == {phases[0]["id"]}
+    products = 2 * sum(1 for _, k, _, _ in unet3d.layer_names3d(cfg) if k == 3) - 1
+    assert products == 19
+    counts = tracing.counters()
+    other = "im2col" if impl == "conv" else "conv3d"
+    assert counts[f"moments3d.products.{'conv3d' if impl == 'conv' else 'im2col'}"] == products
+    assert counts.get(f"moments3d.products.{other}", 0) == 0
