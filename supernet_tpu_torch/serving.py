@@ -12,9 +12,11 @@ by repeating the request's last row and the padding is sliced off the
 outputs (the scheme of ``supernet_tpu/serving.py:293-315``), so every
 forward runs at one shape. On a CUDA device each forward goes through the
 hand-written kernels (``ops/kernels``); on the CPU through their plain
-versions. A request is enqueued whole: its images go to the card from the
-session's pinned input buffer (reused by the next request; a lock keeps two
-threads from sharing it), every chunk's outputs are copied without waiting
+versions. A request is enqueued whole before the host waits: each chunk's
+images are copied into their own rows of the session's pinned input buffer
+(reused by the next request; a lock keeps two threads from sharing it) just
+before that chunk goes to the card, so the host copies chunk i+1 while the
+card computes chunk i; every chunk's outputs are copied without waiting
 into the rows of the request's own answer (pinned on a CUDA session, from
 PyTorch's caching host allocator), and the host waits once, at the end. The
 answer is handed to the caller in the memory the copies wrote: nothing
@@ -236,16 +238,19 @@ class InferenceSession:
 
         Spans (``tracing``): ``session.predict`` around the request, and in
         it ``session.stage_in`` (twice: the request made float32, then, under
-        the session's lock, copied into the pinned input buffer with the tail
-        padded, and the answer's two tensors allocated), ``session.dispatch``
-        (every chunk's copy in, forward and copies out enqueued),
+        the session's lock, the answer's two tensors allocated and the first
+        chunk copied into the pinned input buffer), ``session.dispatch``
+        (every chunk's copy in, forward and copies out enqueued; in it one
+        ``session.stage_chunk`` per later chunk: its rows copied into the
+        pinned buffer while the card runs the chunks before it),
         ``session.wait`` (the one synchronisation) and ``session.stage_out``
         (the answers handed over: two numpy views of the memory the copies
         wrote, or over the budget two copies into fresh arrays). The answers
         are C-contiguous, writeable float32 arrays that nothing else writes.
         Counters: ``session.requests``, ``session.slices`` (the request's),
         ``session.slices_computed`` (padded to whole chunks),
-        ``session.buffer_grows``, and per non-empty request
+        ``session.buffer_grows``, ``session.chunks_overlapped`` (one per chunk
+        after a request's first) and per non-empty request
         ``session.answers_in_place`` or ``session.answers_copied``."""
         with tracing.span("session.predict"):
             with tracing.span("session.stage_in"):
@@ -262,15 +267,20 @@ class InferenceSession:
                 with tracing.span("session.stage_in"):
                     xh = self._buffer("images", padded, self._in_shape())
                     images = xh.numpy()
-                    images[:n] = x
-                    images[n:padded] = x[-1]  # the tail chunk repeats the last image
                     answer = self._answer(n)
                     probs, sigma = answer[0] if answer else (
                         self._buffer("probs", n, self._out_shape()),
                         self._buffer("sigma", n, self._out_shape()))
+                    _stage_chunk(images, x, 0, bs)
+                # each chunk owns its rows of the buffer, and the next request
+                # writes them only after this one's synchronisation
                 with tracing.span("session.dispatch"):
                     for i in range(0, n, bs):
                         b = min(bs, n - i)
+                        if i:
+                            with tracing.span("session.stage_chunk"):
+                                _stage_chunk(images, x, i, bs)
+                            tracing.count("session.chunks_overlapped")
                         p, s = self._forward(xh[i : i + bs].to(self.device, non_blocking=True))
                         probs[i : i + b].copy_(p[:b], non_blocking=True)
                         sigma[i : i + b].copy_(s[:b], non_blocking=True)
@@ -332,6 +342,14 @@ class InferenceSession:
             weight=weight,
             pad_mode=pad_mode,
         )
+
+
+def _stage_chunk(images: np.ndarray, x: np.ndarray, i: int, bs: int) -> None:
+    """Copy the chunk of ``x`` that starts at row ``i`` into its rows of
+    ``images``; a short last chunk repeats the request's last image."""
+    b = min(bs, len(x) - i)
+    images[i + b : i + bs] = x[-1]
+    images[i : i + b] = x[i : i + b]
 
 
 def _check_shard(mesh, shard: str, volumetric: bool, batch_size: int) -> None:

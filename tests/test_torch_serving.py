@@ -80,17 +80,100 @@ def test_request_of_45_equals_chunk_by_chunk(params):
     sess = serving.InferenceSession(params, CFG, batch_size=20, device="cpu")
     x = _x(45, seed=5)
     got = sess.predict(x)
-    want = [], []
-    with torch.inference_mode():
-        for i in range(0, 45, 20):
-            chunk = x[i : i + 20]
-            b = len(chunk)
-            chunk = np.concatenate([chunk, np.repeat(chunk[-1:], 20 - b, axis=0)])
-            for out, a in zip(want, sess._forward(torch.from_numpy(chunk))):
-                out.append(a[:b].numpy())
-    for g, w in zip(got, want):
+    for g, w in zip(got, _chunk_by_chunk(sess, x)):
         assert g.shape == (45, 22, 22, 3)
-        np.testing.assert_array_equal(g, np.concatenate(w))
+        np.testing.assert_array_equal(g, w)
+
+
+BS = 4
+
+
+def _chunk_by_chunk(sess, x):
+    """The answers of ``x`` run chunk by chunk through ``sess._forward``,
+    the last chunk padded with its final row, each cut to its real rows."""
+    n, bs = len(x), sess.batch_size
+    outs = [], []
+    with torch.inference_mode():
+        for i in range(0, n, bs):
+            chunk = x[i : i + bs]
+            b = len(chunk)
+            chunk = np.concatenate([chunk, np.repeat(chunk[-1:], bs - b, axis=0)])
+            for out, a in zip(outs, sess._forward(torch.from_numpy(chunk))):
+                out.append(a[:b].numpy())
+    empty = np.zeros((0,) + sess._out_shape(), np.float32)
+    return tuple(np.concatenate(o) if o else empty for o in outs)
+
+
+def _counter(name):
+    from supernet_tpu_torch import tracing
+
+    return tracing.counters().get(name, 0)
+
+
+def _assert_staged_like_chunk_by_chunk(sess, x):
+    """``predict(x)`` bit-equal to the chunk-by-chunk answers, with one
+    ``session.chunks_overlapped`` per chunk after the first."""
+    before = _counter("session.chunks_overlapped")
+    got = sess.predict(x)
+    chunks = -(-len(x) // sess.batch_size)
+    assert _counter("session.chunks_overlapped") - before == max(chunks - 1, 0)
+    want = _chunk_by_chunk(sess, x)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == np.float32
+        np.testing.assert_array_equal(g, w)
+    return got
+
+
+@pytest.mark.parametrize("n", [0, 1, BS - 1, BS, BS + 1, 3 * BS, 3 * BS + 2])
+def test_chunks_staged_in_the_dispatch_equal_chunk_by_chunk(params, n):
+    """Each chunk is copied into the pinned input buffer just before its
+    dispatch: the empty request, one row, a short, an exact and a padded
+    chunk, three chunks, three and a padded one."""
+    sess = serving.InferenceSession(params, CFG, batch_size=BS, device="cpu")
+    _assert_staged_like_chunk_by_chunk(sess, _x(n, seed=30 + n))
+
+
+def _volumetric_session():
+    from supernet_tpu_torch import configs
+    from supernet_tpu_torch.models import init_params3d
+
+    cfg = dataclasses.replace(configs.HIPPOCAMPUS.model, image_size=16, out_size=10,
+                              base_kernels=2, depth=2)
+    params = init_params3d(torch.Generator().manual_seed(6), cfg, "cpu")
+    return serving.InferenceSession(params, cfg, batch_size=2, device="cpu", volumetric=True)
+
+
+@pytest.mark.parametrize("case", ["grow_shrink_grow", "over_budget", "ensemble", "volumetric"])
+def test_chunks_staged_in_the_dispatch_on_every_path(params, monkeypatch, case):
+    """The staging chunk by chunk where the input buffer grows and is
+    reused (larger, smaller, larger again: the smaller request's padding
+    rows written over the larger one's), over the answer budget, in the
+    ensemble session and in the volumetric one."""
+    sess, sizes = _session("single", params), [3 * BS + 2]
+    if case == "grow_shrink_grow":
+        sizes = [BS + 2, 3 * BS + 2, BS + 1, 3 * BS + 1, 4 * BS + 2]
+    elif case == "over_budget":
+        monkeypatch.setattr(serving, "ANSWER_BUDGET", 0)
+    elif case == "ensemble":
+        sess = _session("ensemble", params)
+    else:
+        sess, sizes = _volumetric_session(), [5]
+    grows, copied = _counter("session.buffer_grows"), _counter("session.answers_copied")
+    held = []
+    for k, n in enumerate(sizes):
+        shape = (n,) + sess._in_shape()
+        x = np.random.default_rng(40 + k).normal(0, 1, shape).astype(np.float32)
+        got = _assert_staged_like_chunk_by_chunk(sess, x)
+        held.append((got, [a.copy() for a in got]))
+    for got, bits in held:
+        _assert_bits(got, bits)
+    grew = _counter("session.buffer_grows") - grows
+    if case == "grow_shrink_grow":
+        assert grew == 3  # 8, 16 and 20 rows; the 5 and the 13 reuse the buffer
+    elif case == "over_budget":
+        assert grew == 3 and _counter("session.answers_copied") - copied == 1
+    else:
+        assert grew == 1
 
 
 def _session(kind, params, batch_size=4):

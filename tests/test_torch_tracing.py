@@ -26,7 +26,8 @@ SESSION = ("session.predict", "session.stage_in", "session.dispatch", "session.w
            "session.stage_out")
 STEP = ("train.step", "train.forward", "train.backward", "train.update", "train.metrics")
 COUNTERS = ("session.requests", "session.slices", "session.slices_computed",
-            "session.buffer_grows", "session.answers_in_place", "session.answers_copied")
+            "session.buffer_grows", "session.answers_in_place", "session.answers_copied",
+            "session.chunks_overlapped")
 
 
 @pytest.fixture(autouse=True)
@@ -205,8 +206,10 @@ def test_a_request_has_five_session_spans_under_one_root(params):
     before = tracing.counters()
     session.predict(_x(7))
     recs = tracing.records()
-    top = [r for r in recs if r["name"].startswith("session.")]
-    # stage_in twice: the conversion outside the session's lock, the copy in it
+    chunks = [r for r in recs if r["name"] == "session.stage_chunk"]
+    top = [r for r in recs if r["name"].startswith("session.") and r not in chunks]
+    # stage_in twice: the conversion outside the session's lock, the first
+    # chunk's copy in it
     assert sorted(r["name"] for r in top) == sorted(SESSION + ("session.stage_in",))
     root = next(r for r in top if r["name"] == "session.predict")
     assert root["parent"] is None and {r["root"] for r in recs} == {root["id"]}
@@ -214,14 +217,23 @@ def test_a_request_has_five_session_spans_under_one_root(params):
     assert tuple(r["name"] for r in inner) == SESSION[1:2] + SESSION[1:]
     assert all(r["parent"] == root["id"] for r in inner)
     dispatch = inner[2]
+    assert inner[1]["end_ns"] <= dispatch["start_ns"]
     layers = [r for r in recs if not r["name"].startswith("session.")]
     assert layers and all(r["parent"] == dispatch["id"] for r in layers)
-    assert len([r for r in layers if r["name"] == "conv1"]) == 2  # one per chunk
+    conv1 = sorted((r for r in layers if r["name"] == "conv1"), key=lambda r: r["start_ns"])
+    assert len(conv1) == 2  # one per chunk
+    # the second chunk's copy, inside the dispatch, after the first chunk's
+    # forward and before its own
+    (chunk,) = chunks
+    assert chunk["parent"] == dispatch["id"]
+    assert dispatch["start_ns"] <= chunk["start_ns"] <= chunk["end_ns"] <= dispatch["end_ns"]
+    assert conv1[0]["end_ns"] <= chunk["start_ns"] and chunk["end_ns"] <= conv1[1]["start_ns"]
     after = tracing.counters()
     delta = {k: after.get(k, 0) - before.get(k, 0) for k in COUNTERS}
     assert delta == {"session.requests": 1, "session.slices": 7,
                      "session.slices_computed": 8, "session.buffer_grows": 1,
-                     "session.answers_in_place": 1, "session.answers_copied": 0}
+                     "session.answers_in_place": 1, "session.answers_copied": 0,
+                     "session.chunks_overlapped": 1}
     session.predict(_x(6))  # the input buffer holds it: no growth
     again = tracing.counters()
     assert again["session.buffer_grows"] == after["session.buffer_grows"]
