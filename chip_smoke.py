@@ -255,7 +255,7 @@ Phases (any failure raises and the exit code is not 0):
    the constants of ``ensemble.choose_ensemble_mode``. Prints the phase's
    seconds and its parts'.
 
-20. the A/B lowerings on the card: hippocampus (batch 20) and BraTS (batch
+20. the glue fold on the card: hippocampus (batch 20) and BraTS (batch
    2) at full width from He-scaled parameters, the loss, probabilities,
    sigma and every gradient of one batch with the glue fold
    (``set_glue_fold("fold")``) against the explicit glue on the card, the
@@ -265,11 +265,10 @@ Phases (any failure raises and the exit code is not 0):
    fold's launches kernels 1 and 4 only at the convs it does not fold
    (hippocampus 6 of 10 k=3 convs per forward, BraTS 9 of 18); a K=2
    member-stacked step likewise; the card against the CPU under the fold at
-   the tiny config. Then the 3-D family at the phase-18 width:
-   ``set_conv3d_impl("im2col")`` and the glue fold each against the default
-   lowering (loss, probabilities, gradients, choices replayed), and the
-   train profile of each mode (wall ms, device ms, idle share, peak memory)
-   with the modes in turns; kernels 1-4 at 0 launches. Prints the phase's
+   the tiny config. Then the 3-D family at the phase-18 width: the glue
+   fold against the default (loss, probabilities, gradients, choices
+   replayed), and the train profile of each mode (wall ms, device ms, idle
+   share, peak memory) with the modes in turns; kernels 1-4 at 0 launches. Prints the phase's
    seconds and its parts'.
 21. ``cli profile --by-layer`` in process: hippocampus batch 20 and
    ``--config unet3d --batch 4`` (K = 8 steps per call, bf16). Each writes
@@ -3900,7 +3899,7 @@ def _ensembles(torch, smi, tmp):
 
 # ------------------------------------------------------------- phase 20
 
-# the glue fold (and the 3-D im2col) against the default lowering, the
+# the glue fold against the default, the
 # tolerances of tests/test_glue_fold.py:147-158: forward rtol 3e-5 / atol
 # 3e-6, gradients rtol 2e-4 / atol 2e-5. The JAX test's values are O(1) at
 # its tiny width; here the atol is taken relative to each tensor's max
@@ -4063,28 +4062,13 @@ def _glue_fold_cpu(torch):
             "grad_max_rel_err": worst_g, "ties_replayed": ties}
 
 
-@contextlib.contextmanager
-def _lowering3d(glue_fold="none", conv3d="conv"):
-    """The 3-D family under ``glue_fold`` and ``set_conv3d_impl(conv3d)``,
-    both restored after."""
-    from supernet_tpu_torch.ops import moments3d as M3
-    from supernet_tpu_torch.ops.moments import lowering
-
-    M3.set_conv3d_impl(conv3d)
-    try:
-        with lowering(glue_fold=glue_fold):
-            yield
-    finally:
-        M3.set_conv3d_impl("conv")
-
-
-_MODES3D = {"default": {}, "im2col": {"conv3d": "im2col"}, "fold": {"glue_fold": "fold"}}
+# the glue fold mode of each 3-D mode
+_MODES3D = {"default": "none", "fold": "fold"}
 
 
 def _lowerings_3d(torch, smi):
     """Phase 20, 3-D at the phase-18 width (cube 64, base 32, depth 3,
-    batch 4), the family without a hand-written kernel, so every lowering
-    runs on the card: ``set_conv3d_impl("im2col")`` and the glue fold each
+    batch 4), the family without a hand-written kernel: the glue fold
     against the default, the loss, probabilities and every gradient, the
     default pass's ReLU masks, pool taps and clips replayed
     (``_decisions3d``), under cuDNN's deterministic algorithms; then the
@@ -4096,6 +4080,7 @@ def _lowerings_3d(torch, smi):
     from supernet_tpu_torch import train as T
     from supernet_tpu_torch import train3d as T3
     from supernet_tpu_torch.configs import HIPPOCAMPUS
+    from supernet_tpu_torch.ops.moments import lowering
 
     exp = HIPPOCAMPUS
     cfg = dataclasses.replace(exp.model, out_size=T3.derive_out_size3d(exp.model))
@@ -4113,7 +4098,7 @@ def _lowerings_3d(torch, smi):
 
     def grads(mode, **dec):
         torch.cuda.reset_peak_memory_stats()
-        with _lowering3d(**_MODES3D[mode]), _decisions3d(torch, **dec) as ties:
+        with lowering(glue_fold=_MODES3D[mode]), _decisions3d(torch, **dec) as ties:
             loss, _, probs = T3._loss3d(state.params, x, y1h, cfg, tc)
             g = torch.autograd.grad(loss, T.leaves(state.params))
         return float(loss.detach()), probs, g, ties, torch.cuda.max_memory_allocated()
@@ -4125,19 +4110,18 @@ def _lowerings_3d(torch, smi):
         choices = []
         l0, p0, g0, _, peak0 = grads("default", record=choices)
         equal["default"] = {"loss": l0, "grad_pass_peak_bytes": peak0}
-        for mode in ("im2col", "fold"):
-            l1, p1, g1, ties, peak = grads(mode, replay=choices)
-            res = {"loss": l1, "loss_rel_err": abs(l1 - l0) / abs(l0),
-                   "probs_tol_ratio": _tol_ratio(torch, p1, p0, FOLD_FWD_TOL),
-                   "grad_tol_ratio": max(_tol_ratio(torch, a, b, FOLD_GRAD_TOL)
-                                         for a, b in zip(g1, g0)),
-                   "grad_max_rel_err": max(_max_rel(torch, a, b) for a, b in zip(g1, g0)),
-                   "ties_replayed": ties, "grad_pass_peak_bytes": peak}
-            del g1, p1
-            equal[mode] = res
-            if (res["loss_rel_err"] > FOLD_FWD_TOL[0] or res["probs_tol_ratio"] > 1
-                    or res["grad_tol_ratio"] > 1):
-                _die(f"3-D {mode}: against the default lowering {res}")
+        l1, p1, g1, ties, peak = grads("fold", replay=choices)
+        res = {"loss": l1, "loss_rel_err": abs(l1 - l0) / abs(l0),
+               "probs_tol_ratio": _tol_ratio(torch, p1, p0, FOLD_FWD_TOL),
+               "grad_tol_ratio": max(_tol_ratio(torch, a, b, FOLD_GRAD_TOL)
+                                     for a, b in zip(g1, g0)),
+               "grad_max_rel_err": max(_max_rel(torch, a, b) for a, b in zip(g1, g0)),
+               "ties_replayed": ties, "grad_pass_peak_bytes": peak}
+        del g1, p1
+        equal["fold"] = res
+        if (res["loss_rel_err"] > FOLD_FWD_TOL[0] or res["probs_tol_ratio"] > 1
+                or res["grad_tol_ratio"] > 1):
+            _die(f"3-D fold: against the default {res}")
         del g0, p0, choices, state
     torch.cuda.empty_cache()
     equality_s = time.perf_counter() - t0
@@ -4146,9 +4130,9 @@ def _lowerings_3d(torch, smi):
     keys = ("step_ms_median", "device_ms_per_step", "device_busy_ms_per_step", "idle_share",
             "peak_memory_bytes", "conv3d_share")
     timing = {m: {k: [] for k in keys + ("profile_s",)} for m in _MODES3D}
-    for mode in ("default", "im2col", "fold", "fold", "im2col", "default"):
+    for mode in ("default", "fold", "fold", "default"):
         t0 = time.perf_counter()
-        with _lowering3d(**_MODES3D[mode]):
+        with lowering(glue_fold=_MODES3D[mode]):
             prof = profiling.profile_train_step3d("hippocampus", batch, SEED, steps=2)
         for k in keys:
             timing[mode][k].append(prof[k])
@@ -5342,8 +5326,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         member_sums, ens_per_step, ens_session, ens_modes = _ensembles(torch, smi, tmp)
 
-    # 20. the A/B lowerings on the card: the glue fold in 2-D and 3-D, the
-    # 3-D im2col; 21. cli profile
+    # 20. the glue fold on the card, in 2-D and 3-D; 21. cli profile
     fold_launches = _lowerings(torch, smi)
     with tempfile.TemporaryDirectory() as tmp:
         profile_per_step = _profile_cli(torch, smi, tmp)

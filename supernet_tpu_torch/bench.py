@@ -45,7 +45,7 @@ SUPERNET_BENCH_SCALING, SUPERNET_BENCH_DISPATCH, SUPERNET_BENCH_3D,
 SUPERNET_BENCH_ENSEMBLE, SUPERNET_BENCH_INFER (each "1" or "0", default
 "1"), SUPERNET_PRECISION (default "default": kernel 1 in one bf16 pass,
 TF32 allowed in PyTorch's own matmuls and convolutions), SUPERNET_ACT_DTYPE (default bfloat16, the
-production mode), SUPERNET_CONV_FOLD, SUPERNET_BACKEND (``naive`` runs the
+production mode), SUPERNET_BACKEND (``naive`` runs the
 headline through the naive backend), SUPERNET_DATA_PARALLEL=1 (with a world
 of more than one rank, from torchrun or SUPERNET_COORDINATOR: the
 data-parallel step, the batch times the ranks; on one card it is off).
@@ -293,7 +293,7 @@ def _discover(device) -> str:
 
 
 @contextlib.contextmanager
-def _knobs(precision: str, act_dtype: str, fold):
+def _knobs(precision: str, act_dtype: str):
     """The bench's process-level knobs for the run, restored after it."""
     import torch
 
@@ -305,8 +305,7 @@ def _knobs(precision: str, act_dtype: str, fold):
     M.set_mxu_precision(precision)
     M.set_act_dtype(act_dtype)
     try:
-        with M.lowering(**({"conv_fold": fold} if fold else {})):
-            yield
+        yield
     finally:
         M.set_mxu_precision(before[0])
         M.set_act_dtype(before[1])
@@ -328,7 +327,7 @@ def main(device="cuda") -> None:
     backend = os.environ.get("SUPERNET_BACKEND", get_backend())
     if backend not in ("kernels", "naive"):
         backend = "kernels"  # xla | pallas | auto: no counterpart
-    with _knobs(precision, act_dtype, os.environ.get("SUPERNET_CONV_FOLD")):
+    with _knobs(precision, act_dtype):
         set_backend(backend)
         out = _measure(device, device_kind, backend, precision, act_dtype)
     print(json.dumps(out), flush=True)

@@ -34,16 +34,15 @@ AD in the JAX package. ``set_backend("naive")`` leaves the kernels: the five
 ops the JAX package's naive backend routes run the reference's patch-matmul
 algorithm (``ops/naive.py``) on any device.
 
-A/B lowerings (the knobs ``set_conv_fold``, ``set_winsum``,
-``set_sw_scale``, ``set_chansum``, ``set_conv2d_impl``; ``SUPERNET_*``
-through :func:`apply_env_overrides`) follow the JAX package's backend split:
-on a CUDA tensor a stride-1 k > 1 conv takes kernel 1 whatever they say, as
-the JAX package's Pallas backend does; on a CPU tensor a knob off its
-default runs the JAX package's XLA lowering of it, in PyTorch ops. A conv
-of stride > 1 runs that composition on both devices; the 1x1 head honours
-``sw_scale`` on both. The decoder glue fold (``set_glue_fold``,
-:func:`vglue_conv_relu`) is the models' choice; its convs are PyTorch's on
-every device, as they are XLA's on every backend in the JAX package.
+One lowering per device: a stride-1 k > 1 conv takes ``VDPConv`` (kernel 1
+on a CUDA tensor, its plain version on a CPU tensor); a conv of stride > 1
+runs the JAX module's default XLA composition on both (a VALID conv, the
+window sum by shifted adds, a broadcast multiply by ``s_w``). The JAX
+package's A/B lowering switches have no counterpart here
+(:func:`apply_env_overrides` names them and ignores them). The decoder glue
+fold (``set_glue_fold``, :func:`vglue_conv_relu`) is the models' choice; its
+convs are PyTorch's on every device, as they are XLA's on every backend in
+the JAX package.
 
 Member axis (a deep ensemble's K members in one forward, the counterpart of
 ``jax.vmap`` over a stacked parameter tree): weights stacked along a leading
@@ -144,109 +143,36 @@ def _f32(x: Tensor) -> Tensor:
     return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
-# The A/B lowering knobs of the JAX package (supernet_tpu/ops/moments.py:162-332,
-# :445-463), with its defaults. They select how the plain composition of a
-# conv is lowered; a stride-1 k > 1 conv on a CUDA tensor takes kernel 1
-# whatever they say, as a stride-1 k > 1 layer on the JAX package's Pallas
-# backend returns from its kernel before any knob is read
-# (supernet_tpu/ops/moments.py:576-579, :649-652). On a CPU tensor a knob
-# that is not at its default runs the JAX package's XLA lowering of that knob.
-#   conv_fold   "none" | "sigma" | "full": the window sum rides the sigma conv
-#               (or one conv computes everything) as extra channels
-#   winsum      "shift" | "conv": separable shifted adds, or a ones-kernel conv
-#   glue_fold   "none" | "fold": the decoder's pad -> [crop-concat ->] conv ->
-#               relu computed inside the convs (vglue_conv_relu; dispatched by
-#               models/unet.py and models/unet3d.py)
-#   sw_scale    "mul" | "dot": ``winsum * s_w`` as a broadcast multiply or a
-#               size-1 contraction
-#   chansum     "reduce" | "dot": the window sum's channel sum as a sum or a
-#               product with a ones vector
-#   conv2d_impl "conv" | "im2col": the k > 1 moment products as convs, or as
-#               one matrix product with the k^2 taps concatenated
-_KNOBS = {
-    "conv_fold": ("none", ("none", "sigma", "full")),
-    "winsum": ("shift", ("shift", "conv")),
-    "glue_fold": ("none", ("none", "fold")),
-    "sw_scale": ("mul", ("mul", "dot")),
-    "chansum": ("reduce", ("reduce", "dot")),
-    "conv2d_impl": ("conv", ("conv", "im2col")),
-}
-_KNOB: dict = {name: default for name, (default, _) in _KNOBS.items()}
-
-
-def _set_knob(name: str, mode: str, what: str) -> None:
-    if mode not in _KNOBS[name][1]:
-        raise ValueError(f"unknown {what} {mode!r}")
-    _KNOB[name] = mode
-
-
-def set_conv_fold(mode: str) -> None:
-    _set_knob("conv_fold", mode, "conv fold mode")
-
-
-def get_conv_fold() -> str:
-    return _KNOB["conv_fold"]
-
-
-def set_winsum(mode: str) -> None:
-    _set_knob("winsum", mode, "winsum mode")
-
-
-def get_winsum() -> str:
-    return _KNOB["winsum"]
+# The decoder glue fold of the JAX package (supernet_tpu/ops/moments.py:
+# 209-229), with its default: "none" | "fold", the decoder's pad ->
+# [crop-concat ->] conv -> relu computed inside the convs (vglue_conv_relu;
+# dispatched by models/unet.py and models/unet3d.py).
+_GLUE_FOLD: str = "none"
 
 
 def set_glue_fold(mode: str) -> None:
-    _set_knob("glue_fold", mode, "glue fold mode")
+    global _GLUE_FOLD
+    if mode not in ("none", "fold"):
+        raise ValueError(f"unknown glue fold mode {mode!r}")
+    _GLUE_FOLD = mode
 
 
 def get_glue_fold() -> str:
-    return _KNOB["glue_fold"]
-
-
-def set_sw_scale(mode: str) -> None:
-    _set_knob("sw_scale", mode, "sw scale mode")
-
-
-def get_sw_scale() -> str:
-    return _KNOB["sw_scale"]
-
-
-def set_chansum(mode: str) -> None:
-    _set_knob("chansum", mode, "chansum mode")
-
-
-def get_chansum() -> str:
-    return _KNOB["chansum"]
-
-
-def set_conv2d_impl(mode: str) -> None:
-    _set_knob("conv2d_impl", mode, "conv2d impl")
-
-
-def get_conv2d_impl() -> str:
-    return _KNOB["conv2d_impl"]
+    return _GLUE_FOLD
 
 
 @contextlib.contextmanager
-def lowering(**modes):
-    """Run the block under the given knobs (``glue_fold="fold"``,
-    ``winsum="conv"``, ...), then restore every knob as it was."""
-    before = dict(_KNOB)
+def lowering(glue_fold: str | None = None):
+    """Run the block under ``glue_fold`` ("none" | "fold"; None keeps the
+    current mode), then restore the mode it found."""
+    global _GLUE_FOLD
+    before = _GLUE_FOLD
     try:
-        for name, mode in modes.items():
-            if name not in _KNOBS:
-                raise ValueError(f"unknown knob {name!r}")
-            _set_knob(name, mode, name)
+        if glue_fold is not None:
+            set_glue_fold(glue_fold)
         yield
     finally:
-        _KNOB.update(before)
-
-
-def _lowering_knobs_default() -> bool:
-    """True when every knob that changes a conv's lowering is at its
-    default (the glue fold is the model's choice, not the conv's)."""
-    return all(_KNOB[n] == _KNOBS[n][0] for n in _KNOBS if n != "glue_fold")
+        _GLUE_FOLD = before
 
 
 # The op backend (supernet_tpu/ops/moments.py:76-93). "kernels", the port's
@@ -273,7 +199,7 @@ def get_backend() -> str:
 def glue_fold_active() -> bool:
     """True when the models compute the decoder glue inside the convs: the
     fold is set and the backend is not naive (supernet_tpu/models/unet.py:170)."""
-    return _KNOB["glue_fold"] == "fold" and _BACKEND != "naive"
+    return _GLUE_FOLD == "fold" and _BACKEND != "naive"
 
 
 def _promoted(*ts):
@@ -287,49 +213,42 @@ def _promoted(*ts):
 
 # The JAX package's other kernel switches and its xla | pallas | auto
 # backends have no counterpart: the port always runs its hand-written
-# kernels on a CUDA tensor.
+# kernels on a CUDA tensor. Nor have its A/B lowering switches: the port
+# runs one lowering per device.
 _NO_COUNTERPART = ("has no counterpart: on a CUDA tensor the port always runs its "
                    "hand-written kernels, on a CPU tensor their plain versions")
-_UNMATCHED_ENV = {name: _NO_COUNTERPART for name in ("SUPERNET_POOL", "SUPERNET_SIGMA_BWD")}
+_ONE_LOWERING = ("has no counterpart: the port runs one lowering per device, and the "
+                 "JAX package's XLA lowering that it selects is not ported")
+_UNMATCHED_ENV = {
+    **{name: _NO_COUNTERPART for name in ("SUPERNET_POOL", "SUPERNET_SIGMA_BWD")},
+    **{name: _ONE_LOWERING for name in (
+        "SUPERNET_CONV_FOLD", "SUPERNET_WINSUM", "SUPERNET_SW_SCALE", "SUPERNET_CHANSUM",
+        "SUPERNET_CONV2D", "SUPERNET_CONV3D")},
+}
 
 
 def apply_env_overrides() -> None:
     """Apply the SUPERNET_* knobs (supernet_tpu/ops/moments.py:359-416):
 
     SUPERNET_PRECISION=highest|high|default   (kernel 1, PyTorch's f32 matmuls/convs)
-    SUPERNET_CONV_FOLD=none|sigma|full        (variance-path fusion mode)
     SUPERNET_ACT_DTYPE=float32|bfloat16       (inter-layer activation dtype)
     SUPERNET_GLUE_FOLD=none|fold              (the decoder glue fold)
-    SUPERNET_WINSUM=shift|conv                (window-sum lowering)
-    SUPERNET_SW_SCALE=mul|dot                 (winsum * s_w scale lowering)
-    SUPERNET_CHANSUM=reduce|dot               (channel-sum lowering)
-    SUPERNET_CONV2D=conv|im2col               (2-D moment-conv lowering)
-    SUPERNET_CONV3D=conv|im2col               (3-D moment-conv lowering)
 
     SUPERNET_BACKEND=naive|kernels            (the reference's patch-matmul ops)
 
-    SUPERNET_BACKEND=xla|pallas|auto, SUPERNET_POOL and SUPERNET_SIGMA_BWD,
+    SUPERNET_BACKEND=xla|pallas|auto, SUPERNET_POOL, SUPERNET_SIGMA_BWD and
+    the lowering switches SUPERNET_CONV_FOLD, SUPERNET_WINSUM,
+    SUPERNET_SW_SCALE, SUPERNET_CHANSUM, SUPERNET_CONV2D and SUPERNET_CONV3D,
     when set, are named on stderr with the reason they do nothing here."""
     setters = (
         ("SUPERNET_PRECISION", set_mxu_precision),
-        ("SUPERNET_CONV_FOLD", set_conv_fold),
         ("SUPERNET_ACT_DTYPE", set_act_dtype),
         ("SUPERNET_GLUE_FOLD", set_glue_fold),
-        ("SUPERNET_WINSUM", set_winsum),
-        ("SUPERNET_SW_SCALE", set_sw_scale),
-        ("SUPERNET_CHANSUM", set_chansum),
-        ("SUPERNET_CONV2D", set_conv2d_impl),
     )
     for name, setter in setters:
         v = os.environ.get(name)
         if v:
             setter(v)
-    v = os.environ.get("SUPERNET_CONV3D")
-    if v:
-        # late import: moments3d imports this module
-        from supernet_tpu_torch.ops import moments3d
-
-        moments3d.set_conv3d_impl(v)
     v = os.environ.get("SUPERNET_BACKEND")
     if v in ("xla", "pallas", "auto"):
         print(f"warning: SUPERNET_BACKEND={v} {_NO_COUNTERPART}", file=sys.stderr)
@@ -341,30 +260,16 @@ def apply_env_overrides() -> None:
             print(f"warning: {name}={v} {why}", file=sys.stderr)
 
 
-def _scale_mul(ws: Tensor, s_w: Tensor) -> Tensor:
-    """``ws [..., 1] * s_w [Cout]``; member-stacked ``s_w`` [K, Cout] scales
-    the K member blocks of ``ws`` [K*B, ..., 1] each by its own row."""
+def scale_sw(ws: Tensor, s_w: Tensor) -> Tensor:
+    """``ws [..., 1] * s_w [Cout] -> [..., Cout]``: the per-output-channel
+    variance scale shared by every vconv sigma term, a broadcast multiply.
+    Member-stacked ``s_w`` [K, Cout] scales the K member blocks of ``ws``
+    [K*B, ..., 1] each by its own row."""
     if s_w.dim() == 2:
         k = s_w.shape[0]
         rows = s_w.view((k,) + (1,) * (ws.dim() - 1) + (-1,)).to(ws.dtype)
         return (ws.unflatten(0, (k, -1)) * rows).flatten(0, 1)
     return ws * s_w.to(ws.dtype)
-
-
-def scale_sw(ws: Tensor, s_w: Tensor) -> Tensor:
-    """``ws [..., 1] * s_w [Cout] -> [..., Cout]``: the per-output-channel
-    variance scale shared by every vconv sigma term, lowered per
-    ``set_sw_scale``: a broadcast multiply ("mul") or a size-1 contraction
-    ("dot"). Member-stacked ``s_w`` [K, Cout] scales the K member blocks of
-    ``ws`` [K*B, ..., 1] each by its own row."""
-    if _KNOB["sw_scale"] != "dot":
-        return _scale_mul(ws, s_w)
-    s_w = s_w.to(ws.dtype)
-    if s_w.dim() == 2:
-        wk = ws.unflatten(0, (s_w.shape[0], -1))
-        rows = s_w.view((s_w.shape[0],) + (1,) * (wk.dim() - 2) + (1, -1))
-        return torch.matmul(wk, rows).flatten(0, 1)
-    return torch.matmul(ws, s_w[None, :])
 
 
 def _w11(w_mu: Tensor) -> Tensor:
@@ -394,21 +299,10 @@ def _per_member(fn, moments, w_mu: Tensor, w_sigma: Tensor) -> MomentPair:
     return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
 
 
-def _sum_c(x: Tensor) -> Tensor:
-    """Sum over the trailing channel axis -> [..., 1] in float32 (float64
-    stays float64): the "reduce" lowering, and the head's channel sum."""
-    return x.sum(dim=-1, keepdim=True, dtype=torch.promote_types(x.dtype, torch.float32))
-
-
 def chan_sum(x: Tensor) -> Tensor:
     """Sum over the trailing channel axis -> [..., 1], accumulated in
-    float32 (float64 input keeps float64, for the gradient checks), lowered
-    per ``set_chansum``: a sum ("reduce") or a product with a ones vector
-    ("dot")."""
-    if _KNOB["chansum"] != "dot":
-        return _sum_c(x)
-    dt = torch.promote_types(x.dtype, torch.float32)
-    return torch.matmul(x.to(dt), x.new_ones((x.shape[-1], 1), dtype=dt))
+    float32 (float64 input keeps float64, for the gradient checks)."""
+    return x.sum(dim=-1, keepdim=True, dtype=torch.promote_types(x.dtype, torch.float32))
 
 
 def _winsum_shift(s: Tensor, k: int, stride: int = 1) -> Tensor:
@@ -457,14 +351,9 @@ def _conv_valid(x: Tensor, w: Tensor, stride: int = 1, padding=0) -> Tensor:
 
 def _window_sum(x: Tensor, k: int, stride: int = 1) -> Tensor:
     """Sum of x over each k x k VALID window and over all input channels
-    -> [B, H', W', 1], the channel sum in float32 (``chan_sum``) and the
-    result in ``x``'s dtype. Lowered per ``set_winsum``: separable shifted
-    adds ("shift") or a ones-kernel conv ("conv")."""
-    xc = chan_sum(x)
-    if _KNOB["winsum"] == "shift":
-        return _winsum_shift(xc, k, stride).to(x.dtype)
-    ones = x.new_ones((k, k, 1, 1))
-    return _conv_valid(xc.to(x.dtype), ones, stride)
+    -> [B, H', W', 1]: the channel sum in float32 (``chan_sum``), then
+    separable shifted adds, the result in ``x``'s dtype."""
+    return _winsum_shift(chan_sum(x), k, stride).to(x.dtype)
 
 
 def _einsum_1x1(x: Tensor, w: Tensor) -> Tensor:
@@ -472,20 +361,6 @@ def _einsum_1x1(x: Tensor, w: Tensor) -> Tensor:
         xs = x.unflatten(0, (w.shape[0], -1))
         return torch.einsum("kbhwc,kco->kbhwo", xs, w).flatten(0, 1)
     return torch.einsum("bhwc,co->bhwo", x, w)
-
-
-def _im2col2d(x: Tensor, k: int, stride: int = 1) -> Tensor:
-    """The k^2 VALID-window taps concatenated on channels: [B, H, W, C] ->
-    [B, H', W', k^2*C], tap-major (dy, dx) order, C minor:
-    ``w.reshape(k^2*C_in, C_out)``'s row order, so ``patches @ w_flat``
-    equals the VALID conv."""
-    _, h, w, _ = x.shape
-    return torch.cat([x[:, dy:h - (k - 1) + dy:stride, dx:w - (k - 1) + dx:stride]
-                      for dy in range(k) for dx in range(k)], dim=-1)
-
-
-def _im2col2d_dot(patches: Tensor, w_flat: Tensor) -> Tensor:
-    return torch.matmul(patches, w_flat.to(patches.dtype))
 
 
 def _kernel_conv(mu, sigma, w_mu, w_sigma, relu: bool) -> MomentPair:
@@ -501,21 +376,10 @@ def _kernel_conv(mu, sigma, w_mu, w_sigma, relu: bool) -> MomentPair:
     return m.to(dt), s.to(dt)
 
 
-def _use_kernel(x: Tensor, w_mu: Tensor, stride: int) -> bool:
-    """A stride-1 k > 1 conv takes ``VDPConv``: always on a CUDA tensor
-    (kernel 1), on a CPU tensor (its plain version) unless a knob selects
-    another lowering of the composition."""
-    if w_mu.shape[-3] == 1 or stride != 1 or _BACKEND == "naive":
-        return False
-    return x.is_cuda or _lowering_knobs_default()
-
-
-def _one_hot_kernel(kern: Tensor, i: int, o: int) -> Tensor:
-    """``kern`` with 1 added at input channel ``i``, output channel ``o``
-    of every tap (the ones block of a folded kernel)."""
-    e = torch.zeros_like(kern)
-    e[:, :, i, o] = 1.0
-    return kern + e
+def _use_kernel(w_mu: Tensor, stride: int) -> bool:
+    """A stride-1 k > 1 conv takes ``VDPConv``: kernel 1 on a CUDA tensor,
+    its plain version on a CPU tensor."""
+    return w_mu.shape[-3] > 1 and stride == 1 and _BACKEND != "naive"
 
 
 def vconv_input(
@@ -527,40 +391,28 @@ def vconv_input(
       sigma_out = winsum(x^2) * softplus(w_sigma)
 
     k == 1 (stride 1) is an einsum and a channel sum; a stride-1 k > 1 conv
-    is ``VDPConv`` (see :func:`_use_kernel`); the rest is the JAX module's
-    XLA composition under the knobs (``supernet_tpu/ops/moments.py:580-631``).
+    is ``VDPConv`` (see :func:`_use_kernel`); a k > 1 conv of stride > 1 is
+    the JAX module's default XLA composition
+    (``supernet_tpu/ops/moments.py:580-631``).
     Under the naive backend: ``ops.naive.vconv_input_naive``.
     """
     if _BACKEND == "naive":
         return _naive_conv(naive.vconv_input_naive, (x,), w_mu, w_sigma, stride)
     x = _act(x)
-    if _use_kernel(x, w_mu, stride):
+    if _use_kernel(w_mu, stride):
         return _kernel_conv(x, None, w_mu, w_sigma, False)
     if w_mu.shape[-3] == 1 and stride == 1:
         x = _fold(x)
         w2 = _act(_w11(w_mu))
         # the 1-channel sum in float32, cast before the broadcast multiply
-        t = _act(_sum_c(torch.square(_f32(x))))
+        t = _act(chan_sum(torch.square(_f32(x))))
         return _act(_einsum_1x1(x, w2)), scale_sw(t, F.softplus(w_sigma))
     if w_mu.dim() == 5:
         return _per_member(lambda a, wm, ws: vconv_input(a, wm, ws, stride),
                            (x,), w_mu, w_sigma)
-    k, cin, cout = w_mu.shape[0], w_mu.shape[2], w_mu.shape[3]
-    s_w = F.softplus(w_sigma)
-    if _KNOB["conv_fold"] != "none":
-        # one conv computes mu and the window sum: input [x | sum(x^2)],
-        # kernel blockdiag [w_mu, 0; 0, ones]
-        t = _sum_c(torch.square(_f32(x))).to(x.dtype)
-        kern = _one_hot_kernel(F.pad(w_mu, (0, 1, 0, 1)), cin, cout)
-        out = _conv_valid(torch.cat([x, t], dim=-1), kern, stride)
-        return _act(out[..., :cout]), _act(out[..., cout:] * s_w)
-    if _KNOB["conv2d_impl"] == "im2col":
-        mu_out = _im2col2d_dot(_im2col2d(x, k, stride), w_mu.reshape(-1, cout))
-        ws = _act(_window_sum(torch.square(x), k, stride))
-        return _act(mu_out), scale_sw(ws, s_w)
     mu_out = _conv_valid(x, w_mu, stride)
-    ws = _act(_window_sum(torch.square(x), k, stride))
-    return _act(mu_out), scale_sw(ws, s_w)
+    ws = _act(_window_sum(torch.square(x), w_mu.shape[0], stride))
+    return _act(mu_out), scale_sw(ws, F.softplus(w_sigma))
 
 
 def vconv(
@@ -571,59 +423,30 @@ def vconv(
       mu_out    = conv(mu, w_mu)
       sigma_out = winsum(mu^2 + sigma) * softplus(w_sigma) + conv(sigma, w_mu^2)
 
-    k == 1 (the softmax head) is two einsums and a channel sum (the JAX
-    head's ``jnp.sum``, not ``chan_sum``); a stride-1 k > 1 conv is
-    ``VDPConv`` (see :func:`_use_kernel`); the rest is the JAX module's XLA
-    composition under the knobs (``supernet_tpu/ops/moments.py:653-743``).
+    k == 1 (the softmax head) is two einsums and a channel sum; a stride-1
+    k > 1 conv is ``VDPConv`` (see :func:`_use_kernel`); a k > 1 conv of
+    stride > 1 is the JAX module's default XLA composition
+    (``supernet_tpu/ops/moments.py:653-743``).
     Under the naive backend: ``ops.naive.vconv_naive``.
     """
     if _BACKEND == "naive":
         return _naive_conv(naive.vconv_naive, (mu, sigma), w_mu, w_sigma, stride)
     mu, sigma = _act(mu), _act(sigma)
-    if _use_kernel(mu, w_mu, stride):
+    if _use_kernel(w_mu, stride):
         return _kernel_conv(mu, sigma, w_mu, w_sigma, False)
     if w_mu.shape[-3] == 1 and stride == 1:
         w2 = _act(_w11(w_mu))
-        t = _act(_sum_c(mu * mu + sigma))
+        t = _act(chan_sum(mu * mu + sigma))
         sigma_out = scale_sw(t, F.softplus(w_sigma)) + _einsum_1x1(sigma, w2 * w2)
         return _act(_einsum_1x1(mu, w2)), _act(sigma_out)
     if w_mu.dim() == 5:
         return _per_member(lambda m, s, wm, ws: vconv(m, s, wm, ws, stride),
                            (mu, sigma), w_mu, w_sigma)
-    k, cin, cout = w_mu.shape[0], w_mu.shape[2], w_mu.shape[3]
-    s_w = F.softplus(w_sigma)
-    fold = _KNOB["conv_fold"]
-    if fold == "full":
-        # one conv: input [mu | sigma | sum(mu^2+sigma)], kernel blockdiag
-        # [w_mu -> mu_out; w_mu^2 -> sig; ones -> winsum]
-        t = _sum_c(mu * mu + sigma).to(mu.dtype)
-        kern = w_mu.new_zeros((k, k, 2 * cin + 1, 2 * cout + 1))
-        kern[:, :, :cin, :cout] = w_mu
-        kern[:, :, cin:2 * cin, cout:2 * cout] = w_mu * w_mu
-        kern[:, :, 2 * cin, 2 * cout] = 1.0
-        out = _conv_valid(torch.cat([mu, sigma, t], dim=-1), kern, stride)
-        sigma_out = out[..., cout:2 * cout] + out[..., 2 * cout:] * s_w
-        return _act(out[..., :cout]), _act(sigma_out)
-    if _KNOB["conv2d_impl"] == "im2col":
-        # both moment products on the packed-contraction matrix product;
-        # the window sum keeps its own lowering
-        w_flat = w_mu.reshape(-1, cout)
-        mu_out = _im2col2d_dot(_im2col2d(mu, k, stride), w_flat)
-        sigma2 = _im2col2d_dot(_im2col2d(sigma, k, stride), torch.square(_f32(w_flat)))
-        ws = _act(_window_sum(mu * mu + sigma, k, stride))
-        return _act(mu_out), _act(scale_sw(ws, s_w) + sigma2)
     mu_out = _conv_valid(mu, w_mu, stride)
-    if fold == "sigma":
-        # the window sum rides the sigma conv: input [sigma | sum(mu^2+sigma)],
-        # kernel blockdiag [w_mu^2, 0; 0, ones]
-        t = _sum_c(mu * mu + sigma).to(mu.dtype)
-        kern = _one_hot_kernel(F.pad(w_mu * w_mu, (0, 1, 0, 1)), cin, cout)
-        out = _conv_valid(torch.cat([sigma, t], dim=-1), kern, stride)
-        return _act(mu_out), _act(out[..., :cout] + out[..., cout:] * s_w)
     # the [B,H',W',1] window sum is cast before the broadcast multiply, so
     # the full-width sigma chain stays in the activation dtype
-    ws = _act(_window_sum(mu * mu + sigma, k, stride))
-    sigma_out = scale_sw(ws, s_w) + _conv_valid(sigma, w_mu * w_mu, stride)
+    ws = _act(_window_sum(mu * mu + sigma, w_mu.shape[0], stride))
+    sigma_out = scale_sw(ws, F.softplus(w_sigma)) + _conv_valid(sigma, w_mu * w_mu, stride)
     return _act(mu_out), _act(sigma_out)
 
 
@@ -642,14 +465,14 @@ def vconv_relu(
 ) -> MomentPair:
     """``vrelu(*vconv(...))``, the ReLU fused into ``VDPConv`` wherever the
     conv takes it (:func:`_use_kernel`)."""
-    if _use_kernel(mu, w_mu, 1):
+    if _use_kernel(w_mu, 1):
         return _kernel_conv(_act(mu), _act(sigma), w_mu, w_sigma, True)
     return vrelu(*vconv(mu, sigma, w_mu, w_sigma))
 
 
 def vconv_input_relu(x: Tensor, w_mu: Tensor, w_sigma: Tensor) -> MomentPair:
     """``vrelu(*vconv_input(...))``, fused the same way."""
-    if _use_kernel(x, w_mu, 1):
+    if _use_kernel(w_mu, 1):
         return _kernel_conv(_act(x), None, w_mu, w_sigma, True)
     return vrelu(*vconv_input(x, w_mu, w_sigma))
 
@@ -728,9 +551,9 @@ def vunpool_conv2(
         return _naive_conv(naive.vconv_naive, vunpool(mu, sigma), w_mu, w_sigma, 1)
     mu, sigma = _act(mu), _act(sigma)
     # the [B,h,w,1] channel sum in float32, cast back before the broadcast
-    t_up = _upsample2_nearest(_act(_sum_c(mu * mu + sigma)))
+    t_up = _upsample2_nearest(_act(chan_sum(mu * mu + sigma)))
     mu_out = _unpool_conv(mu, w_mu)
-    sigma_out = _scale_mul(t_up, F.softplus(w_sigma)) + _unpool_conv(sigma, w_mu * w_mu)
+    sigma_out = scale_sw(t_up, F.softplus(w_sigma)) + _unpool_conv(sigma, w_mu * w_mu)
     return mu_out, _act(sigma_out)
 
 
@@ -800,7 +623,7 @@ def _conv_pads(conv, x: Tensor, w: Tensor, pads) -> Tensor:
 def _moment_src(mu: Tensor, sigma: Tensor) -> Tensor:
     """Channel sum of (mu^2 + sigma) in float32, the result in mu's dtype:
     the window-sum source column (``supernet_tpu/ops/moments.py:1049-1056``)."""
-    return _sum_c(mu * mu + sigma).to(mu.dtype)
+    return chan_sum(mu * mu + sigma).to(mu.dtype)
 
 
 def _ring(like: Tensor, pads) -> Tensor:
@@ -879,25 +702,15 @@ def vglue_conv_relu(
     mu, sigma = _act(mu), _act(sigma)
     w_d = w_mu[:, :, :c_d] if mu_enc is not None else w_mu
     pd = _axis_pads(pad_size, 2)
-    shift = _KNOB["winsum"] == "shift"
-    # in shift mode every window sum below is shifted adds on a padded or
-    # cropped single-channel source
-    ones = None if shift else mu.new_ones((k, k, 1, 1))
-
-    def winsum(src: Tensor, pads) -> Tensor:
-        if shift:
-            return _winsum_shift_pads(src, k, *pads)
-        return _conv_pad(src, ones, *pads)
-
     mu_out = _conv_pad(mu, w_d, *pd)
-    ws = winsum(_moment_src(mu, sigma), pd)
+    ws = _winsum_shift_pads(_moment_src(mu, sigma), k, *pd)
     sig_conv = _conv_pad(sigma, w_d * w_d, *pd)
     if sigma_fill != 0.0 and any(lo or hi for lo, hi in pd):
         # each border pixel contributes (mu = 0, sigma = fill) per decoder
         # channel
         ring = _ring(mu, pd)
         fill = float(torch.tensor(sigma_fill, dtype=mu.dtype))  # jnp.asarray's rounding
-        ws = ws + winsum(ring, ((0, 0), (0, 0))) * (c_d * fill)
+        ws = ws + _winsum_shift_pads(ring, k, (0, 0), (0, 0)) * (c_d * fill)
         w2_sum = (w_d * w_d).sum(dim=2, keepdim=True)
         sig_conv = sig_conv + _conv_valid(ring, w2_sum) * fill
     if mu_enc is not None:
@@ -905,7 +718,7 @@ def vglue_conv_relu(
         w_e = w_mu[:, :, c_d:]
         pe = _enc_pads(mu.shape[1:3], mu_enc.shape[1:3], pd)
         mu_out = mu_out + _conv_pad(mu_enc, w_e, *pe)
-        ws = ws + winsum(_moment_src(mu_enc, sigma_enc), pe)
+        ws = ws + _winsum_shift_pads(_moment_src(mu_enc, sigma_enc), k, *pe)
         sig_conv = sig_conv + _conv_pad(sigma_enc, w_e * w_e, *pe)
     sigma_out = scale_sw(_act(ws), s_w) + sig_conv
     return vrelu(_act(mu_out), _act(sigma_out))

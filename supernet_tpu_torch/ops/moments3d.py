@@ -31,15 +31,13 @@ gradients against the CPU's with the card's ReLU masks and pool taps): every
 ReLU of the family goes through the module's ``vrelu`` and every pool
 through ``VMaxPool3d.apply``.
 
-The JAX module's A/B lowerings run here on every device, since the family
-has no hand-written kernel: ``set_conv3d_impl("im2col")`` (the k > 1 moment
-products as one matrix product of the k^3 taps concatenated,
-``torch.matmul``, as the JAX module's is an XLA einsum), the 2-D module's
-``winsum``, ``chansum`` and ``sw_scale`` knobs, and the decoder's glue fold
+One lowering per device, as in the 2-D module: the JAX module's A/B
+lowerings (its im2col and the 2-D module's window-sum, channel-sum and
+scale switches) have no counterpart. The decoder's glue fold
 :func:`vglue_conv3d_relu` (``set_glue_fold``, dispatched by
-``models/unet3d.py``). The counters ``moments3d.products.conv3d`` and
-``.im2col`` (``tracing.counters``) count the k > 1 moment products each
-lowering ran.
+``models/unet3d.py``) is the models' choice. The counter
+``moments3d.products.conv3d`` (``tracing.counters``) counts the k > 1 moment
+products the ``conv3d`` calls ran.
 """
 
 from __future__ import annotations
@@ -57,11 +55,9 @@ from supernet_tpu_torch.ops.moments import (  # noqa: F401
     _enc_pads,
     _f32,
     _ring,
-    _sum_c,
     _winsum_shift,
     _winsum_shift_pads,
     chan_sum,
-    get_winsum,
     scale_sw,
     vrelu,
     vsoftmax,
@@ -69,41 +65,6 @@ from supernet_tpu_torch.ops.moments import (  # noqa: F401
 
 Tensor = torch.Tensor
 MomentPair = Tuple[Tensor, Tensor]
-
-# The k > 1 conv lowering (supernet_tpu/ops/moments3d.py:53-103): "conv"
-# (cuDNN conv3d) or "im2col" (the k^3 taps concatenated on channels, one
-# matrix product with the packed k^3*C_in contraction).
-_CONV3D_IMPL = "conv"
-# the counter of each lowering's moment products
-_PRODUCT_COUNTERS = {"conv": "moments3d.products.conv3d",
-                     "im2col": "moments3d.products.im2col"}
-
-
-def set_conv3d_impl(mode: str) -> None:
-    if mode not in ("conv", "im2col"):
-        raise ValueError(f"unknown conv3d impl {mode!r}")
-    global _CONV3D_IMPL
-    _CONV3D_IMPL = mode
-
-
-def get_conv3d_impl() -> str:
-    return _CONV3D_IMPL
-
-
-def _im2col3d(x: Tensor, k: int, stride: int = 1) -> Tensor:
-    """The k^3 VALID-window taps concatenated on channels:
-    [B, D, H, W, C] -> [B, D', H', W', k^3*C], tap-major (dz, dy, dx)
-    order, C minor: ``w.reshape(k^3*C_in, C_out)``'s row order."""
-    _, d, h, w, _ = x.shape
-    return torch.cat([x[:, dz:d - (k - 1) + dz:stride, dy:h - (k - 1) + dy:stride,
-                        dx:w - (k - 1) + dx:stride]
-                      for dz in range(k) for dy in range(k) for dx in range(k)], dim=-1)
-
-
-def _im2col_dot(patches: Tensor, w_flat: Tensor) -> Tensor:
-    """[B, D', H', W', k^3*Cin] @ [k^3*Cin, Cout]."""
-    return torch.matmul(patches, w_flat.to(patches.dtype))
-
 
 def _conv3d_valid(x: Tensor, w: Tensor, stride: int = 1, padding=0) -> Tensor:
     """VALID ``conv3d`` of NDHWC ``x`` with a DHWIO kernel, NDHWC out
@@ -128,29 +89,17 @@ def _conv3d_pads(x: Tensor, w: Tensor, pads) -> Tensor:
 
 
 def _window_sum3d(x: Tensor, k: int, stride: int = 1) -> Tensor:
-    """Channel sum (float32, ``chan_sum``) then the k^3 VALID window sum
-    -> [B, D', H', W', 1] in the activation dtype, lowered per the 2-D
-    module's ``set_winsum``: shifted adds, or a ones-kernel conv3d in
-    float32."""
-    s = chan_sum(x)
-    if get_winsum() == "shift":
-        return _act(_winsum_shift(s, k, stride))
-    return _act(_conv3d_valid(s, s.new_ones((k, k, k, 1, 1)), stride))
+    """Channel sum (float32, ``chan_sum``) then the k^3 VALID window sum by
+    shifted adds -> [B, D', H', W', 1] in the activation dtype."""
+    return _act(_winsum_shift(chan_sum(x), k, stride))
 
 
 def _moment_convs(mu: Tensor, sigma: Tensor, w_mu: Tensor, stride: int):
     """``(conv3d(mu, w_mu), conv3d(sigma, w_mu^2))`` of a k > 1 conv,
-    ``sigma`` None for the first conv, lowered per ``set_conv3d_impl``.
-    Each product adds 1 to the counter ``moments3d.products.<lowering>``
-    (``conv3d`` or ``im2col``)."""
+    ``sigma`` None for the first conv. Each product adds 1 to the counter
+    ``moments3d.products.conv3d``."""
     w2 = torch.square(_f32(w_mu))
-    tracing.count(_PRODUCT_COUNTERS[_CONV3D_IMPL], 1 if sigma is None else 2)
-    if _CONV3D_IMPL == "im2col":
-        k, cout = w_mu.shape[0], w_mu.shape[-1]
-        mu_out = _im2col_dot(_im2col3d(mu, k, stride), w_mu.reshape(-1, cout))
-        if sigma is None:
-            return mu_out, None
-        return mu_out, _im2col_dot(_im2col3d(sigma, k, stride), w2.reshape(-1, cout))
+    tracing.count("moments3d.products.conv3d", 1 if sigma is None else 2)
     mu_out = _conv3d_valid(mu, w_mu, stride)
     return mu_out, None if sigma is None else _conv3d_valid(sigma, w2, stride)
 
@@ -173,7 +122,7 @@ def vconv3d_input(
     x = _act(x)
     if k == 1 and stride == 1:
         w2 = _act(w_mu[0, 0, 0])
-        t = _sum_c(torch.square(_f32(x)))
+        t = chan_sum(torch.square(_f32(x)))
         return _act(_einsum_1x1(x, w2)), scale_sw(_act(t), s_w)
     mu_out, _ = _moment_convs(x, None, w_mu, stride)
     ws = _window_sum3d(torch.square(x), k, stride)
@@ -195,7 +144,7 @@ def vconv3d(
     if k == 1 and stride == 1:
         mu_a, sigma_a = _act(mu), _act(sigma)
         w2 = _act(w_mu[0, 0, 0])
-        t = _sum_c(torch.square(mu) + sigma)
+        t = chan_sum(torch.square(mu) + sigma)
         sigma_out = scale_sw(_act(t), s_w) + _einsum_1x1(sigma_a, torch.square(w2))
         return _act(_einsum_1x1(mu_a, w2)), _act(sigma_out)
     mu_out, sigma2 = _moment_convs(_act(mu), _act(sigma), w_mu, stride)
@@ -347,7 +296,7 @@ def vunpool3d_conv2(
     nonzero voxel per window, so it is the channel sum upsampled 2x."""
     sw = F.softplus(_f32(w_sigma))
     mu, sigma = _act(mu), _act(sigma)
-    t_up = _upsample2_nearest3d(_act(_sum_c(torch.square(mu) + sigma)))
+    t_up = _upsample2_nearest3d(_act(chan_sum(torch.square(mu) + sigma)))
     mu_out = _unpool_conv3d(mu, w_mu)
     sigma_out = t_up * _act(sw) + _unpool_conv3d(sigma, torch.square(_f32(w_mu)))
     return mu_out, _act(sigma_out)
@@ -415,25 +364,18 @@ def vglue_conv3d_relu(
     s_w = F.softplus(_f32(w_sigma))
     mu, sigma = _act(mu), _act(sigma)
     w_d = w_mu[..., :c_d, :] if mu_enc is not None else w_mu
-    shift = get_winsum() == "shift"
-    ones = None if shift else mu.new_ones((k, k, k, 1, 1))
     pd = _axis_pads(pad_size, 3)
 
-    def winsum(src: Tensor, pads) -> Tensor:
-        if shift:
-            return _winsum_shift_pads(src, k, *pads)
-        return _conv3d_pads(src, ones, pads)
-
     def src_of(m: Tensor, s: Tensor) -> Tensor:
-        return _sum_c(torch.square(m) + s).to(m.dtype)
+        return chan_sum(torch.square(m) + s).to(m.dtype)
 
     mu_out = _conv3d_pads(mu, w_d, pd)
-    ws = winsum(src_of(mu, sigma), pd)
+    ws = _winsum_shift_pads(src_of(mu, sigma), k, *pd)
     sig_conv = _conv3d_pads(sigma, torch.square(_f32(w_d)), pd)
     if sigma_fill != 0.0 and any(lo or hi for lo, hi in pd):
         ring = _ring(mu, pd)
         fill = float(torch.tensor(sigma_fill, dtype=mu.dtype))  # jnp.asarray's rounding
-        ws = ws + winsum(ring, ((0, 0),) * 3) * (c_d * fill)
+        ws = ws + _winsum_shift_pads(ring, k, (0, 0), (0, 0), (0, 0)) * (c_d * fill)
         w2_sum = torch.square(_f32(w_d)).sum(dim=3, keepdim=True)
         sig_conv = sig_conv + _conv3d_valid(ring, w2_sum) * fill
     if mu_enc is not None:
@@ -441,7 +383,7 @@ def vglue_conv3d_relu(
         w_e = w_mu[..., c_d:, :]
         pe = _enc_pads(mu.shape[1:4], mu_enc.shape[1:4], pd)
         mu_out = mu_out + _conv3d_pads(mu_enc, w_e, pe)
-        ws = ws + winsum(src_of(mu_enc, sigma_enc), pe)
+        ws = ws + _winsum_shift_pads(src_of(mu_enc, sigma_enc), k, *pe)
         sig_conv = sig_conv + _conv3d_pads(sigma_enc, torch.square(_f32(w_e)), pe)
     sigma_out = scale_sw(_act(ws), s_w) + sig_conv
     return vrelu(_act(mu_out), _act(sigma_out))

@@ -650,7 +650,7 @@ def profile_train_step3d(config: str, batch: int, seed: int = 0,
                          remat: bool = False, steps: int = STEPS) -> Dict:
     """One ``train3d.make_train_step3d`` step on cubes already on the card,
     at the config's cube side, width and depth (``remat`` checkpoints each
-    block), under the lowering knobs as they are set; ``steps`` timed and as
+    block), under the glue fold as it is set; ``steps`` timed and as
     many traced. Adds ``vols_per_s`` and ``conv3d_share``, the share of the
     step's device time in cuDNN's convolutions (every conv of the family)."""
     from supernet_tpu_torch import train3d

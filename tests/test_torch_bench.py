@@ -43,7 +43,7 @@ KNOBS = ("SUPERNET_BENCH_ITERS", "SUPERNET_BENCH_DISPATCH", "SUPERNET_BENCH_BASE
          "SUPERNET_BENCH_SCALING", "SUPERNET_BENCH_EXTRA", "SUPERNET_BENCH_3D",
          "SUPERNET_BENCH_ENSEMBLE", "SUPERNET_BENCH_INFER", "SUPERNET_BENCH_MODEL",
          "SUPERNET_PRECISION", "SUPERNET_ACT_DTYPE", "SUPERNET_BACKEND",
-         "SUPERNET_CONV_FOLD", "SUPERNET_DATA_PARALLEL")
+         "SUPERNET_DATA_PARALLEL")
 
 TINY = configs.HIPPOCAMPUS.replace(
     model=dataclasses.replace(configs.HIPPOCAMPUS.model, image_size=32, out_size=22,

@@ -203,29 +203,22 @@ def test_train_step_under_bf16(bf16):
 
 
 def test_apply_env_overrides(monkeypatch, capsys):
-    """SUPERNET_ACT_DTYPE, SUPERNET_PRECISION and the A/B knobs take
-    effect; the three kernel switches of the JAX package, when set, are
-    named on stderr with their reason."""
+    """SUPERNET_ACT_DTYPE and SUPERNET_PRECISION take effect; the kernel
+    switches of the JAX package, when set, are named on stderr with their
+    reason."""
     monkeypatch.setenv("SUPERNET_ACT_DTYPE", "bfloat16")
     monkeypatch.setenv("SUPERNET_PRECISION", "high")
     monkeypatch.setenv("SUPERNET_BACKEND", "pallas")
-    monkeypatch.setenv("SUPERNET_CONV_FOLD", "sigma")
-    monkeypatch.setenv("SUPERNET_CONV3D", "conv")
-    monkeypatch.delenv("SUPERNET_WINSUM", raising=False)
     try:
         ops.apply_env_overrides()
         assert ops.get_act_dtype() == torch.bfloat16
         assert ops.get_mxu_precision() == "high"
-        assert ops.get_conv_fold() == "sigma"
     finally:
         ops.set_act_dtype("float32")
         ops.set_mxu_precision("highest")
-        ops.set_conv_fold("none")
     err = capsys.readouterr().err
     assert "SUPERNET_BACKEND=pallas has no counterpart" in err
-    assert "SUPERNET_CONV_FOLD" not in err  # ported
-    assert "SUPERNET_CONV3D" not in err
-    assert "SUPERNET_WINSUM" not in err and "SUPERNET_ACT_DTYPE" not in err
+    assert "SUPERNET_ACT_DTYPE" not in err and "SUPERNET_PRECISION" not in err
     monkeypatch.setenv("SUPERNET_ACT_DTYPE", "float16")
     with pytest.raises(ValueError):
         ops.apply_env_overrides()

@@ -33,7 +33,6 @@ from supernet_tpu_torch import configs, flops  # noqa: E402
 from supernet_tpu_torch.checkpoint import params_from_jax  # noqa: E402
 from supernet_tpu_torch.models import forward, forward3d  # noqa: E402
 from supernet_tpu_torch.ops import moments as tm  # noqa: E402
-from supernet_tpu_torch.ops import moments3d as tm3  # noqa: E402
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -81,16 +80,16 @@ OP_CASES = [((3, 3), 0.02, True), ((2, 2), 0.1, False), ((1, 0), 0.1, False)]
 @pytest.mark.parametrize("pad,fill,with_enc", OP_CASES)
 def test_op_equality(pad, fill, with_enc, winsum):
     """The fold equals the explicit choreography (the JAX test's op
-    tolerance) and the JAX package's fold; the skip crop (21 -> 16) has an
-    odd difference, so it is one pixel wider at the high end."""
+    tolerance) and the JAX package's fold under each of its window-sum
+    lowerings; the skip crop (21 -> 16) has an odd difference, so it is one
+    pixel wider at the high end."""
     mu, sigma, w_mu, w_sigma, enc = _op_case(pad, with_enc)
     t = [torch.from_numpy(a) for a in (mu, sigma, w_mu, w_sigma)]
     te = None if enc is None else [torch.from_numpy(a) for a in enc]
+    ref = _explicit(*t, pad, fill, te)
+    got = tm.vglue_conv_relu(*t, pad, fill, *(te or (None, None)))
     jm.set_winsum(winsum)
     try:
-        with tm.lowering(winsum=winsum):
-            ref = _explicit(*t, pad, fill, te)
-            got = tm.vglue_conv_relu(*t, pad, fill, *(te or (None, None)))
         want = jm.vglue_conv_relu(*map(jnp.asarray, (mu, sigma, w_mu, w_sigma)), pad, fill,
                                   *(map(jnp.asarray, enc) if enc else (None, None)))
     finally:
@@ -252,16 +251,14 @@ def test_forward3d_fold_equality(case3d):
 
 
 def test_forward3d_im2col_matches_jax(case3d):
-    """``set_conv3d_impl("im2col")`` through the whole 3-D model against
-    JAX's im2col, forward and gradients."""
+    """The port's one 3-D lowering through the whole 3-D model against the
+    JAX package's ``set_conv3d_impl("im2col")``, forward and gradients."""
     jparams, x = case3d
+    got = _run(jparams, x, CFG3, "none", _tloss3, forward3d)
+    jm3.set_conv3d_impl("im2col")
     try:
-        tm3.set_conv3d_impl("im2col")
-        jm3.set_conv3d_impl("im2col")
-        got = _run(jparams, x, CFG3, "none", _tloss3, forward3d)
         want = _jrun(jparams, x, JCFG3, "none", _jloss3, jforward3d)
     finally:
-        tm3.set_conv3d_impl("conv")
         jm3.set_conv3d_impl("conv")
     _port_vs_jax(got, want)
 

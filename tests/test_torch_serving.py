@@ -405,7 +405,7 @@ def test_port_imports_no_jax():
         assert p.shape == (1, 22, 22, 3) and np.isfinite(s).all()
         from supernet_tpu_torch.models import forward
         from supernet_tpu_torch.ops.moments import lowering
-        with lowering(glue_fold="fold", conv_fold="sigma"), torch.no_grad():
+        with lowering(glue_fold="fold"), torch.no_grad():
             pf, _ = forward(params, torch.zeros(1, 32, 32, 1), cfg)
         assert pf.shape == (1, 22 * 22, 3)
         state, _ = train.create_train_state(params, HIPPOCAMPUS.train, "cpu")

@@ -6,7 +6,6 @@ gradients and Adam steps against the plain reference
 (``train3d``, ``InferenceSession(volumetric=True)``). The small size is the
 plan's rules at base 4 and depth 3 on a 44^3 cube, which gives 4^3."""
 
-import contextlib
 import dataclasses
 import importlib.util
 import os
@@ -18,7 +17,6 @@ import torch
 from supernet_tpu_torch import configs, serving, train, train3d
 from supernet_tpu_torch.models import unet3d
 from supernet_tpu_torch.ops.moments import lowering
-from supernet_tpu_torch.ops import moments3d as M3
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CICEK = unet3d.CICEK3D.model
@@ -206,26 +204,14 @@ def test_two_adam_steps_match_the_reference(seed):
 # -------------------------------------------------- lowerings and entry points
 
 
-@contextlib.contextmanager
-def _im2col():
-    M3.set_conv3d_impl("im2col")
-    try:
-        yield
-    finally:
-        M3.set_conv3d_impl("conv")
-
-
-@pytest.mark.parametrize("lowered", [lambda: lowering(glue_fold="fold"), _im2col],
-                         ids=["glue_fold", "im2col"])
-def test_the_lowerings_run_the_plan(lowered):
+def test_the_lowerings_run_the_plan():
     """The glue fold (which takes each decoder block's first conv with its
-    skip; the plan has no pads to fold) and the im2col lowering give the
-    default path's moments."""
+    skip; the plan has no pads to fold) gives the default path's moments."""
     p = _params(3)
     x, _ = _batches(3, 1)[0]
     with torch.no_grad():
         probs, sigma = unet3d.forward3d(p, x, CFG)
-        with lowered():
+        with lowering(glue_fold="fold"):
             probs_l, sigma_l = unet3d.forward3d(p, x, CFG)
     assert float((probs - probs_l).abs().max()) < 1e-5
     assert _sigma_gap(sigma_l, sigma) < 2e-4
