@@ -5,6 +5,9 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
+or with ``--last-phase 7`` to stop after phase 7: the kernels, serving and
+training (the last line is then ``{"ok": true, "last_phase": 7}``).
+
 Phases (any failure raises and the exit code is not 0):
 
 1. setup: needs a CUDA device (there is no CPU fallback); TF32 off; prints
@@ -46,6 +49,12 @@ Phases (any failure raises and the exit code is not 0):
    the ties, NaN, C=130, C=36 and odd-edge C=40 cases reach both paths in
    each dtype; at every model pool the training form also at every block
    size of ``plan_fwd``'s and through the scalar kernel, summed per step.
+   Kernel 1 at every k=3 layer of a BraTS chunk of 20 (the serving cells'
+   batch): the forward and the transposed pair within 1e-5 of the max of
+   their plain versions in float64, each timed by device time beside its
+   3xTF32 bound with the plan's path, tile and K slices, and on the tensor
+   cores the prologue's weight planes (forward and flipped) bit for bit
+   ``split_weight_planes_plain``'s; the sums on one line.
 3. serving, hippocampus at full width: ``InferenceSession`` (batch 20),
    with ``init_params`` weights rescaled to He scale, answers requests of
    20, 7 and 45 images; the kernel launch counters are zeroed just before
@@ -580,6 +589,9 @@ class KernelCheck:
         # cases took
         self.default = {}
         self.default_s = 0.0
+        # kernel 1 at a serving chunk's layers: (config) -> summed forward
+        # device ms and 3xTF32 bound, transposed pair device ms and bound
+        self.chunk = {}
 
     def _randn(self, *shape):
         return self.torch.randn(shape, device="cuda", generator=self.gen)
@@ -1398,6 +1410,79 @@ class KernelCheck:
         self.paths.setdefault(kernel, set()).add(path)
         self.dev[(kernel, config)] = self.dev.get((kernel, config), 0.0) + dev_ms
 
+    def chunk_layer(self, config, layer, b, h, w, cin, cout, has_sigma):
+        """Kernel 1 at one layer of a serving chunk: the forward with its
+        ReLU and, but at the first layer, the transposed pair, each within
+        VDP_F64_TOL of the max of the plain version in float64 (the forward
+        before its ReLU), timed by device time beside its 3xTF32 bound, with
+        the plan's path, tile and K slices. On the tensor cores the
+        prologue's weight planes, forward and flipped, bit for bit those of
+        ``split_weight_planes_plain``. One JSON line; the sums go to
+        ``self.chunk``."""
+        torch = self.torch
+        from supernet_tpu_torch.ops.kernels import vdp_conv as V
+        from supernet_tpu_torch.profiling import device_ms, vdp_conv_bounds
+
+        what = f"vdp_conv {config}/{layer} at batch {b}"
+        mu = self._randn(b, h, w, cin)
+        sigma = 0.05 * self._randn(b, h, w, cin).abs() if has_sigma else None
+        w_mu = 0.1 * self._randn(3, 3, cin, cout)
+        w_sigma = -4.0 + self._randn(cout)
+        g1, g2 = self._randn(b, h - 2, w - 2, cout), self._randn(b, h - 2, w - 2, cout)
+        fwd = V.plan(b, h, w, cin, cout, 3, 1, _sms())
+        dgrad = V.plan(b, h, w, cout, cin, 3, 1, _sms())
+        line = {"kernel": "vdp_conv_chunk", "config": config, "layer": layer,
+                "shape": [b, h, w, cin, cout], "path": fwd.path, "splits": fwd.splits,
+                "tile": [fwd.tile_h, fwd.tile_w, fwd.tile_n]}
+
+        def wide(t):
+            return None if t is None else t.double()
+
+        def rel(got, want):
+            return float((got.double() - want).abs().max() / want.abs().max())
+
+        with torch.inference_mode():
+            got = V.vdp_conv(mu, sigma, w_mu, w_sigma)
+            want = V.vdp_conv_plain(wide(mu), wide(sigma), w_mu.double(), w_sigma.double())
+            line["f64_max_rel_err"] = max(rel(g, r) for g, r in zip(got, want))
+            del got, want
+            if has_sigma:
+                got = V.conv_t_pair(g1, g2, w_mu)
+                want = V.conv_t_pair_plain(g1.double(), g2.double(), w_mu.double())
+                line["dgrad_f64_max_rel_err"] = max(rel(g, r) for g, r in zip(got, want))
+                del got, want
+            for key in ("f64_max_rel_err", "dgrad_f64_max_rel_err"):
+                if line.get(key, 0.0) > VDP_F64_TOL:
+                    _die(f"{what}: {key} {line[key]:.3e} > {VDP_F64_TOL}")
+            if fwd.path == "wgmma":
+                for flip, p, x, s in ((False, fwd, mu, sigma),
+                                      (True, dgrad, *V._padded(g1, g2, 3))):
+                    planes = torch.full((p.planes_bytes // 4,), -1, dtype=torch.int32,
+                                        device="cuda")
+                    V._launch(x, s, w_mu, None if flip else w_sigma, False, flip=flip,
+                              planes=planes)
+                    plain = V.split_weight_planes_plain(w_mu.cpu(), p.tile_n, flip=flip)
+                    if not torch.equal(planes.cpu(), plain.reshape(-1)):
+                        _die(f"{what}: the prologue's weight planes (flip {flip}) are "
+                             f"not split_weight_planes_plain's")
+                line["weight_planes_equal"] = True
+            line["device_ms"] = device_ms(lambda: V.vdp_conv(mu, sigma, w_mu, w_sigma, True))
+            if has_sigma:
+                line["dgrad_path"] = dgrad.path
+                line["dgrad_tile"] = [dgrad.tile_h, dgrad.tile_w, dgrad.tile_n]
+                line["dgrad_device_ms"] = device_ms(lambda: V.conv_t_pair(g1, g2, w_mu))
+        line["bound_3xtf32_ms"] = vdp_conv_bounds(b, h, w, cin, cout, 3,
+                                                  has_sigma)["bound_3xtf32_ms"]
+        if has_sigma:
+            line["dgrad_bound_3xtf32_ms"] = vdp_conv_bounds(
+                b, h + 2, w + 2, cout, cin, 3, True)["bound_3xtf32_ms"]
+        acc = self.chunk.setdefault(config, [0.0, 0.0, 0.0, 0.0])
+        acc[0] += line["device_ms"]
+        acc[1] += line["bound_3xtf32_ms"]
+        acc[2] += line.get("dgrad_device_ms", 0.0)
+        acc[3] += line.get("dgrad_bound_3xtf32_ms", 0.0)
+        print(json.dumps(line), flush=True)
+
     def _record(self, kernel, config, abs_err, rel_err, ms, plain_ms, bound, extra):
         worst = self.worst.setdefault(kernel, [0.0, 0.0])
         worst[0] = max(worst[0], abs_err)
@@ -1500,6 +1585,7 @@ def _zero_launches() -> None:
 
     V.launches = V.reduce_launches = P.launches = P.bwd_launches = S.launches = 0
     V.dgrad_launches = V.dgrad_reduce_launches = V.bf16_launches = 0
+    V.weight_plane_launches = 0
 
 
 def _read_launches() -> dict:
@@ -5151,8 +5237,14 @@ def _pool_forward_checks(check, smi) -> None:
 
 
 def main() -> int:
+    import argparse
+
     import torch
 
+    parser = argparse.ArgumentParser(description="Drive the port on one NVIDIA card.")
+    parser.add_argument("--last-phase", type=int, choices=(7, 23), default=23,
+                        help="7: stop after the kernels, serving and training (phases 2-7)")
+    last_phase = parser.parse_args().last_phase
     if not torch.cuda.is_available():
         _die("torch.cuda.is_available() is False; this script drives the "
              "port on an NVIDIA card and has no CPU fallback")
@@ -5208,6 +5300,15 @@ def main() -> int:
     check.vdp_conv_bf16("extra", "k1_input", 4, 33, 29, 24, 40, 1, False, False)
     check.vdp_conv_bf16("extra", "k3_no_relu", 3, 17, 19, 3, 96, 3, True, False)
     check.vdp_conv_bf16("extra", "k3_c130", 3, 17, 19, 24, 130, 3, True, True)
+    # kernel 1 at every k=3 layer of a BraTS chunk of 20, the serving cells'
+    # batch
+    for layer, (_, h, w, cin), cout in layer_shapes(BRATS.model)[0]:
+        check.chunk_layer("brats_chunk20", layer, 20, h, w, cin, cout,
+                          has_sigma=layer != "conv_input")
+    print(json.dumps({"kernel": "vdp_conv_chunk", "config": "brats_chunk20",
+                      "sums": dict(zip(("device_ms", "bound_3xtf32_ms", "dgrad_device_ms",
+                                        "dgrad_bound_3xtf32_ms"),
+                                       check.chunk["brats_chunk20"]))}), flush=True)
     _pool_forward_checks(check, smi)
 
     # 3-4. serving at full width
@@ -5285,6 +5386,9 @@ def main() -> int:
         train_launches, step_s, per_step = _train(
             torch, "hippocampus", HIPPOCAMPUS.model, HIPPOCAMPUS.train, 20, 5)
         _train(torch, "brats", BRATS.model, BRATS.train, 2, 2)
+        if last_phase == 7:
+            print(json.dumps({"ok": True, "last_phase": 7}), flush=True)
+            return 0
 
         # 8-11. the epoch trainer, resume and roll-back, the CLI,
         # augmentation and remat

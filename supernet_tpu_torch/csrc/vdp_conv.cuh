@@ -46,7 +46,8 @@
 // Tensor-core path (k = 3, Cin % 8 == 0 at float32 accuracy, Cin % 16 == 0
 // in one bf16 pass, Cout % 4 == 0): an implicit GEMM, M = output pixels
 // (the batch folded in), N = Cout, K = 9 Cin, both products in one block on
-// the same M x K patches.
+// the same M x K patches. Each operand is converted once, not once per tap:
+// only fragment loads, wgmmas and the chunk fold run at every K step.
 // - 3xTF32: every operand x is split into big = tf32(x) and small =
 //   tf32(x - big), both rounded to nearest (the tensor core itself would
 //   drop the low 13 bits), and each product accumulates
@@ -57,39 +58,60 @@
 //   six wgmmas per step (three per product).
 // - One bf16 pass: wgmma.m64nNk16.f32.bf16.bf16, one K step = one tap x 16
 //   input channels, two wgmmas per step (one per product). The A fragments
-//   are the staged patches packed to bf16x2 (cvt.rn.bf16x2.f32; a bf16
-//   patch is packed already), the window sum taken from the unrounded
-//   values first. B is w_mu and w_mu^2 rounded to bf16 in K-major core
-//   matrices: half the bytes of one TF32 half and no split.
+//   are the inputs packed to bf16x2 (cvt.rn.bf16x2.f32; a bf16 input is
+//   packed already), the window sum taken from the unrounded values. B is
+//   w_mu and w_mu^2 rounded to bf16: half the bytes of one TF32 half and no
+//   split.
 // - The tensor cores add into their float32 accumulator with truncation, so
 //   the mu product, whose terms cancel, restarts its accumulator every
 //   chunk of 9 taps (72 K values in 3xTF32, 144 in one bf16 pass) and folds
 //   it into a float32 total.
-// - One warpgroup per block of 64 output pixels x N channels (N = 32 or
-//   64). A (the patches) comes from registers: each thread loads its
-//   fragment from the staged patch tile, converts it there and adds its
-//   share of the window sum. B (the weights, HWIO, so N-major) is
-//   transposed to K-major core matrices while it is converted in shared
-//   memory, with w^2 formed there: no weight copy in device memory.
-// - A ring of kStages K steps is filled by 16-byte cp.async (channels of
-//   one pixel, im2col on the fly, rows past M zero-filled), so the copies of
-//   the next steps overlap the tensor cores' work on this one. The B
-//   operands and the A fragments are double-buffered: one barrier per step,
-//   after which the block starts step s on the tensor cores and prepares
-//   step s + 1 while they run.
-// - Split-K: where the M x N tiles alone give fewer blocks than the card has
-//   SMs (the deep BraTS layers: M = 72 to 512 against K = 4608), the Cin
-//   chunks are cut into S slices, one block each. Each slice writes float32
-//   partials of both products and of its window sum to a scratch buffer
-//   [S, M, Cout] x 2 + [S, M], and vdp_conv_kernel_splitk_reduce sums the
-//   slices in fixed order (no atomics: deterministic), adds win * sw, applies
-//   the ReLU and writes the three outputs.
-// - The window sum is formed once per output pixel from the same A
-//   fragments: over the nine taps each fragment holds the tap-shifted inputs
-//   of its rows, so summing mu^2 + sigma over the fragment and the quad of
-//   lanes that shares a row gives that row's k x k x Cin window sum.
-// What bounds it now is the work around the tensor cores: at N = 32 a K step
-// is a few small wgmmas against its staging, conversion and barrier (PERF.md).
+// - The weights are converted once per call. A prologue kernel,
+//   vdp_conv_kernel_weight_planes, launched from the same entry on the same
+//   stream, writes them into device scratch in the layout the wgmma B
+//   descriptor reads: K-major core matrices of one step (kK channels of one
+//   tap) x one N tile, 3xTF32 in four planes (w big, w small, w^2 big, w^2
+//   small; w^2 squared in float32 first), one bf16 pass in two (w, w^2),
+//   each step's planes one contiguous block, ordered (member, chunk, tap, N
+//   tile). For the transposed pair it reads the forward's w_mu in place,
+//   its taps mirrored and Cin, Cout swapped. The main loop converts
+//   nothing: one thread copies each step's block into a ring of kStages
+//   slots with one bulk copy (cp.async.bulk), whose bytes complete the
+//   slot's mbarrier.
+// - The activations are converted once per chunk. One warpgroup per block
+//   of a 2-D tile of TH x TW output pixels of one image (TH TW <= 64, wgmma's
+//   M; plan picks the shape from the output's width) x N channels (N = 32
+//   or 64). Each chunk of kK input channels is copied once (cp.async) as the
+//   tile's (TH + 2) x (TW + 2) halo of mu and sigma, pixels past the image
+//   zero-filled, and split there once into the fragments' form (3xTF32: big
+//   and small halves; one bf16 pass: bf16x2), in the same pass that adds the
+//   chunk's mu^2 + sigma into a per-pixel channel sum. At each tap a thread
+//   loads its A fragments from that tile at the tap's (dy, dx) offset, two
+//   16-byte loads per row pair. Rows past the tile or the image are masked
+//   at the store.
+// - The window sum is taken once per output pixel, after the last chunk, as
+//   the 3 x 3 window of the per-pixel channel sums.
+// - No barrier within a chunk: step s waits for its slot's mbarrier, starts
+//   on the tensor cores, and once step s - 1's wgmmas are done its slot
+//   takes the copy of step s + kStages - 1 and the other register buffer
+//   step s + 1's fragments. At a chunk's last tap the next chunk's halo,
+//   copied during the chunk, is split while the tensor cores run (two
+//   barriers a chunk), and the halo after it starts on its way.
+// - Split-K: where the M x N tiles alone give fewer than two blocks per SM
+//   of the card (the deep layers; plan's TC_BLOCKS_PER_SM), the Cin chunks are cut
+//   into S slices, one block each. Each slice writes float32 partials of
+//   both products and of its window sum to a scratch buffer [S, M, Cout] x 2
+//   + [S, M], and vdp_conv_kernel_splitk_reduce sums the slices in fixed
+//   order (no atomics: deterministic), adds win * sw, applies the ReLU and
+//   writes the three outputs.
+// An output's products depend on its splits, the K order and the fold
+// points alone, not on the tile that holds it, so mu_out and the transposed
+// pair's outputs are the same bits for any tile shape of one K slicing.
+// What bounds it now is the wgmma chain itself and the chunk boundary: a
+// step's six small wgmmas (m64n32k8 or m64n64k8 into two accumulators) run
+// at about half the TF32 rate even with every load, split and barrier taken
+// out, and at each chunk's end the block drains them to fold mu and split
+// the next halo; other resident blocks fill that gap (PERF.md, section 6).
 //
 // CUDA-core path (everything else: the first layer's Cin of 1 or 4, k != 3,
 // Cin not a multiple of the tensor cores' step), float32 products and sums;
@@ -133,11 +155,11 @@
 // computes in float32 behind a cast at its wrapper (vdp_conv.py:460-477);
 // here the conversions happen in the loads and the stores. At float32
 // accuracy a bf16 patch staged in shared memory converts at the fragment
-// load; its value fits TF32, so the small half of its 3xTF32 split is 0 and
+// split; its value fits TF32, so the small half of its 3xTF32 split is 0 and
 // the products and sums are those of the float32 kernel on the same values,
 // in the same order: the plan is the float32 plan (the shape alone picks
 // it), and only the staging (16 bytes carry the 8 channels of a K step) and
-// the stores differ. In one bf16 pass a bf16 patch is already the operand.
+// the stores differ. In one bf16 pass a bf16 input is already the operand.
 
 #pragma once
 
@@ -152,13 +174,18 @@ namespace supernet {
 namespace vdp {
 
 // The pointers of one call, the member strides and count (in elements).
+// Tensor-core path: planes, the weight planes' scratch; th x tw, the tile of
+// output pixels; flip, w_mu is the forward weights of the conv whose
+// transposed pair this call computes.
 struct Args {
   const void *mu, *sigma;
   const float *w_mu, *sw;
   void *mu_out, *sig_out;
   float *win, *part;
+  uint32_t* planes;
   uint8_t* mask;
-  int B, H, W, Cin, Cout, k, splits, members;
+  int B, H, W, Cin, Cout, k, splits, members, th, tw;
+  bool flip;
   long long x_ms, w_ms, sw_ms;
   cudaStream_t stream;
 };
@@ -174,6 +201,10 @@ cudaError_t run_bf16_pass(const Args& a, bool relu, bool with_win, int path,
 // The input channels of one tensor-core K step: 8 (k8) at float32
 // accuracy, 16 (k16) in one bf16 pass.
 constexpr int tc_step_channels(bool bf) { return bf ? 16 : 8; }
+
+// The most input pixels of a tensor-core tile's halo, (TH + 2) (TW + 2): its
+// shared memory is sized for it (ops/kernels/vdp_conv.py:TC_MAX_HALO).
+constexpr int kTcMaxHalo = 136;
 
 namespace {
 
@@ -454,47 +485,87 @@ namespace tc {
 constexpr int kThreads = 128;  // one warpgroup
 constexpr int kTileM = 64;     // output pixels per block: wgmma's M
 constexpr int kTaps = 9;       // k = 3
-constexpr int kStages = 4;     // cp.async ring depth, in K steps
+constexpr int kStages = 4;     // B ring depth, in K steps
 
-// The shared memory of one block, in floats. A staged patch row holds the
-// kK channels of one pixel and padding, so that the rows one fragment load
-// touches fall in distinct banks: 3xTF32, float32 8 channels and 4 of
-// padding, bf16 its 8 channels in 16 bytes (the 8 rows of a fragment load
-// are 8 distinct words); one bf16 pass, float32 16 channels and 8 (a float2
-// load per half-warp covers the 32 banks once), bf16 16 channels in 8 floats
-// and 4. The raw weight rows are padded so that the B transform's reads
-// spread over the banks.
+// The shared memory of one block, in 32-bit words.
+// - ring: kStages slots, each one step's B planes ([planes][8 NT] words,
+//   the layout vdp_conv_kernel_weight_planes writes).
+// - split: the chunk's halo, split once. 16 words per pixel, so that a
+//   16-byte load gives a row's fragment words: 3xTF32, per tensor (mu, then
+//   sigma) [big(c), big(c + 4), small(c), small(c + 4)] for c < 4 (channel
+//   c of the chunk's 8); one bf16 pass [mu(c), mu(c + 4), sigma(c),
+//   sigma(c + 4)] for c < 4, where word j holds the bf16 pair of channels
+//   2 (j % 4) + 8 (j / 4) and the next one.
+// - raw: the chunk's halo as copied, per tensor [pixel][raw_pix floats]:
+//   kK channels in 16-byte pieces and padding, so that the split pass's
+//   reads of eight pixels fall in distinct banks.
+// - t: the per-pixel channel sums behind the window sum; off: the source
+//   offset of each 16-byte piece of the halo (-1: past the image).
+// - full: one mbarrier per ring slot, completed by the bytes of its copy.
 template <int NT, typename TI, bool BF>
 struct Smem {
   static constexpr int kK = tc_step_channels(BF);  // channels of one K step
-  static constexpr int arow = BF ? (sizeof(TI) == 4 ? 24 : 12)
-                                 : (sizeof(TI) == 4 ? 12 : 4);  // floats per row
-  static constexpr int rowe = arow * 4 / sizeof(TI);  // elements per row
-  static constexpr int a = kTileM * arow;  // one patch tile (mu or sigma)
-  static constexpr int wrow = NT + (BF ? 4 : 8);  // padded raw weight row
-  static constexpr int stage = 2 * a + kK * wrow;
-  // one B operand: kK x NT TF32 values, or bf16 values two to a float
-  static constexpr int b = BF ? kK * NT / 2 : kK * NT;
-  // 3xTF32: w big, w small, w^2 big, w^2 small; one bf16 pass: w, w^2
-  static constexpr int bset = (BF ? 2 : 4) * b;
-  static constexpr int floats = 2 * bset + kStages * stage;
+  static constexpr int planes = BF ? 2 : 4;
+  static constexpr int b = 8 * NT;         // words of one B operand (kK x NT)
+  static constexpr int bset = planes * b;  // one step's B operands
+  static constexpr int pieces = kK * static_cast<int>(sizeof(TI)) / 16;  // per pixel
+  static constexpr int piece_e = 16 / static_cast<int>(sizeof(TI));    // elements per piece
+  static constexpr int raw_pix = BF ? (sizeof(TI) == 4 ? 24 : 12)
+                                    : (sizeof(TI) == 4 ? 12 : 4);
+  static constexpr int raw = kTcMaxHalo * raw_pix;     // one tensor's raw halo
+  static constexpr int split_t = kTcMaxHalo * 16;      // one split array
+  static constexpr int split = (BF ? 1 : 2) * split_t;
+  static constexpr int bars = (kStages * bset + split + 2 * raw + kTcMaxHalo +
+                               kTcMaxHalo * pieces + 1) / 2 * 2;  // 8-byte aligned
+  static constexpr int words = bars + 2 * kStages;
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16 bytes global -> shared, zero-filled where !valid (src is then not read).
-// The activations go through L1 (.ca): the nine taps of a chunk read
-// overlapping pixels. The weights bypass it (.cg).
-__device__ __forceinline__ void cp_async_ca(void* dst, const void* src,
-                                            bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
+// mbarriers (shared memory, 8 bytes each): init, the fence that makes an
+// init visible to the asynchronous proxy, a wait for a phase's completion.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
                : "memory");
 }
 
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) global ->
+// shared by the copy engine, their arrival completing the phase of `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, int bytes,
+                                          uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// 16 bytes global -> shared, bypassing L1, zero-filled where !valid (src is
+// then not read).
 __device__ __forceinline__ void cp_async_cg(void* dst, const void* src,
                                             bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
@@ -525,10 +596,6 @@ __device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
   small = round_tf32(x - __uint_as_float(big));
 }
 
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -551,20 +618,20 @@ __device__ __forceinline__ void fence_acc(float (&d)[R]) {
 }
 
 // A fragment of wgmma k8 with TF32 (per warp, 16 rows x 8 K): element i of
-// a thread is row r + 8 frag_row(i), K index c + 4 frag_ch(i), where
-// r = 16 warp + lane / 4 and c = lane % 4. A fragment of k16 with bf16 (16
-// rows x 16 K) has the same rows: register i holds K indices 2 c + 8
-// frag_ch(i) and the next one, the lower in the low half.
-__device__ __forceinline__ constexpr int frag_row(int i) { return i & 1; }
-__device__ __forceinline__ constexpr int frag_ch(int i) { return i >> 1; }
+// a thread is row r + 8 (i & 1), K index c + 4 (i >> 1), where r = 16 warp
+// + lane / 4 and c = lane % 4. A fragment of k16 with bf16 (16 rows x 16 K)
+// has the same rows: register i holds K indices 2 c + 8 (i >> 1) and the
+// next one, the lower in the low half.
 
 // Descriptor of a K-major B operand in shared memory, no swizzle: core
 // matrices of 8 rows (N) x 16 bytes (4 TF32 or 8 bf16 K values), 128
 // contiguous bytes each; the two core matrices of one k8 (TF32) or k16
 // (bf16) step lie 128 bytes apart along K (leading byte offset),
 // consecutive groups of 8 rows 256 bytes apart (stride byte offset).
-// Fields in units of 16 bytes.
-__device__ __forceinline__ uint64_t b_desc(const float* p) {
+// Fields in units of 16 bytes. Word e of an operand is so (n, k) =
+// (8 (e >> 6) + ((e >> 2) & 7), 4 ((e >> 5) & 1) + (e & 3)) in TF32, and
+// (n, k), (n, k + 1) with k = 8 ((e >> 5) & 1) + 2 (e & 3) in bf16.
+__device__ __forceinline__ uint64_t b_desc(const uint32_t* p) {
   const uint64_t addr = smem_u32(p);
   return ((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(128 >> 4) << 16) |
          (static_cast<uint64_t>(256 >> 4) << 32);
@@ -666,42 +733,107 @@ struct MmaBf16<64> {
   }
 };
 
-// One block: output pixels m0..m0+63 (flat over B x Ho x Wo of one member)
-// x channels n0..n0+NT-1, input channels of one K slice (chunks_per_split
-// chunks of kK); blockIdx.z = member S + slice. SPLIT: writes partials to
-// the member's block of `part` ([S][M][Cout] mu, [S][M][Cout] sigma product,
-// [S][M] window sum) instead of the outputs. !WIN: no window sum (sw,
-// win_out and the window partials are not touched), and without sigma no
-// sig_out either. TI: the activations' type, float or bf16. BF: one bf16
-// pass (k16), else 3xTF32 (k8).
+// The weight planes of one call: one thread per word position e of one
+// step's operand, [member][chunk][tap][N tile] sets of [planes][8 NT] words
+// (Smem's layout). w: this conv's weights [3][3][Cin][Cout] per member at
+// w_ms, or with FLIP (the transposed pair's call) the forward weights
+// [3][3][Cout][Cin] of the conv whose transposed pair this is (tap 8 - t,
+// Cin and Cout swapped). Columns past Cout are 0. 3xTF32: w's and w^2's big
+// and small halves, w^2 squared in float32 first; one bf16 pass: w and w^2
+// as bf16 pairs along K.
+template <int NT, bool BF, bool FLIP>
+__global__ void __launch_bounds__(256) vdp_conv_kernel_weight_planes(
+    const float* __restrict__ w, uint32_t* __restrict__ planes, int Cin,
+    int Cout, int n_tiles, int chunks, long long words, long long w_ms) {
+  constexpr int kK = Smem<NT, float, BF>::kK;
+  constexpr int kB = Smem<NT, float, BF>::b;
+  constexpr int kPlanes = Smem<NT, float, BF>::planes;
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= words) return;
+  const int e = static_cast<int>(i % kB);
+  const long long set = i / kB;
+  const int nt = static_cast<int>(set % n_tiles);
+  long long r = set / n_tiles;
+  const int tap = static_cast<int>(r % kTaps);
+  r /= kTaps;
+  const int chunk = static_cast<int>(r % chunks);
+  const long long member = r / chunks;
+  const int n = nt * NT + 8 * (e >> 6) + ((e >> 2) & 7);
+  const int k = chunk * kK + (BF ? 8 * ((e >> 5) & 1) + 2 * (e & 3)
+                                 : 4 * ((e >> 5) & 1) + (e & 3));
+  w += member * w_ms;
+  auto at = [&](int c) -> float {
+    if (n >= Cout) return 0.f;
+    return FLIP ? w[(static_cast<long long>(kTaps - 1 - tap) * Cout + n) * Cin + c]
+                : w[(static_cast<long long>(tap) * Cin + c) * Cout + n];
+  };
+  uint32_t* out = planes + set * (kPlanes * kB) + e;
+  if constexpr (BF) {
+    const float w0 = at(k), w1 = at(k + 1);
+    out[0] = pack_bf16x2(w0, w1);
+    out[kB] = pack_bf16x2(w0 * w0, w1 * w1);  // squared in float32, then rounded
+  } else {
+    const float x = at(k);
+    uint32_t big, small;
+    split(x, big, small);
+    out[0] = big;
+    out[kB] = small;
+    // w^2 squared in float32 first (__fmul_rn: never fused into the split)
+    split(__fmul_rn(x, x), big, small);
+    out[2 * kB] = big;
+    out[3 * kB] = small;
+  }
+}
+
+// One block: the th x tw output pixels from (oy0, ox0) of one image (rows
+// m = tw ty + tx of the wgmma tile, m < th tw) x channels n0..n0+NT-1,
+// input channels of one K slice (chunks_per_split chunks of kK);
+// blockIdx.x = (image, tile row, tile column), blockIdx.z = member S +
+// slice. planes: the weight planes (vdp_conv_kernel_weight_planes), p_ms
+// words a member. SPLIT: writes partials to the member's block of `part`
+// ([S][M][Cout] mu, [S][M][Cout] sigma product, [S][M] window sum) instead
+// of the outputs. !WIN: no window sum (sw, win_out and the window partials
+// are not touched), and without sigma no sig_out either. TI: the
+// activations' type, float or bf16. BF: one bf16 pass (k16), else 3xTF32
+// (k8).
 template <int NT, bool HAS_SIGMA, bool RELU, bool SPLIT, bool WIN, typename TI, bool BF>
 __global__ void __launch_bounds__(kThreads) vdp_conv_kernel_wgmma(
     const TI* __restrict__ mu, const TI* __restrict__ sigma,
-    const float* __restrict__ w_mu, const float* __restrict__ sw,
+    const uint32_t* __restrict__ planes, const float* __restrict__ sw,
     OutT<WIN, TI>* __restrict__ mu_out, OutT<WIN, TI>* __restrict__ sig_out,
     float* __restrict__ win_out, float* __restrict__ part,
     uint8_t* __restrict__ mask_out, int H, int W, int Cin, int Cout, int Ho,
-    int Wo, long long M, int chunks_per_split, int splits, long long x_ms,
-    long long w_ms, long long sw_ms) {
+    int Wo, long long M, int th, int tw, int tiles_h, int tiles_w,
+    int chunks_per_split, int splits, long long x_ms, long long p_ms,
+    long long sw_ms) {
   using L = Smem<NT, TI, BF>;
   constexpr int kK = L::kK;
   constexpr bool kHalf = sizeof(TI) == 2;  // bf16 activations
   constexpr int R = NT / 2;  // accumulator registers per thread and product
   extern __shared__ __align__(128) float smem[];
-  float* s_b = smem;                   // [2][bset] B operands
-  float* s_ring = smem + 2 * L::bset;  // [kStages][stage]
+  uint32_t* s_ring = reinterpret_cast<uint32_t*>(smem);  // [kStages][bset]
+  uint32_t* s_split = s_ring + kStages * L::bset;        // [tensor][halo][16]
+  float* s_raw = reinterpret_cast<float*>(s_split + L::split);  // [tensor][halo][raw_pix]
+  float* s_t = s_raw + 2 * L::raw;                       // [halo]
+  int* s_off = reinterpret_cast<int*>(s_t + kTcMaxHalo);  // [halo][pieces]
+  uint64_t* s_full = reinterpret_cast<uint64_t*>(smem + L::bars);  // [kStages]
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const long long m0 = static_cast<long long>(blockIdx.x) * kTileM;
-  const int n0 = blockIdx.y * NT;
   const long long member = blockIdx.z / splits;
   const int slice = static_cast<int>(blockIdx.z - member * splits);
   const int c_begin = slice * chunks_per_split * kK;
   const int steps = chunks_per_split * kTaps;
+  const int tx_t = static_cast<int>(blockIdx.x % tiles_w);
+  const int rest = static_cast<int>(blockIdx.x / tiles_w);
+  const int ty_t = rest % tiles_h;
+  const long long b = rest / tiles_h;
+  const int oy0 = ty_t * th, ox0 = tx_t * tw;
+  const int hw = tw + 2;             // halo row
+  const int halo = (th + 2) * hw;    // halo pixels, at most kTcMaxHalo
   // this member's operands at their strides, its outputs and scratch block
   mu += member * x_ms;
   if (HAS_SIGMA) sigma += member * x_ms;
-  w_mu += member * w_ms;
+  planes += member * p_ms;
   if (WIN) {
     sw += member * sw_ms;
     win_out += member * M;
@@ -711,103 +843,151 @@ __global__ void __launch_bounds__(kThreads) vdp_conv_kernel_wgmma(
   if (RELU && mask_out != nullptr) mask_out += member * M * Cout;
   if (SPLIT) part += member * splits * (2 * M * Cout + M);
 
-  // Every address below that does not change from step to step is formed
-  // once here; the steps only advance counters.
-  // This thread's copies of each patch tile: row tid / 2. 3xTF32: in
-  // float32 the channels 4 (tid % 2) .. +3 of the step's chunk of mu and of
-  // sigma, in bf16 all 8 channels of mu (even tid) or of sigma (odd tid).
-  // One bf16 pass: the channels 8 (tid % 2) .. +7 of mu and of sigma, two
-  // 16-byte pieces each in float32, one in bf16.
-  // A row past M is zero-filled; its source address stays that of pixel 0
-  // plus the step's offset, which lies inside the tensor (the offset is
-  // below 3 W Cin <= H W Cin).
-  const int a_row = tid / 2;
-  const long long am = m0 + a_row;
-  const bool a_valid = am < M;
-  // channel offset of the thread's piece(s)
-  const int a_part = BF ? 8 * (tid % 2) : (kHalf ? 0 : 4 * (tid % 2));
-  long long a_base = c_begin + a_part;
-  if (a_valid) {
-    const long long hw = static_cast<long long>(Ho) * Wo;
-    const long long b = am / hw, rem = am - b * hw;
-    const long long oy = rem / Wo, ox = rem - oy * Wo;
-    a_base += ((b * H + oy) * W + ox) * Cin;
+  // the halo's first input element: pixel (b, oy0, ox0), channel c_begin
+  const long long in0 = ((b * H + oy0) * W + ox0) * Cin + c_begin;
+  const TI* t_mu = mu + in0;
+  const TI* t_sg = HAS_SIGMA ? sigma + in0 : nullptr;
+  for (int e = tid; e < halo * L::pieces; e += kThreads) {
+    const int p = e / L::pieces, q = e - p * L::pieces;
+    const int hy = p / hw, hx = p - hy * hw;
+    s_off[e] = oy0 + hy < H && ox0 + hx < W ? (hy * W + hx) * Cin + q * L::piece_e : -1;
   }
-  const TI* a_mu = mu + a_base;
-  const TI* a_sg = HAS_SIGMA ? sigma + a_base : nullptr;
-  const int a_dst = a_row * L::arow + a_part * static_cast<int>(sizeof(TI)) / 4;  // floats
-  // one bf16 pass: 16-byte pieces per patch tile and thread
-  constexpr int kAPieces = 8 * static_cast<int>(sizeof(TI)) / 16;
-  constexpr int kPieceE = 16 / static_cast<int>(sizeof(TI));  // elements per piece
-  // 3xTF32, bf16: the one 16-byte piece of this thread, and whether it has one
-  const bool h_sg = kHalf && (tid & 1);
-  const TI* h_src = h_sg ? a_sg : a_mu;
-  const int h_dst = a_dst + (h_sg ? L::a : 0);
-  const bool h_on = !h_sg || HAS_SIGMA;
-  // This thread's 16-byte pieces of each step's kK x NT weights: piece e is
-  // row e / (NT / 4), columns 4 (e % (NT / 4)) .. +3; columns past Cout
-  // are zero-filled.
-  constexpr int kWPieces = kK * NT / 4;
-  constexpr int kWIter = (kWPieces + kThreads - 1) / kThreads;
-  const float* w_src[kWIter];  // (a zero-filled piece reads nothing)
-  int w_dst[kWIter];
-  bool w_ok[kWIter];
-#pragma unroll
-  for (int i = 0; i < kWIter; ++i) {
-    const int e = tid + i * kThreads;
-    const int r = e / (NT / 4), q = e % (NT / 4);
-    w_ok[i] = n0 + 4 * q < Cout;
-    w_src[i] = w_mu + (w_ok[i] ? static_cast<long long>(c_begin + r) * Cout +
-                                     n0 + 4 * q
-                               : 0);
-    w_dst[i] = 2 * L::a + r * L::wrow + 4 * q;
+  if (WIN) {
+    for (int p = tid; p < halo; p += kThreads) s_t[p] = 0.f;
   }
-  // The B transform. 3xTF32: element e = tid + i kThreads of each split
-  // operand, which is (n, k) = (8 (e >> 6) + ((e >> 2) & 7), 4 ((e >> 5) &
-  // 1) + (e & 3)), reads the raw weights at b_src + 16 i. One bf16 pass: word
-  // e = tid + i kThreads of each operand holds (n, k) and (n, k + 1) for n as
-  // above and k = 8 ((e >> 5) & 1) + 2 (e & 3), read at b_src + 16 i and one
-  // row further.
-  constexpr int kBIter = kK * NT / kThreads / (BF ? 2 : 1);
-  const int b_src = (BF ? 8 * ((tid >> 5) & 1) + 2 * (tid & 3)
-                        : 4 * ((tid >> 5) & 1) + (tid & 3)) * L::wrow +
-                    8 * (tid >> 6) + ((tid >> 2) & 7);
+  if (tid == 0) {
+    for (int i = 0; i < kStages; ++i) mbar_init(s_full + i, 1);
+    fence_mbar_init();
+  }
+  __syncthreads();
 
-  // the load cursor: the next step to copy (tap = 3 dy + dx, channel
-  // offset within the slice, ring slot); the offsets are below 9 Cin Cout
-  // and fit an int
-  int ld_tap = 0, ld_dy = 0, ld_dx = 0, ld_c = 0, ld_slot = 0;
-  auto load_next = [&]() {
-    float* st = s_ring + ld_slot * L::stage;
-    const int shift = (ld_dy * W + ld_dx) * Cin + ld_c;  // in elements
-    if constexpr (BF) {
+  // The halo of chunk c of the slice into the raw tile: each 16-byte piece,
+  // zero-filled past the image (its source is then the halo's first pixel,
+  // inside the tensor, and not read).
+  auto load_raw = [&](int c) {
+    const int ch = c * kK;
+    for (int e = tid; e < halo * L::pieces; e += kThreads) {
+      const int off = s_off[e];
+      const int src = (off >= 0 ? off : 0) + ch;
+      const int p = e / L::pieces;
+      float* dst = s_raw + p * L::raw_pix + 4 * (e - p * L::pieces);
+      cp_async_cg(dst, t_mu + src, off >= 0);
+      if (HAS_SIGMA) cp_async_cg(dst + L::raw, t_sg + src, off >= 0);
+    }
+  };
+
+  // Each step's B planes: one contiguous block of bset words, steps
+  // n_tiles blocks apart (set (chunk, tap, N tile)), copied by thread 0 as
+  // one bulk copy into the next ring slot.
+  const uint32_t* b_src =
+      planes + (static_cast<long long>(slice) * chunks_per_split * kTaps * gridDim.y +
+                blockIdx.y) * L::bset;
+  const int b_step = static_cast<int>(gridDim.y) * L::bset;
+  int ld_step = 0, ld_slot = 0;  // thread 0's
+  auto load_b = [&]() {
+    if (ld_step < steps) {
+      bulk_copy(s_ring + ld_slot * L::bset, b_src + static_cast<long long>(ld_step) * b_step,
+                L::bset * 4, s_full + ld_slot);
+    }
+    ++ld_step;
+    ld_slot = ld_slot + 1 == kStages ? 0 : ld_slot + 1;
+  };
+
+  // The raw halo split once into the fragments' form, and (with the window
+  // sum) the chunk's mu^2 + sigma added into each pixel's channel sum, from
+  // the unrounded values. Item (pixel p, c): channels c and c + 4 of the
+  // chunk's 8 (3xTF32), or the pairs 2c, 2c + 1 and 2c + 8, 2c + 9 of its 16
+  // (one bf16 pass); the four items of a pixel are neighbouring lanes.
+  auto split_chunk = [&]() {
+    const int n = 4 * halo;
+    for (int e0 = 0; e0 < n; e0 += kThreads) {
+      const int e = e0 + tid;
+      const bool on = e < n;
+      const int p = e >> 2, c = e & 3;
+      float t = 0.f;
+      if (on) {
+        const float* rm = s_raw + p * L::raw_pix;
+        uint4 u, v = make_uint4(0u, 0u, 0u, 0u);
+        if constexpr (BF) {
+          float x[4], y[4] = {0.f, 0.f, 0.f, 0.f};
+          if constexpr (kHalf) {
+            const uint32_t* rw = reinterpret_cast<const uint32_t*>(rm);
+            u.x = rw[c];
+            u.y = rw[c + 4];
+            if (HAS_SIGMA) {
+              u.z = rw[L::raw + c];
+              u.w = rw[L::raw + c + 4];
+            } else {
+              u.z = u.w = 0u;
+            }
+            x[0] = __uint_as_float(u.x << 16);
+            x[1] = __uint_as_float(u.x & 0xffff0000u);
+            x[2] = __uint_as_float(u.y << 16);
+            x[3] = __uint_as_float(u.y & 0xffff0000u);
+            y[0] = __uint_as_float(u.z << 16);
+            y[1] = __uint_as_float(u.z & 0xffff0000u);
+            y[2] = __uint_as_float(u.w << 16);
+            y[3] = __uint_as_float(u.w & 0xffff0000u);
+          } else {
+            const float2 a0 = *reinterpret_cast<const float2*>(rm + 2 * c);
+            const float2 a1 = *reinterpret_cast<const float2*>(rm + 2 * c + 8);
+            x[0] = a0.x;
+            x[1] = a0.y;
+            x[2] = a1.x;
+            x[3] = a1.y;
+            u.x = pack_bf16x2(x[0], x[1]);
+            u.y = pack_bf16x2(x[2], x[3]);
+            u.z = u.w = 0u;
+            if (HAS_SIGMA) {
+              const float2 b0 = *reinterpret_cast<const float2*>(rm + L::raw + 2 * c);
+              const float2 b1 = *reinterpret_cast<const float2*>(rm + L::raw + 2 * c + 8);
+              y[0] = b0.x;
+              y[1] = b0.y;
+              y[2] = b1.x;
+              y[3] = b1.y;
+              u.z = pack_bf16x2(y[0], y[1]);
+              u.w = pack_bf16x2(y[2], y[3]);
+            }
+          }
+          *reinterpret_cast<uint4*>(s_split + p * 16 + 4 * c) = u;
+          if (WIN) {
 #pragma unroll
-      for (int q = 0; q < kAPieces; ++q) {
-        cp_async_ca(st + a_dst + 4 * q, a_mu + shift + kPieceE * q, a_valid);
-        if (HAS_SIGMA) {
-          cp_async_ca(st + L::a + a_dst + 4 * q, a_sg + shift + kPieceE * q, a_valid);
+            for (int j = 0; j < 4; ++j) t += HAS_SIGMA ? x[j] * x[j] + y[j] : x[j] * x[j];
+          }
+        } else {
+          float x0, x1, y0 = 0.f, y1 = 0.f;
+          if constexpr (kHalf) {
+            const TI* rb = reinterpret_cast<const TI*>(rm);
+            x0 = to_f32(rb[c]);
+            x1 = to_f32(rb[c + 4]);
+            if (HAS_SIGMA) {
+              const TI* sb = reinterpret_cast<const TI*>(rm + L::raw);
+              y0 = to_f32(sb[c]);
+              y1 = to_f32(sb[c + 4]);
+            }
+          } else {
+            x0 = rm[c];
+            x1 = rm[c + 4];
+            if (HAS_SIGMA) {
+              y0 = rm[L::raw + c];
+              y1 = rm[L::raw + c + 4];
+            }
+          }
+          split(x0, u.x, u.z);
+          split(x1, u.y, u.w);
+          *reinterpret_cast<uint4*>(s_split + p * 16 + 4 * c) = u;
+          if (HAS_SIGMA) {
+            split(y0, v.x, v.z);
+            split(y1, v.y, v.w);
+            *reinterpret_cast<uint4*>(s_split + L::split_t + p * 16 + 4 * c) = v;
+          }
+          if (WIN) t = HAS_SIGMA ? (x0 * x0 + y0) + (x1 * x1 + y1) : x0 * x0 + x1 * x1;
         }
       }
-    } else if (kHalf) {
-      if (h_on) cp_async_ca(st + h_dst, h_src + shift, a_valid);
-    } else {
-      cp_async_ca(st + a_dst, a_mu + shift, a_valid);
-      if (HAS_SIGMA) cp_async_ca(st + L::a + a_dst, a_sg + shift, a_valid);
-    }
-    const int w_row = (ld_tap * Cin + ld_c) * Cout;
-#pragma unroll
-    for (int i = 0; i < kWIter; ++i) {
-      if (kWPieces % kThreads == 0 || tid + i * kThreads < kWPieces) {
-        cp_async_cg(st + w_dst[i], w_src[i] + w_row, w_ok[i]);
-      }
-    }
-    ld_slot = ld_slot + 1 == kStages ? 0 : ld_slot + 1;
-    ld_tap = ld_tap + 1 == kTaps ? 0 : ld_tap + 1;
-    if (++ld_dx == 3) {
-      ld_dx = 0;
-      if (++ld_dy == 3) {
-        ld_dy = 0;
-        ld_c += kK;
+      if (WIN) {
+        t += __shfl_xor_sync(0xffffffffu, t, 1);
+        t += __shfl_xor_sync(0xffffffffu, t, 2);
+        if (on && c == 0) s_t[p] += t;
       }
     }
   };
@@ -830,139 +1010,78 @@ __global__ void __launch_bounds__(kThreads) vdp_conv_kernel_wgmma(
     if (kFoldS2) tot_s2[i] = 0.f;
   }
   // A fragments, double-buffered: [buffer][4] big and small halves of mu
-  // and sigma, in the layout of frag_row and frag_ch; in one bf16 pass
-  // mu_hi and sg_hi hold the bf16x2 fragments and the small halves are unused.
+  // and sigma, register i holding row r + 8 (i & 1), K group i >> 1; in one
+  // bf16 pass mu_hi and sg_hi hold the bf16x2 fragments and the small halves
+  // are unused.
   uint32_t mu_hi[2][4], mu_lo[2][4], sg_hi[2][4], sg_lo[2][4];
-  float win0 = 0.f, win1 = 0.f;  // window-sum shares of rows r and r + 8
-  // in elements of TI from the start of a patch tile
-  const int frag = (16 * warp + lane / 4) * L::rowe + (BF ? 2 : 1) * (lane % 4);
-  constexpr int kSgE = L::a * 4 / static_cast<int>(sizeof(TI));  // sigma tile
-
+  // this thread's rows r0 and r0 + 8 as halo pixels (a row past the tile
+  // reads pixel 0 and is not stored)
+  const int r0 = 16 * warp + lane / 4;
+  int hp[2];
 #pragma unroll
-  for (int i = 0; i < kStages - 1; ++i) {
-    if (i < steps) load_next();
-    cp_async_commit();
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 8 * h;
+    const int ty = r < th * tw ? r / tw : 0;
+    const int tx = r < th * tw ? r - ty * tw : 0;
+    hp[h] = (ty * hw + tx) * 16 + 4 * (lane % 4);  // in words of a split array
   }
-
-  // The operands of the next step to prepare, into buffer P (its step's
-  // parity): its weights [kK][NT] become the K-major B operands (3xTF32:
-  // the four split ones; one bf16 pass: w and w^2 in bf16), and this
-  // thread's patch fragments the A registers, with their share of the
-  // window sum. Buffer P was last read by the wgmmas two steps back, which
-  // the previous step waited for.
-  int pr_slot = 0;
-  auto prepare = [&](auto parity) {
+  // step s + 1's fragments from the split tile at its tap's offset, into
+  // buffer P
+  auto frags = [&](auto parity, int shift) {
     constexpr int P = decltype(parity)::value;
-    const float* st = s_ring + pr_slot * L::stage;
-    const TI* sa = reinterpret_cast<const TI*>(st);
-    float* bo = s_b + P * L::bset;
-    const float* wr = st + 2 * L::a + b_src;
-    if constexpr (BF) {
-      uint32_t* bw = reinterpret_cast<uint32_t*>(bo);
 #pragma unroll
-      for (int i = 0; i < kBIter; ++i) {
-        const int e = tid + i * kThreads;
-        const float w0 = wr[16 * i], w1 = wr[16 * i + L::wrow];
-        bw[e] = pack_bf16x2(w0, w1);
-        // w^2 squared in float32, then rounded
-        if (HAS_SIGMA) bw[L::b + e] = pack_bf16x2(w0 * w0, w1 * w1);
-      }
-      // the window sum from the unrounded values, then the packed fragments
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int ofs = frag + frag_row(i) * 8 * L::rowe + frag_ch(i) * 8;
-        float x0, x1, y0 = 0.f, y1 = 0.f;
-        if constexpr (kHalf) {
-          const uint32_t u = *reinterpret_cast<const uint32_t*>(sa + ofs);
-          x0 = __uint_as_float(u << 16);
-          x1 = __uint_as_float(u & 0xffff0000u);
-          mu_hi[P][i] = u;
-          if (HAS_SIGMA) {
-            const uint32_t v = *reinterpret_cast<const uint32_t*>(sa + kSgE + ofs);
-            y0 = __uint_as_float(v << 16);
-            y1 = __uint_as_float(v & 0xffff0000u);
-            sg_hi[P][i] = v;
-          }
-        } else {
-          const float2 u = *reinterpret_cast<const float2*>(sa + ofs);
-          x0 = u.x;
-          x1 = u.y;
-          mu_hi[P][i] = pack_bf16x2(x0, x1);
-          if (HAS_SIGMA) {
-            const float2 v = *reinterpret_cast<const float2*>(sa + kSgE + ofs);
-            y0 = v.x;
-            y1 = v.y;
-            sg_hi[P][i] = pack_bf16x2(y0, y1);
-          }
-        }
-        if (WIN) {
-          float t0 = x0 * x0, t1 = x1 * x1;
-          if (HAS_SIGMA) {
-            t0 += y0;
-            t1 += y1;
-          }
-          if (frag_row(i)) {
-            win1 += t0;
-            win1 += t1;
-          } else {
-            win0 += t0;
-            win0 += t1;
-          }
-        }
-      }
-      fence_proxy_async();  // the B operands are visible to wgmma
-      pr_slot = pr_slot + 1 == kStages ? 0 : pr_slot + 1;
-      return;
-    }
-#pragma unroll
-    for (int i = 0; i < kBIter; ++i) {
-      const int e = tid + i * kThreads;
-      const float w = wr[16 * i];
-      uint32_t hi, lo;
-      split(w, hi, lo);
-      bo[e] = __uint_as_float(hi);
-      bo[L::b + e] = __uint_as_float(lo);
-      if (HAS_SIGMA) {
-        split(w * w, hi, lo);
-        bo[2 * L::b + e] = __uint_as_float(hi);
-        bo[3 * L::b + e] = __uint_as_float(lo);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int ofs = frag + frag_row(i) * 8 * L::rowe + frag_ch(i) * 4;
-      const float x = to_f32(sa[ofs]);
-      split(x, mu_hi[P][i], mu_lo[P][i]);
-      float t = x * x;
-      if (HAS_SIGMA) {
-        const float y = to_f32(sa[kSgE + ofs]);
-        split(y, sg_hi[P][i], sg_lo[P][i]);
-        t += y;
-      }
-      if (WIN) {
-        if (frag_row(i)) {
-          win1 += t;
-        } else {
-          win0 += t;
+    for (int h = 0; h < 2; ++h) {
+      const uint4 u = *reinterpret_cast<const uint4*>(s_split + hp[h] + shift);
+      mu_hi[P][h] = u.x;
+      mu_hi[P][2 + h] = u.y;
+      if constexpr (BF) {
+        sg_hi[P][h] = u.z;
+        sg_hi[P][2 + h] = u.w;
+      } else {
+        mu_lo[P][h] = u.z;
+        mu_lo[P][2 + h] = u.w;
+        if (HAS_SIGMA) {
+          const uint4 v =
+              *reinterpret_cast<const uint4*>(s_split + L::split_t + hp[h] + shift);
+          sg_hi[P][h] = v.x;
+          sg_hi[P][2 + h] = v.y;
+          sg_lo[P][h] = v.z;
+          sg_lo[P][2 + h] = v.w;
         }
       }
     }
-    fence_proxy_async();  // the split operands are visible to wgmma
-    pr_slot = pr_slot + 1 == kStages ? 0 : pr_slot + 1;
   };
 
-  // One barrier per step: the tensor cores run step s while the block
-  // prepares step s + 1 into the other buffers.
-  int mm_tap = 0;
+  // the first kStages - 1 steps' B, chunk 0's halo split, chunk 1's halo
+  // on its way
+  if (tid == 0) {
+    for (int i = 0; i + 1 < kStages; ++i) load_b();
+  }
+  load_raw(0);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  split_chunk();
+  __syncthreads();
+  if (chunks_per_split > 1) {
+    load_raw(1);
+    cp_async_commit();
+  }
+  frags(std::integral_constant<int, 0>(), 0);
+
+  // No barrier within a chunk: each step waits for its B slot's copy, and
+  // the tensor cores run step s while the block loads step s + 1's
+  // fragments into the other buffer.
+  int mm_tap = 0, mm_dy = 0, mm_dx = 0, mm_chunk = 0, rd_slot = 0;
+  uint32_t rd_phase = 0;
   auto step = [&](auto parity, int s) {
     constexpr int P = decltype(parity)::value;
-    cp_async_wait<kStages - 3>();  // step s + 1 has landed (own copies)
-    __syncthreads();  // step s's operands and step s + 1's copies complete;
-                      // step s - 1's ring slot is consumed
-    if (s + kStages - 1 < steps) load_next();
-    cp_async_commit();
-
-    const float* bo = s_b + P * L::bset;
+    mbar_wait(s_full + rd_slot, rd_phase);  // step s's B has landed
+    const uint32_t* bo = s_ring + rd_slot * L::bset;
+    if (++rd_slot == kStages) {
+      rd_slot = 0;
+      rd_phase ^= 1u;
+    }
     wgmma_fence();
     fence_acc(acc_mu);
     if constexpr (BF) {
@@ -990,7 +1109,19 @@ __global__ void __launch_bounds__(kThreads) vdp_conv_kernel_wgmma(
     wgmma_commit();
     fence_acc(acc_mu);
     if (mm_tap == kTaps - 1) {
-      // the chunk is complete: fold its mu sum into the total
+      // the chunk is complete: split the next chunk's halo (copied during
+      // this chunk) while the tensor cores run, copy the one after it, then
+      // fold the chunk's mu sum into the total
+      if (s + 1 < steps) {
+        cp_async_wait<0>();
+        __syncthreads();  // the halo has landed; every fragment of the tile is loaded
+        split_chunk();
+        __syncthreads();
+        if (mm_chunk + 2 < chunks_per_split) {
+          load_raw(mm_chunk + 2);
+          cp_async_commit();
+        }
+      }
       wgmma_wait<0>();
       fence_acc(acc_mu);
       fence_acc(acc_s2);
@@ -999,46 +1130,57 @@ __global__ void __launch_bounds__(kThreads) vdp_conv_kernel_wgmma(
         tot_mu[i] += acc_mu[i];
         if (kFoldS2) tot_s2[i] += acc_s2[i];
       }
+      mm_tap = mm_dy = mm_dx = 0;
+      ++mm_chunk;
     } else {
-      // step s - 1 is done: its buffers may be refilled
+      // step s - 1 is done: its fragment buffer may be refilled
       wgmma_wait<1>();
+      ++mm_tap;
+      if (++mm_dx == 3) {
+        mm_dx = 0;
+        ++mm_dy;
+      }
     }
-    mm_tap = mm_tap + 1 == kTaps ? 0 : mm_tap + 1;
-    if (s + 1 < steps) prepare(std::integral_constant<int, 1 - P>());
+    // step s - 1's wgmmas are done, so its slot takes step s + kStages - 1
+    if (tid == 0) load_b();
+    if (s + 1 < steps) {
+      frags(std::integral_constant<int, 1 - P>(), (mm_dy * hw + mm_dx) * 16);
+    }
   };
 
-  cp_async_wait<kStages - 2>();  // step 0 has landed
-  __syncthreads();
-  prepare(std::integral_constant<int, 0>());
   int s = 0;
   for (; s + 1 < steps; s += 2) {
     step(std::integral_constant<int, 0>(), s);
     step(std::integral_constant<int, 1>(), s + 1);
   }
   if (s < steps) step(std::integral_constant<int, 0>(), s);
-  // the last step ends a chunk, so every wgmma has completed
-  cp_async_wait<0>();
-
-  // the quad of lanes that shares a row holds its kK channels
-  if (WIN) {
-    win0 += __shfl_xor_sync(0xffffffffu, win0, 1);
-    win0 += __shfl_xor_sync(0xffffffffu, win0, 2);
-    win1 += __shfl_xor_sync(0xffffffffu, win1, 1);
-    win1 += __shfl_xor_sync(0xffffffffu, win1, 2);
-  }
+  // the last step ends a chunk, so every wgmma has completed, and every
+  // copy has been waited for
 
   // accumulator layout (wgmma m64nN, f32): register 4 j + 2 h + i holds row
-  // r + 8 h, column 8 j + 2 (lane % 4) + i
-  const long long r0 = m0 + 16 * warp + lane / 4;
+  // r0 + 8 h, column 8 j + 2 (lane % 4) + i
   const long long S = splits;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const long long m = r0 + 8 * h;
-    if (m >= M) continue;
-    const float wn = h ? win1 : win0;
+    const int r = r0 + 8 * h;
+    if (r >= th * tw) continue;
+    const int ty = r / tw, tx = r - ty * tw;
+    const int oy = oy0 + ty, ox = ox0 + tx;
+    if (oy >= Ho || ox >= Wo) continue;
+    const long long m = (b * Ho + oy) * Wo + ox;
+    // the 3 x 3 window of the per-pixel channel sums
+    float wn = 0.f;
+    if (WIN) {
+      const int p = ty * hw + tx;
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy) {
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx) wn += s_t[p + dy * hw + dx];
+      }
+    }
 #pragma unroll
     for (int j = 0; j < NT / 8; ++j) {
-      const int co = n0 + 8 * j + 2 * (lane % 4);
+      const int co = blockIdx.y * NT + 8 * j + 2 * (lane % 4);
       if (co >= Cout) continue;  // Cout % 4 == 0: co + 1 < Cout as well
       float2 vm = make_float2(tot_mu[4 * j + 2 * h], tot_mu[4 * j + 2 * h + 1]);
       float2 vs =
@@ -1145,21 +1287,33 @@ cudaError_t launch_wgmma(const Args& a) {
   using TO = OutT<WIN, TI>;
   const int Ho = a.H - 2, Wo = a.W - 2;
   const long long M = static_cast<long long>(a.B) * Ho * Wo;
-  const long long m_tiles = (M + kTileM - 1) / kTileM;
+  const int tiles_h = (Ho + a.th - 1) / a.th, tiles_w = (Wo + a.tw - 1) / a.tw;
+  const long long m_tiles = static_cast<long long>(a.B) * tiles_h * tiles_w;
   if (m_tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const dim3 grid(static_cast<unsigned>(m_tiles), (a.Cout + NT - 1) / NT,
-                  a.members * a.splits);
-  const size_t bytes = L::floats * sizeof(float);
+  const int n_tiles = (a.Cout + NT - 1) / NT;
+  const int chunks = a.Cin / L::kK;
+  const long long p_ms = static_cast<long long>(chunks) * kTaps * n_tiles * L::bset;
+  // the weight planes of every member, on the same stream before the loop
+  const long long words = a.members * static_cast<long long>(chunks) * kTaps * n_tiles * L::b;
+  const long long pblocks = (words + 255) / 256;
+  if (pblocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  auto prologue = a.flip ? vdp_conv_kernel_weight_planes<NT, BF, true>
+                         : vdp_conv_kernel_weight_planes<NT, BF, false>;
+  prologue<<<static_cast<unsigned>(pblocks), 256, 0, a.stream>>>(
+      a.w_mu, a.planes, a.Cin, a.Cout, n_tiles, chunks, words, a.w_ms);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid(static_cast<unsigned>(m_tiles), n_tiles, a.members * a.splits);
+  const size_t bytes = L::words * sizeof(uint32_t);
   auto kernel = vdp_conv_kernel_wgmma<NT, HAS_SIGMA, RELU, SPLIT, WIN, TI, BF>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
   kernel<<<grid, kThreads, bytes, a.stream>>>(
-      static_cast<const TI*>(a.mu), static_cast<const TI*>(a.sigma), a.w_mu,
+      static_cast<const TI*>(a.mu), static_cast<const TI*>(a.sigma), a.planes,
       a.sw, static_cast<TO*>(a.mu_out), static_cast<TO*>(a.sig_out), a.win,
-      a.part, a.mask, a.H, a.W, a.Cin, a.Cout, Ho, Wo, M,
-      a.Cin / L::kK / a.splits, a.splits, a.x_ms, a.w_ms, a.sw_ms);
+      a.part, a.mask, a.H, a.W, a.Cin, a.Cout, Ho, Wo, M, a.th, a.tw, tiles_h,
+      tiles_w, chunks / a.splits, a.splits, a.x_ms, p_ms, a.sw_ms);
   err = cudaGetLastError();
   if (err != cudaSuccess || !SPLIT) return err;
   const long long quads = M * (a.Cout / 4);

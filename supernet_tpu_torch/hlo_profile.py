@@ -65,7 +65,8 @@ MATRIX_CLASSES = (X.KERNEL_CLASSES["forward"], X.KERNEL_CLASSES["transposed"],
 SETTLE = "profile_settle"
 # the launch counters of ops/kernels (chip_smoke.py's names): each counts
 # one main kernel per call; kernel 1's split-K reduce and kernel 4's second
-# kernel of its vec4 path are not calls
+# kernel of its vec4 path are not calls, and kernel 1's weight-planes
+# prologue is counted by ``vdp_conv.weight_plane_launches`` alone
 COUNTERS = ("vdp_conv", "vdp_conv_reduce", "vmaxpool", "vmaxpool_bwd", "sigma_bwd",
             "vdp_conv_dgrad", "vdp_conv_dgrad_reduce")
 
@@ -74,7 +75,7 @@ def launch_counter(name: str) -> Optional[str]:
     """The launch counter a device event adds to, from its kernel name
     (None for every other kernel)."""
     mode = X.kernel1_mode(name)
-    if mode is not None:
+    if mode is not None and "weight_planes" not in name:
         base = "vdp_conv" if mode == "forward" else "vdp_conv_dgrad"
         return base + "_reduce" if "splitk_reduce" in name else base
     if "vmaxpool_fwd" in name:

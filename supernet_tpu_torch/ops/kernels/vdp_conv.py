@@ -14,10 +14,13 @@ residual. Without the window sum (``w_sigma=None``) a call computes
 ``conv(mu, w_mu)`` and ``conv(sigma, w_mu^2)`` alone: the form in which
 :func:`conv_t_pair` runs the backward's two transposed convolutions. The
 kernels are ``csrc/vdp_conv.cuh`` (built from ``vdp_conv.cu`` and
-``vdp_conv_bf16.cu``): an implicit GEMM on the tensor cores (wgmma), with
-split-K for the layers whose output tiles alone do not fill the card, and a
-CUDA-core kernel for the other shapes. :func:`plan` picks the path, the tile
-and the number of K slices from the shape and the precision.
+``vdp_conv_bf16.cu``): an implicit GEMM on the tensor cores (wgmma) over 2-D
+tiles of output pixels, its weights converted once per call into the planes
+its B operand reads (:func:`split_weight_planes_plain` is their plain
+version) and each input chunk split once per tile, with split-K for the
+layers whose output tiles alone do not fill the card, and a CUDA-core kernel
+for the other shapes. :func:`plan` picks the path, the tile and the number of
+K slices from the shape and the precision.
 :func:`vdp_conv` launches the planned kernel for CUDA tensors and takes
 :func:`vdp_conv_plain` only for CPU tensors.
 
@@ -84,39 +87,52 @@ from supernet_tpu_torch.ops.kernels.sigma_bwd import winsum_spread_bwd
 # `dgrad_launches` and `dgrad_reduce_launches` the same for the calls
 # without the window sum (the backward's transposed convolutions);
 # `bf16_launches` the calls of either form made in one bf16 pass
-# (precision "default"). Beside them, ``tracing.count`` counts each call's
-# plan path: ``kernel1.path.<simt|wgmma>``.
+# (precision "default"); `weight_plane_launches` the tensor-core calls'
+# prologue, which converts the weights into the planes the loop reads (one
+# per "wgmma" call). Beside them, ``tracing.count`` counts each call's plan
+# path, ``kernel1.path.<simt|wgmma>``, and each prologue,
+# ``kernel1.weight_planes``.
 launches = 0
 reduce_launches = 0
 dgrad_launches = 0
 dgrad_reduce_launches = 0
 bf16_launches = 0
+weight_plane_launches = 0
 
 # The planner's constants: the SM count of the shape-only plan (H100 SXM;
 # a launch plans with its own card's count, ``_lib.sm_count``), the
-# tensor-core kernel's output pixels per block (wgmma's M) and input
-# channels per K step (8 in 3xTF32, 16 in one bf16 pass), the caps on the
-# number of K slices and on their scratch, and the grid's z extent (members
-# x K slices, members x images).
+# tensor-core kernel's output pixels per block (wgmma's M), the most input
+# pixels of its tile's halo (``csrc/vdp_conv.cuh:kTcMaxHalo``, what its
+# shared memory holds) and input channels per K step (8 in 3xTF32, 16 in
+# one bf16 pass), the caps on the number of K slices and on their scratch,
+# and the grid's z extent (members x K slices, members x images).
 SMS = 132
 TC_TILE_M = 64
+TC_MAX_HALO = 136
 TC_CHUNK = 8
 TC_CHUNK_BF16 = 16
+TC_TAPS = 9
 MAX_SPLITS = 16
+# the tensor-core blocks a split-K plan aims for per SM: two or more are
+# resident at once (three at N = 64, four at N = 32), so that one block's
+# chunk boundary overlaps another's wgmmas
+TC_BLOCKS_PER_SM = 2
 MAX_SCRATCH_BYTES = 64 << 20
 MAX_GRID_Z = 65535
 _PATH_ID = {"simt": 0, "wgmma": 1}
 _PATH_COUNTER = {path: f"kernel1.path.{path}" for path in _PATH_ID}
+_PLANES_COUNTER = "kernel1.weight_planes"
 PRECISIONS = ("highest", "high", "default")
 
 
 class Plan(NamedTuple):
     """How one vdp_conv call runs: ``path`` "wgmma" (tensor cores) or
-    "simt" (CUDA cores), output pixels x channels per block, K slices, the
-    main launch's blocks (slices included), the split-K scratch, and
+    "simt" (CUDA cores), the most output pixels x channels per block, K
+    slices, the main launch's blocks (slices included), the split-K scratch,
     ``bf16``: the products in one bf16 pass (precision "default"; the
     tensor cores' wgmma k16 bf16) or at float32 accuracy (3xTF32 on the
-    tensor cores)."""
+    tensor cores), the block's ``tile_h`` x ``tile_w`` output pixels of one
+    image, and the weight planes' scratch of the tensor-core path."""
 
     path: str
     tile_m: int
@@ -125,6 +141,9 @@ class Plan(NamedTuple):
     blocks: int
     scratch_bytes: int
     bf16: bool = False
+    tile_h: int = 0
+    tile_w: int = 0
+    planes_bytes: int = 0
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -148,6 +167,23 @@ def _rounded(t: Optional[torch.Tensor], bf16: bool) -> Optional[torch.Tensor]:
     return t.to(torch.bfloat16).to(t.dtype)
 
 
+def tc_tile(ho: int, wo: int):
+    """``(tile_h, tile_w)``: the tensor-core kernel's block of output pixels
+    of one image, for outputs of ``ho`` x ``wo``. Widths 8, 16 and 32 (and
+    the whole row of an output narrower than 32), each with as many rows as
+    64 pixels, the output's height and a halo of at most ``TC_MAX_HALO``
+    input pixels allow; the one that takes the fewest tiles, then the
+    smallest halo. Widths of a multiple of 8 keep a warp's fragment loads
+    on distinct banks."""
+    best = None
+    for tw in (8, 16, 32) + ((wo,) if wo < 32 else ()):
+        th = min(TC_TILE_M // tw, ho, TC_MAX_HALO // (tw + 2) - 2)
+        key = (_cdiv(ho, th) * _cdiv(wo, tw), (th + 2) * (tw + 2))
+        if best is None or key < best[0]:
+            best = (key, th, tw)
+    return best[1], best[2]
+
+
 @functools.lru_cache(maxsize=None)
 def plan(b: int, h: int, w: int, cin: int, cout: int, k: int,
          members: int = 1, sms: int = SMS, precision: str = "highest") -> Plan:
@@ -159,15 +195,19 @@ def plan(b: int, h: int, w: int, cin: int, cout: int, k: int,
     channels (8 of one tap in 3xTF32 under "highest" and "high"; 16 in one
     bf16 pass, ``bf16``, under "default"), Cout % 8 == 0
     (whole 8-column groups of the N tile: the 1- and 4-channel input
-    gradient of conv_input takes the CUDA cores) and step offsets that fit
-    an int (9 Cin Cout and 3 W Cin below 2^31): N = 32 for Cout <= 32, else
-    64, and 64 output pixels (one warpgroup) per block. Its blocks are
-    members x M tiles x N tiles, the M tiles counted per member (M = b H'
-    W'), so that no tile holds pixels of two members; where they are fewer
-    than the SMs, the Cin chunks (of 8 or 16 channels) are cut into the
-    fewest slices S (a divisor of the chunks) that fill one wave, at most
-    MAX_SPLITS, within MAX_SCRATCH_BYTES (members x S partials) and with
-    members x S within the grid, and a reduce kernel sums them. Everything
+    gradient of conv_input takes the CUDA cores) and offsets that fit an
+    int (9 Cin Cout and (tile_h + 2) W Cin below 2^31): N = 32 for Cout <=
+    32, else 64, and a block (one warpgroup) per :func:`tc_tile` of at most
+    64 output pixels of one image. Its blocks are members x M tiles x N
+    tiles, the M tiles b x ceil(H' / tile_h) x ceil(W' / tile_w) per member,
+    so that no tile holds pixels of two images or members; its weight planes
+    take ``planes_bytes`` (3xTF32: four planes of the weights, the columns
+    padded to whole N tiles; one bf16 pass: two of half the size). Where the
+    blocks are fewer than TC_BLOCKS_PER_SM per SM, the Cin chunks (of 8 or 16
+    channels) are cut into the fewest slices S (a divisor of the chunks) that
+    give as many, at most MAX_SPLITS, within MAX_SCRATCH_BYTES (members x S
+    partials) and with members x S within the grid, and a reduce kernel sums
+    them. Everything
     else takes the CUDA-core kernel (CT = 64 output channels per block for
     Cout >= 64, else 32; tiles of 8x8 or 8x16 pixels of one image of one
     member); under "default" it rounds each product's operand to bf16 as it
@@ -177,11 +217,14 @@ def plan(b: int, h: int, w: int, cin: int, cout: int, k: int,
     chunk = TC_CHUNK_BF16 if bf16 else TC_CHUNK
     ho, wo = h - k + 1, w - k + 1
     m = b * ho * wo
+    th, tw = tc_tile(ho, wo) if k == 3 else (0, 0)
     if (k == 3 and cin % chunk == 0 and cout % TC_CHUNK == 0
-            and 9 * cin * cout < 2 ** 31 and 3 * w * cin < 2 ** 31):
+            and 9 * cin * cout < 2 ** 31 and (th + 2) * w * cin < 2 ** 31):
         tile_n = 32 if cout <= 32 else 64
-        tiles = members * _cdiv(m, TC_TILE_M) * _cdiv(cout, tile_n)
+        n_tiles = _cdiv(cout, tile_n)
+        tiles = members * b * _cdiv(ho, th) * _cdiv(wo, tw) * n_tiles
         chunks = cin // chunk
+        planes = 4 * members * chunks * TC_TAPS * n_tiles * (2 if bf16 else 4) * 8 * tile_n
 
         def scratch(s: int) -> int:
             return 0 if s == 1 else 4 * members * s * m * (2 * cout + 1)
@@ -192,15 +235,88 @@ def plan(b: int, h: int, w: int, cin: int, cout: int, k: int,
                     or members * s > MAX_GRID_Z):
                 continue
             splits = s
-            if tiles * s >= sms:
+            if tiles * s >= TC_BLOCKS_PER_SM * sms:
                 break
         return Plan("wgmma", TC_TILE_M, tile_n, splits, tiles * splits,
-                    scratch(splits), bf16)
+                    scratch(splits), bf16, th, tw, planes)
     ct = 64 if cout >= 64 else 32
     tw = 8 if ct == 64 else 16
     th = 8
     blocks = _cdiv(ho, th) * _cdiv(wo, tw) * _cdiv(cout, ct) * b * members
-    return Plan("simt", th * tw, ct, 1, blocks, 0, bf16)
+    return Plan("simt", th * tw, ct, 1, blocks, 0, bf16, th, tw)
+
+
+def _as_int32(bits: torch.Tensor) -> torch.Tensor:
+    """32-bit patterns held in int64 -> the int32 tensor of the same bits."""
+    return ((bits + 2 ** 31) % 2 ** 32 - 2 ** 31).to(torch.int32)
+
+
+def _tf32_bits(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> the bits (int64) of the nearest TF32 (10 mantissa bits),
+    ties away from zero: ``csrc/vdp_conv.cuh:round_tf32``."""
+    u = x.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return (u + 0x1000) & 0xFFFFE000
+
+
+def _tf32_split(x: torch.Tensor):
+    """float32 ``x`` = big + small, both exact in TF32 (``split`` in the
+    kernel): their bits as int32."""
+    big = _tf32_bits(x)
+    small = _tf32_bits(x - _as_int32(big).view(torch.float32))
+    return _as_int32(big), _as_int32(small)
+
+
+def _bf16_pairs(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """Two float32 tensors rounded to bf16 (to nearest even), ``lo`` in the
+    low half of each int32 word: ``pack_bf16x2``."""
+    def bits(t):
+        return t.to(torch.bfloat16).view(torch.int16).to(torch.int64) & 0xFFFF
+
+    return _as_int32(bits(lo) | bits(hi) << 16)
+
+
+def split_weight_planes_plain(w_mu: torch.Tensor, tile_n: int,
+                              precision: str = "highest",
+                              flip: bool = False) -> torch.Tensor:
+    """The weight planes the tensor-core path's B operand reads, as its
+    prologue ``vdp_conv_kernel_weight_planes`` writes them for ``w_mu``
+    [k,k,Cin,Cout] (k = 3; stacked [K,...] alike) and N tiles of
+    ``tile_n``: int32 words [members, chunks, tap, N tile, plane,
+    8 tile_n], each step's planes one contiguous block. A chunk is 8 input
+    channels (16 in one bf16 pass), the tap 3 dy + dx, columns past Cout 0.
+    Word e of a plane holds column n = 8 (e >> 6) + ((e >> 2) & 7) of the
+    tile and, in 3xTF32 (``"highest"``, ``"high"``), row k = 4 ((e >> 5) &
+    1) + (e & 3) of the chunk: the planes are w's big and small TF32 halves
+    and w^2's (squared in float32 first); in one bf16 pass (``"default"``)
+    rows k = 8 ((e >> 5) & 1) + 2 (e & 3) and k + 1, low half first: the
+    planes are w and w^2 in bf16. With ``flip`` ``w_mu`` is the forward
+    weights [k,k,Cout,Cin] of the conv whose transposed pair the call
+    computes: its taps mirrored and Cin, Cout swapped first, as
+    :func:`dgrad_operands` forms them."""
+    bf16 = _one_pass(precision)
+    w = (w_mu if _stacked(w_mu) else w_mu[None]).to(torch.float32)
+    if flip:
+        w = w.flip(1, 2).transpose(-2, -1)
+    members, k, _, cin, cout = w.shape
+    chunk = TC_CHUNK_BF16 if bf16 else TC_CHUNK
+    if k != 3 or cin % chunk:
+        raise ValueError(f"split_weight_planes_plain: k = 3 and Cin a multiple of "
+                         f"{chunk}, got k={k} Cin={cin}")
+    chunks, n_tiles = cin // chunk, _cdiv(cout, tile_n)
+    w = F.pad(w, (0, n_tiles * tile_n - cout))
+    w = w.reshape(members, 3, 3, chunks, chunk, n_tiles, tile_n)
+    w = w.permute(0, 3, 1, 2, 5, 4, 6).reshape(members, chunks, TC_TAPS, n_tiles,
+                                               chunk, tile_n)
+    e = torch.arange(8 * tile_n)
+    n = 8 * (e >> 6) + ((e >> 2) & 7)
+    if bf16:
+        k = 8 * ((e >> 5) & 1) + 2 * (e & 3)
+        lo, hi = w[..., k, n], w[..., k + 1, n]
+        planes = [_bf16_pairs(lo, hi), _bf16_pairs(lo * lo, hi * hi)]
+    else:
+        x = w[..., 4 * ((e >> 5) & 1) + (e & 3), n]
+        planes = [*_tf32_split(x), *_tf32_split(x * x)]
+    return torch.stack(planes, dim=-2).contiguous()
 
 
 def _member(x: torch.Tensor, k: int, members: int) -> torch.Tensor:
@@ -307,28 +423,34 @@ def _aligned_input(t: torch.Tensor, ms: int) -> torch.Tensor:
 
 
 def _launch(mu, sigma, w_mu, w_sigma, fuse_relu, relu_mask=False,
-            precision="highest"):
+            precision="highest", flip=False, planes=None):
     """The kernel on CUDA tensors -> ``(mu_out, sig_out, win, mask)``;
     ``w_sigma=None`` is the form without the window sum (and without the
     ReLU), which returns ``(mu_out, sig_out or None, None, None)`` in
     float32. ``relu_mask`` asks for the ReLU's mask (bool, [K*B,H',W',
     Cout]). Stacked weights run every member in the same launch; the
-    precision picks the plan and the kernels' arithmetic."""
+    precision picks the plan and the kernels' arithmetic. ``flip``: ``w_mu``
+    is [k,k,Cout,Cin], the forward weights of the conv whose transposed
+    pair the call computes (see :func:`conv_t_pair`). ``planes``: an int32
+    tensor of at least the plan's ``planes_bytes`` to take the tensor-core
+    path's weight planes (the card's check of the prologue reads it back),
+    else they are scratch of this call."""
     global launches, reduce_launches, dgrad_launches, dgrad_reduce_launches
-    global bf16_launches
+    global bf16_launches, weight_plane_launches
     with_win = w_sigma is not None
     if w_mu.dim() not in (4, 5):
         raise ValueError(f"vdp_conv: w_mu must be [k,k,Cin,Cout] or "
                          f"[K,k,k,Cin,Cout], got {tuple(w_mu.shape)}")
     members = w_mu.shape[0] if _stacked(w_mu) else 1
     mu, (b, h, w, cin), x_ms = _input("mu", mu, members, _lib.MOMENT_DTYPES)
-    k, cout = w_mu.shape[-3], w_mu.shape[-1]
+    k, cout = w_mu.shape[-3], w_mu.shape[-2 if flip else -1]
     if sigma is not None:
         sigma, s_shape, s_ms = _input("sigma", sigma, members, (mu.dtype,))
         if s_shape != (b, h, w, cin) or s_ms != x_ms:
             raise ValueError("vdp_conv: sigma must have mu's shape and member stride")
     lead = (members,) if _stacked(w_mu) else ()
-    _lib.check_input("vdp_conv", "w_mu", w_mu, lead + (k, k, cin, cout))
+    _lib.check_input("vdp_conv", "w_mu", w_mu,
+                     lead + ((k, k, cout, cin) if flip else (k, k, cin, cout)))
     if with_win:
         _lib.check_input("vdp_conv", "w_sigma", w_sigma, lead + (cout,))
     elif fuse_relu:
@@ -356,9 +478,18 @@ def _launch(mu, sigma, w_mu, w_sigma, fuse_relu, relu_mask=False,
         return mu_out, sig_out, win, mask
     sw = F.softplus(w_sigma).contiguous() if with_win else None
     scratch = None
-    if p.path != "simt":
+    if p.path == "simt":
+        if flip:  # the CUDA-core kernel reads the weights in this conv's layout
+            w_mu, flip = _flipped(w_mu), False
+    else:
         mu, sigma = _aligned_input(mu, x_ms), _aligned_input(sigma, x_ms)
-        w_mu, sw = _aligned(w_mu), _aligned(sw)
+        sw = _aligned(sw)
+        if planes is None:
+            planes = torch.empty(p.planes_bytes // 4, device=mu.device, dtype=torch.int32)
+        elif (planes.dtype != torch.int32 or not planes.is_contiguous()
+              or planes.device != mu.device or 4 * planes.numel() < p.planes_bytes):
+            raise ValueError(f"vdp_conv: planes must be a contiguous int32 tensor of "
+                             f"{p.planes_bytes // 4} elements on {mu.device}")
         if p.splits > 1:
             scratch = torch.empty(p.scratch_bytes // 4, device=mu.device,
                                   dtype=torch.float32)
@@ -372,11 +503,12 @@ def _launch(mu, sigma, w_mu, w_sigma, fuse_relu, relu_mask=False,
             sig_out.data_ptr() if sig_out is not None else None,
             win.data_ptr() if win is not None else None,
             scratch.data_ptr() if scratch is not None else None,
+            planes.data_ptr() if p.path != "simt" else None,
             mask.data_ptr() if mask is not None else None,
             b, h, w, cin, cout, k, int(fuse_relu), int(with_win),
-            _PATH_ID[p.path], p.tile_n, p.splits, members,
-            _lib.dtype_code(mu.dtype), int(p.bf16), x_ms, k * k * cin * cout, cout,
-            torch.cuda.current_stream(mu.device).cuda_stream,
+            _PATH_ID[p.path], p.tile_n, p.tile_h, p.tile_w, int(flip), p.splits,
+            members, _lib.dtype_code(mu.dtype), int(p.bf16), x_ms, k * k * cin * cout,
+            cout, torch.cuda.current_stream(mu.device).cuda_stream,
         )
     _lib.check(err, f"vdp_conv kernel launch ({p.path}, {p.splits} K slices, "
                     f"{members} member(s){'' if with_win else ', no window sum'}, "
@@ -389,6 +521,9 @@ def _launch(mu, sigma, w_mu, w_sigma, fuse_relu, relu_mask=False,
         dgrad_reduce_launches += p.splits > 1
     bf16_launches += p.bf16
     tracing.count(_PATH_COUNTER[p.path])
+    if p.path != "simt":
+        weight_plane_launches += 1
+        tracing.count(_PLANES_COUNTER)
     return mu_out, sig_out, win, mask
 
 
@@ -434,16 +569,25 @@ def _conv_t(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return F.conv_transpose2d(_nchw(g), _oihw(w)).permute(0, 2, 3, 1)
 
 
+def _padded(g1, g2, k):
+    """``g1``, ``g2`` (or None) padded by k - 1 on every spatial side."""
+    pad = (0, 0, k - 1, k - 1, k - 1, k - 1)
+    return F.pad(g1, pad), None if g2 is None else F.pad(g2, pad)
+
+
+def _flipped(w_mu):
+    """``w_mu`` [k,k,Cin,Cout] flipped in both spatial axes with Cin and
+    Cout swapped -> [k,k,Cout,Cin] (stacked [K,...] alike), contiguous."""
+    return w_mu.flip(-4, -3).transpose(-2, -1).contiguous()
+
+
 def dgrad_operands(g1, g2, w_mu):
     """The transposed convolutions as VALID ones: ``g1``, ``g2`` (or None)
     [B,H',W',Cout] padded by k - 1 on every spatial side, and ``w_mu``
     [k,k,Cin,Cout] flipped in both spatial axes with Cin and Cout swapped
     -> [k,k,Cout,Cin] (stacked [K,...] alike). Then ``conv(pad(g),
     flip(w)^T) = convT(g, w)``."""
-    k = w_mu.shape[-3]
-    pad = (0, 0, k - 1, k - 1, k - 1, k - 1)
-    w = w_mu.flip(-4, -3).transpose(-2, -1).contiguous()
-    return (F.pad(g1, pad), None if g2 is None else F.pad(g2, pad), w)
+    return (*_padded(g1, g2, w_mu.shape[-3]), _flipped(w_mu))
 
 
 def _per_member(fn, g1, g2, w_mu, precision):
@@ -478,13 +622,17 @@ def conv_t_pair(g1, g2, w_mu, precision="highest"):
     ``g2`` float32 or bf16 (one dtype); the outputs are float32. Under
     ``precision="default"`` one bf16 pass, as :func:`conv_t_pair_plain`.
 
-    CUDA tensors: one launch of the kernel without the window sum on
-    :func:`dgrad_operands` (or raise), for all members of stacked weights;
-    bf16 cotangents are padded and read as bf16. CPU tensors:
-    :func:`_conv_t` in float32, member by member."""
+    CUDA tensors: one launch of the kernel without the window sum on the
+    padded cotangents of :func:`dgrad_operands` (or raise), for all members
+    of stacked weights; bf16 cotangents are padded and read as bf16. The
+    tensor-core path's prologue reads ``w_mu`` in place, mirrored and
+    transposed as it converts it, so the flipped weights are formed only for
+    the CUDA-core path. CPU tensors: :func:`_conv_t` in float32, member by
+    member."""
     if g1.is_cuda:
-        mu, sigma, w = dgrad_operands(g1, g2, w_mu)
-        d1, d2, _, _ = _launch(mu, sigma, w, None, False, precision=precision)
+        mu, sigma = _padded(g1, g2, w_mu.shape[-3])
+        d1, d2, _, _ = _launch(mu, sigma, w_mu, None, False, precision=precision,
+                               flip=True)
         return d1, d2
     if g1.device.type != "cpu":
         raise ValueError(f"vdp_conv: unsupported device {g1.device}")

@@ -57,7 +57,7 @@ ENV = "SUPERNET_TRACE"
 # the launch counters of ops/kernels, by module
 KERNEL_COUNTERS = (
     ("vdp_conv", ("launches", "reduce_launches", "dgrad_launches",
-                  "dgrad_reduce_launches", "bf16_launches")),
+                  "dgrad_reduce_launches", "bf16_launches", "weight_plane_launches")),
     ("pool", ("launches", "bwd_launches")),
     ("sigma_bwd", ("launches",)),
 )

@@ -104,22 +104,25 @@ def self_times(ops: List[Event]) -> List[Event]:
 
 
 # op classes, in the order a name is tested against them
-_KERNEL_WIN = re.compile(r"vdp_conv_kernel(_wgmma|_splitk_reduce)?<([^>]*)>")
+_KERNEL_WIN = re.compile(r"vdp_conv_kernel(_wgmma|_splitk_reduce|_weight_planes)?<([^>]*)>")
 
 
 def kernel1_mode(name: str) -> Optional[str]:
     """"forward" or "transposed" for an instance of kernel 1 (the template
-    flag WIN, the window sum: off in VDPConv's transposed convolutions),
-    None for any other kernel or a name without its template arguments."""
+    flag WIN, the window sum: off in VDPConv's transposed convolutions; for
+    the tensor-core path's weight-planes prologue its flag FLIP, on in the
+    transposed pair's calls), None for any other kernel or a name without
+    its template arguments."""
     m = _KERNEL_WIN.search(name)
     if not m:
         return None
     args = [a.strip() for a in m.group(2).split(",")]
-    pos = {"": 3, "_wgmma": 4, "_splitk_reduce": 1}[m.group(1) or ""]
+    kind = m.group(1) or ""
+    pos = {"": 3, "_wgmma": 4, "_splitk_reduce": 1, "_weight_planes": 2}[kind]
     if len(args) <= pos:
         return None
-    win = args[pos] in ("true", "(bool)1", "1")
-    return "forward" if win else "transposed"
+    on = args[pos] in ("true", "(bool)1", "1")
+    return "forward" if on != (kind == "_weight_planes") else "transposed"
 
 
 KERNEL_CLASSES = {

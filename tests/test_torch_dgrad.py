@@ -129,10 +129,32 @@ def test_dgrad_plan_of_every_layer(config, batch):
         assert p.tile_n == (32 if cin <= 32 else 64)
         assert p.splits <= V.MAX_SPLITS and p.scratch_bytes <= V.MAX_SCRATCH_BYTES
         assert (cout // V.TC_CHUNK) % p.splits == 0
+        # 2-D tiles of the input gradient's h x w pixels, and the planes of
+        # the forward's weights read in place (flipped as they are split)
+        assert (p.tile_h, p.tile_w) == V.tc_tile(h, w)
+        n_tiles = -(-cin // p.tile_n)
+        assert p.blocks == batch * -(-h // p.tile_h) * -(-w // p.tile_w) * n_tiles * p.splits
+        assert p.planes_bytes == 16 * 9 * cout * n_tiles * p.tile_n
     # the forward plans are unchanged by the Cout % 8 rule
     for name, (_, h, w, cin), cout in convs:
         assert V.plan(batch, h, w, cin, cout, 3).path == (
             "simt" if name == "conv_input" else "wgmma")
+
+
+@pytest.mark.parametrize("shape", [s for s in SHAPES if s[-1] == 3 and s[4] % 8 == 0])
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_transposed_weight_planes_read_the_forward_weights(shape, precision):
+    """The transposed pair's call on the card hands the prologue the
+    forward's ``w_mu`` with its flag FLIP: the planes it splits are those of
+    the flipped, transposed weights of :func:`dgrad_operands`, so that copy
+    is made only for the CUDA-core path."""
+    _, _, w = (torch.from_numpy(a) for a in _inputs(shape))
+    _, _, wd = V.dgrad_operands(torch.zeros(1, 2, 2, shape[4]), None, w)
+    for tile_n in (32, 64):
+        if precision == "default" and shape[4] % 16:
+            continue
+        assert torch.equal(V.split_weight_planes_plain(w, tile_n, precision, flip=True),
+                           V.split_weight_planes_plain(wd, tile_n, precision))
 
 
 def _tiny(name):

@@ -94,6 +94,14 @@ K1F, K1T = xplane.KERNEL_CLASSES["forward"], xplane.KERNEL_CLASSES["transposed"]
      "vdp_conv_reduce"),
     ("void vdp_conv_kernel_splitk_reduce<false, false, true>(RedArgs)", "kernel", True, K1T,
      "vdp_conv_dgrad_reduce"),
+    # the tensor-core path's weight-planes prologue: kernel 1's time, by its
+    # flag FLIP (the transposed pair's), counted by weight_plane_launches
+    ("void supernet::vdp::(anonymous namespace)::tc::vdp_conv_kernel_weight_planes<64, "
+     "false, false>(float const*, unsigned int*, int, int, int, int, long long, long long)",
+     "kernel", False, K1F, None),
+    ("void supernet::vdp::(anonymous namespace)::tc::vdp_conv_kernel_weight_planes<32, "
+     "true, true>(float const*, unsigned int*, int, int, int, int, long long, long long)",
+     "kernel", True, K1T, None),
     ("vmaxpool_fwd_kernel(float const*, float const*, float*, float*, unsigned char*)",
      "kernel", False, xplane.POOL_FWD, "vmaxpool"),
     ("vmaxpool_bwd_kernel(unsigned char const*, float const*)", "kernel", True,

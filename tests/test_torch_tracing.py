@@ -318,6 +318,25 @@ def test_the_trace_variable_writes_records_and_counters_at_exit(tmp_path):
     assert set(inner) == {"name", "id", "parent", "root", "start_ns", "end_ns", "device_ms"}
 
 
+def test_kernel1_weight_planes_are_counted_beside_the_launches():
+    """``kernel1.weight_planes`` counts each tensor-core call's prologue,
+    and ``vdp_conv.weight_plane_launches`` is read with the launch counters;
+    on the card both equal ``kernel1.path.wgmma``
+    (tests/test_torch_kernel1_card.py). A CPU tensor takes the plain
+    version and moves neither."""
+    from supernet_tpu_torch.ops.kernels import vdp_conv as V
+
+    assert V._PLANES_COUNTER == "kernel1.weight_planes"
+    before = tracing.counters()
+    assert "vdp_conv.weight_plane_launches" in before
+    x = torch.ones(1, 6, 6, 8)
+    V.vdp_conv(x, x, torch.ones(3, 3, 8, 8), torch.zeros(8), True)
+    V.conv_t_pair(torch.ones(1, 4, 4, 8), torch.ones(1, 4, 4, 8), torch.ones(3, 3, 8, 8))
+    after = tracing.counters()
+    assert after["vdp_conv.weight_plane_launches"] == before["vdp_conv.weight_plane_launches"]
+    assert "kernel1.weight_planes" not in after and "kernel1.path.wgmma" not in after
+
+
 def test_a_3d_step_has_its_phase_spans_and_counts_its_moment_products():
     """``train3d``'s step under the 2-D step's five spans, and one count
     per k > 1 moment product of its forward (the Cicek plan at base 4,

@@ -1,6 +1,7 @@
 """The fused VDP conv's tensor-core path on the CPU: the planner that picks
 the path, tile and K slices for every layer shape of both configs (at
-float32 accuracy and in one bf16 pass), a numpy emulation of TF32 rounding
+float32 accuracy and in one bf16 pass), the 2-D tiles of output pixels and
+their halos as the kernel indexes them, a numpy emulation of TF32 rounding
 that shows why the path computes in 3xTF32, and the path's arithmetic
 (3xTF32 split products, per-chunk promotion of the mu sum, the window sum
 from the patch fragments; under "default" exact bf16 products folded per
@@ -49,6 +50,27 @@ def _conv_inputs(config):
     return {name: (h, w, cin, cout) for name, (_, h, w, cin), cout in convs}
 
 
+def _m_tiles(b, ho, wo, p):
+    """The M tiles of one member: ``p``'s 2-D tiles of each image."""
+    return b * -(-ho // p.tile_h) * -(-wo // p.tile_w)
+
+
+def _tile_ok(p, ho, wo):
+    """A tensor-core plan's tile: :func:`vdp_conv.tc_tile`'s, at most 64
+    pixels of at most ``ho`` rows, its halo within the kernel's shared
+    memory."""
+    assert (p.tile_h, p.tile_w) == vdp_conv.tc_tile(ho, wo)
+    assert 1 <= p.tile_h <= ho and p.tile_h * p.tile_w <= vdp_conv.TC_TILE_M
+    assert (p.tile_h + 2) * (p.tile_w + 2) <= vdp_conv.TC_MAX_HALO
+
+
+def _planes_bytes(members, cin, cout, tile_n, bf16):
+    """Four TF32 planes of the weights (16 bytes a weight), or two planes of
+    bf16 pairs (4 bytes a weight), the columns padded to whole N tiles."""
+    n_pad = -(-cout // tile_n) * tile_n
+    return members * 9 * cin * n_pad * (4 if bf16 else 16)
+
+
 def _split_cap(cin, m, cout):
     """The most K slices the planner may take for this shape."""
     chunks = cin // vdp_conv.TC_CHUNK
@@ -69,17 +91,21 @@ def test_plan_every_layer(config, layer):
     assert p.path == "wgmma"
     assert p.tile_n == (32 if cout <= 32 else 64)
     assert p.tile_m == vdp_conv.TC_TILE_M
+    _tile_ok(p, h - 2, w - 2)
+    assert p.planes_bytes == _planes_bytes(1, cin, cout, p.tile_n, False)
     m = b * (h - 2) * (w - 2)
-    tiles = -(-m // p.tile_m) * -(-cout // p.tile_n)
+    tiles = _m_tiles(b, h - 2, w - 2, p) * -(-cout // p.tile_n)
     assert p.blocks == tiles * p.splits
     chunks = cin // vdp_conv.TC_CHUNK
     assert chunks % p.splits == 0
-    # one wave of the card's SMs, or as many slices as the shape allows
-    assert p.blocks >= vdp_conv.SMS or p.splits == _split_cap(cin, m, cout)
-    # the fewest slices that fill the wave
+    # TC_BLOCKS_PER_SM blocks per SM of the card, or as many slices as the
+    # shape allows
+    wave = vdp_conv.TC_BLOCKS_PER_SM * vdp_conv.SMS
+    assert p.blocks >= wave or p.splits == _split_cap(cin, m, cout)
+    # the fewest slices that reach it
     if p.splits > 1:
         assert tiles * max(s for s in range(1, p.splits)
-                           if chunks % s == 0) < vdp_conv.SMS
+                           if chunks % s == 0) < wave
         assert p.scratch_bytes == 4 * p.splits * m * (2 * cout + 1)
         assert p.scratch_bytes <= vdp_conv.MAX_SCRATCH_BYTES
     else:
@@ -92,7 +118,7 @@ def test_plan_default_every_layer(config, layer):
     transposed shape but conv_input's input gradient (Cout 1 or 4) takes the
     one-bf16-pass tensor-core path: every Cin and Cout of both models past
     the first layer is a multiple of 16. Its K slices divide the Cin/16
-    chunks and fill one wave as the 3xTF32 plan's do; "high" plans as
+    chunks and fill the card as the 3xTF32 plan's do; "high" plans as
     "highest"."""
     h, w, cin, cout = _conv_inputs(config)[layer]
     b = BATCH[config]
@@ -106,17 +132,20 @@ def test_plan_default_every_layer(config, layer):
         pb, ph, pw, pc, po = shape
         assert pc % vdp_conv.TC_CHUNK_BF16 == 0
         assert (p.path, p.tile_m, p.tile_n, p.bf16) == ("wgmma", hi.tile_m, hi.tile_n, True)
+        assert (p.tile_h, p.tile_w) == (hi.tile_h, hi.tile_w)
         assert not hi.bf16
+        assert p.planes_bytes == _planes_bytes(1, pc, po, p.tile_n, True)
         m = pb * (ph - 2) * (pw - 2)
-        tiles = -(-m // p.tile_m) * -(-po // p.tile_n)
+        tiles = _m_tiles(pb, ph - 2, pw - 2, p) * -(-po // p.tile_n)
         chunks = pc // vdp_conv.TC_CHUNK_BF16
         assert chunks % p.splits == 0 and p.blocks == tiles * p.splits
         cap = max(s for s in range(1, min(chunks, vdp_conv.MAX_SPLITS) + 1)
                   if chunks % s == 0
                   and 4 * s * m * (2 * po + 1) <= vdp_conv.MAX_SCRATCH_BYTES)
-        assert p.blocks >= vdp_conv.SMS or p.splits == cap
+        wave = vdp_conv.TC_BLOCKS_PER_SM * vdp_conv.SMS
+        assert p.blocks >= wave or p.splits == cap
         if p.splits > 1:
-            assert tiles * max(s for s in range(1, p.splits) if chunks % s == 0) < vdp_conv.SMS
+            assert tiles * max(s for s in range(1, p.splits) if chunks % s == 0) < wave
             assert p.scratch_bytes == 4 * p.splits * m * (2 * po + 1)
 
 
@@ -149,11 +178,12 @@ def _split_cap_members(cin, m, cout, members):
 def test_plan_members_every_layer(config, layer, sms):
     """The member axis: ``members=1`` on 132 SMs is the plan of the shape
     alone; with K members the M tiles are counted per member, so that the
-    kernel's blocks (member = blockIdx.z // splits, pixels 64 x of that
-    member) write every output pixel of every member exactly once and no
-    tile holds pixels of two members; the scratch of K x S partials stays
-    within MAX_SCRATCH_BYTES; the slices fill one wave of ``sms`` SMs with
-    as few slices as that takes."""
+    kernel's blocks (member = blockIdx.z // splits, a tile_h x tile_w tile
+    of one image of that member) write every output pixel of every member
+    exactly once; the scratch of K x S partials stays within
+    MAX_SCRATCH_BYTES; the slices give TC_BLOCKS_PER_SM blocks per SM of
+    ``sms`` SMs with as few
+    slices as that takes."""
     h, w, cin, cout = _conv_inputs(config)[layer]
     b, members = BATCH[config], MEMBERS[config]
     one = vdp_conv.plan(b, h, w, cin, cout, 3, 1, sms)
@@ -161,30 +191,117 @@ def test_plan_members_every_layer(config, layer, sms):
         assert one == vdp_conv.plan(b, h, w, cin, cout, 3)
     p = vdp_conv.plan(b, h, w, cin, cout, 3, members, sms)
     assert (p.path, p.tile_m, p.tile_n) == (one.path, one.tile_m, one.tile_n)
+    assert (p.tile_h, p.tile_w) == (one.tile_h, one.tile_w)
     if p.path == "simt":  # one block per tile of one image of one member
         assert p.blocks == members * one.blocks and p.scratch_bytes == 0
         return
-    m = b * (h - 2) * (w - 2)
-    m_tiles, n_tiles = -(-m // p.tile_m), -(-cout // p.tile_n)
+    assert p.planes_bytes == members * one.planes_bytes
+    ho, wo = h - 2, w - 2
+    m = b * ho * wo
+    m_tiles, n_tiles = _m_tiles(b, ho, wo, p), -(-cout // p.tile_n)
     assert p.blocks == members * m_tiles * n_tiles * p.splits
-    z = np.arange(members * p.splits)
-    member = np.repeat(z // p.splits, m_tiles)[:, None]
-    rows = np.tile(np.arange(m_tiles), len(z))[:, None] * p.tile_m + np.arange(p.tile_m)
-    written = (member * m + rows)[rows < m]  # rows past M are masked
+    written = np.concatenate([
+        member * m + _tile_pixels(bx, b, ho, wo, p.tile_h, p.tile_w)
+        for member in range(members) for _ in range(p.splits) for bx in range(m_tiles)])
     counts = np.bincount(written, minlength=members * m)
     assert (counts == p.splits).all()  # each slice once per pixel
-    assert (member == (member * m + np.where(rows < m, rows, 0)) // m).all()
     chunks = cin // vdp_conv.TC_CHUNK
     assert chunks % p.splits == 0 and members * p.splits <= vdp_conv.MAX_GRID_Z
     tiles = members * m_tiles * n_tiles
-    assert p.blocks >= sms or p.splits == _split_cap_members(cin, m, cout, members)
+    wave = vdp_conv.TC_BLOCKS_PER_SM * sms
+    assert p.blocks >= wave or p.splits == _split_cap_members(cin, m, cout, members)
     if p.splits > 1:
-        assert tiles * max(s for s in range(1, p.splits) if chunks % s == 0) < sms
+        assert tiles * max(s for s in range(1, p.splits) if chunks % s == 0) < wave
         assert p.scratch_bytes == 4 * members * p.splits * m * (2 * cout + 1)
         assert p.scratch_bytes <= vdp_conv.MAX_SCRATCH_BYTES
     else:
         assert p.scratch_bytes == 0
     assert p.splits <= one.splits  # more members fill the card with fewer slices
+
+
+def _tile_pixels(bx, b, ho, wo, th, tw):
+    """The member's flat output pixels block ``bx`` stores, as the kernel
+    indexes them: blockIdx.x = (image, tile row, tile column), rows m = tw
+    ty + tx < th tw, those past the image masked."""
+    tiles_h, tiles_w = -(-ho // th), -(-wo // tw)
+    img, rest = divmod(bx, tiles_h * tiles_w)
+    ty_t, tx_t = divmod(rest, tiles_w)
+    assert img < b
+    r = np.arange(vdp_conv.TC_TILE_M)
+    r = r[r < th * tw]
+    oy, ox = ty_t * th + r // tw, tx_t * tw + r % tw
+    keep = (oy < ho) & (ox < wo)
+    return (img * ho + oy[keep]) * wo + ox[keep]
+
+
+def _halo_patches(x, th, tw):
+    """Every output pixel's 3 x 3 x C patch as the tensor-core kernel reads
+    it: per block the (th + 2) x (tw + 2) halo of its tile from the source
+    offsets it forms once ((hy W + hx) C from the tile's first pixel, -1
+    past the image: zero-filled), then at each tap the pixel (ty + dy)
+    (tw + 2) + tx + dx of the halo. Returns [B, H', W', 9, C], taps in the
+    order 3 dy + dx; every pixel written once."""
+    b, h, w, c = x.shape
+    ho, wo = h - 2, w - 2
+    hw, halo = tw + 2, (th + 2) * (tw + 2)
+    flat = x.reshape(-1)
+    out = np.full((b, ho, wo, 9, c), np.nan, x.dtype)
+    tiles = b * -(-ho // th) * -(-wo // tw)
+    for bx in range(tiles):
+        tiles_h, tiles_w = -(-ho // th), -(-wo // tw)
+        img, rest = divmod(bx, tiles_h * tiles_w)
+        oy0, ox0 = (rest // tiles_w) * th, (rest % tiles_w) * tw
+        origin = ((img * h + oy0) * w + ox0) * c
+        p = np.arange(halo)
+        hy, hx = p // hw, p % hw
+        off = np.where((oy0 + hy < h) & (ox0 + hx < w), (hy * w + hx) * c, -1)
+        tile = np.where(off[:, None] >= 0,
+                        flat[origin + np.maximum(off, 0)[:, None] + np.arange(c)], 0)
+        for r in range(th * tw):
+            ty, tx = divmod(r, tw)
+            oy, ox = oy0 + ty, ox0 + tx
+            if oy >= ho or ox >= wo:
+                continue
+            assert np.isnan(out[img, oy, ox]).all()
+            for dy in range(3):
+                for dx in range(3):
+                    out[img, oy, ox, 3 * dy + dx] = tile[(ty + dy) * hw + tx + dx]
+    return out
+
+
+@pytest.mark.parametrize("hw", [(5, 5), (8, 13), (11, 10), (22, 22), (20, 35), (12, 70)])
+def test_halo_tiles_gather_every_patch_once(hw):
+    """The kernel's index arithmetic (tiles, halo offsets, tap shifts)
+    reproduces im2col at the tile :func:`vdp_conv.tc_tile` picks and at the
+    other candidate widths: every output pixel's patch, once."""
+    h, w = hw
+    rng = np.random.default_rng(h * w)
+    x = rng.normal(0, 1, (2, h, w, 3)).astype(np.float32)
+    ho, wo = h - 2, w - 2
+    want = np.stack([x[:, dy:dy + ho, dx:dx + wo] for dy in range(3) for dx in range(3)],
+                    axis=3)
+    shapes = {vdp_conv.tc_tile(ho, wo), (8, 8), (4, 16), (2, 32), (min(ho, 64 // wo), wo)}
+    for th, tw in shapes:
+        if th < 1 or (th + 2) * (tw + 2) > vdp_conv.TC_MAX_HALO:
+            continue
+        np.testing.assert_array_equal(_halo_patches(x, th, tw), want)
+
+
+@pytest.mark.parametrize("ho", [1, 2, 3, 6, 7, 18, 20, 44, 46, 90, 98, 186, 200])
+def test_tc_tile_covers_the_output_with_the_fewest_tiles(ho):
+    """The tile fits the kernel (at most 64 pixels, a halo within
+    TC_MAX_HALO) and takes no more tiles than any candidate width with its
+    most rows; at widths that are multiples of 8 it is 8 x 8."""
+    for wo in sorted({ho, 8, 16, 40, 200, max(1, ho // 2)}):
+        th, tw = vdp_conv.tc_tile(ho, wo)
+        assert 1 <= th <= ho and th * tw <= vdp_conv.TC_TILE_M
+        assert (th + 2) * (tw + 2) <= vdp_conv.TC_MAX_HALO
+        n = -(-ho // th) * -(-wo // tw)
+        for cw in (8, 16, 32) + ((wo,) if wo < 32 else ()):
+            ch = min(64 // cw, ho, vdp_conv.TC_MAX_HALO // (cw + 2) - 2)
+            assert n <= -(-ho // ch) * -(-wo // cw)
+        if ho >= 8 and wo % 8 == 0 and ho % 8 == 0:
+            assert (th, tw) == (8, 8)
 
 
 @pytest.mark.parametrize("layer", ["conv8", "conv9", "up1_conv1"])
