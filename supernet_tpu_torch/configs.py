@@ -14,7 +14,9 @@ nothing of the JAX package. Defaults are lifted from the reference drivers:
 
 Besides them, and outside ``__all__``: ``CICEK3D``, the 3D U-Net of Cicek
 et al. under its own layer plan (``CicekConfig``, read by
-``models/unet3d.py``), the port's one experiment with no JAX twin.
+``models/unet3d.py``), and ``SWINUNETR``, Swin UNETR under its plan
+(``SwinUNETRConfig``, read by ``models/swin_unetr3d.py``): the port's
+experiments with no JAX twin.
 """
 
 from __future__ import annotations
@@ -246,7 +248,51 @@ CICEK3D = ExperimentConfig(
     train=TrainConfig(batch_size=2, epochs=100, lr=1e-3, kl_factor=1e-5),
 )
 
-_CONFIGS = {c.name: c for c in (HIPPOCAMPUS, BRATS, LUNGS, CICEK3D)}
+
+
+@dataclass(frozen=True)
+class SwinUNETRConfig(ModelConfig):
+    """A ``ModelConfig`` under the layer plan of Swin UNETR
+    (Hatamizadeh et al., arXiv:2201.01266; MONAI's ``SwinUNETR`` v1), read
+    by ``models/swin_unetr3d.py``: a 2^3 stride-2 patch embedding to
+    ``feature_size`` channels, ``len(depths)`` (four) stages of shifted-
+    window transformer blocks with ``num_heads`` heads, ``window_size``^3
+    windows and MLPs ``mlp_ratio`` times wide, patch merges doubling the
+    channels, and a residual CNN decoder to ``n_classes`` at the input's
+    side. ``base_kernels``, ``depth``, ``bottleneck_pre_pad``, ``mean_mu``
+    and ``mean_sigma`` are unused; ``sigma_fill`` fills the variance of the
+    SAME convs' pads. Lists given for ``depths`` and ``num_heads`` (a JSON
+    file's) are kept as tuples."""
+
+    feature_size: int = 48
+    depths: Tuple[int, ...] = (2, 2, 2, 2)
+    num_heads: Tuple[int, ...] = (3, 6, 12, 24)
+    window_size: int = 7
+    patch_size: int = 2
+    mlp_ratio: int = 4
+
+    def __post_init__(self):
+        object.__setattr__(self, "depths", tuple(self.depths))
+        object.__setattr__(self, "num_heads", tuple(self.num_heads))
+        if len(self.depths) != 4 or len(self.num_heads) != 4:
+            raise ValueError("Swin UNETR has four stages: give four depths and four head counts")
+
+
+# The port's own (not in ``__all__``, no JAX twin): Swin UNETR as a VDP
+# network at the widths of MONAI's BraTS 2021 recipe (128^3 regions of 4
+# MRI modalities, 3 output channels, feature size 48, batch 1 per GPU,
+# lr 1e-4). The published network is deterministic, so the weight variances
+# are assumed: Cicek3d's ranges (SUPER-Net's moved down by 6), under which
+# the head's sigma stays below the loss's clip at these widths.
+SWINUNETR = ExperimentConfig(
+    name="swinunetr",
+    model=SwinUNETRConfig(in_channels=4, n_classes=3, image_size=128, out_size=128,
+                          sigma_fill=0.0, sigma_min=-18.0, sigma_max=-10.6,
+                          tight_sigma_min=-10.6, tight_sigma_max=-8.2),
+    train=TrainConfig(batch_size=1, epochs=100, lr=1e-4, kl_factor=1e-5),
+)
+
+_CONFIGS = {c.name: c for c in (HIPPOCAMPUS, BRATS, LUNGS, CICEK3D, SWINUNETR)}
 
 
 def get_config(name: str) -> ExperimentConfig:

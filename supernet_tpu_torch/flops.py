@@ -189,11 +189,56 @@ def _conv_shapes3d(cfg: ModelConfig) -> Dict[str, int]:
     return {name: shape[1] for name, shape in stage_shapes3d(cfg) if name in convs}
 
 
+# elementwise operations per attention score: the bias, the mask, the
+# variance's sum, the softmax (exp, sum, divide) and its moment (six)
+SWIN_SCORE_OPS = 12
+
+
+def _forward_flops_swin(cfg) -> float:
+    """One volume's forward under the Swin UNETR plan: every layer with
+    weights by the counting below (a linear is k = 1, on the real tokens),
+    and per Swin block, window (padded ones included) and head, the six
+    products of ``2 n^2 d`` and ``SWIN_SCORE_OPS`` per score."""
+    from supernet_tpu_torch.models.swin_unetr3d import layer_names_swin
+
+    s = cfg.image_size
+    st = [-(-(s // cfg.patch_size) // 2 ** i) for i in range(len(cfg.depths) + 1)]
+    side_of = {"patch": st[0], "encoder1": s, "encoder2": st[0], "encoder3": st[1],
+               "encoder4": st[2], "encoder10": st[4], "decoder5": st[3], "decoder4": st[2],
+               "decoder3": st[1], "decoder2": st[0], "decoder1": s, "out": s}
+    total = 0.0
+    for name, k, cin, cout in layer_names_swin(cfg):
+        head = name.split("_")[0]
+        if head.startswith("stage"):
+            i = int(head[len("stage"):])
+            side = st[i + 1] if name.endswith("_merge") else st[i]
+        else:
+            side = side_of[head]
+        k3 = k ** 3
+        if name in ("patch_embed", "encoder1_conv1", "encoder1_conv3"):
+            per = 2 * k3 * cin * cout + 2 * k3
+        elif name.endswith("_up"):
+            per = 4 * cin * cout
+        else:
+            per = 4 * k3 * cin * cout + 2 * k3
+        total += float(side ** 3 * per)
+    for i, (depth, heads) in enumerate(zip(cfg.depths, cfg.num_heads)):
+        ws = min(st[i], cfg.window_size)
+        n, d = ws ** 3, cfg.feature_size * 2 ** i // heads
+        n_win = (-(-st[i] // ws)) ** 3
+        total += float(depth * n_win * heads * (12 * n * n * d + SWIN_SCORE_OPS * n * n))
+    return total
+
+
 def forward_flops3d(cfg: ModelConfig, batch: int = 1) -> float:
     """FLOPs of one volumetric forward at ``batch``: the 2-D counting one
     rank up; the fused unpool conv sees one nonzero tap per output voxel, so
-    it costs ``4 Cin Cout`` per voxel in either rank."""
-    from supernet_tpu_torch.models.unet3d import layer_names3d
+    it costs ``4 Cin Cout`` per voxel in either rank. The Swin UNETR plan
+    is counted by ``_forward_flops_swin``."""
+    from supernet_tpu_torch.models.unet3d import is_swin, layer_names3d
+
+    if is_swin(cfg):
+        return batch * _forward_flops_swin(cfg)
 
     sizes = _conv_shapes3d(cfg)
     total = 0.0

@@ -17,6 +17,10 @@ the 3D U-Net of Cicek et al. (MICCAI 2016, arXiv:1606.06650, Fig. 1) as a
 VDP network. Its encoder's second conv doubles the channels, its up-convs
 keep them, and it pads nowhere: 132^3 -> 44^3 at depth 4, base 32
 (:data:`CICEK3D`, 18 convs, 19,067,616 ``w_mu`` elements).
+
+A third plan, :class:`SwinUNETRConfig` (:data:`SWINUNETR`), is Swin UNETR;
+``forward3d``, ``init_params3d``, ``layer_names3d`` and ``stage_shapes3d``
+hand it to ``models/swin_unetr3d.py``.
 """
 
 from __future__ import annotations
@@ -29,7 +33,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from supernet_tpu_torch import tracing
-from supernet_tpu_torch.configs import CICEK3D, CicekConfig, ModelConfig
+from supernet_tpu_torch.configs import (
+    CICEK3D,
+    SWINUNETR,
+    CicekConfig,
+    ModelConfig,
+    SwinUNETRConfig,
+)
+from supernet_tpu_torch.models import swin_unetr3d as swin
 from supernet_tpu_torch.models.unet import _block_helpers, _identity, _tight_layers
 from supernet_tpu_torch.ops import moments3d as M3
 from supernet_tpu_torch.ops.moments import _per_member, glue_fold_active, lowering
@@ -53,13 +64,17 @@ def is_cicek(cfg: ModelConfig) -> bool:
     return isinstance(cfg, CicekConfig)
 
 
+def is_swin(cfg: ModelConfig) -> bool:
+    return isinstance(cfg, SwinUNETRConfig)
+
+
 # the standard deviation of a unit normal cut at +-2
 _TRUNC2_STD = 0.8796256610342398
 
 # the experiments of the 3-D layer plans, by name (every 3-D command's
 # ``--config`` offers them), and the config class of each plan
-EXPERIMENTS3D = {CICEK3D.name: CICEK3D}
-PLANS3D = {"supernet": ModelConfig, "cicek": CicekConfig}
+EXPERIMENTS3D = {CICEK3D.name: CICEK3D, SWINUNETR.name: SWINUNETR}
+PLANS3D = {"supernet": ModelConfig, "cicek": CicekConfig, "swinunetr": SwinUNETRConfig}
 
 
 def _cicek_layers(cfg: ModelConfig) -> List[Tuple[str, int, int, int]]:
@@ -86,7 +101,10 @@ def _decoder_pads(cfg: ModelConfig):
 
 def layer_names3d(cfg: ModelConfig) -> List[Tuple[str, int, int, int]]:
     """Ordered (name, k, cin, cout) of every conv layer: the 2-D naming
-    scheme with k^3 kernels, under the config's layer plan."""
+    scheme with k^3 kernels, under the config's layer plan (under the Swin
+    UNETR plan its layers with Gaussian weights, a linear k = 1)."""
+    if is_swin(cfg):
+        return swin.layer_names_swin(cfg)
     if is_cicek(cfg):
         return _cicek_layers(cfg)
     enc = [cfg.base_kernels * (2 ** i) for i in range(cfg.depth)]
@@ -123,7 +141,10 @@ def init_params3d(
     Under the Cicek plan w_mu is the U-Net family's He init instead
     (Ronneberger et al. 2015, section 3: a Gaussian of std sqrt(2 / fan_in)),
     cut at 2 std and scaled so that std is the drawn weights' own;
-    ``mean_mu`` and ``mean_sigma`` are then unused."""
+    ``mean_mu`` and ``mean_sigma`` are then unused. The Swin UNETR plan
+    takes ``models/swin_unetr3d.py:init_params_swin``."""
+    if is_swin(cfg):
+        return swin.init_params_swin(generator, cfg, device)
     params: Params = {}
     tight = _tight_layers(cfg)
     for name, k, cin, cout in layer_names3d(cfg):
@@ -154,10 +175,13 @@ def kl_regularizer3d(params: Params) -> Tensor:
       sum(w_mu^2) - k^3 * mean(1 + log softplus(ws) - softplus(ws))
 
     Member-stacked parameters (``w_mu`` [K,k,k,k,Cin,Cout]) give the K
-    members' sums, [K].
+    members' sums, [K]. Point parameters (entries without ``w_mu``: the
+    Swin UNETR plan's norms and bias tables) have no KL term.
     """
     total = None
     for p in params.values():
+        if "w_mu" not in p:
+            continue
         w_mu, w_sigma = p["w_mu"], p["w_sigma"]
         strength = math.prod(w_mu.shape[-5:-2])
         f_s = F.softplus(w_sigma)
@@ -199,7 +223,10 @@ def forward3d(
     the fold (``unet3d.py:119``). Under the Cicek plan, which pads nowhere,
     the fold takes each decoder block's first conv with its skip (the
     crop-concatenation as a split of the kernel) and leaves the second
-    conv as it is."""
+    conv as it is. The Swin UNETR plan runs
+    ``models/swin_unetr3d.py:forward_swin`` (``tap`` but no ``constrain``)."""
+    if is_swin(cfg):
+        return swin.forward_swin(params, x, cfg, tap)
     depth = cfg.depth
     fill = cfg.sigma_fill
     glue_fold = glue_fold_active()
@@ -343,11 +370,13 @@ def stage_shapes3d(cfg: ModelConfig) -> Tuple[Tuple[str, Tuple[int, ...]], ...]:
     import dataclasses
 
     cfg = dataclasses.replace(cfg, remat=False)
-    params = {
-        name: {"w_mu": torch.empty((k, k, k, cin, cout), device="meta"),
-               "w_sigma": torch.empty((cout,), device="meta")}
-        for name, k, cin, cout in layer_names3d(cfg)
-    }
+    if is_swin(cfg):
+        shapes = swin.param_shapes(cfg)
+    else:
+        shapes = {name: {"w_mu": (k, k, k, cin, cout), "w_sigma": (cout,)}
+                  for name, k, cin, cout in layer_names3d(cfg)}
+    params = {name: {key: torch.empty(shape, device="meta") for key, shape in p.items()}
+              for name, p in shapes.items()}
     s = cfg.image_size
     x = torch.empty((1, s, s, s, cfg.in_channels), device="meta")
     stages = []

@@ -724,21 +724,32 @@ def vglue_conv_relu(
     return vrelu(_act(mu_out), _act(sigma_out))
 
 
-def vsoftmax(mu: Tensor, sigma: Tensor) -> MomentPair:
-    """Pixel-wise softmax with the variance pushed through its Jacobian, in
-    closed form and float32:
+def softmax_moments(mu: Tensor, sigma: Tensor, axis: int = -1) -> MomentPair:
+    """The softmax along ``axis`` with the variance pushed through its
+    Jacobian, in closed form, in the inputs' dtype and shape:
 
         sigma_out_c = p_c^2 * ((1 - 2 p_c) * sigma_c + sum_j p_j^2 sigma_j)
+    """
+    p = torch.softmax(mu, dim=axis)
+    p_sq = p * p
+    s_tot = (p_sq * sigma).sum(dim=axis, keepdim=True)
+    return p, p_sq * ((1.0 - 2.0 * p) * sigma + s_tot)
 
+
+def vsoftmax(mu: Tensor, sigma: Tensor, axis: int | None = None) -> MomentPair:
+    """Pixel-wise softmax with the variance pushed through its Jacobian, in
+    closed form and float32 (:func:`softmax_moments` over the classes;
+    float64 moments stay float64).
     Outputs are flattened to [B, H*W, C]; the batch dim is never squeezed.
     Under the naive backend: ``ops.naive.vsoftmax_naive``.
+
+    With ``axis`` the same closed form runs along that axis of moments of
+    any shape, kept as they are (the attention's keys,
+    ``ops/moments_swin.py``).
     """
+    if axis is not None:
+        return softmax_moments(_f32(mu), _f32(sigma), axis)
     if _BACKEND == "naive":
         return naive.vsoftmax_naive(mu, sigma)
     b, h, w, c = mu.shape
-    mu_flat = mu.reshape(b, h * w, c).float()
-    sigma_flat = sigma.reshape(b, h * w, c).float()
-    p = torch.softmax(mu_flat, dim=-1)
-    p_sq = p * p
-    s_tot = (p_sq * sigma_flat).sum(dim=-1, keepdim=True)
-    return p, p_sq * ((1.0 - 2.0 * p) * sigma_flat + s_tot)
+    return softmax_moments(_f32(mu.reshape(b, h * w, c)), _f32(sigma.reshape(b, h * w, c)))

@@ -23,8 +23,11 @@ events on), and ``device_ms``. While a profiler records, the span also opens
 beside the device's kernels. A span made with ``device=True`` records a CUDA
 event on the current stream at its entry and at its exit (once CUDA is
 initialised); :func:`records` resolves the device time between them, waiting
-for the exit event then and never on the hot path. ``device_ms`` is None for
-every other span.
+for the exit event then and never on the hot path. ``device_start_ms`` is the
+device time from the entry of the outermost device-timed span open around it
+(in the same thread) to its own entry, 0 for that outermost span itself: it
+places a span nested in a phase (``swin.attention`` in ``train.forward``) on
+the device's timeline. Both are None for every other span.
 
 :func:`count` adds to a named counter; counters are always on.
 :func:`counters` returns them with the hand-written kernels' launch counters,
@@ -74,7 +77,8 @@ _OFF = contextlib.nullcontext()
 class _Span:
     """One open span (see the module's docstring)."""
 
-    __slots__ = ("name", "device", "id", "parent", "root", "start_ns", "_range", "_start")
+    __slots__ = ("name", "device", "id", "parent", "root", "start_ns", "_range", "_start",
+                 "_anchor")
 
     def __init__(self, name: str, device: bool):
         self.name, self.device = name, device
@@ -91,10 +95,12 @@ class _Span:
             self._range = torch.profiler.record_function(self.name)
             self._range.__enter__()
         self.start_ns = time.time_ns()
-        self._start = None
+        self._start = self._anchor = None
         if self.device and torch.cuda.is_initialized():
             self._start = torch.cuda.Event(enable_timing=True)
             self._start.record()
+            # the outermost device-timed span open around this one
+            self._anchor = next((o._start for o in stack[:-1] if o._start is not None), None)
         return self
 
     def __exit__(self, *exc):
@@ -102,7 +108,7 @@ class _Span:
         if self._start is not None:
             end = torch.cuda.Event(enable_timing=True)
             end.record()
-            device = (self._start, end)
+            device = (self._start, end, self._anchor)
         if self._range is not None:
             self._range.__exit__(*exc)
         # the clock is read after the range opens and after it closes: the
@@ -162,11 +168,13 @@ def records() -> List[dict]:
     out = []
     for r in kept:
         if isinstance(r[6], tuple):
-            start, end = r[6]
+            start, end, anchor = r[6]
             end.synchronize()
-            r[6] = float(start.elapsed_time(end))
+            r[6] = [float(start.elapsed_time(end)),
+                    0.0 if anchor is None else float(anchor.elapsed_time(start))]
+        device_ms, device_start_ms = r[6] or (None, None)
         out.append(dict(name=r[0], id=r[1], parent=r[2], root=r[3], start_ns=r[4],
-                        end_ns=r[5], device_ms=r[6]))
+                        end_ns=r[5], device_ms=device_ms, device_start_ms=device_start_ms))
     return out
 
 

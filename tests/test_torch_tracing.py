@@ -315,7 +315,9 @@ def test_the_trace_variable_writes_records_and_counters_at_exit(tmp_path):
     assert (inner["name"], outer["name"]) == ("inner", "outer")
     assert inner["parent"] == outer["id"] == inner["root"]
     assert last["counters"]["things"] == 3 and last["counters"]["vdp_conv.launches"] == 0
-    assert set(inner) == {"name", "id", "parent", "root", "start_ns", "end_ns", "device_ms"}
+    assert set(inner) == {"name", "id", "parent", "root", "start_ns", "end_ns", "device_ms",
+                          "device_start_ms"}
+    assert inner["device_start_ms"] is None
 
 
 def test_kernel1_weight_planes_are_counted_beside_the_launches():
