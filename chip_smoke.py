@@ -6,7 +6,12 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 or with ``--last-phase 7`` to stop after phase 7: the kernels, serving and
-training (the last line is then ``{"ok": true, "last_phase": 7}``).
+training (the last line is then ``{"ok": true, "last_phase": 7}``), or with
+``--last-phase 23`` to stop before phase 24. Phase 24 alone, after the setup:
+
+    python3 -c 'import chip_smoke, sys; sys.exit(chip_smoke.norm_phase())'
+
+(the last line is then ``{"ok": true, "phase": 24}``).
 
 Phases (any failure raises and the exit code is not 0):
 
@@ -348,6 +353,15 @@ Phases (any failure raises and the exit code is not 0):
    plain one pass in float64 on its own inputs, each answer not bit-equal
    to "highest", the bf16 ones bit-equal to the kernels fed float32.
    Prints the bench line and the phase's seconds.
+24. the norm kernel pair (``ops/kernels/vdp_norm.py``) at every norm shape
+   of one Swin UNETR forward at its published size (recorded on the meta
+   device: 26 InstanceNorms, 25 LayerNorms): forward and backward, gamma
+   and beta gradients included, within ``NORM_TOL`` of the plain version run
+   in float64 on the same float32 inputs, each timed by device time beside
+   its byte bounds (the kernels' passes, and each input read once and each
+   output written once) and the ratio to each, the plain version and
+   autograd of the closed form (the path before the kernels). One line per
+   shape, then the sums over one step's calls and the phase's seconds.
 
 In phases 6-15 cuDNN runs its deterministic algorithms, and in 6-7 and 12
 the CPU reference of the gradients replays the card's ReLU masks and pool
@@ -371,6 +385,7 @@ per step) and
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import json
@@ -5236,28 +5251,186 @@ def _pool_forward_checks(check, smi) -> None:
                       "pools", "card": smi, "sums": sums}), flush=True)
 
 
-def main() -> int:
-    import argparse
+# ------------------------------------------------------------- phase 24
+# the norm kernel pair against its float64 plain version, like
+# tests/test_torch_vdp_norm_card.py's TOL: an output or input gradient
+# within NORM_TOL of the float64 result's largest magnitude, a gamma or beta
+# gradient within NORM_TOL of the largest sum over the tokens of its terms'
+# magnitudes (its terms have both signs, and their rounding scales with them)
+NORM_TOL = 1e-5
+# passes over the normalised tensor's size: what the kernels move (the
+# slices' forward reads mu for the mean, mu and sigma for the sums, mu and
+# sigma again for the outputs it writes) and each input read once, each
+# output written once
+NORM_PASSES = {"slices": (7, 10), "rows": (4, 6)}
+NORM_IO_PASSES = (4, 6)
 
+
+def _norm_shapes(torch):
+    """``{(shape, dims, affine): calls}`` of one Swin UNETR forward at its
+    published size (batch 1), recorded on the meta device."""
+    from supernet_tpu_torch import configs
+    from supernet_tpu_torch.models import swin_unetr3d, unet3d
+    from supernet_tpu_torch.ops import moments_swin
+
+    cfg = configs.SWINUNETR.model
+    seen = collections.Counter()
+    plain = moments_swin.vnorm
+
+    def record(mu, sigma, dims, gamma=None, beta=None, eps=moments_swin.NORM_EPS):
+        seen[(tuple(mu.shape), tuple(dims), gamma is not None)] += 1
+        return plain(mu, sigma, dims, gamma, beta, eps)
+
+    params = {name: {key: torch.empty(shape, device="meta") for key, shape in p.items()}
+              for name, p in swin_unetr3d.param_shapes(cfg).items()}
+    s = cfg.image_size
+    moments_swin.vnorm = record
+    try:
+        with torch.no_grad():
+            unet3d.forward3d(params, torch.empty((1, s, s, s, cfg.in_channels),
+                                                 device="meta"), cfg)
+    finally:
+        moments_swin.vnorm = plain
+    return dict(seen)
+
+
+def _affine_scales(wide, gamma, stats):
+    """The scales of a LayerNorm's gamma and beta gradients in float64: the
+    largest over the channels of the sum over the tokens of each term's
+    magnitude (``g_mu' x`` and ``2 gamma g_sigma' inner / s^2``; ``g_mu'``).
+    ``wide``: mu, sigma, g_mu, g_sigma."""
+    mu, sigma, g_mu, g_sigma = wide
+    m, s, a, b, d = stats
+    n = mu.shape[-1]
+    x = (mu - m) / s
+    inner = sigma * (1.0 - 2.0 * (1.0 + x * x) / n) + (a + 2.0 * x * b + x * x * d) / n ** 2
+    terms = (g_mu * x).abs() + (2.0 * gamma * g_sigma * inner / (s * s)).abs()
+    return (float(terms.sum_to_size(gamma.shape).max()),
+            float(g_mu.abs().sum_to_size(gamma.shape).max()))
+
+
+def _vdp_norm_phase(torch, smi):
+    """Phase 24: at every norm shape of one Swin UNETR step, the kernel pair
+    (``ops/kernels/vdp_norm.py``) within NORM_TOL of its plain version run
+    in float64 on the same float32 inputs, both directions, and timed by
+    device time beside its byte bounds, its plain version (the closed form
+    and its closed-form backward in PyTorch operations) and autograd of the
+    closed form (the path before the kernels); one line per shape, then the
+    sums over a step. No single PyTorch call computes these moments, so
+    ``library_ms`` is null."""
+    from supernet_tpu_torch.ops import moments_swin as MS
+    from supernet_tpu_torch.ops.kernels import vdp_norm as N
+    from supernet_tpu_torch.profiling import HBM_BYTES_PER_S, device_ms
+
+    t_phase = time.perf_counter()
+    shapes = _norm_shapes(torch)
+    if sum(shapes.values()) != 51:
+        _die(f"vdp_norm: one Swin UNETR forward made {sum(shapes.values())} norms, not 51")
+    totals = collections.Counter()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 24)
+    for (shape, dims, affine), calls in sorted(shapes.items(), key=lambda kv: -math.prod(kv[0][0])):
+        kind = N.layout(shape, dims)
+        c = shape[-1]
+        mu = torch.randn(shape, device="cuda", generator=g) * 2.0 + 0.5
+        sigma = torch.rand(shape, device="cuda", generator=g) * 0.1 + 1e-3
+        g_mu, g_sigma = (torch.randn(shape, device="cuda", generator=g) for _ in range(2))
+        gamma = torch.randn(c, device="cuda", generator=g) if affine else None
+        beta = torch.randn(c, device="cuda", generator=g) if affine else None
+        bshape = None if beta is None else beta.shape
+        eps = MS.NORM_EPS
+        out = N.norm_fwd(mu, sigma, dims, gamma, beta, eps)
+        grads = N.norm_bwd(mu, sigma, g_mu, g_sigma, gamma, bshape, out[2], dims, affine)
+        wide = [t.double() for t in (mu, sigma, g_mu, g_sigma)]
+        w_gamma = None if gamma is None else gamma.double()
+        r_mu, r_sigma, r_stats = N.norm_fwd_plain(wide[0], wide[1], dims, w_gamma,
+                                                  None if beta is None else beta.double(), eps)
+        r_grads = N.norm_bwd_plain(*wide, w_gamma, bshape, r_stats, dims)
+        errs = {}
+        for name, got, want in (("mu", out[0], r_mu), ("sigma", out[1], r_sigma),
+                                ("d_mu", grads[0], r_grads[0]),
+                                ("d_sigma", grads[1], r_grads[1])):
+            errs[name] = float((got.double() - want).abs().max() / want.abs().max())
+        if affine:
+            scale_g, scale_b = _affine_scales(wide, w_gamma, r_stats)
+            errs["d_gamma"] = float((grads[2].double() - r_grads[2]).abs().max()) / scale_g
+            errs["d_beta"] = float((grads[3].double() - r_grads[3]).abs().max()) / scale_b
+        del wide, r_mu, r_sigma, r_stats, r_grads
+        if not all(math.isfinite(v) and v < NORM_TOL for v in errs.values()):
+            _die(f"vdp_norm {shape} {dims}: {errs} against float64 (limit {NORM_TOL})")
+        fwd_ms = device_ms(lambda: N.norm_fwd(mu, sigma, dims, gamma, beta, eps))
+        bwd_ms = device_ms(lambda: N.norm_bwd(mu, sigma, g_mu, g_sigma, gamma, bshape, out[2],
+                                              dims, affine))
+        plain_fwd_ms = device_ms(lambda: N.norm_fwd_plain(mu, sigma, dims, gamma, beta, eps),
+                                 runs=5)
+        p_stats = N.norm_fwd_plain(mu, sigma, dims, gamma, beta, eps)[2]
+        plain_bwd_ms = device_ms(lambda: N.norm_bwd_plain(mu, sigma, g_mu, g_sigma, gamma, bshape,
+                                                          p_stats, dims), runs=5)
+        leaves = [t.clone().requires_grad_() for t in (mu, sigma, gamma, beta) if t is not None]
+
+        def autograd_step():
+            it = iter(leaves)
+            m_, s_ = next(it), next(it)
+            g_, b_ = (next(it), next(it)) if affine else (None, None)
+            torch.autograd.backward(N.norm_fwd_plain(m_, s_, dims, g_, b_, eps)[:2],
+                                    [g_mu, g_sigma])
+
+        autograd_ms = device_ms(autograd_step, runs=5)
+        del leaves, p_stats
+        nbytes = 4 * mu.numel()
+        fwd_passes, bwd_passes = NORM_PASSES[kind]
+        line = {
+            "kernel": "vdp_norm", "layout": kind, "shape": list(shape), "affine": affine,
+            "calls_per_forward": calls, "max_rel_err_vs_float64": errs,
+            "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
+            "bound_fwd_ms": 1e3 * fwd_passes * nbytes / HBM_BYTES_PER_S,
+            "bound_bwd_ms": 1e3 * bwd_passes * nbytes / HBM_BYTES_PER_S,
+            "io_bound_fwd_ms": 1e3 * NORM_IO_PASSES[0] * nbytes / HBM_BYTES_PER_S,
+            "io_bound_bwd_ms": 1e3 * NORM_IO_PASSES[1] * nbytes / HBM_BYTES_PER_S,
+            "plain_fwd_ms": plain_fwd_ms, "plain_bwd_ms": plain_bwd_ms,
+            "autograd_ms": autograd_ms, "library_ms": None,
+        }
+        line["fwd_over_bound"] = fwd_ms / line["bound_fwd_ms"]
+        line["bwd_over_bound"] = bwd_ms / line["bound_bwd_ms"]
+        line["fwd_over_io_bound"] = fwd_ms / line["io_bound_fwd_ms"]
+        line["bwd_over_io_bound"] = bwd_ms / line["io_bound_bwd_ms"]
+        print(json.dumps(line), flush=True)
+        for key in ("fwd_ms", "bwd_ms", "bound_fwd_ms", "bound_bwd_ms", "io_bound_fwd_ms",
+                    "io_bound_bwd_ms", "plain_fwd_ms", "plain_bwd_ms", "autograd_ms"):
+            totals[key] += calls * line[key]
+        del mu, sigma, g_mu, g_sigma, out, grads
+        torch.cuda.empty_cache()
+    per_step = dict(totals)
+    for way in ("fwd", "bwd"):
+        per_step[f"{way}_over_bound"] = per_step[f"{way}_ms"] / per_step[f"bound_{way}_ms"]
+        per_step[f"{way}_over_io_bound"] = (per_step[f"{way}_ms"]
+                                            / per_step[f"io_bound_{way}_ms"])
+    print(json.dumps({"kernel": "vdp_norm", "per_step": per_step, "card": smi,
+                      "phase_s": time.perf_counter() - t_phase}), flush=True)
+
+
+def norm_phase() -> int:
+    """Phase 24 alone: the setup's checks, then :func:`_vdp_norm_phase`."""
     import torch
 
-    parser = argparse.ArgumentParser(description="Drive the port on one NVIDIA card.")
-    parser.add_argument("--last-phase", type=int, choices=(7, 23), default=23,
-                        help="7: stop after the kernels, serving and training (phases 2-7)")
-    last_phase = parser.parse_args().last_phase
+    smi = _setup(torch)
+    _vdp_norm_phase(torch, smi)
+    print(json.dumps({"ok": True, "phase": 24}), flush=True)
+    return 0
+
+
+def _setup(torch) -> str:
+    """Phase 1: the card is there, the package imports, TF32 is off, the
+    kernels build and load. Returns the card's name and power limit."""
     if not torch.cuda.is_available():
         _die("torch.cuda.is_available() is False; this script drives the "
              "port on an NVIDIA card and has no CPU fallback")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
-        from supernet_tpu_torch.configs import BRATS, HIPPOCAMPUS
         from supernet_tpu_torch.ops import set_mxu_precision
         from supernet_tpu_torch.ops.kernels import _lib
-        from supernet_tpu_torch.profiling import layer_shapes
     except ModuleNotFoundError as e:
         _die(f"{e}: run chip_smoke.py from the root of a checkout")
 
-    # 1. setup
     set_mxu_precision("highest")  # TF32 off for cuDNN and cuBLAS
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
@@ -5270,6 +5443,22 @@ def main() -> int:
     so = _lib.load()
     print(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s "
           f"({os.path.relpath(so._name)})", flush=True)
+    return smi
+
+
+def main() -> int:
+    import argparse
+
+    import torch
+
+    parser = argparse.ArgumentParser(description="Drive the port on one NVIDIA card.")
+    parser.add_argument("--last-phase", type=int, choices=(7, 23, 24), default=24,
+                        help="7: stop after the kernels, serving and training (phases 2-7); "
+                             "23: stop before the norm kernel pair (phase 24)")
+    last_phase = parser.parse_args().last_phase
+    smi = _setup(torch)  # 1. setup
+    from supernet_tpu_torch.configs import BRATS, HIPPOCAMPUS
+    from supernet_tpu_torch.profiling import layer_shapes
 
     # 2. kernels at every layer shape of the two configs, then extra cases
     check = KernelCheck(torch)
@@ -5443,6 +5632,10 @@ def main() -> int:
     # 23. the benchmark: cli bench in process, its launches per step, the
     # naive baseline at 0 launches, the naive forward against the kernels'
     bench_hip, bench_naive = _bench(torch, smi)
+
+    # 24. the norm kernel pair at the Swin UNETR step's shapes
+    if last_phase == 24:
+        _vdp_norm_phase(torch, smi)
 
     sources = {
         "vdp_conv": ("supernet_tpu_torch/csrc/vdp_conv.cuh",

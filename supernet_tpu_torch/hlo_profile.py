@@ -68,7 +68,7 @@ SETTLE = "profile_settle"
 # kernel of its vec4 path are not calls, and kernel 1's weight-planes
 # prologue is counted by ``vdp_conv.weight_plane_launches`` alone
 COUNTERS = ("vdp_conv", "vdp_conv_reduce", "vmaxpool", "vmaxpool_bwd", "sigma_bwd",
-            "vdp_conv_dgrad", "vdp_conv_dgrad_reduce")
+            "vdp_conv_dgrad", "vdp_conv_dgrad_reduce", "vdp_norm", "vdp_norm_bwd")
 
 
 def launch_counter(name: str) -> Optional[str]:
@@ -84,6 +84,11 @@ def launch_counter(name: str) -> Optional[str]:
         return "vmaxpool_bwd"
     if "sigma_bwd_dt" in name or "sigma_bwd_rows" in name:
         return "sigma_bwd"
+    # a norm call's first kernel: its other kernels count as no call
+    if "vdp_norm_row_fwd" in name or "vdp_norm_slice_mean" in name:
+        return "vdp_norm"
+    if "vdp_norm_row_bwd" in name or "vdp_norm_slice_bwd_sums" in name:
+        return "vdp_norm_bwd"
     return None
 
 
@@ -275,7 +280,8 @@ def join(events: List[X.Event], steps: int, by_layer: bool = False) -> Dict:
         X.KERNEL_CLASSES["forward"]: launches["vdp_conv"],
         X.KERNEL_CLASSES["transposed"]: launches["vdp_conv_dgrad"],
         X.POOL_FWD: launches["vmaxpool"], X.POOL_BWD: launches["vmaxpool_bwd"],
-        X.SIGMA_BWD: launches["sigma_bwd"]}
+        X.SIGMA_BWD: launches["sigma_bwd"],
+        X.NORM: launches["vdp_norm"] + launches["vdp_norm_bwd"]}
     rows = []
     for cls, (us, n) in sorted(agg.items(), key=lambda kv: -kv[1][0]):
         row = {"class": cls, "ms_per_step": ms(us), "events": n, "pct": pct(us)}
@@ -366,11 +372,13 @@ def launch_counts() -> Dict[str, int]:
     from supernet_tpu_torch.ops.kernels import pool as P
     from supernet_tpu_torch.ops.kernels import sigma_bwd as S
     from supernet_tpu_torch.ops.kernels import vdp_conv as V
+    from supernet_tpu_torch.ops.kernels import vdp_norm as N
 
     return {"vdp_conv": V.launches, "vdp_conv_reduce": V.reduce_launches,
             "vmaxpool": P.launches, "vmaxpool_bwd": P.bwd_launches,
             "sigma_bwd": S.launches, "vdp_conv_dgrad": V.dgrad_launches,
-            "vdp_conv_dgrad_reduce": V.dgrad_reduce_launches}
+            "vdp_conv_dgrad_reduce": V.dgrad_reduce_launches,
+            "vdp_norm": N.launches, "vdp_norm_bwd": N.bwd_launches}
 
 
 def run(model: str, batch: int, trace_dir: str, n_iters: int = 20,

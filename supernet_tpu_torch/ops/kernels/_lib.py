@@ -38,6 +38,7 @@ _lib: ctypes.CDLL | None = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_F = ctypes.c_float
 # the dtypes a kernel takes for a moment tensor (csrc/dtype.cuh), by the
 # code its C entry point takes
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -128,6 +129,16 @@ def load() -> ctypes.CDLL:
             lib.supernet_sigma_bwd.restype = _I
             lib.supernet_sigma_bwd_vec.argtypes = [_P] * 7 + [_I] * 11 + [_P]
             lib.supernet_sigma_bwd_vec.restype = _I
+            lib.supernet_vdp_norm_rows_fwd.argtypes = [_P] * 7 + [_LL, _I, _F, _I, _I, _P]
+            lib.supernet_vdp_norm_rows_fwd.restype = _I
+            lib.supernet_vdp_norm_rows_bwd.argtypes = [_P] * 11 + [_LL, _I, _I, _I, _P]
+            lib.supernet_vdp_norm_rows_bwd.restype = _I
+            lib.supernet_vdp_norm_slices_fwd.argtypes = (
+                [_P] * 6 + [_I, _LL, _I, _F] + [_I] * 4 + [_LL, _P])
+            lib.supernet_vdp_norm_slices_fwd.restype = _I
+            lib.supernet_vdp_norm_slices_bwd.argtypes = (
+                [_P] * 9 + [_I, _LL, _I] + [_I] * 4 + [_LL, _P])
+            lib.supernet_vdp_norm_slices_bwd.restype = _I
             lib.supernet_empty_launch.argtypes = [_P]
             lib.supernet_empty_launch.restype = _I
             lib.supernet_cuda_error_string.argtypes = [_I]

@@ -30,8 +30,10 @@ Gaussian weights (linears, convs) are ``ops/moments3d.py``'s ``vconv3d``;
 a linear is its k == 1 case on [B, D, H, W, C] tokens.
 
 Counters (``tracing.count``): ``moments.norms`` per normalisation,
-``swin.windows`` per window computed (padded ones included) and
-``swin.attention_products`` 6 per attention.
+``moments.norms_fused`` per normalisation whose forward kernels launched
+(``ops/kernels/vdp_norm.py``: every one on the card), ``swin.windows`` per
+window computed (padded ones included) and ``swin.attention_products`` 6 per
+attention.
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from supernet_tpu_torch import tracing
+from supernet_tpu_torch.ops.kernels.vdp_norm import VNorm
 from supernet_tpu_torch.ops.moments import vsoftmax
 
 Tensor = torch.Tensor
@@ -59,27 +62,11 @@ def vnorm(mu: Tensor, sigma: Tensor, dims: Sequence[int],
           eps: float = NORM_EPS) -> MomentPair:
     """Normalisation of ``mu`` over ``dims`` by its own (biased) statistics,
     then ``gamma``, ``beta`` where given; the variance through the
-    normalisation's Jacobian in closed form (the module's docstring)."""
+    normalisation's Jacobian in closed form (the module's docstring), and
+    its gradient in closed form (``ops/kernels/vdp_norm.py:VNorm``: the
+    kernel pair for CUDA tensors, the plain version for CPU tensors)."""
     tracing.count("moments.norms")
-    dims = tuple(dims)
-    n = math.prod(mu.shape[d] for d in dims)
-    m = mu.mean(dims, keepdim=True)
-    c = mu - m
-    s = torch.sqrt((c * c).mean(dims, keepdim=True) + eps)
-    x = c / s
-    xs = x * sigma
-    a = sigma.sum(dims, keepdim=True)
-    b = xs.sum(dims, keepdim=True)
-    d = (x * xs).sum(dims, keepdim=True)
-    x2 = x * x
-    inner = sigma * (1.0 - 2.0 * (1.0 + x2) / n) + (a + 2.0 * x * b + x2 * d) / (n * n)
-    scale = 1.0 / (s * s)
-    if gamma is not None:
-        scale = scale * (gamma * gamma)
-        x = x * gamma
-    if beta is not None:
-        x = x + beta
-    return x, scale * inner
+    return VNorm.apply(mu, sigma, gamma, beta, tuple(dims), eps)
 
 
 def vlayer_norm(mu: Tensor, sigma: Tensor, gamma: Optional[Tensor] = None,

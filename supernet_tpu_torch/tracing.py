@@ -63,6 +63,7 @@ KERNEL_COUNTERS = (
                   "dgrad_reduce_launches", "bf16_launches", "weight_plane_launches")),
     ("pool", ("launches", "bwd_launches")),
     ("sigma_bwd", ("launches",)),
+    ("vdp_norm", ("launches", "bwd_launches")),
 )
 
 _enabled = False
@@ -145,9 +146,9 @@ def count(name: str, n: int = 1) -> None:
 
 
 def _kernel_modules():
-    from supernet_tpu_torch.ops.kernels import pool, sigma_bwd, vdp_conv
+    from supernet_tpu_torch.ops.kernels import pool, sigma_bwd, vdp_conv, vdp_norm
 
-    return {"vdp_conv": vdp_conv, "pool": pool, "sigma_bwd": sigma_bwd}
+    return {"vdp_conv": vdp_conv, "pool": pool, "sigma_bwd": sigma_bwd, "vdp_norm": vdp_norm}
 
 
 def counters() -> Dict[str, int]:

@@ -132,6 +132,7 @@ KERNEL_CLASSES = {
 POOL_FWD = "kernel 2 pool forward"
 POOL_BWD = "kernel 3 pool backward"
 SIGMA_BWD = "kernel 4 sigma-chain backward"
+NORM = "kernel 5 norm moments"
 CONV_FWD = "conv forward (cuDNN)"
 CONV_DGRAD = "conv dgrad (cuDNN)"
 CONV_WGRAD = "conv wgrad (cuDNN)"
@@ -179,6 +180,8 @@ def op_class(name: str, cat: str, backward: bool = False) -> str:
             return POOL_BWD
         if "sigma_bwd" in low:
             return SIGMA_BWD
+        if "vdp_norm" in low:
+            return NORM
         if "dgrad" in low:
             return CONV_DGRAD
         if "wgrad" in low:

@@ -112,6 +112,22 @@ K1F, K1T = xplane.KERNEL_CLASSES["forward"], xplane.KERNEL_CLASSES["transposed"]
      "sigma_bwd"),
     ("sigma_bwd_spread_kernel(float const*)", "kernel", True, xplane.SIGMA_BWD, None),
     ("sigma_bwd_rows_kernel(float const*)", "kernel", True, xplane.SIGMA_BWD, "sigma_bwd"),
+    ("void (anonymous namespace)::vdp_norm_row_fwd_kernel<32>(float const*)", "kernel", False,
+     xplane.NORM, "vdp_norm"),
+    ("void (anonymous namespace)::vdp_norm_slice_mean_kernel(float const*)", "kernel",
+     False, xplane.NORM, "vdp_norm"),
+    ("void (anonymous namespace)::vdp_norm_slice_moments_kernel(float const*)", "kernel",
+     False, xplane.NORM, None),
+    ("void (anonymous namespace)::vdp_norm_fold_kernel<4, (anonymous namespace)::"
+     "FinishMoments>(float const*)", "kernel", False, xplane.NORM, None),
+    ("void (anonymous namespace)::vdp_norm_slice_out_kernel(float const*)", "kernel",
+     False, xplane.NORM, None),
+    ("void (anonymous namespace)::vdp_norm_row_bwd_kernel<512>(float const*)", "kernel", True,
+     xplane.NORM, "vdp_norm_bwd"),
+    ("void (anonymous namespace)::vdp_norm_slice_bwd_sums_kernel(float const*)", "kernel",
+     True, xplane.NORM, "vdp_norm_bwd"),
+    ("void (anonymous namespace)::vdp_norm_slice_grad_kernel(float const*)", "kernel",
+     True, xplane.NORM, None),
     ("sm90_xmma_fprop_implicit_gemm_f32f32_f32f32_f32_nhwckrsc_nhwc_tilesize64x64x8",
      "kernel", False, xplane.CONV_FWD, None),
     ("sm80_xmma_dgrad_implicit_gemm_indexed_f32f32_f32f32_f32_nhwckrsc_nchw", "kernel",
@@ -217,7 +233,8 @@ def test_join_fixture_known_answers(tmp_path):
     assert launches == {K1F: 1, K1T: 1, xplane.POOL_FWD: 1, xplane.SIGMA_BWD: 1}
     assert out["kernel_launches"] == {"vdp_conv": 1, "vdp_conv_reduce": 1, "vmaxpool": 1,
                                       "vmaxpool_bwd": 0, "sigma_bwd": 1,
-                                      "vdp_conv_dgrad": 1, "vdp_conv_dgrad_reduce": 0}
+                                      "vdp_conv_dgrad": 1, "vdp_conv_dgrad_reduce": 0,
+                                      "vdp_norm": 0, "vdp_norm_bwd": 0}
     assert out["unmatched_ms_per_step"] * 1e3 == pytest.approx(7.0)
     assert out["unmatched"] == [{"name": "at::native::vectorized_elementwise_kernel",
                                  "ms_per_step": pytest.approx(7e-3), "events": 1}]

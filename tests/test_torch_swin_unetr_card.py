@@ -1,7 +1,7 @@
 """On the card, one training step of Swin UNETR at its published size
 (``configs.SWINUNETR``: 128^3 x 4 volumes, batch 1): its peak memory, the
-counters of one forward (windows, attention products, norms, cuDNN
-``conv3d`` products), the model's device-timed spans inside the step's
+counters of one forward (windows, attention products, norms and the norms
+that took the kernel pair, cuDNN ``conv3d`` products), the model's device-timed spans inside the step's
 forward, and one volume's ``probs`` and ``sigma`` against the plain
 reference (``reference/swin_unetr3d.py``). ``card`` marks each test: it
 needs a CUDA card and skips without one. This file imports no JAX:
@@ -72,6 +72,9 @@ def test_one_published_step_fits_and_has_its_spans_and_counters(setup):
     assert counts.get("swin.windows") == 2320
     assert counts.get("swin.attention_products") == 48
     assert counts.get("moments.norms") == 51
+    # every norm through the kernel pair: one forward and one backward call each
+    assert counts.get("moments.norms_fused") == counts.get("moments.norms") == 51
+    assert counts["vdp_norm.launches"] == counts["vdp_norm.bwd_launches"] == 51
     assert counts.get("moments3d.products.conv3d") == 40
     recs = tracing.records()
     (fwd,) = [r for r in recs if r["name"] == "train.forward"]
