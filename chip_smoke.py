@@ -354,14 +354,17 @@ Phases (any failure raises and the exit code is not 0):
    to "highest", the bf16 ones bit-equal to the kernels fed float32.
    Prints the bench line and the phase's seconds.
 24. the norm kernel pair (``ops/kernels/vdp_norm.py``) at every norm shape
-   of one Swin UNETR forward at its published size (recorded on the meta
-   device: 26 InstanceNorms, 25 LayerNorms): forward and backward, gamma
+   of one Swin UNETR forward and one MedNeXt forward at their published
+   sizes (recorded on the meta device: 26 InstanceNorms and 25 LayerNorms
+   at batch 1; 62 InstanceNorms with a gamma and beta per channel at batch
+   2): forward and backward, gamma
    and beta gradients included, within ``NORM_TOL`` of the plain version run
    in float64 on the same float32 inputs, each timed by device time beside
    its byte bounds (the kernels' passes, and each input read once and each
    output written once) and the ratio to each, the plain version and
    autograd of the closed form (the path before the kernels). One line per
-   shape, then the sums over one step's calls and the phase's seconds.
+   shape, then the sums over one step's calls of each model and the phase's
+   seconds.
 
 In phases 6-15 cuDNN runs its deterministic algorithms, and in 6-7 and 12
 the CPU reference of the gradients replays the card's ReLU masks and pool
@@ -5264,44 +5267,54 @@ NORM_TOL = 1e-5
 # output written once
 NORM_PASSES = {"slices": (7, 10), "rows": (4, 6)}
 NORM_IO_PASSES = (4, 6)
+# the norms of one forward: Swin UNETR's 26 InstanceNorms and 25 LayerNorms,
+# MedNeXt's 62 GroupNorm(C, C)s
+NORMS_PER_FORWARD = {"swinunetr": 51, "mednext": 62}
 
 
 def _norm_shapes(torch):
-    """``{(shape, dims, affine): calls}`` of one Swin UNETR forward at its
-    published size (batch 1), recorded on the meta device."""
+    """``{(model, shape, dims, affine): calls}`` of one forward of each plan
+    with norms at its published size, recorded on the meta device: Swin
+    UNETR at batch 1, MedNeXt at batch 2 (its GroupNorm(C, C), an
+    InstanceNorm with a gamma and beta per channel)."""
     from supernet_tpu_torch import configs
-    from supernet_tpu_torch.models import swin_unetr3d, unet3d
+    from supernet_tpu_torch.models import mednext3d, swin_unetr3d, unet3d
     from supernet_tpu_torch.ops import moments_swin
 
-    cfg = configs.SWINUNETR.model
     seen = collections.Counter()
     plain = moments_swin.vnorm
+    users = (moments_swin, mednext3d)  # the modules that call vnorm by name
+    for model, cfg, module, batch in (("swinunetr", configs.SWINUNETR.model, swin_unetr3d, 1),
+                                      ("mednext", configs.MEDNEXT.model, mednext3d, 2)):
 
-    def record(mu, sigma, dims, gamma=None, beta=None, eps=moments_swin.NORM_EPS):
-        seen[(tuple(mu.shape), tuple(dims), gamma is not None)] += 1
-        return plain(mu, sigma, dims, gamma, beta, eps)
+        def record(mu, sigma, dims, gamma=None, beta=None, eps=moments_swin.NORM_EPS):
+            seen[(model, tuple(mu.shape), tuple(dims), gamma is not None)] += 1
+            return plain(mu, sigma, dims, gamma, beta, eps)
 
-    params = {name: {key: torch.empty(shape, device="meta") for key, shape in p.items()}
-              for name, p in swin_unetr3d.param_shapes(cfg).items()}
-    s = cfg.image_size
-    moments_swin.vnorm = record
-    try:
-        with torch.no_grad():
-            unet3d.forward3d(params, torch.empty((1, s, s, s, cfg.in_channels),
-                                                 device="meta"), cfg)
-    finally:
-        moments_swin.vnorm = plain
+        params = {name: {key: torch.empty(shape, device="meta") for key, shape in p.items()}
+                  for name, p in module.param_shapes(cfg).items()}
+        s = cfg.image_size
+        for user in users:
+            user.vnorm = record
+        try:
+            with torch.no_grad():
+                unet3d.forward3d(params, torch.empty((batch, s, s, s, cfg.in_channels),
+                                                     device="meta"), cfg)
+        finally:
+            for user in users:
+                user.vnorm = plain
     return dict(seen)
 
 
-def _affine_scales(wide, gamma, stats):
-    """The scales of a LayerNorm's gamma and beta gradients in float64: the
+def _affine_scales(wide, gamma, stats, dims):
+    """The scales of a norm's gamma and beta gradients in float64: the
     largest over the channels of the sum over the tokens of each term's
-    magnitude (``g_mu' x`` and ``2 gamma g_sigma' inner / s^2``; ``g_mu'``).
-    ``wide``: mu, sigma, g_mu, g_sigma."""
+    magnitude (``g_mu' x`` and ``2 gamma g_sigma' inner / s^2``; ``g_mu'``),
+    N the size of the normalised ``dims``. ``wide``: mu, sigma, g_mu,
+    g_sigma."""
     mu, sigma, g_mu, g_sigma = wide
     m, s, a, b, d = stats
-    n = mu.shape[-1]
+    n = math.prod(mu.shape[i] for i in dims)
     x = (mu - m) / s
     inner = sigma * (1.0 - 2.0 * (1.0 + x * x) / n) + (a + 2.0 * x * b + x * x * d) / n ** 2
     terms = (g_mu * x).abs() + (2.0 * gamma * g_sigma * inner / (s * s)).abs()
@@ -5310,13 +5323,14 @@ def _affine_scales(wide, gamma, stats):
 
 
 def _vdp_norm_phase(torch, smi):
-    """Phase 24: at every norm shape of one Swin UNETR step, the kernel pair
+    """Phase 24: at every norm shape of one Swin UNETR step and one MedNeXt
+    step (its slices with a gamma and beta per channel), the kernel pair
     (``ops/kernels/vdp_norm.py``) within NORM_TOL of its plain version run
     in float64 on the same float32 inputs, both directions, and timed by
     device time beside its byte bounds, its plain version (the closed form
     and its closed-form backward in PyTorch operations) and autograd of the
     closed form (the path before the kernels); one line per shape, then the
-    sums over a step. No single PyTorch call computes these moments, so
+    sums over a step of each model. No single PyTorch call computes these moments, so
     ``library_ms`` is null."""
     from supernet_tpu_torch.ops import moments_swin as MS
     from supernet_tpu_torch.ops.kernels import vdp_norm as N
@@ -5324,11 +5338,14 @@ def _vdp_norm_phase(torch, smi):
 
     t_phase = time.perf_counter()
     shapes = _norm_shapes(torch)
-    if sum(shapes.values()) != 51:
-        _die(f"vdp_norm: one Swin UNETR forward made {sum(shapes.values())} norms, not 51")
-    totals = collections.Counter()
+    for model, want in NORMS_PER_FORWARD.items():
+        made = sum(calls for key, calls in shapes.items() if key[0] == model)
+        if made != want:
+            _die(f"vdp_norm: one {model} forward made {made} norms, not {want}")
+    totals = {model: collections.Counter() for model in NORMS_PER_FORWARD}
     g = torch.Generator(device="cuda").manual_seed(SEED + 24)
-    for (shape, dims, affine), calls in sorted(shapes.items(), key=lambda kv: -math.prod(kv[0][0])):
+    for (model, shape, dims, affine), calls in sorted(shapes.items(),
+                                                      key=lambda kv: -math.prod(kv[0][1])):
         kind = N.layout(shape, dims)
         c = shape[-1]
         mu = torch.randn(shape, device="cuda", generator=g) * 2.0 + 0.5
@@ -5351,12 +5368,12 @@ def _vdp_norm_phase(torch, smi):
                                 ("d_sigma", grads[1], r_grads[1])):
             errs[name] = float((got.double() - want).abs().max() / want.abs().max())
         if affine:
-            scale_g, scale_b = _affine_scales(wide, w_gamma, r_stats)
+            scale_g, scale_b = _affine_scales(wide, w_gamma, r_stats, dims)
             errs["d_gamma"] = float((grads[2].double() - r_grads[2]).abs().max()) / scale_g
             errs["d_beta"] = float((grads[3].double() - r_grads[3]).abs().max()) / scale_b
         del wide, r_mu, r_sigma, r_stats, r_grads
         if not all(math.isfinite(v) and v < NORM_TOL for v in errs.values()):
-            _die(f"vdp_norm {shape} {dims}: {errs} against float64 (limit {NORM_TOL})")
+            _die(f"vdp_norm {model} {shape} {dims}: {errs} against float64 (limit {NORM_TOL})")
         fwd_ms = device_ms(lambda: N.norm_fwd(mu, sigma, dims, gamma, beta, eps))
         bwd_ms = device_ms(lambda: N.norm_bwd(mu, sigma, g_mu, g_sigma, gamma, bshape, out[2],
                                               dims, affine))
@@ -5379,7 +5396,8 @@ def _vdp_norm_phase(torch, smi):
         nbytes = 4 * mu.numel()
         fwd_passes, bwd_passes = NORM_PASSES[kind]
         line = {
-            "kernel": "vdp_norm", "layout": kind, "shape": list(shape), "affine": affine,
+            "kernel": "vdp_norm", "model": model, "layout": kind, "shape": list(shape),
+            "affine": affine,
             "calls_per_forward": calls, "max_rel_err_vs_float64": errs,
             "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
             "bound_fwd_ms": 1e3 * fwd_passes * nbytes / HBM_BYTES_PER_S,
@@ -5396,16 +5414,19 @@ def _vdp_norm_phase(torch, smi):
         print(json.dumps(line), flush=True)
         for key in ("fwd_ms", "bwd_ms", "bound_fwd_ms", "bound_bwd_ms", "io_bound_fwd_ms",
                     "io_bound_bwd_ms", "plain_fwd_ms", "plain_bwd_ms", "autograd_ms"):
-            totals[key] += calls * line[key]
+            totals[model][key] += calls * line[key]
         del mu, sigma, g_mu, g_sigma, out, grads
         torch.cuda.empty_cache()
-    per_step = dict(totals)
-    for way in ("fwd", "bwd"):
-        per_step[f"{way}_over_bound"] = per_step[f"{way}_ms"] / per_step[f"bound_{way}_ms"]
-        per_step[f"{way}_over_io_bound"] = (per_step[f"{way}_ms"]
-                                            / per_step[f"io_bound_{way}_ms"])
-    print(json.dumps({"kernel": "vdp_norm", "per_step": per_step, "card": smi,
-                      "phase_s": time.perf_counter() - t_phase}), flush=True)
+    for model, sums in totals.items():
+        per_step = dict(sums)
+        for way in ("fwd", "bwd"):
+            per_step[f"{way}_over_bound"] = per_step[f"{way}_ms"] / per_step[f"bound_{way}_ms"]
+            per_step[f"{way}_over_io_bound"] = (per_step[f"{way}_ms"]
+                                                / per_step[f"io_bound_{way}_ms"])
+        print(json.dumps({"kernel": "vdp_norm", "model": model, "per_step": per_step,
+                          "card": smi}), flush=True)
+    print(json.dumps({"kernel": "vdp_norm", "phase_s": time.perf_counter() - t_phase}),
+          flush=True)
 
 
 def norm_phase() -> int:
@@ -5633,7 +5654,7 @@ def main() -> int:
     # naive baseline at 0 launches, the naive forward against the kernels'
     bench_hip, bench_naive = _bench(torch, smi)
 
-    # 24. the norm kernel pair at the Swin UNETR step's shapes
+    # 24. the norm kernel pair at the Swin UNETR and MedNeXt steps' shapes
     if last_phase == 24:
         _vdp_norm_phase(torch, smi)
 

@@ -14,9 +14,10 @@ nothing of the JAX package. Defaults are lifted from the reference drivers:
 
 Besides them, and outside ``__all__``: ``CICEK3D``, the 3D U-Net of Cicek
 et al. under its own layer plan (``CicekConfig``, read by
-``models/unet3d.py``), and ``SWINUNETR``, Swin UNETR under its plan
-(``SwinUNETRConfig``, read by ``models/swin_unetr3d.py``): the port's
-experiments with no JAX twin.
+``models/unet3d.py``), ``SWINUNETR``, Swin UNETR under its plan
+(``SwinUNETRConfig``, read by ``models/swin_unetr3d.py``), and ``MEDNEXT``,
+MedNeXt-L under its plan (``MedNeXtConfig``, read by
+``models/mednext3d.py``): the port's experiments with no JAX twin.
 """
 
 from __future__ import annotations
@@ -292,7 +293,57 @@ SWINUNETR = ExperimentConfig(
     train=TrainConfig(batch_size=1, epochs=100, lr=1e-4, kl_factor=1e-5),
 )
 
-_CONFIGS = {c.name: c for c in (HIPPOCAMPUS, BRATS, LUNGS, CICEK3D, SWINUNETR)}
+@dataclass(frozen=True)
+class MedNeXtConfig(ModelConfig):
+    """A ``ModelConfig`` under the layer plan of MedNeXt (Roy et al.,
+    MICCAI 2023, arXiv:2303.09975; ``create_mednext_v1`` of
+    MIC-DKFZ/MedNeXt), read by ``models/mednext3d.py``: a 1^3 stem to
+    ``n_channels``, four encoder levels of ``block_counts[i]`` MedNeXt blocks
+    at ``n_channels * 2^i`` channels each followed by a down block, the
+    bottleneck's ``block_counts[4]`` blocks, four decoder levels (an up
+    block, the skip added, ``block_counts[5 + j]`` blocks) and a 1^3 head;
+    ``exp_r[i]`` is the inverted bottleneck's ratio at stage i,
+    ``kernel_size`` the depthwise convs' side. Every conv is SAME, so the
+    output's side is the input's (a multiple of 16); the head takes the
+    tighter ``w_sigma`` range. ``base_kernels``, ``depth``,
+    ``bottleneck_pre_pad``, ``tight_upconvs``, ``mean_mu`` and ``mean_sigma``
+    are unused; ``sigma_fill`` is 0 (the depthwise convs' pads carry no
+    variance). Lists given for ``exp_r`` and ``block_counts`` (a JSON file's) are kept
+    as tuples."""
+
+    sigma_fill: float = 0.0
+    n_channels: int = 32
+    exp_r: Tuple[int, ...] = (3, 4, 8, 8, 8, 8, 8, 4, 3)
+    block_counts: Tuple[int, ...] = (3, 4, 8, 8, 8, 8, 8, 4, 3)
+    kernel_size: int = 3
+
+    def __post_init__(self):
+        object.__setattr__(self, "exp_r", tuple(self.exp_r))
+        object.__setattr__(self, "block_counts", tuple(self.block_counts))
+        if len(self.exp_r) != 9 or len(self.block_counts) != 9:
+            raise ValueError("MedNeXt has nine stages: give nine ratios and nine block counts")
+        if self.kernel_size % 2 == 0:
+            raise ValueError("MedNeXt's depthwise convs take an odd kernel size")
+        if self.sigma_fill != 0.0:
+            raise ValueError("MedNeXt's convs pad with zero variance: sigma_fill must be 0")
+
+
+# The port's own (not in ``__all__``, no JAX twin): MedNeXt-L at kernel 3 as
+# a VDP network, as ``create_mednext_v1(4, 4, 'L', 3)`` builds it and
+# nnU-Net trains it on BraTS: 128^3 patches of 4 modalities, 4 classes
+# (background and three tumour labels), batch 2, every block recomputed in
+# the backward (``checkpoint_style='outside_block'``). The published network
+# is deterministic, so the weight variances are assumed: Cicek3d's ranges.
+MEDNEXT = ExperimentConfig(
+    name="mednext",
+    model=MedNeXtConfig(in_channels=4, n_classes=4, image_size=128, out_size=128,
+                        remat=True,
+                        sigma_min=-18.0, sigma_max=-10.6,
+                        tight_sigma_min=-10.6, tight_sigma_max=-8.2),
+    train=TrainConfig(batch_size=2, epochs=100, lr=1e-3, kl_factor=1e-5),
+)
+
+_CONFIGS = {c.name: c for c in (HIPPOCAMPUS, BRATS, LUNGS, CICEK3D, SWINUNETR, MEDNEXT)}
 
 
 def get_config(name: str) -> ExperimentConfig:

@@ -49,7 +49,14 @@
 // the mean pass, the pass for the four sums, each folded per channel in
 // float64 by vdp_norm_fold_kernel, then the output pass (7 transfers).
 // Backward: one pass for the eight sums, a fold that turns them into ten
-// per-slice coefficients, then the elementwise pass (10 transfers).
+// per-slice coefficients, then the elementwise pass (10 transfers). With a
+// per-channel gamma and beta (GroupNorm(C, C), an InstanceNorm with affine)
+// the output and the gradient passes are the template instances with
+// kAffine: the sums pass is the same, taken without gamma (S and Q are
+// linear in G, P in gx), and the fold scales them by gamma^2 and gamma and
+// writes each slice's gamma and beta gradients, g_mu' x + 2 gamma T' and
+// g_mu' summed (T' = sum g_sigma' inner / s^2), which a second fold sums
+// over the volumes in float64.
 
 #include <cuda_runtime.h>
 
@@ -321,11 +328,15 @@ struct FinishMoments {
   }
 };
 
-// t: S0, S1, S2, P0, P1, Q0, Q1, Q2 (the file's comment). coef: m, s,
-// 1 / s^2, S0 / N^2, 2 S1 / N^2, S2 / N^2, 2 B / N^2, 2 D / N^2, c0, c1.
+// t: S0, S1, S2, P0, P1, Q0, Q1, Q2 (the file's comment), taken without
+// gamma. coef: m, s, gamma^2 / s^2, S0 / N^2, 2 S1 / N^2, S2 / N^2,
+// 2 B / N^2, 2 D / N^2, c0, c1. With gamma (non-null) the sums are scaled
+// to it and aff [B][2][C] gets the slice's gamma and beta gradients.
 struct FinishBwd {
   const float* stats;
+  const float* gamma;
   float* coef;
+  float* aff;
   long long S;
   double n;
   int C;
@@ -333,17 +344,26 @@ struct FinishBwd {
     const long long i = static_cast<long long>(b) * C + c;
     const float m = stats[i], s32 = stats[S + i];
     const double s = s32, A = stats[2 * S + i], B = stats[3 * S + i], D = stats[4 * S + i];
-    const double S0 = t[0], S1 = t[1], S2 = t[2], P0 = t[3], P1 = t[4];
-    const double Q0 = t[5], Q1 = t[6], Q2 = t[7];
     const double nn = n * n;
+    const double g = gamma != nullptr ? static_cast<double>(gamma[c]) : 1.0;
+    const double g2 = g * g;
+    const double S0 = g2 * t[0], S1 = g2 * t[1], S2 = g2 * t[2], P0 = g * t[3], P1 = g * t[4];
+    const double Q0 = g2 * t[5], Q1 = g2 * t[6], Q2 = g2 * t[7];
     const double sum_gX = P0 - 4.0 * Q1 / n + 2.0 * (B * S0 + (D + A) * S1 + B * S2) / nn;
     const double sum_gXx = P1 - 4.0 * Q2 / n + 4.0 * (B * S1 + D * S2) / nn;
-    const double T = Q0 * (1.0 - 2.0 / n) - 2.0 * Q2 / n + (A * S0 + 2.0 * B * S1 + D * S2) / nn;
-    const double v[kCoef] = {m, s, 1.0 / (s * s), S0 / nn, 2.0 * S1 / nn, S2 / nn,
+    const double T_own = t[5] * (1.0 - 2.0 / n) - 2.0 * t[7] / n +
+                         (A * t[0] + 2.0 * B * t[1] + D * t[2]) / nn;
+    const double T = g2 * T_own;
+    const double v[kCoef] = {m, s, g2 / (s * s), S0 / nn, 2.0 * S1 / nn, S2 / nn,
                              2.0 * B / nn, 2.0 * D / nn, -sum_gX / (n * s),
                              -(2.0 * T + sum_gXx) / (n * s)};
 #pragma unroll
     for (int k = 0; k < kCoef; ++k) coef[k * S + i] = static_cast<float>(v[k]);
+    if (gamma != nullptr) {
+      float* a = aff + static_cast<long long>(b) * 2 * C + c;
+      a[0] = static_cast<float>(t[4] + 2.0 * g * T_own);
+      a[C] = static_cast<float>(t[3]);
+    }
   }
 };
 
@@ -483,9 +503,12 @@ __global__ void __launch_bounds__(kSliceThreads) vdp_norm_slice_moments_kernel(
   slice_block_sums<4>(acc, part, C);
 }
 
+// kAffine: gamma x + beta and gamma^2 sigma' (gamma, beta [C]).
+template <bool kAffine>
 __global__ void __launch_bounds__(kSliceThreads) vdp_norm_slice_out_kernel(
     const float* __restrict__ mu, const float* __restrict__ sigma,
-    const float* __restrict__ stats, float* __restrict__ out_mu,
+    const float* __restrict__ stats, const float* __restrict__ gamma,
+    const float* __restrict__ beta, float* __restrict__ out_mu,
     float* __restrict__ out_sigma, long long P, int C, long long S, long long chunk) {
   const SliceSpot w = slice_spot(P, C, chunk);
   if (w.c0 < 0) return;
@@ -500,6 +523,13 @@ __global__ void __launch_bounds__(kSliceThreads) vdp_norm_slice_out_kernel(
   load4(st + 4 * S, D);
 #pragma unroll
   for (int j = 0; j < kVec; ++j) inv_s2[j] = 1.f / (s[j] * s[j]);
+  float g[kVec], b[kVec];
+  if constexpr (kAffine) {
+    load4(gamma + w.c0, g);
+    load4(beta + w.c0, b);
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) inv_s2[j] *= g[j] * g[j];
+  }
   const long long step = blockDim.y;
   constexpr int kU = 2;
   for (long long p = w.p0; p < w.p1; p += kU * step) {
@@ -523,7 +553,11 @@ __global__ void __launch_bounds__(kSliceThreads) vdp_norm_slice_out_kernel(
         const float x2 = x * x;
         const float inner =
             vs[i][j] * (1.f - 2.f * (1.f + x2) / n) + (A[j] + 2.f * x * B[j] + x2 * D[j]) / nn;
-        om[j] = x;
+        if constexpr (kAffine) {
+          om[j] = x * g[j] + b[j];
+        } else {
+          om[j] = x;
+        }
         os[j] = inv_s2[j] * inner;
       }
       store4(out_mu + w.base + pp * C, om);
@@ -587,11 +621,12 @@ __global__ void __launch_bounds__(kSliceThreads) vdp_norm_slice_bwd_sums_kernel(
   slice_block_sums<8>(acc, part, C);
 }
 
-// coef: FinishBwd's.
+// coef: FinishBwd's. kAffine: gx = gamma g_mu'.
+template <bool kAffine>
 __global__ void __launch_bounds__(kSliceThreads) vdp_norm_slice_grad_kernel(
     const float* __restrict__ mu, const float* __restrict__ sigma,
     const float* __restrict__ g_mu, const float* __restrict__ g_sigma,
-    const float* __restrict__ coef, float* __restrict__ d_mu,
+    const float* __restrict__ coef, const float* __restrict__ gamma, float* __restrict__ d_mu,
     float* __restrict__ d_sigma, long long P, int C, long long S, long long chunk) {
   const SliceSpot w = slice_spot(P, C, chunk);
   if (w.c0 < 0) return;
@@ -600,6 +635,8 @@ __global__ void __launch_bounds__(kSliceThreads) vdp_norm_slice_grad_kernel(
   const float* co = coef + static_cast<long long>(w.b) * C + w.c0;
 #pragma unroll
   for (int i = 0; i < kCoef; ++i) load4(co + i * S, cf[i]);
+  float g[kVec];
+  if constexpr (kAffine) load4(gamma + w.c0, g);
   const long long step = blockDim.y;
   constexpr int kU = 2;
   for (long long p = w.p0; p < w.p1; p += kU * step) {
@@ -627,7 +664,9 @@ __global__ void __launch_bounds__(kSliceThreads) vdp_norm_slice_grad_kernel(
         const float x2 = x * x;
         const float G = gs[i][j] * cf[2][j];
         ds[j] = G * (1.f - 2.f * (1.f + x2) / n) + cf[3][j] + cf[4][j] * x + cf[5][j] * x2;
-        const float gX = gm[i][j] + G * (-4.f * x * vs[i][j] / n + cf[6][j] + cf[7][j] * x) +
+        float gx = gm[i][j];
+        if constexpr (kAffine) gx *= g[j];
+        const float gX = gx + G * (-4.f * x * vs[i][j] / n + cf[6][j] + cf[7][j] * x) +
                          vs[i][j] * (cf[4][j] + 2.f * cf[5][j] * x);
         dm[j] = gX / s + x * cf[9][j] + cf[8][j];
       }
@@ -674,9 +713,10 @@ struct SliceGrid {
   size_t smem_per_sum;  // bytes of slice_block_sums' buffer per sum
 };
 
-cudaError_t slices_fwd(const float* mu, const float* sigma, float* out_mu, float* out_sigma,
-                       float* stats, float* part, int B, long long P, int C, float eps,
-                       const SliceGrid& g, cudaStream_t st) {
+cudaError_t slices_fwd(const float* mu, const float* sigma, const float* gamma,
+                       const float* beta, float* out_mu, float* out_sigma, float* stats,
+                       float* part, int B, long long P, int C, float eps, const SliceGrid& g,
+                       cudaStream_t st) {
   const long long S = static_cast<long long>(B) * C;
   const int chunks = static_cast<int>(g.grid.x);
   vdp_norm_slice_mean_kernel<<<g.grid, g.block, g.smem_per_sum, st>>>(mu, part, P, C, g.chunk);
@@ -692,14 +732,20 @@ cudaError_t slices_fwd(const float* mu, const float* sigma, float* out_mu, float
                 FinishMoments{stats, S, static_cast<double>(P), static_cast<double>(eps), C},
                 st);
   if (err != cudaSuccess) return err;
-  vdp_norm_slice_out_kernel<<<g.grid, g.block, 0, st>>>(mu, sigma, stats, out_mu, out_sigma,
-                                                        P, C, S, g.chunk);
+  if (gamma != nullptr) {
+    vdp_norm_slice_out_kernel<true><<<g.grid, g.block, 0, st>>>(
+        mu, sigma, stats, gamma, beta, out_mu, out_sigma, P, C, S, g.chunk);
+  } else {
+    vdp_norm_slice_out_kernel<false><<<g.grid, g.block, 0, st>>>(
+        mu, sigma, stats, nullptr, nullptr, out_mu, out_sigma, P, C, S, g.chunk);
+  }
   return cudaGetLastError();
 }
 
 cudaError_t slices_bwd(const float* mu, const float* sigma, const float* g_mu,
-                       const float* g_sigma, const float* stats, float* coef, float* part,
-                       float* d_mu, float* d_sigma, int B, long long P, int C,
+                       const float* g_sigma, const float* stats, const float* gamma,
+                       float* coef, float* part, float* aff, float* d_mu, float* d_sigma,
+                       float* d_gamma, float* d_beta, int B, long long P, int C,
                        const SliceGrid& g, cudaStream_t st) {
   const long long S = static_cast<long long>(B) * C;
   vdp_norm_slice_bwd_sums_kernel<<<g.grid, g.block, 8 * g.smem_per_sum, st>>>(
@@ -707,10 +753,17 @@ cudaError_t slices_bwd(const float* mu, const float* sigma, const float* g_mu,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   err = fold<8>(part, static_cast<int>(g.grid.x), C, B,
-                FinishBwd{stats, coef, S, static_cast<double>(P), C}, st);
+                FinishBwd{stats, gamma, coef, aff, S, static_cast<double>(P), C}, st);
   if (err != cudaSuccess) return err;
-  vdp_norm_slice_grad_kernel<<<g.grid, g.block, 0, st>>>(mu, sigma, g_mu, g_sigma, coef, d_mu,
-                                                         d_sigma, P, C, S, g.chunk);
+  if (gamma != nullptr) {
+    vdp_norm_slice_grad_kernel<true><<<g.grid, g.block, 0, st>>>(
+        mu, sigma, g_mu, g_sigma, coef, gamma, d_mu, d_sigma, P, C, S, g.chunk);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    return fold<2>(aff, B, C, 1, FinishAffine{d_gamma, d_beta}, st);
+  }
+  vdp_norm_slice_grad_kernel<false><<<g.grid, g.block, 0, st>>>(
+      mu, sigma, g_mu, g_sigma, coef, nullptr, d_mu, d_sigma, P, C, S, g.chunk);
   return cudaGetLastError();
 }
 
@@ -782,9 +835,11 @@ extern "C" int supernet_vdp_norm_rows_bwd(const void* mu, const void* sigma, con
   return static_cast<int>(err);
 }
 
-// InstanceNorm forward: mu, sigma, out_mu, out_sigma [B][P][C]; stats [5][B C];
-// part [B][chunks][4][C]. The grid is ops/kernels/vdp_norm.py:plan_slices'.
-extern "C" int supernet_vdp_norm_slices_fwd(const void* mu, const void* sigma, void* out_mu,
+// InstanceNorm forward: mu, sigma, out_mu, out_sigma [B][P][C]; gamma, beta
+// [C] (both or neither null); stats [5][B C]; part [B][chunks][4][C]. The grid
+// is ops/kernels/vdp_norm.py:plan_slices'.
+extern "C" int supernet_vdp_norm_slices_fwd(const void* mu, const void* sigma,
+                                            const void* gamma, const void* beta, void* out_mu,
                                             void* out_sigma, void* stats, void* part, int B,
                                             long long P, int C, float eps, int qx,
                                             int py, int ctiles, int chunks, long long chunk,
@@ -793,20 +848,26 @@ extern "C" int supernet_vdp_norm_slices_fwd(const void* mu, const void* sigma, v
   const SliceGrid g = slice_grid(B, qx, py, ctiles, chunks, chunk);
   const auto* m = static_cast<const float*>(mu);
   const auto* s = static_cast<const float*>(sigma);
+  const auto* ga = static_cast<const float*>(gamma);
+  const auto* be = static_cast<const float*>(beta);
   auto* om = static_cast<float*>(out_mu);
   auto* os = static_cast<float*>(out_sigma);
   auto* sp = static_cast<float*>(stats);
   auto* pp = static_cast<float*>(part);
-  if (C % kVec != 0) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(slices_fwd(m, s, om, os, sp, pp, B, P, C, eps, g, st));
+  if (C % kVec != 0 || (ga == nullptr) != (be == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(slices_fwd(m, s, ga, be, om, os, sp, pp, B, P, C, eps, g, st));
 }
 
 // InstanceNorm backward: d_mu, d_sigma [B][P][C]; stats the forward's; coef
-// [10][B C]; part [B][chunks][8][C].
+// [10][B C]; part [B][chunks][8][C]. With gamma [C] (else all four null):
+// aff [B][2][C] and d_gamma, d_beta [C].
 extern "C" int supernet_vdp_norm_slices_bwd(const void* mu, const void* sigma,
                                             const void* g_mu, const void* g_sigma,
-                                            const void* stats, void* coef, void* part,
-                                            void* d_mu, void* d_sigma, int B, long long P,
+                                            const void* stats, const void* gamma, void* coef,
+                                            void* part, void* aff, void* d_mu, void* d_sigma,
+                                            void* d_gamma, void* d_beta, int B, long long P,
                                             int C, int qx, int py, int ctiles,
                                             int chunks, long long chunk, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
@@ -820,6 +881,13 @@ extern "C" int supernet_vdp_norm_slices_bwd(const void* mu, const void* sigma,
   auto* pp = static_cast<float*>(part);
   auto* dm = static_cast<float*>(d_mu);
   auto* ds = static_cast<float*>(d_sigma);
-  if (C % kVec != 0) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(slices_bwd(m, s, gm, gs, sp, cp, pp, dm, ds, B, P, C, g, st));
+  const auto* ga = static_cast<const float*>(gamma);
+  auto* af = static_cast<float*>(aff);
+  auto* dg = static_cast<float*>(d_gamma);
+  auto* db = static_cast<float*>(d_beta);
+  if (C % kVec != 0 || (ga != nullptr && (af == nullptr || dg == nullptr || db == nullptr))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(
+      slices_bwd(m, s, gm, gs, sp, ga, cp, pp, af, dm, ds, dg, db, B, P, C, g, st));
 }

@@ -230,15 +230,44 @@ def _forward_flops_swin(cfg) -> float:
     return total
 
 
+def _forward_flops_mednext(cfg) -> float:
+    """One volume's forward under the MedNeXt plan: a 1^3 conv ``4 Cin Cout
+    + 2`` per output voxel (the stem ``2 Cin Cout + 2``), on the input's grid
+    for the stride-2 transposed one; a depthwise conv three multiply-adds per
+    tap and channel (the mean's product, the variance's and the per-channel
+    window sum), ``6 k^3 C`` per output voxel, per input voxel for the
+    transposed one (each input voxel meets every tap once)."""
+    from supernet_tpu_torch.models.mednext3d import blocks
+
+    k3, side = cfg.kernel_size ** 3, cfg.image_size
+    total = float(side ** 3 * (2 * cfg.in_channels * cfg.n_channels + 2))
+    for _, kind, c, r, c_out in blocks(cfg):
+        dw_side = side
+        if kind == "down":
+            side //= 2
+            dw_side = side
+        elif kind == "up":
+            side = 2 * side - 1
+        per = 4 * c * r * c + 2 + 4 * r * c * c_out + 2
+        total += float(dw_side ** 3 * 6 * k3 * c + side ** 3 * per)
+        if kind != "block":
+            total += float(min(side, dw_side) ** 3 * (4 * c * c_out + 2))
+        if kind == "up":
+            side += 1
+    return total + float(side ** 3 * (4 * cfg.n_channels * cfg.n_classes + 2))
+
+
 def forward_flops3d(cfg: ModelConfig, batch: int = 1) -> float:
     """FLOPs of one volumetric forward at ``batch``: the 2-D counting one
     rank up; the fused unpool conv sees one nonzero tap per output voxel, so
     it costs ``4 Cin Cout`` per voxel in either rank. The Swin UNETR plan
-    is counted by ``_forward_flops_swin``."""
-    from supernet_tpu_torch.models.unet3d import is_swin, layer_names3d
+    is counted by ``_forward_flops_swin``, the MedNeXt plan by
+    ``_forward_flops_mednext`` (``models/unet3d.py:own_plan``)."""
+    from supernet_tpu_torch.models.unet3d import layer_names3d, own_plan
 
-    if is_swin(cfg):
-        return batch * _forward_flops_swin(cfg)
+    own = own_plan(cfg)
+    if own is not None:
+        return batch * own.forward_flops(cfg)
 
     sizes = _conv_shapes3d(cfg)
     total = 0.0

@@ -20,26 +20,31 @@ keep them, and it pads nowhere: 132^3 -> 44^3 at depth 4, base 32
 
 A third plan, :class:`SwinUNETRConfig` (:data:`SWINUNETR`), is Swin UNETR;
 ``forward3d``, ``init_params3d``, ``layer_names3d`` and ``stage_shapes3d``
-hand it to ``models/swin_unetr3d.py``.
+hand it to ``models/swin_unetr3d.py``. A fourth, :class:`MedNeXtConfig`
+(:data:`MEDNEXT`), is MedNeXt, handed to ``models/mednext3d.py`` the same
+way.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from supernet_tpu_torch import tracing
+from supernet_tpu_torch import flops, tracing
 from supernet_tpu_torch.configs import (
     CICEK3D,
+    MEDNEXT,
     SWINUNETR,
     CicekConfig,
+    MedNeXtConfig,
     ModelConfig,
     SwinUNETRConfig,
 )
+from supernet_tpu_torch.models import mednext3d as mednext
 from supernet_tpu_torch.models import swin_unetr3d as swin
 from supernet_tpu_torch.models.unet import _block_helpers, _identity, _tight_layers
 from supernet_tpu_torch.ops import moments3d as M3
@@ -68,13 +73,40 @@ def is_swin(cfg: ModelConfig) -> bool:
     return isinstance(cfg, SwinUNETRConfig)
 
 
+class OwnPlan(NamedTuple):
+    """A layer plan with a module of its own, which stands in for this
+    module's SUPER-Net schedule: its forward, init, layer names and weight
+    shapes, and ``flops.py``'s count of its forward."""
+
+    forward: Callable
+    init_params: Callable
+    layer_names: Callable
+    param_shapes: Callable
+    forward_flops: Callable
+
+
+_OWN_PLANS = {
+    SwinUNETRConfig: OwnPlan(swin.forward_swin, swin.init_params_swin, swin.layer_names_swin,
+                             swin.param_shapes, flops._forward_flops_swin),
+    MedNeXtConfig: OwnPlan(mednext.forward_mednext, mednext.init_params_mednext,
+                           mednext.layer_names_mednext, mednext.param_shapes,
+                           flops._forward_flops_mednext),
+}
+
+
+def own_plan(cfg: ModelConfig) -> Optional[OwnPlan]:
+    """The config's plan if it has a module of its own, else None."""
+    return _OWN_PLANS.get(type(cfg))
+
+
 # the standard deviation of a unit normal cut at +-2
 _TRUNC2_STD = 0.8796256610342398
 
 # the experiments of the 3-D layer plans, by name (every 3-D command's
 # ``--config`` offers them), and the config class of each plan
-EXPERIMENTS3D = {CICEK3D.name: CICEK3D, SWINUNETR.name: SWINUNETR}
-PLANS3D = {"supernet": ModelConfig, "cicek": CicekConfig, "swinunetr": SwinUNETRConfig}
+EXPERIMENTS3D = {CICEK3D.name: CICEK3D, SWINUNETR.name: SWINUNETR, MEDNEXT.name: MEDNEXT}
+PLANS3D = {"supernet": ModelConfig, "cicek": CicekConfig, "swinunetr": SwinUNETRConfig,
+           "mednext": MedNeXtConfig}
 
 
 def _cicek_layers(cfg: ModelConfig) -> List[Tuple[str, int, int, int]]:
@@ -102,9 +134,11 @@ def _decoder_pads(cfg: ModelConfig):
 def layer_names3d(cfg: ModelConfig) -> List[Tuple[str, int, int, int]]:
     """Ordered (name, k, cin, cout) of every conv layer: the 2-D naming
     scheme with k^3 kernels, under the config's layer plan (under the Swin
-    UNETR plan its layers with Gaussian weights, a linear k = 1)."""
-    if is_swin(cfg):
-        return swin.layer_names_swin(cfg)
+    UNETR and MedNeXt plans their layers with Gaussian weights, a linear
+    k = 1, a depthwise conv cin 1)."""
+    own = own_plan(cfg)
+    if own is not None:
+        return own.layer_names(cfg)
     if is_cicek(cfg):
         return _cicek_layers(cfg)
     enc = [cfg.base_kernels * (2 ** i) for i in range(cfg.depth)]
@@ -142,9 +176,11 @@ def init_params3d(
     (Ronneberger et al. 2015, section 3: a Gaussian of std sqrt(2 / fan_in)),
     cut at 2 std and scaled so that std is the drawn weights' own;
     ``mean_mu`` and ``mean_sigma`` are then unused. The Swin UNETR plan
-    takes ``models/swin_unetr3d.py:init_params_swin``."""
-    if is_swin(cfg):
-        return swin.init_params_swin(generator, cfg, device)
+    takes ``models/swin_unetr3d.py:init_params_swin``, the MedNeXt plan
+    ``models/mednext3d.py:init_params_mednext``."""
+    own = own_plan(cfg)
+    if own is not None:
+        return own.init_params(generator, cfg, device)
     params: Params = {}
     tight = _tight_layers(cfg)
     for name, k, cin, cout in layer_names3d(cfg):
@@ -176,7 +212,8 @@ def kl_regularizer3d(params: Params) -> Tensor:
 
     Member-stacked parameters (``w_mu`` [K,k,k,k,Cin,Cout]) give the K
     members' sums, [K]. Point parameters (entries without ``w_mu``: the
-    Swin UNETR plan's norms and bias tables) have no KL term.
+    Swin UNETR plan's norms and bias tables, the MedNeXt plan's norms) have
+    no KL term.
     """
     total = None
     for p in params.values():
@@ -224,9 +261,11 @@ def forward3d(
     the fold takes each decoder block's first conv with its skip (the
     crop-concatenation as a split of the kernel) and leaves the second
     conv as it is. The Swin UNETR plan runs
-    ``models/swin_unetr3d.py:forward_swin`` (``tap`` but no ``constrain``)."""
-    if is_swin(cfg):
-        return swin.forward_swin(params, x, cfg, tap)
+    ``models/swin_unetr3d.py:forward_swin`` (``tap`` but no ``constrain``),
+    the MedNeXt plan ``models/mednext3d.py:forward_mednext`` (the same)."""
+    own = own_plan(cfg)
+    if own is not None:
+        return own.forward(params, x, cfg, tap)
     depth = cfg.depth
     fill = cfg.sigma_fill
     glue_fold = glue_fold_active()
@@ -370,8 +409,9 @@ def stage_shapes3d(cfg: ModelConfig) -> Tuple[Tuple[str, Tuple[int, ...]], ...]:
     import dataclasses
 
     cfg = dataclasses.replace(cfg, remat=False)
-    if is_swin(cfg):
-        shapes = swin.param_shapes(cfg)
+    own = own_plan(cfg)
+    if own is not None:
+        shapes = own.param_shapes(cfg)
     else:
         shapes = {name: {"w_mu": (k, k, k, cin, cout), "w_sigma": (cout,)}
                   for name, k, cin, cout in layer_names3d(cfg)}

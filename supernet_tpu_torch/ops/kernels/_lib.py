@@ -134,10 +134,10 @@ def load() -> ctypes.CDLL:
             lib.supernet_vdp_norm_rows_bwd.argtypes = [_P] * 11 + [_LL, _I, _I, _I, _P]
             lib.supernet_vdp_norm_rows_bwd.restype = _I
             lib.supernet_vdp_norm_slices_fwd.argtypes = (
-                [_P] * 6 + [_I, _LL, _I, _F] + [_I] * 4 + [_LL, _P])
+                [_P] * 8 + [_I, _LL, _I, _F] + [_I] * 4 + [_LL, _P])
             lib.supernet_vdp_norm_slices_fwd.restype = _I
             lib.supernet_vdp_norm_slices_bwd.argtypes = (
-                [_P] * 9 + [_I, _LL, _I] + [_I] * 4 + [_LL, _P])
+                [_P] * 13 + [_I, _LL, _I] + [_I] * 4 + [_LL, _P])
             lib.supernet_vdp_norm_slices_bwd.restype = _I
             lib.supernet_empty_launch.argtypes = [_P]
             lib.supernet_empty_launch.restype = _I

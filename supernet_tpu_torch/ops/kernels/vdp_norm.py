@@ -19,7 +19,10 @@ bound by bytes. Two layouts, chosen by the normalised dims:
   makes a pass for the mean, one for the four centred sums and one for the
   outputs, the
   backward one for its eight sums and one for the gradients, each sum folded
-  across blocks in float64 by a small kernel.
+  across blocks in float64 by a small kernel. With a per-channel gamma and
+  beta (MedNeXt's GroupNorm(C, C)) the output and gradient passes apply them
+  (the kernels' ``kAffine`` instances), and the gamma and beta gradients of
+  each (volume, channel) are folded over the volumes in float64.
 
 Sums inside a thread and a block are float32, sums across blocks float64 in
 a fixed order; nothing uses atomics, so two runs give the same bits. The
@@ -247,8 +250,8 @@ def _launch_fwd(mu, sigma, dims, gamma, beta, eps):
     _lib.check_input("vdp_norm", "mu", mu, mu.shape)
     _lib.check_input("vdp_norm", "sigma", sigma, mu.shape)
     c = mu.shape[-1]
-    if kind == "slices" and (gamma is not None or beta is not None):
-        raise ValueError("vdp_norm: the InstanceNorm kernel takes no gamma or beta")
+    if kind == "slices" and (gamma is None) != (beta is None):
+        raise ValueError("vdp_norm: the InstanceNorm kernel takes gamma and beta together")
     gamma, beta = _check_affine(gamma, c, "gamma"), _check_affine(beta, c, "beta")
     out_mu, out_sigma = torch.empty_like(mu), torch.empty_like(mu)
     slices = mu.numel() // c if kind == "rows" else mu.shape[0] * c
@@ -272,7 +275,10 @@ def _launch_fwd(mu, sigma, dims, gamma, beta, eps):
             mu, sigma = _lib.aligned(mu), _lib.aligned(sigma)
             part = torch.empty((b, p.chunks, 4, c), device=mu.device, dtype=torch.float32)
             err = lib.supernet_vdp_norm_slices_fwd(
-                mu.data_ptr(), sigma.data_ptr(), out_mu.data_ptr(), out_sigma.data_ptr(),
+                mu.data_ptr(), sigma.data_ptr(),
+                None if gamma is None else gamma.data_ptr(),
+                None if beta is None else beta.data_ptr(),
+                out_mu.data_ptr(), out_sigma.data_ptr(),
                 stats.data_ptr(), part.data_ptr(), b, positions, c, eps, p.qx, p.py,
                 p.ctiles, p.chunks, p.chunk, _stream(mu))
     _lib.check(err, f"vdp_norm forward kernel launch ({kind})")
@@ -292,7 +298,9 @@ def _launch_bwd(mu, sigma, g_mu, g_sigma, gamma, beta_shape, stats, dims, affine
     c = mu.shape[-1]
     _lib.check_input("vdp_norm_bwd", "stats", stats, (N_STATS, stats.shape[1]))
     d_mu, d_sigma = torch.empty_like(mu), torch.empty_like(mu)
-    affine = affine and kind == "rows"
+    if kind == "slices":  # the kernels apply gamma wherever the forward had it
+        affine = gamma is not None
+    gamma = None if gamma is None else gamma.contiguous()
     d_gamma = d_beta = None
     if affine:  # the fold writes every channel's sums
         d_gamma = torch.empty((c,), device=mu.device, dtype=torch.float32)
@@ -324,11 +332,16 @@ def _launch_bwd(mu, sigma, g_mu, g_sigma, gamma, beta_shape, stats, dims, affine
             mu, sigma, g_mu, g_sigma = (_lib.aligned(t) for t in (mu, sigma, g_mu, g_sigma))
             coef = torch.empty((N_COEF, b * c), device=mu.device, dtype=torch.float32)
             part = torch.empty((b, p.chunks, 8, c), device=mu.device, dtype=torch.float32)
+            aff = (torch.empty((b, 2, c), device=mu.device, dtype=torch.float32)
+                   if affine else None)
             err = lib.supernet_vdp_norm_slices_bwd(
                 mu.data_ptr(), sigma.data_ptr(), g_mu.data_ptr(), g_sigma.data_ptr(),
-                stats.data_ptr(), coef.data_ptr(), part.data_ptr(), d_mu.data_ptr(),
-                d_sigma.data_ptr(), b, positions, c, p.qx, p.py, p.ctiles, p.chunks,
-                p.chunk, _stream(mu))
+                stats.data_ptr(), None if gamma is None else gamma.data_ptr(),
+                coef.data_ptr(), part.data_ptr(), None if aff is None else aff.data_ptr(),
+                d_mu.data_ptr(), d_sigma.data_ptr(),
+                None if d_gamma is None else d_gamma.data_ptr(),
+                None if d_beta is None else d_beta.data_ptr(),
+                b, positions, c, p.qx, p.py, p.ctiles, p.chunks, p.chunk, _stream(mu))
     _lib.check(err, f"vdp_norm backward kernel launch ({kind})")
     bwd_launches += 1
     return (d_mu, d_sigma, None if gamma is None else d_gamma,

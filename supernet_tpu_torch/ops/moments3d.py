@@ -42,6 +42,7 @@ products the ``conv3d`` calls ran.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence, Tuple
 
 import torch
@@ -138,10 +139,14 @@ def vconv3d(
       sigma_out = winsum3d(mu^2 + sigma) * softplus(w_sigma)
                   + conv3d(sigma, w_mu^2)
 
-    k == 1 (the segmentation head) is two einsums and a channel sum."""
+    k == 1 (the segmentation head, a linear) is two einsums and a channel
+    sum; at stride 2 on every other voxel of each axis."""
     k = w_mu.shape[0]
     s_w = F.softplus(_f32(w_sigma))
-    if k == 1 and stride == 1:
+    if k == 1:
+        if stride > 1:
+            mu = mu[:, ::stride, ::stride, ::stride]
+            sigma = sigma[:, ::stride, ::stride, ::stride]
         mu_a, sigma_a = _act(mu), _act(sigma)
         w2 = _act(w_mu[0, 0, 0])
         t = chan_sum(torch.square(mu) + sigma)
@@ -150,6 +155,136 @@ def vconv3d(
     mu_out, sigma2 = _moment_convs(_act(mu), _act(sigma), w_mu, stride)
     ws = _window_sum3d(torch.square(mu) + sigma, k, stride)
     return _act(mu_out), _act(scale_sw(ws, s_w) + sigma2)
+
+
+# ------------------------------------------------------------ depthwise
+
+
+def _grouped_transposed(x: Tensor, w: Tensor) -> Tensor:
+    """The stride-2 grouped ``conv_transpose3d`` (padding k // 2, side n ->
+    2 n - 1) of NDHWC ``x`` with ``w`` [k, k, k, n, C], one group of ``n``
+    input channels (``x``'s channels group-major) and one output channel per
+    output channel, NDHWC out. ``x`` enters as the ``channels_last_3d`` view,
+    as in :func:`_conv3d_valid`."""
+    k, c = w.shape[0], w.shape[-1]
+    # conv_transpose3d's weight is [Cin, Cout / groups, k, k, k]
+    wc = w.to(x.dtype).permute(4, 3, 0, 1, 2).reshape(-1, 1, k, k, k)
+    y = F.conv_transpose3d(x.permute(0, 4, 1, 2, 3), wc, stride=2, padding=k // 2, groups=c)
+    return y.permute(0, 2, 3, 4, 1).contiguous()
+
+
+@contextlib.contextmanager
+def _cudnn_off():
+    # not torch.backends.cudnn.flags(enabled=False), which also sets cuDNN's
+    # benchmark, deterministic and TF32 flags to its own defaults for the block
+    enabled = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.enabled = enabled
+
+
+class _Depthwise(torch.autograd.Function):
+    """A SAME depthwise ``conv3d`` (NCDHW ``x``, ``w`` [C, 1, k, k, k]) with
+    cuDNN off both ways: PyTorch's own depthwise 3-D kernels, which ran the
+    MedNeXt step's depthwise convs, forward and backward, 1.5-6x faster
+    than cuDNN's grouped float32 convs on the card (``PERF.md`` §6, MedNeXt)."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride):
+        ctx.save_for_backward(x, w)
+        ctx.stride = stride
+        with _cudnn_off():
+            return F.conv3d(x, w, stride=stride, padding=w.shape[-1] // 2, groups=w.shape[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        k, s = w.shape[-1], ctx.stride
+        with _cudnn_off():
+            gx, gw, _ = torch.ops.aten.convolution_backward(
+                g, x, w, None, [s] * 3, [k // 2] * 3, [1] * 3, False, [0] * 3, w.shape[0],
+                [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
+        return gx, gw, None
+
+
+def _depthwise(x: Tensor, w: Tensor, stride: int) -> Tensor:
+    """SAME depthwise conv of NDHWC ``x`` with ``w`` [k, k, k, 1, C]
+    (:class:`_Depthwise`), NDHWC out."""
+    y = _Depthwise.apply(x.permute(0, 4, 1, 2, 3), w.to(x.dtype).permute(4, 3, 0, 1, 2), stride)
+    return y.permute(0, 2, 3, 4, 1).contiguous()
+
+
+def _dw_moments(mu: Tensor, sigma: Tensor, w_mu: Tensor, w_sigma: Tensor, stride: int,
+                transposed: bool) -> MomentPair:
+    tracing.count("moments3d.dwconv3d")
+    s_w = F.softplus(_f32(w_sigma))
+    mu, sigma = _act(mu), _act(sigma)
+    # s winsum(mu^2 + sigma) + conv(sigma, w^2) = conv(sigma, w^2 + s) +
+    # conv(mu^2, s)
+    w2 = torch.square(_f32(w_mu))
+    s_taps = s_w.expand_as(w2)
+    if transposed:  # one conv of two input channels per group, [sigma, mu^2]
+        pair = torch.stack([sigma, torch.square(mu)], dim=-1).flatten(-2)
+        w_var = torch.cat([w2 + s_w, s_taps], dim=3)  # [k, k, k, 2, C]
+        return _grouped_transposed(mu, w_mu), _act(_grouped_transposed(pair, w_var))
+    sigma_out = _depthwise(sigma, w2 + s_w, stride) + _depthwise(torch.square(mu), s_taps, stride)
+    return _depthwise(mu, w_mu, stride), _act(sigma_out)
+
+
+def vdwconv3d(
+    mu: Tensor, sigma: Tensor, w_mu: Tensor, w_sigma: Tensor, stride: int = 1
+) -> MomentPair:
+    """Depthwise conv with Gaussian input and weights (MedNeXt's ``conv1``):
+    ``w_mu`` [k, k, k, 1, C] (the grouped conv's DHWIO: one input channel
+    per output channel), ``w_sigma`` [C]; SAME, a zero pad of k // 2 with
+    sigma 0 in the pad; stride 1 or 2 (every other output voxel). Per
+    channel c, over the window's taps t:
+
+      mu_out[c]    = sum_t w[t, c] mu[c](p + t)
+      sigma_out[c] = s[c] sum_t (mu[c]^2 + sigma[c])(p + t)
+                     + sum_t w[t, c]^2 sigma[c](p + t)
+
+    the window sum over channel c alone (every other conv of the family sums
+    its input channels). Three depthwise convs (:class:`_Depthwise`): the
+    mean's, ``sigma`` against ``w^2 + s`` and ``mu^2`` against ``s``. Counted
+    in ``moments3d.dwconv3d``."""
+    return _dw_moments(mu, sigma, w_mu, w_sigma, stride, False)
+
+
+def vdwconv3d_transpose(
+    mu: Tensor, sigma: Tensor, w_mu: Tensor, w_sigma: Tensor
+) -> MomentPair:
+    """The stride-2 transposed depthwise conv (MedNeXt's up block), padding
+    k // 2, side n -> 2 n - 1, per channel:
+
+      mu_out    = convT(mu, w)
+      sigma_out = s convT(mu^2 + sigma, 1) + convT(sigma, w^2)
+
+    as two grouped ``conv_transpose3d`` calls through cuDNN (faster there
+    than PyTorch's own kernels, ``PERF.md`` §6): the mean's, and one of
+    two input channels a group, ``[sigma, mu^2]`` against ``[w^2 + s, s]``."""
+    return _dw_moments(mu, sigma, w_mu, w_sigma, 2, True)
+
+
+def vconv3d_transpose_1x1(
+    mu: Tensor, sigma: Tensor, w_mu: Tensor, w_sigma: Tensor
+) -> MomentPair:
+    """The stride-2 1^3 transposed conv, padded (1, 0) on every spatial axis:
+    side n -> 2 n, the 1^3 moment product (:func:`vconv3d`) at the odd
+    positions and exactly (0, 0) elsewhere (no input reaches them)."""
+    m, s = vconv3d(mu, sigma, w_mu, w_sigma)
+    return _interleave_odd(m), _interleave_odd(s)
+
+
+def _interleave_odd(x: Tensor) -> Tensor:
+    """[B, n, n, n, C] -> [B, 2n, 2n, 2n, C], ``x`` at the odd positions,
+    zeros elsewhere."""
+    b, d, h, w, c = x.shape
+    out = x.new_zeros((b, 2 * d, 2 * h, 2 * w, c))
+    out[:, 1::2, 1::2, 1::2] = x
+    return out
 
 
 def vconv3d_relu(

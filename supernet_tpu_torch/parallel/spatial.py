@@ -254,12 +254,11 @@ class _RowNet:
     choreography) on row-sharded activations over the mesh dim ``ax``."""
 
     def __init__(self, cfg: ModelConfig, ax: Axis, three_d: bool):
-        from supernet_tpu_torch.models.unet3d import is_cicek, is_swin
-
-        if is_cicek(cfg) or is_swin(cfg):
+        if type(cfg) is not ModelConfig:
             raise NotImplementedError(
                 "the row-split forward follows the SUPER-Net schedule; the "
-                "Cicek and Swin UNETR layer plans run on one device or batch-sharded")
+                "Cicek, Swin UNETR and MedNeXt layer plans run on one device or "
+                "batch-sharded")
         self.cfg, self.ax, self.three_d = cfg, ax, three_d
         self.ops = _family(three_d)
 

@@ -52,7 +52,8 @@ def _closed_form(mu, sigma, dims, gamma=None, beta=None, eps=MS.NORM_EPS):
 
 
 # (name, shape, dims, gamma, beta): LayerNorm over channels with and without
-# its affine (each alone too), InstanceNorm over odd sides, one volume and two
+# its affine (each alone too), InstanceNorm over odd sides, one volume and two,
+# without and with a gamma and beta per channel (MedNeXt's GroupNorm(C, C))
 CASES = [
     ("layer_affine", (2, 2, 3, 2, 8), LAYER, True, True),
     ("layer_plain", (2, 3, 1, 2, 5), LAYER, False, False),
@@ -60,6 +61,8 @@ CASES = [
     ("layer_beta", (3, 7), LAYER, False, True),
     ("instance_odd", (2, 3, 5, 3, 4), INSTANCE, False, False),
     ("instance_one", (1, 5, 3, 1, 6), INSTANCE, False, False),
+    ("instance_affine", (2, 3, 5, 3, 4), INSTANCE, True, True),
+    ("instance_affine_one", (1, 5, 3, 1, 6), INSTANCE, True, True),
 ]
 
 

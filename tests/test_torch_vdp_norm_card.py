@@ -4,9 +4,11 @@ version run in float64 on the same float32 inputs, at the shapes of the
 Swin UNETR step: InstanceNorm at 1x128^3x48 (``encoder1``, ``decoder1``) and
 1x8^3x384 (``decoder5``), LayerNorm at 1x64^3x48 (stage 0), 1x32^3x384 (the
 first patch merge) and 1x4^3x3072 (the last), and at 105 tokens of 48 and of
-96 channels (an odd count of rows narrower than a warp's 256 elements). Both
-directions, gamma and beta
-gradients included; two runs bit for bit; one launch counted a call.
+96 channels (an odd count of rows narrower than a warp's 256 elements); and
+of the MedNeXt step, InstanceNorm with a gamma and beta per channel
+(GroupNorm(C, C)) at 1x128^3x32 (level 0) and 1x8^3x512 (the bottleneck),
+and at 2x16^3x256 (two volumes, folded over). Both directions, gamma and
+beta gradients included; two runs bit for bit; one launch counted a call.
 ``card`` marks each test: it needs a CUDA card and skips without one. This
 file imports no JAX:
 ``python -m pytest tests/test_torch_vdp_norm_card.py -q -p no:randomly``.
@@ -44,6 +46,9 @@ SHAPES = [
     ("layer_32c384", (1, 32, 32, 32, 384), LAYER, True),
     ("layer_ragged_c48", (1, 3, 5, 7, 48), LAYER, True),
     ("layer_ragged_c96", (1, 3, 5, 7, 96), LAYER, True),
+    ("instance_affine_128c32", (1, 128, 128, 128, 32), INSTANCE, True),
+    ("instance_affine_8c512", (1, 8, 8, 8, 512), INSTANCE, True),
+    ("instance_affine_b2_16c256", (2, 16, 16, 16, 256), INSTANCE, True),
 ]
 
 
@@ -94,7 +99,7 @@ def test_kernel_pair_against_float64(cuda, name, shape, dims, affine):
     gaps.update(d_mu=_gap(d_mu, r[0]), d_sigma=_gap(d_sigma, r[1]))
     if affine:
         m, s, a, b, d = r_stats
-        n = shape[-1]
+        n = math.prod(shape[i] for i in dims)
         x = (wide[0] - m) / s
         inner = wide[1] * (1.0 - 2.0 * (1.0 + x * x) / n) + (a + 2.0 * x * b + x * x * d) / n ** 2
         g64 = gamma.double()
